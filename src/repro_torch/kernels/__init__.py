@@ -10,6 +10,7 @@ from typing import Dict
 
 from repro_torch.kernels import kmeans_assign as _kmeans_assign
 from repro_torch.kernels import logreg_grad as _logreg_grad
+from repro_torch.kernels import quant_matmul as _quant_matmul
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 
@@ -18,6 +19,7 @@ KERNELS = {
     "logreg_margin": _logreg_grad.logreg_margin,
     "logreg_xt_z": _logreg_grad.logreg_xt_z,
     "kmeans_assign": _kmeans_assign.kmeans_assign,
+    "quant_matmul": _quant_matmul.quant_matmul,
 }
 
 

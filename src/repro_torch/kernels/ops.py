@@ -1,17 +1,35 @@
-"""Public wrappers of the main path's kernels.
+"""Public wrappers of the port's kernels.
 
-Counterpart: ``src/repro/kernels/ops.py`` (``logreg_grad`` and
-``kmeans_assign``), with the same shape validation and error texts.  The
-reference falls back to its jnp oracle for shapes its TPU blocks cannot
-tile; the port has no such fallback, because its kernels mask ragged rows,
-columns and centroids themselves and take every shape.  A CUDA tensor goes
-to the kernel, a CPU tensor to the plain version, and nothing else is
+Counterpart: ``src/repro/kernels/ops.py`` (``logreg_grad``,
+``kmeans_assign``, ``quantize_rows`` and ``quant_matmul``), with the same
+shape validation and error texts.  The reference falls back to its jnp
+oracle for shapes its TPU blocks cannot tile, and off the TPU takes
+``quant_matmul`` in fp32; the port has neither fallback, because its
+kernels mask ragged shapes themselves and take every shape.  A CUDA tensor
+goes to the kernel, a CPU tensor to the plain version, and nothing else is
 accepted.  The remaining kernels of the reference (``flash_attention``,
-``quant_matmul``, ``rmsnorm``, ``ssd_chunk_scan``) are later slices.
+``rmsnorm``, ``ssd_chunk_scan``) are later slices (ROADMAP.md, Queue 2).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import torch
+
 from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.logreg_grad import logreg_grad
+from repro_torch.kernels.quant_matmul import quant_matmul
 
-__all__ = ["kmeans_assign", "logreg_grad"]
+__all__ = ["kmeans_assign", "logreg_grad", "quant_matmul", "quantize_rows"]
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization: returns ``(xq, scale)`` with
+    ``xq`` int8 of ``x.shape`` and ``scale`` fp32 of ``x.shape[:-1]`` such
+    that ``xq * scale[..., None] ≈ x``.  The ``1e-8`` floor keeps all-zero
+    rows from dividing by zero.  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-8
+    xq = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return xq, scale

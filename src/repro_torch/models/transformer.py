@@ -1,0 +1,224 @@
+"""Transformer stack driven by ArchConfig (counterpart:
+``src/repro/models/transformer.py``).
+
+The decoder is ``num_periods`` repetitions of the config's block
+*pattern*; each pattern position's parameters are stacked on a leading
+layer axis, as in the reference, and a Python loop over that axis takes the
+place of its ``lax.scan``.  Per-period caches are stacked the same way and
+written in place through per-layer views.  ``remat`` and
+``unroll_periods`` have no meaning in eager PyTorch and are not read.
+
+Public entry points:
+
+    init_model(gen, cfg)                 -> params
+    TransformerLM.forward(...)           -> logits, aux
+    TransformerLM.prefill(...)           -> logits, cache
+    TransformerLM.prefill_ragged(...)    -> logits, cache
+    TransformerLM.decode_step(...)       -> logits, cache   [1 token]
+    TransformerLM.init_cache(...)        -> cache
+
+This slice runs attention-only dense decoders (every pattern entry one of
+``ATTENTION_KINDS``, a dense MLP, no encoder, no vision tokens, no
+cross-attention).  MoE, RG-LRU, SSD, encoder and vision blocks raise
+``NotImplementedError`` until their slices (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ATTENTION_KINDS, ArchConfig, BlockKind
+from repro_torch.models.layers.attention import attn_apply, attn_init, init_kv_cache
+from repro_torch.models.layers.embedding import embed_init, embed_tokens, logits_from
+from repro_torch.models.layers.mlp import mlp_apply, mlp_init
+from repro_torch.models.layers.norms import (layernorm, layernorm_init, rmsnorm,
+                                             rmsnorm_init)
+from repro_torch.models.layers.quant import QTensor
+from repro_torch.models.params import stack_bundles
+
+__all__ = ["init_model", "TransformerLM", "check_supported", "layer_slice"]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for the block kinds this slice does not
+    run."""
+    missing = []
+    kinds = sorted(k.value for k in cfg.pattern if k not in ATTENTION_KINDS)
+    if kinds:
+        missing.append(f"block kinds {kinds}")
+    if cfg.num_experts:
+        missing.append("MoE")
+    if cfg.encoder_layers or cfg.cross_attention:
+        missing.append("the encoder and cross-attention")
+    if cfg.vision_tokens:
+        missing.append("the vision frontend")
+    if cfg.learned_pos:
+        missing.append("learned position tables")
+    if cfg.mlp_kind == "none":
+        missing.append("blocks without an MLP")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
+            f"Queue 1); this slice runs attention-only dense decoders")
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _norm_init(cfg: ArchConfig, dtype, device):
+    return rmsnorm_init(cfg.d_model, dtype, device) if cfg.norm_kind == "rmsnorm" \
+        else layernorm_init(cfg.d_model, dtype, device)
+
+
+def _norm_apply(cfg: ArchConfig, params, x):
+    return rmsnorm(params, x, cfg.norm_eps) if cfg.norm_kind == "rmsnorm" \
+        else layernorm(params, x, cfg.norm_eps)
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a tree stacked on a leading layer axis (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.layer(i)
+    return tree[i]
+
+
+# --------------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------------- #
+def _block_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, Any]:
+    dev = gen.device
+    return {"ln1": _norm_init(cfg, dtype, dev),
+            "attn": attn_init(gen, cfg, dtype),
+            "ln2": _norm_init(cfg, dtype, dev),
+            "mlp": mlp_init(gen, cfg, dtype)}
+
+
+def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
+    """The param tree of ``cfg``, drawn from ``gen`` on ``gen``'s device.
+    The reference also returns logical sharding axes; the port has no mesh
+    yet, so it returns the params alone."""
+    check_supported(cfg)
+    dtype = _dtype(cfg)
+    params: Dict[str, Any] = {"embed": embed_init(gen, cfg, dtype)}
+    periods = [{f"b{i}": _block_init(gen, cfg, dtype)
+                for i, _ in enumerate(cfg.pattern)}
+               for _ in range(cfg.num_periods)]
+    params["blocks"] = stack_bundles(periods)
+    params["final_norm"] = _norm_init(cfg, dtype, gen.device)
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# model
+# --------------------------------------------------------------------------- #
+class TransformerLM:
+    """Stateless functional model bound to an ArchConfig; caches are made
+    on ``device`` (the CUDA card unless ``device="cpu"``)."""
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ---------------- caches ---------------- #
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        per_period = [{f"b{i}": {"attn": init_kv_cache(cfg, kind, batch, max_seq,
+                                                       _dtype(cfg), self.device)}
+                       for i, kind in enumerate(cfg.pattern)}
+                      for _ in range(cfg.num_periods)]
+        return stack_bundles(per_period)
+
+    # ---------------- block application ---------------- #
+    def _apply_block(self, kind: BlockKind, bp: Dict, x, *, mode: str,
+                     positions=None, pos=None, cache=None, lengths=None):
+        cfg = self.cfg
+        h = _norm_apply(cfg, bp["ln1"], x)
+        h, _ = attn_apply(bp["attn"], h, cfg=cfg, kind=kind, mode=mode,
+                          positions=positions, pos=pos,
+                          cache=None if cache is None else cache["attn"],
+                          use_rope=cfg.use_rope, lengths=lengths)
+        x = x + h
+        h = _norm_apply(cfg, bp["ln2"], x)
+        x = x + mlp_apply(bp["mlp"], h)
+        return x
+
+    def _run_stack(self, params, x, *, mode, positions=None, pos=None,
+                   cache=None, lengths=None):
+        cfg = self.cfg
+        for p in range(cfg.num_periods):
+            pp = layer_slice(params["blocks"], p)
+            pc = None if cache is None else layer_slice(cache, p)
+            for i, kind in enumerate(cfg.pattern):
+                x = self._apply_block(
+                    kind, pp[f"b{i}"], x, mode=mode, positions=positions,
+                    pos=pos, cache=None if pc is None else pc[f"b{i}"],
+                    lengths=lengths)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+
+    # ---------------- public entry points ---------------- #
+    def forward(self, params: Dict, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence logits.  Returns (logits, aux)."""
+        x, aux = self.forward_hidden(params, tokens)
+        return logits_from(params["embed"], x), aux
+
+    def forward_hidden(self, params: Dict, tokens: torch.Tensor):
+        """Forward up to the final norm, without the LM head."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = embed_tokens(params["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=self.device)
+        x, aux, _ = self._run_stack(params, x, mode="prefill", positions=positions)
+        return _norm_apply(self.cfg, params["final_norm"], x), aux
+
+    def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict):
+        """Runs the full prompt, fills the cache, returns (last-token
+        logits, cache)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = embed_tokens(params["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=self.device)
+        x, _, cache = self._run_stack(params, x, mode="prefill",
+                                      positions=positions, cache=cache)
+        x = _norm_apply(self.cfg, params["final_norm"], x[:, -1:])
+        return logits_from(params["embed"], x), cache
+
+    def prefill_ragged(self, params: Dict, tokens: torch.Tensor,
+                       lengths: torch.Tensor, cache: Dict, start_pos=None):
+        """Mixed-length prefill for continuous batching: ``tokens`` is
+        (B, S) with row b's prompt right-padded (real tokens in columns
+        0..lengths[b]-1).  Causal masking keeps pad columns out of every
+        real token's view, and the cache fill drops them, so each row's
+        cache is what a lone batch-1 prefill would write.  Returns (per-row
+        next-token logits (B, 1, V), cache).  ``start_pos`` (the prefix
+        cache's tail prefill) is not ported yet."""
+        if start_pos is not None:
+            raise NotImplementedError(
+                "prefill_ragged(start_pos=) serves the prefix cache, which is "
+                "not ported yet (ROADMAP.md, Queue 1)")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        lengths = torch.as_tensor(lengths, device=self.device).long()
+        x = embed_tokens(params["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=self.device)
+        x, _, cache = self._run_stack(params, x, mode="prefill",
+                                      positions=positions, cache=cache,
+                                      lengths=lengths)
+        # each row's last real token (right-padding puts it at lengths-1),
+        # then the norm and the LM head on (B, 1, D) only
+        idx = (lengths - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+        x_last = _norm_apply(self.cfg, params["final_norm"], torch.gather(x, 1, idx))
+        return logits_from(params["embed"], x_last), cache
+
+    def decode_step(self, params: Dict, token: torch.Tensor, pos, cache: Dict):
+        """One decode step.  token: (B, 1) int; pos: scalar (all rows at one
+        position) or (B,) (continuous batching: per-slot positions).
+        Returns (logits (B, 1, V), cache)."""
+        token = torch.as_tensor(token, device=self.device)
+        pos = torch.as_tensor(pos, device=self.device)
+        x = embed_tokens(params["embed"], token)
+        x, _, cache = self._run_stack(params, x, mode="decode", pos=pos, cache=cache)
+        x = _norm_apply(self.cfg, params["final_norm"], x)
+        return logits_from(params["embed"], x), cache

@@ -1,15 +1,24 @@
-"""Carry a model fitted by the JAX reference into the port.
+"""Carry a model of the JAX reference into the port.
 
-No counterpart module in ``src/repro/``: the reference's fitted models
-expose their state as ``partial`` — ``{"weights": (d,)}`` for logistic
-regression, ``{"centroids": (k, d)}`` for k-means — and
-:func:`from_reference` turns that state, as host (numpy) arrays, into the
-port's fitted model on ``device``.  The caller converts the reference's
-arrays with ``np.asarray``; this module imports nothing of the reference.
+No counterpart module in ``src/repro/``.  Two entry points:
+
+* :func:`from_reference` — a fitted model's state: the reference's models
+  expose it as ``partial`` — ``{"weights": (d,)}`` for logistic
+  regression, ``{"centroids": (k, d)}`` for k-means — and this turns it
+  into the port's fitted model on ``device``.
+* :func:`lm_from_reference` — the param tree of the reference's
+  ``init_model`` (optionally after its ``quantize_model_params``) as the
+  port's transformer params, leaf for leaf under the same key names.
+
+The caller converts the reference's arrays to host (numpy) arrays; this
+module imports nothing of the reference.
 """
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.core.algorithms.kmeans import KMeansModel, KMeansParameters
 from repro_torch.core.algorithms.logistic_regression import (
@@ -17,8 +26,9 @@ from repro_torch.core.algorithms.logistic_regression import (
     LogisticRegressionParameters,
 )
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.models.layers.quant import QTensor
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "lm_from_reference"]
 
 _KINDS = {
     "logistic_regression": ("weights", LogisticRegressionParameters),
@@ -45,3 +55,43 @@ def from_reference(kind: str, partial: Mapping[str, Any],
     if kind == "kmeans":
         return KMeansModel(state, params)
     return LogisticRegressionModel(params, state)
+
+
+def _lm_leaf(leaf, device: torch.device):
+    if isinstance(leaf, tuple):
+        # a QTensor as (q, scale, n_contract); every quantized projection
+        # is stacked on the layer axis, so one leading batch axis
+        q, scale, nc = leaf
+        return QTensor.from_q(_lm_leaf(q, device), _lm_leaf(scale, device),
+                              int(nc), n_batch=1)
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return to_tensor(arr, device)
+
+
+def lm_from_reference(params: Mapping[str, Any], cfg=None,
+                      device: DeviceLike = None):
+    """The port's transformer params from the reference's ``init_model``
+    tree, on ``device`` (the CUDA card unless ``device="cpu"``).
+
+    ``params`` is the reference's nested dict with host leaves: numpy
+    arrays (bf16 as ``ml_dtypes.bfloat16`` or cast to float32 by the
+    caller) and each ``QTensor`` as the tuple ``(q, scale, n_contract)``.
+    ``cfg`` (the port's ``ArchConfig``), when given, is checked against the
+    tree's widths."""
+    dev = resolve_device(device)
+
+    def walk(tree):
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        return _lm_leaf(tree, dev)
+
+    out = walk(params)
+    if cfg is not None:
+        tok = out["embed"]["tok"]
+        if tuple(tok.shape) != (cfg.vocab_size, cfg.d_model):
+            raise ValueError(f"embed/tok {tuple(tok.shape)} does not match "
+                             f"{cfg.name}'s ({cfg.vocab_size}, {cfg.d_model})")
+    return out

@@ -10,7 +10,8 @@ Tests marked ``cuda`` decide inside the test whether a card is present and
 skip without one.  Tolerances are ``tests/test_kernels.py``'s fp32 2e-4
 (for the gradient: max abs error over the largest entry); k-means
 assignments are compared exactly on random data, where fp32 ties do not
-occur.
+occur; ``quant_matmul`` is bitwise (its sum is integer), and greedy token
+streams are compared exactly.
 """
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.core.algorithms.logistic_regression import LogisticRegression
 from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.kernels import kmeans_assign as tka
 from repro_torch.kernels import logreg_grad as tlg
+from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.serve.predictor import ModelPredictor
 from repro_torch.weights import from_reference
 
@@ -123,3 +125,63 @@ def test_kmeans_fit_and_serving_on_card():
     assert tk.launch_counts()["kmeans_assign"] == svc.batches == 5
     want = cpu.predict(torch.from_numpy(X[:300])).numpy()
     np.testing.assert_array_equal(np.concatenate(got), want)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_matches_plain_version():
+    """Bitwise against the plain version at decode and prefill shapes of
+    Qwen2-1.5B, ragged M, N and K, unaligned K, and ±127 operands; one
+    launch counted, and counted by shape, per call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(8, 1536, 1536), (8, 1536, 256), (8, 8960, 1536), (1, 1537, 255),
+              (5, 8960, 33), (33, 1537, 255), (300, 1536, 520)]
+    tk.reset_launch_counts()
+    tqm.quant_matmul.shapes.clear()
+    for M, K, N in shapes:
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        wt = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        xs = torch.rand(M, generator=gen, device="cuda") * 0.02 + 1e-3
+        ws = torch.rand(N, generator=gen, device="cuda") * 0.02 + 1e-3
+        assert torch.equal(tqm.quant_matmul(xq, xs, wt.t(), ws),
+                           tqm.quant_matmul_plain(xq, xs, wt.t(), ws)), (M, K, N)
+    xq = torch.full((8, 8960), 127, dtype=torch.int8, device="cuda")
+    wq = torch.full((8960, 64), -127, dtype=torch.int8, device="cuda")
+    ones = torch.ones(64, device="cuda")
+    got = tqm.quant_matmul(xq, ones[:8], wq, ones)      # a (K, N) layout too
+    assert torch.equal(got, torch.full_like(got, float(8960 * 127 * -127)))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["quant_matmul"] == len(shapes) + 1
+    assert tqm.quant_matmul.shapes == dict.fromkeys(shapes + [(8, 8960, 64)], 1)
+
+
+@pytest.mark.cuda
+def test_int8_lm_engine_on_card_matches_slot_at_a_time():
+    """Qwen2-1.5B's SMOKE widths with int8 weights on the card: continuous
+    batching equals the slot-at-a-time oracle, and every projection of
+    every forward went through the kernel (7 a layer)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = dataclasses.replace(get_smoke("qwen2-1.5b"), quantize="int8")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=3, max_seq=64)
+
+    def reqs():
+        r = np.random.default_rng(3)
+        return [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m)
+                for n, m in zip((5, 9, 12, 7, 14), (3, 8, 5, 6, 4))]
+
+    tk.reset_launch_counts()
+    served = eng.run(reqs())
+    forwards = eng.calls["prefill_waves"] + eng.calls["decode_steps"]
+    assert tk.launch_counts()["quant_matmul"] == 7 * cfg.num_layers * forwards > 0
+    solo = [eng._run_one(r) for r in reqs()]
+    assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
