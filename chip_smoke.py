@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's two main paths once on one NVIDIA card.
+"""Drive the PyTorch / CUDA port's three main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ Phases (each one that fails makes the script exit non-zero):
 
   1. device   — the card's name and power limit, torch and CUDA versions;
                 TF32 is switched off, so fp32 means IEEE fp32 throughout.
-  2. build    — the four kernels from ``src/repro_torch/kernels/csrc`` with
+  2. build    — the six kernels from ``src/repro_torch/kernels/csrc`` with
                 nvcc (one process per source, in parallel), into ``build/``.
   3. kernels  — each kernel of the first path against its plain PyTorch
                 version on the card, in fp32 and bf16, with ragged n, d and k,
@@ -30,7 +30,8 @@ Phases (each one that fails makes the script exit non-zero):
                 projections (quantize="int8"), 8 slots, max_seq 2,048: 16
                 requests of 128..1,024 prompt tokens and 64 new tokens each,
                 all at once, through ServeEngine.run.  Checked: 196
-                quant_matmul launches per forward (7 a layer), every stream
+                quant_matmul and 57 rmsnorm launches per forward (7 and 2 a
+                layer, and the final norm), every stream
                 equal to the slot-at-a-time _run_one's, and the int8 prefill
                 logits within 20 % of the same weights unquantized at the
                 2-layer depth that bound was pinned on, and within 100 % at
@@ -44,9 +45,32 @@ Phases (each one that fails makes the script exit non-zero):
                 CUDA graph of launches, each reading its own copy of the
                 weight so that the weights miss L2), the plain version,
                 torch._int_mm where cuBLAS takes the shape, and the bound.
+ 11. Mamba2 serving — Mamba2-2.7B at full width and depth (64 SSD layers,
+                d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
+                bf16 weights made from a seed, 8 slots, max_seq 2,048: 16
+                requests, all at once (8 prompts of 256..1,024 tokens, a
+                multiple of the 256 chunk, and 8 ragged ones of 142..998,
+                one chunk each), 64 new tokens each, through ServeEngine.run
+                with its per-request prefill.  Checked: 64 ssd_chunk_scan
+                launches per prefill and 129 rmsnorm launches per forward;
+                every first token and every prefilled SSD state (bitwise)
+                equal to the slot-at-a-time _run_one's; how many streams
+                equal _run_one's, and where one leaves it, _run_one's top-2
+                logit gap there; the same at a 2-layer cut; the last-token
+                prefill logits through the kernels against the same model
+                through the plain versions, at 2 and at 64 layers.
+ 12. rmsnorm and ssd_chunk_scan against their plain versions at every shape
+                phases 8 and 11 launched, at ragged shapes, and (the scan)
+                with and without an initial state; rmsnorm rows alone equal
+                the same rows in a batch, bitwise.
+ 13. timing    — rmsnorm and ssd_chunk_scan at the served shapes (CUDA
+                events around a CUDA graph), beside the plain versions, the
+                library call where there is one (torch.nn.functional.
+                rms_norm) and the bound.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 8) and read just after it: they count those paths only.  The
+then phase 8, then phase 11) and read just after it: they count those
+paths only.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
 repository's ``src/`` beside it and one CUDA card.
@@ -67,8 +91,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, the fp32 rate outside
-# the tensor cores (kernels 1-3 do IEEE fp32 arithmetic) and the dense int8
-# tensor-core rate (quant_matmul)
+# the tensor cores (kernels 1-3, rmsnorm and ssd_chunk_scan do IEEE fp32
+# arithmetic) and the dense int8 tensor-core rate (quant_matmul)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
@@ -95,6 +119,22 @@ INT8_LOGIT_TOL_DEEP = 1.0
 # H100's 50 MB L2, as the serving path's 1.31 GB of weights do: each timed
 # launch reads its own copy of wq, cycling through at least this many bytes
 COLD_BYTES = 200e6
+# the Mamba2 serving phase: 8 prompts a multiple of the 256 chunk (each
+# twice) and 8 ragged ones drawn from MB_RAGGED (one chunk of L = S each)
+MB_ARCH, MB_SLOTS, MB_MAX_SEQ, MB_NEW = "mamba2-2.7b", 8, 2048, 64
+MB_ALIGNED, MB_RAGGED = (256, 512, 768, 1024), (142, 998)
+# Where a stream leaves the slot-at-a-time oracle (the decode products are
+# bf16 cuBLAS products, whose order depends on the batch), the oracle's gap
+# between its two best logits at that step must stay under these limits:
+# at a 2-layer cut a tie within rounding; at all 64 layers, where the
+# random-weight stack is chaotic (tests/test_torch_mamba2.py::
+# test_random_deep_stack_is_chaotic) and rounding moves logits by O(1),
+# only a clear winner (the logits' std is 2, their top-2 spacing ~0.4).
+MB_GAP_LIMIT, MB_GAP_LIMIT_DEEP = 0.05, 3.0
+# last-token prefill logits through the kernels against the plain versions,
+# max abs error over max |logit|, at a 2-layer cut (at 64 layers printed)
+MB_PLAIN_TOL = 0.02
+RMS_BF16_TOL = 2.0 ** -7     # one bf16 step of the value
 
 
 class SmokeFailure(RuntimeError):
@@ -139,6 +179,10 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def fmt(values) -> str:
+    return ", ".join(f"{v:.3g}" for v in values)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -626,6 +670,7 @@ def phase_lm(counts, report) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models.transformer import TransformerLM, init_model
     from repro_torch.serve import ServeEngine, SlotScheduler
 
@@ -664,6 +709,7 @@ def phase_lm(counts, report) -> None:
     for k in engine.calls:
         engine.calls[k] = 0
     quant_matmul.shapes.clear()
+    rmsnorm.shapes.clear()
     sched = SlotScheduler(LM_SLOTS)
     reset_launch_counts()            # the LM path's run starts here
     sync()
@@ -678,17 +724,21 @@ def phase_lm(counts, report) -> None:
     forwards = engine.calls["prefill_waves"] + engine.calls["decode_steps"]
     per_forward = 7 * cfg.num_layers
     counts["lm"] = got
+    counts["lm_rms_shapes"] = dict(rmsnorm.shapes)
     counts["lm_shapes"] = shapes
     counts["lm_by_shape"] = by_shape
     counts["lm_layers"] = cfg.num_layers
     counts["lm_widths"] = (cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim,
                            cfg.d_ff)
+    norms = 2 * cfg.num_layers + 1
     say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} "
         f"prefill waves + {engine.calls['decode_steps']} decode steps = "
-        f"{forwards} forwards x {per_forward}")
+        f"{forwards} forwards x {per_forward} quant_matmul and x {norms} rmsnorm")
     check(got["quant_matmul"] == per_forward * forwards > 0,
           f"quant_matmul launches {got['quant_matmul']} != {per_forward} x {forwards}")
-    check(all(v == 0 for k, v in got.items() if k != "quant_matmul"),
+    check(got["rmsnorm"] == norms * forwards,
+          f"rmsnorm launches {got['rmsnorm']} != {norms} x {forwards}")
+    check(all(v == 0 for k, v in got.items() if k not in ("quant_matmul", "rmsnorm")),
           f"the LM path launched another kernel: {got}")
     new = sum(len(r.out_tokens) for r in served)
     check(all(r.done and len(r.out_tokens) == LM_NEW for r in served),
@@ -759,22 +809,28 @@ def phase_lm(counts, report) -> None:
           f"one layer: {errs['shifted']}")
     report["lm"]["int8_rel_err"] = errs
     del shifted
-    counts["lm_profile_qmm_ms"] = decode_profile(
-        engine, report["lm"]["decode_ms_per_step"])
+    prof = decode_profile(engine, report["lm"]["decode_ms_per_step"], LM_PROMPT_MAX)
+    counts["lm_profile_qmm_ms"] = prof["quant_matmul"] if prof else None
     del engine, params, logits
     torch.cuda.empty_cache()
 
 
-def decode_profile(engine, step_ms: float, steps: int = 3):
+# our kernels' names in a profile: the CUDA functions' names contain these
+PROFILED = {"quant_matmul": "qmm_", "rmsnorm": "rmsnorm_kernel",
+            "ssd_chunk_scan": "ssd_kernel"}
+
+
+def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     """Where a decode step's time goes: device time by kernel over
     ``steps`` profiled steps (torch.profiler, CUDA activity), against the
-    unprofiled step time of the serving run.  Returns quant_matmul's device
-    ms per step, or None if the profiler saw no device time."""
+    unprofiled step time of the serving run.  Returns the device-busy ms
+    per step and each of the port's kernels' device ms per step, or None
+    if the profiler saw no device time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     B = engine.batch
     toks = engine._tensor(np.zeros((B, 1), np.int32))
-    pos = engine._tensor(np.full(B, LM_PROMPT_MAX, np.int32))
+    pos = engine._tensor(np.full(B, pos, np.int32))
     cache = engine.init_shared_cache()
     engine.model.decode_step(engine.params, toks, pos, cache)
     sync()
@@ -787,18 +843,18 @@ def decode_profile(engine, step_ms: float, steps: int = 3):
     if device_ms == 0:
         say("decode step profile: the profiler saw no device time (not measured)")
         return None
-    qmm_ms = sum(e.self_device_time_total for e in kernels
-                 if "qmm_" in e.key) / 1e3 / steps
+    ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key)
+            / 1e3 / steps for name, key in PROFILED.items()}
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    say(f"decode step profile ({steps} steps, 8 slots): device busy {device_ms:.3f} ms "
+    say(f"decode step profile ({steps} steps, {B} slots): device busy {device_ms:.3f} ms "
         f"of the {step_ms:.2f} ms step ({device_ms / step_ms:.1%}; idle "
         f"{1 - device_ms / step_ms:.1%}), {launches:.0f} kernel launches a step; "
-        f"quant_matmul {qmm_ms:.3f} ms")
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v))
     for e in top:
         say(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms  "
             f"{e.count // steps:5d} x  {e.key[:90]}")
-    return qmm_ms
+    return {"busy_ms": device_ms, "launches": launches, **ours}
 
 
 def _first_layers(tree, depth):
@@ -937,6 +993,538 @@ def phase_qmm_timing(gen, counts, worst) -> dict:
     }
 
 
+# --------------------------------------------------------------------------- #
+# the Mamba2 serving path
+# --------------------------------------------------------------------------- #
+def mamba_requests(cfg):
+    """16 requests: MB_ALIGNED twice (L = 256, several chunks) interleaved
+    with 8 lengths drawn from MB_RAGGED that are not a multiple of 256
+    (one chunk of L = S)."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(SEED + 1)
+    ragged = []
+    while len(ragged) < 8:
+        n = int(rng.integers(MB_RAGGED[0], MB_RAGGED[1] + 1))
+        if n % 256:
+            ragged.append(n)
+    lens = [n for pair in zip(MB_ALIGNED * 2, ragged) for n in pair]
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=MB_NEW) for n in lens]
+
+
+def _ssd_state(cache, slot: int) -> torch.Tensor:
+    """Every layer's SSD state of one slot (or of a batch-1 cache), a copy."""
+    return cache["b0"]["ssd"]["h"][:, slot].clone()
+
+
+def _top2_gap(logits: torch.Tensor) -> float:
+    v = logits[0, -1].float().topk(2).values
+    return (v[0] - v[1]).item()
+
+
+def oracle_streams(engine, cfg):
+    """``_run_one`` on every request of ``mamba_requests``, recording each
+    one's prefilled SSD state and, for every emitted token, the gap between
+    its two best logits.  Returns (requests, states, gaps)."""
+    states, gaps = [], []
+    prefill, decode = engine._prefill, engine._decode
+
+    def rec_prefill(params, tokens, cache):
+        logits, cache = prefill(params, tokens, cache)
+        states.append(_ssd_state(cache, 0))
+        gaps.append([_top2_gap(logits)])
+        return logits, cache
+
+    def rec_decode(params, tokens, pos, cache):
+        logits, cache = decode(params, tokens, pos, cache)
+        gaps[-1].append(_top2_gap(logits))
+        return logits, cache
+
+    engine._prefill, engine._decode = rec_prefill, rec_decode
+    try:
+        solo = [engine._run_one(r) for r in mamba_requests(cfg)]
+    finally:
+        engine._prefill, engine._decode = prefill, decode
+    return solo, states, gaps
+
+
+def compare_streams(served, solo, gaps):
+    """(streams equal, [(request, first differing step, oracle gap there)])."""
+    differ = []
+    for i, (a, b) in enumerate(zip(served, solo)):
+        k = next((j for j, (u, v) in enumerate(zip(a.out_tokens, b.out_tokens))
+                  if u != v), None)
+        if k is not None:
+            differ.append((i, k, gaps[i][k]))
+    return len(served) - len(differ), differ
+
+
+class swapped_ops:
+    """Within the block the model's layers call the given functions
+    (``rmsnorm=``, ``ssd_chunk_scan=``) instead of the kernels."""
+
+    def __init__(self, **fns):
+        self.fns = fns
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.saved = {k: getattr(ops, k) for k in self.fns}
+        for k, f in self.fns.items():
+            setattr(ops, k, f)
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for k, f in self.saved.items():
+            setattr(ops, k, f)
+
+
+def plain_kernels(rmsnorm: bool = True, scan: bool = True) -> swapped_ops:
+    """The kernels' plain versions (on the card) in the model's layers: the
+    oracle for the whole model, or for one of its two kernels."""
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import ssd_scan as kss
+
+    fns = {}
+    if rmsnorm:
+        fns["rmsnorm"] = krn.rmsnorm_plain
+    if scan:
+        fns["ssd_chunk_scan"] = kss.ssd_chunk_scan_plain
+    return swapped_ops(**fns)
+
+
+# Variants of the scan's plain version that the 2-layer logit check is read
+# against: one that computes the same function in fp64 (rounding alone
+# moves the reading), and two wrong scans (controls the check must or
+# cannot see).
+def _scan_fp64(log_a, dx, Bm, Cm, h0=None, *, chunk):
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_plain
+
+    y, h = ssd_chunk_scan_plain(log_a, dx, Bm, Cm, h0, chunk=chunk, dtype=torch.float64)
+    return y.float(), h.float()
+
+
+def _scan_decay_shifted(log_a, dx, Bm, Cm, h0=None, *, chunk):
+    """Wrong: every step decays by its predecessor's log_a (an off-by-one
+    in the running sum)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_plain
+
+    la = torch.cat([torch.zeros_like(log_a[..., :1]), log_a[..., :-1]], dim=-1)
+    return ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=chunk)
+
+
+def _scan_no_inter_chunk(log_a, dx, Bm, Cm, h0=None, *, chunk):
+    """Wrong: each chunk's output without the carried state's term."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_plain
+
+    S = dx.shape[2]
+    L = min(chunk, S)
+    ys = [ssd_chunk_scan_plain(log_a[..., i:i + L], dx[:, :, i:i + L], Bm[:, i:i + L],
+                               Cm[:, i:i + L], None, chunk=L)[0] for i in range(0, S, L)]
+    return torch.cat(ys, dim=2), ssd_chunk_scan_plain(log_a, dx, Bm, Cm, h0, chunk=chunk)[1]
+
+
+def phase_mamba(counts) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.models.transformer import TransformerLM, init_model
+    from repro_torch.serve import ServeEngine, SlotScheduler
+
+    cfg = get_config(MB_ARCH)
+    phase(f"11. Mamba2 serving: {cfg.name}, {cfg.num_layers} SSD layers, d_model "
+          f"{cfg.d_model}, {cfg.ssd_heads} heads of P={cfg.ssd_head_dim}, "
+          f"N={cfg.ssm_state}, vocab {cfg.vocab_size:,}, {cfg.dtype}, {MB_SLOTS} "
+          f"slots, max_seq {MB_MAX_SEQ}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    engine = ServeEngine(cfg, params, batch_size=MB_SLOTS, max_seq=MB_MAX_SEQ,
+                         device=DEVICE)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    state_gb = (cfg.num_layers * cfg.ssd_heads * cfg.ssd_head_dim * cfg.ssm_state
+                * 4 * MB_SLOTS / 1e9)
+    say(f"weights made on the card from seed {SEED} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f} B params "
+        f"({cfg.dtype}); SSD state {state_gb:.2f} GB for {MB_SLOTS} slots")
+    engine.warmup(prompt_lens=[MB_ALIGNED[0]])
+    sync()
+    reqs = mamba_requests(cfg)
+    lens = [len(r.prompt) for r in reqs]
+
+    # time each admission (its first tokens come to the host, so the clock
+    # covers the device work) and keep each admitted slot's prefilled state
+    waves, states = [], {}
+    prefill_into = engine._prefill_into
+
+    def timed_prefill_into(cache, admits, **kw):
+        t = time.perf_counter()
+        cache, first = prefill_into(cache, admits, **kw)
+        waves.append(time.perf_counter() - t)
+        for slot, req in admits:
+            states[id(req)] = _ssd_state(cache, slot)
+        return cache, first
+
+    engine._prefill_into = timed_prefill_into
+    for k in engine.calls:
+        engine.calls[k] = 0
+    rmsnorm.shapes.clear()
+    ssd_chunk_scan.shapes.clear()
+    sched = SlotScheduler(MB_SLOTS)
+    reset_launch_counts()            # the Mamba2 path's run starts here
+    sync()
+    t0 = time.perf_counter()
+    served = engine.run(reqs, scheduler=sched)
+    sync()
+    t_run = time.perf_counter() - t0
+    got = launch_counts()            # ... and ends here
+    engine._prefill_into = prefill_into
+    prefills, steps = engine.calls["prefills"], engine.calls["decode_steps"]
+    forwards = prefills + steps
+    norms = 2 * cfg.num_layers + 1
+    counts["mamba"] = got
+    counts["mamba_widths"] = (cfg.d_model, cfg.d_inner_ssd)
+    counts["mamba_rms_shapes"] = dict(rmsnorm.shapes)
+    counts["mamba_ssd_shapes"] = dict(ssd_chunk_scan.shapes)
+    say(f"launches in the serving run: {got}; {prefills} per-request prefills + "
+        f"{steps} decode steps; ssd_chunk_scan x {cfg.num_layers} a prefill, "
+        f"rmsnorm x {norms} a forward")
+    check(engine.calls["prefill_waves"] == 0 and prefills == len(reqs),
+          f"Mamba2 admissions did not prefill per request: {engine.calls}")
+    check(got["ssd_chunk_scan"] == cfg.num_layers * prefills > 0,
+          f"ssd_chunk_scan launches {got['ssd_chunk_scan']} != "
+          f"{cfg.num_layers} x {prefills}")
+    check(got["rmsnorm"] == norms * forwards,
+          f"rmsnorm launches {got['rmsnorm']} != {norms} x {forwards}")
+    check(all(v == 0 for k, v in got.items() if k not in ("rmsnorm", "ssd_chunk_scan")),
+          f"the Mamba2 path launched another kernel: {got}")
+    check(all(r.done and len(r.out_tokens) == MB_NEW for r in served),
+          "a request did not finish with its tokens")
+    new = sum(len(r.out_tokens) for r in served)
+    t_prefill = sum(waves)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = (t_run - t_prefill) / max(steps, 1) * 1e3
+    say(f"served {len(served)} requests (prompts {lens}, {sum(lens)} tokens) / "
+        f"{new} new tokens in {t_run:.3f} s: {new / t_run:.1f} tokens/s; prefill "
+        f"{t_prefill:.3f} s in {len(waves)} admissions; decode {step_ms:.2f} ms per "
+        f"step ({steps} steps of {MB_SLOTS} slots); peak device memory {peak:.2f} GB; "
+        f"backfills {sched.backfills}")
+
+    # the slot-at-a-time oracle: first tokens and prefilled states must be
+    # equal (both prefill at batch 1), streams are counted
+    t0 = time.perf_counter()
+    solo, solo_states, gaps = oracle_streams(engine, cfg)
+    first_same = sum(a.out_tokens[0] == b.out_tokens[0] for a, b in zip(served, solo))
+    state_same = sum(torch.equal(states[id(a)], h) for a, h in zip(served, solo_states))
+    same, differ = compare_streams(served, solo, gaps)
+    say(f"against the slot-at-a-time _run_one ({time.perf_counter() - t0:.1f} s): "
+        f"first tokens equal {first_same} of {len(served)}, prefilled SSD states "
+        f"bitwise equal {state_same} of {len(served)}, streams equal {same} of "
+        f"{len(served)}")
+    for i, k, gap in differ:
+        say(f"    request {i} ({lens[i]} tokens) leaves _run_one at step {k}, where "
+            f"_run_one's top-2 logit gap is {gap:.4f} (limit {MB_GAP_LIMIT_DEEP})")
+    check(first_same == len(served), "a first token differs from _run_one's")
+    check(state_same == len(served), "a prefilled SSD state differs from _run_one's")
+    check(all(g <= MB_GAP_LIMIT_DEEP for _, _, g in differ),
+          f"a stream left _run_one at a gap beyond {MB_GAP_LIMIT_DEEP}: {differ}")
+    del states, solo_states
+
+    # the same engine at a 2-layer cut of the model
+    cut_cfg = dataclasses.replace(cfg, num_layers=2)
+    cut = ServeEngine(cut_cfg, {**params, "blocks": _first_layers(params["blocks"], 2)},
+                      batch_size=MB_SLOTS, max_seq=MB_MAX_SEQ, device=DEVICE)
+    served2 = cut.run(mamba_requests(cfg))
+    solo2, _, gaps2 = oracle_streams(cut, cfg)
+    same2, differ2 = compare_streams(served2, solo2, gaps2)
+    say(f"at 2 layers: streams equal to _run_one {same2} of {len(served2)}"
+        + "".join(f"; request {i} leaves at step {k}, gap {g:.4f}" for i, k, g in differ2)
+        + f" (limit {MB_GAP_LIMIT})")
+    check(all(g <= MB_GAP_LIMIT for _, _, g in differ2),
+          f"at 2 layers a stream left _run_one at a gap beyond {MB_GAP_LIMIT}: {differ2}")
+    del cut, served2, solo2
+
+    # the whole model through the kernels against the plain versions; at 2
+    # layers also each kernel alone, the scan in fp64, and two wrong scans
+    # the bound is read against
+    errs = {}
+    # the longest prompt that is a multiple of the chunk, and the longest one not
+    sub = [max((r for r in reqs if bool(len(r.prompt) % cfg.ssd_chunk) == ragged),
+               key=lambda r: len(r.prompt)) for ragged in (False, True)]
+    variants = {"kernels": swapped_ops(),
+                "ssd_chunk_scan kernel alone": plain_kernels(scan=False),
+                "rmsnorm kernel alone": plain_kernels(rmsnorm=False),
+                "plain, scan in fp64": swapped_ops(rmsnorm=rmsnorm_plain,
+                                                   ssd_chunk_scan=_scan_fp64),
+                "plain, wrong scan: decay shifted one step": swapped_ops(
+                    rmsnorm=rmsnorm_plain, ssd_chunk_scan=_scan_decay_shifted),
+                "plain, wrong scan: no inter-chunk term": swapped_ops(
+                    rmsnorm=rmsnorm_plain, ssd_chunk_scan=_scan_no_inter_chunk)}
+    for depth in (2, cfg.num_layers):
+        model = TransformerLM(dataclasses.replace(cfg, num_layers=depth), DEVICE)
+        tree = {**params, "blocks": _first_layers(params["blocks"], depth)}
+        names = list(variants) if depth == 2 else ["kernels"]
+        errs[depth] = {k: [] for k in names}
+        for r in sub:
+            toks = torch.as_tensor(r.prompt[None], device=DEVICE)
+            with plain_kernels():
+                b, _ = model.prefill(tree, toks, model.init_cache(1, len(r.prompt)))
+            for k in names:
+                with variants[k]:
+                    a, _ = model.prefill(tree, toks, model.init_cache(1, len(r.prompt)))
+                check(bool(torch.isfinite(a).all()) and a.shape == (1, 1, cfg.vocab_size),
+                      f"Mamba2 logits at depth {depth} ({k}) not finite or misshapen")
+                errs[depth][k].append(rel_err(a, b))
+    say(f"last-token prefill logits against the plain versions (prompts of "
+        f"{[len(r.prompt) for r in sub]} tokens), max abs error over max |logit|, "
+        f"per prompt: through the kernels {fmt(errs[2]['kernels'])} at 2 layers "
+        f"(bound {MB_PLAIN_TOL}), {fmt(errs[cfg.num_layers]['kernels'])} at "
+        f"{cfg.num_layers} layers (printed: the random-weight stack is chaotic at "
+        f"that depth)")
+    for k in list(variants)[1:]:
+        say(f"    at 2 layers, {k}: {fmt(errs[2][k])}")
+    check(max(errs[2]["kernels"]) <= MB_PLAIN_TOL,
+          f"Mamba2 logits kernels vs plain at 2 layers: {errs[2]['kernels']}")
+    check(min(errs[2]["plain, wrong scan: decay shifted one step"]) > MB_PLAIN_TOL,
+          f"the 2-layer logit bound {MB_PLAIN_TOL} does not see a scan whose decay "
+          f"is shifted one step: {errs[2]}")
+
+    decode_profile(engine, step_ms, max(lens))
+    del engine, params
+    torch.cuda.empty_cache()
+
+
+def _ssd_operands(gen, B, H, S, P, N, with_h0, served=False):
+    """The scan's inputs as tests/test_kernels.py draws them (mild decays,
+    cum ≈ −0.08 a step), or, with ``served``, as the SSD layer makes them
+    from a random model: log_a = −softplus(dt)·A with A from U(1, 16) per
+    head (ssd_init's draw), dx = softplus(dt)·x, unit B and C, so cum falls
+    by ≈ 7 a step and reaches −10⁴ over a chunk of 1,000."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    if served:
+        A = 1.0 + 15.0 * torch.rand(H, generator=gen, device=DEVICE)
+        dt = torch.nn.functional.softplus(randn(B, H, S))
+        la, dx = -dt * A[:, None], dt[..., None] * randn(B, H, S, P)
+        Bm, Cm = randn(B, S, N), randn(B, S, N)
+    else:
+        la = -randn(B, H, S).abs() * 0.1
+        dx = randn(B, H, S, P)
+        Bm, Cm = randn(B, S, N) * 0.3, randn(B, S, N) * 0.3
+    h0 = randn(B, H, P, N) * 0.1 if with_h0 else None
+    return la, dx, Bm, Cm, h0
+
+
+def phase_new_kernels_check(gen, counts) -> dict:
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import ssd_scan as kss
+
+    phase("12. rmsnorm and ssd_chunk_scan against their plain versions")
+    worst = {"rmsnorm": 0.0, "ssd_chunk_scan": 0.0}
+    rms_shapes = sorted(set(counts["lm_rms_shapes"]) | set(counts["mamba_rms_shapes"]))
+    ragged = [(5, 37, "float32"), (3, 37, "bfloat16"), (7, 2561, "bfloat16"),
+              (2, 5119, "float32"), (1, 1, "float32")]
+    for rows, d, dt in rms_shapes + ragged:
+        dtype = getattr(torch, dt)
+        x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 3).to(dtype)
+        scale = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(torch.bfloat16)
+        # w as the tests give it (fp32), and as the models do: a bf16 scale
+        # plus one (pre-norms) and a bf16 scale (the gated norm)
+        for w, plus_one in ((1 + scale.float(), False), (scale, True), (scale, False)):
+            a = krn.rmsnorm(x, w, plus_one=plus_one)
+            b = krn.rmsnorm_plain(x, w, plus_one=plus_one)
+            sync()
+            err = (a.float() - b.float()).abs()
+            if dtype == torch.float32:
+                ok = rel_err(a, b) <= FP32_TOL
+            else:
+                ok = bool((err <= RMS_BF16_TOL * b.float().abs()).all())
+            worst["rmsnorm"] = max(worst["rmsnorm"], err.max().item())
+            what = f"rmsnorm {(rows, d, dt)}, w {w.dtype}, plus_one {plus_one}"
+            check(ok, f"{what}: max abs err {err.max().item()}")
+            alone = krn.rmsnorm(x[-1:].clone(), w, plus_one=plus_one)
+            check(torch.equal(alone[0], a[-1]),
+                  f"{what}: a row alone differs from the same row in the batch")
+        check(torch.equal(krn.rmsnorm(x, scale, plus_one=True),
+                          krn.rmsnorm(x, 1 + scale.float())),
+              f"rmsnorm {(rows, d, dt)}: plus_one differs from w = 1 + scale in fp32")
+    say(f"rmsnorm at the {len(rms_shapes)} served (rows, d, dtype) and {len(ragged)} "
+        f"ragged ones, w fp32, bf16 and bf16 plus one: fp32 within {FP32_TOL} of max "
+        f"|out|, bf16 within one bf16 step of each value; the last row alone bitwise "
+        f"equal to it in the batch; plus_one bitwise equal to w = 1 + scale")
+
+    ssd_shapes = sorted(set(counts["mamba_ssd_shapes"]))
+    ragged = [(1, 80, 8, 64, 128, 1), (2, 3, 74, 64, 128, 37), (1, 80, 512, 64, 128, 256),
+              (1, 80, 998, 64, 128, 998), (2, 16, 64, 16, 16, 32)]
+    for B, H, S, P, N, L, *h in ssd_shapes + [c + (w,) for c in ragged
+                                               for w in (True, False)]:
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, h[0])
+        y, hf = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+        yp, hp = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
+        sync()
+        ey, eh = rel_err(y, yp), rel_err(hf, hp)
+        worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], (y - yp).abs().max().item(),
+                                      (hf - hp).abs().max().item())
+        check(ey <= FP32_TOL and eh <= FP32_TOL,
+              f"ssd_chunk_scan {(B, H, S, P, N, L, h[0])}: y rel err {ey}, h rel err {eh}")
+    say(f"ssd_chunk_scan at the {len(ssd_shapes)} served (B, H, S, P, N, L, h0) and "
+        f"{2 * len(ragged)} ragged ones (L = 1, 37, 256, S; with and without h0): y "
+        f"and h_final within {FP32_TOL} of their max |entry|")
+
+    # the served decays, where cum reaches −10⁴ and the order of its running
+    # sum moves the result: held against the function's value (fp64)
+    cases = ssd_shapes + [c + (w,) for c in ragged[:4] for w in (True, False)]
+    read = {"kernel": [], "plain": [], "kernel vs plain": []}
+    cum_max = 0.0
+    for B, H, S, P, N, L, *h in cases:
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, h[0], served=True)
+        y, hf = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+        yp, hp = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
+        y64, h64 = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L,
+                                            dtype=torch.float64)
+        sync()
+        cum_max = max(cum_max, la.reshape(B, H, S // L, L).double().cumsum(-1)
+                      .abs().max().item())
+        ek = max(rel_err(y, y64), rel_err(hf, h64))
+        read["kernel"].append(ek)
+        read["plain"].append(max(rel_err(yp, y64), rel_err(hp, h64)))
+        read["kernel vs plain"].append(max(rel_err(y, yp), rel_err(hf, hp)))
+        worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"],
+                                      (y.double() - y64).abs().max().item(),
+                                      (hf.double() - h64).abs().max().item())
+        check(ek <= FP32_TOL, f"ssd_chunk_scan {(B, H, S, P, N, L, h[0])} at the served "
+              f"decays: kernel vs fp64 rel err {ek}")
+        del y64, h64
+    say(f"ssd_chunk_scan at the served decays (log_a = −softplus(dt)·A, A in [1, 16]; "
+        f"max |cum| over a chunk {cum_max:.0f}), {len(cases)} shapes: y and h_final "
+        f"against the same function in fp64, max over the shapes of the error over "
+        f"max |entry|: kernel {max(read['kernel']):.3g} (bound {FP32_TOL}), plain "
+        f"version {max(read['plain']):.3g}, kernel vs plain version "
+        f"{max(read['kernel vs plain']):.3g}")
+    return worst
+
+
+def ssd_scan_ops(B, H, S, P, N, L, with_h0) -> float:
+    """The fp32 operations the scan's function needs: C·Bᵀ on the causal
+    triangle once per (b, chunk) (B and C have no head axis), and per head
+    and chunk the masked product with Δx on that triangle, the state update
+    (2·L·P·N) and the carried state's term C·h (2·L·P·N, none in the first
+    chunk without h0)."""
+    chunks, tri = S // L, L * (L + 1) / 2
+    inter = B * H * (chunks - (0 if with_h0 else 1)) * 2.0 * L * P * N
+    return (B * chunks * 2.0 * N * tri
+            + B * H * chunks * (2.0 * P * tri + 2.0 * L * P * N) + inter)
+
+
+def phase_new_kernels_timing(gen, counts, worst) -> list:
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import ssd_scan as kss
+
+    phase("13. rmsnorm and ssd_chunk_scan timing at the served shapes")
+    records = []
+    rms_launched = {**counts["lm_rms_shapes"]}
+    for k, v in counts["mamba_rms_shapes"].items():
+        rms_launched[k] = rms_launched.get(k, 0) + v
+    d_lm, (d_mb, d_in) = counts["lm_widths"][0], counts["mamba_widths"]
+
+    def most_rows(shapes, d):
+        return max((k for k in shapes if k[1] == d), key=lambda k: k[0])
+
+    qwen_prefill = most_rows(counts["lm_rms_shapes"], d_lm)
+    mb_prefill = most_rows(counts["mamba_rms_shapes"], d_mb)
+    mb_gated = most_rows(counts["mamba_rms_shapes"], d_in)
+    # (label, shape, plus_one): the weight is the bf16 scale as the models
+    # pass it, plus one for the pre-norms
+    rows = [("Mamba2 prefill pre-norm", mb_prefill, True),
+            ("Mamba2 prefill gated norm", mb_gated, False),
+            ("Mamba2 decode pre-norm", (MB_SLOTS, d_mb, mb_prefill[2]), True),
+            ("Mamba2 decode gated norm", (MB_SLOTS, d_in, mb_gated[2]), False),
+            ("Qwen2 decode", (LM_SLOTS, d_lm, qwen_prefill[2]), True),
+            ("Qwen2 prefill wave", qwen_prefill, True)]
+    timings = []
+    for label, (n, d, dt), plus_one in rows:
+        dtype = getattr(torch, dt)
+        esize = torch.finfo(dtype).bits // 8
+        copies = max(1, math.ceil(COLD_BYTES / (n * d * esize)))
+        xs = [torch.randn(n, d, generator=gen, device=DEVICE).to(dtype)
+              for _ in range(copies)]
+        w = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(torch.bfloat16)
+        if not plus_one:
+            w += 1
+        ms = graph_ms([lambda x=x: krn.rmsnorm(x, w, plus_one=plus_one) for x in xs])
+        plain_ms = cuda_ms(lambda: krn.rmsnorm_plain(xs[0], w, plus_one=plus_one), 5)
+        try:
+            wl = (1 + w.float() if plus_one else w.float()).to(dtype)
+            lib_ms, lib_note = graph_ms([lambda x=x: torch.nn.functional.rms_norm(
+                x, (d,), wl, 1e-6) for x in xs]), ""
+        except RuntimeError as e:
+            lib_ms, lib_note = None, str(e).splitlines()[0]
+        del xs
+        t_b, by = bound(2 * n * d * esize + 2 * d, 3.0 * n * d)
+        launched = rms_launched.get((n, d, dt), 0)
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({lib_note})"
+        say(f"rmsnorm {label} ({n}, {d}) {dt}, {launched} launches on the paths: "
+            f"kernel {ms:.4f} ms ({copies} copies of x, from HBM), plain {plain_ms:.4f} "
+            f"ms, torch.nn.functional.rms_norm {lib_txt}, bound {t_b:.4f} ms ({by}), "
+            f"{t_b / ms:.1%} of it")
+        timings.append({"label": label, "shape": [n, d, dt], "launches": launched,
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "library_note": lib_note or None, "bound_ms": t_b,
+                        "bound_by": by})
+    head = timings[0]
+    records.append({
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:43",
+        "launches": counts["lm"]["rmsnorm"] + counts["mamba"]["rmsnorm"],
+        "max_abs_err": worst["rmsnorm"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "shape": head["shape"], "shapes": timings,
+        "launches_by_path": {"lm_serve": counts["lm"]["rmsnorm"],
+                             "mamba_serve": counts["mamba"]["rmsnorm"]},
+    })
+
+    ssd = counts["mamba_ssd_shapes"]
+    multi = max((k for k in ssd if k[5] < k[2]), key=lambda k: k[2])
+    single = max((k for k in ssd if k[5] == k[2]), key=lambda k: k[2])
+    timings = []
+    for label, (B, H, S, P, N, L, with_h0) in (("several chunks", multi),
+                                              ("one ragged chunk", single)):
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, with_h0)
+        ms = graph_ms(lambda: kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L), launches=5)
+        plain_ms = cuda_ms(lambda: kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L), 3)
+        t_b, by = bound(4 * (B * H * S + 2 * B * H * S * P + 2 * B * S * N
+                             + (2 if with_h0 else 1) * B * H * P * N),
+                        ssd_scan_ops(B, H, S, P, N, L, with_h0))
+        launched = ssd[(B, H, S, P, N, L, with_h0)]
+        say(f"ssd_chunk_scan {label} (B, H, S, P, N, L) = {(B, H, S, P, N, L)}, "
+            f"{launched} launches on the path: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library none, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
+        timings.append({"label": label, "shape": [B, H, S, P, N, L], "launches": launched,
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        "bound_ms": t_b, "bound_by": by})
+    head = timings[0]
+    records.append({
+        "name": "ssd_chunk_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:105",
+        "launches": counts["mamba"]["ssd_chunk_scan"],
+        "max_abs_err": worst["ssd_chunk_scan"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "shape": head["shape"],
+        "shapes": timings,
+        "launches_by_path": {"mamba_serve": counts["mamba"]["ssd_chunk_scan"]},
+    })
+    return records
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -959,7 +1547,8 @@ def main() -> int:
     phase_serving(gen, counts, report)
     totals = launch_counts()         # ... and ends here
     say(f"launches on the first path: {totals}")
-    check(all(totals[k] > 0 for k in first_path) and totals["quant_matmul"] == 0,
+    check(all(totals[k] > 0 for k in first_path)
+          and all(v == 0 for k, v in totals.items() if k not in first_path),
           f"a kernel of the first path never launched, or another did: {totals}")
 
     records = phase_timing(gen, counts, report)
@@ -970,8 +1559,14 @@ def main() -> int:
     phase_lm(counts, report)
     worst = phase_qmm_check(gen, counts)
     records.append(phase_qmm_timing(gen, counts, worst))
+    phase_mamba(counts)
+    worst = phase_new_kernels_check(gen, counts)
+    records.extend(phase_new_kernels_timing(gen, counts, worst))
+    check(all(r["launches"] > 0 for r in records),
+          f"a kernel was never launched on its path: "
+          f"{[(r['name'], r['launches']) for r in records]}")
     say(f"smoke run {time.perf_counter() - t_start:.1f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB since phase 8")
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB since phase 11")
     print(CARD)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

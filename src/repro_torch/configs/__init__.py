@@ -3,8 +3,9 @@
 Each config module exports ``FULL`` (the published configuration) and
 ``SMOKE`` (a reduced same-family variant for CPU tests).  The port
 registers only the configurations whose every block kind it runs:
-``qwen2-1.5b``.  The reference's other ids are known here and raise
-``NotImplementedError`` until their slice (ROADMAP.md, Queue 1).
+``qwen2-1.5b`` and ``mamba2-2.7b``.  The reference's other ids are known
+here and raise ``NotImplementedError`` until their slice (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ __all__ = ["ARCH_IDS", "PENDING_IDS", "SHAPES", "InputShape", "get_config",
            "get_smoke", "shape_for"]
 
 #: configurations the port runs
-ARCH_IDS = ("qwen2-1.5b",)
+ARCH_IDS = ("qwen2-1.5b", "mamba2-2.7b")
 #: the reference's other configurations, each waiting for its block kinds
 PENDING_IDS = (
     "llama4-scout-17b-16e",
@@ -29,7 +30,6 @@ PENDING_IDS = (
     "qwen1.5-32b",
     "recurrentgemma-9b",
     "gemma3-1b",
-    "mamba2-2.7b",
 )
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}

@@ -11,6 +11,8 @@ from typing import Dict
 from repro_torch.kernels import kmeans_assign as _kmeans_assign
 from repro_torch.kernels import logreg_grad as _logreg_grad
 from repro_torch.kernels import quant_matmul as _quant_matmul
+from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd_scan as _ssd_scan
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 
@@ -20,6 +22,8 @@ KERNELS = {
     "logreg_xt_z": _logreg_grad.logreg_xt_z,
     "kmeans_assign": _kmeans_assign.kmeans_assign,
     "quant_matmul": _quant_matmul.quant_matmul,
+    "rmsnorm": _rmsnorm.rmsnorm,
+    "ssd_chunk_scan": _ssd_scan.ssd_chunk_scan,
 }
 
 

@@ -1,14 +1,16 @@
 """Public wrappers of the port's kernels.
 
 Counterpart: ``src/repro/kernels/ops.py`` (``logreg_grad``,
-``kmeans_assign``, ``quantize_rows`` and ``quant_matmul``), with the same
-shape validation and error texts.  The reference falls back to its jnp
-oracle for shapes its TPU blocks cannot tile, and off the TPU takes
-``quant_matmul`` in fp32; the port has neither fallback, because its
-kernels mask ragged shapes themselves and take every shape.  A CUDA tensor
-goes to the kernel, a CPU tensor to the plain version, and nothing else is
-accepted.  The remaining kernels of the reference (``flash_attention``,
-``rmsnorm``, ``ssd_chunk_scan``) are later slices (ROADMAP.md, Queue 2).
+``kmeans_assign``, ``quantize_rows``, ``quant_matmul``, ``rmsnorm`` and
+``ssd_chunk_scan``), with the same shape validation and error texts.  The
+reference falls back to its jnp oracle for shapes its TPU blocks cannot
+tile (``ssd_chunk_scan``: when the chunk does not divide S), and off the
+TPU takes ``quant_matmul`` in fp32; the port has neither fallback, because
+its kernels mask ragged shapes themselves, and ``ssd_chunk_scan`` raises
+when the chunk does not divide S.  A CUDA tensor goes to the kernel, a CPU
+tensor to the plain version, and nothing else is accepted.  The remaining
+kernel of the reference (``flash_attention``) is a later slice
+(ROADMAP.md, Queue 2).
 """
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ import torch
 from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.logreg_grad import logreg_grad
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
-__all__ = ["kmeans_assign", "logreg_grad", "quant_matmul", "quantize_rows"]
+__all__ = ["kmeans_assign", "logreg_grad", "quant_matmul", "quantize_rows",
+           "rmsnorm", "ssd_chunk_scan"]
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

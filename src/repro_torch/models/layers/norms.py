@@ -1,18 +1,20 @@
 """RMSNorm / LayerNorm (counterpart: ``src/repro/models/layers/norms.py``).
 
-The model's RMSNorm scales by ``1 + scale`` with fp32 statistics; it is
-not the form of the ``rmsnorm`` kernel (kernel 5 of ROADMAP Queue 2, which
-scales by ``w``), so it stays plain PyTorch, as the reference keeps it jnp.
+The model's RMSNorm computes ``xf * rsqrt(mean(xf²) + eps) * (1 + scale)``
+with fp32 statistics: that is the ``rmsnorm`` kernel's function with
+``w = 1 + scale`` in fp32, with the products in the same order, so it goes
+through ``ops.rmsnorm`` (kernel 5 of ROADMAP Queue 2) for every model,
+which reads the bf16 scale and adds the 1 itself (``plus_one``).  The
+kernel reduces each row in one fixed order that depends on the row width
+alone, so a row's result is the same in a decode batch of 8 and of 1,
+which the serving engine's continuous batching relies on.  Its plain
+version (the CPU's) rounds the mean to fp32 from an fp64 sum, the
+correctly rounded statistic (``kernels/rmsnorm.py`` says why).
 
-The statistics are summed in fp64 and rounded to fp32.  PyTorch picks a
-reduction's order by the tensor's shape, so an fp32 mean of the same row
-can round differently in a batch of 8 and in a batch of 1; fp64 sums in
-different orders round to the same fp32 value unless they straddle an fp32
-rounding boundary (rare, not a guarantee), which keeps a row's result
-independent of its batch — the serving engine's continuous batching
-relies on that.  The reference sums in fp32; the two differ by an ulp at
-most.  This is the exception to the port's fp32 rule that ROADMAP.md's
-"Rules of the port" records.
+``layernorm`` serves no configuration the port runs yet (Whisper's
+encoder); it keeps its statistics in fp64, rounded to fp32, the exception
+to the port's fp32 rule that ROADMAP.md's "Rules of the port" records,
+until a kernel of its own takes them over.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.params import bias, ones_vec
 
 __all__ = ["rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm"]
@@ -31,10 +34,7 @@ def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None):
 
 def rmsnorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = xf.double().square().mean(dim=-1, keepdim=True).float()
-    y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+    return ops.rmsnorm(x, params["scale"], eps=eps, plus_one=True)
 
 
 def layernorm_init(d: int, dtype=torch.bfloat16, device=None):

@@ -1,7 +1,8 @@
 """Parameter construction (counterpart: ``src/repro/models/params.py``).
 
 Every leaf is made by :func:`linear` / :func:`table` / :func:`bias` /
-:func:`ones_vec` with the reference's fan-in-scaled normal init, drawn from
+:func:`ones_vec` / :func:`uniform` with the reference's initialisers
+(fan-in-scaled normal for weights), drawn from
 an explicit :class:`torch.Generator` on the device the generator lives on.
 ``jax.random`` and ``torch`` give different numbers from one seed, so a
 test that compares the two packages carries the reference's weights across
@@ -20,7 +21,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["linear", "bias", "ones_vec", "table", "stack_bundles"]
+__all__ = ["linear", "bias", "ones_vec", "table", "uniform", "stack_bundles"]
 
 
 def _normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
@@ -51,6 +52,14 @@ def bias(shape: Sequence[int], dtype: torch.dtype = torch.bfloat16,
 def ones_vec(shape: Sequence[int], dtype: torch.dtype = torch.bfloat16,
              device=None) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=dtype, device=device)
+
+
+def uniform(gen: torch.Generator, shape: Sequence[int], low: float,
+            high: float) -> torch.Tensor:
+    """fp32 drawn uniformly from [low, high), as ``jax.random.uniform``
+    (the SSD layer's decay rates)."""
+    return torch.rand(tuple(shape), generator=gen, device=gen.device,
+                      dtype=torch.float32) * (high - low) + low
 
 
 def table(gen: torch.Generator, shape: Sequence[int],

@@ -17,10 +17,13 @@ Public entry points:
     TransformerLM.decode_step(...)       -> logits, cache   [1 token]
     TransformerLM.init_cache(...)        -> cache
 
-This slice runs attention-only dense decoders (every pattern entry one of
-``ATTENTION_KINDS``, a dense MLP, no encoder, no vision tokens, no
-cross-attention).  MoE, RG-LRU, SSD, encoder and vision blocks raise
-``NotImplementedError`` until their slices (ROADMAP.md, Queue 1).
+The port runs decoders whose pattern entries are ``ATTENTION_KINDS``
+(with a dense MLP, or none) and Mamba-2 SSD blocks (``ssd.py``, no MLP),
+with no encoder, no vision tokens and no cross-attention.  MoE, RG-LRU,
+encoder and vision blocks raise ``NotImplementedError`` until their slices
+(ROADMAP.md, Queue 1).  ``prefill_ragged`` serves attention-only stacks
+alone: a recurrent state would absorb the pad tail, so those stacks
+prefill per request (the serving engine picks the path).
 """
 from __future__ import annotations
 
@@ -36,16 +39,18 @@ from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import (layernorm, layernorm_init, rmsnorm,
                                              rmsnorm_init)
 from repro_torch.models.layers.quant import QTensor
+from repro_torch.models.layers.ssd import init_ssd_cache, ssd_apply, ssd_init
 from repro_torch.models.params import stack_bundles
 
 __all__ = ["init_model", "TransformerLM", "check_supported", "layer_slice"]
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for the block kinds this slice does not
-    run."""
+    """Raise ``NotImplementedError`` for the blocks the port does not run
+    yet."""
     missing = []
-    kinds = sorted(k.value for k in cfg.pattern if k not in ATTENTION_KINDS)
+    kinds = sorted(k.value for k in cfg.pattern
+                   if k not in ATTENTION_KINDS and k != BlockKind.SSD)
     if kinds:
         missing.append(f"block kinds {kinds}")
     if cfg.num_experts:
@@ -56,12 +61,10 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append("the vision frontend")
     if cfg.learned_pos:
         missing.append("learned position tables")
-    if cfg.mlp_kind == "none":
-        missing.append("blocks without an MLP")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1); this slice runs attention-only dense decoders")
+            f"Queue 1); the port runs dense attention and SSD decoders")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -90,12 +93,18 @@ def layer_slice(tree, i: int):
 # --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
-def _block_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, Any]:
+def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind,
+                dtype) -> Dict[str, Any]:
     dev = gen.device
-    return {"ln1": _norm_init(cfg, dtype, dev),
-            "attn": attn_init(gen, cfg, dtype),
-            "ln2": _norm_init(cfg, dtype, dev),
-            "mlp": mlp_init(gen, cfg, dtype)}
+    block: Dict[str, Any] = {"ln1": _norm_init(cfg, dtype, dev)}
+    if kind == BlockKind.SSD:
+        block["ssd"] = ssd_init(gen, cfg, dtype)
+        return block
+    block["attn"] = attn_init(gen, cfg, dtype)
+    if cfg.mlp_kind != "none":
+        block["ln2"] = _norm_init(cfg, dtype, dev)
+        block["mlp"] = mlp_init(gen, cfg, dtype)
+    return block
 
 
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
@@ -105,8 +114,8 @@ def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     check_supported(cfg)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": embed_init(gen, cfg, dtype)}
-    periods = [{f"b{i}": _block_init(gen, cfg, dtype)
-                for i, _ in enumerate(cfg.pattern)}
+    periods = [{f"b{i}": _block_init(gen, cfg, kind, dtype)
+                for i, kind in enumerate(cfg.pattern)}
                for _ in range(cfg.num_periods)]
     params["blocks"] = stack_bundles(periods)
     params["final_norm"] = _norm_init(cfg, dtype, gen.device)
@@ -128,9 +137,14 @@ class TransformerLM:
     # ---------------- caches ---------------- #
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         cfg = self.cfg
-        per_period = [{f"b{i}": {"attn": init_kv_cache(cfg, kind, batch, max_seq,
-                                                       _dtype(cfg), self.device)}
-                       for i, kind in enumerate(cfg.pattern)}
+
+        def block_cache(kind: BlockKind):
+            if kind == BlockKind.SSD:
+                return {"ssd": init_ssd_cache(cfg, batch, _dtype(cfg), self.device)}
+            return {"attn": init_kv_cache(cfg, kind, batch, max_seq, _dtype(cfg),
+                                          self.device)}
+
+        per_period = [{f"b{i}": block_cache(kind) for i, kind in enumerate(cfg.pattern)}
                       for _ in range(cfg.num_periods)]
         return stack_bundles(per_period)
 
@@ -139,13 +153,18 @@ class TransformerLM:
                      positions=None, pos=None, cache=None, lengths=None):
         cfg = self.cfg
         h = _norm_apply(cfg, bp["ln1"], x)
+        if kind == BlockKind.SSD:
+            h, _ = ssd_apply(bp["ssd"], h, cfg=cfg, mode=mode,
+                             cache=None if cache is None else cache["ssd"])
+            return x + h
         h, _ = attn_apply(bp["attn"], h, cfg=cfg, kind=kind, mode=mode,
                           positions=positions, pos=pos,
                           cache=None if cache is None else cache["attn"],
                           use_rope=cfg.use_rope, lengths=lengths)
         x = x + h
-        h = _norm_apply(cfg, bp["ln2"], x)
-        x = x + mlp_apply(bp["mlp"], h)
+        if "mlp" in bp:
+            h = _norm_apply(cfg, bp["ln2"], x)
+            x = x + mlp_apply(bp["mlp"], h)
         return x
 
     def _run_stack(self, params, x, *, mode, positions=None, pos=None,
@@ -193,8 +212,16 @@ class TransformerLM:
         0..lengths[b]-1).  Causal masking keeps pad columns out of every
         real token's view, and the cache fill drops them, so each row's
         cache is what a lone batch-1 prefill would write.  Returns (per-row
-        next-token logits (B, 1, V), cache).  ``start_pos`` (the prefix
-        cache's tail prefill) is not ported yet."""
+        next-token logits (B, 1, V), cache).  Attention-only stacks alone:
+        a recurrent state (SSD h, conv taps) would absorb the pad tail, so
+        those stacks raise the reference's ``ValueError`` and prefill per
+        request instead.  ``start_pos`` (the prefix cache's tail prefill) is
+        not ported yet."""
+        cfg = self.cfg
+        if any(k not in ATTENTION_KINDS for k in cfg.pattern):
+            raise ValueError(f"{cfg.name}: prefill_ragged requires an "
+                             "attention-only pattern (recurrent state would "
+                             "absorb the pad tail)")
         if start_pos is not None:
             raise NotImplementedError(
                 "prefill_ragged(start_pos=) serves the prefix cache, which is "

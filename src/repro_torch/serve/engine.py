@@ -1,18 +1,24 @@
 """Continuous-batching decode engine: one shared KV cache, per-slot
 positions, mid-decode backfill (counterpart: ``src/repro/serve/engine.py``).
 
-Device work is three functions, run eagerly (the reference jits them):
+Device work is four functions, run eagerly (the reference jits them):
 
   * **ragged prefill** — newly admitted prompts of *mixed* lengths are
     right-padded and prefilled together (``TransformerLM.prefill_ragged``);
     pad columns never enter the cache, so each slot's cache is exactly what
-    a lone batch-1 prefill would have written.
+    a lone batch-1 prefill would have written.  Attention-only dense stacks
+    only (``ragged_ok``).
+  * **per-request prefill** — every other stack (here: Mamba-2's SSD
+    blocks, whose recurrent state would absorb a pad tail) prefills each
+    admitted prompt alone into a batch-1 cache (``TransformerLM.prefill``).
   * **fused decode** — ONE masked decode step advances every busy slot,
     each at its own position (``pos`` is a (B,) vector).
   * **cache scatter** — drops a prefilled wave into its slots of the shared
     cache.
 
-With ``cfg.quantize="int8"`` every attention and MLP projection is a
+Every RMSNorm goes through the ``rmsnorm`` kernel, and a Mamba-2 prefill
+runs the ``ssd_chunk_scan`` kernel once a layer.  With
+``cfg.quantize="int8"`` every attention and MLP projection is a
 ``QTensor`` and goes through the ``quant_matmul`` kernel: 7 launches a
 layer for each prefill wave and each decode step.
 
@@ -21,12 +27,9 @@ Slot admission, retirement and backfill are host-side and owned by
 the reference's static baseline and ``_run_one`` its slot-at-a-time
 oracle: greedy token streams from every path are identical per request.
 
-Not ported in this slice (ROADMAP.md, Queue 1): ``mesh=`` (slot sharding
-over ``serve/step.py``) and ``prefix_cache=`` (``serve/prefix_cache.py``)
-raise ``NotImplementedError``.  Every architecture this slice's
-``TransformerLM`` builds takes the ragged prefill; the reference's
-per-request prefill for recurrent, MoE, encoder and vision stacks comes
-with those blocks.
+Not ported yet (ROADMAP.md, Queue 1): ``mesh=`` (slot sharding over
+``serve/step.py``) and ``prefix_cache=`` (``serve/prefix_cache.py``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ATTENTION_KINDS, ArchConfig
 from repro_torch.models.layers.quant import quantize_model_params
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.scheduler import Request, SlotScheduler
@@ -92,9 +95,16 @@ class ServeEngine:
         if cfg.quantize != "none":
             params = quantize_model_params(params, cfg.quantize)
         self.params = params
+        # ragged (batched mixed-length) prefill is exact only when no
+        # cross-slot or sequential state exists; everything else prefills
+        # per request and scatters into its slot
+        self.ragged_ok = (
+            all(k in ATTENTION_KINDS for k in cfg.pattern)
+            and not cfg.num_experts and not cfg.cross_attention
+            and not cfg.vision_tokens)
         #: device work counted by kind, for the launch bookkeeping:
-        #: ragged prefill waves, whole-batch prefills (the reference paths),
-        #: decode steps
+        #: ragged prefill waves, whole-batch prefills (per-request admission
+        #: and the reference paths), decode steps
         self.calls = {"prefill_waves": 0, "prefills": 0, "decode_steps": 0}
 
     # ------------------------------------------------------------------ #
@@ -152,7 +162,9 @@ class ServeEngine:
         """Prefill the admitted requests and scatter them into their slots.
         Returns (cache, first greedy token per admit).
 
-        Mixed lengths go through ONE ragged right-padded prefill.  The wave
+        Stacks with ``ragged_ok`` take ONE ragged right-padded prefill for
+        the whole wave; the others prefill each request alone into a
+        batch-1 cache and scatter it into its slot.  The wave
         is padded along both axes so that shapes repeat from wave to wave:
         sequence to a ``pad_to`` bucket, batch to a wave bucket — 1 for a
         single-request backfill, the slot count otherwise, with dummy
@@ -166,6 +178,16 @@ class ServeEngine:
                   self.max_seq):
             raise ValueError("prompt + max_new_tokens exceeds max_seq")
         n, B = len(reqs), self.batch
+        if not self.ragged_ok:
+            first = np.zeros(n, np.int32)
+            for i, r in enumerate(reqs):
+                sub = self.model.init_cache(1, self.max_seq)
+                logits, sub = self._prefill(
+                    self.params,
+                    self._tensor(np.asarray(r.prompt, np.int32)[None, :]), sub)
+                cache = self._scatter(cache, sub, slots[i:i + 1])
+                first[i] = _argmax(logits)[0]
+            return cache, first
         wb = 1 if n == 1 else B                   # wave bucket (batch pad)
         S = min(int(-(-int(lens.max()) // pad_to) * pad_to), self.max_seq)
         padded = np.zeros((wb, S), np.int32)

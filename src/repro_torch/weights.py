@@ -27,6 +27,7 @@ from repro_torch.core.algorithms.logistic_regression import (
 )
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.models.layers.quant import QTensor
+from repro_torch.models.layers.ssd import ssd_shapes
 
 __all__ = ["from_reference", "lm_from_reference"]
 
@@ -80,7 +81,8 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
     arrays (bf16 as ``ml_dtypes.bfloat16`` or cast to float32 by the
     caller) and each ``QTensor`` as the tuple ``(q, scale, n_contract)``.
     ``cfg`` (the port's ``ArchConfig``), when given, is checked against the
-    tree's widths."""
+    tree's widths: the embedding table, and every SSD block's leaves (key
+    set and shapes, stacked on the layer axis)."""
     dev = resolve_device(device)
 
     def walk(tree):
@@ -94,4 +96,13 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
         if tuple(tok.shape) != (cfg.vocab_size, cfg.d_model):
             raise ValueError(f"embed/tok {tuple(tok.shape)} does not match "
                              f"{cfg.name}'s ({cfg.vocab_size}, {cfg.d_model})")
+        want = {k: (cfg.num_periods,) + v for k, v in ssd_shapes(cfg).items()}
+        for name, block in out["blocks"].items():
+            if "ssd" not in block:
+                continue
+            got = {k: tuple(v.shape) for k, v in block["ssd"].items()}
+            if got != want:
+                raise ValueError(f"blocks/{name}/ssd {got} does not match "
+                                 f"{cfg.name}'s {want}")
     return out
+

@@ -11,7 +11,11 @@ skip without one.  Tolerances are ``tests/test_kernels.py``'s fp32 2e-4
 (for the gradient: max abs error over the largest entry); k-means
 assignments are compared exactly on random data, where fp32 ties do not
 occur; ``quant_matmul`` is bitwise (its sum is integer), and greedy token
-streams are compared exactly.
+streams are compared exactly.  ``rmsnorm`` is held at rtol = atol = 1e-5
+in fp32 and within one bf16 step (rtol 2⁻⁷) in bf16 (only the order of a
+row's sum of squares differs), and bitwise between a row alone and in a
+batch; ``ssd_chunk_scan`` at rtol = atol = 1e-4, ``tests/test_kernels.py``'s
+own tolerance for that kernel.
 """
 import numpy as np
 import pytest
@@ -24,6 +28,8 @@ from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.kernels import kmeans_assign as tka
 from repro_torch.kernels import logreg_grad as tlg
 from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.serve.predictor import ModelPredictor
 from repro_torch.weights import from_reference
 
@@ -77,7 +83,8 @@ def test_cuda_kernels_match_plain_versions():
                                tka.kmeans_assign_plain(X, C))
     torch.cuda.synchronize()
     assert tk.launch_counts() == {"logreg_margin": 6, "logreg_xt_z": 6,
-                                  "kmeans_assign": 6}
+                                  "kmeans_assign": 6, "quant_matmul": 0,
+                                  "rmsnorm": 0, "ssd_chunk_scan": 0}
 
 
 @pytest.mark.cuda
@@ -183,5 +190,118 @@ def test_int8_lm_engine_on_card_matches_slot_at_a_time():
     served = eng.run(reqs())
     forwards = eng.calls["prefill_waves"] + eng.calls["decode_steps"]
     assert tk.launch_counts()["quant_matmul"] == 7 * cfg.num_layers * forwards > 0
+    solo = [eng._run_one(r) for r in reqs()]
+    assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_matches_plain_version():
+    """Mamba2's and Qwen2's served widths, fp32 and bf16, ragged widths
+    (not a multiple of 32, or of a 16-byte chunk), an unaligned row base;
+    a row gives the same bits alone as in a batch."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [((8, 2560), torch.bfloat16), ((1, 300, 2560), torch.bfloat16),
+              ((8, 5120), torch.float32), ((2, 77, 5120), torch.float32),
+              ((16, 1536), torch.bfloat16), ((5, 37), torch.float32),
+              ((3, 37), torch.bfloat16), ((4, 1), torch.float32)]
+    tk.reset_launch_counts()
+    for shape, dtype in shapes:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+        w = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+        got, want = trn.rmsnorm(x, w), trn.rmsnorm_plain(x, w)
+        assert got.dtype == dtype and got.shape == x.shape
+        tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+            else dict(rtol=2.0 ** -7, atol=0.0)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        rows = x.reshape(-1, shape[-1])
+        alone = trn.rmsnorm(rows[-1:].clone(), w)
+        assert torch.equal(alone[0], got.reshape(-1, shape[-1])[-1])
+    # a base 6 bytes past 16-byte alignment takes the element-by-element
+    # loads, in the same order as the vector loads of the aligned copy
+    flat = torch.randn(9 * 2560, generator=gen, device="cuda").to(torch.bfloat16)
+    x = flat[3:3 + 8 * 2560].view(8, 2560)
+    w = torch.ones(2560, device="cuda")
+    assert torch.equal(trn.rmsnorm(x, w), trn.rmsnorm(x.clone(), w))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["rmsnorm"] == 2 * len(shapes) + 2
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_reads_a_bf16_scale_plus_one():
+    """The models' call: a bf16 scale taken as 1 + scale, in the kernel,
+    gives the bits of the kernel given w = 1 + scale in fp32; a bf16
+    weight alone the bits of its fp32 copy."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for shape, dtype in (((8, 2560), torch.bfloat16), ((300, 5120), torch.float32),
+                         ((3, 37), torch.bfloat16)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+        s = (0.1 * torch.randn(shape[-1], generator=gen, device="cuda")).to(torch.bfloat16)
+        got = trn.rmsnorm(x, s, plus_one=True)
+        assert torch.equal(got, trn.rmsnorm(x, 1.0 + s.float()))
+        assert torch.equal(trn.rmsnorm(x, s), trn.rmsnorm(x, s.float()))
+        tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+            else dict(rtol=2.0 ** -7, atol=0.0)
+        torch.testing.assert_close(got.float(), trn.rmsnorm_plain(
+            x, s, plus_one=True).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_ssd_kernel_matches_plain_version(with_h0):
+    """Mamba2-2.7B's widths (P = 64, N = 128) at L = 256 over several
+    chunks and at one ragged chunk L = S, L = 37, L = 1, and the SMOKE
+    widths (P = 16, N = 16)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [(1, 80, 512, 64, 128, 256), (1, 80, 301, 64, 128, 301),
+             (2, 3, 74, 64, 128, 37), (2, 2, 5, 16, 16, 1), (1, 16, 40, 16, 16, 40)]
+    tk.reset_launch_counts()
+    for B, H, S, P, N, L in cases:
+        la = -torch.rand(B, H, S, generator=gen, device="cuda") * 0.2
+        dx = torch.randn(B, H, S, P, generator=gen, device="cuda")
+        Bm = torch.randn(B, S, N, generator=gen, device="cuda") * 0.3
+        Cm = torch.randn(B, S, N, generator=gen, device="cuda") * 0.3
+        h0 = torch.randn(B, H, P, N, generator=gen, device="cuda") * 0.1 \
+            if with_h0 else None
+        y, h = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+        yp, hp = tss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
+        torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(h, hp, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="P ≤ 64"):
+        tss.ssd_chunk_scan(la, torch.zeros(B, H, S, 65, device="cuda"), Bm, Cm,
+                           chunk=L)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["ssd_chunk_scan"] == len(cases)
+
+
+@pytest.mark.cuda
+def test_mamba_engine_on_card_matches_slot_at_a_time():
+    """Mamba2's SMOKE widths (fp32) on the card: per-request prefill and
+    batched decode give the slot-at-a-time oracle's streams; every prefill
+    ran the scan once a layer and every norm went through the kernel."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = get_smoke("mamba2-2.7b")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=3, max_seq=128)
+
+    def reqs():
+        r = np.random.default_rng(3)
+        return [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m)
+                for n, m in zip((5, 64, 40, 7, 33), (3, 8, 5, 6, 4))]
+
+    tk.reset_launch_counts()
+    served = eng.run(reqs())
+    forwards = eng.calls["prefills"] + eng.calls["decode_steps"]
+    assert eng.calls["prefill_waves"] == 0 and eng.calls["prefills"] == 5
+    counts = tk.launch_counts()
+    assert counts["ssd_chunk_scan"] == cfg.num_layers * 5
+    assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * forwards
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]

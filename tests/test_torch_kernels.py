@@ -145,7 +145,8 @@ def test_cpu_tensors_use_the_plain_version_and_count_no_launch():
     tlg.logreg_xt_z(X, tlg.logreg_margin(X, torch.zeros(2, 8), torch.zeros(4)))
     tka.kmeans_assign(X, torch.ones(3, 4))
     assert tk.launch_counts() == {"logreg_margin": 0, "logreg_xt_z": 0,
-                                  "kmeans_assign": 0, "quant_matmul": 0}
+                                  "kmeans_assign": 0, "quant_matmul": 0,
+                                  "rmsnorm": 0, "ssd_chunk_scan": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
