@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's three main paths once on one NVIDIA card.
+"""Drive the PyTorch / CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,9 @@ Phases (each one that fails makes the script exit non-zero):
 
   1. device   — the card's name and power limit, torch and CUDA versions;
                 TF32 is switched off, so fp32 means IEEE fp32 throughout.
-  2. build    — the six kernels from ``src/repro_torch/kernels/csrc`` with
-                nvcc (one process per source, in parallel), into ``build/``.
+  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (six
+                sources) with nvcc (one process per source, in parallel),
+                into ``build/``.
   3. kernels  — each kernel of the first path against its plain PyTorch
                 version on the card, in fp32 and bf16, with ragged n, d and k,
                 k = 65 and 257, planted ties, and a small fit on the card
@@ -31,7 +32,9 @@ Phases (each one that fails makes the script exit non-zero):
                 requests of 128..1,024 prompt tokens and 64 new tokens each,
                 all at once, through ServeEngine.run.  Checked: 196
                 quant_matmul and 57 rmsnorm launches per forward (7 and 2 a
-                layer, and the final norm), every stream
+                layer, and the final norm), 28 flash_attention launches per
+                prefill wave and 28 flash_attention_decode per decode step
+                (every attention through kernel 6), every stream
                 equal to the slot-at-a-time _run_one's, and the int8 prefill
                 logits within 20 % of the same weights unquantized at the
                 2-layer depth that bound was pinned on, and within 100 % at
@@ -45,20 +48,23 @@ Phases (each one that fails makes the script exit non-zero):
                 CUDA graph of launches, each reading its own copy of the
                 weight so that the weights miss L2), the plain version,
                 torch._int_mm where cuBLAS takes the shape, and the bound.
- 11. Mamba2 serving — Mamba2-2.7B at full width and depth (64 SSD layers,
-                d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
-                bf16 weights made from a seed, 8 slots, max_seq 2,048: 16
+ 11. Mamba2 serving — Mamba2-2.7B at full width (d_model 2560, 80 heads of
+                P = 64, N = 128, vocab 50,280), its depth cut from 64 SSD
+                layers to MB_LAYERS = 16 so that the whole run stays near
+                four minutes as later paths join it, bf16 weights made from
+                a seed, 8 slots, max_seq 2,048: 16
                 requests, all at once (8 prompts of 256..1,024 tokens, a
                 multiple of the 256 chunk, and 8 ragged ones of 142..998,
                 one chunk each), 64 new tokens each, through ServeEngine.run
-                with its per-request prefill.  Checked: 64 ssd_chunk_scan
-                launches per prefill and 129 rmsnorm launches per forward;
+                with its per-request prefill.  Checked: one ssd_chunk_scan
+                launch a layer a prefill and 2 rmsnorm launches a layer and
+                the final norm per forward;
                 every first token and every prefilled SSD state (bitwise)
                 equal to the slot-at-a-time _run_one's; how many streams
                 equal _run_one's, and where one leaves it, _run_one's top-2
                 logit gap there; the same at a 2-layer cut; the last-token
                 prefill logits through the kernels against the same model
-                through the plain versions, at 2 and at 64 layers.
+                through the plain versions, at 2 and at 16 layers.
  12. rmsnorm and ssd_chunk_scan against their plain versions at every shape
                 phases 8 and 11 launched, at ragged shapes, and (the scan)
                 with and without an initial state; rmsnorm rows alone equal
@@ -67,10 +73,34 @@ Phases (each one that fails makes the script exit non-zero):
                 events around a CUDA graph), beside the plain versions, the
                 library call where there is one (torch.nn.functional.
                 rms_norm) and the bound.
+ 14. Gemma3 serving — Gemma3-1B at full width and depth (26 layers: 22
+                sliding-window layers with 512-slot ring caches and 4 global
+                ones; d_model 1152, 4 q heads over 1 kv head of 256, vocab
+                262,144), bf16 weights made from a seed, int8 projections, 8
+                slots, max_seq 2,048: 16 requests of 40..1,960 prompt tokens
+                (some overflow the ring at prefill, some wrap it mid-decode;
+                the global caches run to 2,024 positions), 64 new tokens
+                each, all at once.  Checked: 26 flash_attention launches per
+                prefill wave and 26 flash_attention_decode per decode step,
+                182 quant_matmul and 53 rmsnorm per forward; every stream
+                equal to _run_one's; the last-token prefill logits through
+                the kernels against the plain versions at a 2-layer cut (the
+                first local and the first global layer).
+ 15. flash_attention (both forms) against its plain versions at every shape
+                phases 8 and 14 launched, and in fp32 and bf16 at hd 32, 128
+                and 256, GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that are
+                not a multiple of the key tile, and rings that have wrapped
+                (pos >= slots); a row bitwise the same at B = 1 and in a batch
+                of 8, and at its exact length and padded; a plain version
+                whose window is widened by one must read beyond the tolerance.
+ 16. timing    — flash_attention at the served shapes (CUDA events), beside
+                the plain versions, one torch.nn.functional.
+                scaled_dot_product_attention call (its backend named) and the
+                bound.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 8, then phase 11) and read just after it: they count those
-paths only.  The
+then phase 8, then phase 11, then phase 14) and read just after it: they
+count those paths only.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
 repository's ``src/`` beside it and one CUDA card.
@@ -91,8 +121,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, the fp32 rate outside
-# the tensor cores (kernels 1-3, rmsnorm and ssd_chunk_scan do IEEE fp32
-# arithmetic) and the dense int8 tensor-core rate (quant_matmul)
+# the tensor cores (kernels 1-3, rmsnorm, ssd_chunk_scan and flash_attention
+# do IEEE fp32 arithmetic) and the dense int8 tensor-core rate (quant_matmul)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
@@ -122,19 +152,39 @@ COLD_BYTES = 200e6
 # the Mamba2 serving phase: 8 prompts a multiple of the 256 chunk (each
 # twice) and 8 ragged ones drawn from MB_RAGGED (one chunk of L = S each)
 MB_ARCH, MB_SLOTS, MB_MAX_SEQ, MB_NEW = "mamba2-2.7b", 8, 2048, 64
+MB_LAYERS = 16          # of the published 64
 MB_ALIGNED, MB_RAGGED = (256, 512, 768, 1024), (142, 998)
 # Where a stream leaves the slot-at-a-time oracle (the decode products are
 # bf16 cuBLAS products, whose order depends on the batch), the oracle's gap
 # between its two best logits at that step must stay under these limits:
-# at a 2-layer cut a tie within rounding; at all 64 layers, where the
+# at a 2-layer cut a tie within rounding; at MB_LAYERS layers, where the
 # random-weight stack is chaotic (tests/test_torch_mamba2.py::
 # test_random_deep_stack_is_chaotic) and rounding moves logits by O(1),
 # only a clear winner (the logits' std is 2, their top-2 spacing ~0.4).
 MB_GAP_LIMIT, MB_GAP_LIMIT_DEEP = 0.05, 3.0
 # last-token prefill logits through the kernels against the plain versions,
-# max abs error over max |logit|, at a 2-layer cut (at 64 layers printed)
+# max abs error over max |logit|, at a 2-layer cut (at MB_LAYERS printed)
 MB_PLAIN_TOL = 0.02
 RMS_BF16_TOL = 2.0 ** -7     # one bf16 step of the value
+# the Gemma3 serving phase: the prompts are served short and long in turns,
+# so that each admission wave pads short prompts to long ones
+G3_ARCH, G3_SLOTS, G3_MAX_SEQ, G3_NEW = "gemma3-1b", 8, 2048, 64
+G3_PROMPTS = (40, 127, 128, 300, 480, 500, 511, 512, 513, 700, 1023, 1024, 1300,
+              1536, 1800, 1960)
+# last-token prefill logits through the kernels against the plain versions,
+# max abs error over max |logit|, at a 2-layer cut: fixed before the first
+# run, as phase 11's bound (rounding alone, carried through bf16 casts and
+# int8 activations, reads ~1e-3 there)
+G3_PLAIN_TOL = 0.02
+# flash_attention against its plain version: tests/test_kernels.py's fp32
+# tolerance; in bf16 one bf16 step of each value (the kernel sums in fp32,
+# the plain version in fp64, and the outputs round to bf16 either side of a
+# boundary) plus 1e-6 for values near 0
+FLASH_TOL = {torch.float32: dict(rtol=FP32_TOL, atol=FP32_TOL),
+             torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-6)}
+# prompt lengths of the bitwise invariance check: short of one key tile and
+# past it, either side of the ring, the longest served
+FLASH_INVARIANCE_LENS = (40, 127, 300, 511, 513, 1023, 1024, 1960)
 
 
 class SmokeFailure(RuntimeError):
@@ -669,6 +719,7 @@ def phase_lm(counts, report) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models.transformer import TransformerLM, init_model
@@ -710,6 +761,8 @@ def phase_lm(counts, report) -> None:
         engine.calls[k] = 0
     quant_matmul.shapes.clear()
     rmsnorm.shapes.clear()
+    flash_attention.shapes.clear()
+    flash_attention_decode.shapes.clear()
     sched = SlotScheduler(LM_SLOTS)
     reset_launch_counts()            # the LM path's run starts here
     sync()
@@ -725,6 +778,8 @@ def phase_lm(counts, report) -> None:
     per_forward = 7 * cfg.num_layers
     counts["lm"] = got
     counts["lm_rms_shapes"] = dict(rmsnorm.shapes)
+    counts["lm_flash_shapes"] = dict(flash_attention.shapes)
+    counts["lm_flash_decode_shapes"] = dict(flash_attention_decode.shapes)
     counts["lm_shapes"] = shapes
     counts["lm_by_shape"] = by_shape
     counts["lm_layers"] = cfg.num_layers
@@ -738,7 +793,8 @@ def phase_lm(counts, report) -> None:
           f"quant_matmul launches {got['quant_matmul']} != {per_forward} x {forwards}")
     check(got["rmsnorm"] == norms * forwards,
           f"rmsnorm launches {got['rmsnorm']} != {norms} x {forwards}")
-    check(all(v == 0 for k, v in got.items() if k not in ("quant_matmul", "rmsnorm")),
+    check_attention_launches(got, cfg.num_layers, engine.calls)
+    check(all(v == 0 for k, v in got.items() if k not in LM_KERNELS),
           f"the LM path launched another kernel: {got}")
     new = sum(len(r.out_tokens) for r in served)
     check(all(r.done and len(r.out_tokens) == LM_NEW for r in served),
@@ -753,6 +809,9 @@ def phase_lm(counts, report) -> None:
         f"({steps} steps of {LM_SLOTS} slots); peak device memory {peak:.2f} GB; "
         f"backfills {sched.backfills}")
     say(f"quant_matmul launches by (M, K, N): {by_shape}")
+    say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
+        f"{counts['lm_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
+        f"hd, mask): {counts['lm_flash_decode_shapes']}")
     report["lm"] = {"tokens_per_s": new / t_run, "prefill_s": t_prefill,
                     "decode_ms_per_step": (t_run - t_prefill) / max(steps, 1) * 1e3,
                     "peak_gb": peak, "seconds": t_run, "new_tokens": new}
@@ -811,13 +870,32 @@ def phase_lm(counts, report) -> None:
     del shifted
     prof = decode_profile(engine, report["lm"]["decode_ms_per_step"], LM_PROMPT_MAX)
     counts["lm_profile_qmm_ms"] = prof["quant_matmul"] if prof else None
+    report["lm"]["decode_profile"] = prof
     del engine, params, logits
     torch.cuda.empty_cache()
 
 
 # our kernels' names in a profile: the CUDA functions' names contain these
+# (both forms of flash_attention are instances of flash_kernel; a decode step
+# launches the decode form alone)
 PROFILED = {"quant_matmul": "qmm_", "rmsnorm": "rmsnorm_kernel",
-            "ssd_chunk_scan": "ssd_kernel"}
+            "ssd_chunk_scan": "ssd_kernel", "flash_attention_decode": "flash_kernel"}
+# the kernels an attention LM's serving path launches
+LM_KERNELS = ("quant_matmul", "rmsnorm", "flash_attention", "flash_attention_decode")
+
+
+def check_attention_launches(got, layers: int, calls) -> None:
+    """Every attention layer of every forward went through kernel 6: one
+    prefill launch a layer a wave, one decode launch a layer a step."""
+    waves, steps = calls["prefill_waves"], calls["decode_steps"]
+    say(f"attention launches: flash_attention {got['flash_attention']} = {layers} x "
+        f"{waves} prefill waves, flash_attention_decode {got['flash_attention_decode']} "
+        f"= {layers} x {steps} decode steps")
+    check(got["flash_attention"] == layers * waves > 0,
+          f"flash_attention launches {got['flash_attention']} != {layers} x {waves}")
+    check(got["flash_attention_decode"] == layers * steps > 0,
+          f"flash_attention_decode launches {got['flash_attention_decode']} != "
+          f"{layers} x {steps}")
 
 
 def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
@@ -1136,7 +1214,7 @@ def phase_mamba(counts) -> None:
     from repro_torch.models.transformer import TransformerLM, init_model
     from repro_torch.serve import ServeEngine, SlotScheduler
 
-    cfg = get_config(MB_ARCH)
+    cfg = dataclasses.replace(get_config(MB_ARCH), num_layers=MB_LAYERS)
     phase(f"11. Mamba2 serving: {cfg.name}, {cfg.num_layers} SSD layers, d_model "
           f"{cfg.d_model}, {cfg.ssd_heads} heads of P={cfg.ssd_head_dim}, "
           f"N={cfg.ssm_state}, vocab {cfg.vocab_size:,}, {cfg.dtype}, {MB_SLOTS} "
@@ -1525,6 +1603,523 @@ def phase_new_kernels_timing(gen, counts, worst) -> list:
     return records
 
 
+# --------------------------------------------------------------------------- #
+# the Gemma3 serving path, and kernel 6
+# --------------------------------------------------------------------------- #
+def gemma3_requests(cfg):
+    """The 16 prompts of G3_PROMPTS, shortest and longest in turns, 64 new
+    tokens each."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(SEED + 2)
+    half = len(G3_PROMPTS) // 2
+    lens = [n for pair in zip(G3_PROMPTS[:half], G3_PROMPTS[half:][::-1]) for n in pair]
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=G3_NEW) for n in lens]
+
+
+def gemma3_cut(cfg, tree):
+    """A 2-layer cut of Gemma3: its first local and its first global layer
+    (layers 1 and 6), as the config and the tree of a 2-layer model."""
+    import dataclasses
+
+    from repro_torch.models.config import BlockKind
+
+    local = cfg.pattern.index(BlockKind.ATTN_LOCAL)
+    glob = cfg.pattern.index(BlockKind.ATTN)
+    cut = dataclasses.replace(cfg, num_layers=2,
+                              pattern=(BlockKind.ATTN_LOCAL, BlockKind.ATTN))
+    blocks = {"b0": _first_layers(tree["blocks"][f"b{local}"], 1),
+              "b1": _first_layers(tree["blocks"][f"b{glob}"], 1)}
+    return cut, {**tree, "blocks": blocks}
+
+
+def _flash_widened(q, k, v, *, causal=True, window=None, chunk=None, scale=None):
+    """Wrong: the plain prefill form with its window widened by one key."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    return flash_attention_plain(q, k, v, causal=causal, chunk=chunk, scale=scale,
+                                 window=None if window is None else window + 1)
+
+
+def _flash_fp32(q, k, v, *, causal=True, window=None, chunk=None, scale=None):
+    """The prefill form's function with every sum in fp32, in PyTorch's
+    order: another rounding of the same function, a control for how far
+    rounding alone moves the logits."""
+    from repro_torch.kernels.flash_attention import NEG_INF, _admitted
+
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(B, KV, H // KV, Sq, hd),
+                     k.float()) * (hd ** -0.5 if scale is None else scale)
+    pq = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    valid = _admitted(pq, torch.arange(Sk, device=q.device)[None, :], causal, window, chunk)
+    p = torch.softmax(torch.where(valid, s, torch.full((), NEG_INF, device=q.device)), -1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return out.to(q.dtype).reshape(B, H, Sq, hd)
+
+
+def plain_attention_lm() -> swapped_ops:
+    """Every kernel of the attention LM's path replaced by its plain version."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import quant_matmul as kqm
+    from repro_torch.kernels import rmsnorm as krn
+
+    return swapped_ops(flash_attention=kfa.flash_attention_plain,
+                       flash_attention_decode=kfa.flash_attention_decode_plain,
+                       rmsnorm=krn.rmsnorm_plain, quant_matmul=kqm.quant_matmul_plain)
+
+
+def phase_gemma3(counts, report) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import quant_matmul as kqm
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.models.transformer import TransformerLM, init_model
+    from repro_torch.serve import ServeEngine, SlotScheduler
+
+    cfg = dataclasses.replace(get_config(G3_ARCH), quantize="int8")
+    L = cfg.num_layers
+    phase(f"14. Gemma3 serving: {cfg.name}, {L} layers (window {cfg.window} on the "
+          f"local ones), d_model {cfg.d_model}, {cfg.num_heads} q heads over "
+          f"{cfg.num_kv_heads} kv head of {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab_size:,}, {cfg.dtype}, int8 projections, {G3_SLOTS} slots, "
+          f"max_seq {G3_MAX_SEQ}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    engine = ServeEngine(cfg, params, batch_size=G3_SLOTS, max_seq=G3_MAX_SEQ,
+                         device=DEVICE)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    q_bytes = sum(t.qt.numel() for t in _leaves(engine.params, qtensors=True))
+    cache = engine.init_shared_cache()
+    slots = sorted(c["attn"]["k"].shape[2] for c in cache.values()
+                   for _ in range(cfg.num_periods))
+    say(f"weights made on the card from seed {SEED} and quantized in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f} B params "
+        f"({cfg.dtype}), {q_bytes / 1e9:.3f} GB of int8 projections; cache slots "
+        f"per layer: {slots.count(cfg.window)} x {cfg.window} (ring), "
+        f"{slots.count(G3_MAX_SEQ)} x {G3_MAX_SEQ}")
+    del cache
+    engine.warmup(prompt_lens=[G3_PROMPTS[0]])
+    sync()
+    reqs = gemma3_requests(cfg)
+    lens = [len(r.prompt) for r in reqs]
+    waves = []
+    prefill_into = engine._prefill_into
+
+    def timed_prefill_into(*a, **kw):
+        t = time.perf_counter()
+        out = prefill_into(*a, **kw)
+        waves.append(time.perf_counter() - t)
+        return out
+
+    engine._prefill_into = timed_prefill_into
+    for k in engine.calls:
+        engine.calls[k] = 0
+    for fn in (kfa.flash_attention, kfa.flash_attention_decode, kqm.quant_matmul,
+               krn.rmsnorm):
+        fn.shapes.clear()
+    sched = SlotScheduler(G3_SLOTS)
+    reset_launch_counts()            # the Gemma3 path's run starts here
+    sync()
+    t0 = time.perf_counter()
+    served = engine.run(reqs, scheduler=sched)
+    sync()
+    t_run = time.perf_counter() - t0
+    got = launch_counts()            # ... and ends here
+    engine._prefill_into = prefill_into
+    steps = engine.calls["decode_steps"]
+    forwards = engine.calls["prefill_waves"] + steps
+    counts["g3"] = got
+    counts["g3_flash_shapes"] = dict(kfa.flash_attention.shapes)
+    counts["g3_flash_decode_shapes"] = dict(kfa.flash_attention_decode.shapes)
+    counts["g3_layers"] = L
+    say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} prefill "
+        f"waves + {steps} decode steps = {forwards} forwards x {7 * L} quant_matmul "
+        f"and x {2 * L + 1} rmsnorm")
+    check(got["quant_matmul"] == 7 * L * forwards > 0,
+          f"quant_matmul launches {got['quant_matmul']} != {7 * L} x {forwards}")
+    check(got["rmsnorm"] == (2 * L + 1) * forwards,
+          f"rmsnorm launches {got['rmsnorm']} != {2 * L + 1} x {forwards}")
+    check_attention_launches(got, L, engine.calls)
+    check(all(v == 0 for k, v in got.items() if k not in LM_KERNELS),
+          f"the Gemma3 path launched another kernel: {got}")
+    check(all(r.done and len(r.out_tokens) == G3_NEW for r in served),
+          "a request did not finish with its tokens")
+    say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
+        f"{counts['g3_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
+        f"hd, mask): {counts['g3_flash_decode_shapes']}")
+    over = [n for n in lens if n > cfg.window]
+    wrap = [n for n in lens if n <= cfg.window < n + G3_NEW]
+    say(f"prompts over the {cfg.window}-slot ring at prefill: {over}; wrapping it "
+        f"mid-decode: {wrap}; the global caches reach position {max(lens) + G3_NEW - 1}")
+    new = sum(len(r.out_tokens) for r in served)
+    t_prefill = sum(waves)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = (t_run - t_prefill) / max(steps, 1) * 1e3
+    say(f"served {len(served)} requests (prompts {lens}, {sum(lens)} tokens) / {new} "
+        f"new tokens in {t_run:.3f} s: {new / t_run:.1f} tokens/s; prefill "
+        f"{t_prefill:.3f} s in {len(waves)} waves; decode {step_ms:.2f} ms per step "
+        f"({steps} steps of {G3_SLOTS} slots); peak device memory {peak:.2f} GB; "
+        f"backfills {sched.backfills}")
+    report["gemma3"] = {"tokens_per_s": new / t_run, "prefill_s": t_prefill,
+                        "decode_ms_per_step": step_ms, "peak_gb": peak,
+                        "seconds": t_run, "new_tokens": new}
+
+    # every stream equals the slot-at-a-time oracle's
+    t0 = time.perf_counter()
+    solo = [engine._run_one(r) for r in gemma3_requests(cfg)]
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(served, solo))
+    say(f"streams equal to the slot-at-a-time _run_one: {same} of {len(served)} "
+        f"({time.perf_counter() - t0:.1f} s for the oracle)")
+    check(same == len(served), f"{len(served) - same} streams differ from _run_one")
+
+    # last-token prefill logits through the kernels against the plain
+    # versions, at a 2-layer cut; beside it, each kernel alone, a plain
+    # attention summed in fp32 (how far rounding alone moves the logits), one
+    # whose window is one key wider, and the same weights unquantized
+    cut_cfg, tree = gemma3_cut(cfg, engine.params)
+    _, tree_bf16 = gemma3_cut(cfg, params)
+    model = TransformerLM(cut_cfg, DEVICE)
+    sub = sorted(reqs, key=lambda r: len(r.prompt))[-2:]
+    plain = dict(rmsnorm=krn.rmsnorm_plain, quant_matmul=kqm.quant_matmul_plain)
+    plain_attn = dict(flash_attention=kfa.flash_attention_plain,
+                      flash_attention_decode=kfa.flash_attention_decode_plain)
+    variants = {"kernels": (swapped_ops(), tree),
+                "flash_attention kernel alone": (swapped_ops(**plain), tree),
+                "rmsnorm kernel alone": (swapped_ops(
+                    **plain_attn, quant_matmul=kqm.quant_matmul_plain), tree),
+                "plain, attention summed in fp32": (swapped_ops(
+                    flash_attention=_flash_fp32, **plain), tree),
+                "plain, window widened by one": (swapped_ops(
+                    flash_attention=_flash_widened, **plain), tree),
+                "kernels, bf16 weights (no int8)": (swapped_ops(), tree_bf16)}
+    errs = {k: [] for k in variants}
+    for r in sub:
+        toks = torch.as_tensor(r.prompt[None], device=DEVICE)
+        want = {}
+        for t in (tree, tree_bf16):
+            with plain_attention_lm():
+                want[id(t)], _ = model.prefill(t, toks, model.init_cache(1, len(r.prompt)))
+        for k, (ctx, t) in variants.items():
+            with ctx:
+                a, _ = model.prefill(t, toks, model.init_cache(1, len(r.prompt)))
+            check(bool(torch.isfinite(a).all()) and a.shape == (1, 1, cfg.vocab_size),
+                  f"Gemma3 2-layer logits ({k}) not finite or misshapen")
+            errs[k].append(rel_err(a, want[id(t)]))
+    say(f"last-token prefill logits at a 2-layer cut (layers 1 and 6) against the "
+        f"plain versions (prompts of {[len(r.prompt) for r in sub]} tokens), max abs "
+        f"error over max |logit|: through the kernels {fmt(errs['kernels'])} (bound "
+        f"{G3_PLAIN_TOL})")
+    for k in list(variants)[1:]:
+        say(f"    {k}: {fmt(errs[k])}")
+    check(max(errs["kernels"]) <= G3_PLAIN_TOL,
+          f"Gemma3 logits kernels vs plain at 2 layers: {errs['kernels']}")
+    report["gemma3"]["plain_rel_err"] = errs
+    prof = decode_profile(engine, step_ms, max(lens))
+    report["gemma3"]["decode_profile"] = prof
+    del engine, params, tree, model
+    torch.cuda.empty_cache()
+
+
+def _mask_kwargs(mask: tuple) -> dict:
+    """The mask arguments of a flash_attention ``.shapes`` key's mask."""
+    from repro_torch.kernels.flash_attention import MASK_ARGS
+
+    return dict(zip(MASK_ARGS, mask))
+
+
+def _flash_inputs(gen, dtype, B, H, KV, Sq, Sk, hd):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    return randn(B, H, Sq, hd), randn(B, KV, Sk, hd), randn(B, KV, Sk, hd)
+
+
+def _decode_inputs(gen, dtype, B, H, KV, slots, hd, pos_max):
+    """q and caches drawn at random (stale slots included), and positions
+    spread over [0, pos_max], the last rows past the ring's end."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    pos = torch.linspace(0, pos_max, B, device=DEVICE).long()
+    return randn(B, H, hd), randn(B, slots, KV, hd), randn(B, slots, KV, hd), pos
+
+
+def _flash_err(a, b, dtype):
+    """(within the tolerance, max abs error, max error over the tolerance)."""
+    tol = FLASH_TOL[dtype]
+    err = (a.float() - b.float()).abs()
+    allowed = tol["atol"] + tol["rtol"] * b.float().abs()
+    return bool((err <= allowed).all()), err.max().item(), (err / allowed).max().item()
+
+
+def phase_flash_check(gen, counts) -> dict:
+    from repro_torch.kernels import flash_attention as kfa
+
+    phase("15. flash_attention against its plain versions")
+    say(f"tolerance: fp32 {FP32_TOL} (rtol and atol, tests/test_kernels.py's), bf16 "
+        f"one bf16 step of each value (rtol 2^-7) + 1e-6")
+    worst = {"flash_attention": 0.0, "flash_attention_decode": 0.0}
+    served = list({**counts["lm_flash_shapes"], **counts["g3_flash_shapes"]})
+    served_dec = list({**counts["lm_flash_decode_shapes"],
+                       **counts["g3_flash_decode_shapes"]})
+    # (B, H, KV, Sq, Sk, hd, mask kwargs, dtypes)
+    both = (torch.float32, torch.bfloat16)
+    cases = [(*k[:6], _mask_kwargs(k[6]), (torch.bfloat16,)) for k in served] + [
+        (2, 12, 2, 100, 100, 128, dict(causal=True), both),          # 6:1, ragged
+        (1, 4, 1, 37, 600, 256, dict(causal=True, window=512), both),  # Sq < Sk
+        (2, 4, 1, 300, 300, 256, dict(causal=True, chunk=128), both),
+        (3, 4, 4, 33, 33, 32, dict(causal=False), both),
+        (1, 12, 2, 1, 777, 128, dict(causal=True, window=100), both),
+        (2, 4, 1, 513, 513, 256, dict(causal=True, window=512), both)]
+    for B, H, KV, Sq, Sk, hd, kw, dtypes in cases:
+        for dtype in dtypes:
+            q, k, v = _flash_inputs(gen, dtype, B, H, KV, Sq, Sk, hd)
+            a, b = kfa.flash_attention(q, k, v, **kw), kfa.flash_attention_plain(q, k, v, **kw)
+            sync()
+            ok, err, ratio = _flash_err(a, b, dtype)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            check(ok, f"flash_attention {(B, H, KV, Sq, Sk, hd)} {kw} {dtype}: max abs "
+                  f"err {err} ({ratio:.3g} x the tolerance)")
+            del q, k, v, a, b
+    say(f"prefill form at the {len(served)} served shapes (bf16) and {len(cases) - len(served)} "
+        f"others in fp32 and bf16 (hd 32, 128, 256; GQA 1:1, 4:1, 6:1; causal, window, "
+        f"chunk, not causal; Sq < Sk; Sk 33, 100, 300, 513, 600, 777): within the "
+        f"tolerance, max abs error {worst['flash_attention']:.3g}")
+    dec = [(*k[:5], _mask_kwargs(k[5]), 2 * G3_MAX_SEQ - 1, (torch.bfloat16,))
+           for k in served_dec] + [
+        (8, 4, 1, 512, 256, dict(causal=True, window=512), 2047, both),
+        (8, 12, 2, 2048, 128, dict(causal=True), 2047, both),
+        (3, 4, 1, 16, 32, dict(causal=True, chunk=16), 100, both),
+        (5, 6, 1, 77, 64, dict(causal=True, window=50), 300, both)]
+    for B, H, KV, slots, hd, kw, pos_max, dtypes in dec:
+        for dtype in dtypes:
+            q, kc, vc, pos = _decode_inputs(gen, dtype, B, H, KV, slots, hd, pos_max)
+            a = kfa.flash_attention_decode(q, kc, vc, pos, **kw)
+            b = kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw)
+            sync()
+            ok, err, ratio = _flash_err(a, b, dtype)
+            worst["flash_attention_decode"] = max(worst["flash_attention_decode"], err)
+            check(ok, f"flash_attention_decode {(B, H, KV, slots, hd)} {kw} {dtype} "
+                  f"pos {pos.tolist()}: max abs err {err} ({ratio:.3g} x the tolerance)")
+    say(f"decode form at the {len(served_dec)} served shapes (bf16, positions up to "
+        f"{2 * G3_MAX_SEQ - 1}: every ring wrapped) and {len(dec) - len(served_dec)} "
+        f"others in fp32 and bf16 (hd 32, 64, 128, 256; GQA 4:1, 6:1; window, chunk; "
+        f"pos >= slots): within the tolerance, max abs error "
+        f"{worst['flash_attention_decode']:.3g}")
+
+    # bitwise: a row alone (B = 1) at its exact length equals the same row in a
+    # right-padded batch of 8; decode rows alone, and over exactly pos + 1
+    # slots, equal the batch's over 2,048
+    lens = list(FLASH_INVARIANCE_LENS)
+    S = max(lens)
+    for H, KV, hd, kw in ((4, 1, 256, dict(window=512)), (4, 1, 256, dict()),
+                          (12, 2, 128, dict())):
+        q, k, v = _flash_inputs(gen, torch.bfloat16, 8, H, KV, S, S, hd)
+        batch = kfa.flash_attention(q, k, v, **kw)
+        for b, n in enumerate(lens):
+            alone = kfa.flash_attention(q[b:b + 1, :, :n], k[b:b + 1, :, :n],
+                                        v[b:b + 1, :, :n], **kw)
+            check(torch.equal(alone[0], batch[b, :, :n]),
+                  f"flash_attention {kw}: a prompt of {n} alone differs from the "
+                  f"same rows in a padded batch of 8")
+        qd, kc, vc, _ = _decode_inputs(gen, torch.bfloat16, 8, H, KV, G3_MAX_SEQ, hd, 0)
+        pos = torch.tensor(lens, device=DEVICE) - 1
+        batch = kfa.flash_attention_decode(qd, kc, vc, pos, **kw)
+        for b, n in enumerate(lens):
+            alone = kfa.flash_attention_decode(qd[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                               pos[b:b + 1], **kw)
+            exact = kfa.flash_attention_decode(qd[b:b + 1], kc[b:b + 1, :n],
+                                               vc[b:b + 1, :n], pos[b:b + 1], **kw)
+            check(torch.equal(alone[0], batch[b]) and torch.equal(exact[0], batch[b]),
+                  f"flash_attention_decode {kw}: row at {n - 1} differs alone or over "
+                  f"{n} slots")
+        del q, k, v, qd, kc, vc
+    say(f"bitwise invariance (bf16; hd 256 with and without the 512 window, hd 128): "
+        f"prompts of {lens} alone at their exact length equal their rows in a batch "
+        f"of 8 padded to {S}; decode rows alone and over exactly pos + 1 slots equal "
+        f"their rows in a batch of 8 over {G3_MAX_SEQ}")
+
+    # the check sees a fault: a plain version whose window is one key wider,
+    # at the served local prefill shape
+    local = [k for k in served if _mask_kwargs(k[6])["window"] is not None]
+    B, H, KV, Sq, Sk, hd, key = max(local, key=lambda k: k[4])
+    kw = _mask_kwargs(key)
+    reads = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_inputs(gen, dtype, B, H, KV, Sq, Sk, hd)
+        a = kfa.flash_attention(q, k, v, **kw)
+        ok, _, ratio = _flash_err(a, _flash_widened(q, k, v, **kw), dtype)
+        ok_sound, _, sound = _flash_err(a, kfa.flash_attention_plain(q, k, v, **kw), dtype)
+        reads.append((str(dtype)[6:], sound, ratio))
+        check(ok_sound and not ok, f"the tolerance does not tell a window widened by one "
+              f"at {(B, H, KV, Sq, Sk, hd)} {kw} {dtype}: {ratio:.3g} x the tolerance")
+        del q, k, v, a
+    say(f"at the served local shape {(B, H, KV, Sq, Sk, hd)} {kw}: the kernel against "
+        f"its plain version reads " + ", ".join(f"{d} {s:.3g}" for d, s, _ in reads)
+        + " x the tolerance; against a plain version whose window is one key wider "
+        + ", ".join(f"{d} {r:.3g}" for d, _, r in reads) + " x (must exceed 1)")
+    return worst
+
+
+def _attention_pairs(B, H, Sq, Sk, kw, pos=None, slots=None) -> float:
+    """The admitted (query, key) pairs summed over batch rows and q heads:
+    the work this run's data needs."""
+    from repro_torch.kernels.flash_attention import _admitted, slot_positions
+
+    if pos is None:
+        pq = torch.arange(Sq, device=DEVICE)[:, None] + (Sk - Sq)
+        pk = torch.arange(Sk, device=DEVICE)[None, :]
+        return float(_admitted(pq, pk, **kw).sum().item()) * B * H
+    sp = slot_positions(pos, slots)
+    valid = (sp >= 0) & _admitted(pos.long()[:, None], sp, **kw)
+    return float(valid.sum().item()) * H
+
+
+def _ms(t) -> str:
+    return "none" if t is None else f"{t:.4f} ms"
+
+
+def sdpa_yardstick(q, k, v, *, scale, attn_mask=None, is_causal=False):
+    """One scaled_dot_product_attention call on the kernel's inputs (GQA
+    by enable_gqa, as kernel 6 reads K/V), and the backend PyTorch picks
+    for it (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    kw = dict(attn_mask=attn_mask, is_causal=is_causal, scale=scale, enable_gqa=True)
+
+    def fn():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
+    try:
+        name = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        name = f"backend unknown: {str(e).splitlines()[0][:80]}"
+    return fn, name
+
+
+def library_time(fn, backend: str, eager: bool):
+    """(ms, note) of one scaled_dot_product_attention call: CUDA events
+    around eager calls, or around a CUDA graph of calls (as the kernel it
+    stands beside is timed); (None, why) where it refuses the inputs."""
+    try:
+        ms = cuda_ms(fn, 5) if eager else graph_ms(fn)
+    except RuntimeError as e:
+        sync()
+        return None, f"refused: {str(e).splitlines()[0][:120]}"
+    return ms, backend
+
+
+def phase_flash_timing(gen, counts, worst) -> list:
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import _admitted, slot_positions
+
+    phase("16. flash_attention timing at the served shapes")
+    g3, lm = counts["g3_flash_shapes"], counts["lm_flash_shapes"]
+    g3d, lmd = counts["g3_flash_decode_shapes"], counts["lm_flash_decode_shapes"]
+
+    def widest(shapes, pred):
+        return max((k for k in shapes if pred(k)), key=lambda k: (k[0], k[4]))
+
+    def local(mask):
+        return _mask_kwargs(mask)["window"] is not None
+
+    pre_rows = [("Gemma3 prefill, global", widest(g3, lambda k: not local(k[6]))),
+                ("Gemma3 prefill, local", widest(g3, lambda k: local(k[6]))),
+                ("Qwen2 prefill", widest(lm, lambda k: True))]
+    dec_rows = [("Gemma3 decode, global", widest(g3d, lambda k: not local(k[5]))),
+                ("Gemma3 decode, local ring", widest(g3d, lambda k: local(k[5]))),
+                ("Qwen2 decode", widest(lmd, lambda k: True))]
+    records = []
+    timings = []
+    for label, key in pre_rows:
+        B, H, KV, Sq, Sk, hd, mk = key
+        kw = _mask_kwargs(mk)
+        q, k, v = _flash_inputs(gen, torch.bfloat16, B, H, KV, Sq, Sk, hd)
+        ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw), 5)
+        plain_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v, **kw), 1)
+        pq = torch.arange(Sq, device=DEVICE)[:, None] + (Sk - Sq)
+        mask = _admitted(pq, torch.arange(Sk, device=DEVICE)[None, :], **kw)
+        if kw["window"] is not None or kw["chunk"] is not None:
+            lib, backend = sdpa_yardstick(q, k, v, attn_mask=mask, scale=hd ** -0.5)
+        else:
+            lib, backend = sdpa_yardstick(q, k, v, is_causal=True, scale=hd ** -0.5)
+        lib_ms, backend = library_time(lib, backend, eager=True)
+        pairs = _attention_pairs(B, H, Sq, Sk, kw)
+        t_b, by = bound(2 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd), 4.0 * hd * pairs)
+        launched = {**g3, **lm}.get(key, 0)
+        say(f"flash_attention {label} (B, H, KV, Sq, Sk, hd) = {(B, H, KV, Sq, Sk, hd)} "
+            f"{kw}, bf16, {launched} launches on the path: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}), "
+            f"bound {t_b:.4f} ms ({by}; {pairs:.4g} admitted pairs), {t_b / ms:.1%} of it")
+        timings.append({"label": label, "shape": [B, H, KV, Sq, Sk, hd], "mask": kw,
+                        "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "library_note": backend,
+                        "bound_ms": t_b, "bound_by": by})
+        del q, k, v, mask
+    head = timings[0]
+    records.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:123",
+        "launches": counts["lm"]["flash_attention"] + counts["g3"]["flash_attention"],
+        "max_abs_err": worst["flash_attention"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_note": head["library_note"], "shape": head["shape"], "shapes": timings,
+        "launches_by_path": {"lm_serve": counts["lm"]["flash_attention"],
+                             "gemma3_serve": counts["g3"]["flash_attention"]},
+    })
+    timings = []
+    for label, key in dec_rows:
+        B, H, KV, slots, hd, mk = key
+        kw = _mask_kwargs(mk)
+        # every row at the end of its stream: the served run's last positions
+        pos_max = G3_MAX_SEQ - 1 if not local(mk) else 2 * slots + 100
+        q, kc, vc, pos = _decode_inputs(gen, torch.bfloat16, B, H, KV, slots, hd, pos_max)
+        pos = torch.clamp(pos + pos_max // 2, max=pos_max)
+        ms = graph_ms(lambda: kfa.flash_attention_decode(q, kc, vc, pos, **kw))
+        plain_ms = cuda_ms(lambda: kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw), 3)
+        sp = slot_positions(pos, slots)
+        valid = (sp >= 0) & _admitted(pos[:, None], sp, **kw)
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        lib, backend = sdpa_yardstick(q[:, :, None], kt, vt, scale=hd ** -0.5,
+                                      attn_mask=valid[:, None, None, :])
+        lib_ms, backend = library_time(lib, backend, eager=False)
+        pairs = _attention_pairs(B, H, 1, slots, kw, pos=pos, slots=slots)
+        n_valid = float(valid.sum().item())
+        t_b, by = bound(2 * (2 * n_valid * KV * hd + 2 * B * H * hd), 4.0 * hd * pairs)
+        launched = {**g3d, **lmd}.get(key, 0)
+        say(f"flash_attention_decode {label} (B, H, KV, slots, hd) = {(B, H, KV, slots, hd)} "
+            f"{kw}, bf16, positions {pos.tolist()}, {launched} launches on the path: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{_ms(lib_ms)} ({backend}), bound {t_b:.4f} ms ({by}; {n_valid:.0f} valid "
+            f"slots), {t_b / ms:.1%} of it")
+        timings.append({"label": label, "shape": [B, H, KV, slots, hd], "mask": kw,
+                        "positions": pos.tolist(), "launches": launched, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "library_note": backend, "bound_ms": t_b, "bound_by": by})
+        del q, kc, vc, kt, vt
+    head = timings[0]
+    records.append({
+        "name": "flash_attention_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:123",
+        "launches": counts["lm"]["flash_attention_decode"]
+        + counts["g3"]["flash_attention_decode"],
+        "max_abs_err": worst["flash_attention_decode"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_note": head["library_note"], "shape": head["shape"], "shapes": timings,
+        "launches_by_path": {"lm_serve": counts["lm"]["flash_attention_decode"],
+                             "gemma3_serve": counts["g3"]["flash_attention_decode"]},
+    })
+    return records
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -1562,11 +2157,14 @@ def main() -> int:
     phase_mamba(counts)
     worst = phase_new_kernels_check(gen, counts)
     records.extend(phase_new_kernels_timing(gen, counts, worst))
-    check(all(r["launches"] > 0 for r in records),
+    phase_gemma3(counts, report)
+    worst = phase_flash_check(gen, counts)
+    records.extend(phase_flash_timing(gen, counts, worst))
+    check(len(records) == 8 and all(r["launches"] > 0 for r in records),
           f"a kernel was never launched on its path: "
           f"{[(r['name'], r['launches']) for r in records]}")
     say(f"smoke run {time.perf_counter() - t_start:.1f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB since phase 11")
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB since phase 14")
     print(CARD)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import kmeans_assign as _kmeans_assign
 from repro_torch.kernels import logreg_grad as _logreg_grad
 from repro_torch.kernels import quant_matmul as _quant_matmul
@@ -24,6 +25,8 @@ KERNELS = {
     "quant_matmul": _quant_matmul.quant_matmul,
     "rmsnorm": _rmsnorm.rmsnorm,
     "ssd_chunk_scan": _ssd_scan.ssd_chunk_scan,
+    "flash_attention": _flash_attention.flash_attention,
+    "flash_attention_decode": _flash_attention.flash_attention_decode,
 }
 
 

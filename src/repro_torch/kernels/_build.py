@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: <checkout>/build/kernels (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: every CUDA source of the package, by stem
-SOURCES = ("logreg_grad", "kmeans_assign", "quant_matmul", "rmsnorm", "ssd_scan")
+SOURCES = ("logreg_grad", "kmeans_assign", "quant_matmul", "rmsnorm", "ssd_scan",
+           "flash_attention")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -108,7 +108,7 @@ class ArchConfig:
     #    unrolled shallow probes; see launch/dryrun.py)
     q_chunk: int = 1024                     # q-block size for chunked attention scan
     use_flash_kernel: bool = False          # never read (as in the reference);
-    #   attention is plain PyTorch until the flash kernel is ported
+    #   the port's attention always goes through its flash kernel
     cache_dtype: str = "bfloat16"           # "int8" enables quantized KV cache
     quantize: str = "none"                  # weight quantization for serving:
     #   "none" | "bf16" (cast float params) | "int8" (symmetric per-channel

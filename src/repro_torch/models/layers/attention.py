@@ -2,38 +2,40 @@
 masks, and KV-cache decode over full and ring-buffer caches (counterpart:
 ``src/repro/models/layers/attention.py``).
 
-Attention itself is plain PyTorch (einsum and softmax), as the reference
-computes it outside any kernel; the flash kernel is a later slice
-(ROADMAP.md, Queue 2).  The projections go through ``linear_or_quant``, so
-int8 weights reach the ``quant_matmul`` kernel.
+Attention itself goes through kernel 6 (ROADMAP.md, Queue 2;
+``kernels/flash_attention.py``): a prefill is one ``ops.flash_attention``
+call over the whole sequence, a decode step one ``ops.flash_attention_decode``
+call over the cache, each with the layer's mask.  On the card both are the
+hand-written CUDA kernels, on the CPU their plain versions.  The
+projections go through ``linear_or_quant``, so int8 weights reach the
+``quant_matmul`` kernel.
 
 Where the port differs in form:
 
 * The reference's caches are immutable arrays that every write copies; the
   port writes into the cache tensors in place and returns the same dict.
   Callers in this package never keep an old cache, so the results agree.
-* ``preferred_element_type=jnp.float32`` on bf16 operands: ``torch.einsum``
-  on bf16 returns bf16.  The two products and the softmax's sum are taken
-  in fp64 and rounded to fp32: cuBLAS and PyTorch's reductions pick their
-  summation order by shape, so fp32 sums of the same row round differently
-  in a decode batch of 8 and of 1, or over a padded and an exact prompt;
-  fp64 sums of the same row differ by a few fp64 ulps from order to order,
-  and round to one fp32 value unless they straddle an fp32 rounding
-  boundary: rare, since that spread is some 10⁶ times smaller than an
-  fp32 ulp, but not a guarantee.  That keeps continuous
-  batching stream-identical to the slot-at-a-time oracle on the card, as
-  the reference's invariant asks.  They differ from the reference's fp32
-  sums by an ulp or so.  This is an exception to the port's fp32 rule
-  (ROADMAP.md, "Rules of the port"), kept until a fixed-order attention
-  kernel (kernel 6) replaces it; it costs a decode step an fp64 copy of
-  every layer's K/V cache.
+* The reference's ``_sdpa`` (bf16 einsums, a softmax, the probabilities
+  rounded to v's dtype) and its prefill loop over ``q_chunk`` query blocks,
+  each against the key span its mask admits, are one function: the masks
+  carry the spans.  The port computes it as the Pallas kernel does
+  (``src/repro/kernels/flash_attention.py``): the probabilities stay fp32
+  for the product with V, where the reference's layer rounds them to bf16
+  for a bf16 model (identical for fp32 models).  The kernels sum each row
+  in one order fixed by the head dim and a key tile of fixed width from key
+  0, so a row's result is the same in a decode batch of 8 and of 1, and
+  over a padded and an exact prompt: continuous batching stays
+  stream-identical to the slot-at-a-time oracle, as the reference's
+  invariant asks, in fp32 and with no fp64 copy of the caches.
 * ``jnp.repeat`` for GQA (each kv head serves ``groups`` consecutive q
-  heads, ``repeat_interleave`` and not ``Tensor.repeat``) is not copied:
-  ``_sdpa`` groups the q heads by the kv head they read instead, so the
-  fp64 conversion touches the KV heads only.
-* The ring-slot arithmetic ``pc - (pc - slot_ids) % slots`` needs a modulo
-  with the divisor's sign: ``torch.remainder`` is that, as Python's and
-  ``jnp``'s ``%`` are (C's ``%`` is not).
+  heads) is not copied: the kernel groups the q heads by the kv head they
+  read.
+* The prefill masks read query and key positions 0..S-1 (the kernel's
+  convention, queries at the last Sq of Sk): ``positions`` is
+  ``arange(S)`` on every path the port runs, and RoPE reads it.  The tail
+  prefill over a restored prefix, which offsets them, raises (below).
+* ``ArchConfig.use_flash_kernel`` is not read, as in the reference: the
+  kernel is the port's only attention.
 
 Not ported in this slice, and raising ``NotImplementedError`` (ROADMAP.md,
 Queue 1): the int8 KV cache (``cache_dtype="int8"``), cross-attention, and
@@ -46,15 +48,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers.quant import linear_or_quant
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.params import bias as bias_init
 from repro_torch.models.params import linear
 
-__all__ = ["attn_init", "attn_apply", "init_kv_cache", "NEG_INF"]
-
-NEG_INF = -2.0e38  # fp32-safe mask value
+__all__ = ["attn_init", "attn_apply", "init_kv_cache"]
 
 _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
 
@@ -117,86 +118,25 @@ def _cache_write(cache: Dict[str, torch.Tensor], slot: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# core attention math
+# masks of a layer kind
 # --------------------------------------------------------------------------- #
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """q: (B, Sq, H, hd)  k/v: (B, Sk, KV, hd)  mask: (B|1, 1, Sq, Sk) bool.
-    GQA without copying K/V: q is grouped as (B, Sq, KV, H/KV, hd), each kv
-    head against the H/KV consecutive q heads it serves (the reference's
-    ``jnp.repeat``).  fp32 logits and probabilities (summed in fp64, see
-    the module note); the probabilities are rounded to v's dtype before the
-    second product, as in the reference."""
-    B, Sq, H, hd = q.shape
-    kv = k.shape[2]
-    qg = q.reshape(B, Sq, kv, H // kv, hd).double()
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()).float() * scale
-    logits = torch.where(mask[:, :, None], logits,
-                         torch.full((), NEG_INF, device=logits.device))
-    probs = torch.softmax(logits.double(), dim=-1).float()
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).double(), v.double())
-    return out.float().to(q.dtype).reshape(B, Sq, H, hd)
+def _masks(kind: BlockKind, cfg: ArchConfig) -> Dict[str, object]:
+    """The kernel's mask arguments for a layer: causal as the config says,
+    the sliding window on local layers, the attention chunk on chunked
+    ones."""
+    return {"causal": cfg.causal,
+            "window": cfg.window if kind == BlockKind.ATTN_LOCAL else None,
+            "chunk": cfg.attn_chunk if kind == BlockKind.ATTN_CHUNKED else None}
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-# --------------------------------------------------------------------------- #
-# prefill / train forward
-# --------------------------------------------------------------------------- #
-def _mask_for(pq: torch.Tensor, pk: torch.Tensor, kind: BlockKind,
-              cfg: ArchConfig) -> torch.Tensor:
-    if cfg.causal:
-        m = pk[None, :] <= pq[:, None]
-    else:
-        m = torch.ones((pq.shape[0], pk.shape[0]), dtype=torch.bool, device=pq.device)
-    if kind == BlockKind.ATTN_LOCAL:
-        m = m & (pq[:, None] - pk[None, :] < cfg.window)
-    elif kind == BlockKind.ATTN_CHUNKED:
-        m = m & (torch.div(pq[:, None], cfg.attn_chunk, rounding_mode="floor")
-                 == torch.div(pk[None, :], cfg.attn_chunk, rounding_mode="floor"))
-    return m[None, None]  # (1, 1, Sq, Sk)
-
-
-def _prefill_attend(q, k, v, kind: BlockKind, cfg: ArchConfig,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """q: (B, S, H, hd), k/v: (B, S, KV, hd).
-    positions: (S,) absolute positions (shared across the batch).  Queries
-    go in ``q_chunk`` blocks, each against the key span its mask admits, as
-    the reference's ``lax.scan`` does."""
-    B, S, H, hd = q.shape
-    scale = hd ** -0.5
-    C = min(cfg.q_chunk, S)
-    if S % C != 0:
-        C = S  # single block, as the reference falls back
-    n_chunks = S // C
-    if n_chunks == 1:
-        return _sdpa(q, k, v, _mask_for(positions, positions, kind, cfg), scale)
-
-    if kind == BlockKind.ATTN_LOCAL:
-        span = C + _round_up(cfg.window, C)
-    elif kind == BlockKind.ATTN_CHUNKED:
-        span = max(cfg.attn_chunk, C)
-    else:
-        span = S
-    outs = []
-    for i in range(n_chunks):
-        q_start = i * C
-        qi = q[:, q_start:q_start + C]
-        pos_q = positions[q_start:q_start + C]
-        if span >= S:
-            ki, vi, pos_k = k, v, positions
-        else:
-            if kind == BlockKind.ATTN_CHUNKED:
-                start = (q_start // cfg.attn_chunk) * cfg.attn_chunk
-            else:
-                start = q_start + C - span
-            start = min(max(start, 0), S - span)
-            ki, vi = k[:, start:start + span], v[:, start:start + span]
-            pos_k = positions[start:start + span]
-        outs.append(_sdpa(qi, ki, vi, _mask_for(pos_q, pos_k, kind, cfg), scale))
-    return torch.cat(outs, dim=1)
+def _prefill_attend(q, k, v, kind: BlockKind, cfg: ArchConfig) -> torch.Tensor:
+    """q: (B, S, H, hd), k/v: (B, S, KV, hd), at positions 0..S-1 → (B, S,
+    H, hd).  One kernel call over the whole sequence, reading the (B, S,
+    H, hd) layout through its strides."""
+    hd = cfg.resolved_head_dim
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              scale=hd ** -0.5, **_masks(kind, cfg))
+    return out.transpose(1, 2)
 
 
 # --------------------------------------------------------------------------- #
@@ -247,7 +187,7 @@ def attn_apply(
             # write the (possibly windowed) tail of K/V into the cache for
             # the decode steps that follow
             cache = _prefill_fill_cache(cache, k, v, lengths)
-        out = _prefill_attend(q, k, v, kind, cfg, pos_q)
+        out = _prefill_attend(q, k, v, kind, cfg)
         return _out_proj(out, params), cache
 
     # ---------------- decode: S == 1, attend to the cache ---------------- #
@@ -262,22 +202,9 @@ def attn_apply(
     slots = cache["k"].shape[1]
     cache = _cache_write(cache, torch.remainder(pos_b if per_slot else pos, slots),
                          k[:, 0], v[:, 0])
-    kc, vc = cache["k"], cache["v"]
-    slot_ids = torch.arange(slots, device=x.device)
-    # most recent position ≡ slot (mod slots) that is ≤ pos, per row
-    pc = pos_b[:, None]                                        # (B, 1)
-    slot_pos = pc - torch.remainder(pc - slot_ids[None, :], slots)   # (B, slots)
-    valid = slot_pos >= 0
-    if kind == BlockKind.ATTN_LOCAL:
-        valid &= slot_pos > pc - cfg.window
-    elif kind == BlockKind.ATTN_CHUNKED:
-        valid &= (torch.div(slot_pos, cfg.attn_chunk, rounding_mode="floor")
-                  == torch.div(pc, cfg.attn_chunk, rounding_mode="floor"))
-    else:
-        valid &= slot_pos <= pc
-    mask = valid[:, None, None, :]
-    out = _sdpa(q, kc, vc, mask, hd ** -0.5)
-    return _out_proj(out, params), cache
+    out = ops.flash_attention_decode(q[:, 0], cache["k"], cache["v"], pos_b,
+                                     scale=hd ** -0.5, **_masks(kind, cfg))
+    return _out_proj(out[:, None], params), cache
 
 
 def _prefill_fill_cache(cache, k, v, lengths=None):

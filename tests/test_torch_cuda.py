@@ -15,7 +15,12 @@ streams are compared exactly.  ``rmsnorm`` is held at rtol = atol = 1e-5
 in fp32 and within one bf16 step (rtol 2⁻⁷) in bf16 (only the order of a
 row's sum of squares differs), and bitwise between a row alone and in a
 batch; ``ssd_chunk_scan`` at rtol = atol = 1e-4, ``tests/test_kernels.py``'s
-own tolerance for that kernel.
+own tolerance for that kernel.  ``flash_attention`` (both forms) is held at
+``tests/test_kernels.py``'s fp32 2e-4 and, in bf16, within one bf16 step
+of each value (rtol 2⁻⁷, atol 1e-6: the kernel sums in fp32 where the plain
+version sums in fp64, and the output rounds to bf16 either side of a
+boundary); a row's output is bitwise the same alone and in a batch, and at
+its exact length and padded.
 """
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ from repro_torch import kernels as tk
 from repro_torch.core.algorithms.kmeans import KMeans
 from repro_torch.core.algorithms.logistic_regression import LogisticRegression
 from repro_torch.core.numeric_table import MLNumericTable
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans_assign as tka
 from repro_torch.kernels import logreg_grad as tlg
 from repro_torch.kernels import quant_matmul as tqm
@@ -84,7 +90,8 @@ def test_cuda_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert tk.launch_counts() == {"logreg_margin": 6, "logreg_xt_z": 6,
                                   "kmeans_assign": 6, "quant_matmul": 0,
-                                  "rmsnorm": 0, "ssd_chunk_scan": 0}
+                                  "rmsnorm": 0, "ssd_chunk_scan": 0,
+                                  "flash_attention": 0, "flash_attention_decode": 0}
 
 
 @pytest.mark.cuda
@@ -303,5 +310,119 @@ def test_mamba_engine_on_card_matches_slot_at_a_time():
     counts = tk.launch_counts()
     assert counts["ssd_chunk_scan"] == cfg.num_layers * 5
     assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * forwards
+    solo = [eng._run_one(r) for r in reqs()]
+    assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
+
+
+def _flash_tol(dtype):
+    return dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 \
+        else dict(rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_versions(dtype):
+    """Both forms against their plain versions: hd 32, 64, 128 and 256,
+    GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that are not a multiple of
+    the 32-key tile, and rings that have wrapped (pos ≥ slots)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    tk.reset_launch_counts()
+    prefill = [((2, 12, 2, 100, 100, 128), dict()),
+               ((1, 4, 1, 37, 600, 256), dict(window=512)),
+               ((2, 4, 1, 64, 64, 256), dict(chunk=16)),
+               ((3, 4, 4, 33, 33, 32), dict(causal=False)),
+               ((1, 8, 2, 1, 77, 64), dict(window=20))]
+    for (B, H, KV, Sq, Sk, hd), kw in prefill:
+        q, k, v = randn(B, H, Sq, hd), randn(B, KV, Sk, hd), randn(B, KV, Sk, hd)
+        torch.testing.assert_close(tfa.flash_attention(q, k, v, **kw).float(),
+                                   tfa.flash_attention_plain(q, k, v, **kw).float(),
+                                   **_flash_tol(dtype))
+    decode = [((8, 4, 1, 512, 256), dict(window=512),
+               [0, 100, 511, 512, 600, 1500, 7, 2047]),
+              ((8, 12, 2, 2048, 128), dict(), [0, 1, 31, 32, 1000, 2047, 5, 64]),
+              ((3, 4, 1, 16, 32), dict(chunk=16), [5, 31, 100])]
+    for (B, H, KV, slots, hd), kw, pos in decode:
+        q, kc, vc = randn(B, H, hd), randn(B, slots, KV, hd), randn(B, slots, KV, hd)
+        p = torch.tensor(pos, device="cuda")
+        torch.testing.assert_close(
+            tfa.flash_attention_decode(q, kc, vc, p, **kw).float(),
+            tfa.flash_attention_decode_plain(q, kc, vc, p, **kw).float(),
+            **_flash_tol(dtype))
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(randn(1, 2, 8, 48), randn(1, 2, 8, 48), randn(1, 2, 8, 48))
+    with pytest.raises(ValueError, match="at most 8"):
+        tfa.flash_attention_decode(randn(1, 16, 32), randn(1, 8, 1, 32),
+                                   randn(1, 8, 1, 32), torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention"] == len(prefill)
+    assert tk.launch_counts()["flash_attention_decode"] == len(decode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_are_batch_and_padding_invariant(dtype):
+    """Bitwise: a prompt's rows at B = 1 and its exact length equal the same
+    rows in a right-padded batch of 8; a decode row alone equals it in a
+    batch of 8, and over a global cache of exactly pos + 1 slots the same as
+    over 2,048."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    lens = [40, 127, 128, 300, 513, 700, 1023, 1024]
+    S = 1024
+    for H, KV, hd, kw in ((4, 1, 256, dict(window=512)), (12, 2, 128, dict())):
+        q, k, v = randn(8, H, S, hd), randn(8, KV, S, hd), randn(8, KV, S, hd)
+        batch = tfa.flash_attention(q, k, v, **kw)
+        for b, n in enumerate(lens):
+            alone = tfa.flash_attention(q[b:b + 1, :, :n], k[b:b + 1, :, :n],
+                                        v[b:b + 1, :, :n], **kw)
+            assert torch.equal(alone[0], batch[b, :, :n]), (H, n)
+        slots = 2048
+        qd, kc, vc = randn(8, H, hd), randn(8, slots, KV, hd), randn(8, slots, KV, hd)
+        pos = torch.tensor(lens, device="cuda") - 1
+        batch = tfa.flash_attention_decode(qd, kc, vc, pos, **kw)
+        for b, n in enumerate(lens):
+            alone = tfa.flash_attention_decode(qd[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                               pos[b:b + 1], **kw)
+            exact = tfa.flash_attention_decode(qd[b:b + 1], kc[b:b + 1, :n],
+                                               vc[b:b + 1, :n], pos[b:b + 1], **kw)
+            assert torch.equal(alone[0], batch[b]) and torch.equal(exact[0], batch[b])
+
+
+@pytest.mark.cuda
+def test_gemma3_engine_on_card_matches_slot_at_a_time():
+    """Gemma3's SMOKE widths (fp32, a 32-slot ring on the local layer) on
+    the card: continuous batching equals the slot-at-a-time oracle over
+    prompts and decodes that wrap the ring, and every attention went
+    through kernel 6 (one prefill launch a layer a wave, one decode launch
+    a layer a step)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = get_smoke("gemma3-1b")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=3, max_seq=96)
+
+    def reqs():
+        r = np.random.default_rng(3)
+        return [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m)
+                for n, m in zip((5, 33, 12, 40, 31, 3), (30, 8, 25, 6, 20, 9))]
+
+    tk.reset_launch_counts()
+    served = eng.run(reqs())
+    counts = tk.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers * eng.calls["prefill_waves"] > 0
+    assert counts["flash_attention_decode"] == cfg.num_layers * eng.calls["decode_steps"]
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]

@@ -146,7 +146,8 @@ def test_cpu_tensors_use_the_plain_version_and_count_no_launch():
     tka.kmeans_assign(X, torch.ones(3, 4))
     assert tk.launch_counts() == {"logreg_margin": 0, "logreg_xt_z": 0,
                                   "kmeans_assign": 0, "quant_matmul": 0,
-                                  "rmsnorm": 0, "ssd_chunk_scan": 0}
+                                  "rmsnorm": 0, "ssd_chunk_scan": 0,
+                                  "flash_attention": 0, "flash_attention_decode": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():

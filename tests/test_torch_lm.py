@@ -102,7 +102,7 @@ def test_config_and_registry_match_the_reference():
         jget_smoke("qwen2-1.5b"))
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
-    for other in ("gemma3-1b", "recurrentgemma-9b", "mixtral-8x22b"):
+    for other in ("granite-3-8b", "recurrentgemma-9b", "mixtral-8x22b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(other)
     with pytest.raises(KeyError):
