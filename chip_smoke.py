@@ -7,7 +7,7 @@ Phases (each one that fails makes the script exit non-zero):
 
   1. device   — the card's name and power limit, torch and CUDA versions;
                 TF32 is switched off, so fp32 means IEEE fp32 throughout.
-  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (six
+  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (seven
                 sources) with nvcc (one process per source, in parallel),
                 into ``build/``.
   3. kernels  — each kernel of the first path against its plain PyTorch
@@ -30,17 +30,23 @@ Phases (each one that fails makes the script exit non-zero):
                 vocab 151,936), bf16 weights made from a seed, int8
                 projections (quantize="int8"), 8 slots, max_seq 2,048: 16
                 requests of 128..1,024 prompt tokens and 64 new tokens each,
-                all at once, through ServeEngine.run.  Checked: 196
-                quant_matmul and 57 rmsnorm launches per forward (7 and 2 a
-                layer, and the final norm), 28 flash_attention launches per
-                prefill wave and 28 flash_attention_decode per decode step
-                (every attention through kernel 6), every stream
-                equal to the slot-at-a-time _run_one's, and the int8 prefill
+                all at once, through ServeEngine.run, whose decode steps are
+                CUDA graph replays (the warm-up captured the graph).
+                Checked: 196 quant_matmul and 57 rmsnorm launches per
+                forward (7 and 2 a layer, and the final norm), one lm_head
+                launch per forward, 28 flash_attention launches per prefill
+                wave and 28 flash_attention_decode per decode step (every
+                attention through kernel 6), every decode step of the run a
+                graph replay, every stream equal to the slot-at-a-time
+                _run_one's (whose steps replay a batch-1 graph after one
+                eager warm-up), and the int8 prefill
                 logits within 20 % of the same weights unquantized at the
                 2-layer depth that bound was pinned on, and within 100 % at
                 28 layers (on random weights the error grows with depth, in
                 the reference as much as here), where a model whose int8
-                weights are shifted by one layer must read beyond it.
+                weights are shifted by one layer must read beyond it.  The
+                device memory each step peaked at, with what holds it, and a
+                profile of an eager decode step and of a graph replay.
   9. quant_matmul against its plain version, bitwise, at every (M, K, N) the
                 serving phase launched, at ragged shapes and at ±127.
  10. timing    — quant_matmul at the four decode shapes and the largest
@@ -48,11 +54,9 @@ Phases (each one that fails makes the script exit non-zero):
                 CUDA graph of launches, each reading its own copy of the
                 weight so that the weights miss L2), the plain version,
                 torch._int_mm where cuBLAS takes the shape, and the bound.
- 11. Mamba2 serving — Mamba2-2.7B at full width (d_model 2560, 80 heads of
-                P = 64, N = 128, vocab 50,280), its depth cut from 64 SSD
-                layers to MB_LAYERS = 16 so that the whole run stays near
-                four minutes as later paths join it, bf16 weights made from
-                a seed, 8 slots, max_seq 2,048: 16
+ 11. Mamba2 serving — Mamba2-2.7B at full width and depth (64 SSD layers,
+                d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
+                bf16 weights made from a seed, 8 slots, max_seq 2,048: 16
                 requests, all at once (8 prompts of 256..1,024 tokens, a
                 multiple of the 256 chunk, and 8 ragged ones of 142..998,
                 one chunk each), 64 new tokens each, through ServeEngine.run
@@ -64,7 +68,7 @@ Phases (each one that fails makes the script exit non-zero):
                 equal _run_one's, and where one leaves it, _run_one's top-2
                 logit gap there; the same at a 2-layer cut; the last-token
                 prefill logits through the kernels against the same model
-                through the plain versions, at 2 and at 16 layers.
+                through the plain versions, at 2 and at 64 layers.
  12. rmsnorm and ssd_chunk_scan against their plain versions at every shape
                 phases 8 and 11 launched, at ragged shapes, and (the scan)
                 with and without an initial state; rmsnorm rows alone equal
@@ -82,10 +86,14 @@ Phases (each one that fails makes the script exit non-zero):
                 the global caches run to 2,024 positions), 64 new tokens
                 each, all at once.  Checked: 26 flash_attention launches per
                 prefill wave and 26 flash_attention_decode per decode step,
-                182 quant_matmul and 53 rmsnorm per forward; every stream
-                equal to _run_one's; the last-token prefill logits through
-                the kernels against the plain versions at a 2-layer cut (the
-                first local and the first global layer).
+                182 quant_matmul, 53 rmsnorm and one lm_head per forward;
+                every decode step a graph replay; every stream equal to
+                _run_one's; the last-token prefill logits through the
+                kernels against the plain versions at a 2-layer cut (the
+                first local and the first global layer); no fp64 copy of a
+                table on the card; the device memory of weight generation,
+                the served run, the oracle and the cut, each peak on its own
+                line, the served run's with the holders that account for it.
  15. flash_attention (both forms) against its plain versions at every shape
                 phases 8 and 14 launched, and in fp32 and bf16 at hd 32, 128
                 and 256, GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that are
@@ -97,10 +105,19 @@ Phases (each one that fails makes the script exit non-zero):
                 the plain versions, one torch.nn.functional.
                 scaled_dot_product_attention call (its backend named) and the
                 bound.
+ 17. lm_head   — against its plain version at every (M, D, V) the serving
+                phases launched (M = 8 and 1; tied; and untied at a small
+                shape), row m bitwise the same at M = 1 and M = 8; timed at
+                the served decode shapes in a CUDA graph beside one cuBLAS
+                bf16 product of the same shapes (torch.nn.functional.linear,
+                the yardstick) and the bound.
+
+Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
 then phase 8, then phase 11, then phase 14) and read just after it: they
-count those paths only.  The
+count those paths only.  A decode step that replays a CUDA graph adds the
+launches the graph holds (``ServeEngine``), so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
 repository's ``src/`` beside it and one CUDA card.
@@ -152,7 +169,7 @@ COLD_BYTES = 200e6
 # the Mamba2 serving phase: 8 prompts a multiple of the 256 chunk (each
 # twice) and 8 ragged ones drawn from MB_RAGGED (one chunk of L = S each)
 MB_ARCH, MB_SLOTS, MB_MAX_SEQ, MB_NEW = "mamba2-2.7b", 8, 2048, 64
-MB_LAYERS = 16          # of the published 64
+MB_LAYERS = 64          # the published depth
 MB_ALIGNED, MB_RAGGED = (256, 512, 768, 1024), (142, 998)
 # Where a stream leaves the slot-at-a-time oracle (the decode products are
 # bf16 cuBLAS products, whose order depends on the batch), the oracle's gap
@@ -210,8 +227,25 @@ def say(msg: str) -> None:
     print(f"   {msg}  [{CARD}]", flush=True)
 
 
+# seconds of each phase, by its number
+PHASE_SECONDS: dict = {}
+_CURRENT = {"name": None, "t0": 0.0}
+
+
+def end_phase() -> None:
+    """Print and keep the seconds of the phase that is running."""
+    name = _CURRENT["name"]
+    if name is not None:
+        secs = time.perf_counter() - _CURRENT["t0"]
+        PHASE_SECONDS[name.split(".")[0]] = round(secs, 1)
+        print(f"   (phase {name.split('.')[0]}: {secs:.1f} s)", flush=True)
+        _CURRENT["name"] = None
+
+
 def phase(name: str):
+    end_phase()
     print(f"== {name}", flush=True)
+    _CURRENT.update(name=name, t0=time.perf_counter())
 
 
 def sync() -> None:
@@ -700,7 +734,7 @@ def free_tables(report) -> None:
     """Drop the first path's tables (41.9 GB and 17.2 GB) before the LM."""
     report.pop("logreg", None)
     report.pop("kmeans", None)
-    torch.cuda.empty_cache()
+    free_device_memory()
     say(f"tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         f"allocated")
 
@@ -720,6 +754,7 @@ def phase_lm(counts, report) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
+    from repro_torch.kernels.lm_head import lm_head
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models.transformer import TransformerLM, init_model
@@ -729,7 +764,7 @@ def phase_lm(counts, report) -> None:
     phase(f"8. LM serving: {cfg.name}, {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size:,}, {cfg.dtype}, int8 "
           f"projections, {LM_SLOTS} slots, max_seq {LM_MAX_SEQ}")
-    torch.cuda.reset_peak_memory_stats()
+    mem_reset()
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
     engine = ServeEngine(cfg, params, batch_size=LM_SLOTS, max_seq=LM_MAX_SEQ,
@@ -740,6 +775,7 @@ def phase_lm(counts, report) -> None:
     say(f"weights made on the card from seed {SEED} and quantized in "
         f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f} B params "
         f"({cfg.dtype}), {q_bytes / 1e9:.3f} GB of int8 projections")
+    mem_peak("weights made and quantized")
     engine.warmup(prompt_lens=[LM_PROMPT_MIN])
     sync()
     reqs = lm_requests(cfg)
@@ -763,15 +799,19 @@ def phase_lm(counts, report) -> None:
     rmsnorm.shapes.clear()
     flash_attention.shapes.clear()
     flash_attention_decode.shapes.clear()
+    lm_head.shapes.clear()
     sched = SlotScheduler(LM_SLOTS)
-    reset_launch_counts()            # the LM path's run starts here
     sync()
+    mem_reset()
+    steady = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()            # the LM path's run starts here
     t0 = time.perf_counter()
     served = engine.run(reqs, scheduler=sched)
     sync()
     t_run = time.perf_counter() - t0
     got = launch_counts()            # ... and ends here
-    engine._prefill_into = prefill_into
+    run_peak = mem_peak("the served run")
+    del engine._prefill_into         # the class's method again (no cycle)
     shapes = sorted(quant_matmul.shapes)
     by_shape = dict(quant_matmul.shapes)
     forwards = engine.calls["prefill_waves"] + engine.calls["decode_steps"]
@@ -782,6 +822,7 @@ def phase_lm(counts, report) -> None:
     counts["lm_flash_decode_shapes"] = dict(flash_attention_decode.shapes)
     counts["lm_shapes"] = shapes
     counts["lm_by_shape"] = by_shape
+    counts["lm_head_shapes"] = dict(lm_head.shapes)
     counts["lm_layers"] = cfg.num_layers
     counts["lm_widths"] = (cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim,
                            cfg.d_ff)
@@ -794,14 +835,16 @@ def phase_lm(counts, report) -> None:
     check(got["rmsnorm"] == norms * forwards,
           f"rmsnorm launches {got['rmsnorm']} != {norms} x {forwards}")
     check_attention_launches(got, cfg.num_layers, engine.calls)
+    check(got["lm_head"] == forwards, f"lm_head launches {got['lm_head']} != {forwards}")
     check(all(v == 0 for k, v in got.items() if k not in LM_KERNELS),
           f"the LM path launched another kernel: {got}")
+    check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 0, "the served run")
     new = sum(len(r.out_tokens) for r in served)
     check(all(r.done and len(r.out_tokens) == LM_NEW for r in served),
           "a request did not finish with its tokens")
     t_prefill = sum(waves)
     steps = engine.calls["decode_steps"]
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = run_peak
     say(f"served {len(served)} requests ({min(lens)}..{max(lens)} prompt tokens, "
         f"{sum(lens)} in all) / {new} new tokens in {t_run:.3f} s: "
         f"{new / t_run:.1f} tokens/s; prefill {t_prefill:.3f} s in {len(waves)} "
@@ -815,14 +858,25 @@ def phase_lm(counts, report) -> None:
     report["lm"] = {"tokens_per_s": new / t_run, "prefill_s": t_prefill,
                     "decode_ms_per_step": (t_run - t_prefill) / max(steps, 1) * 1e3,
                     "peak_gb": peak, "seconds": t_run, "new_tokens": new}
+    wave_cache = _storage_bytes(_cache_tensors(engine.init_shared_cache()))
+    S_wave = -(-max(lens) // 8) * 8
+    report["lm"]["memory"] = memory_account(
+        engine, params, steady, peak,
+        prefill_scratch_gb(cfg, LM_SLOTS * S_wave, wave_cache))
 
     # (b) every stream equals the slot-at-a-time oracle's
+    calls = dict(engine.calls)
+    mem_reset()
     t0 = time.perf_counter()
     solo = [engine._run_one(r) for r in lm_requests(cfg)]
+    t_oracle = time.perf_counter() - t0
     same = sum(a.out_tokens == b.out_tokens for a, b in zip(served, solo))
     say(f"streams equal to the slot-at-a-time _run_one: {same} of {len(served)} "
-        f"({time.perf_counter() - t0:.1f} s for the oracle)")
+        f"({t_oracle:.1f} s for the oracle)")
     check(same == len(served), f"{len(served) - same} streams differ from _run_one")
+    check_graph_steps(engine, calls, 1, "the oracle")
+    mem_peak("the oracle")
+    report["lm"]["oracle_s"] = t_oracle
 
     # (c) int8 prefill logits against the same weights unquantized.  The 20 %
     # bound was pinned on the reference's 2-layer smoke model; on random
@@ -831,6 +885,7 @@ def phase_lm(counts, report) -> None:
     # so that bound is held at full width on the first 2 layers, and all 28
     # layers are held to INT8_LOGIT_TOL_DEEP, which int8 weights shifted by
     # one layer (each layer given the next one's) must exceed.
+    mem_reset()
     sub = lm_requests(cfg)[:4]
     S = max(len(r.prompt) for r in sub)
     toks = np.zeros((len(sub), S), np.int32)
@@ -867,21 +922,24 @@ def phase_lm(counts, report) -> None:
           f"the {cfg.num_layers}-layer bound does not see weights shifted by "
           f"one layer: {errs['shifted']}")
     report["lm"]["int8_rel_err"] = errs
+    mem_peak("the 2- and 28-layer int8 comparisons")
     del shifted
     prof = decode_profile(engine, report["lm"]["decode_ms_per_step"], LM_PROMPT_MAX)
-    counts["lm_profile_qmm_ms"] = prof["quant_matmul"] if prof else None
+    counts["lm_profile_qmm_ms"] = (prof["eager"] or {}).get("quant_matmul")
     report["lm"]["decode_profile"] = prof
     del engine, params, logits
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 # our kernels' names in a profile: the CUDA functions' names contain these
-# (both forms of flash_attention are instances of flash_kernel; a decode step
-# launches the decode form alone)
+# (the decode form of flash_attention is decode_span_kernel and
+# decode_merge_kernel)
 PROFILED = {"quant_matmul": "qmm_", "rmsnorm": "rmsnorm_kernel",
-            "ssd_chunk_scan": "ssd_kernel", "flash_attention_decode": "flash_kernel"}
+            "ssd_chunk_scan": "ssd_kernel", "flash_attention_decode": "decode_",
+            "lm_head": "tied_kernel"}
 # the kernels an attention LM's serving path launches
-LM_KERNELS = ("quant_matmul", "rmsnorm", "flash_attention", "flash_attention_decode")
+LM_KERNELS = ("quant_matmul", "rmsnorm", "flash_attention", "flash_attention_decode",
+              "lm_head")
 
 
 def check_attention_launches(got, layers: int, calls) -> None:
@@ -900,39 +958,174 @@ def check_attention_launches(got, layers: int, calls) -> None:
 
 def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     """Where a decode step's time goes: device time by kernel over
-    ``steps`` profiled steps (torch.profiler, CUDA activity), against the
-    unprofiled step time of the serving run.  Returns the device-busy ms
-    per step and each of the port's kernels' device ms per step, or None
-    if the profiler saw no device time."""
+    ``steps`` profiled steps (torch.profiler, CUDA activity), of an eager
+    step (``TransformerLM.decode_step`` on a cache of its own) and of the
+    engine's CUDA graph replay (``engine._decode`` on its shared cache),
+    against the unprofiled step time of the serving run (a graph replay).
+    Returns, for each kind, the device-busy ms per step and each of the
+    port's kernels' device ms per step, or None where the profiler saw no
+    device time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     B = engine.batch
     toks = engine._tensor(np.zeros((B, 1), np.int32))
     pos = engine._tensor(np.full(B, pos, np.int32))
-    cache = engine.init_shared_cache()
-    engine.model.decode_step(engine.params, toks, pos, cache)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.model.decode_step(engine.params, toks, pos, cache)
+    own = engine.model.init_cache(B, engine.max_seq)
+    shared = engine.init_shared_cache()
+    kinds = {"eager": lambda: engine.model.decode_step(engine.params, toks, pos, own),
+             "graph": lambda: engine._decode(engine.params, toks, pos, shared)}
+    out = {}
+    for kind, step in kinds.items():
+        step()
         sync()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    if device_ms == 0:
-        say("decode step profile: the profiler saw no device time (not measured)")
-        return None
-    ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key)
-            / 1e3 / steps for name, key in PROFILED.items()}
-    launches = sum(e.count for e in kernels) / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    say(f"decode step profile ({steps} steps, {B} slots): device busy {device_ms:.3f} ms "
-        f"of the {step_ms:.2f} ms step ({device_ms / step_ms:.1%}; idle "
-        f"{1 - device_ms / step_ms:.1%}), {launches:.0f} kernel launches a step; "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v))
-    for e in top:
-        say(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms  "
-            f"{e.count // steps:5d} x  {e.key[:90]}")
-    return {"busy_ms": device_ms, "launches": launches, **ours}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            sync()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        if device_ms == 0:
+            say(f"decode step profile ({kind}): the profiler saw no device time "
+                f"(not measured)")
+            out[kind] = None
+            continue
+        ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key)
+                / 1e3 / steps for name, key in PROFILED.items()}
+        launches = sum(e.count for e in kernels) / steps
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        share = f"{device_ms / step_ms:.1%} of" if kind == "graph" else "against"
+        say(f"decode step profile ({kind}, {steps} steps, {B} slots): device busy "
+            f"{device_ms:.3f} ms, {share} the served run's {step_ms:.2f} ms graph step, "
+            f"{launches:.0f} kernel launches a step; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v))
+        for e in top:
+            say(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms  "
+                f"{e.count // steps:5d} x  {e.key[:90]}")
+        out[kind] = {"busy_ms": device_ms, "launches": launches, **ours}
+    return out
+
+
+def check_graph_steps(engine, before: dict, eager: int, what: str) -> None:
+    """Since ``before`` (a copy of ``engine.calls``) every decode step was a
+    graph replay but ``eager`` warm-ups before a capture."""
+    steps = engine.calls["decode_steps"] - before["decode_steps"]
+    replays = engine.calls["decode_graph_replays"] - before["decode_graph_replays"]
+    eagers = engine.calls["decode_eager"] - before["decode_eager"]
+    say(f"{what}: {steps} decode steps, {replays} CUDA graph replays, {eagers} eager "
+        f"(the warm-up before a capture)")
+    check(eagers == eager and replays == steps - eager and steps > 0,
+          f"{what}: {eagers} eager decode steps and {replays} replays of {steps}, "
+          f"expected {eager} eager")
+
+
+def free_device_memory() -> None:
+    """Drop what a phase left: collect the garbage (cycles would keep a
+    phase's engine and its weights alive into the next phase) and return
+    the cached blocks."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mem_reset() -> None:
+    torch.cuda.reset_peak_memory_stats()
+
+
+def mem_peak(label: str) -> float:
+    """Print and return the device memory peak (GB) since the last reset."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"peak device memory, {label}: {peak:.3f} GB ({torch.cuda.memory_allocated() / 1e9:.3f}"
+        f" GB allocated now)")
+    return peak
+
+
+def _storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors``."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _cache_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _cache_tensors(v)
+    else:
+        yield tree
+
+
+def memory_account(engine, params, steady: float, peak: float, scratch_est: float,
+                   kept: dict = None) -> dict:
+    """What holds the served run's device memory (GB): before the run, the
+    bf16 weights (the seeded tree; embeddings and norms shared with the
+    served tree), the int8 projections, the engine's decode caches and the
+    captured graphs' live tensors, found by walking them, against what the
+    allocator counted; during it, what the script ``kept`` for its checks
+    and the prefill's scratch, measured (peak − allocated before − kept) and
+    estimated from the shapes."""
+    q_leaves = list(_leaves(engine.params, qtensors=True))
+    hold = {"bf16 weights": _storage_bytes(_leaves(params)) / 1e9,
+            "int8 weights": _storage_bytes([t for q in q_leaves for t in (q.qt, q.scale)])
+            / 1e9,
+            "decode caches": _storage_bytes(_cache_tensors(engine._caches)) / 1e9,
+            "graph pools": engine.graph_pool_bytes / 1e9}
+    kept = kept or {}
+    held, extra = sum(hold.values()), sum(kept.values())
+    scratch = peak - steady - extra
+    say("memory account of the served run: " + ", ".join(
+        f"{k} {v:.3f} GB" for k, v in hold.items())
+        + f" = {held:.3f} GB, {held / steady:.1%} of the {steady:.3f} GB allocated before "
+        f"the run; during it " + "".join(f"{k} {v:.3f} GB, " for k, v in kept.items())
+        + f"prefill scratch {scratch:.3f} GB (estimated from the shapes {scratch_est:.3f} "
+        f"GB); peak {peak:.3f} GB, of which the listed holders make "
+        f"{(held + extra + scratch) / peak:.1%}, with the estimated scratch "
+        f"{(held + extra + scratch_est) / peak:.1%}")
+    return {**hold, **kept, "steady": steady, "peak": peak, "scratch": scratch,
+            "scratch_est": scratch_est, "explained": (held + extra + scratch) / peak,
+            "explained_est": (held + extra + scratch_est) / peak}
+
+
+def prefill_scratch_gb(cfg, M: int, wave_cache_bytes: int) -> float:
+    """The device memory a prefill of M tokens holds at its widest point,
+    estimated from the shapes (GB), plus the wave's own cache.  An int8
+    MLP's widest point is the down projection's row quantization
+    (``ops.quantize_rows``) of its (M, d_ff) bf16 input: the input (2 bytes
+    an element), its fp32 copy (4), the scaled copy and its rounding (4
+    each): 14 bytes an element.  Mamba2's SSD layer holds about as many fp32
+    and bf16 copies of its (M, d_inner) activations (the projections, dt·x,
+    the scan's output and the gated norm): 30 bytes an element."""
+    if cfg.d_ff:
+        act = 14 * M * cfg.d_ff
+    else:
+        act = 30 * M * cfg.d_inner_ssd
+    return (act + wave_cache_bytes) / 1e9
+
+
+def fp64_on_card(*trees) -> int:
+    """Bytes of fp64 tensors on the card: in the given trees, and anywhere
+    the garbage collector sees one."""
+    import gc
+
+    found = [t for t in _leaves_any(trees) if t.is_cuda and t.dtype == torch.float64]
+    found += [o for o in gc.get_objects() if isinstance(o, torch.Tensor) and o.is_cuda
+              and o.dtype == torch.float64]
+    return _storage_bytes(found)
+
+
+def _leaves_any(tree):
+    from repro_torch.models.layers.quant import QTensor
+
+    if isinstance(tree, (dict, list, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves_any(v)
+    elif isinstance(tree, QTensor):
+        yield tree.qt
+        yield tree.scale
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 def _first_layers(tree, depth):
@@ -1123,7 +1316,7 @@ def oracle_streams(engine, cfg):
     try:
         solo = [engine._run_one(r) for r in mamba_requests(cfg)]
     finally:
-        engine._prefill, engine._decode = prefill, decode
+        del engine._prefill, engine._decode   # the class's methods (no cycle)
     return solo, states, gaps
 
 
@@ -1209,6 +1402,7 @@ def phase_mamba(counts) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.lm_head import lm_head
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
     from repro_torch.models.transformer import TransformerLM, init_model
@@ -1219,7 +1413,7 @@ def phase_mamba(counts) -> None:
           f"{cfg.d_model}, {cfg.ssd_heads} heads of P={cfg.ssd_head_dim}, "
           f"N={cfg.ssm_state}, vocab {cfg.vocab_size:,}, {cfg.dtype}, {MB_SLOTS} "
           f"slots, max_seq {MB_MAX_SEQ}")
-    torch.cuda.reset_peak_memory_stats()
+    mem_reset()
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
     engine = ServeEngine(cfg, params, batch_size=MB_SLOTS, max_seq=MB_MAX_SEQ,
@@ -1231,6 +1425,7 @@ def phase_mamba(counts) -> None:
     say(f"weights made on the card from seed {SEED} in "
         f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f} B params "
         f"({cfg.dtype}); SSD state {state_gb:.2f} GB for {MB_SLOTS} slots")
+    mem_peak("weights made")
     engine.warmup(prompt_lens=[MB_ALIGNED[0]])
     sync()
     reqs = mamba_requests(cfg)
@@ -1254,15 +1449,19 @@ def phase_mamba(counts) -> None:
         engine.calls[k] = 0
     rmsnorm.shapes.clear()
     ssd_chunk_scan.shapes.clear()
+    lm_head.shapes.clear()
     sched = SlotScheduler(MB_SLOTS)
-    reset_launch_counts()            # the Mamba2 path's run starts here
     sync()
+    mem_reset()
+    steady = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()            # the Mamba2 path's run starts here
     t0 = time.perf_counter()
     served = engine.run(reqs, scheduler=sched)
     sync()
     t_run = time.perf_counter() - t0
     got = launch_counts()            # ... and ends here
-    engine._prefill_into = prefill_into
+    peak = mem_peak("the served run")
+    del engine._prefill_into         # the class's method again (no cycle)
     prefills, steps = engine.calls["prefills"], engine.calls["decode_steps"]
     forwards = prefills + steps
     norms = 2 * cfg.num_layers + 1
@@ -1270,6 +1469,7 @@ def phase_mamba(counts) -> None:
     counts["mamba_widths"] = (cfg.d_model, cfg.d_inner_ssd)
     counts["mamba_rms_shapes"] = dict(rmsnorm.shapes)
     counts["mamba_ssd_shapes"] = dict(ssd_chunk_scan.shapes)
+    counts["mamba_head_shapes"] = dict(lm_head.shapes)
     say(f"launches in the serving run: {got}; {prefills} per-request prefills + "
         f"{steps} decode steps; ssd_chunk_scan x {cfg.num_layers} a prefill, "
         f"rmsnorm x {norms} a forward")
@@ -1280,22 +1480,32 @@ def phase_mamba(counts) -> None:
           f"{cfg.num_layers} x {prefills}")
     check(got["rmsnorm"] == norms * forwards,
           f"rmsnorm launches {got['rmsnorm']} != {norms} x {forwards}")
-    check(all(v == 0 for k, v in got.items() if k not in ("rmsnorm", "ssd_chunk_scan")),
+    check(got["lm_head"] == forwards, f"lm_head launches {got['lm_head']} != {forwards}")
+    check(all(v == 0 for k, v in got.items()
+              if k not in ("rmsnorm", "ssd_chunk_scan", "lm_head")),
           f"the Mamba2 path launched another kernel: {got}")
+    check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 0, "the served run")
     check(all(r.done and len(r.out_tokens) == MB_NEW for r in served),
           "a request did not finish with its tokens")
     new = sum(len(r.out_tokens) for r in served)
     t_prefill = sum(waves)
-    peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms = (t_run - t_prefill) / max(steps, 1) * 1e3
     say(f"served {len(served)} requests (prompts {lens}, {sum(lens)} tokens) / "
         f"{new} new tokens in {t_run:.3f} s: {new / t_run:.1f} tokens/s; prefill "
         f"{t_prefill:.3f} s in {len(waves)} admissions; decode {step_ms:.2f} ms per "
         f"step ({steps} steps of {MB_SLOTS} slots); peak device memory {peak:.2f} GB; "
         f"backfills {sched.backfills}")
+    # a per-request prefill runs into a batch-1 cache of its own
+    wave_cache = _storage_bytes(_cache_tensors(engine.init_shared_cache())) // MB_SLOTS
+    memory_account(engine, params, steady, peak,
+                   prefill_scratch_gb(cfg, max(lens), wave_cache),
+                   kept={"SSD states kept for the bitwise check":
+                         _storage_bytes(states.values()) / 1e9})
 
     # the slot-at-a-time oracle: first tokens and prefilled states must be
     # equal (both prefill at batch 1), streams are counted
+    calls = dict(engine.calls)
+    mem_reset()
     t0 = time.perf_counter()
     solo, solo_states, gaps = oracle_streams(engine, cfg)
     first_same = sum(a.out_tokens[0] == b.out_tokens[0] for a, b in zip(served, solo))
@@ -1312,7 +1522,10 @@ def phase_mamba(counts) -> None:
     check(state_same == len(served), "a prefilled SSD state differs from _run_one's")
     check(all(g <= MB_GAP_LIMIT_DEEP for _, _, g in differ),
           f"a stream left _run_one at a gap beyond {MB_GAP_LIMIT_DEEP}: {differ}")
+    check_graph_steps(engine, calls, 1, "the oracle")
+    mem_peak("the oracle")
     del states, solo_states
+    mem_reset()
 
     # the same engine at a 2-layer cut of the model
     cut_cfg = dataclasses.replace(cfg, num_layers=2)
@@ -1326,6 +1539,7 @@ def phase_mamba(counts) -> None:
         + f" (limit {MB_GAP_LIMIT})")
     check(all(g <= MB_GAP_LIMIT for _, _, g in differ2),
           f"at 2 layers a stream left _run_one at a gap beyond {MB_GAP_LIMIT}: {differ2}")
+    check_graph_steps(cut, dict.fromkeys(cut.calls, 0), 2, "the 2-layer cut, run and oracle")
     del cut, served2, solo2
 
     # the whole model through the kernels against the plain versions; at 2
@@ -1372,10 +1586,11 @@ def phase_mamba(counts) -> None:
     check(min(errs[2]["plain, wrong scan: decay shifted one step"]) > MB_PLAIN_TOL,
           f"the 2-layer logit bound {MB_PLAIN_TOL} does not see a scan whose decay "
           f"is shifted one step: {errs[2]}")
+    mem_peak("the 2-layer cut and the logit comparisons")
 
     decode_profile(engine, step_ms, max(lens))
     del engine, params
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 def _ssd_operands(gen, B, H, S, P, N, with_h0, served=False):
@@ -1676,6 +1891,7 @@ def phase_gemma3(counts, report) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import lm_head as klm
     from repro_torch.kernels import quant_matmul as kqm
     from repro_torch.kernels import rmsnorm as krn
     from repro_torch.models.transformer import TransformerLM, init_model
@@ -1688,7 +1904,7 @@ def phase_gemma3(counts, report) -> None:
           f"{cfg.num_kv_heads} kv head of {cfg.resolved_head_dim}, vocab "
           f"{cfg.vocab_size:,}, {cfg.dtype}, int8 projections, {G3_SLOTS} slots, "
           f"max_seq {G3_MAX_SEQ}")
-    torch.cuda.reset_peak_memory_stats()
+    mem_reset()
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
     engine = ServeEngine(cfg, params, batch_size=G3_SLOTS, max_seq=G3_MAX_SEQ,
@@ -1704,7 +1920,7 @@ def phase_gemma3(counts, report) -> None:
         f"({cfg.dtype}), {q_bytes / 1e9:.3f} GB of int8 projections; cache slots "
         f"per layer: {slots.count(cfg.window)} x {cfg.window} (ring), "
         f"{slots.count(G3_MAX_SEQ)} x {G3_MAX_SEQ}")
-    del cache
+    mem_peak("weights made and quantized")
     engine.warmup(prompt_lens=[G3_PROMPTS[0]])
     sync()
     reqs = gemma3_requests(cfg)
@@ -1722,23 +1938,27 @@ def phase_gemma3(counts, report) -> None:
     for k in engine.calls:
         engine.calls[k] = 0
     for fn in (kfa.flash_attention, kfa.flash_attention_decode, kqm.quant_matmul,
-               krn.rmsnorm):
+               krn.rmsnorm, klm.lm_head):
         fn.shapes.clear()
     sched = SlotScheduler(G3_SLOTS)
-    reset_launch_counts()            # the Gemma3 path's run starts here
     sync()
+    mem_reset()
+    steady = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()            # the Gemma3 path's run starts here
     t0 = time.perf_counter()
     served = engine.run(reqs, scheduler=sched)
     sync()
     t_run = time.perf_counter() - t0
     got = launch_counts()            # ... and ends here
-    engine._prefill_into = prefill_into
+    peak = mem_peak("the served run")
+    del engine._prefill_into         # the class's method again (no cycle)
     steps = engine.calls["decode_steps"]
     forwards = engine.calls["prefill_waves"] + steps
     counts["g3"] = got
     counts["g3_flash_shapes"] = dict(kfa.flash_attention.shapes)
     counts["g3_flash_decode_shapes"] = dict(kfa.flash_attention_decode.shapes)
     counts["g3_layers"] = L
+    counts["g3_head_shapes"] = dict(klm.lm_head.shapes)
     say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} prefill "
         f"waves + {steps} decode steps = {forwards} forwards x {7 * L} quant_matmul "
         f"and x {2 * L + 1} rmsnorm")
@@ -1747,8 +1967,10 @@ def phase_gemma3(counts, report) -> None:
     check(got["rmsnorm"] == (2 * L + 1) * forwards,
           f"rmsnorm launches {got['rmsnorm']} != {2 * L + 1} x {forwards}")
     check_attention_launches(got, L, engine.calls)
+    check(got["lm_head"] == forwards, f"lm_head launches {got['lm_head']} != {forwards}")
     check(all(v == 0 for k, v in got.items() if k not in LM_KERNELS),
           f"the Gemma3 path launched another kernel: {got}")
+    check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 0, "the served run")
     check(all(r.done and len(r.out_tokens) == G3_NEW for r in served),
           "a request did not finish with its tokens")
     say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
@@ -1760,7 +1982,6 @@ def phase_gemma3(counts, report) -> None:
         f"mid-decode: {wrap}; the global caches reach position {max(lens) + G3_NEW - 1}")
     new = sum(len(r.out_tokens) for r in served)
     t_prefill = sum(waves)
-    peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms = (t_run - t_prefill) / max(steps, 1) * 1e3
     say(f"served {len(served)} requests (prompts {lens}, {sum(lens)} tokens) / {new} "
         f"new tokens in {t_run:.3f} s: {new / t_run:.1f} tokens/s; prefill "
@@ -1770,14 +1991,30 @@ def phase_gemma3(counts, report) -> None:
     report["gemma3"] = {"tokens_per_s": new / t_run, "prefill_s": t_prefill,
                         "decode_ms_per_step": step_ms, "peak_gb": peak,
                         "seconds": t_run, "new_tokens": new}
+    wave_cache = _storage_bytes(_cache_tensors(engine.init_shared_cache()))
+    S_wave = -(-max(lens) // 8) * 8
+    report["gemma3"]["memory"] = memory_account(
+        engine, params, steady, peak,
+        prefill_scratch_gb(cfg, G3_SLOTS * S_wave, wave_cache))
+    wide = fp64_on_card(params, engine.params, engine._caches)
+    say(f"fp64 tensors on the card after the served run: {wide} bytes (an fp64 copy "
+        f"of the token table would be {cfg.vocab_size * cfg.d_model * 8 / 1e9:.2f} GB)")
+    check(wide == 0, f"{wide} bytes of fp64 tensors on the card")
 
     # every stream equals the slot-at-a-time oracle's
+    calls = dict(engine.calls)
+    mem_reset()
     t0 = time.perf_counter()
     solo = [engine._run_one(r) for r in gemma3_requests(cfg)]
+    t_oracle = time.perf_counter() - t0
     same = sum(a.out_tokens == b.out_tokens for a, b in zip(served, solo))
     say(f"streams equal to the slot-at-a-time _run_one: {same} of {len(served)} "
-        f"({time.perf_counter() - t0:.1f} s for the oracle)")
+        f"({t_oracle:.1f} s for the oracle)")
     check(same == len(served), f"{len(served) - same} streams differ from _run_one")
+    check_graph_steps(engine, calls, 1, "the oracle")
+    mem_peak("the oracle")
+    report["gemma3"]["oracle_s"] = t_oracle
+    mem_reset()
 
     # last-token prefill logits through the kernels against the plain
     # versions, at a 2-layer cut; beside it, each kernel alone, a plain
@@ -1821,10 +2058,11 @@ def phase_gemma3(counts, report) -> None:
     check(max(errs["kernels"]) <= G3_PLAIN_TOL,
           f"Gemma3 logits kernels vs plain at 2 layers: {errs['kernels']}")
     report["gemma3"]["plain_rel_err"] = errs
+    mem_peak("the 2-layer comparisons")
     prof = decode_profile(engine, step_ms, max(lens))
     report["gemma3"]["decode_profile"] = prof
     del engine, params, tree, model
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 def _mask_kwargs(mask: tuple) -> dict:
@@ -2120,6 +2358,69 @@ def phase_flash_timing(gen, counts, worst) -> list:
     return records
 
 
+def phase_head(gen, counts) -> dict:
+    from repro_torch.kernels import lm_head as klm
+
+    phase("17. lm_head against its plain version, and its timing")
+    served = {**counts["lm_head_shapes"], **counts["mamba_head_shapes"],
+              **counts["g3_head_shapes"]}
+    tables = sorted({(D, V, tied) for _, D, V, tied in served}, key=lambda k: -k[1])
+    worst = 0.0
+    timings = []
+    for D, V, tied in tables + [(256, 1048, False)]:
+        w = torch.randn((V, D) if tied else (D, V), generator=gen, device=DEVICE).bfloat16()
+        x = torch.randn(8, D, generator=gen, device=DEVICE).bfloat16()
+        eight = klm.lm_head(x, w, tied=tied)
+        want = klm.lm_head_plain(x, w, tied=tied)
+        sync()
+        err = (eight - want).abs()
+        worst = max(worst, err.max().item())
+        check(bool((err <= 2e-4 + 2e-4 * want.abs()).all()),
+              f"lm_head {(8, D, V, tied)}: max abs error {err.max().item()}")
+        for m in range(8):
+            one = klm.lm_head(x[m:m + 1], w, tied=tied)
+            check(torch.equal(one[0], eight[m]),
+                  f"lm_head {(D, V, tied)}: row {m} at M = 1 differs from M = 8")
+        del want
+        if (D, V, tied) not in tables:
+            continue
+        for M in (8, 1):
+            xm = x[:M]
+            ms = graph_ms(lambda: klm.lm_head(xm, w, tied=tied), launches=5)
+            plain_ms = cuda_ms(lambda: klm.lm_head_plain(xm, w, tied=tied), 1)
+            lib_ms = graph_ms(lambda: torch.nn.functional.linear(xm, w), launches=5)
+            t_b, by = bound(V * D * 2 + M * D * 2 + M * V * 4, 2.0 * M * V * D)
+            launched = served.get((M, D, V, tied), 0)
+            say(f"lm_head (M, D, V) = {(M, D, V)} tied, bf16, {launched} launches on the "
+                f"paths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one cuBLAS bf16 "
+                f"product (F.linear, bf16 out) {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), "
+                f"{t_b / ms:.1%} of it")
+            timings.append({"shape": [M, D, V], "tied": tied, "launches": launched,
+                            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": t_b, "bound_by": by})
+        del w, x
+    say(f"against the plain version at every served (D, V) and an untied (256, 1048): "
+        f"within rtol = atol = 2e-4, max abs error {worst:.3g}; row m bitwise the same "
+        f"at M = 1 and M = 8")
+    head = timings[0]
+    return {
+        "name": "lm_head", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lm_head.cu",
+        "replaces": "none: src/repro/models/layers/embedding.py:34 logits_from, "
+                    "an einsum left to XLA",
+        "launches": counts["lm"]["lm_head"] + counts["mamba"]["lm_head"]
+        + counts["g3"]["lm_head"],
+        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_note": "torch.nn.functional.linear, bf16 out (cuBLAS)",
+        "shape": head["shape"], "shapes": timings,
+        "launches_by_path": {"lm_serve": counts["lm"]["lm_head"],
+                             "mamba_serve": counts["mamba"]["lm_head"],
+                             "gemma3_serve": counts["g3"]["lm_head"]},
+    }
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2160,11 +2461,13 @@ def main() -> int:
     phase_gemma3(counts, report)
     worst = phase_flash_check(gen, counts)
     records.extend(phase_flash_timing(gen, counts, worst))
-    check(len(records) == 8 and all(r["launches"] > 0 for r in records),
+    records.append(phase_head(gen, counts))
+    end_phase()
+    check(len(records) == 9 and all(r["launches"] > 0 for r in records),
           f"a kernel was never launched on its path: "
           f"{[(r['name'], r['launches']) for r in records]}")
-    say(f"smoke run {time.perf_counter() - t_start:.1f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB since phase 14")
+    say(f"smoke run {time.perf_counter() - t_start:.1f} s; seconds by phase: "
+        f"{PHASE_SECONDS}")
     print(CARD)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

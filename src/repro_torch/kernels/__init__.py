@@ -10,6 +10,7 @@ from typing import Dict
 
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import kmeans_assign as _kmeans_assign
+from repro_torch.kernels import lm_head as _lm_head
 from repro_torch.kernels import logreg_grad as _logreg_grad
 from repro_torch.kernels import quant_matmul as _quant_matmul
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -27,6 +28,7 @@ KERNELS = {
     "ssd_chunk_scan": _ssd_scan.ssd_chunk_scan,
     "flash_attention": _flash_attention.flash_attention,
     "flash_attention_decode": _flash_attention.flash_attention_decode,
+    "lm_head": _lm_head.lm_head,
 }
 
 

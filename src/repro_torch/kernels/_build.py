@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: every CUDA source of the package, by stem
 SOURCES = ("logreg_grad", "kmeans_assign", "quant_matmul", "rmsnorm", "ssd_scan",
-           "flash_attention")
+           "flash_attention", "lm_head")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -26,7 +26,9 @@ averages V over such a row instead; the port follows the kernel.)
 
 The kernels (``csrc/flash_attention.cu``, where the design and bound are
 described) sum every row in one order fixed by hd and a key tile of fixed
-width from key 0, so a row's result does not depend on the batch or on
+width from key 0 (the decode form: tiles within spans from slot 0, 64
+slots wide at hd 256 and 128 below, the spans merged in span order by a
+second kernel of the same launch), so a row's result does not depend on the batch, the position or
 padding: that is what lets continuous batching give the slot-at-a-time
 oracle's streams without the fp64 sums the port's attention took before.
 They take fp32 or bf16 (q, k and v of one dtype), hd 32, 64, 128 or 256,
@@ -65,7 +67,7 @@ NEG_INF = -2.0e38
 MASK_ARGS = ("causal", "window", "chunk")
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128, 256)
-#: q heads a kv head the decode kernel holds (one block per (kv head, row))
+#: q heads a kv head the decode kernel holds (its block's rows)
 DECODE_GROUP_MAX = 8
 
 _P = ctypes.c_void_p
@@ -83,9 +85,11 @@ def _lib() -> ctypes.CDLL:
             + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
         lib.flash_prefill_launch.restype = _I32
         lib.flash_decode_launch.argtypes = (
-            [_I32, _I32] + [_P] * 5 + [_I32] * 3 + [_I64] + [_I64] * 10
+            [_I32, _I32] + [_P] * 6 + [_I32] * 3 + [_I64] + [_I64] * 10
             + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
         lib.flash_decode_launch.restype = _I32
+        lib.flash_decode_scratch_floats.argtypes = [_I32, _I32, _I64, _I32]
+        lib.flash_decode_scratch_floats.restype = _I64
         _lib_handle = lib
     return _lib_handle
 
@@ -221,11 +225,11 @@ def flash_attention_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
-def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+def _kernel_view(t: torch.Tensor, align: int = 4) -> torch.Tensor:
     """``t`` itself when the kernel can read it in place (the head dim
-    contiguous, every other stride a multiple of 4 elements, the base
-    16-byte aligned), else a contiguous copy."""
-    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+    contiguous, every other stride a multiple of ``align`` elements, the
+    base 16-byte aligned), else a contiguous copy."""
+    if (t.stride(-1) == 1 and all(s % align == 0 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0):
         return t
     return t.contiguous()
@@ -306,12 +310,18 @@ def flash_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if pos.device != q.device:
         raise ValueError(f"pos on {pos.device}, q on {q.device}")
     scale = hd ** -0.5 if scale is None else scale
-    q, k_cache, v_cache = _kernel_view(q), _kernel_view(k_cache), _kernel_view(v_cache)
+    # rows of q and of the caches travel as 16-byte vectors
+    vec = 16 // q.element_size()
+    q, k_cache, v_cache = (_kernel_view(t, vec) for t in (q, k_cache, v_cache))
     pos = pos.to(torch.int64).contiguous()
     out = _kernel_view(torch.empty_like(q))
-    err = _lib().flash_decode_launch(
+    lib = _lib()
+    scratch = torch.empty(lib.flash_decode_scratch_floats(B, H, slots, hd),
+                          dtype=torch.float32, device=q.device)
+    err = lib.flash_decode_launch(
         _build.DTYPE_CODES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), pos.data_ptr(), B, H, KV, slots,
+        v_cache.data_ptr(), out.data_ptr(), pos.data_ptr(), scratch.data_ptr(), B, H, KV,
+        slots,
         q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(2),
         k_cache.stride(1), v_cache.stride(0), v_cache.stride(2), v_cache.stride(1),
         out.stride(0), out.stride(1), *_mask_args(causal, window, chunk), float(scale),

@@ -13,7 +13,9 @@ goes to the kernel, a CPU tensor to the plain version, and nothing else is
 accepted.  ``flash_attention_decode`` has no counterpart there: it is the
 same function as ``flash_attention`` for one query a row at its own
 position over a ring cache, the form a continuous-batching decode step
-needs (``kernels/flash_attention.py``).
+needs (``kernels/flash_attention.py``).  ``lm_head`` has none either: the
+reference's head is a plain product left to XLA, and the port's is a
+kernel that sums each logit in one order fixed by D (``kernels/lm_head.py``).
 """
 from __future__ import annotations
 
@@ -23,13 +25,14 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
 from repro_torch.kernels.kmeans_assign import kmeans_assign
+from repro_torch.kernels.lm_head import lm_head
 from repro_torch.kernels.logreg_grad import logreg_grad
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
-__all__ = ["flash_attention", "flash_attention_decode", "kmeans_assign", "logreg_grad",
-           "quant_matmul", "quantize_rows", "rmsnorm", "ssd_chunk_scan"]
+__all__ = ["flash_attention", "flash_attention_decode", "kmeans_assign", "lm_head",
+           "logreg_grad", "quant_matmul", "quantize_rows", "rmsnorm", "ssd_chunk_scan"]
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,7 +18,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     half = d // 2
     freq = torch.arange(half, dtype=torch.float32, device=x.device)
-    inv = torch.pow(torch.tensor(base, dtype=torch.float32, device=x.device),
+    # torch.full, not torch.tensor: no host-to-device copy, which a CUDA
+    # graph capture of the decode step would refuse
+    inv = torch.pow(torch.full((), base, dtype=torch.float32, device=x.device),
                     -freq / half)                             # (half,)
     ang = positions.to(torch.float32).unsqueeze(-1) * inv     # (..., seq, half)
     cos = torch.cos(ang).unsqueeze(-2)                        # over heads

@@ -1,7 +1,7 @@
 """Continuous-batching decode engine: one shared KV cache, per-slot
 positions, mid-decode backfill (counterpart: ``src/repro/serve/engine.py``).
 
-Device work is four functions, run eagerly (the reference jits them):
+Device work is four functions (the reference jits them):
 
   * **ragged prefill** — newly admitted prompts of *mixed* lengths are
     right-padded and prefilled together (``TransformerLM.prefill_ragged``);
@@ -12,7 +12,9 @@ Device work is four functions, run eagerly (the reference jits them):
     blocks, whose recurrent state would absorb a pad tail) prefills each
     admitted prompt alone into a batch-1 cache (``TransformerLM.prefill``).
   * **fused decode** — ONE masked decode step advances every busy slot,
-    each at its own position (``pos`` is a (B,) vector).
+    each at its own position (``pos`` is a (B,) vector).  On the card it
+    runs as a CUDA graph, the counterpart of the reference's
+    ``jax.jit(self._decode)`` (below); the other three run eagerly.
   * **cache scatter** — drops a prefilled wave into its slots of the shared
     cache.
 
@@ -27,12 +29,49 @@ Slot admission, retirement and backfill are host-side and owned by
 the reference's static baseline and ``_run_one`` its slot-at-a-time
 oracle: greedy token streams from every path are identical per request.
 
+**Decode caches and the CUDA graph.**  The engine owns one decode cache
+for each batch size it decodes at (``self.batch`` for ``run``, 1 for
+``_run_one``, the group's size for ``_run_group``) and reuses it from
+request to request; prefill writes into it in place.  No state of an
+earlier request leaks into a later one:
+
+  * an attention cache slot s of a ring of ``slots`` holds position
+    ``pos − ((pos − s) mod slots)`` for a query at ``pos``, and the decode
+    kernel reads a slot as empty where that is negative.  A request's
+    prefill writes positions 0..S−1 (the last ``slots`` of them on a ring),
+    each decode step the position it decodes, so every slot that reads as
+    non-empty was written by this request; slots above the position read
+    as empty, whatever an earlier request left there.  ``run`` goes
+    further: it prefills into a fresh cache and scatters whole slot rows;
+  * the SSD layer's prefill reads its cache's ``h`` and ``conv`` as the
+    initial state and the left context of the convolution, and overwrites
+    both with its final ones.  So ``_run_one`` and ``_run_group``, which
+    prefill into the engine's cache, zero those two first
+    (``_fresh_recurrent``); ``run`` scatters them from its fresh cache.
+
+On the card the first decode on an engine cache runs eagerly (a warm-up,
+on a side stream), and is then captured, ``TransformerLM.decode_step``
+over the cache and static token (B, 1) and position (B,) buffers, into a
+``torch.cuda.CUDAGraph``; a scalar position (``_run_group``) is broadcast
+to (B,) first.  Later steps copy their inputs in and replay the graph; the
+caches update in place inside it.  The logits a replay returns are the
+graph's own output tensor, valid until the next decode at that batch size.
+A decode on any other cache, or with other params, runs eagerly.  A
+capture that fails raises: there is no eager fallback on the card.  On the
+CPU the engine stays eager.  ``calls`` counts both kinds of step
+(``decode_graph_replays``, ``decode_eager``).  A replay does not pass
+through the kernels' Python wrappers, so the capture records each
+wrapper's ``.launches`` and ``.shapes`` deltas, takes them back (capture
+runs nothing) and adds them again at every replay: launch counts stay
+exact.
+
 Not ported yet (ROADMAP.md, Queue 1): ``mesh=`` (slot sharding over
 ``serve/step.py``) and ``prefix_cache=`` (``serve/prefix_cache.py``) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import collections
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -40,6 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import KERNELS
 from repro_torch.models.config import ATTENTION_KINDS, ArchConfig
 from repro_torch.models.layers.quant import quantize_model_params
 from repro_torch.models.transformer import TransformerLM
@@ -56,6 +96,50 @@ def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+class _GraphStep:
+    """One captured decode step over one engine cache: static (B, 1)
+    token and (B,) position buffers, the CUDA graph, its output logits, and
+    each kernel wrapper's launches and launch shapes per replay."""
+
+    def __init__(self, model: TransformerLM, params, cache, tokens: torch.Tensor,
+                 pos: torch.Tensor, B: int):
+        dev = tokens.device
+        self.tokens = torch.zeros((B, 1), dtype=tokens.dtype, device=dev)
+        self.pos = torch.zeros((B,), dtype=pos.dtype, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        # the wrappers a decode step can reach all count launches by shape
+        wrappers = {n: fn for n, fn in KERNELS.items() if hasattr(fn, "shapes")}
+        before = {name: (fn.launches, collections.Counter(fn.shapes))
+                  for name, fn in wrappers.items()}
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        allocated = torch.cuda.memory_allocated(dev)
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.logits, _ = model.decode_step(params, self.tokens, self.pos, cache)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        #: device memory the graph's pool took at capture
+        self.pool_bytes = torch.cuda.memory_allocated(dev) - allocated
+        # capture ran nothing: take the wrappers' counts back, keep the deltas
+        self.wrappers = wrappers
+        self.launches, self.shapes = {}, {}
+        for name, fn in wrappers.items():
+            n0, sh0 = before[name]
+            self.launches[name] = fn.launches - n0
+            self.shapes[name] = collections.Counter(fn.shapes) - sh0
+            fn.launches = n0
+            fn.shapes.clear()
+            fn.shapes.update(sh0)
+
+    def replay(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        self.tokens.copy_(tokens)
+        self.pos.copy_(pos)            # a scalar broadcasts to (B,)
+        self.graph.replay()
+        for name, fn in self.wrappers.items():
+            fn.launches += self.launches[name]
+            fn.shapes.update(self.shapes[name])
+        return self.logits
 
 
 def _argmax(logits: torch.Tensor) -> np.ndarray:
@@ -105,7 +189,13 @@ class ServeEngine:
         #: device work counted by kind, for the launch bookkeeping:
         #: ragged prefill waves, whole-batch prefills (per-request admission
         #: and the reference paths), decode steps
-        self.calls = {"prefill_waves": 0, "prefills": 0, "decode_steps": 0}
+        #: and, of the decode steps, graph replays and eager steps
+        self.calls = {"prefill_waves": 0, "prefills": 0, "decode_steps": 0,
+                      "decode_graph_replays": 0, "decode_eager": 0}
+        # the engine's decode caches and their captured steps, by batch size
+        self._caches: Dict[int, Any] = {}
+        self._graphs: Dict[int, _GraphStep] = {}
+        self._graphed = self.device.type == "cuda"
 
     # ------------------------------------------------------------------ #
     # device functions (the reference's jitted ones)
@@ -119,8 +209,51 @@ class ServeEngine:
         return self.model.prefill_ragged(params, tokens, lengths, cache)
 
     def _decode(self, params, tokens, pos, cache):
+        """One decode step: on the card and on an engine cache a graph
+        replay, after a first step there that runs eagerly and captures the
+        graph; eager everywhere else (module docstring)."""
         self.calls["decode_steps"] += 1
-        return self.model.decode_step(params, tokens, pos, cache)
+        B = int(tokens.shape[0])
+        if not (self._graphed and params is self.params
+                and self._caches.get(B) is cache):
+            self.calls["decode_eager"] += 1
+            return self.model.decode_step(params, tokens, pos, cache)
+        if B not in self._graphs:
+            # the warm-up, eager on a side stream (a capture wants its
+            # handles and workspaces made outside it), then the capture
+            self.calls["decode_eager"] += 1
+            dev = self.device
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                logits, cache = self.model.decode_step(params, tokens, pos, cache)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self._graphs[B] = _GraphStep(self.model, params, cache, tokens,
+                                         torch.as_tensor(pos, device=dev), B)
+            return logits, cache
+        self.calls["decode_graph_replays"] += 1
+        return self._graphs[B].replay(tokens, pos), cache
+
+    def decode_cache(self, batch: int):
+        """The engine's decode cache at ``batch`` slots, made on first use
+        and kept (module docstring)."""
+        if batch not in self._caches:
+            self._caches[batch] = self.model.init_cache(batch, self.max_seq)
+        return self._caches[batch]
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Device memory the captured decode steps' graph pools took."""
+        return sum(g.pool_bytes for g in self._graphs.values())
+
+    @staticmethod
+    def _fresh_recurrent(cache):
+        """Zero the SSD ``h`` and ``conv`` states of a reused cache before a
+        prefill into it, which reads them as its initial state."""
+        for block in cache.values():
+            for t in block.get("ssd", {}).values():
+                t.zero_()
+        return cache
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -129,8 +262,9 @@ class ServeEngine:
     # shared-cache plumbing
     # ------------------------------------------------------------------ #
     def init_shared_cache(self):
-        """The engine's one KV cache: batch dim = decode slots."""
-        return self.model.init_cache(self.batch, self.max_seq)
+        """The engine's one KV cache: batch dim = decode slots (kept from
+        call to call)."""
+        return self.decode_cache(self.batch)
 
     def _scatter(self, cache, sub_cache, slots: np.ndarray):
         """Drop ``sub_cache`` (batch = len(slots)) into ``cache`` at slot
@@ -278,7 +412,7 @@ class ServeEngine:
         token by token with a batch-1 cache.  The parity oracle for the
         continuous path."""
         S = len(req.prompt)
-        cache = self.model.init_cache(1, self.max_seq)
+        cache = self._fresh_recurrent(self.decode_cache(1))
         logits, cache = self._prefill(
             self.params, self._tensor(np.asarray(req.prompt, np.int32)[None, :]), cache)
         pos = S
@@ -313,7 +447,7 @@ class ServeEngine:
         cache with a true batch dimension, per-slot retirement masks."""
         B = len(reqs)
         prompts = self._tensor(np.stack([r.prompt for r in reqs]).astype(np.int32))
-        cache = self.model.init_cache(B, self.max_seq)
+        cache = self._fresh_recurrent(self.decode_cache(B))
         logits, cache = self._prefill(self.params, prompts, cache)
         toks = _argmax(logits)
         pos = plen

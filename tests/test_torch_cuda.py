@@ -91,7 +91,8 @@ def test_cuda_kernels_match_plain_versions():
     assert tk.launch_counts() == {"logreg_margin": 6, "logreg_xt_z": 6,
                                   "kmeans_assign": 6, "quant_matmul": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
-                                  "flash_attention": 0, "flash_attention_decode": 0}
+                                  "flash_attention": 0, "flash_attention_decode": 0,
+                                  "lm_head": 0}
 
 
 @pytest.mark.cuda
@@ -426,3 +427,120 @@ def test_gemma3_engine_on_card_matches_slot_at_a_time():
     assert counts["flash_attention_decode"] == cfg.num_layers * eng.calls["decode_steps"]
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_kernel_at_span_boundaries(dtype):
+    """The decode form splits the slots into spans from slot 0 (64 slots at
+    hd 256, 128 below) and merges them in span order: against its plain
+    version at positions either side of a span boundary, on a ring that is not a multiple of
+    the span and on wrapped rings; bitwise the same alone and in a batch of
+    8, and over exactly pos + 1 slots."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    edges = [63, 64, 65, 127, 128, 255, 257, 2047]
+    cases = [((8, 4, 1, 2048, 256), dict(), edges),
+             ((8, 12, 2, 2048, 128), dict(), edges),
+             ((8, 4, 1, 512, 256), dict(window=512), [300, 511, 512, 513, 640, 1124, 2047, 0]),
+             ((4, 6, 1, 300, 64), dict(window=200), [128, 299, 300, 777])]
+    tk.reset_launch_counts()
+    launched = 0
+    for (B, H, KV, slots, hd), kw, pos in cases:
+        q, kc, vc = randn(B, H, hd), randn(B, slots, KV, hd), randn(B, slots, KV, hd)
+        p = torch.tensor(pos, device="cuda")
+        batch = tfa.flash_attention_decode(q, kc, vc, p, **kw)
+        launched += 1
+        torch.testing.assert_close(
+            batch.float(), tfa.flash_attention_decode_plain(q, kc, vc, p, **kw).float(),
+            **_flash_tol(dtype))
+        for b, n in enumerate(pos):
+            alone = tfa.flash_attention_decode(q[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                               p[b:b + 1], **kw)
+            assert torch.equal(alone[0], batch[b]), (slots, n)
+            launched += 1
+            if n < slots:
+                exact = tfa.flash_attention_decode(q[b:b + 1], kc[b:b + 1, :n + 1],
+                                                   vc[b:b + 1, :n + 1], p[b:b + 1], **kw)
+                assert torch.equal(exact[0], batch[b]), (slots, n)
+                launched += 1
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention_decode"] == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_head_kernel_matches_plain_and_is_batch_invariant(dtype):
+    """``lm_head`` against its plain version (fp64 sums rounded to fp32),
+    tied and untied, at rtol = atol = 2e-4 (the kernel sums in fp32), and
+    row m bitwise the same at M = 1 and M = 8 (and in an M-tile of 13)."""
+    from repro_torch.kernels import lm_head as tlm
+
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    tk.reset_launch_counts()
+    n = 0
+    for tied, D, V in ((True, 1152, 5003), (True, 2560, 777), (False, 256, 1048)):
+        w = randn(V, D) if tied else randn(D, V)
+        x = randn(13, D)
+        full = tlm.lm_head(x, w, tied=tied)
+        torch.testing.assert_close(full, tlm.lm_head_plain(x, w, tied=tied),
+                                   rtol=2e-4, atol=2e-4)
+        eight = tlm.lm_head(x[:8], w, tied=tied)
+        n += 2
+        for m in range(8):
+            one = tlm.lm_head(x[m:m + 1], w, tied=tied)
+            n += 1
+            assert torch.equal(one[0], eight[m]) and torch.equal(one[0], full[m]), (D, m)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tlm.lm_head(randn(2, 100), randn(50, 100), tied=True)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["lm_head"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-2.7b"])
+def test_graph_replayed_engine_equals_eager(arch):
+    """The engine's decode steps as CUDA graph replays give the eager
+    engine's streams token for token; every step but the warm-up before
+    each capture is a replay, and the launch counts stay exact."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = get_smoke(arch)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    graphed = ServeEngine(cfg, params, batch_size=3, max_seq=96)
+    eager = ServeEngine(cfg, params, batch_size=3, max_seq=96)
+    eager._graphed = False
+
+    def reqs():
+        r = np.random.default_rng(4)
+        return [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m)
+                for n, m in zip((5, 40, 12, 33, 3), (20, 8, 25, 6, 9))]
+
+    tk.reset_launch_counts()
+    served = graphed.run(reqs())
+    counts = tk.launch_counts()
+    calls = graphed.calls
+    assert calls["decode_eager"] == 1
+    assert calls["decode_graph_replays"] == calls["decode_steps"] - 1 > 0
+    assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * (
+        calls["prefills"] + calls["prefill_waves"] + calls["decode_steps"])
+    assert counts["lm_head"] == calls["prefills"] + calls["prefill_waves"] + calls["decode_steps"]
+    want = eager.run(reqs())
+    assert eager.calls["decode_graph_replays"] == 0
+    assert [r.out_tokens for r in served] == [r.out_tokens for r in want]
+    solo = [graphed._run_one(r) for r in reqs()]
+    assert graphed.calls["decode_eager"] == 2
+    assert [r.out_tokens for r in solo] == [r.out_tokens for r in want]
