@@ -95,16 +95,23 @@ Phases (each one that fails makes the script exit non-zero):
                 the served run, the oracle and the cut, each peak on its own
                 line, the served run's with the holders that account for it.
  15. flash_attention (both forms) against its plain versions at every shape
-                phases 8 and 14 launched, and in fp32 and bf16 at hd 32, 128
-                and 256, GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that are
-                not a multiple of the key tile, and rings that have wrapped
-                (pos >= slots); a row bitwise the same at B = 1 and in a batch
-                of 8, and at its exact length and padded; a plain version
-                whose window is widened by one must read beyond the tolerance.
+                phases 8 and 14 launched, and in fp32 and bf16 at hd 32, 64,
+                128 and 256, GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that
+                are not a multiple of the key tile, and rings that have
+                wrapped (pos >= slots); a row bitwise the same at B = 1 and in
+                a batch of 8, and at its exact length and padded; a plain
+                version whose window is widened by one must read beyond the
+                tolerance.  Every served prefill launch (bf16) and every bf16
+                case took the tensor-core route, every fp32 case the fp32
+                kernel; the tensor-core kernel with p in 1, 2 and 3 bf16 terms
+                against the plain version at the served global shapes (3, the
+                served kernel, within the tolerance).
  16. timing    — flash_attention at the served shapes (CUDA events), beside
                 the plain versions, one torch.nn.functional.
-                scaled_dot_product_attention call (its backend named) and the
-                bound.
+                scaled_dot_product_attention call (its backend named), the
+                fp32 kernel on the same values in fp32, and the bounds at the
+                bf16 tensor-core and the fp32 rate; the tensor-core instances'
+                registers and spills from phase 2's -Xptxas -v (no spill).
  17. lm_head   — against its plain version at every (M, D, V) the serving
                 phases launched (M = 8 and 1; tied; and untied at a small
                 shape), row m bitwise the same at M = 1 and M = 8; timed at
@@ -138,10 +145,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, the fp32 rate outside
-# the tensor cores (kernels 1-3, rmsnorm, ssd_chunk_scan and flash_attention
-# do IEEE fp32 arithmetic) and the dense int8 tensor-core rate (quant_matmul)
+# the tensor cores (kernels 1-3, rmsnorm, ssd_chunk_scan, lm_head, the decode
+# form of flash_attention and its prefill form on fp32 operands do IEEE fp32
+# arithmetic), the dense bf16 tensor-core rate (the prefill form on bf16
+# operands) and the dense int8 tensor-core rate (quant_matmul)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 
 DEVICE = "cuda"
@@ -341,12 +351,17 @@ def phase_device() -> None:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
 
+# each source's compiler output from phase 2 (-Xptxas -v), by source stem
+BUILD_LOGS: dict = {}
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
     phase("2. build")
     t0 = time.perf_counter()
     logs = _build.build()
+    BUILD_LOGS.update(logs)
     say(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s "
         f"into {os.path.relpath(_build.BUILD_DIR, ROOT)}")
     for name, log in logs.items():
@@ -819,6 +834,7 @@ def phase_lm(counts, report) -> None:
     counts["lm"] = got
     counts["lm_rms_shapes"] = dict(rmsnorm.shapes)
     counts["lm_flash_shapes"] = dict(flash_attention.shapes)
+    counts["lm_flash_routes"] = dict(flash_attention.routes)
     counts["lm_flash_decode_shapes"] = dict(flash_attention_decode.shapes)
     counts["lm_shapes"] = shapes
     counts["lm_by_shape"] = by_shape
@@ -1956,6 +1972,7 @@ def phase_gemma3(counts, report) -> None:
     forwards = engine.calls["prefill_waves"] + steps
     counts["g3"] = got
     counts["g3_flash_shapes"] = dict(kfa.flash_attention.shapes)
+    counts["g3_flash_routes"] = dict(kfa.flash_attention.routes)
     counts["g3_flash_decode_shapes"] = dict(kfa.flash_attention_decode.shapes)
     counts["g3_layers"] = L
     counts["g3_head_shapes"] = dict(klm.lm_head.shapes)
@@ -2102,6 +2119,13 @@ def phase_flash_check(gen, counts) -> dict:
     say(f"tolerance: fp32 {FP32_TOL} (rtol and atol, tests/test_kernels.py's), bf16 "
         f"one bf16 step of each value (rtol 2^-7) + 1e-6")
     worst = {"flash_attention": 0.0, "flash_attention_decode": 0.0}
+    # every served prefill launch (bf16) took the tensor-core route
+    for path in ("lm", "g3"):
+        routes, n = counts[f"{path}_flash_routes"], counts[path]["flash_attention"]
+        check(routes == {kfa.ROUTES[torch.bfloat16]: n} and n > 0,
+              f"{path}: served prefill launches by route {routes}, of {n}")
+    say(f"served prefill launches by route: Qwen2 {counts['lm_flash_routes']}, Gemma3 "
+        f"{counts['g3_flash_routes']} (every one on the tensor cores)")
     served = list({**counts["lm_flash_shapes"], **counts["g3_flash_shapes"]})
     served_dec = list({**counts["lm_flash_decode_shapes"],
                        **counts["g3_flash_decode_shapes"]})
@@ -2113,7 +2137,10 @@ def phase_flash_check(gen, counts) -> dict:
         (2, 4, 1, 300, 300, 256, dict(causal=True, chunk=128), both),
         (3, 4, 4, 33, 33, 32, dict(causal=False), both),
         (1, 12, 2, 1, 777, 128, dict(causal=True, window=100), both),
-        (2, 4, 1, 513, 513, 256, dict(causal=True, window=512), both)]
+        (2, 4, 1, 513, 513, 256, dict(causal=True, window=512), both),
+        (2, 6, 1, 200, 200, 64, dict(causal=True), both),          # 6:1, Sq % 16 != 0
+        (1, 4, 2, 50, 300, 64, dict(causal=True, chunk=64), both)]  # Sq < Sk
+    kfa.flash_attention.routes.clear()
     for B, H, KV, Sq, Sk, hd, kw, dtypes in cases:
         for dtype in dtypes:
             q, k, v = _flash_inputs(gen, dtype, B, H, KV, Sq, Sk, hd)
@@ -2124,10 +2151,16 @@ def phase_flash_check(gen, counts) -> dict:
             check(ok, f"flash_attention {(B, H, KV, Sq, Sk, hd)} {kw} {dtype}: max abs "
                   f"err {err} ({ratio:.3g} x the tolerance)")
             del q, k, v, a, b
+    n_bf16 = sum(torch.bfloat16 in c[-1] for c in cases)
+    n_fp32 = sum(torch.float32 in c[-1] for c in cases)
+    routes = dict(kfa.flash_attention.routes)
+    check(routes == {kfa.ROUTES[torch.bfloat16]: n_bf16, kfa.ROUTES[torch.float32]: n_fp32},
+          f"prefill launches by route {routes}: {n_bf16} bf16, {n_fp32} fp32 cases")
     say(f"prefill form at the {len(served)} served shapes (bf16) and {len(cases) - len(served)} "
-        f"others in fp32 and bf16 (hd 32, 128, 256; GQA 1:1, 4:1, 6:1; causal, window, "
-        f"chunk, not causal; Sq < Sk; Sk 33, 100, 300, 513, 600, 777): within the "
-        f"tolerance, max abs error {worst['flash_attention']:.3g}")
+        f"others in fp32 and bf16 (hd 32, 64, 128, 256; GQA 1:1, 2:1, 4:1, 6:1; causal, "
+        f"window, chunk, not causal; Sq < Sk; Sk 33, 100, 200, 300, 513, 600, 777): within "
+        f"the tolerance, max abs error {worst['flash_attention']:.3g}; launches by route "
+        f"{routes}")
     dec = [(*k[:5], _mask_kwargs(k[5]), 2 * G3_MAX_SEQ - 1, (torch.bfloat16,))
            for k in served_dec] + [
         (8, 4, 1, 512, 256, dict(causal=True, window=512), 2047, both),
@@ -2201,6 +2234,35 @@ def phase_flash_check(gen, counts) -> dict:
         f"its plain version reads " + ", ".join(f"{d} {s:.3g}" for d, s, _ in reads)
         + " x the tolerance; against a plain version whose window is one key wider "
         + ", ".join(f"{d} {r:.3g}" for d, _, r in reads) + " x (must exceed 1)")
+
+    # the precision choice on the card: the tensor-core kernel with p in 1,
+    # 2 and 3 bf16 terms (3 is the served kernel, bitwise) against the plain
+    # version, at the widest served global shapes of both models
+    for label, shapes in (("Gemma3", counts["g3_flash_shapes"]),
+                          ("Qwen2", counts["lm_flash_shapes"])):
+        B, H, KV, Sq, Sk, hd, key = max((k for k in shapes if k[6][1] is None),
+                                        key=lambda k: (k[0], k[4]))
+        kw = _mask_kwargs(key)
+        q, k, v = _flash_inputs(gen, torch.bfloat16, B, H, KV, Sq, Sk, hd)
+        want = kfa.flash_attention_plain(q, k, v, **kw)
+        read = {}
+        for terms in (1, 2, 3):
+            a = kfa.flash_attention_terms(q, k, v, terms, **kw)
+            if terms == kfa.P_TERMS:
+                check(torch.equal(a, kfa.flash_attention(q, k, v, **kw)),
+                      f"{label}: the kernel at {terms} terms is not the served kernel")
+            _, _, ratio = _flash_err(a, want, torch.bfloat16)
+            tol = FLASH_TOL[torch.bfloat16]
+            over = ((a.float() - want.float()).abs()
+                    > tol["atol"] + tol["rtol"] * want.float().abs()).float().mean().item()
+            read[terms] = (ratio, over)
+            del a
+        check(read[kfa.P_TERMS][0] <= 1.0, f"{label}: {kfa.P_TERMS} terms read {read}")
+        say(f"p in bf16 terms at {label}'s served {(B, H, KV, Sq, Sk, hd)} {kw}, against the "
+            f"plain version: " + "; ".join(f"{t} term{'s' * (t > 1)} {r:.3g} x the tolerance "
+                                           f"({o:.3g} of the values beyond it)"
+                                           for t, (r, o) in read.items()))
+        del q, k, v, want
     return worst
 
 
@@ -2251,11 +2313,36 @@ def library_time(fn, backend: str, eager: bool):
     return ms, backend
 
 
+def mma_registers() -> dict:
+    """hd → (registers, spill store bytes, spill load bytes) of each
+    tensor-core prefill instance, from phase 2's -Xptxas -v report (empty
+    where the library was built before this run)."""
+    import re
+
+    found, hd = {}, None
+    for line in BUILD_LOGS.get("flash_attention", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            m = re.search(r"flash_mma_kernelILi(\d+)E", m.group(1))
+            hd = int(m.group(1)) if m else None
+            if hd is not None:
+                found[hd] = [0, 0, 0]
+        elif hd is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                found[hd][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                found[hd][0] = int(m.group(1))
+    return {hd: tuple(v) for hd, v in found.items()}
+
+
 def phase_flash_timing(gen, counts, worst) -> list:
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.flash_attention import _admitted, slot_positions
 
     phase("16. flash_attention timing at the served shapes")
+    say(f"card: {CARD}")
     g3, lm = counts["g3_flash_shapes"], counts["lm_flash_shapes"]
     g3d, lmd = counts["g3_flash_decode_shapes"], counts["lm_flash_decode_shapes"]
 
@@ -2273,12 +2360,23 @@ def phase_flash_timing(gen, counts, worst) -> list:
                 ("Qwen2 decode", widest(lmd, lambda k: True))]
     records = []
     timings = []
+    regs = mma_registers()
+    say("tensor-core prefill instances (-Xptxas -v): " + (", ".join(
+        f"hd {hd}: {r} registers, {st} bytes of spill stores, {ld} of spill loads"
+        for hd, (r, st, ld) in sorted(regs.items())) or "not built in this run"))
+    check(all(st == 0 and ld == 0 for _, st, ld in regs.values()),
+          f"a tensor-core prefill instance spills: {regs}")
     for label, key in pre_rows:
         B, H, KV, Sq, Sk, hd, mk = key
         kw = _mask_kwargs(mk)
         q, k, v = _flash_inputs(gen, torch.bfloat16, B, H, KV, Sq, Sk, hd)
         ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw), 5)
         plain_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v, **kw), 1)
+        # the fp32 kernel (IEEE fp32 on the SIMT pipe) at the same shape, on
+        # the same values in fp32: the yardstick of the route it replaced
+        qf, kf, vf = q.float(), k.float(), v.float()
+        simt_ms = cuda_ms(lambda: kfa.flash_attention(qf, kf, vf, **kw), 3)
+        del qf, kf, vf
         pq = torch.arange(Sq, device=DEVICE)[:, None] + (Sk - Sq)
         mask = _admitted(pq, torch.arange(Sk, device=DEVICE)[None, :], **kw)
         if kw["window"] is not None or kw["chunk"] is not None:
@@ -2287,16 +2385,22 @@ def phase_flash_timing(gen, counts, worst) -> list:
             lib, backend = sdpa_yardstick(q, k, v, is_causal=True, scale=hd ** -0.5)
         lib_ms, backend = library_time(lib, backend, eager=True)
         pairs = _attention_pairs(B, H, Sq, Sk, kw)
-        t_b, by = bound(2 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd), 4.0 * hd * pairs)
+        moved = 2 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd)
+        t_b, by = bound(moved, 4.0 * hd * pairs, BF16_OPS_PER_S)
+        t_f, by_f = bound(moved, 4.0 * hd * pairs)
         launched = {**g3, **lm}.get(key, 0)
         say(f"flash_attention {label} (B, H, KV, Sq, Sk, hd) = {(B, H, KV, Sq, Sk, hd)} "
-            f"{kw}, bf16, {launched} launches on the path: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}), "
-            f"bound {t_b:.4f} ms ({by}; {pairs:.4g} admitted pairs), {t_b / ms:.1%} of it")
+            f"{kw}, bf16, {launched} launches on the path: kernel (tensor cores) {ms:.4f} "
+            f"ms, the fp32 kernel on fp32 operands {simt_ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}); bound over "
+            f"{pairs:.4g} admitted pairs x 4 hd operations: {t_b:.4f} ms at the bf16 "
+            f"tensor-core rate ({by}; {t_b / ms:.1%} of the kernel's time), {t_f:.4f} ms "
+            f"at the fp32 rate ({by_f}; {t_f / simt_ms:.1%} of the fp32 kernel's)")
         timings.append({"label": label, "shape": [B, H, KV, Sq, Sk, hd], "mask": kw,
                         "launches": launched, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": lib_ms, "library_note": backend,
-                        "bound_ms": t_b, "bound_by": by})
+                        "bound_ms": t_b, "bound_by": by, "fp32_kernel_ms": simt_ms,
+                        "fp32_bound_ms": t_f})
         del q, k, v, mask
     head = timings[0]
     records.append({
@@ -2304,6 +2408,10 @@ def phase_flash_timing(gen, counts, worst) -> list:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:123",
         "launches": counts["lm"]["flash_attention"] + counts["g3"]["flash_attention"],
+        "launches_by_route": {k: counts["lm_flash_routes"].get(k, 0)
+                              + counts["g3_flash_routes"].get(k, 0)
+                              for k in kfa.ROUTES.values()},
+        "registers": {str(hd): r for hd, r in regs.items()},
         "max_abs_err": worst["flash_attention"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

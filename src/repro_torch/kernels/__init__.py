@@ -38,5 +38,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Set every launch count to 0, and clear the prefill form's route
+    counts (``flash_attention.routes``)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    _flash_attention.flash_attention.routes.clear()

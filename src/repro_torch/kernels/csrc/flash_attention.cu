@@ -30,37 +30,74 @@
 //   * key tiles have a fixed width from key (or slot) 0, and keys past the
 //     end are masked in the tile, never a tile width that follows Sk;
 //   * every dot product, every row sum and every accumulation runs in one
-//     order fixed by hd and the tile width alone (an fma chain over the
-//     head dimension; over a tile's keys in index order; butterflies whose
-//     pairs are fixed);
+//     order fixed by hd and the tile width alone (an fma chain, or a chain
+//     of tensor-core products through their accumulator, over the head
+//     dimension; over a tile's keys in index order; butterflies whose pairs
+//     are fixed);
 //   * a tile in which no (row, key) of the block is admitted is skipped;
 //     a tile processed for other rows of the block leaves a row with no
 //     admitted key in it bitwise unchanged, by the Pallas kernel's guards:
 //     p = 0 where s is at NEG_INF, alpha = 0 while m is still NEG_INF and
 //     exp(0) = 1 otherwise.  NEG_INF is -2e38, never -INFINITY, which would
 //     give inf - inf = NaN.
-// Arithmetic is IEEE fp32: fmaf, expf (not __expf), no --use_fast_math.
+// Arithmetic: fp32 operands (and the decode form) are IEEE fp32 on the SIMT
+// pipe: fmaf, expf (not __expf), no --use_fast_math.  bf16 operands of the
+// prefill form go to the tensor cores (flash_mma_kernel), under three
+// conditions: every product is exact (bf16 x bf16 is exact in fp32, and
+// each fp32 probability enters P . V as three bf16 terms hi + mid + lo,
+// which hold its 24 significant bits); the sums are fp32, in the
+// accumulator of mma.sync, in an order fixed by hd and the key tile alone;
+// no TF32 anywhere.  Softmax, rescaling and the final division stay IEEE
+// fp32 (expf, fmaf, div.rn).
 //
 // What bounds it on this card (H100 SXM: 67 TFLOP/s fp32 outside the tensor
-// cores, 3.35 TB/s).  Prefill: 4 * hd operations per admitted (query, key)
-// pair and head, against q, k, v and out read or written once, so at the
-// served lengths the operations bound it: Gemma3's global layer over a wave
-// of 8 prompts of ~2,000 tokens is ~65 GFLOP, ~1 ms.  The kernel stays on
-// the fp32 pipe (no TF32, no bf16 products: the port's fp32 rule), so its
-// floor is that rate, not the tensor cores'.  Decode: each row reads its
-// valid K/V once for 4 * hd operations a (slot, head) pair, so the bytes
-// bound it: 2 * valid slots * hd * 2 bytes a (row, kv head) in bf16, 4 us
-// for Gemma3's global layer at 8 rows near position 2,048.
+// cores, 989 TFLOP/s bf16 in them, 3.35 TB/s).  Prefill: 4 * hd operations
+// per admitted (query, key) pair and head, against q, k, v and out read or
+// written once, so at the served lengths the operations bound it: Gemma3's
+// global layer over a wave of 8 prompts of ~2,000 tokens is ~63 GFLOP,
+// 0.94 ms at the fp32 rate and 0.064 ms at the bf16 tensor-core rate.  The
+// three terms of p make the tensor-core kernel do 8 * hd operations a pair
+// (2 * hd for Q . K^T, 6 * hd for P . V), so its own floor there is ~0.13
+// ms.  Decode: each row reads its valid K/V once for 4 * hd operations a
+// (slot, head) pair, so the bytes bound it: 2 * valid slots * hd * 2 bytes
+// a (row, kv head) in bf16, 4 us for Gemma3's global layer at 8 rows near
+// position 2,048.
 //
 // How the design meets it (PERF.md has its times):
-//   * prefill: one block of 256 threads per (64 rows, kv head, b), a row
-//     being a (query, q head of the group) pair, so GQA groups of any size
-//     share each K/V tile; Q stays in shared memory as fp32, K and V tiles
-//     of 32 keys are loaded (converted to fp32) once per block; scores in
-//     2 x 4 register micro-tiles of float4 loads from shared memory, rows
-//     padded by 4 floats so that the loads of a quarter-warp fall on
-//     distinct banks; p . V: each thread holds 4 dims of its rows'
-//     accumulators in registers;
+//   * prefill, fp32 operands (flash_kernel): one block of 256 threads per
+//     (64 rows, kv head, b), a row being a (query, q head of the group)
+//     pair, so GQA groups of any size share each K/V tile; Q stays in
+//     shared memory as fp32, K and V tiles of 32 keys are loaded (converted
+//     to fp32) once per block; scores in 2 x 4 register micro-tiles of
+//     float4 loads from shared memory, rows padded by 4 floats so that the
+//     loads of a quarter-warp fall on distinct banks; p . V: each thread
+//     holds 4 dims of its rows' accumulators in registers;
+//   * prefill, bf16 operands (flash_mma_kernel): one block of 4 warps per
+//     (64 rows, kv head, b), rows as above, each warp owning 16 rows for
+//     mma.sync.m16n8k16 (bf16 in, fp32 accumulator).  K and V tiles of 64
+//     keys (32 at hd 256) from key 0 travel as 16-byte cp.async copies into
+//     a ring of 2 stages in shared memory, in bf16, rows padded by 16 bytes
+//     so that ldmatrix (.trans for V) reads 8 rows on 8 distinct bank
+//     groups; one barrier a tile, the next tile's copies in flight during
+//     this tile's products.  Q is read once into shared memory and, up to
+//     hd 128, into registers (at hd 256 the O accumulator alone takes 128
+//     registers a thread, so Q is read from shared memory by ldmatrix at
+//     each k-step).  S = Q . K^T chains the k16 steps over hd in index
+//     order through the accumulator; the masks are one interval of keys a
+//     row (causal, window and chunk all bound it), applied on S's fragment
+//     by position.  The online softmax runs in registers: a row's values
+//     sit in a quad of 4 lanes, max and sum by a fixed in-thread order and
+//     a fixed xor butterfly (1, 2).  The S accumulator has the layout of
+//     P's A fragment, so P never leaves registers: O is rescaled by alpha
+//     (an IEEE fp32 multiply), then each k16 step of keys, in key order, is
+//     split into hi, mid and lo bf16 fragments, multiplied with V's in that
+//     order of terms into O through the accumulator.  A row with no
+//     admitted key in a tile has alpha = 1 and p = 0 there, and a product
+//     of zeros leaves the accumulator bitwise as it was, so the tile
+//     changes nothing for it (the card's bitwise checks hold this).  A tile
+//     with no admitted key for a warp's 16 rows is skipped by that warp,
+//     one inside all of them needs no mask; blocks run last rows first, so
+//     the longest causal rows start first.
 //   * decode: the ring's slots are cut into spans from slot 0, of a width
 //     fixed at compile time by hd (span_slots: 64 slots at hd 256, 128
 //     below), and one block of hd threads takes one (span, kv head, batch
@@ -87,10 +124,11 @@
 // q, k, v and out are read through strides (the layer's (B, S, H, hd)
 // layout is read in place); the head dimension is contiguous, every other
 // stride a multiple of 4 elements and every base 16-byte aligned (the
-// wrapper checks; the decode form's q and caches: every stride a multiple
-// of 16 bytes).  hd is 32, 64, 128 or 256.  The C launchers take PyTorch's
-// current stream, allocate nothing (the decode form's scratch comes from
-// the wrapper) and return cudaGetLastError().
+// wrapper checks; the bf16 prefill form's operands and the decode form's q
+// and caches: every stride a multiple of 16 bytes).  hd is 32, 64, 128 or
+// 256.  The C launchers take PyTorch's current stream, allocate nothing
+// (the decode form's scratch comes from the wrapper) and return
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,22 +159,20 @@ struct Strides {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
+
+// 16 bytes global -> shared without registers; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // floor division, as Python's and jnp's // (positions may be negative when
@@ -440,6 +476,375 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out, int B
 }
 
 // ------------------------------------------------------------------------
+// Prefill form, bf16 operands: tensor cores through mma.sync.m16n8k16
+// (bf16 x bf16 -> fp32), one warp a 16-row fragment.
+// ------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;                     // warps of a block
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaRows = kMmaWarps * 16;         // (query, head) rows of a block
+constexpr int kMmaTerms = 3;                     // bf16 terms of p in P . V
+constexpr int kMmaStages = 2;                    // K/V tiles in flight
+
+// keys of a tile: 32 at hd 256, where O alone holds 128 registers a thread,
+// and 64 below
+constexpr int mma_tile_keys(int hd) { return hd >= 256 ? 32 : 64; }
+
+template <int HD>
+struct MmaLayout {
+  static constexpr int kN = mma_tile_keys(HD);   // keys a tile
+  static constexpr int RS = HD + 8;              // shared row stride, bf16 (16 bytes of pad)
+  static constexpr int kChunks = HD / 8;         // 16-byte chunks a row
+  static constexpr int kSteps = HD / 16;         // k16 steps of Q . K^T
+  static constexpr int kNB = kN / 8;             // n8 blocks of S
+  static constexpr int kPSteps = kN / 16;        // k16 steps of P . V
+  static constexpr int kOB = HD / 8;             // n8 blocks of O
+  static constexpr bool kQInRegs = HD <= 128;
+  static constexpr int kQ = kMmaRows * RS;       // Q, in bf16 elements
+  static constexpr int kStage = 2 * kN * RS;     // a K tile, then a V tile
+  static constexpr int kBytes = (kQ + kMmaStages * kStage) * 2;
+  static_assert(kNB % 2 == 0 && kOB % 2 == 0, "mma layout");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d = a . b + d: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (x, y) as bf16 pairs hi + mid + lo, each the bf16 rounding of what the
+// terms before leave (x - hi and x - hi - mid are exact in fp32)
+__device__ __forceinline__ void split_terms(float x, float y, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
+}
+
+// One block: kMmaRows rows of (query, head) against one kv head of one
+// batch row, rows as in flash_kernel; grid (ceil(Sq * G / kMmaRows), KV, B),
+// the last rows in the first blocks.  Lane l of warp w holds rows
+// 16w + l / 4 and 16w + l / 4 + 8 of the block, and of each n8 block of S
+// and O the columns 2 (l % 4) and 2 (l % 4) + 1 (the mma fragment layout).
+// terms (1 to 3) is kMmaTerms on the served path.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                 int H, int KV, int nq, int nkeys, Strides qs, Strides ks, Strides vs,
+                 Strides os, Mask mask, float scale, int terms) {
+  using L = MmaLayout<HD>;
+  constexpr int kN = L::kN, RS = L::RS;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);   // [kMmaRows][RS]
+  __nv_bfloat16* Ts = Qs + L::kQ;                                 // stages: K, then V
+  __shared__ int block_lo[kMmaWarps], block_hi[kMmaWarps];
+
+  const int G = H / KV;
+  const int kvh = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long rows = (long long)nq * G;
+  const long long row0 = (long long)(gridDim.x - 1 - blockIdx.x) * kMmaRows;
+  const long long qpos0 = (long long)nkeys - nq;   // position of query 0
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int gq = lane / 4, tq = lane % 4;
+
+  // the keys each of this thread's two rows admits: one interval [lo, hi]
+  // (causal, window and chunk each bound it), empty as [nkeys, -1]
+  int lo[2], hi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long rg = row0 + warp * 16 + gq + 8 * h;
+    long long l0 = 0, h0 = (long long)nkeys - 1;
+    if (rg < rows) {
+      const long long pq = qpos0 + rg / G;
+      if (mask.causal) h0 = min(h0, pq);
+      if (mask.has_window) l0 = max(l0, pq - mask.window + 1);
+      if (mask.has_chunk) {
+        const long long c0 = floordiv(pq, mask.chunk) * mask.chunk;
+        l0 = max(l0, c0);
+        h0 = min(h0, c0 + mask.chunk - 1);
+      }
+    } else {
+      l0 = 1;
+      h0 = 0;
+    }
+    if (l0 > h0) {
+      l0 = nkeys;
+      h0 = -1;
+    }
+    lo[h] = static_cast<int>(l0);
+    hi[h] = static_cast<int>(h0);
+  }
+  // the warp's and the block's keys: consecutive rows admit overlapping or
+  // adjacent intervals, so their union is [min lo, max hi]
+  int wlo = min(lo[0], lo[1]), whi = max(hi[0], hi[1]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, off));
+    whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, off));
+  }
+  if (lane == 0) {
+    block_lo[warp] = wlo;
+    block_hi[warp] = whi;
+  }
+  __syncthreads();
+  int blo = block_lo[0], bhi = block_hi[0];
+#pragma unroll
+  for (int w = 1; w < kMmaWarps; ++w) {
+    blo = min(blo, block_lo[w]);
+    bhi = max(bhi, block_hi[w]);
+  }
+  const int t_first = blo <= bhi ? blo / kN : 0;
+  const int t_last = blo <= bhi ? bhi / kN : -1;
+
+  // Q (rows past the last as zeros) and the first tile on their way
+  for (int c = t; c < kMmaRows * L::kChunks; c += kMmaThreads) {
+    const int r = c / L::kChunks, ch = c % L::kChunks;
+    const long long rg = row0 + r;
+    const bool in = rg < rows;
+    const long long i = in ? rg / G : 0;
+    const int g = in ? static_cast<int>(rg % G) : 0;
+    cp_async16(Qs + r * RS + ch * 8,
+               q + b * qs.b + (long long)(kvh * G + g) * qs.h + i * qs.s + ch * 8, in ? 16 : 0);
+  }
+  // a tile's copies: this thread takes chunk cp_ch of rows cp_row,
+  // cp_row + kRowStep, ... of K and of V (keys past the end as zeros)
+  constexpr int kRowStep = kMmaThreads / L::kChunks;
+  const int cp_ch = t % L::kChunks, cp_row = t / L::kChunks;
+  const __nv_bfloat16* kb = k + b * ks.b + (long long)kvh * ks.h + cp_ch * 8;
+  const __nv_bfloat16* vb = v + b * vs.b + (long long)kvh * vs.h + cp_ch * 8;
+  auto load_tile = [&](int kt, int stage) {
+    __nv_bfloat16* st = Ts + stage * L::kStage + cp_row * RS + cp_ch * 8;
+#pragma unroll
+    for (int r = 0; r < kN; r += kRowStep) {
+      const int key = kt * kN + cp_row + r;
+      const bool in = key < nkeys;
+      const long long kk = in ? key : 0;
+      cp_async16(st + r * RS, kb + kk * ks.s, in ? 16 : 0);
+      cp_async16(st + (kN + r) * RS, vb + kk * vs.s, in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kMmaStages - 1; ++i) {
+    if (t_first + i <= t_last) load_tile(t_first + i, i);
+    cp_async_commit();   // an empty group past the last tile keeps the count
+  }
+
+  float o[L::kOB][4];
+#pragma unroll
+  for (int n = 0; n < L::kOB; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  }
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  uint32_t qf[L::kQInRegs ? L::kSteps : 1][4];
+  // this lane's row and column in an ldmatrix of Q (A), K (B) and V (B^T)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
+  const __nv_bfloat16* Qw = Qs + (warp * 16 + a_row) * RS + a_col;
+
+  for (int kt = t_first; kt <= t_last; ++kt) {
+    const int stage = (kt - t_first) % kMmaStages;
+    cp_async_wait<kMmaStages - 2>();   // tile kt has landed (this thread's copies)
+    __syncthreads();                   // ... every thread's; tile kt - 1 is done
+    if (kt + kMmaStages - 1 <= t_last) {
+      load_tile(kt + kMmaStages - 1, (stage + kMmaStages - 1) % kMmaStages);
+    }
+    cp_async_commit();
+    if constexpr (L::kQInRegs) {
+      if (kt == t_first) {
+#pragma unroll
+        for (int s = 0; s < L::kSteps; ++s) ldmatrix_x4(qf[s], smem_addr(Qw + s * 16));
+      }
+    }
+    const int k0 = kt * kN;
+    if (k0 > whi || k0 + kN - 1 < wlo) continue;   // no admitted key for the warp
+    const __nv_bfloat16* Kt = Ts + stage * L::kStage;
+    const __nv_bfloat16* Vt = Kt + kN * RS;
+
+    // S = Q . K^T: the k16 steps over hd in index order, through the
+    // accumulator
+    float sc[L::kNB][4];
+#pragma unroll
+    for (int n = 0; n < L::kNB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < L::kSteps; ++s) {
+      uint32_t a[4];
+      if constexpr (L::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[s][e];
+      } else {
+        ldmatrix_x4(a, smem_addr(Qw + s * 16));
+      }
+#pragma unroll
+      for (int n = 0; n < L::kNB; n += 2) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_addr(Kt + (n * 8 + k_row) * RS + s * 16 + k_col));
+        mma_bf16(sc[n], a, bk[0], bk[1]);
+        mma_bf16(sc[n + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale after the dot, masks by position, online softmax: a row's keys
+    // lie in the quad's 4 lanes; in-thread order, then xor 1 and 2
+    // (a tile inside every row interval of the warp needs no mask)
+    const bool whole = __all_sync(0xffffffffu, lo[0] <= k0 && lo[1] <= k0 &&
+                                                   hi[0] >= k0 + kN - 1 && hi[1] >= k0 + kN - 1);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < L::kNB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        if (whole) {
+          sc[n][e] *= scale;
+        } else {
+          const int key = k0 + n * 8 + 2 * tq + (e & 1);
+          sc[n][e] = key >= lo[h] && key <= hi[h] ? sc[n][e] * scale : kNegInf;
+        }
+        mx[h] = fmaxf(mx[h], sc[n][e]);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = m_run[h] > kNegInf * 0.5f ? expf(m_run[h] - m_new) : 0.f;
+      m_run[h] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < L::kNB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = sc[n][e] > kNegInf * 0.5f ? expf(sc[n][e] - m_run[h]) : 0.f;
+        sc[n][e] = p;
+        sum[h] += p;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_run[h] = fmaf(alpha[h], l_run[h], sum[h]);
+    }
+
+    // P as A fragments straight from S's registers (the C fragments of n8
+    // blocks 2j and 2j + 1 are the A fragment of k16 step j), in terms; a
+    // term past `terms` is 0, and adds nothing (no branch in the products)
+    uint32_t pa[L::kPSteps][kMmaTerms][4];
+#pragma unroll
+    for (int j = 0; j < L::kPSteps; ++j) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float* c = sc[2 * j + (f >> 1)] + 2 * (f & 1);
+        split_terms(c[0], c[1], pa[j][0][f], pa[j][1][f], pa[j][2][f]);
+        pa[j][1][f] = terms > 1 ? pa[j][1][f] : 0u;
+        pa[j][2][f] = terms > 2 ? pa[j][2][f] : 0u;
+      }
+    }
+    // O = O * alpha + P . V: O rescaled before the tile, then each k16
+    // step of keys in key order, its terms hi, mid, lo in that order,
+    // through the accumulator
+#pragma unroll
+    for (int n = 0; n < L::kOB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    }
+#pragma unroll
+    for (int j = 0; j < L::kPSteps; ++j) {
+#pragma unroll
+      for (int n = 0; n < L::kOB; n += 2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, smem_addr(Vt + (j * 16 + v_row) * RS + n * 8 + v_col));
+#pragma unroll
+        for (int u = 0; u < kMmaTerms; ++u) {
+          mma_bf16(o[n], pa[j][u], bv[0], bv[1]);
+          mma_bf16(o[n + 1], pa[j][u], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // out = O / max(l, 1e-30), as bf16 pairs
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long rg = row0 + warp * 16 + gq + 8 * h;
+    if (rg < rows) {
+      const float l = fmaxf(l_run[h], 1e-30f);
+      const long long i = rg / G;
+      const int g = static_cast<int>(rg % G);
+      __nv_bfloat16* orow = out + b * os.b + (long long)(kvh * G + g) * os.h + i * os.s;
+#pragma unroll
+      for (int n = 0; n < L::kOB; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tq) =
+            __floats2bfloat162_rn(o[n][2 * h] / l, o[n][2 * h + 1] / l);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, int B, int H,
+                       int KV, long long nq, long long nkeys, Strides qs, Strides ks,
+                       Strides vs, Strides os, Mask mask, float scale, int terms,
+                       cudaStream_t stream) {
+  using L = MmaLayout<HD>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  // keys and rows as 32-bit ints, with room for a tile past the end
+  if (nkeys > 0x7fffffffLL - L::kN || nq > 0x7fffffffLL || terms < 1 || terms > kMmaTerms) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long rows = nq * (H / KV);
+  const long long blocks = (rows + kMmaRows - 1) / kMmaRows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(blocks), KV, B);
+  flash_mma_kernel<HD><<<grid, kMmaThreads, L::kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, KV,
+      static_cast<int>(nq), static_cast<int>(nkeys), qs, ks, vs, os, mask, scale, terms);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------------
 // Decode form: the slots split into spans from slot 0, one block a
 // (span, kv head, batch row), then a merge over the spans in span order.
 // ------------------------------------------------------------------------
@@ -475,18 +880,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[kLaneEl
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// 16 bytes global -> shared without registers; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename T, int HD, int kG>
 struct DecodeLayout {
@@ -827,23 +1220,41 @@ int launch_decode_hd(int hd, const void* q, const void* k, const void* v, void* 
   }
 }
 
-template <typename T>
-int launch_prefill_hd(int hd, const void* q, const void* k, const void* v, void* out, int B,
-                      int H, int KV, long long nq, long long nkeys, Strides qs, Strides ks,
-                      Strides vs, Strides os, Mask mask, float scale, cudaStream_t s) {
+// fp32 operands to flash_kernel, bf16 operands to flash_mma_kernel (with p
+// in `terms` bf16 terms); no other route
+template <int HD>
+int launch_prefill_dtype(int dtype, const void* q, const void* k, const void* v, void* out,
+                         int B, int H, int KV, long long nq, long long nkeys, Strides qs,
+                         Strides ks, Strides vs, Strides os, Mask mask, float scale,
+                         int terms, cudaStream_t s) {
+  if (dtype == 0) {
+    return launch_prefill<float, HD>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
+                                     scale, s);
+  }
+  if (dtype == 1) {
+    return launch_prefill_mma<HD>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
+                                  scale, terms, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_prefill_hd(int dtype, int hd, const void* q, const void* k, const void* v,
+                      void* out, int B, int H, int KV, long long nq, long long nkeys,
+                      Strides qs, Strides ks, Strides vs, Strides os, Mask mask, float scale,
+                      int terms, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch_prefill<T, 32>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
-                                   scale, s);
+      return launch_prefill_dtype<32>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
+                                      os, mask, scale, terms, s);
     case 64:
-      return launch_prefill<T, 64>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
-                                   scale, s);
+      return launch_prefill_dtype<64>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
+                                      os, mask, scale, terms, s);
     case 128:
-      return launch_prefill<T, 128>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
-                                    scale, s);
+      return launch_prefill_dtype<128>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
+                                       os, mask, scale, terms, s);
     case 256:
-      return launch_prefill<T, 256>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
-                                    scale, s);
+      return launch_prefill_dtype<256>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
+                                       os, mask, scale, terms, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -862,10 +1273,31 @@ Mask make_mask(int causal, int has_window, long long window, int has_chunk,
 
 }  // namespace
 
-// Prefill form.  dtype: 0 = fp32 q, k, v and out, 1 = bf16.  Strides in
-// elements, (batch, head, sequence) for each of q, k, v and out.  window and
-// chunk are read where has_window / has_chunk; chunk must be > 0.  Returns a
-// cudaError_t as int (0 = launched).
+namespace {
+
+int prefill(int dtype, int hd, const void* q, const void* k, const void* v, void* out, int B,
+            int H, int KV, long long Sq, long long Sk, long long qsb, long long qsh,
+            long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+            long long vsh, long long vss, long long osb, long long osh, long long oss,
+            int causal, int has_window, long long window, int has_chunk, long long chunk,
+            float scale, int terms, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 || Sk <= 0 || B > 65535 ||
+      KV > 65535 || (has_chunk && chunk <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
+  const Mask m = make_mask(causal, has_window, window, has_chunk, chunk);
+  return launch_prefill_hd(dtype, hd, q, k, v, out, B, H, KV, Sq, Sk, qs, ks, vs, os, m, scale,
+                           terms, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Prefill form.  dtype: 0 = fp32 q, k, v and out (flash_kernel), 1 = bf16
+// (flash_mma_kernel).  Strides in elements, (batch, head, sequence) for
+// each of q, k, v and out.  window and chunk are read where has_window /
+// has_chunk; chunk must be > 0.  Returns a cudaError_t as int (0 =
+// launched).
 extern "C" int flash_prefill_launch(int dtype, int hd, const void* q, const void* k,
                                     const void* v, void* out, int B, int H, int KV,
                                     long long Sq, long long Sk, long long qsb,
@@ -875,22 +1307,26 @@ extern "C" int flash_prefill_launch(int dtype, int hd, const void* q, const void
                                     long long osh, long long oss, int causal,
                                     int has_window, long long window, int has_chunk,
                                     long long chunk, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 || Sk <= 0 || B > 65535 ||
-      KV > 65535 || (has_chunk && chunk <= 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
-  const Mask m = make_mask(causal, has_window, window, has_chunk, chunk);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_prefill_hd<float>(hd, q, k, v, out, B, H, KV, Sq, Sk, qs, ks, vs, os, m,
-                                    scale, s);
-  }
-  if (dtype == 1) {
-    return launch_prefill_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, KV, Sq, Sk, qs, ks, vs,
-                                            os, m, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return prefill(dtype, hd, q, k, v, out, B, H, KV, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb,
+                 vsh, vss, osb, osh, oss, causal, has_window, window, has_chunk, chunk, scale,
+                 kMmaTerms, stream);
+}
+
+// The bf16 prefill form with p in `terms` (1 to 3) bf16 terms instead of
+// three: a reading of that precision choice, on no served path.  Arguments
+// as flash_prefill_launch's, without dtype (bf16).
+extern "C" int flash_prefill_terms_launch(int terms, int hd, const void* q, const void* k,
+                                          const void* v, void* out, int B, int H, int KV,
+                                          long long Sq, long long Sk, long long qsb,
+                                          long long qsh, long long qss, long long ksb,
+                                          long long ksh, long long kss, long long vsb,
+                                          long long vsh, long long vss, long long osb,
+                                          long long osh, long long oss, int causal,
+                                          int has_window, long long window, int has_chunk,
+                                          long long chunk, float scale, void* stream) {
+  return prefill(1, hd, q, k, v, out, B, H, KV, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh,
+                 vss, osb, osh, oss, causal, has_window, window, has_chunk, chunk, scale, terms,
+                 stream);
 }
 
 // Floats of fp32 scratch the decode form needs: (m, l, acc) of every span

@@ -28,16 +28,25 @@ The kernels (``csrc/flash_attention.cu``, where the design and bound are
 described) sum every row in one order fixed by hd and a key tile of fixed
 width from key 0 (the decode form: tiles within spans from slot 0, 64
 slots wide at hd 256 and 128 below, the spans merged in span order by a
-second kernel of the same launch), so a row's result does not depend on the batch, the position or
-padding: that is what lets continuous batching give the slot-at-a-time
-oracle's streams without the fp64 sums the port's attention took before.
+second kernel of the same launch), so a row's result does not depend on
+the batch, the position or padding: that is what lets continuous batching
+give the slot-at-a-time oracle's streams without the fp64 sums the port's
+attention took before.
 They take fp32 or bf16 (q, k and v of one dtype), hd 32, 64, 128 or 256,
 and in the decode form at most 8 q heads a kv head; inputs are read through
-their strides.  The wrappers run the kernel for a CUDA tensor and the
-plain version for a CPU tensor, and raise for anything else: there is no
-fallback.  ``flash_attention.launches`` and ``flash_attention_decode.launches``
-count launches, ``.shapes`` counts them by ``(B, H, KV, Sq, Sk, hd, mask)``
-and ``(B, H, KV, slots, hd, mask)``, the mask as ``(causal, window, chunk)``.
+their strides.  The prefill form has two routes, by dtype and nothing else:
+fp32 operands go to an IEEE-fp32 kernel on the SIMT pipe, bf16 operands to
+a tensor-core kernel (``mma.sync`` bf16 with fp32 accumulation), whose
+products are all exact (bf16 × bf16, and each fp32 probability split into
+three bf16 terms, :func:`bf16_terms`, for its product with V) and whose
+sums run in one order fixed by hd and the key tile.  The wrappers run the
+kernel for a CUDA tensor and the plain version for a CPU tensor, and raise
+for anything else: there is no fallback.  ``flash_attention.launches`` and
+``flash_attention_decode.launches`` count launches,
+``flash_attention.routes`` counts the prefill launches by route
+(``"mma_bf16"``, ``"fp32"``), ``.shapes`` counts them by ``(B, H, KV, Sq,
+Sk, hd, mask)`` and ``(B, H, KV, slots, hd, mask)``, the mask as
+``(causal, window, chunk)``.
 
 The plain versions take their sums in fp64 and round to fp32, as the plain
 ``rmsnorm`` does: the scores' dot products, the softmax (each probability
@@ -59,8 +68,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_decode", "flash_attention_plain",
-           "flash_attention_decode_plain", "slot_positions"]
+__all__ = ["bf16_terms", "flash_attention", "flash_attention_decode",
+           "flash_attention_plain", "flash_attention_decode_plain", "flash_attention_terms",
+           "slot_positions"]
 
 NEG_INF = -2.0e38
 #: the mask arguments, in the order the ``.shapes`` keys hold their values
@@ -69,6 +79,10 @@ MASK_ARGS = ("causal", "window", "chunk")
 HEAD_DIMS = (32, 64, 128, 256)
 #: q heads a kv head the decode kernel holds (its block's rows)
 DECODE_GROUP_MAX = 8
+#: the prefill form's kernel for each operand dtype, as ``.routes`` counts it
+ROUTES = {torch.float32: "fp32", torch.bfloat16: "mma_bf16"}
+#: bf16 terms a probability takes in the tensor-core kernel's P · V
+P_TERMS = 3
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -80,10 +94,10 @@ def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("flash_attention")
-        lib.flash_prefill_launch.argtypes = (
-            [_I32, _I32] + [_P] * 4 + [_I32] * 3 + [_I64] * 2 + [_I64] * 12
-            + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
-        lib.flash_prefill_launch.restype = _I32
+        for fn in (lib.flash_prefill_launch, lib.flash_prefill_terms_launch):
+            fn.argtypes = ([_I32, _I32] + [_P] * 4 + [_I32] * 3 + [_I64] * 2 + [_I64] * 12
+                           + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
+            fn.restype = _I32
         lib.flash_decode_launch.argtypes = (
             [_I32, _I32] + [_P] * 6 + [_I32] * 3 + [_I64] + [_I64] * 10
             + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
@@ -222,6 +236,21 @@ def flash_attention_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype).reshape(B, H, hd)
 
 
+def bf16_terms(x: torch.Tensor, terms: int = P_TERMS) -> list:
+    """``x`` (fp32) as ``terms`` bf16 tensors, each the bf16 rounding (to
+    nearest) of what the ones before leave: the split the tensor-core
+    prefill kernel makes of each probability before its product with V.
+    The remainders are exact in fp32, and three terms hold all 24
+    significant bits of a normal fp32 value, so each term's product with a
+    bf16 value is exact in fp32 and the three sum back to ``x``.  Written
+    for the CPU tests of that precision choice; on no served path."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
@@ -258,35 +287,68 @@ def _mask_args(causal, window, chunk):
             int(chunk is not None), int(chunk) if chunk is not None else 0)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    chunk: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Prefill attention.  (B, H, Sq, hd) × (B, KV, Sk, hd)² → (B, H, Sq,
-    hd) in q's dtype, with q's strides."""
-    _check_prefill(q, k, v)
-    _check_chunk(chunk)
-    if _build.on_cpu(q):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     chunk=chunk, scale=scale)
-    _check_cuda(q, k, v)
+def _launch_prefill(launch, first: int, q, k, v, causal, window, chunk, scale):
+    """Launch a prefill kernel through ``launch`` (a C launcher whose first
+    argument is ``first``); returns the output in q's dtype and strides."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    out = _kernel_view(torch.empty_like(q))
-    err = _lib().flash_prefill_launch(
-        _build.DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, H, KV, Sq, Sk,
+    # bf16 rows travel as 16-byte cp.async copies (8 elements)
+    align = 8 if q.dtype == torch.bfloat16 else 4
+    q, k, v = (_kernel_view(t, align) for t in (q, k, v))
+    out = _kernel_view(torch.empty_like(q), align)
+    err = launch(
+        first, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk,
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
         *_mask_args(causal, window, chunk), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.shapes[(B, H, KV, Sq, Sk, hd, _mask_key(causal, window, chunk))] += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    chunk: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Prefill attention.  (B, H, Sq, hd) × (B, KV, Sk, hd)² → (B, H, Sq,
+    hd) in q's dtype, with q's strides.  On the card, fp32 operands take the
+    IEEE-fp32 kernel and bf16 operands the tensor-core kernel
+    (``.routes`` counts each)."""
+    _check_prefill(q, k, v)
+    _check_chunk(chunk)
+    if _build.on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     chunk=chunk, scale=scale)
+    _check_cuda(q, k, v)
+    out = _launch_prefill(_lib().flash_prefill_launch, _build.DTYPE_CODES[q.dtype], q, k, v,
+                          causal, window, chunk, scale)
+    B, H, Sq, hd = q.shape
+    flash_attention.launches += 1
+    flash_attention.routes[ROUTES[q.dtype]] += 1
+    flash_attention.shapes[(B, H, k.shape[1], Sq, k.shape[2], hd,
+                            _mask_key(causal, window, chunk))] += 1
+    return out
+
+
+def flash_attention_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, terms: int,
+                          *, causal: bool = True, window: Optional[int] = None,
+                          chunk: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The tensor-core prefill kernel with each probability in ``terms``
+    (1 to 3) bf16 terms instead of three: a reading of that precision
+    choice on the card (CUDA bf16 tensors only), on no served path and
+    counted nowhere."""
+    _check_prefill(q, k, v)
+    _check_chunk(chunk)
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_terms reads the bf16 kernel: CUDA bf16 operands")
+    if terms not in range(1, P_TERMS + 1):
+        raise ValueError(f"terms must be 1 to {P_TERMS}, got {terms}")
+    _check_cuda(q, k, v)
+    return _launch_prefill(_lib().flash_prefill_terms_launch, terms, q, k, v, causal,
+                           window, chunk, scale)
 
 
 def flash_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -335,6 +397,7 @@ def flash_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.routes = collections.Counter()
 flash_attention.shapes = collections.Counter()
 flash_attention_decode.launches = 0
 flash_attention_decode.shapes = collections.Counter()

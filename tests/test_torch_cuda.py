@@ -325,7 +325,9 @@ def _flash_tol(dtype):
 def test_flash_kernels_match_plain_versions(dtype):
     """Both forms against their plain versions: hd 32, 64, 128 and 256,
     GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that are not a multiple of
-    the 32-key tile, and rings that have wrapped (pos ≥ slots)."""
+    the key tile nor of the tensor-core kernel's 16 rows, and rings that
+    have wrapped (pos ≥ slots).  Every bf16 prefill takes the tensor-core
+    route and every fp32 one the fp32 kernel."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -337,7 +339,11 @@ def test_flash_kernels_match_plain_versions(dtype):
                ((1, 4, 1, 37, 600, 256), dict(window=512)),
                ((2, 4, 1, 64, 64, 256), dict(chunk=16)),
                ((3, 4, 4, 33, 33, 32), dict(causal=False)),
-               ((1, 8, 2, 1, 77, 64), dict(window=20))]
+               ((1, 8, 2, 1, 77, 64), dict(window=20)),
+               ((2, 6, 1, 45, 45, 64), dict()),                # 6:1, Sq % 16 != 0
+               ((1, 6, 1, 23, 200, 32), dict(window=64)),      # 6:1, Sq < Sk
+               ((2, 4, 2, 130, 130, 64), dict(chunk=48)),
+               ((1, 12, 2, 77, 300, 128), dict(causal=False, window=90))]
     for (B, H, KV, Sq, Sk, hd), kw in prefill:
         q, k, v = randn(B, H, Sq, hd), randn(B, KV, Sk, hd), randn(B, KV, Sk, hd)
         torch.testing.assert_close(tfa.flash_attention(q, k, v, **kw).float(),
@@ -362,6 +368,7 @@ def test_flash_kernels_match_plain_versions(dtype):
     torch.cuda.synchronize()
     assert tk.launch_counts()["flash_attention"] == len(prefill)
     assert tk.launch_counts()["flash_attention_decode"] == len(decode)
+    assert dict(tfa.flash_attention.routes) == {tfa.ROUTES[dtype]: len(prefill)}
 
 
 @pytest.mark.cuda
@@ -379,7 +386,9 @@ def test_flash_kernels_are_batch_and_padding_invariant(dtype):
 
     lens = [40, 127, 128, 300, 513, 700, 1023, 1024]
     S = 1024
-    for H, KV, hd, kw in ((4, 1, 256, dict(window=512)), (12, 2, 128, dict())):
+    tk.reset_launch_counts()
+    for H, KV, hd, kw in ((4, 1, 256, dict(window=512)), (12, 2, 128, dict()),
+                          (6, 1, 64, dict()), (4, 2, 32, dict(window=100))):
         q, k, v = randn(8, H, S, hd), randn(8, KV, S, hd), randn(8, KV, S, hd)
         batch = tfa.flash_attention(q, k, v, **kw)
         for b, n in enumerate(lens):
@@ -396,6 +405,23 @@ def test_flash_kernels_are_batch_and_padding_invariant(dtype):
             exact = tfa.flash_attention_decode(qd[b:b + 1], kc[b:b + 1, :n],
                                                vc[b:b + 1, :n], pos[b:b + 1], **kw)
             assert torch.equal(alone[0], batch[b]) and torch.equal(exact[0], batch[b])
+    assert set(tfa.flash_attention.routes) == {tfa.ROUTES[dtype]}
+
+
+@pytest.mark.cuda
+def test_flash_prefill_terms_reading():
+    """The tensor-core prefill kernel with p in three bf16 terms is the
+    served kernel, bitwise; with p in one term it leaves the bf16
+    tolerance of the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+               for shape in ((1, 4, 512, 256), (1, 1, 512, 256), (1, 1, 512, 256)))
+    want = tfa.flash_attention_plain(q, k, v).float()
+    allowed = 1e-6 + 2.0 ** -7 * want.abs()
+    assert torch.equal(tfa.flash_attention_terms(q, k, v, 3), tfa.flash_attention(q, k, v))
+    one = tfa.flash_attention_terms(q, k, v, 1).float()
+    assert ((one - want).abs() > allowed).any()
 
 
 @pytest.mark.cuda

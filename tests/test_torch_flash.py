@@ -155,6 +155,59 @@ def test_decode_form_is_the_prefill_form_at_one_query():
         np.testing.assert_allclose(got.numpy(), want[:, :, 0].numpy(), **TOL)
 
 
+def test_bf16_terms_sum_back_exactly():
+    """Three bf16 terms hold an fp32 value's 24 significant bits: their sum
+    is the value, over a wide range of magnitudes; one or two terms are
+    not."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.normal(size=4096) * 2.0 ** rng.integers(-60, 60, 4096))
+                         .astype(np.float32))
+    for terms in (1, 2, 3):
+        parts = tfa.bf16_terms(x, terms)
+        assert len(parts) == terms and all(t.dtype == torch.bfloat16 for t in parts)
+        exact = sum(t.double() for t in parts) == x.double()
+        if terms == 3:
+            assert bool(exact.all())
+        else:
+            assert exact.float().mean() < 0.1
+    assert not tfa.flash_attention.routes     # a CPU tensor takes no route
+
+
+def _attention_in_terms(q, k, v, terms):
+    """The tensor-core prefill kernel's arithmetic, causal: bf16 scores'
+    products exact and summed in fp32, an fp32 softmax, and P · V with each
+    probability in ``terms`` bf16 terms, every product with bf16 V exact
+    and the sums in fp32."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, Sq, hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * hd ** -0.5
+    pq = torch.arange(Sq)[:, None] + (Sk - Sq)
+    valid = tfa._admitted(pq, torch.arange(Sk)[None, :], True, None, None)
+    s = torch.where(valid, s, torch.full((), tfa.NEG_INF))
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), torch.zeros(()))
+    acc = sum(torch.einsum("bkgqs,bksd->bkgqd", t.float(), v.float())
+              for t in tfa.bf16_terms(p, terms))
+    out = acc / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return out.to(torch.bfloat16).reshape(B, H, Sq, hd)
+
+
+def test_three_bf16_terms_of_p_keep_the_bf16_tolerance():
+    """The precision choice of the tensor-core prefill kernel, at (1, 4, 1,
+    512, 512, 256) causal in bf16: P · V with p in three bf16 terms stays
+    within the card's bf16 tolerance of the plain version (one bf16 step of
+    each value, rtol 2⁻⁷, + 1e-6); with p rounded to one bf16 term it does
+    not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 4, 1, 512, 512, 256, seed=13))
+    want = tfa.flash_attention_plain(q, k, v).float()
+    allowed = BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs()
+    ratio = {terms: ((_attention_in_terms(q, k, v, terms).float() - want).abs()
+                     / allowed).max().item() for terms in (1, 3)}
+    assert ratio[3] <= 1.0, ratio
+    assert ratio[1] > 1.0, ratio
+
+
 def test_wrappers_validate_like_the_reference():
     """ops.flash_attention raises the reference wrapper's errors, with its
     texts; no launch is counted for a CPU tensor."""
