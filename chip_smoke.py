@@ -71,12 +71,17 @@ Phases (each one that fails makes the script exit non-zero):
                 through the plain versions, at 2 and at 64 layers.
  12. rmsnorm and ssd_chunk_scan against their plain versions at every shape
                 phases 8 and 11 launched, at ragged shapes, and (the scan)
-                with and without an initial state; rmsnorm rows alone equal
-                the same rows in a batch, bitwise.
+                with and without an initial state, and at the served decays
+                against the same function in fp64; rmsnorm rows alone equal
+                the same rows in a batch, bitwise; a scan head bitwise the
+                same at B = 1 and in a batch of 3, and from call to call.
  13. timing    — rmsnorm and ssd_chunk_scan at the served shapes (CUDA
                 events around a CUDA graph), beside the plain versions, the
                 library call where there is one (torch.nn.functional.
-                rms_norm) and the bound.
+                rms_norm) and the bound; the scan at every shape phase 11
+                launched (faster than its plain version), with its stages'
+                device times (torch.profiler), registers and spills (no
+                spill) and its first version's times.
  14. Gemma3 serving — Gemma3-1B at full width and depth (26 layers: 22
                 sliding-window layers with 512-slot ring caches and 4 global
                 ones; d_model 1152, 4 q heads over 1 kv head of 256, vocab
@@ -131,6 +136,7 @@ repository's ``src/`` beside it and one CUDA card.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -193,6 +199,14 @@ MB_GAP_LIMIT, MB_GAP_LIMIT_DEEP = 0.05, 3.0
 # max abs error over max |logit|, at a 2-layer cut (at MB_LAYERS printed)
 MB_PLAIN_TOL = 0.02
 RMS_BF16_TOL = 2.0 ** -7     # one bf16 step of the value
+# ssd_chunk_scan at the served shapes with several chunks and with one
+# ragged chunk: the first version's device time (one block per (b, h),
+# chunks in order; NVIDIA H100 80GB HBM3 at 700 W), and the time the staged
+# kernel must reach and the one it aims at, in ms
+SSD_FIRST_MS = {"several chunks": 0.9126, "one ragged chunk": 1.8671}
+SSD_LIMIT_MS = {"several chunks": (0.30, 0.15), "one ragged chunk": (0.45, 0.27)}
+# ssd_chunk_scan's CUDA functions, in launch order
+SSD_STAGES = ("ssd_cum_kernel", "ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
 # the Gemma3 serving phase: the prompts are served short and long in turns,
 # so that each admission wave pads short prompts to long ones
 G3_ARCH, G3_SLOTS, G3_MAX_SEQ, G3_NEW = "gemma3-1b", 8, 2048, 64
@@ -949,9 +963,10 @@ def phase_lm(counts, report) -> None:
 
 # our kernels' names in a profile: the CUDA functions' names contain these
 # (the decode form of flash_attention is decode_span_kernel and
-# decode_merge_kernel)
+# decode_merge_kernel; ssd_chunk_scan's stages are ssd_cum_kernel,
+# ssd_state_kernel, ssd_pass_kernel and ssd_out_kernel)
 PROFILED = {"quant_matmul": "qmm_", "rmsnorm": "rmsnorm_kernel",
-            "ssd_chunk_scan": "ssd_kernel", "flash_attention_decode": "decode_",
+            "ssd_chunk_scan": "ssd_", "flash_attention_decode": "decode_",
             "lm_head": "tied_kernel"}
 # the kernels an attention LM's serving path launches
 LM_KERNELS = ("quant_matmul", "rmsnorm", "flash_attention", "flash_attention_decode",
@@ -1609,12 +1624,14 @@ def phase_mamba(counts) -> None:
     free_device_memory()
 
 
-def _ssd_operands(gen, B, H, S, P, N, with_h0, served=False):
+def _ssd_operands(gen, B, H, S, P, N, with_h0, served=False, layer=False):
     """The scan's inputs as tests/test_kernels.py draws them (mild decays,
     cum ≈ −0.08 a step), or, with ``served``, as the SSD layer makes them
     from a random model: log_a = −softplus(dt)·A with A from U(1, 16) per
     head (ssd_init's draw), dx = softplus(dt)·x, unit B and C, so cum falls
-    by ≈ 7 a step and reaches −10⁴ over a chunk of 1,000."""
+    by ≈ 7 a step and reaches −10⁴ over a chunk of 1,000.  With ``layer``,
+    log_a and dx are transposed views of (B, S, H[, P]) tensors, as the SSD
+    layer passes them; else contiguous."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=DEVICE)
 
@@ -1627,6 +1644,9 @@ def _ssd_operands(gen, B, H, S, P, N, with_h0, served=False):
         la = -randn(B, H, S).abs() * 0.1
         dx = randn(B, H, S, P)
         Bm, Cm = randn(B, S, N) * 0.3, randn(B, S, N) * 0.3
+    if layer:
+        la = la.transpose(1, 2).contiguous().transpose(1, 2)
+        dx = dx.transpose(1, 2).contiguous().transpose(1, 2)
     h0 = randn(B, H, P, N) * 0.1 if with_h0 else None
     return la, dx, Bm, Cm, h0
 
@@ -1672,9 +1692,9 @@ def phase_new_kernels_check(gen, counts) -> dict:
     ssd_shapes = sorted(set(counts["mamba_ssd_shapes"]))
     ragged = [(1, 80, 8, 64, 128, 1), (2, 3, 74, 64, 128, 37), (1, 80, 512, 64, 128, 256),
               (1, 80, 998, 64, 128, 998), (2, 16, 64, 16, 16, 32)]
-    for B, H, S, P, N, L, *h in ssd_shapes + [c + (w,) for c in ragged
-                                               for w in (True, False)]:
-        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, h[0])
+    for (B, H, S, P, N, L, *h), layer in itertools.product(
+            ssd_shapes + [c + (w,) for c in ragged for w in (True, False)], (True, False)):
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, h[0], layer=layer)
         y, hf = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
         yp, hp = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
         sync()
@@ -1682,18 +1702,21 @@ def phase_new_kernels_check(gen, counts) -> dict:
         worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], (y - yp).abs().max().item(),
                                       (hf - hp).abs().max().item())
         check(ey <= FP32_TOL and eh <= FP32_TOL,
-              f"ssd_chunk_scan {(B, H, S, P, N, L, h[0])}: y rel err {ey}, h rel err {eh}")
+              f"ssd_chunk_scan {(B, H, S, P, N, L, h[0])}, layer layout {layer}: y rel "
+              f"err {ey}, h rel err {eh}")
     say(f"ssd_chunk_scan at the {len(ssd_shapes)} served (B, H, S, P, N, L, h0) and "
-        f"{2 * len(ragged)} ragged ones (L = 1, 37, 256, S; with and without h0): y "
-        f"and h_final within {FP32_TOL} of their max |entry|")
+        f"{2 * len(ragged)} ragged ones (L = 1, 37, 256, S; with and without h0), each "
+        f"with log_a and dx as the SSD layer passes them (transposed views) and "
+        f"contiguous: y and h_final within {FP32_TOL} of their max |entry|")
 
     # the served decays, where cum reaches −10⁴ and the order of its running
     # sum moves the result: held against the function's value (fp64)
     cases = ssd_shapes + [c + (w,) for c in ragged[:4] for w in (True, False)]
     read = {"kernel": [], "plain": [], "kernel vs plain": []}
     cum_max = 0.0
-    for B, H, S, P, N, L, *h in cases:
-        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, h[0], served=True)
+    for (B, H, S, P, N, L, *h), layer in itertools.product(cases, (True, False)):
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, h[0], served=True,
+                                           layer=layer)
         y, hf = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
         yp, hp = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
         y64, h64 = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L,
@@ -1709,14 +1732,65 @@ def phase_new_kernels_check(gen, counts) -> dict:
                                       (y.double() - y64).abs().max().item(),
                                       (hf.double() - h64).abs().max().item())
         check(ek <= FP32_TOL, f"ssd_chunk_scan {(B, H, S, P, N, L, h[0])} at the served "
-              f"decays: kernel vs fp64 rel err {ek}")
+              f"decays, layer layout {layer}: kernel vs fp64 rel err {ek}")
         del y64, h64
     say(f"ssd_chunk_scan at the served decays (log_a = −softplus(dt)·A, A in [1, 16]; "
-        f"max |cum| over a chunk {cum_max:.0f}), {len(cases)} shapes: y and h_final "
-        f"against the same function in fp64, max over the shapes of the error over "
+        f"max |cum| over a chunk {cum_max:.0f}), {len(cases)} shapes in both layouts: "
+        f"y and h_final against the same function in fp64, max over the shapes of the error over "
         f"max |entry|: kernel {max(read['kernel']):.3g} (bound {FP32_TOL}), plain "
         f"version {max(read['plain']):.3g}, kernel vs plain version "
         f"{max(read['kernel vs plain']):.3g}")
+
+    # every sum in an order fixed by (L, P, N) and the tile: head b of a
+    # batch of 3 is bitwise the same at B = 1, and a call repeats its bits
+    for B, H, S, P, N, L, *h in ssd_shapes:
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, 3, H, S, P, N, h[0], served=True,
+                                           layer=True)
+        y, hf = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+        y2, hf2 = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+        y1, hf1 = kss.ssd_chunk_scan(la[1:2], dx[1:2], Bm[1:2], Cm[1:2],
+                                     None if h0 is None else h0[1:2], chunk=L)
+        sync()
+        check(torch.equal(y, y2) and torch.equal(hf, hf2),
+              f"ssd_chunk_scan {(3, H, S, P, N, L, h[0])}: a second call differs")
+        check(torch.equal(y1, y[1:2]) and torch.equal(hf1, hf[1:2]),
+              f"ssd_chunk_scan {(B, H, S, P, N, L, h[0])}: a head alone differs from "
+              f"the same head in a batch of 3")
+    say(f"ssd_chunk_scan at the {len(ssd_shapes)} served shapes (the layer's strided "
+        f"log_a and dx, served decays): head b of a batch of 3 bitwise equal to it at "
+        f"B = 1, and a second call bitwise equal to the first")
+
+    # at small L the scratch would hold ~S/L states a head: the stages run
+    # over segments of chunks within kss.WORKSPACE_BYTES, bitwise the same
+    # as in one segment
+    B, H, S, P, N, L = 1, 80, 512, 64, 128, 1
+    la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, True, layer=True)
+    lib, bound_bytes = kss._lib(), kss.WORKSPACE_BYTES
+    seg = lib.ssd_chunk_scan_segment(B, H, S, P, N, L, B * H * S + bound_bytes // 4)
+    work = 4 * lib.ssd_chunk_scan_workspace(B, H, S, P, N, L, seg)
+    y, hf = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+    yp, hp = kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
+    try:
+        kss.WORKSPACE_BYTES = 1 << 40
+        y1, hf1 = kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+    finally:
+        kss.WORKSPACE_BYTES = bound_bytes
+    sync()
+    worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], (y - yp).abs().max().item(),
+                                  (hf - hp).abs().max().item())
+    check(work <= 4 * (B * H * S + 4) + bound_bytes and seg < S // L,
+          f"ssd_chunk_scan {(B, H, S, P, N, L)}: a workspace of {work} bytes, {seg} "
+          f"chunks a segment")
+    check(rel_err(y, yp) <= FP32_TOL and rel_err(hf, hp) <= FP32_TOL,
+          f"ssd_chunk_scan {(B, H, S, P, N, L)} in segments: y rel err {rel_err(y, yp)}, "
+          f"h rel err {rel_err(hf, hp)}")
+    check(torch.equal(y, y1) and torch.equal(hf, hf1),
+          f"ssd_chunk_scan {(B, H, S, P, N, L)}: segments of {seg} chunks differ from one "
+          f"segment")
+    say(f"ssd_chunk_scan at {(B, H, S, P, N, L)}: a workspace of {work} bytes (bound "
+        f"{bound_bytes} beside the running sums), {seg} chunks a segment, "
+        f"{-(-(S // L) // seg)} segments; within {FP32_TOL} of the plain version and "
+        f"bitwise equal to one segment")
     return worst
 
 
@@ -1803,22 +1877,48 @@ def phase_new_kernels_timing(gen, counts, worst) -> list:
     ssd = counts["mamba_ssd_shapes"]
     multi = max((k for k in ssd if k[5] < k[2]), key=lambda k: k[2])
     single = max((k for k in ssd if k[5] == k[2]), key=lambda k: k[2])
+    labels = {multi: "several chunks", single: "one ragged chunk"}
+    usage = ssd_stage_usage()
+    say("ssd_chunk_scan's stages, -Xptxas -v (registers, spill store / load bytes): "
+        + ", ".join(f"{k} {r} registers, {st} / {ld}" for k, (r, st, ld) in usage.items()))
+    check(set(usage) == set(SSD_STAGES), f"ssd_chunk_scan's stages in the -Xptxas -v "
+          f"report: {sorted(usage)}, not {list(SSD_STAGES)}")
+    check(all(st == 0 and ld == 0 for _, st, ld in usage.values()),
+          f"an ssd_chunk_scan stage spills: {usage}")
+    # every served shape, with log_a and dx strided as the SSD layer passes
+    # them: the kernel (CUDA graph) against the plain version
     timings = []
-    for label, (B, H, S, P, N, L, with_h0) in (("several chunks", multi),
-                                              ("one ragged chunk", single)):
-        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, with_h0)
-        ms = graph_ms(lambda: kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L), launches=5)
+    for key in sorted(ssd, key=lambda k: (k[5] == k[2], k[2])):
+        B, H, S, P, N, L, with_h0 = key
+        la, dx, Bm, Cm, h0 = _ssd_operands(gen, B, H, S, P, N, with_h0, layer=True)
+
+        def kernel():
+            return kss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+
+        ms = graph_ms(kernel, launches=5)
         plain_ms = cuda_ms(lambda: kss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L), 3)
+        check(ms < plain_ms, f"ssd_chunk_scan {key}: kernel {ms:.4f} ms is not faster "
+              f"than its plain version {plain_ms:.4f} ms")
+        if key not in labels:
+            say(f"ssd_chunk_scan (B, H, S, P, N, L) = {key[:6]}, {ssd[key]} launches: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+            continue
+        label = labels[key]
         t_b, by = bound(4 * (B * H * S + 2 * B * H * S * P + 2 * B * S * N
                              + (2 if with_h0 else 1) * B * H * P * N),
                         ssd_scan_ops(B, H, S, P, N, L, with_h0))
-        launched = ssd[(B, H, S, P, N, L, with_h0)]
-        say(f"ssd_chunk_scan {label} (B, H, S, P, N, L) = {(B, H, S, P, N, L)}, "
-            f"{launched} launches on the path: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, library none, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
-        timings.append({"label": label, "shape": [B, H, S, P, N, L], "launches": launched,
+        stages = stage_ms(kernel)
+        first, (limit, target) = SSD_FIRST_MS[label], SSD_LIMIT_MS[label]
+        say(f"ssd_chunk_scan {label} (B, H, S, P, N, L) = {key[:6]}, {ssd[key]} launches "
+            f"on the path: kernel {ms:.4f} ms (first version {first} ms), plain "
+            f"{plain_ms:.4f} ms, library none, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of "
+            f"it; limit {limit} ms {'met' if ms <= limit else 'MISSED'}, target {target} ms "
+            f"{'met' if ms <= target else 'missed'}; by stage (torch.profiler, ms a call): "
+            + (", ".join(f"{k} {v:.4f}" for k, v in stages.items()) if stages
+               else "not measured (no device time in the profile)"))
+        timings.append({"label": label, "shape": [B, H, S, P, N, L], "launches": ssd[key],
                         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                        "bound_ms": t_b, "bound_by": by})
+                        "bound_ms": t_b, "bound_by": by, "stages_ms": stages})
     head = timings[0]
     records.append({
         "name": "ssd_chunk_scan", "route": "cuda",
@@ -1828,10 +1928,45 @@ def phase_new_kernels_timing(gen, counts, worst) -> list:
         "max_abs_err": worst["ssd_chunk_scan"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None, "shape": head["shape"],
-        "shapes": timings,
+        "shapes": timings, "registers": usage,
         "launches_by_path": {"mamba_serve": counts["mamba"]["ssd_chunk_scan"]},
     })
     return records
+
+
+def stage_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each of ssd_chunk_scan's CUDA functions, from
+    torch.profiler over ``calls`` calls (empty where it saw no device
+    time)."""
+    import re
+
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_[a-z]+_kernel", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + e.self_device_time_total / 1e3 / calls
+    return {k: v for k, v in out.items() if v > 0}
+
+
+def ssd_stage_usage() -> dict:
+    """Stage name → (registers, spill store bytes, spill load bytes) of
+    ssd_chunk_scan's CUDA functions, from phase 2's -Xptxas -v report."""
+    import re
+
+    stages = {}
+    for name, use in ptxas_usage("ssd_scan").items():
+        m = re.search(r"ssd_[a-z]+_kernel", name)
+        if m:
+            stages[m.group(0)] = use
+    return stages
 
 
 # --------------------------------------------------------------------------- #
@@ -2313,28 +2448,39 @@ def library_time(fn, backend: str, eager: bool):
     return ms, backend
 
 
-def mma_registers() -> dict:
-    """hd → (registers, spill store bytes, spill load bytes) of each
-    tensor-core prefill instance, from phase 2's -Xptxas -v report (empty
-    where the library was built before this run)."""
+def ptxas_usage(stem: str) -> dict:
+    """Entry function → (registers, spill store bytes, spill load bytes) of
+    each CUDA function of ``csrc/<stem>.cu``, from phase 2's -Xptxas -v
+    report."""
     import re
 
-    found, hd = {}, None
-    for line in BUILD_LOGS.get("flash_attention", "").splitlines():
+    found, name = {}, None
+    for line in BUILD_LOGS.get(stem, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            m = re.search(r"flash_mma_kernelILi(\d+)E", m.group(1))
-            hd = int(m.group(1)) if m else None
-            if hd is not None:
-                found[hd] = [0, 0, 0]
-        elif hd is not None:
+            name = m.group(1)
+            found[name] = [0, 0, 0]
+        elif name is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
-                found[hd][1:] = [int(m.group(1)), int(m.group(2))]
+                found[name][1:] = [int(m.group(1)), int(m.group(2))]
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                found[hd][0] = int(m.group(1))
-    return {hd: tuple(v) for hd, v in found.items()}
+                found[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in found.items()}
+
+
+def mma_registers() -> dict:
+    """hd → (registers, spill store bytes, spill load bytes) of each
+    tensor-core prefill instance."""
+    import re
+
+    found = {}
+    for name, use in ptxas_usage("flash_attention").items():
+        m = re.search(r"flash_mma_kernelILi(\d+)E", name)
+        if m:
+            found[int(m.group(1))] = use
+    return found
 
 
 def phase_flash_timing(gen, counts, worst) -> list:
@@ -2361,9 +2507,10 @@ def phase_flash_timing(gen, counts, worst) -> list:
     records = []
     timings = []
     regs = mma_registers()
-    say("tensor-core prefill instances (-Xptxas -v): " + (", ".join(
+    say("tensor-core prefill instances (-Xptxas -v): " + ", ".join(
         f"hd {hd}: {r} registers, {st} bytes of spill stores, {ld} of spill loads"
-        for hd, (r, st, ld) in sorted(regs.items())) or "not built in this run"))
+        for hd, (r, st, ld) in sorted(regs.items())))
+    check(bool(regs), "no tensor-core prefill instance in the -Xptxas -v report")
     check(all(st == 0 and ld == 0 for _, st, ld in regs.values()),
           f"a tensor-core prefill instance spills: {regs}")
     for label, key in pre_rows:

@@ -7,9 +7,10 @@ each exposing a plain C launcher.  A source is compiled at its first use
 into ``build/kernels/`` at the root of the checkout, one shared library per
 source, named by a hash of the source and flags so that an edited source
 is rebuilt.  :func:`build` compiles several sources in parallel (one
-``nvcc`` each) and returns what ``-Xptxas -v`` reported.  Nothing is built
-when a module is imported: the CPU tests import every module and have no
-``nvcc``.
+``nvcc`` each) and returns what ``-Xptxas -v`` reported, which is kept
+beside each library (``.log``) for a later call that finds it built.
+Nothing is built when a module is imported: the CPU tests import every
+module and have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -65,6 +66,10 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _log_path(name: str) -> Path:
+    return _library_path(name).with_suffix(".log")
+
+
 def nvcc_command(nvcc: str, name: str, out: Path) -> List[str]:
     """The ``nvcc`` command line that builds ``csrc/<name>.cu`` into ``out``."""
     return [nvcc, *_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
@@ -73,10 +78,16 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> List[str]:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile the named sources that are not built yet, all at once (one
     ``nvcc`` process each), and return each one's compiler output.  A
-    source already built returns an empty string."""
+    source already built returns the output kept from its build ("" where
+    none was kept)."""
     names = list(names)
     logs = {name: "" for name in names}
-    todo = [n for n in names if not _library_path(n).is_file()]
+    todo = []
+    for name in names:
+        if not _library_path(name).is_file():
+            todo.append(name)
+        elif _log_path(name).is_file():
+            logs[name] = _log_path(name).read_text()
     if not todo:
         return logs
     nvcc = find_nvcc()
@@ -96,6 +107,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
                 raise RuntimeError(
                     f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
                     f"{logs[name]}")
+            _log_path(name).write_text(logs[name])
             os.replace(tmp, out)     # atomic: a concurrent loader never
                                      # sees a half-written library
     finally:

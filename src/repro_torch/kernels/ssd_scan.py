@@ -15,11 +15,22 @@ back to its oracle with L = S otherwise, the port raises (its caller, the
 SSD layer, picks L = S itself in that case).
 
 The kernel (``csrc/ssd_scan.cu``, where its design and bound are
-described) takes P ≤ 64 and N ≤ 128 and any L that divides S; the wrapper
-raises for a CUDA tensor outside that.  It runs the kernel for a CUDA
-tensor and the plain version for a CPU tensor, and raises for anything
-else.  ``ssd_chunk_scan.launches`` counts launches and
-``ssd_chunk_scan.shapes`` counts them by ``(B, H, S, P, N, L, with h0)``.
+described) is four CUDA kernels in stages parallel over chunks: cum; each
+chunk's state from zero, beside C·Bᵀ once per (b, chunk); the sequential
+pass over chunks; the outputs.  It takes P ≤ 64 and N ≤ 128 and any L that
+divides S; the wrapper raises for a CUDA tensor outside that.  ``log_a``
+and ``dx`` are read through their strides (the SSD layer passes transposed
+views, which are not copied); the wrapper allocates the outputs and one
+workspace for the stages' scratch, which holds a (P, N) state per head
+and chunk and one more per 128 steps or fewer of a chunk: ~33 MB at
+(1, 80, 1024), L = 256.  At small L that grows as S/L states a head, so the
+stages run over as many chunks at a time as keep the workspace within
+``WORKSPACE_BYTES`` (every served shape fits in one go; the result does not
+depend on it).  It runs the kernel for a CUDA tensor and the plain version
+for a CPU tensor, and raises for anything else.
+``ssd_chunk_scan.launches`` counts wrapper calls that launched the kernel
+(one a call, whatever number of stages) and ``ssd_chunk_scan.shapes``
+counts them by ``(B, H, S, P, N, L, with h0)``.
 """
 from __future__ import annotations
 
@@ -35,17 +46,26 @@ __all__ = ["ssd_chunk_scan", "ssd_chunk_scan_plain"]
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
+_I64 = ctypes.c_longlong
 _lib_handle = None
 #: widths the kernel's shared-memory tiles hold
 P_MAX, N_MAX = 64, 128
+#: bound on the stages' scratch beside the (B, H, S) running sums, unless
+#: one chunk alone needs more
+WORKSPACE_BYTES = 256 << 20
 
 
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("ssd_scan")
-        lib.ssd_chunk_scan_launch.argtypes = [_P] * 8 + [_I32] * 6 + [_P]
+        lib.ssd_chunk_scan_launch.argtypes = ([_P] + [_I64] * 3 + [_P] + [_I64] * 4
+                                              + [_P] * 6 + [_I32] * 7 + [_P])
         lib.ssd_chunk_scan_launch.restype = _I32
+        lib.ssd_chunk_scan_segment.argtypes = [_I32] * 6 + [_I64]
+        lib.ssd_chunk_scan_segment.restype = _I32
+        lib.ssd_chunk_scan_workspace.argtypes = [_I32] * 7
+        lib.ssd_chunk_scan_workspace.restype = _I64
         _lib_handle = lib
     return _lib_handle
 
@@ -67,6 +87,11 @@ def _chunk_len(log_a, dx, Bm, Cm, h0, chunk: int) -> int:
     if L <= 0 or S % L:
         raise ValueError(f"S={S} must divide chunk {L}")
     return L
+
+
+def _strides(t: torch.Tensor):
+    """Element strides, 0 for a dimension of size 1 (never stepped)."""
+    return [st if n > 1 else 0 for st, n in zip(t.stride(), t.shape)]
 
 
 def ssd_chunk_scan_plain(log_a: torch.Tensor, dx: torch.Tensor, Bm: torch.Tensor,
@@ -116,19 +141,23 @@ def ssd_chunk_scan(log_a: torch.Tensor, dx: torch.Tensor, Bm: torch.Tensor,
     for t in (log_a, Bm, Cm) + (() if h0 is None else (h0,)):
         if t.device != dx.device:
             raise ValueError(f"operands on {t.device} and {dx.device}")
-    if P > P_MAX or N > N_MAX or B > 65535:
-        raise ValueError(f"P={P}, N={N}, B={B}: the kernel takes P ≤ {P_MAX}, "
-                         f"N ≤ {N_MAX} and B ≤ 65535")
-    if max(H, S) > 2**31 - 1:
-        raise ValueError(f"H={H}, S={S} exceed the kernel's 32-bit grid")
-    args = [t.float().contiguous() for t in (log_a, dx, Bm, Cm)]
+    if P > P_MAX or N > N_MAX:
+        raise ValueError(f"P={P}, N={N}: the kernel takes P ≤ {P_MAX} and N ≤ {N_MAX}")
+    if B * H * S > 2**31 - 1:
+        raise ValueError(f"B={B}, H={H}, S={S} exceed the kernel's 32-bit grids")
+    la, dxf = log_a.float(), dx.float()          # no copy for fp32 operands
+    Bc, Cc = Bm.float().contiguous(), Cm.float().contiguous()
     h0c = None if h0 is None else h0.float().contiguous()
+    lib = _lib()
     y = torch.empty((B, H, S, P), dtype=torch.float32, device=dx.device)
     h_fin = torch.empty((B, H, P, N), dtype=torch.float32, device=dx.device)
-    cum = torch.empty((B, H, S), dtype=torch.float32, device=dx.device)
-    err = _lib().ssd_chunk_scan_launch(
-        *(t.data_ptr() for t in args), None if h0c is None else h0c.data_ptr(),
-        y.data_ptr(), h_fin.data_ptr(), cum.data_ptr(), B, H, S, P, N, L,
+    seg = lib.ssd_chunk_scan_segment(B, H, S, P, N, L, B * H * S + WORKSPACE_BYTES // 4)
+    work = torch.empty(lib.ssd_chunk_scan_workspace(B, H, S, P, N, L, seg),
+                       dtype=torch.float32, device=dx.device)
+    err = lib.ssd_chunk_scan_launch(
+        la.data_ptr(), *_strides(la), dxf.data_ptr(), *_strides(dxf), Bc.data_ptr(),
+        Cc.data_ptr(), None if h0c is None else h0c.data_ptr(), y.data_ptr(),
+        h_fin.data_ptr(), work.data_ptr(), B, H, S, P, N, L, seg,
         torch.cuda.current_stream(dx.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_chunk_scan launch failed: CUDA error {err}")

@@ -15,13 +15,17 @@ streams are compared exactly.  ``rmsnorm`` is held at rtol = atol = 1e-5
 in fp32 and within one bf16 step (rtol 2⁻⁷) in bf16 (only the order of a
 row's sum of squares differs), and bitwise between a row alone and in a
 batch; ``ssd_chunk_scan`` at rtol = atol = 1e-4, ``tests/test_kernels.py``'s
-own tolerance for that kernel.  ``flash_attention`` (both forms) is held at
-``tests/test_kernels.py``'s fp32 2e-4 and, in bf16, within one bf16 step
-of each value (rtol 2⁻⁷, atol 1e-6: the kernel sums in fp32 where the plain
-version sums in fp64, and the output rounds to bf16 either side of a
-boundary); a row's output is bitwise the same alone and in a batch, and at
-its exact length and padded.
+own tolerance for that kernel, within ``chip_smoke.FP32_TOL`` (2e-4 of max
+|entry|) of its fp64 value at the served decays, and bitwise between a head
+alone and in a batch, and from call to call.  ``flash_attention`` (both
+forms) is held at ``tests/test_kernels.py``'s fp32 2e-4 and, in bf16,
+within one bf16 step of each value (rtol 2⁻⁷, atol 1e-6: the kernel sums in
+fp32 where the plain version sums in fp64, and the output rounds to bf16
+either side of a boundary); a row's output is bitwise the same alone and in
+a batch, and at its exact length and padded.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -258,21 +262,23 @@ def test_rmsnorm_kernel_reads_a_bf16_scale_plus_one():
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_ssd_kernel_matches_plain_version(with_h0):
-    """Mamba2-2.7B's widths (P = 64, N = 128) at L = 256 over several
-    chunks and at one ragged chunk L = S, L = 37, L = 1, and the SMOKE
-    widths (P = 16, N = 16)."""
+    """Mamba2-2.7B's widths (P = 64, N = 128) over several chunks (L = 256
+    and 64, up to S = 2,048) and at one ragged chunk L = S (301, 956, 998),
+    L = 37, L = 1, narrower P and N, and the SMOKE widths (P = 16,
+    N = 16), with log_a and dx contiguous and as the SSD layer passes them
+    (transposed views)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [(1, 80, 512, 64, 128, 256), (1, 80, 301, 64, 128, 301),
-             (2, 3, 74, 64, 128, 37), (2, 2, 5, 16, 16, 1), (1, 16, 40, 16, 16, 40)]
+    cases = [(1, 80, 512, 64, 128, 256), (1, 80, 2048, 64, 128, 256),
+             (1, 80, 1024, 64, 128, 64), (1, 80, 301, 64, 128, 301),
+             (1, 80, 956, 64, 128, 956), (1, 80, 998, 64, 128, 998),
+             (2, 3, 74, 64, 128, 37), (2, 5, 96, 37, 50, 48), (1, 4, 300, 61, 127, 300),
+             (2, 2, 5, 16, 16, 1), (1, 16, 40, 16, 16, 40)]
     tk.reset_launch_counts()
-    for B, H, S, P, N, L in cases:
-        la = -torch.rand(B, H, S, generator=gen, device="cuda") * 0.2
-        dx = torch.randn(B, H, S, P, generator=gen, device="cuda")
-        Bm = torch.randn(B, S, N, generator=gen, device="cuda") * 0.3
-        Cm = torch.randn(B, S, N, generator=gen, device="cuda") * 0.3
-        h0 = torch.randn(B, H, P, N, generator=gen, device="cuda") * 0.1 \
-            if with_h0 else None
+    for (B, H, S, P, N, L), contiguous in itertools.product(cases, (True, False)):
+        la, dx, Bm, Cm, h0 = _ssd_inputs(gen, B, H, S, P, N, with_h0)
+        if contiguous:
+            la, dx = la.contiguous(), dx.contiguous()
         y, h = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
         yp, hp = tss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
         torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
@@ -281,7 +287,92 @@ def test_ssd_kernel_matches_plain_version(with_h0):
         tss.ssd_chunk_scan(la, torch.zeros(B, H, S, 65, device="cuda"), Bm, Cm,
                            chunk=L)
     torch.cuda.synchronize()
-    assert tk.launch_counts()["ssd_chunk_scan"] == len(cases)
+    assert tk.launch_counts()["ssd_chunk_scan"] == 2 * len(cases)
+
+
+def _ssd_inputs(gen, B, H, S, P, N, with_h0, served=False):
+    """Mild decays (cum ≈ −0.1 a step), or with ``served`` the SSD layer's
+    on a random model: log_a = −softplus(dt)·A, A in [1, 16] per head,
+    dx = softplus(dt)·x, unit B and C (cum reaches −10⁴ over ~1,000 steps).
+    log_a and dx are transposes of (B, S, H[, P]) tensors, as the layer
+    passes them."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    if served:
+        A = 1.0 + 15.0 * torch.rand(H, generator=gen, device="cuda")
+        dt = torch.nn.functional.softplus(randn(B, S, H))
+        la, dx = -dt * A, dt[..., None] * randn(B, S, H, P)
+        Bm, Cm = randn(B, S, N), randn(B, S, N)
+    else:
+        la = -torch.rand(B, S, H, generator=gen, device="cuda") * 0.2
+        dx, Bm, Cm = randn(B, S, H, P), randn(B, S, N) * 0.3, randn(B, S, N) * 0.3
+    h0 = randn(B, H, P, N) * 0.1 if with_h0 else None
+    return la.transpose(1, 2), dx.transpose(1, 2), Bm, Cm, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L", [(1024, 256), (956, 956), (74, 37)])
+def test_ssd_kernel_is_batch_and_call_invariant(S, L):
+    """Head b of a batch of 3 is bitwise the same as the same head at
+    B = 1, and a second call gives the first call's bits: every sum runs in
+    an order fixed by (L, P, N) and the tile alone."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    la, dx, Bm, Cm, h0 = _ssd_inputs(gen, 3, 80, S, 64, 128, True, served=True)
+    y, h = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+    y2, h2 = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for b in (0, 2):
+        one = slice(b, b + 1)
+        y1, h1 = tss.ssd_chunk_scan(la[one], dx[one], Bm[one], Cm[one], h0[one], chunk=L)
+        assert torch.equal(y1, y[one]) and torch.equal(h1, h[one])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L,with_h0", [(1024, 256, True), (956, 956, True),
+                                         (998, 998, False), (512, 256, False)])
+def test_ssd_kernel_at_served_decays_against_fp64(S, L, with_h0):
+    """At the decays a random Mamba2 layer makes (|cum| up to ~10⁴ over a
+    chunk, where the order of the running sum moves the result), y and
+    h_final are within chip_smoke.FP32_TOL (2e-4) of the same function in
+    fp64, relative to their max |entry|."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    la, dx, Bm, Cm, h0 = _ssd_inputs(gen, 1, 80, S, 64, 128, with_h0, served=True)
+    y, h = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+    y64, h64 = tss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L, dtype=torch.float64)
+    for got, want in ((y, y64), (h, h64)):
+        err = ((got.double() - want).abs().max() / want.abs().max()).item()
+        assert err <= 2e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,P,N,L", [(1, 80, 512, 64, 128, 1), (1, 80, 2048, 64, 128, 4),
+                                         (2, 5, 96, 37, 50, 8)])
+def test_ssd_kernel_workspace_is_bounded(B, H, S, P, N, L, monkeypatch):
+    """At small L the stages' scratch would hold ~S/L states a head: the
+    workspace stays within WORKSPACE_BYTES beside the (B, H, S) running
+    sums, the stages run over segments of chunks, and the result is
+    bitwise the same in segments of any length (down to one chunk) as in
+    one segment, and within 1e-4 of the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    la, dx, Bm, Cm, h0 = _ssd_inputs(gen, B, H, S, P, N, True)
+    lib = tss._lib()
+    seg = lib.ssd_chunk_scan_segment(B, H, S, P, N, L, B * H * S + tss.WORKSPACE_BYTES // 4)
+    work = 4 * lib.ssd_chunk_scan_workspace(B, H, S, P, N, L, seg)
+    assert work <= 4 * (B * H * S + 4) + tss.WORKSPACE_BYTES
+    if (B, H) == (1, 80):
+        assert seg < S // L
+    y, h = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+    yp, hp = tss.ssd_chunk_scan_plain(la, dx, Bm, Cm, h0, chunk=L)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hp, rtol=1e-4, atol=1e-4)
+    for bound in (1, 1 << 40):               # one chunk a segment; one segment
+        monkeypatch.setattr(tss, "WORKSPACE_BYTES", bound)
+        y1, h1 = tss.ssd_chunk_scan(la, dx, Bm, Cm, h0, chunk=L)
+        assert torch.equal(y1, y) and torch.equal(h1, h)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ against the Pallas kernel in interpret mode and against the reference's
 oracle in ``src/repro/kernels/ref.py``, on the same seeded numpy inputs.
 Tolerances: the scan at rtol = atol = 1e-4, ``tests/test_kernels.py``'s own
 for this kernel (fp32 throughout, sums over up to 64 steps and 32 state
-entries in different orders); rmsnorm in fp32 at rtol = atol = 1e-5 (only
+entries in different orders); the staged composition the CUDA kernel uses,
+in float64, within 1e-5 of max |entry| (fp32 references against an fp64
+composition of the same function); rmsnorm in fp32 at rtol = atol = 1e-5 (only
 the order of one row's sum of squares differs), in bf16 within one bf16
 step of the value (rtol 2⁻⁷: both round the same fp32 value to bf16, and
 an fp32 difference of an ulp can move it across a rounding boundary).
@@ -117,6 +119,66 @@ def test_ssd_zero_decay_state_is_the_running_sum_of_outer_products():
     for chunk in (8, 64):
         _, h = tss.ssd_chunk_scan(_t(la), _t(dx), _t(Bm), _t(Cm), chunk=chunk)
         np.testing.assert_allclose(h.numpy(), want, **SCAN_TOL)
+
+
+def _staged_scan(log_a, dx, Bm, Cm, h0, L):
+    """The four stages of the CUDA kernel (``csrc/ssd_scan.cu``), composed
+    in float64: cum per (b, h, chunk); each chunk's state from zero; the
+    sequential pass over chunks, which gives the state entering each chunk;
+    the outputs from those states."""
+    la, dx, Bm, Cm = (torch.from_numpy(a).double() for a in (log_a, dx, Bm, Cm))
+    B, H, S, P = dx.shape
+    N, C = Bm.shape[-1], S // L
+    cum = la.reshape(B, H, C, L).cumsum(-1)                           # stage 1
+    dxc, Bc, Cc = dx.reshape(B, H, C, L, P), Bm.reshape(B, C, L, N), Cm.reshape(B, C, L, N)
+    cl = cum[..., -1]
+    Sc = torch.einsum("bhcs,bhcsp,bcsn->bhcpn", torch.exp(cl[..., None] - cum),
+                      dxc, Bc)                                         # stage 2
+    h = torch.zeros(B, H, P, N, dtype=torch.float64) if h0 is None \
+        else torch.from_numpy(h0).double()
+    entering = []
+    for c in range(C):                                                 # stage 3
+        entering.append(h)
+        h = h * torch.exp(cl[:, :, c])[..., None, None] + Sc[:, :, c]
+    hin = torch.stack(entering, dim=2)                                 # (B,H,C,P,N)
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)                        # stage 4
+    decay = torch.exp(torch.clamp(cum[..., :, None] - cum[..., None, :], max=0.0))
+    M = G[:, None] * decay * torch.tril(torch.ones(L, L, dtype=torch.bool))
+    y = (torch.einsum("bhcts,bhcsp->bhctp", M, dxc)
+         + torch.exp(cum)[..., None] * torch.einsum("bctn,bhcpn->bhctp", Cc, hin))
+    return y.reshape(B, H, S, P), h
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("S,L", [(40, 1), (74, 37), (111, 37), (96, 96), (37, 37)])
+def test_ssd_staged_composition_matches_pallas_and_plain(S, L, with_h0):
+    """The decomposition the CUDA kernel computes (chunk states from zero,
+    a sequential pass, outputs from the entering states) is the reference's
+    function: at L = 1, 37 and S, over one and several chunks."""
+    la, dx, Bm, Cm, h0 = _scan_inputs(B=2, H=3, S=S, P=8, N=16, seed=7)
+    h0 = h0 if with_h0 else None
+    y, h = _staged_scan(la, dx, Bm, Cm, h0, L)
+    refs = (j_ssd(_j(la), _j(dx), _j(Bm), _j(Cm), _j(h0), chunk=L, interpret=True),
+            tss.ssd_chunk_scan_plain(_t(la), _t(dx), _t(Bm), _t(Cm), _t(h0), chunk=L))
+    for want_y, want_h in refs:
+        for got, want in ((y, want_y), (h, want_h)):
+            want = np.asarray(want, np.float64)
+            err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+            assert err <= 1e-5, err
+
+
+def test_ssd_strided_inputs_match_contiguous():
+    """log_a and dx as the SSD layer passes them, transposes of (B, S, H)
+    and (B, S, H, P) tensors, give what their contiguous copies give."""
+    la, dx, Bm, Cm, h0 = _scan_inputs(B=2, H=3, S=64, P=8, N=16, seed=8)
+    la_t = _t(la).transpose(1, 2).contiguous().transpose(1, 2)
+    dx_t = _t(dx).transpose(1, 2).contiguous().transpose(1, 2)
+    assert not la_t.is_contiguous() and not dx_t.is_contiguous()
+    for chunk in (16, 64):
+        got = tss.ssd_chunk_scan(la_t, dx_t, _t(Bm), _t(Cm), _t(h0), chunk=chunk)
+        want = tss.ssd_chunk_scan(_t(la), _t(dx), _t(Bm), _t(Cm), _t(h0), chunk=chunk)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------- #
