@@ -45,15 +45,20 @@ Phases (each one that fails makes the script exit non-zero):
                 28 layers (on random weights the error grows with depth, in
                 the reference as much as here), where a model whose int8
                 weights are shifted by one layer must read beyond it.  The
-                device memory each step peaked at, with what holds it, and a
-                profile of an eager decode step and of a graph replay.
-  9. quant_matmul against its plain version, bitwise, at every (M, K, N) the
-                serving phase launched, at ragged shapes and at ±127.
- 10. timing    — quant_matmul at the four decode shapes and the largest
-                prefill shape: device time per launch (CUDA events around a
-                CUDA graph of launches, each reading its own copy of the
-                weight so that the weights miss L2), the plain version,
-                torch._int_mm where cuBLAS takes the shape, and the bound.
+                device memory each step peaked at, with what holds it, a
+                profile of an eager decode step and of a graph replay, and
+                one of a prefill wave (kernel time by name).
+  9. quant_matmul against its plain version, bitwise, at every (M, K, N)
+                phases 8 and 14 launched, at ragged shapes and at ±127.
+ 10. timing    — quant_matmul at every shape phases 8 and 14 launched:
+                device time per launch (CUDA events around a CUDA graph of
+                launches; at the decode shapes each launch reads its own copy
+                of the weight, so that the weights miss L2), the plain
+                version, torch._int_mm where cuBLAS takes the shape, the
+                bound, the launches on the path, and at the prefill shapes
+                the first prefill form's time (QMM_TILED_MS), which every one
+                must beat; (8000, 1536, 8960) within QMM_LIMIT_MS.
+                Phases 9 and 10 run after phase 14.
  11. Mamba2 serving — Mamba2-2.7B at full width and depth (64 SSD layers,
                 d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
                 bf16 weights made from a seed, 8 slots, max_seq 2,048: 16
@@ -98,7 +103,8 @@ Phases (each one that fails makes the script exit non-zero):
                 first local and the first global layer); no fp64 copy of a
                 table on the card; the device memory of weight generation,
                 the served run, the oracle and the cut, each peak on its own
-                line, the served run's with the holders that account for it.
+                line, the served run's with the holders that account for it;
+                profiles of a decode step and of a prefill wave.
  15. flash_attention (both forms) against its plain versions at every shape
                 phases 8 and 14 launched, and in fp32 and bf16 at hd 32, 64,
                 128 and 256, GQA 1:1 to 6:1, every mask, Sq < Sk, lengths that
@@ -119,10 +125,13 @@ Phases (each one that fails makes the script exit non-zero):
                 registers and spills from phase 2's -Xptxas -v (no spill).
  17. lm_head   — against its plain version at every (M, D, V) the serving
                 phases launched (M = 8 and 1; tied; and untied at a small
-                shape), row m bitwise the same at M = 1 and M = 8; timed at
-                the served decode shapes in a CUDA graph beside one cuBLAS
-                bf16 product of the same shapes (torch.nn.functional.linear,
-                the yardstick) and the bound.
+                shape), row m bitwise the same at M = 1 and M = 8, every
+                served launch on the bf16 tensor-core route; timed at the
+                served decode shapes in a CUDA graph beside one cuBLAS call
+                of the same function (torch.mm with out_dtype=float32, the
+                yardstick; F.linear, bf16 out, printed beside it), the bound,
+                the FMA kernel's times (LM_HEAD_FMA_MS) and LM_HEAD_LIMIT_MS
+                at M = 8.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
@@ -182,6 +191,28 @@ INT8_LOGIT_TOL_DEEP = 1.0
 # H100's 50 MB L2, as the serving path's 1.31 GB of weights do: each timed
 # launch reads its own copy of wq, cycling through at least this many bytes
 COLD_BYTES = 200e6
+# quant_matmul's first prefill form (qmm_tiled: mma.sync, two buffers),
+# device ms at each served prefill shape (M, K, N), timed by phase 10 before
+# its redesign (NVIDIA H100 80GB HBM3 at 700 W): every served prefill shape
+# must beat it
+QMM_TILED_MS = {
+    (7168, 1536, 256): 0.0271, (7168, 1536, 1536): 0.1455, (7168, 1536, 8960): 0.7163,
+    (7168, 8960, 1536): 0.6939, (8000, 1536, 256): 0.0278, (8000, 1536, 1536): 0.1509,
+    (8000, 1536, 8960): 0.8012, (8000, 8960, 1536): 0.7014,
+    (8192, 1024, 1152): 0.0981, (8192, 1152, 256): 0.0241, (8192, 1152, 1024): 0.0851,
+    (8192, 1152, 6912): 0.5294, (8192, 6912, 1152): 0.4427,
+    (15680, 1024, 1152): 0.1724, (15680, 1152, 256): 0.0454, (15680, 1152, 1024): 0.1631,
+    (15680, 1152, 6912): 0.9750, (15680, 6912, 1152): 0.7962}
+# ... and the time the redesign must reach and the one it aims at, in ms
+QMM_LIMIT_MS = {(8000, 1536, 8960): (0.40, 0.25)}
+# lm_head at the served decode shapes (M, D, V): the device ms of its FMA
+# kernel, before the tensor-core route (NVIDIA H100 80GB HBM3 at 700 W), and
+# the time the tensor-core kernel must reach and the one it aims at
+LM_HEAD_FMA_MS = {(8, 1152, 262144): 0.4363, (1, 1152, 262144): 0.2183,
+                  (8, 1536, 151936): 0.3043, (1, 1536, 151936): 0.1621,
+                  (8, 2560, 50280): 0.1707, (1, 2560, 50280): 0.0911}
+LM_HEAD_LIMIT_MS = {(8, 1152, 262144): (0.26, 0.21), (8, 1536, 151936): (0.19, 0.16),
+                    (8, 2560, 50280): (0.11, 0.09)}
 # the Mamba2 serving phase: 8 prompts a multiple of the 256 chunk (each
 # twice) and 8 ragged ones drawn from MB_RAGGED (one chunk of L = S each)
 MB_ARCH, MB_SLOTS, MB_MAX_SEQ, MB_NEW = "mamba2-2.7b", 8, 2048, 64
@@ -829,6 +860,7 @@ def phase_lm(counts, report) -> None:
     flash_attention.shapes.clear()
     flash_attention_decode.shapes.clear()
     lm_head.shapes.clear()
+    lm_head.routes.clear()
     sched = SlotScheduler(LM_SLOTS)
     sync()
     mem_reset()
@@ -841,7 +873,6 @@ def phase_lm(counts, report) -> None:
     got = launch_counts()            # ... and ends here
     run_peak = mem_peak("the served run")
     del engine._prefill_into         # the class's method again (no cycle)
-    shapes = sorted(quant_matmul.shapes)
     by_shape = dict(quant_matmul.shapes)
     forwards = engine.calls["prefill_waves"] + engine.calls["decode_steps"]
     per_forward = 7 * cfg.num_layers
@@ -850,10 +881,12 @@ def phase_lm(counts, report) -> None:
     counts["lm_flash_shapes"] = dict(flash_attention.shapes)
     counts["lm_flash_routes"] = dict(flash_attention.routes)
     counts["lm_flash_decode_shapes"] = dict(flash_attention_decode.shapes)
-    counts["lm_shapes"] = shapes
     counts["lm_by_shape"] = by_shape
     counts["lm_head_shapes"] = dict(lm_head.shapes)
+    counts["lm_head_routes"] = dict(lm_head.routes)
     counts["lm_layers"] = cfg.num_layers
+    counts["lm_steps"] = engine.calls["decode_steps"]
+    counts["lm_proj"] = proj_names(cfg)
     counts["lm_widths"] = (cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim,
                            cfg.d_ff)
     norms = 2 * cfg.num_layers + 1
@@ -957,17 +990,20 @@ def phase_lm(counts, report) -> None:
     prof = decode_profile(engine, report["lm"]["decode_ms_per_step"], LM_PROMPT_MAX)
     counts["lm_profile_qmm_ms"] = (prof["eager"] or {}).get("quant_matmul")
     report["lm"]["decode_profile"] = prof
+    report["lm"]["prefill_profile"] = prefill_profile(engine, lm_requests(cfg), "Qwen2")
     del engine, params, logits
     free_device_memory()
 
 
 # our kernels' names in a profile: the CUDA functions' names contain these
-# (the decode form of flash_attention is decode_span_kernel and
-# decode_merge_kernel; ssd_chunk_scan's stages are ssd_cum_kernel,
-# ssd_state_kernel, ssd_pass_kernel and ssd_out_kernel)
+# (quant_matmul is qmm_skinny and qmm_wgmma; the prefill form of
+# flash_attention is flash_kernel and flash_mma_kernel, its decode form
+# decode_span_kernel and decode_merge_kernel; ssd_chunk_scan's stages are
+# ssd_cum_kernel, ssd_state_kernel, ssd_pass_kernel and ssd_out_kernel;
+# lm_head is tied_mma_kernel, tied_kernel and untied_kernel)
 PROFILED = {"quant_matmul": "qmm_", "rmsnorm": "rmsnorm_kernel",
-            "ssd_chunk_scan": "ssd_", "flash_attention_decode": "decode_",
-            "lm_head": "tied_kernel"}
+            "ssd_chunk_scan": "ssd_", "flash_attention": "flash_",
+            "flash_attention_decode": "decode_", "lm_head": "tied_"}
 # the kernels an attention LM's serving path launches
 LM_KERNELS = ("quant_matmul", "rmsnorm", "flash_attention", "flash_attention_decode",
               "lm_head")
@@ -987,6 +1023,24 @@ def check_attention_launches(got, layers: int, calls) -> None:
           f"{layers} x {steps}")
 
 
+def _kernel_times(prof, per: int = 1):
+    """The device kernels a torch.profiler run saw, their device-busy ms and
+    each of the port's kernels' device ms, per ``per`` calls."""
+    from torch.profiler import DeviceType
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
+    ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key)
+            / 1e3 / per for name, key in PROFILED.items()}
+    return kernels, busy, ours
+
+
+def _print_top(kernels, n: int, per: int = 1) -> None:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]:
+        say(f"    {e.self_device_time_total / 1e3 / per:8.3f} ms  "
+            f"{e.count // per:5d} x  {e.key[:90]}")
+
+
 def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     """Where a decode step's time goes: device time by kernel over
     ``steps`` profiled steps (torch.profiler, CUDA activity), of an eager
@@ -996,7 +1050,7 @@ def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     Returns, for each kind, the device-busy ms per step and each of the
     port's kernels' device ms per step, or None where the profiler saw no
     device time."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     B = engine.batch
     toks = engine._tensor(np.zeros((B, 1), np.int32))
@@ -1013,27 +1067,54 @@ def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
             for _ in range(steps):
                 step()
             sync()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        kernels, device_ms, ours = _kernel_times(prof, steps)
         if device_ms == 0:
             say(f"decode step profile ({kind}): the profiler saw no device time "
                 f"(not measured)")
             out[kind] = None
             continue
-        ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key)
-                / 1e3 / steps for name, key in PROFILED.items()}
         launches = sum(e.count for e in kernels) / steps
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         share = f"{device_ms / step_ms:.1%} of" if kind == "graph" else "against"
         say(f"decode step profile ({kind}, {steps} steps, {B} slots): device busy "
             f"{device_ms:.3f} ms, {share} the served run's {step_ms:.2f} ms graph step, "
             f"{launches:.0f} kernel launches a step; "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v))
-        for e in top:
-            say(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms  "
-                f"{e.count // steps:5d} x  {e.key[:90]}")
+        _print_top(kernels, 6, steps)
         out[kind] = {"busy_ms": device_ms, "launches": launches, **ours}
     return out
+
+
+def prefill_profile(engine, reqs, model: str):
+    """Where one prefill wave's time goes: device time by kernel over the
+    wave of the served run's first admissions (the first ``engine.batch``
+    requests, padded as the run pads them), under torch.profiler (CUDA
+    activity), against the host clock around the same wave.  Returns the
+    wave's host ms, device-busy ms and each of the port's kernels' device
+    ms, or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    admits = list(enumerate(reqs[:engine.batch]))
+    S = -(-max(len(r.prompt) for _, r in admits) // 8) * 8
+    cache = engine.init_shared_cache()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._prefill_into(cache, admits)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, device_ms, ours = _kernel_times(prof)
+    if device_ms == 0:
+        say(f"{model} prefill wave profile: the profiler saw no device time (not measured)")
+        return None
+    qmm = sum(e.count for e in kernels if PROFILED["quant_matmul"] in e.key)
+    say(f"{model} prefill wave profile ({len(admits)} prompts padded to {S}, M = "
+        f"{len(admits) * S}): host {wall_ms:.3f} ms (profiled), device busy "
+        f"{device_ms:.3f} ms over {sum(e.count for e in kernels)} kernel launches; "
+        f"quant_matmul {ours['quant_matmul']:.3f} ms in {qmm} launches "
+        f"({ours['quant_matmul'] / device_ms:.1%} of the busy time); "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v and k != "quant_matmul"))
+    _print_top(kernels, 8)
+    return {"M": len(admits) * S, "wall_ms": wall_ms, "busy_ms": device_ms, **ours}
 
 
 def check_graph_steps(engine, before: dict, eager: int, what: str) -> None:
@@ -1194,6 +1275,18 @@ def _leaves(tree, qtensors=False):
         yield tree
 
 
+def proj_names(cfg) -> dict:
+    """The int8 projections of an attention LM by (K, N), e.g. (1536, 256):
+    "wk/wv" (names that share a shape are joined)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+    names: dict = {}
+    for name, kn in (("wq", (d, q)), ("wk", (d, kv)), ("wv", (d, kv)), ("wo", (q, d)),
+                     ("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
+        names.setdefault(kn, []).append(name)
+    return {kn: "/".join(v) for kn, v in names.items()}
+
+
 def _qmm_operands(gen, M, K, N, extreme=False):
     if extreme:
         xq = torch.full((M, K), 127, dtype=torch.int8, device=DEVICE)
@@ -1212,23 +1305,30 @@ def phase_qmm_check(gen, counts) -> float:
     from repro_torch.kernels import quant_matmul as kqm
 
     phase("9. quant_matmul against its plain version (bitwise)")
+    served = sorted({*counts["lm_by_shape"], *counts["g3_by_shape"]})
+    # ragged M, N and K on both forms: N past a 128- and a 256-column tile,
+    # K a multiple of 16 but not of the 128-byte step, K odd (padded)
     ragged = [(1, 1536, 1536), (5, 8960, 1536), (33, 1536, 8960), (8, 8960, 255),
-              (5, 1537, 255), (33, 8960, 255), (1, 1537, 1)]
+              (5, 1537, 255), (33, 8960, 255), (1, 1537, 1), (4097, 1040, 300),
+              (130, 1537, 257), (7999, 1536, 1000), (8000, 1536, 129)]
     worst = 0.0
-    for M, K, N in counts["lm_shapes"] + ragged:
+    for M, K, N in served + ragged:
         ops = _qmm_operands(gen, M, K, N)
         a, b = kqm.quant_matmul(*ops), kqm.quant_matmul_plain(*ops)
         sync()
         err = (a - b).abs().max().item()
         worst = max(worst, err)
         check(torch.equal(a, b), f"quant_matmul {(M, K, N)} differs: {err}")
-    for M, K, N in ((8, 8960, 1536), (130, 8960, 257)):
+        del ops, a, b
+    extreme = [(8, 8960, 1536), (130, 8960, 257), (8000, 8960, 1536)]
+    for M, K, N in extreme:
         ops = _qmm_operands(gen, M, K, N, extreme=True)
         a, b = kqm.quant_matmul(*ops), kqm.quant_matmul_plain(*ops)
         sync()
         check(torch.equal(a, b), f"quant_matmul at ±127 {(M, K, N)} differs")
-    say(f"bitwise equal at the {len(counts['lm_shapes'])} served shapes, "
-        f"{len(ragged)} ragged shapes {ragged} and 2 at ±127 (K = 8960)")
+    say(f"bitwise equal at the {len(served)} served shapes of Qwen2 and Gemma3 "
+        f"{served}, {len(ragged)} ragged shapes {ragged} and {len(extreme)} at ±127 "
+        f"{extreme}")
     return worst
 
 
@@ -1236,62 +1336,92 @@ def phase_qmm_timing(gen, counts, worst) -> dict:
     from repro_torch.kernels import quant_matmul as kqm
 
     phase("10. quant_matmul timing at the serving shapes")
-    d, kvd, f = counts["lm_widths"]
-    prefill_M = max(M for M, _, _ in counts["lm_shapes"])
-    rows = [("decode wq/wo", (LM_SLOTS, d, d)), ("decode wk/wv", (LM_SLOTS, d, kvd)),
-            ("decode w_gate/w_up", (LM_SLOTS, d, f)), ("decode w_down", (LM_SLOTS, f, d)),
-            ("prefill w_gate/w_up", (prefill_M, d, f))]
+    rows = []
+    for model, path in (("Qwen2", "lm"), ("Gemma3", "g3")):
+        names = counts[f"{path}_proj"]
+        for (M, K, N), n in sorted(counts[f"{path}_by_shape"].items()):
+            kind = "decode" if M <= 16 else "prefill"
+            rows.append((model, path, kind, f"{model} {kind} {names[(K, N)]}", (M, K, N), n))
     timings = []
-    for label, (M, K, N) in rows:
+    for model, path, kind, label, (M, K, N), launched in rows:
         xq, xs, wq, ws = _qmm_operands(gen, M, K, N)
-        # copies of the weight, in both layouts, cycled through so that each
-        # timed launch reads its weight from HBM and not from L2
-        copies = max(1, math.ceil(COLD_BYTES / (K * N)))
-        wqs = [wq.t().contiguous().t() for _ in range(copies)]
-        wks = [wq.contiguous() for _ in range(copies)]
-        ms = graph_ms([lambda w=w: kqm.quant_matmul(xq, xs, w, ws) for w in wqs])
-        warm_ms = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws))
-        eager_ms = cuda_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws), 20)
-        plain_ms = cuda_ms(lambda: kqm.quant_matmul_plain(xq, xs, wq, ws), 3)
-        try:
-            lib_ms, lib_note = graph_ms([lambda w=w: torch._int_mm(xq, w)
-                                         for w in wks]), ""
-        except RuntimeError as e:
-            lib_ms, lib_note = None, str(e).splitlines()[0]
-        del wqs, wks
         t_b, by = bound(M * K + K * N + 4 * (M + N + M * N), 2.0 * M * K * N,
                         INT8_OPS_PER_S)
-        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({lib_note})"
-        launched = counts["lm_by_shape"].get((M, K, N), 0)
-        say(f"quant_matmul {label} (M, K, N) = {(M, K, N)}, {launched} launches on "
-            f"the path: kernel {ms:.4f} ms with weights from HBM ({copies} copies; "
-            f"{warm_ms:.4f} ms re-reading one copy from L2; eager back-to-back "
-            f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, torch._int_mm "
-            f"{lib_txt}, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
-        timings.append({"label": label, "shape": [M, K, N], "launches": launched,
-                        "ms": ms, "warm_l2_ms": warm_ms,
-                        "eager_ms": eager_ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, "library_note": lib_note,
-                        "bound_ms": t_b, "bound_by": by})
-    # a decode step launches wq, wk, wv, wo, w_gate, w_up, w_down per layer
-    layers = counts["lm_layers"]
-    step_ms = layers * (2 * timings[0]["ms"] + 2 * timings[1]["ms"]
-                        + 2 * timings[2]["ms"] + timings[3]["ms"])
-    prof = counts.get("lm_profile_qmm_ms")
-    say(f"quant_matmul per decode step from these rows: {step_ms:.3f} ms "
-        f"({7 * layers} launches); the profiled decode step's quant_matmul: "
-        + (f"{prof:.3f} ms" if prof else "not measured"))
-    head = timings[2]                   # the widest decode launch: w_up
+        row = {"label": label, "model": model, "kind": kind, "shape": [M, K, N],
+               "launches": launched, "bound_ms": t_b, "bound_by": by}
+        if kind == "decode":
+            # copies of the weight, in both layouts, cycled through so that
+            # each timed launch reads its weight from HBM and not from L2
+            copies = max(1, math.ceil(COLD_BYTES / (K * N)))
+            wqs = [wq.t().contiguous().t() for _ in range(copies)]
+            wks = [wq.contiguous() for _ in range(copies)]
+            row["ms"] = graph_ms([lambda w=w: kqm.quant_matmul(xq, xs, w, ws) for w in wqs])
+            row["warm_l2_ms"] = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws))
+            row["plain_ms"] = cuda_ms(lambda: kqm.quant_matmul_plain(xq, xs, wq, ws), 3)
+            lib = [lambda w=w: torch._int_mm(xq, w) for w in wks]
+            note = f"{copies} copies of the weight, from HBM"
+        else:
+            # a prefill launch re-reads its operands from L2 across its tiles
+            # whatever the first read costs, so one copy serves
+            row["ms"] = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws), 5, 4)
+            row["plain_ms"] = cuda_ms(lambda: kqm.quant_matmul_plain(xq, xs, wq, ws), 1)
+            wk = wq.contiguous()
+            lib = lambda: torch._int_mm(xq, wk)  # noqa: E731
+            note = "one copy"
+        try:
+            row["library_ms"], row["library_note"] = graph_ms(lib, 5, 4), ""
+        except RuntimeError as e:
+            row["library_ms"], row["library_note"] = None, str(e).splitlines()[0]
+        first = QMM_TILED_MS.get((M, K, N))
+        lib_txt = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
+                   else f"none ({row['library_note']})")
+        first_txt = (f"; qmm_tiled {first:.4f} ms, {first / row['ms']:.2f}x"
+                     if first else "")
+        say(f"quant_matmul {label} (M, K, N) = {(M, K, N)}, {launched} launches on the "
+            f"path: kernel {row['ms']:.4f} ms ({note}), plain {row['plain_ms']:.4f} ms, "
+            f"torch._int_mm {lib_txt}, bound {t_b:.4f} ms ({by}), {t_b / row['ms']:.1%} "
+            f"of it{first_txt}")
+        timings.append(row)
+        del xq, xs, wq, ws, lib
+        free_device_memory()
+    for model, path in (("Qwen2", "lm"), ("Gemma3", "g3")):
+        mine = [r for r in timings if r["model"] == model]
+        step = sum(r["ms"] * r["launches"] for r in mine if r["kind"] == "decode")
+        pre = sum(r["ms"] * r["launches"] for r in mine if r["kind"] == "prefill")
+        pre_b = sum(r["bound_ms"] * r["launches"] for r in mine if r["kind"] == "prefill")
+        say(f"{model}: quant_matmul per decode step from these rows "
+            f"{step / counts[f'{path}_steps']:.3f} ms; in the served run's prefill "
+            f"waves {pre / 1e3:.4f} s (bound {pre_b / 1e3:.4f} s)")
+    check_no_spill("quant_matmul", {
+        f"qmm_wgmma<{bn}, {store}>": rf"qmm_wgmmaILi{bn}ELb{int(store == 'true')}E"
+        for bn in (128, 256) for store in ("false", "true")})
+    for r in timings:
+        first = QMM_TILED_MS.get(tuple(r["shape"]))
+        if r["kind"] == "prefill" and first:
+            check(r["ms"] < first, f"quant_matmul {r['label']} {r['shape']}: "
+                  f"{r['ms']:.4f} ms, not faster than qmm_tiled's {first:.4f} ms")
+        limit = QMM_LIMIT_MS.get(tuple(r["shape"]))
+        if limit:
+            say(f"quant_matmul {tuple(r['shape'])}: {r['ms']:.4f} ms against the must "
+                f"{limit[0]} ms and the target {limit[1]} ms")
+            check(r["ms"] <= limit[0], f"quant_matmul {r['shape']}: {r['ms']:.4f} ms "
+                  f"over its limit {limit[0]} ms")
+    # the headline stays Qwen2's decode w_gate/w_up launch, as in the records
+    # before; the prefill rows are in `shapes`
+    head = max((r for r in timings if r["label"] == "Qwen2 decode w_gate/w_up"),
+               key=lambda r: r["shape"][0])
     return {
         "name": "quant_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "replaces": "src/repro/kernels/quant_matmul.py:77",
-        "launches": counts["lm"]["quant_matmul"],
+        "launches": counts["lm"]["quant_matmul"] + counts["g3"]["quant_matmul"],
         "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": head["shape"],
-        "library_note": head["library_note"] or None, "shapes": timings,
-        "launches_by_path": {"lm_serve": counts["lm"]["quant_matmul"]},
+        "library_note": "torch._int_mm (cuBLAS int8, int32 out), no epilogue",
+        "shapes": timings,
+        "launches_by_path": {"lm_serve": counts["lm"]["quant_matmul"],
+                             "gemma3_serve": counts["g3"]["quant_matmul"]},
     }
 
 
@@ -1481,6 +1611,7 @@ def phase_mamba(counts) -> None:
     rmsnorm.shapes.clear()
     ssd_chunk_scan.shapes.clear()
     lm_head.shapes.clear()
+    lm_head.routes.clear()
     sched = SlotScheduler(MB_SLOTS)
     sync()
     mem_reset()
@@ -1501,6 +1632,7 @@ def phase_mamba(counts) -> None:
     counts["mamba_rms_shapes"] = dict(rmsnorm.shapes)
     counts["mamba_ssd_shapes"] = dict(ssd_chunk_scan.shapes)
     counts["mamba_head_shapes"] = dict(lm_head.shapes)
+    counts["mamba_head_routes"] = dict(lm_head.routes)
     say(f"launches in the serving run: {got}; {prefills} per-request prefills + "
         f"{steps} decode steps; ssd_chunk_scan x {cfg.num_layers} a prefill, "
         f"rmsnorm x {norms} a forward")
@@ -1965,7 +2097,7 @@ def ssd_stage_usage() -> dict:
     for name, use in ptxas_usage("ssd_scan").items():
         m = re.search(r"ssd_[a-z]+_kernel", name)
         if m:
-            stages[m.group(0)] = use
+            stages[m.group(0)] = use[:3]
     return stages
 
 
@@ -2091,6 +2223,7 @@ def phase_gemma3(counts, report) -> None:
     for fn in (kfa.flash_attention, kfa.flash_attention_decode, kqm.quant_matmul,
                krn.rmsnorm, klm.lm_head):
         fn.shapes.clear()
+    klm.lm_head.routes.clear()
     sched = SlotScheduler(G3_SLOTS)
     sync()
     mem_reset()
@@ -2111,6 +2244,10 @@ def phase_gemma3(counts, report) -> None:
     counts["g3_flash_decode_shapes"] = dict(kfa.flash_attention_decode.shapes)
     counts["g3_layers"] = L
     counts["g3_head_shapes"] = dict(klm.lm_head.shapes)
+    counts["g3_head_routes"] = dict(klm.lm_head.routes)
+    counts["g3_by_shape"] = dict(kqm.quant_matmul.shapes)
+    counts["g3_steps"] = steps
+    counts["g3_proj"] = proj_names(cfg)
     say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} prefill "
         f"waves + {steps} decode steps = {forwards} forwards x {7 * L} quant_matmul "
         f"and x {2 * L + 1} rmsnorm")
@@ -2128,6 +2265,7 @@ def phase_gemma3(counts, report) -> None:
     say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
         f"{counts['g3_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
         f"hd, mask): {counts['g3_flash_decode_shapes']}")
+    say(f"quant_matmul launches by (M, K, N): {counts['g3_by_shape']}")
     over = [n for n in lens if n > cfg.window]
     wrap = [n for n in lens if n <= cfg.window < n + G3_NEW]
     say(f"prompts over the {cfg.window}-slot ring at prefill: {over}; wrapping it "
@@ -2213,6 +2351,8 @@ def phase_gemma3(counts, report) -> None:
     mem_peak("the 2-layer comparisons")
     prof = decode_profile(engine, step_ms, max(lens))
     report["gemma3"]["decode_profile"] = prof
+    report["gemma3"]["prefill_profile"] = prefill_profile(engine, gemma3_requests(cfg),
+                                                          "Gemma3")
     del engine, params, tree, model
     free_device_memory()
 
@@ -2449,9 +2589,9 @@ def library_time(fn, backend: str, eager: bool):
 
 
 def ptxas_usage(stem: str) -> dict:
-    """Entry function → (registers, spill store bytes, spill load bytes) of
-    each CUDA function of ``csrc/<stem>.cu``, from phase 2's -Xptxas -v
-    report."""
+    """Entry function → (registers, spill store bytes, spill load bytes,
+    stack frame bytes) of each CUDA function of ``csrc/<stem>.cu``, from
+    phase 2's -Xptxas -v report."""
     import re
 
     found, name = {}, None
@@ -2459,15 +2599,34 @@ def ptxas_usage(stem: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            found[name] = [0, 0, 0]
+            found[name] = [0, 0, 0, 0]
         elif name is not None:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
             if m:
-                found[name][1:] = [int(m.group(1)), int(m.group(2))]
+                found[name][1:] = [int(m.group(2)), int(m.group(3)), int(m.group(1))]
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 found[name][0] = int(m.group(1))
     return {k: tuple(v) for k, v in found.items()}
+
+
+def check_no_spill(stem: str, wanted: dict) -> None:
+    """Each CUDA function of ``csrc/<stem>.cu`` that ``wanted`` names (label
+    → a pattern of its mangled name) is in phase 2's -Xptxas -v report, with
+    no spill and no stack frame."""
+    import re
+
+    usage = ptxas_usage(stem)
+    found = {label: next((u for n, u in usage.items() if re.search(pat, n)), None)
+             for label, pat in wanted.items()}
+    say(f"{stem} (-Xptxas -v; registers, spill store / load bytes, stack frame): "
+        + ", ".join(f"{k} " + (f"{u[0]} registers, {u[1]} / {u[2]}, {u[3]}" if u
+                               else "missing") for k, u in found.items()))
+    check(all(found.values()), f"{stem}: not in the -Xptxas -v report: "
+          f"{[k for k, u in found.items() if u is None]}")
+    check(all(u[1:] == (0, 0, 0) for u in found.values() if u),
+          f"{stem}: a function spills or keeps a stack frame: {found}")
 
 
 def mma_registers() -> dict:
@@ -2479,7 +2638,7 @@ def mma_registers() -> dict:
     for name, use in ptxas_usage("flash_attention").items():
         m = re.search(r"flash_mma_kernelILi(\d+)E", name)
         if m:
-            found[int(m.group(1))] = use
+            found[int(m.group(1))] = use[:3]
     return found
 
 
@@ -2613,13 +2772,30 @@ def phase_flash_timing(gen, counts, worst) -> list:
     return records
 
 
+def mm_fp32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One cuBLAS call of lm_head's function: bf16 operands, fp32 sums and
+    fp32 logits (torch.mm with out_dtype, ``aten::mm.dtype``)."""
+    return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+
 def phase_head(gen, counts) -> dict:
     from repro_torch.kernels import lm_head as klm
 
     phase("17. lm_head against its plain version, and its timing")
     served = {**counts["lm_head_shapes"], **counts["mamba_head_shapes"],
               **counts["g3_head_shapes"]}
+    routes = {"Qwen2": counts["lm_head_routes"], "Mamba2": counts["mamba_head_routes"],
+              "Gemma3": counts["g3_head_routes"]}
     tables = sorted({(D, V, tied) for _, D, V, tied in served}, key=lambda k: -k[1])
+    x0 = torch.randn(8, 64, device=DEVICE).bfloat16()
+    try:
+        mm_fp32_out(x0, x0)
+        lib_fn, lib_note = mm_fp32_out, ("torch.mm(x, w.t(), out_dtype=torch.float32): "
+                                         "bf16 operands, fp32 sums and logits (cuBLAS)")
+    except (TypeError, RuntimeError) as e:
+        say(f"torch.mm with out_dtype is not in this torch ({str(e).splitlines()[0]}); "
+            f"the yardstick stays F.linear")
+        lib_fn, lib_note = None, "torch.nn.functional.linear, bf16 out (cuBLAS)"
     worst = 0.0
     timings = []
     for D, V, tied in tables + [(256, 1048, False)]:
@@ -2643,20 +2819,38 @@ def phase_head(gen, counts) -> dict:
             xm = x[:M]
             ms = graph_ms(lambda: klm.lm_head(xm, w, tied=tied), launches=5)
             plain_ms = cuda_ms(lambda: klm.lm_head_plain(xm, w, tied=tied), 1)
-            lib_ms = graph_ms(lambda: torch.nn.functional.linear(xm, w), launches=5)
+            linear_ms = graph_ms(lambda: torch.nn.functional.linear(xm, w), launches=5)
+            lib_ms = (graph_ms(lambda: lib_fn(xm, w), launches=5) if lib_fn
+                      else linear_ms)
             t_b, by = bound(V * D * 2 + M * D * 2 + M * V * 4, 2.0 * M * V * D)
             launched = served.get((M, D, V, tied), 0)
-            say(f"lm_head (M, D, V) = {(M, D, V)} tied, bf16, {launched} launches on the "
-                f"paths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one cuBLAS bf16 "
-                f"product (F.linear, bf16 out) {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), "
-                f"{t_b / ms:.1%} of it")
+            key = (M, D, V)
+            first = LM_HEAD_FMA_MS.get(key)
+            limit = LM_HEAD_LIMIT_MS.get(key)
+            say(f"lm_head (M, D, V) = {key} tied, bf16, {launched} launches on the "
+                f"paths: kernel ({klm.route(w.dtype, tied)}) {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.mm out_dtype=fp32 "
+                + (f"{lib_ms:.4f} ms" if lib_fn else "not in this torch")
+                + f", F.linear (bf16 out) {linear_ms:.4f} ms, bound {t_b:.4f} ms ({by}), "
+                f"{t_b / ms:.1%} of it"
+                + (f"; the FMA kernel {first:.4f} ms, {first / ms:.2f}x" if first else "")
+                + (f"; must {limit[0]} ms, target {limit[1]} ms" if limit else ""))
+            if limit:
+                check(ms <= limit[0], f"lm_head {key}: {ms:.4f} ms over {limit[0]} ms")
             timings.append({"shape": [M, D, V], "tied": tied, "launches": launched,
                             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "linear_ms": linear_ms,
                             "bound_ms": t_b, "bound_by": by})
         del w, x
     say(f"against the plain version at every served (D, V) and an untied (256, 1048): "
         f"within rtol = atol = 2e-4, max abs error {worst:.3g}; row m bitwise the same "
         f"at M = 1 and M = 8")
+    mma = klm.route(torch.bfloat16, True)
+    say(f"lm_head launches on the served paths by route: {routes} (bf16 tied: "
+        f"{mma}; fp32, or untied: {klm.route(torch.float32, True)})")
+    check(all(set(r) == {mma} for r in routes.values()),
+          f"a served lm_head launch did not take the bf16 tied route: {routes}")
+    check_no_spill("lm_head", {"tied_mma_kernel": r"tied_mma_kernel"})
     head = timings[0]
     return {
         "name": "lm_head", "route": "cuda",
@@ -2667,8 +2861,7 @@ def phase_head(gen, counts) -> dict:
         + counts["g3"]["lm_head"],
         "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "library_note": "torch.nn.functional.linear, bf16 out (cuBLAS)",
+        "library_ms": head["library_ms"], "library_note": lib_note,
         "shape": head["shape"], "shapes": timings,
         "launches_by_path": {"lm_serve": counts["lm"]["lm_head"],
                              "mamba_serve": counts["mamba"]["lm_head"],
@@ -2708,12 +2901,13 @@ def main() -> int:
     free_tables(report)
 
     phase_lm(counts, report)
-    worst = phase_qmm_check(gen, counts)
-    records.append(phase_qmm_timing(gen, counts, worst))
     phase_mamba(counts)
     worst = phase_new_kernels_check(gen, counts)
     records.extend(phase_new_kernels_timing(gen, counts, worst))
     phase_gemma3(counts, report)
+    # quant_matmul's phases read the shapes both int8 models launched
+    worst = phase_qmm_check(gen, counts)
+    records.append(phase_qmm_timing(gen, counts, worst))
     worst = phase_flash_check(gen, counts)
     records.extend(phase_flash_timing(gen, counts, worst))
     records.append(phase_head(gen, counts))

@@ -15,12 +15,22 @@ streams.
     tied     logits = x @ W.T     x (M, D), W (V, D), the token table
     untied   logits = x @ H       H (D, V), the head table
 
-x and the table share a dtype, fp32 or bf16; the logits are fp32.  The
-kernel takes contiguous operands with D (tied) or V (untied) a multiple of
-8; the wrapper copies a non-contiguous or misaligned operand and raises
-for the rest.  It runs the kernel for a CUDA tensor and the plain version
-for a CPU tensor, and raises for anything else.  ``lm_head.launches``
-counts launches, ``lm_head.shapes`` counts them by ``(M, D, V, tied)``.
+x and the table share a dtype, fp32 or bf16; the logits are fp32.  Each
+(dtype, form) takes one route (:func:`route`):
+
+* bf16, tied — every served model's head — ``"mma_bf16"``: the tensor
+  cores (``mma.sync`` m16n8k16, bf16 operands), each k16 step summed from
+  zero by the tensor core and added to the logit's fp32 sum in index order;
+* fp32, tied, and untied in either dtype — ``"fma"``: IEEE fp32 FMA on the
+  SIMT pipe (the port keeps fp32 operands off the tensor cores; no served
+  model is untied).
+
+The kernel takes contiguous operands with D (tied) or V (untied) a
+multiple of 8; the wrapper copies a non-contiguous or misaligned operand
+and raises for the rest.  It runs the kernel for a CUDA tensor and the
+plain version for a CPU tensor, and raises for anything else.
+``lm_head.launches`` counts launches, ``lm_head.shapes`` counts them by
+``(M, D, V, tied)`` and ``lm_head.routes`` by route.
 
 The plain version sums in fp64 and rounds to fp32: the correctly rounded
 logit, which the kernel's fp32 chain comes within a few ulps of.  It is
@@ -76,6 +86,12 @@ def lm_head_plain(x: torch.Tensor, w: torch.Tensor, *, tied: bool) -> torch.Tens
     return torch.matmul(x.double(), wd.T if tied else wd).float()
 
 
+def route(dtype: torch.dtype, tied: bool) -> str:
+    """The route a CUDA call with these operands takes: ``"mma_bf16"`` (the
+    tensor cores) for bf16 tied, ``"fma"`` (the SIMT pipe) otherwise."""
+    return "mma_bf16" if dtype == torch.bfloat16 and tied else "fma"
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -110,8 +126,10 @@ def lm_head(x: torch.Tensor, w: torch.Tensor, *, tied: bool) -> torch.Tensor:
         raise RuntimeError(f"lm_head launch failed: CUDA error {err}")
     lm_head.launches += 1
     lm_head.shapes[(M, D, V, bool(tied))] += 1
+    lm_head.routes[route(x.dtype, tied)] += 1
     return out
 
 
 lm_head.launches = 0
 lm_head.shapes = collections.Counter()
+lm_head.routes = collections.Counter()

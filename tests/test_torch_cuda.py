@@ -176,6 +176,56 @@ def test_quant_matmul_kernel_matches_plain_version():
     assert tqm.quant_matmul.shapes == dict.fromkeys(shapes + [(8, 8960, 64)], 1)
 
 
+def _qmm_operands(gen, M, K, N, extreme=False):
+    if extreme:
+        xq = torch.full((M, K), 127, dtype=torch.int8, device="cuda")
+        wt = torch.full((N, K), -127, dtype=torch.int8, device="cuda")
+    else:
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        wt = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+    xs = torch.rand(M, generator=gen, device="cuda") * 0.02 + 1e-3
+    ws = torch.rand(N, generator=gen, device="cuda") * 0.02 + 1e-3
+    return xq, xs, wt.t(), ws
+
+
+# (M, K, N) of Qwen2-1.5B's and Gemma3-1B's prefill waves as chip_smoke.py
+# serves them, ragged M, N and K on the tiled form (N past a 128- and a
+# 256-column tile, N odd, K a multiple of 16 but not of 128, K odd), N = 256
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    *[(M, K, N) for M in (7168, 8000)
+      for K, N in ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))],
+    *[(M, K, N) for M in (8192, 15680)
+      for K, N in ((1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152))],
+    (7999, 1536, 1000), (8000, 1536, 129), (4097, 1040, 300), (130, 1537, 257),
+    (17, 8960, 255), (33, 1536, 8960), (300, 256, 256),
+])
+def test_quant_matmul_prefill_form_is_bitwise(M, K, N):
+    """The tiled form (``qmm_wgmma``, M > 16) bitwise against the plain
+    version, at its chosen tile width."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N)
+    ops = _qmm_operands(gen, M, K, N)
+    got = tqm.quant_matmul(*ops)
+    want = tqm.quant_matmul_plain(*ops)
+    torch.cuda.synchronize()
+    assert tqm.tile_n(M, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert torch.equal(got, want), (M, K, N, (got - want).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(8000, 1536), (130, 257), (15680, 256)])
+def test_quant_matmul_prefill_form_at_127_and_full_depth(M, N):
+    """±127 operands at K = 8960: the int32 sums reach 8960 · 127² without
+    overflow, and the epilogue gives the oracle's bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    ops = _qmm_operands(gen, M, 8960, N, extreme=True)
+    assert torch.equal(tqm.quant_matmul(*ops), tqm.quant_matmul_plain(*ops))
+
+
 @pytest.mark.cuda
 def test_int8_lm_engine_on_card_matches_slot_at_a_time():
     """Qwen2-1.5B's SMOKE widths with int8 weights on the card: continuous
@@ -621,6 +671,29 @@ def test_lm_head_kernel_matches_plain_and_is_batch_invariant(dtype):
         tlm.lm_head(randn(2, 100), randn(50, 100), tied=True)
     torch.cuda.synchronize()
     assert tk.launch_counts()["lm_head"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,V", [(1152, 262144), (1536, 151936), (2560, 50280),
+                                 (2560, 50280 + 7 * 8)])
+def test_lm_head_served_shapes_on_the_tensor_cores(D, V):
+    """The served heads (bf16, tied) at Gemma3-1B's, Qwen2-1.5B's and
+    Mamba2-2.7B's (D, V), and a V whose last 16-row tile is ragged by 8:
+    the tensor-core route, within rtol = atol = 2e-4 of the fp64 plain
+    version, and row m bitwise the same at M = 1 and M = 8."""
+    from repro_torch.kernels import lm_head as tlm
+
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(D + V)
+    w = torch.randn(V, D, generator=gen, device="cuda").bfloat16()
+    x = torch.randn(8, D, generator=gen, device="cuda").bfloat16()
+    tlm.lm_head.routes.clear()
+    eight = tlm.lm_head(x, w, tied=True)
+    torch.testing.assert_close(eight, tlm.lm_head_plain(x, w, tied=True),
+                               rtol=2e-4, atol=2e-4)
+    for m in range(8):
+        assert torch.equal(tlm.lm_head(x[m:m + 1], w, tied=True)[0], eight[m]), m
+    assert tlm.lm_head.routes == {"mma_bf16": 9}
 
 
 @pytest.mark.cuda

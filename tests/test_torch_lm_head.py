@@ -16,7 +16,7 @@ import torch
 
 from repro.models.layers.embedding import logits_from as jlogits_from
 from repro_torch.kernels import ops
-from repro_torch.kernels.lm_head import lm_head, lm_head_plain
+from repro_torch.kernels.lm_head import lm_head, lm_head_plain, route
 from repro_torch.models.layers.embedding import logits_from
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -57,3 +57,19 @@ def test_lm_head_checks_shapes():
         lm_head(x, torch.zeros(V, D), tied=False)
     with pytest.raises(ValueError, match="2-D"):
         lm_head(x[None], torch.zeros(V, D), tied=True)
+
+
+@pytest.mark.parametrize("dtype,tied,want", [
+    (torch.bfloat16, True, "mma_bf16"),    # every served model's head
+    (torch.bfloat16, False, "fma"),
+    (torch.float32, True, "fma"),          # fp32 stays off the tensor cores
+    (torch.float32, False, "fma"),
+])
+def test_route_by_dtype_and_form(dtype, tied, want):
+    """The route a CUDA call takes; a CPU call runs the plain version and
+    counts no route."""
+    assert route(dtype, tied) == want
+    before = dict(lm_head.routes)
+    lm_head(torch.zeros(2, D, dtype=dtype),
+            torch.zeros((V, D) if tied else (D, V), dtype=dtype), tied=tied)
+    assert dict(lm_head.routes) == before

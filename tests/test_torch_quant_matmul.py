@@ -116,6 +116,37 @@ def test_shape_validation_matches_the_reference():
         tops.quant_matmul(*[t.to("meta") for t in _torch(xq, xs, wq, ws)])
 
 
+# the served prefill shapes (M, N) of Qwen2-1.5B and Gemma3-1B: M = 8 slots x
+# the wave's padded length
+SERVED_PREFILL = [(M, N) for M in (7168, 8000) for N in (256, 1536, 8960)] + [
+    (M, N) for M in (8192, 15680) for N in (256, 1024, 1152, 6912)]
+
+
+@pytest.mark.parametrize("M,N,want", [
+    (8, 8960, 0), (16, 256, 0),               # the decode form: no tile
+    (17, 256, 128), (33, 8960, 128),          # one row of tiles: narrow ones
+    (8000, 256, 128), (8192, 256, 128),       # one round either way: 128
+    (8000, 1536, 256), (8000, 8960, 256),     # as many rounds: 256
+    (15680, 1152, 256), (15680, 256, 256),
+])
+def test_prefill_tile_width_by_shape(M, N, want):
+    assert tqm.tile_n(M, N, 132) == want
+
+
+@pytest.mark.parametrize("M,N", SERVED_PREFILL)
+def test_served_prefill_tiles_fill_the_card(M, N):
+    """At every served prefill shape the chosen tile gives at least three
+    quarters of the 132 SMs a tile (Qwen2's wk/wv at M = 7168: 112), and
+    costs no more rounds x bytes than the other."""
+    bn = tqm.tile_n(M, N, 132)
+    tiles = -(-M // tqm.TILE_M) * -(-N // bn)
+    assert tiles >= 0.75 * 132, (M, N, bn, tiles)
+    other = 384 - bn
+    cost = {b: -(-(-(-M // tqm.TILE_M) * -(-N // b)) // 132) * (tqm.TILE_M + b)
+            for b in (bn, other)}
+    assert cost[bn] <= cost[other]
+
+
 # --------------------------------------------------------------------------- #
 # quantizers
 # --------------------------------------------------------------------------- #
