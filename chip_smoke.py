@@ -32,8 +32,12 @@ Phases (each one that fails makes the script exit non-zero):
                 requests of 128..1,024 prompt tokens and 64 new tokens each,
                 all at once, through ServeEngine.run, whose decode steps are
                 CUDA graph replays (the warm-up captured the graph).
-                Checked: 196 quant_matmul and 57 rmsnorm launches per
-                forward (7 and 2 a layer, and the final norm), one lm_head
+                Checked: the int8 projections as 4 quant_linear groups a
+                layer (q/k/v, o, gate/up, down): one grouped qmm_group launch
+                each at a decode step, one quantize_rows and one qmm_wgmma a
+                weight (4 and 7 a layer) at a prefill wave, no quant_matmul
+                launch; 57 rmsnorm launches per forward (2 a layer, and the
+                final norm), one lm_head
                 launch per forward, 28 flash_attention launches per prefill
                 wave and 28 flash_attention_decode per decode step (every
                 attention through kernel 6), every decode step of the run a
@@ -44,20 +48,38 @@ Phases (each one that fails makes the script exit non-zero):
                 2-layer depth that bound was pinned on, and within 100 % at
                 28 layers (on random weights the error grows with depth, in
                 the reference as much as here), where a model whose int8
-                weights are shifted by one layer must read beyond it.  The
-                device memory each step peaked at, with what holds it, a
-                profile of an eager decode step and of a graph replay, and
-                one of a prefill wave (kernel time by name).
-  9. quant_matmul against its plain version, bitwise, at every (M, K, N)
-                phases 8 and 14 launched, at ragged shapes and at ±127.
- 10. timing    — quant_matmul at every shape phases 8 and 14 launched:
-                device time per launch (CUDA events around a CUDA graph of
-                launches; at the decode shapes each launch reads its own copy
-                of the weight, so that the weights miss L2), the plain
-                version, torch._int_mm where cuBLAS takes the shape, the
-                bound, the launches on the path, and at the prefill shapes
-                the first prefill form's time (QMM_TILED_MS), which every one
-                must beat; (8000, 1536, 8960) within QMM_LIMIT_MS.
+                weights are shifted by one layer must read beyond it; the
+                prefill logits of a 2-layer cut bitwise equal to the same cut
+                through the composition the projections had before the
+                grouped call (quantize_rows's plain version, quant_matmul,
+                a cast).  The device memory each step peaked at, with what
+                holds it, a profile of an eager decode step and of a graph
+                replay (launches a step and the projection kernels' device
+                time within DECODE_STEP_LIMITS), and one of a prefill wave
+                (kernel time by name).
+  9. quant_matmul's kernels against their plain versions, bitwise:
+                quant_linear at every group (M, K, (N, ...)) phases 8 and 14
+                launched, in bf16 and fp32, row-strided, at ragged K and N,
+                at ±127 and on tie and zero rows; quantize_rows at every
+                served prefill (M, K), ragged, ties and zeros; quant_matmul
+                at every (M, K, N) and ragged shape, and at ±127.
+ 10. timing    — at every group and shape phases 8 and 14 launched: device
+                time per launch (CUDA events around a CUDA graph of
+                launches): the decode groups (quant_linear, M = 8; each
+                launch reads its own copy of the weights, so that they miss
+                L2) beside their plain version, their members' qmm_skinny
+                times (QMM_SKINNY_MS, the decode form before the grouped
+                launch) and one bf16 F.linear of the same (M, K, sum N) (a
+                reference point, not the same function); the prefill products
+                (qmm_wgmma, bf16 out) beside the same launch with fp32 out,
+                the plain version, torch._int_mm, the first prefill form
+                (QMM_TILED_MS, which every one must beat) and the fp32-out
+                form before the bf16 epilogue (QMM_WGMMA_FP32_MS, within
+                5 %); (8000, 1536, 8960) within QMM_LIMIT_MS; quantize_rows
+                at every served prefill (M, K), at least QROWS_MIN_SHARE of
+                its byte bound;
+                the bounds, launches on the path, and registers of every
+                instance (no spill).
                 Phases 9 and 10 run after phase 14.
  11. Mamba2 serving — Mamba2-2.7B at full width and depth (64 SSD layers,
                 d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
@@ -96,11 +118,14 @@ Phases (each one that fails makes the script exit non-zero):
                 the global caches run to 2,024 positions), 64 new tokens
                 each, all at once.  Checked: 26 flash_attention launches per
                 prefill wave and 26 flash_attention_decode per decode step,
-                182 quant_matmul, 53 rmsnorm and one lm_head per forward;
+                4 quant_linear groups a layer per forward (launches as in
+                phase 8), 53 rmsnorm and one lm_head per forward;
                 every decode step a graph replay; every stream equal to
                 _run_one's; the last-token prefill logits through the
                 kernels against the plain versions at a 2-layer cut (the
-                first local and the first global layer); no fp64 copy of a
+                first local and the first global layer), and bitwise equal
+                to the same cut through the projections' earlier
+                composition (as in phase 8); no fp64 copy of a
                 table on the card; the device memory of weight generation,
                 the served run, the oracle and the cut, each peak on its own
                 line, the served run's with the holders that account for it;
@@ -205,6 +230,33 @@ QMM_TILED_MS = {
     (15680, 1152, 6912): 0.9750, (15680, 6912, 1152): 0.7962}
 # ... and the time the redesign must reach and the one it aims at, in ms
 QMM_LIMIT_MS = {(8000, 1536, 8960): (0.40, 0.25)}
+# qmm_wgmma with fp32 output (before its epilogue wrote x's dtype), device ms
+# at the served prefill shapes (NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6
+# row 4): with bf16 output it may be at most 5 % slower
+QMM_WGMMA_FP32_MS = {
+    (7168, 1536, 256): 0.0108, (7168, 1536, 1536): 0.0503, (7168, 1536, 8960): 0.2304,
+    (7168, 8960, 1536): 0.1557, (8000, 1536, 256): 0.0104, (8000, 1536, 1536): 0.0520,
+    (8000, 1536, 8960): 0.2405, (8000, 8960, 1536): 0.1596,
+    (8192, 1024, 1152): 0.0400, (8192, 1152, 256): 0.0092, (8192, 1152, 1024): 0.0346,
+    (8192, 1152, 6912): 0.1718, (8192, 6912, 1152): 0.1401,
+    (15680, 1024, 1152): 0.0646, (15680, 1152, 256): 0.0153, (15680, 1152, 1024): 0.0583,
+    (15680, 1152, 6912): 0.3429, (15680, 6912, 1152): 0.2663}
+# quant_matmul's decode form before the grouped launch (qmm_skinny: one
+# launch a weight on rows PyTorch had quantized, fp32 out), device ms at the
+# served decode shapes (M, K, N) with the weights from HBM (NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md §6 row 4): a group's row prints its members' sum
+QMM_SKINNY_MS = {
+    (8, 1536, 1536): 0.0031, (8, 1536, 256): 0.0026, (8, 1536, 8960): 0.0061,
+    (8, 8960, 1536): 0.0094, (8, 1152, 1024): 0.0029, (8, 1152, 256): 0.0026,
+    (8, 1024, 1152): 0.0025, (8, 1152, 6912): 0.0047, (8, 6912, 1152): 0.0075}
+# a graph-replayed decode step: the most kernel launches it may take, and
+# the most device ms its projection kernels may take (qmm_skinny's alone in
+# the profiles before the grouped launch, which added ~9 PyTorch launches a
+# projection around it; NVIDIA H100 80GB HBM3 at 700 W)
+DECODE_STEP_LIMITS = {"Qwen2": (1800, 1.315), "Gemma3": (1700, 0.936)}
+# quantize_rows at the served prefill shapes: the least share of its byte
+# bound it must read; the decode gate/up and down groups' target share
+QROWS_MIN_SHARE, GROUP_TARGET_SHARE = 0.5, 0.7
 # lm_head at the served decode shapes (M, D, V): the device ms of its FMA
 # kernel, before the tensor-core route (NVIDIA H100 80GB HBM3 at 700 W), and
 # the time the tensor-core kernel must reach and the one it aims at
@@ -815,7 +867,7 @@ def phase_lm(counts, report) -> None:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
     from repro_torch.kernels.lm_head import lm_head
-    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul import quant_linear, quantize_rows
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models.transformer import TransformerLM, init_model
     from repro_torch.serve import ServeEngine, SlotScheduler
@@ -855,7 +907,8 @@ def phase_lm(counts, report) -> None:
     engine._prefill_into = timed_prefill_into
     for k in engine.calls:
         engine.calls[k] = 0
-    quant_matmul.shapes.clear()
+    quant_linear.shapes.clear()
+    quantize_rows.shapes.clear()
     rmsnorm.shapes.clear()
     flash_attention.shapes.clear()
     flash_attention_decode.shapes.clear()
@@ -873,9 +926,8 @@ def phase_lm(counts, report) -> None:
     got = launch_counts()            # ... and ends here
     run_peak = mem_peak("the served run")
     del engine._prefill_into         # the class's method again (no cycle)
-    by_shape = dict(quant_matmul.shapes)
+    by_shape = dict(quant_linear.shapes)
     forwards = engine.calls["prefill_waves"] + engine.calls["decode_steps"]
-    per_forward = 7 * cfg.num_layers
     counts["lm"] = got
     counts["lm_rms_shapes"] = dict(rmsnorm.shapes)
     counts["lm_flash_shapes"] = dict(flash_attention.shapes)
@@ -886,15 +938,14 @@ def phase_lm(counts, report) -> None:
     counts["lm_head_routes"] = dict(lm_head.routes)
     counts["lm_layers"] = cfg.num_layers
     counts["lm_steps"] = engine.calls["decode_steps"]
-    counts["lm_proj"] = proj_names(cfg)
+    counts["lm_groups"] = group_names(cfg)
     counts["lm_widths"] = (cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim,
                            cfg.d_ff)
     norms = 2 * cfg.num_layers + 1
     say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} "
         f"prefill waves + {engine.calls['decode_steps']} decode steps = "
-        f"{forwards} forwards x {per_forward} quant_matmul and x {norms} rmsnorm")
-    check(got["quant_matmul"] == per_forward * forwards > 0,
-          f"quant_matmul launches {got['quant_matmul']} != {per_forward} x {forwards}")
+        f"{forwards} forwards x {norms} rmsnorm")
+    check_projection_launches(got, by_shape, cfg.num_layers, engine.calls)
     check(got["rmsnorm"] == norms * forwards,
           f"rmsnorm launches {got['rmsnorm']} != {norms} x {forwards}")
     check_attention_launches(got, cfg.num_layers, engine.calls)
@@ -914,7 +965,7 @@ def phase_lm(counts, report) -> None:
         f"waves; decode {(t_run - t_prefill) / max(steps, 1) * 1e3:.2f} ms per step "
         f"({steps} steps of {LM_SLOTS} slots); peak device memory {peak:.2f} GB; "
         f"backfills {sched.backfills}")
-    say(f"quant_matmul launches by (M, K, N): {by_shape}")
+    say(f"quant_linear calls by (M, K, (N, ...)): {by_shape}")
     say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
         f"{counts['lm_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
         f"hd, mask): {counts['lm_flash_decode_shapes']}")
@@ -987,8 +1038,13 @@ def phase_lm(counts, report) -> None:
     report["lm"]["int8_rel_err"] = errs
     mem_peak("the 2- and 28-layer int8 comparisons")
     del shifted
+    cut = TransformerLM(dataclasses.replace(cfg, num_layers=2), DEVICE)
+    tree = {**engine.params, "blocks": _first_layers(engine.params["blocks"], 2)}
+    check_earlier_composition(
+        "Qwen2", lambda: cut.prefill_ragged(tree, toks, n, cut.init_cache(len(sub), S))[0])
+    del cut, tree
     prof = decode_profile(engine, report["lm"]["decode_ms_per_step"], LM_PROMPT_MAX)
-    counts["lm_profile_qmm_ms"] = (prof["eager"] or {}).get("quant_matmul")
+    check_decode_step("Qwen2", prof)
     report["lm"]["decode_profile"] = prof
     report["lm"]["prefill_profile"] = prefill_profile(engine, lm_requests(cfg), "Qwen2")
     del engine, params, logits
@@ -996,17 +1052,19 @@ def phase_lm(counts, report) -> None:
 
 
 # our kernels' names in a profile: the CUDA functions' names contain these
-# (quant_matmul is qmm_skinny and qmm_wgmma; the prefill form of
+# (quant_matmul is qmm_group and qmm_wgmma, quantize_rows
+# quantize_rows_kernel; the prefill form of
 # flash_attention is flash_kernel and flash_mma_kernel, its decode form
 # decode_span_kernel and decode_merge_kernel; ssd_chunk_scan's stages are
 # ssd_cum_kernel, ssd_state_kernel, ssd_pass_kernel and ssd_out_kernel;
 # lm_head is tied_mma_kernel, tied_kernel and untied_kernel)
-PROFILED = {"quant_matmul": "qmm_", "rmsnorm": "rmsnorm_kernel",
+PROFILED = {"quant_matmul": "qmm_", "quantize_rows": "quantize_rows_kernel",
+            "rmsnorm": "rmsnorm_kernel",
             "ssd_chunk_scan": "ssd_", "flash_attention": "flash_",
             "flash_attention_decode": "decode_", "lm_head": "tied_"}
 # the kernels an attention LM's serving path launches
-LM_KERNELS = ("quant_matmul", "rmsnorm", "flash_attention", "flash_attention_decode",
-              "lm_head")
+LM_KERNELS = ("quant_linear", "quantize_rows", "rmsnorm", "flash_attention",
+              "flash_attention_decode", "lm_head")
 
 
 def check_attention_launches(got, layers: int, calls) -> None:
@@ -1021,6 +1079,75 @@ def check_attention_launches(got, layers: int, calls) -> None:
     check(got["flash_attention_decode"] == layers * steps > 0,
           f"flash_attention_decode launches {got['flash_attention_decode']} != "
           f"{layers} x {steps}")
+
+
+def check_projection_launches(got, groups, layers: int, calls) -> None:
+    """Every int8 projection of every forward went through quant_linear, 4
+    group calls a layer (q/k/v, o, gate/up, down): a decode step one grouped
+    launch each, a prefill wave one quantize_rows launch each and one
+    qmm_wgmma launch a weight (7 a layer); quant_matmul not at all.
+    ``groups``: quant_linear's calls by (M, K, (N, ...))."""
+    from repro_torch.kernels.quant_matmul import SKINNY_M
+
+    waves, steps = calls["prefill_waves"], calls["decode_steps"]
+    decode = sum(n for (M, _, _), n in groups.items() if M <= SKINNY_M)
+    prefill = sum(n for (M, _, _), n in groups.items() if M > SKINNY_M)
+    products = sum(n * len(Ns) for (M, _, Ns), n in groups.items() if M > SKINNY_M)
+    say(f"projection launches: quant_linear {got['quant_linear']} = {decode} grouped "
+        f"decode launches (4 x {layers} x {steps} steps) + {products} qmm_wgmma (7 x "
+        f"{layers} x {waves} waves); quantize_rows {got['quantize_rows']} (4 x {layers} "
+        f"x {waves}); quant_matmul {got['quant_matmul']}")
+    check(decode == 4 * layers * steps > 0 and prefill == 4 * layers * waves > 0,
+          f"quant_linear calls {groups} are not 4 a layer a forward")
+    check(products == 7 * layers * waves
+          and got["quant_linear"] == 4 * layers * steps + 7 * layers * waves,
+          f"quant_linear launches {got['quant_linear']} != 4 x {layers} x {steps} + "
+          f"7 x {layers} x {waves}")
+    check(got["quantize_rows"] == 4 * layers * waves,
+          f"quantize_rows launches {got['quantize_rows']} != 4 x {layers} x {waves}")
+    check(got["quant_matmul"] == 0, f"quant_matmul launched {got['quant_matmul']} times")
+
+
+def earlier_composition() -> swapped_ops:
+    """The projections as they ran before the grouped call: quantize_rows's
+    plain version, the quant_matmul kernel (fp32 out) and a cast, one weight
+    at a time."""
+    from repro_torch.kernels import quant_matmul as kqm
+
+    def quant_linear(x, weights):
+        xq, xs = kqm.quantize_rows_plain(x)
+        return [kqm.quant_matmul(xq, xs, wq, ws).to(x.dtype) for wq, ws in weights]
+
+    return swapped_ops(quant_linear=quant_linear)
+
+
+def check_earlier_composition(model: str, logits) -> None:
+    """``logits()`` (a 2-layer cut's prefill) bitwise the same through the
+    grouped kernels as through :func:`earlier_composition`."""
+    new = logits()
+    with earlier_composition():
+        old = logits()
+    sync()
+    check(bool(torch.isfinite(new).all()), f"{model} 2-layer logits not finite")
+    say(f"{model} 2-layer prefill logits {tuple(new.shape)}: through quant_linear "
+        f"bitwise equal to quantize_rows (plain) -> quant_matmul -> cast: "
+        f"{torch.equal(new, old)} (max abs difference "
+        f"{(new.float() - old.float()).abs().max().item():.3g})")
+    check(torch.equal(new, old), f"{model} 2-layer logits differ from the earlier composition")
+
+
+def check_decode_step(model: str, prof) -> None:
+    """The graph-replayed decode step within DECODE_STEP_LIMITS: its kernel
+    launches, and its projection kernels' device time."""
+    most, qmm_ms = DECODE_STEP_LIMITS[model]
+    graph = prof["graph"]
+    check(graph is not None, f"{model}: the decode step's profile saw no device time")
+    say(f"{model} graph step: {graph['launches']:.0f} launches (at most {most}); "
+        f"projection kernels {graph['quant_matmul']:.3f} ms (qmm_skinny alone before "
+        f"the grouped launch: {qmm_ms} ms)")
+    check(graph["launches"] <= most, f"{model}: {graph['launches']:.0f} launches a step")
+    check(graph["quant_matmul"] <= qmm_ms,
+          f"{model}: projection kernels {graph['quant_matmul']:.3f} ms a step")
 
 
 def _kernel_times(prof, per: int = 1):
@@ -1203,14 +1330,13 @@ def memory_account(engine, params, steady: float, peak: float, scratch_est: floa
 def prefill_scratch_gb(cfg, M: int, wave_cache_bytes: int) -> float:
     """The device memory a prefill of M tokens holds at its widest point,
     estimated from the shapes (GB), plus the wave's own cache.  An int8
-    MLP's widest point is the down projection's row quantization
-    (``ops.quantize_rows``) of its (M, d_ff) bf16 input: the input (2 bytes
-    an element), its fp32 copy (4), the scaled copy and its rounding (4
-    each): 14 bytes an element.  Mamba2's SSD layer holds about as many fp32
+    MLP's widest point is its (M, d_ff) hidden: the gate and up outputs,
+    silu(gate) and the product, bf16 (2 bytes an element each): 8 bytes an
+    element.  Mamba2's SSD layer holds about as many fp32
     and bf16 copies of its (M, d_inner) activations (the projections, dt·x,
     the scan's output and the gated norm): 30 bytes an element."""
     if cfg.d_ff:
-        act = 14 * M * cfg.d_ff
+        act = 8 * M * cfg.d_ff
     else:
         act = 30 * M * cfg.d_inner_ssd
     return (act + wave_cache_bytes) / 1e9
@@ -1275,18 +1401,6 @@ def _leaves(tree, qtensors=False):
         yield tree
 
 
-def proj_names(cfg) -> dict:
-    """The int8 projections of an attention LM by (K, N), e.g. (1536, 256):
-    "wk/wv" (names that share a shape are joined)."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    q, kv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
-    names: dict = {}
-    for name, kn in (("wq", (d, q)), ("wk", (d, kv)), ("wv", (d, kv)), ("wo", (q, d)),
-                     ("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
-        names.setdefault(kn, []).append(name)
-    return {kn: "/".join(v) for kn, v in names.items()}
-
-
 def _qmm_operands(gen, M, K, N, extreme=False):
     if extreme:
         xq = torch.full((M, K), 127, dtype=torch.int8, device=DEVICE)
@@ -1301,24 +1415,94 @@ def _qmm_operands(gen, M, K, N, extreme=False):
     return xq, xs, wt.t(), ws           # wq as the (K, N) view QTensor gives
 
 
-def phase_qmm_check(gen, counts) -> float:
+def _group_operands(gen, M, K, Ns, dtype=torch.bfloat16, extreme=False, ties=False,
+                    stride=0):
+    """x (M, K) (a view with row stride K + stride) and the int8 group
+    [(wq (K, N) as QTensor hands it over, ws)]; with ``ties`` row 0 has
+    max |x| = 127 (a scale of exactly 1) and values k + 0.5, and row 1 is
+    zero."""
+    x = torch.randn(M, K + stride, generator=gen, device=DEVICE) * 3
+    if extreme:
+        x = torch.where(x > 0, 127.0, -127.0)
+    if ties:
+        x[0, :K] = (torch.arange(K, device=DEVICE) % 254 - 127) + 0.5
+        x[0, 0] = 127.0
+        if M > 1:
+            x[1] = 0.0
+    group = []
+    for N in Ns:
+        xq, _, wq, ws = _qmm_operands(gen, 1, K, N, extreme)
+        group.append((wq, ws))
+    return x.to(dtype)[:, :K], group
+
+
+def group_names(cfg) -> dict:
+    """The int8 projection groups of an attention LM by (K, (N, ...))."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+    return {(d, (q, kv, kv)): "q/k/v", (q, (d,)): "o", (d, (f, f)): "gate/up",
+            (f, (d,)): "down"}
+
+
+def phase_qmm_check(gen, counts) -> dict:
     from repro_torch.kernels import quant_matmul as kqm
 
-    phase("9. quant_matmul against its plain version (bitwise)")
-    served = sorted({*counts["lm_by_shape"], *counts["g3_by_shape"]})
-    # ragged M, N and K on both forms: N past a 128- and a 256-column tile,
-    # K a multiple of 16 but not of the 128-byte step, K odd (padded)
+    phase("9. quant_matmul's kernels against their plain versions (bitwise)")
+    worst = {"quant_matmul": 0.0, "quantize_rows": 0.0}
+
+    def hold(x, group, what):
+        a, b = kqm.quant_linear(x, group), kqm.quant_linear_plain(x, group)
+        sync()
+        err = max((p.float() - q.float()).abs().max().item() for p, q in zip(a, b))
+        worst["quant_matmul"] = max(worst["quant_matmul"], err)
+        check(all(p.dtype == x.dtype and torch.equal(p, q) for p, q in zip(a, b)),
+              f"quant_linear {what} differs: {err}")
+
+    # quant_linear: every served group; ragged K and N at M across the two
+    # forms; fp32, row-strided, ±127, tie and zero rows
+    groups = sorted({*counts["lm_by_shape"], *counts["g3_by_shape"]})
+    ragged = [(M, K, Ns) for M in (1, 5, 8, 16, 17, 33)
+              for K, Ns in ((1537, (1, 129, 255)), (255, (129, 255)), (8960, (1536,)))]
+    ragged += [(130, 1537, (257,)), (4097, 1040, (300, 8)), (7999, 1536, (1000,))]
+    for M, K, Ns in groups + ragged:
+        hold(*_group_operands(gen, M, K, Ns), (M, K, Ns))
+    variants = [dict(dtype=torch.float32), dict(stride=5), dict(extreme=True),
+                dict(ties=True)]
+    for M in (1, 8, 16, 17, 7168):
+        for kw in variants:
+            K, Ns = (8960, (1536,)) if kw.get("extreme") else (1536, (1536, 256, 256))
+            hold(*_group_operands(gen, M, K, Ns, **kw), (M, K, Ns, kw))
+    say(f"quant_linear bitwise equal to its plain version at the {len(groups)} served "
+        f"groups (M, K, (N, ...)) {groups}, {len(ragged)} ragged ones, and at M in "
+        f"(1, 8, 16, 17, 7168) in fp32, row-strided, at ±127 and on tie and zero rows")
+
+    # quantize_rows alone
+    shapes = sorted({(M, K) for M, K, _ in groups if M > kqm.SKINNY_M})
+    shapes += [(1, 1537), (17, 1537), (33, 255), (5, 8960), (8000, 8960)]
+    for M, K in shapes:
+        for kw in (dict(ties=True), dict(dtype=torch.float32, stride=3)):
+            x, _ = _group_operands(gen, M, K, (), **kw)
+            a, b = kqm.quantize_rows(x), kqm.quantize_rows_plain(x)
+            sync()
+            err = max((a[0].int() - b[0].int()).abs().max().item(),
+                      (a[1] - b[1]).abs().max().item())
+            worst["quantize_rows"] = max(worst["quantize_rows"], err)
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                  f"quantize_rows {(M, K, kw)} differs: {err}")
+    say(f"quantize_rows bitwise equal to its plain version at {shapes}, bf16 with a "
+        f"tie row and a zero row, and fp32 row-strided")
+
+    # quant_matmul, the reference's counterpart, at every served weight
+    served = sorted({(M, K, N) for M, K, Ns in groups for N in Ns})
     ragged = [(1, 1536, 1536), (5, 8960, 1536), (33, 1536, 8960), (8, 8960, 255),
               (5, 1537, 255), (33, 8960, 255), (1, 1537, 1), (4097, 1040, 300),
               (130, 1537, 257), (7999, 1536, 1000), (8000, 1536, 129)]
-    worst = 0.0
     for M, K, N in served + ragged:
         ops = _qmm_operands(gen, M, K, N)
         a, b = kqm.quant_matmul(*ops), kqm.quant_matmul_plain(*ops)
         sync()
-        err = (a - b).abs().max().item()
-        worst = max(worst, err)
-        check(torch.equal(a, b), f"quant_matmul {(M, K, N)} differs: {err}")
+        check(torch.equal(a, b), f"quant_matmul {(M, K, N)} differs: "
+              f"{(a - b).abs().max().item()}")
         del ops, a, b
     extreme = [(8, 8960, 1536), (130, 8960, 257), (8000, 8960, 1536)]
     for M, K, N in extreme:
@@ -1326,103 +1510,198 @@ def phase_qmm_check(gen, counts) -> float:
         a, b = kqm.quant_matmul(*ops), kqm.quant_matmul_plain(*ops)
         sync()
         check(torch.equal(a, b), f"quant_matmul at ±127 {(M, K, N)} differs")
-    say(f"bitwise equal at the {len(served)} served shapes of Qwen2 and Gemma3 "
-        f"{served}, {len(ragged)} ragged shapes {ragged} and {len(extreme)} at ±127 "
-        f"{extreme}")
+    say(f"quant_matmul bitwise equal at the {len(served)} served shapes {served}, "
+        f"{len(ragged)} ragged shapes and {len(extreme)} at ±127 {extreme}")
     return worst
 
 
-def phase_qmm_timing(gen, counts, worst) -> dict:
+def _cold_sets(group, nbytes: int) -> list:
+    """``group`` and copies of its weights (in the layout QTensor hands
+    over) filling COLD_BYTES, so that launches cycled through them read the
+    weights from HBM and not from L2."""
+    copies = max(1, math.ceil(COLD_BYTES / nbytes))
+    return [group] + [[(wq.t().contiguous().t(), ws) for wq, ws in group]
+                      for _ in range(copies - 1)]
+
+
+def phase_qmm_timing(gen, counts, worst) -> list:
+    import torch.nn.functional as F
+
     from repro_torch.kernels import quant_matmul as kqm
 
-    phase("10. quant_matmul timing at the serving shapes")
-    rows = []
+    phase("10. quant_matmul's kernels timed at the serving shapes")
+    groups, products, rows_q = [], {}, {}
     for model, path in (("Qwen2", "lm"), ("Gemma3", "g3")):
-        names = counts[f"{path}_proj"]
-        for (M, K, N), n in sorted(counts[f"{path}_by_shape"].items()):
-            kind = "decode" if M <= 16 else "prefill"
-            rows.append((model, path, kind, f"{model} {kind} {names[(K, N)]}", (M, K, N), n))
+        names = counts[f"{path}_groups"]
+        for (M, K, Ns), calls in sorted(counts[f"{path}_by_shape"].items()):
+            if M <= kqm.SKINNY_M:
+                groups.append((model, path, names[(K, Ns)], (M, K, Ns), calls))
+                continue
+            rows_q.setdefault((model, M, K), 0)
+            rows_q[(model, M, K)] += calls
+            for N in Ns:
+                key = (model, (M, K, N))
+                products.setdefault(key, [names[(K, Ns)], 0])
+                products[key][1] += calls
+
+    # the decode groups: one grouped launch of x (M, K) bf16 over the weights
     timings = []
-    for model, path, kind, label, (M, K, N), launched in rows:
-        xq, xs, wq, ws = _qmm_operands(gen, M, K, N)
-        t_b, by = bound(M * K + K * N + 4 * (M + N + M * N), 2.0 * M * K * N,
+    for model, path, name, (M, K, Ns), calls in groups:
+        x, group = _group_operands(gen, M, K, Ns)
+        n = sum(Ns)
+        sets = _cold_sets(group, K * n)
+        t_b, by = bound(2 * M * K + K * n + 4 * n + 2 * M * n, 2.0 * M * K * n,
                         INT8_OPS_PER_S)
-        row = {"label": label, "model": model, "kind": kind, "shape": [M, K, N],
-               "launches": launched, "bound_ms": t_b, "bound_by": by}
-        if kind == "decode":
-            # copies of the weight, in both layouts, cycled through so that
-            # each timed launch reads its weight from HBM and not from L2
-            copies = max(1, math.ceil(COLD_BYTES / (K * N)))
-            wqs = [wq.t().contiguous().t() for _ in range(copies)]
-            wks = [wq.contiguous() for _ in range(copies)]
-            row["ms"] = graph_ms([lambda w=w: kqm.quant_matmul(xq, xs, w, ws) for w in wqs])
-            row["warm_l2_ms"] = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws))
-            row["plain_ms"] = cuda_ms(lambda: kqm.quant_matmul_plain(xq, xs, wq, ws), 3)
-            lib = [lambda w=w: torch._int_mm(xq, w) for w in wks]
-            note = f"{copies} copies of the weight, from HBM"
-        else:
-            # a prefill launch re-reads its operands from L2 across its tiles
-            # whatever the first read costs, so one copy serves
-            row["ms"] = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws), 5, 4)
-            row["plain_ms"] = cuda_ms(lambda: kqm.quant_matmul_plain(xq, xs, wq, ws), 1)
-            wk = wq.contiguous()
-            lib = lambda: torch._int_mm(xq, wk)  # noqa: E731
-            note = "one copy"
+        row = {"label": f"{model} decode {name}", "model": model, "kind": "decode",
+               "shape": [M, K, list(Ns)], "launches": calls, "bound_ms": t_b,
+               "bound_by": by, "library_ms": None}
+        row["ms"] = graph_ms([lambda g=g: kqm.quant_linear(x, g) for g in sets])
+        row["warm_l2_ms"] = graph_ms(lambda: kqm.quant_linear(x, group))
+        row["plain_ms"] = cuda_ms(lambda: kqm.quant_linear_plain(x, group), 3)
+        first = [QMM_SKINNY_MS.get((M, K, N)) for N in Ns]
+        skinny_sum = sum(first) if all(first) else None
+        del sets
+        free_device_memory()
+        ws = [torch.randn(n, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+              for _ in range(max(1, math.ceil(COLD_BYTES / (2 * K * n))))]
+        row["linear_ms"] = graph_ms([lambda w=w: F.linear(x, w) for w in ws])
+        del ws
+        free_device_memory()
+        skinny = (f"; the members' qmm_skinny (PR 19 readings) {skinny_sum:.4f} ms, "
+                  f"{skinny_sum / row['ms']:.2f}x" if skinny_sum else "")
+        say(f"quant_linear {row['label']} (M, K, N) = {(M, K, Ns)}, {calls} launches on "
+            f"the path: kernel {row['ms']:.4f} ms (weights from HBM; {row['warm_l2_ms']:.4f} "
+            f"from L2), plain {row['plain_ms']:.4f} ms, bound {t_b:.4f} ms ({by}), "
+            f"{t_b / row['ms']:.1%} of it{skinny}; one bf16 F.linear of (M, K, sum N) "
+            f"{row['linear_ms']:.4f} ms (not the same function)")
+        timings.append(row)
+
+    # the prefill products: qmm_wgmma on quantized rows, bf16 out
+    for (model, (M, K, N)), (name, launched) in sorted(products.items()):
+        xq, xs, wq, ws = _qmm_operands(gen, M, K, N)
+        wt = wq.t()
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=DEVICE)
+        bn = kqm.tile_n(M, N, torch.cuda.get_device_properties(0).multi_processor_count)
+        t_b, by = bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2.0 * M * K * N,
+                        INT8_OPS_PER_S)
+        row = {"label": f"{model} prefill {name}", "model": model, "kind": "prefill",
+               "shape": [M, K, N], "launches": launched, "bound_ms": t_b, "bound_by": by}
+        row["ms"] = graph_ms(lambda: kqm._launch_product(xq, xs, wt, ws, out, M, N, K, bn),
+                             5, 4)
+        row["fp32_out_ms"] = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws), 5, 4)
+        row["plain_ms"] = cuda_ms(
+            lambda: kqm.quant_matmul_plain(xq, xs, wq, ws).to(torch.bfloat16), 1)
+        wk = wq.contiguous()
         try:
-            row["library_ms"], row["library_note"] = graph_ms(lib, 5, 4), ""
+            row["library_ms"] = graph_ms(lambda: torch._int_mm(xq, wk), 5, 4)
         except RuntimeError as e:
             row["library_ms"], row["library_note"] = None, str(e).splitlines()[0]
-        first = QMM_TILED_MS.get((M, K, N))
+        tiled, fp32 = QMM_TILED_MS.get((M, K, N)), QMM_WGMMA_FP32_MS.get((M, K, N))
         lib_txt = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
                    else f"none ({row['library_note']})")
-        first_txt = (f"; qmm_tiled {first:.4f} ms, {first / row['ms']:.2f}x"
-                     if first else "")
-        say(f"quant_matmul {label} (M, K, N) = {(M, K, N)}, {launched} launches on the "
-            f"path: kernel {row['ms']:.4f} ms ({note}), plain {row['plain_ms']:.4f} ms, "
-            f"torch._int_mm {lib_txt}, bound {t_b:.4f} ms ({by}), {t_b / row['ms']:.1%} "
-            f"of it{first_txt}")
+        say(f"qmm_wgmma {row['label']} (M, K, N) = {(M, K, N)}, {launched} launches on "
+            f"the path: bf16 out {row['ms']:.4f} ms, fp32 out {row['fp32_out_ms']:.4f} ms "
+            f"(before the bf16 epilogue {fp32} ms), plain {row['plain_ms']:.4f} ms, torch._int_mm "
+            f"{lib_txt}, bound {t_b:.4f} ms ({by}), {t_b / row['ms']:.1%} of it"
+            + (f"; qmm_tiled {tiled:.4f} ms, {tiled / row['ms']:.2f}x" if tiled else ""))
         timings.append(row)
-        del xq, xs, wq, ws, lib
+        del xq, xs, wq, ws, wt, wk, out
         free_device_memory()
+
+    # quantize_rows at the served prefill shapes: x read once, xq and xs
+    # written once
+    q_rows = []
+    for (model, M, K), launched in sorted(rows_q.items()):
+        x, _ = _group_operands(gen, M, K, ())
+        t_b, by = bound(3 * M * K + 4 * M, 0.0)
+        row = {"label": f"{model} prefill ({M}, {K}) bf16", "model": model,
+               "shape": [M, K], "launches": launched, "bound_ms": t_b, "bound_by": by,
+               "library_ms": None}
+        row["ms"] = graph_ms(lambda: kqm.quantize_rows(x), 5, 4)
+        row["plain_ms"] = cuda_ms(lambda: kqm.quantize_rows_plain(x), 2)
+        say(f"quantize_rows {row['label']}, {launched} launches on the path: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {t_b:.4f} ms "
+            f"({by}), {t_b / row['ms']:.1%} of it")
+        q_rows.append(row)
+        del x
+        free_device_memory()
+
     for model, path in (("Qwen2", "lm"), ("Gemma3", "g3")):
         mine = [r for r in timings if r["model"] == model]
         step = sum(r["ms"] * r["launches"] for r in mine if r["kind"] == "decode")
         pre = sum(r["ms"] * r["launches"] for r in mine if r["kind"] == "prefill")
         pre_b = sum(r["bound_ms"] * r["launches"] for r in mine if r["kind"] == "prefill")
-        say(f"{model}: quant_matmul per decode step from these rows "
-            f"{step / counts[f'{path}_steps']:.3f} ms; in the served run's prefill "
-            f"waves {pre / 1e3:.4f} s (bound {pre_b / 1e3:.4f} s)")
+        qr = sum(r["ms"] * r["launches"] for r in q_rows if r["model"] == model)
+        qr_b = sum(r["bound_ms"] * r["launches"] for r in q_rows if r["model"] == model)
+        say(f"{model}: quant_linear per decode step from these rows "
+            f"{step / counts[f'{path}_steps']:.3f} ms; in the served run's prefill waves "
+            f"qmm_wgmma {pre / 1e3:.4f} s (bound {pre_b / 1e3:.4f} s) and quantize_rows "
+            f"{qr / 1e3:.4f} s (bound {qr_b / 1e3:.4f} s)")
     check_no_spill("quant_matmul", {
-        f"qmm_wgmma<{bn}, {store}>": rf"qmm_wgmmaILi{bn}ELb{int(store == 'true')}E"
-        for bn in (128, 256) for store in ("false", "true")})
+        **{f"qmm_group<{t}>": rf"qmm_groupI{m}EE"
+           for t, m in (("int8, fp32", "af"), ("fp32, fp32", "ff"),
+                        ("bf16, bf16", r"13__nv_bfloat16S\d*_"))},
+        **{f"qmm_wgmma<{bn}, {store}, {t}>": rf"qmm_wgmmaILi{bn}ELb{int(store)}E{m}E"
+           for bn in (128, 256) for store in (False, True)
+           for t, m in (("fp32", "f"), ("bf16", "13__nv_bfloat16"))},
+        **{f"quantize_rows_kernel<{t}>": rf"quantize_rows_kernelI{m}E"
+           for t, m in (("fp32", "f"), ("bf16", "13__nv_bfloat16"))}})
     for r in timings:
-        first = QMM_TILED_MS.get(tuple(r["shape"]))
-        if r["kind"] == "prefill" and first:
-            check(r["ms"] < first, f"quant_matmul {r['label']} {r['shape']}: "
-                  f"{r['ms']:.4f} ms, not faster than qmm_tiled's {first:.4f} ms")
-        limit = QMM_LIMIT_MS.get(tuple(r["shape"]))
+        if r["kind"] == "decode":
+            if r["label"].split()[-1] in ("gate/up", "down"):
+                share = r["bound_ms"] / r["ms"]
+                say(f"quant_linear {r['label']}: {share:.1%} of its byte bound (target "
+                    f"{GROUP_TARGET_SHARE:.0%}: {'met' if share >= GROUP_TARGET_SHARE else 'missed'})")
+            continue
+        shape = tuple(r["shape"])
+        if QMM_TILED_MS.get(shape):
+            check(r["ms"] < QMM_TILED_MS[shape], f"qmm_wgmma {r['label']} {shape}: "
+                  f"{r['ms']:.4f} ms, not faster than qmm_tiled's {QMM_TILED_MS[shape]} ms")
+        fp32 = QMM_WGMMA_FP32_MS.get(shape)
+        if fp32:
+            check(r["ms"] <= 1.05 * fp32, f"qmm_wgmma {r['label']} {shape}: "
+                  f"bf16 out {r['ms']:.4f} ms, over 1.05 x the fp32-out form's "
+                  f"{fp32} ms (PR 19 reading)")
+        limit = QMM_LIMIT_MS.get(shape)
         if limit:
-            say(f"quant_matmul {tuple(r['shape'])}: {r['ms']:.4f} ms against the must "
-                f"{limit[0]} ms and the target {limit[1]} ms")
-            check(r["ms"] <= limit[0], f"quant_matmul {r['shape']}: {r['ms']:.4f} ms "
-                  f"over its limit {limit[0]} ms")
-    # the headline stays Qwen2's decode w_gate/w_up launch, as in the records
-    # before; the prefill rows are in `shapes`
-    head = max((r for r in timings if r["label"] == "Qwen2 decode w_gate/w_up"),
-               key=lambda r: r["shape"][0])
-    return {
-        "name": "quant_matmul", "route": "cuda",
+            say(f"qmm_wgmma {shape}: {r['ms']:.4f} ms against the must {limit[0]} ms and "
+                f"the target {limit[1]} ms")
+            check(r["ms"] <= limit[0], f"qmm_wgmma {shape}: {r['ms']:.4f} ms over its "
+                  f"limit {limit[0]} ms")
+    for r in q_rows:
+        check(r["bound_ms"] / r["ms"] >= QROWS_MIN_SHARE,
+              f"quantize_rows {r['label']}: {r['bound_ms'] / r['ms']:.1%} of its bound, "
+              f"under {QROWS_MIN_SHARE:.0%}")
+    # the headlines: Qwen2's decode gate/up group (the records before kept
+    # its w_gate/w_up launch) and quantize_rows at Qwen2's widest prefill
+    head = next(r for r in timings if r["label"] == "Qwen2 decode gate/up")
+    qhead = max((r for r in q_rows if r["model"] == "Qwen2"),
+                key=lambda r: r["shape"][0] * r["shape"][1])
+    launches = {p: counts[p]["quant_linear"] for p in ("lm", "g3")}
+    qlaunches = {p: counts[p]["quantize_rows"] for p in ("lm", "g3")}
+    return [{
+        "name": "quant_matmul", "route": "cuda", "wrapper": "quant_linear",
         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "replaces": "src/repro/kernels/quant_matmul.py:77",
-        "launches": counts["lm"]["quant_matmul"] + counts["g3"]["quant_matmul"],
-        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "launches": sum(launches.values()),
+        "max_abs_err": worst["quant_matmul"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": head["shape"],
-        "library_note": "torch._int_mm (cuBLAS int8, int32 out), no epilogue",
+        "library_note": "none for the grouped function; the prefill rows' library_ms "
+                        "is torch._int_mm (cuBLAS int8, int32 out), no epilogue",
         "shapes": timings,
-        "launches_by_path": {"lm_serve": counts["lm"]["quant_matmul"],
-                             "gemma3_serve": counts["g3"]["quant_matmul"]},
-    }
+        "launches_by_path": {"lm_serve": launches["lm"], "gemma3_serve": launches["g3"]},
+    }, {
+        "name": "quantize_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "none: src/repro/kernels/ops.py:85 quantize_rows, jnp left to XLA",
+        "launches": sum(qlaunches.values()),
+        "max_abs_err": worst["quantize_rows"], "ms": qhead["ms"],
+        "plain_ms": qhead["plain_ms"], "bound_ms": qhead["bound_ms"],
+        "bound_by": qhead["bound_by"], "library_ms": None, "shape": qhead["shape"],
+        "shapes": q_rows,
+        "launches_by_path": {"lm_serve": qlaunches["lm"], "gemma3_serve": qlaunches["g3"]},
+    }]
 
 
 # --------------------------------------------------------------------------- #
@@ -2165,7 +2444,7 @@ def plain_attention_lm() -> swapped_ops:
 
     return swapped_ops(flash_attention=kfa.flash_attention_plain,
                        flash_attention_decode=kfa.flash_attention_decode_plain,
-                       rmsnorm=krn.rmsnorm_plain, quant_matmul=kqm.quant_matmul_plain)
+                       rmsnorm=krn.rmsnorm_plain, quant_linear=kqm.quant_linear_plain)
 
 
 def phase_gemma3(counts, report) -> None:
@@ -2220,8 +2499,8 @@ def phase_gemma3(counts, report) -> None:
     engine._prefill_into = timed_prefill_into
     for k in engine.calls:
         engine.calls[k] = 0
-    for fn in (kfa.flash_attention, kfa.flash_attention_decode, kqm.quant_matmul,
-               krn.rmsnorm, klm.lm_head):
+    for fn in (kfa.flash_attention, kfa.flash_attention_decode, kqm.quant_linear,
+               kqm.quantize_rows, krn.rmsnorm, klm.lm_head):
         fn.shapes.clear()
     klm.lm_head.routes.clear()
     sched = SlotScheduler(G3_SLOTS)
@@ -2245,14 +2524,12 @@ def phase_gemma3(counts, report) -> None:
     counts["g3_layers"] = L
     counts["g3_head_shapes"] = dict(klm.lm_head.shapes)
     counts["g3_head_routes"] = dict(klm.lm_head.routes)
-    counts["g3_by_shape"] = dict(kqm.quant_matmul.shapes)
+    counts["g3_by_shape"] = dict(kqm.quant_linear.shapes)
     counts["g3_steps"] = steps
-    counts["g3_proj"] = proj_names(cfg)
+    counts["g3_groups"] = group_names(cfg)
     say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} prefill "
-        f"waves + {steps} decode steps = {forwards} forwards x {7 * L} quant_matmul "
-        f"and x {2 * L + 1} rmsnorm")
-    check(got["quant_matmul"] == 7 * L * forwards > 0,
-          f"quant_matmul launches {got['quant_matmul']} != {7 * L} x {forwards}")
+        f"waves + {steps} decode steps = {forwards} forwards x {2 * L + 1} rmsnorm")
+    check_projection_launches(got, counts["g3_by_shape"], L, engine.calls)
     check(got["rmsnorm"] == (2 * L + 1) * forwards,
           f"rmsnorm launches {got['rmsnorm']} != {2 * L + 1} x {forwards}")
     check_attention_launches(got, L, engine.calls)
@@ -2265,7 +2542,7 @@ def phase_gemma3(counts, report) -> None:
     say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
         f"{counts['g3_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
         f"hd, mask): {counts['g3_flash_decode_shapes']}")
-    say(f"quant_matmul launches by (M, K, N): {counts['g3_by_shape']}")
+    say(f"quant_linear calls by (M, K, (N, ...)): {counts['g3_by_shape']}")
     over = [n for n in lens if n > cfg.window]
     wrap = [n for n in lens if n <= cfg.window < n + G3_NEW]
     say(f"prompts over the {cfg.window}-slot ring at prefill: {over}; wrapping it "
@@ -2314,13 +2591,13 @@ def phase_gemma3(counts, report) -> None:
     _, tree_bf16 = gemma3_cut(cfg, params)
     model = TransformerLM(cut_cfg, DEVICE)
     sub = sorted(reqs, key=lambda r: len(r.prompt))[-2:]
-    plain = dict(rmsnorm=krn.rmsnorm_plain, quant_matmul=kqm.quant_matmul_plain)
+    plain = dict(rmsnorm=krn.rmsnorm_plain, quant_linear=kqm.quant_linear_plain)
     plain_attn = dict(flash_attention=kfa.flash_attention_plain,
                       flash_attention_decode=kfa.flash_attention_decode_plain)
     variants = {"kernels": (swapped_ops(), tree),
                 "flash_attention kernel alone": (swapped_ops(**plain), tree),
                 "rmsnorm kernel alone": (swapped_ops(
-                    **plain_attn, quant_matmul=kqm.quant_matmul_plain), tree),
+                    **plain_attn, quant_linear=kqm.quant_linear_plain), tree),
                 "plain, attention summed in fp32": (swapped_ops(
                     flash_attention=_flash_fp32, **plain), tree),
                 "plain, window widened by one": (swapped_ops(
@@ -2348,8 +2625,14 @@ def phase_gemma3(counts, report) -> None:
     check(max(errs["kernels"]) <= G3_PLAIN_TOL,
           f"Gemma3 logits kernels vs plain at 2 layers: {errs['kernels']}")
     report["gemma3"]["plain_rel_err"] = errs
+    for r in sub:
+        toks = torch.as_tensor(r.prompt[None], device=DEVICE)
+        check_earlier_composition(
+            f"Gemma3 ({len(r.prompt)} tokens)",
+            lambda: model.prefill(tree, toks, model.init_cache(1, len(r.prompt)))[0])
     mem_peak("the 2-layer comparisons")
     prof = decode_profile(engine, step_ms, max(lens))
+    check_decode_step("Gemma3", prof)
     report["gemma3"]["decode_profile"] = prof
     report["gemma3"]["prefill_profile"] = prefill_profile(engine, gemma3_requests(cfg),
                                                           "Gemma3")
@@ -2907,12 +3190,12 @@ def main() -> int:
     phase_gemma3(counts, report)
     # quant_matmul's phases read the shapes both int8 models launched
     worst = phase_qmm_check(gen, counts)
-    records.append(phase_qmm_timing(gen, counts, worst))
+    records.extend(phase_qmm_timing(gen, counts, worst))
     worst = phase_flash_check(gen, counts)
     records.extend(phase_flash_timing(gen, counts, worst))
     records.append(phase_head(gen, counts))
     end_phase()
-    check(len(records) == 9 and all(r["launches"] > 0 for r in records),
+    check(len(records) == 10 and all(r["launches"] > 0 for r in records),
           f"a kernel was never launched on its path: "
           f"{[(r['name'], r['launches']) for r in records]}")
     say(f"smoke run {time.perf_counter() - t_start:.1f} s; seconds by phase: "

@@ -24,6 +24,8 @@ KERNELS = {
     "logreg_xt_z": _logreg_grad.logreg_xt_z,
     "kmeans_assign": _kmeans_assign.kmeans_assign,
     "quant_matmul": _quant_matmul.quant_matmul,
+    "quant_linear": _quant_matmul.quant_linear,
+    "quantize_rows": _quant_matmul.quantize_rows,
     "rmsnorm": _rmsnorm.rmsnorm,
     "ssd_chunk_scan": _ssd_scan.ssd_chunk_scan,
     "flash_attention": _flash_attention.flash_attention,

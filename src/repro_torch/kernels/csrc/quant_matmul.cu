@@ -1,78 +1,166 @@
-// Quantized int8 x int8 matrix product for Hopper (sm_90a):
+// Quantized int8 x int8 matrix products for Hopper (sm_90a):
 //   out[m, n] = (float)(sum_k xq[m, k] * wq[k, n]) * xs[m] * ws[n]
 // with the sum taken exactly in int32 and the two products in fp32, in that
 // order, so the result is bitwise equal to the plain version (and to the
 // reference's oracle quant_matmul_ref) at any K: integer addition does not
-// depend on its order, so the blocks may split and permute K freely.
+// depend on its order, so the blocks may split and permute K freely.  And
+// the row quantization in front of it,
+//   xs[m] = max_k |x[m, k]| / 127 + 1e-8,   xq[m, k] = clamp(rint(x[m, k] / xs[m]), ±127)
+// in fp32 with IEEE division and rounding half to even, bitwise what the
+// plain quantize_rows computes.
 //
 // Replaces the Pallas TPU kernel quant_matmul_pallas of
-// src/repro/kernels/quant_matmul.py (pallas_call at :77, _qmm_kernel at :40).
+// src/repro/kernels/quant_matmul.py (pallas_call at :77, _qmm_kernel at :40);
+// quantize_rows_kernel replaces no TPU kernel (the reference's quantize_rows,
+// src/repro/kernels/ops.py:64, is jnp left to XLA).
 //
-// Operands: xq (M, K) int8 row-major; the weight as wt = wq^T, (N, K) int8
-// row-major (the port keeps static weights in this layout, so both operands
-// are K-contiguous, which is what mma.sync's row.col form and wgmma's
-// K-major operands read); xs (M,) and ws (N,) fp32; out (M, N) fp32.
-// Ragged M, N and K are handled in the kernels: rows and columns past the
-// edge load zeros and store nothing, and K past its end loads zeros.
+// Operands: the weight as wt = wq^T, (N, K) int8 row-major (the port keeps
+// static weights in this layout, so both operands are K-contiguous, which is
+// what mma.sync's row.col form and wgmma's K-major operands read), with K a
+// multiple of 16 and 16-byte aligned (the wrapper pads and copies where not);
+// xs (M,) and ws (N,) fp32; out (M, N) row-major, fp32 or x's dtype.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1,979 dense int8 TOP/s):
 //   * decode, M = the slot count (8): 2 operations per weight byte, far below
-//     the card's ~590 int8 operations per byte, so reading wq is the whole
-//     cost: w_up (1536 x 8960) is 13.76 MB, a bound of 4.1 us; one decode
-//     step of Qwen2-1.5B streams 1.31 GB of int8 weights, 0.39 ms.
+//     the card's ~590 int8 operations per byte, so reading the weights is the
+//     whole cost: Qwen2-1.5B's gate/up group (2 x 1536 x 8960) is 27.5 MB, a
+//     bound of 8.2 us; one decode step streams 1.31 GB of int8 weights, 0.39 ms.
 //   * prefill, M = wave x padded length (7,168 to 15,680 rows served): 2·M
 //     operations per weight byte, above that line, so the tensor cores bound
-//     it, 2·M·K·N / 1,979 TOP/s, with the fp32 output (4·M·N bytes) a close
-//     second at the narrow widths.
+//     the product, 2·M·K·N / 1,979 TOP/s, with the output (2 or 4 bytes an
+//     element) a close second at the narrow widths; the quantization is one
+//     read of x and one write of xq: 3·M·K bytes from bf16.
 //
-// How the design meets them:
-//   * M <= 16 (decode): qmm_skinny, on mma.sync.m16n8k32 (s8 x s8 -> s32).
-//     One block owns 8·NT output columns and every row; its 4 warps take
-//     interleaved 64-byte steps of K and load the weight straight into
-//     registers (U steps in flight per warp), so each weight byte is read
-//     once per launch and never staged.  Each lane loads 16 consecutive
-//     bytes of a row and feeds them to two mma's; the order in which K
-//     reaches the tensor core is permuted the same way for both operands,
-//     which an integer sum does not notice.  The warps' int32 partial tiles
-//     meet in shared memory, and warp 0 applies the epilogue.  NT (columns
-//     per block) shrinks for narrow N so the grid still fills the 132 SMs.
-//     Rows are read with 16-byte loads when K is a multiple of 16 and both
-//     bases are 16-byte aligned, byte by byte otherwise.
-//   * M > 16 (prefill): qmm_wgmma, on wgmma.m64nNk32 (s8 x s8 -> s32), the
-//     only route to the card's full tensor-core rate: a persistent grid of
-//     one block per SM over 128 x BN output tiles (BN 256, or 128 where that
+// How the designs meet them:
+//   * M <= 16 (decode): qmm_group, one launch for the 1-3 projections that
+//     read the same x (q/k/v, gate/up), on mma.sync.m16n8k32 (s8 x s8 -> s32).
+//     The grid spans the group's column tiles of 128 columns; a tile's K is
+//     split over a cluster of up to 8 blocks, so that the narrow groups fill
+//     the 132 SMs (about one block an SM), and the grid stays one wave.
+//     In each block
+//       - a producer warp streams the block's weight tile with TMA through a
+//         64 KB ring of 128-byte columns of K, the first ones issued at once,
+//         so the weights are in flight while x is quantized;
+//       - 8 consumer warps read x (bf16 or fp32, any row stride): where a
+//         warp holds a whole row in registers (M <= 8, K <= 1,536 in bf16)
+//         each block takes the rows' max |x| itself; otherwise each block
+//         reads its K-slice and pushes the partial maxima to every block of
+//         the cluster through distributed shared memory (max is exact in
+//         any order).  The slice is quantized into shared memory as int8
+//         (rows padded so the fragment loads hit 32 banks), at a multiply a
+//         value and an IEEE division only where the product is within 1e-4
+//         of a rounding boundary (the bound is derived at quantize());
+//       - each consumer warp multiplies its 16 columns, x's fragments
+//         and the weight's both from shared memory, the K order permuted
+//         alike for both operands (an integer sum does not notice);
+//       - the int32 partial tile is pushed, column by column, to the block
+//         of the cluster that owns the column; after one cluster barrier each
+//         block sums its columns and applies the epilogue with all its
+//         threads, rounding once to the output type.  No workspace, no
+//         memset, nothing allocated: a CUDA graph captures the launch as it is.
+//     The same kernel takes a quantized int8 x with given scales (quant_matmul
+//     at M <= 16).
+//   * M > 16 (prefill): quantize_rows_kernel, one launch per group: a row per
+//     group of 32-256 threads (by K), each thread holding its 16-byte chunks
+//     in registers (up to 8), so x is read once and xq written once.  Then
+//     qmm_wgmma once per weight, on wgmma.m64nNk32 (s8 x s8 -> s32), the only
+//     route to the card's full tensor-core rate: a persistent grid of one
+//     block per SM over 128 x BN output tiles (BN 256, or 128 where that
 //     fills the SMs better: the wrapper chooses by shape), a producer warp
 //     that keeps a 4-stage ring of 128-byte K steps full with TMA, and two
 //     consumer warpgroups of 64 x BN that read both operands from shared
 //     memory through wgmma descriptors (the 128-byte swizzle TMA writes, so
-//     no bank conflicts and no ldmatrix).  Each loaded byte feeds 256 (BN
-//     256) or 128 output columns, against 32 in the mma.sync tile this form
-//     replaced; the ring hides the loads and, across tiles, the epilogue's
-//     stores.
-// The C launcher takes PyTorch's current stream, allocates nothing and
-// returns cudaGetLastError().
+//     no bank conflicts and no ldmatrix).  The epilogue writes fp32 or bf16
+//     through 8 KB shared-memory boxes that TMA stores, so the next tile's
+//     wgmma's start while the stores drain.
+// The C launchers take PyTorch's current stream, allocate nothing and
+// return a cudaError_t as int.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kStep = 64;   // bytes of K per step: two m16n8k32 mma's
 
-// 16 bytes of a row from byte k, zero past K.
-template <bool kVec>
-__device__ __forceinline__ uint4 load16(const int8_t* __restrict__ row, int k, int K) {
-  if (kVec && k + 16 <= K) {
-    return __ldg(reinterpret_cast<const uint4*>(row + k));
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The reference's row scale, and the int8 value of v under it: the IEEE
+// quotient v / scale rounded half to even, clamped to ±127.  The quotient is
+// taken as v · inv (inv = 1 / scale, rounded once), which an IEEE division
+// (about 40 instructions) would cost several times over: |v / scale| <=
+// 127.00001, and inv and v · inv are one rounding each (2^-24 relative), so
+// v · inv lies within 2.3e-5 of the IEEE quotient.  Where it lies more than
+// 1e-4 from a half-integer, both round to the same integer; nearer (a tie,
+// or close to one) the quotient is taken with __fdiv_rn.  Bitwise the
+// plain version either way.
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fadd_rn(__fdiv_rn(amax, 127.f), 1e-8f);
+}
+__device__ __forceinline__ uint32_t quantize(float v, float scale, float inv) {
+  const float y = __fmul_rn(v, inv);
+  float n = rintf(y);
+  if (0.5f - fabsf(y - n) < 1e-4f) n = rintf(__fdiv_rn(v, scale));
+  const int q = static_cast<int>(n);
+  return static_cast<uint8_t>(static_cast<int8_t>(q < -127 ? -127 : (q > 127 ? 127 : q)));
+}
+
+// Element e of a 16-byte chunk of T's, as float.
+template <typename T>
+__device__ __forceinline__ float chunk_elem(const uint4& c, int e) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+  if constexpr (std::is_same<T, float>::value) {
+    return __uint_as_float(w[e]);
+  } else {
+    const uint32_t h = (w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu;
+    return __uint_as_float(h << 16);      // bf16 -> fp32 is exact
   }
+}
+
+// The 8 (bf16) or 4 (fp32) elements of a 16-byte chunk quantized into as
+// many bytes, little-endian in packed.
+template <typename T>
+__device__ __forceinline__ void quantize_chunk(const uint4& v, float scale, float inv,
+                                               uint32_t (&packed)[16 / sizeof(T) / 4]) {
+#pragma unroll
+  for (int p = 0; p < 16 / static_cast<int>(sizeof(T)) / 4; ++p) {
+    packed[p] = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) packed[p] |= quantize(chunk_elem<T>(v, 4 * p + e), scale, inv) << (8 * e);
+  }
+}
+
+// The chunk of row xr that starts at element k (16 bytes of T), zeros past
+// K: one vector load when vec (16-byte aligned rows, K a multiple of the
+// chunk), element by element otherwise.
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ xr, int k, int K, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  if (vec) return k < K ? __ldg(reinterpret_cast<const uint4*>(xr + k)) : make_uint4(0, 0, 0, 0);
   uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (k + j < K) {
-      w[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(row[k + j])) << ((j & 3) * 8);
+  for (int e = 0; e < E; ++e) {
+    if (k + e < K) {
+      uint32_t bits;
+      if constexpr (std::is_same<T, float>::value) {
+        bits = __float_as_uint(xr[k + e]);
+        w[e] = bits;
+      } else {
+        bits = static_cast<uint32_t>(__bfloat16_as_ushort(xr[k + e]));
+        w[e >> 1] |= bits << ((e & 1) * 16);
+      }
     }
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
@@ -98,92 +186,529 @@ __device__ __forceinline__ void mma_step(int (&c)[4], const uint4& lo, const uin
   mma_s8(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
 }
 
-// Accumulator element i of lane (g, t): row g (+8 for i >= 2), column
-// t·2 + (i & 1).  The epilogue multiplies in the reference's order.
-__device__ __forceinline__ void store_tile(const int (&c)[4], int r0, int c0, int g, int t,
-                                           const float* __restrict__ xs,
-                                           const float* __restrict__ ws,
-                                           float* __restrict__ out, int M, int N) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------------------- //
+// Thread block clusters: the block's rank, a barrier over the cluster (which
+// also orders shared-memory writes before it with reads after it), and reads
+// of another block's shared memory at the address a variable has in ours.
+// ------------------------------------------------------------------------- //
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the same barrier split in two: no block may touch another's shared memory
+// before every block of the cluster has started, so each arrives at once
+// and waits just before its first remote store
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Wait for the phase of parity `parity` of the barrier to complete.  A
+// phase that never completes (a ring out of step) traps after ~2 s of the
+// SM's clock instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 4000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// rows [row, row + box) x bytes [k, k + 128) of the map's tensor into dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------------------- //
+// M <= 16: qmm_group.  Grid: (column tiles of every member) x C blocks, in
+// clusters of C along x; block rank r of a cluster takes bytes [r·kc,
+// (r + 1)·kc) of K, kc a multiple of the 128-byte stage.  9 warps: warp 8
+// streams the block's weight tile (kGroupBN rows x kc bytes) through a
+// 64 KB ring of stages with TMA (128 bytes of K a stage, in the 128-byte
+// swizzle); warps 0-7 quantize x meanwhile, then each multiplies its 16
+// columns from the ring.  Shared memory (from a
+// 1024-byte boundary): the ring; x's slice quantized, [16][ldk] int8 (ldk =
+// 64 mod 128); the partial tiles the cluster's blocks push to this block,
+// [C][16][per]; the partial row maxima pushed here, [8][16]; the scales;
+// the ring's full and empty barriers.
+// ------------------------------------------------------------------------- //
+constexpr int kGroupWarps = 8;               // consumer warps
+constexpr int kGroupThreads = kGroupWarps * 32 + 32;   // + the producer warp
+constexpr int kNT = 2;                       // column groups of 8 a consumer warp owns
+constexpr int kGroupBN = kGroupWarps * 8 * kNT;        // columns of a tile
+constexpr int kMaxMembers = 3;
+constexpr int kMaxRows = 16;
+constexpr int kMaxCluster = 8;
+constexpr int kRingBytes = 64 * 1024;        // the weight ring
+constexpr int kStageK = 128;                 // bytes of K a ring stage holds (one swizzled row)
+constexpr int kXChunks = 6;                  // x's 16-byte chunks a lane loads at once
+
+struct Group {
+  CUtensorMap map[kMaxMembers];              // each weight, (n, Kp) int8, boxes BN x 128
+  const float* ws[kMaxMembers];              // (n,)
+  void* out[kMaxMembers];                    // (M, n)
+  int n[kMaxMembers];
+  int tile0[kMaxMembers];                    // each one's first column tile in the grid
+  int members;
+};
+
+// bytes of shared memory besides x's slice
+constexpr int group_smem_fixed() {
+  return 1024 + kRingBytes                          // alignment, the ring
+         + kMaxRows * (kGroupBN + kMaxCluster) * 4  // the partial tiles pushed here
+         + kMaxCluster * kMaxRows * 4               // the partial maxima pushed here
+         + kMaxRows * 4 + kGroupBN * 4              // x's and the weights' scales
+         + 2 * (kRingBytes / (kGroupBN * kStageK)) * 8;   // the barriers
+}
+
+// the 256 consumer threads
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// TIn: int8_t (x already quantized, scales given), float or __nv_bfloat16
+// (the block quantizes its slice); TOut: the output's type.
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kGroupThreads, 2)
+qmm_group(const __grid_constant__ Group grp, const TIn* __restrict__ x, long long ldx,
+          const float* __restrict__ xs_in, int M, int K, int kc, int ldk, int vec_x) {
+  constexpr int BN = kGroupBN, NT = kNT;
+  constexpr int S = kRingBytes / (BN * kStageK);   // stages in the ring
+  constexpr int E = 16 / sizeof(TIn);        // elements of x in 16 bytes
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((smem_addr(smem_raw) + 1023) & ~1023u) - smem_addr(smem_raw);
+  int8_t* xq = reinterpret_cast<int8_t*>(ring + kRingBytes);             // [16][ldk]
+  int* red = reinterpret_cast<int*>(xq + kMaxRows * ldk);               // [C][16][per]
+  float* amax = reinterpret_cast<float*>(red + kMaxRows * (BN + kMaxCluster));  // [8][16]
+  float* scale = amax + kMaxCluster * kMaxRows;                         // [16]
+  float* wscale = scale + kMaxRows;                                     // [BN]
+  const uint32_t bars = smem_addr(wscale + BN);                         // full[S], empty[S]
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (S + st); };
+
+  cluster_arrive_relaxed();                  // started (waited for before a push)
+  const int C = static_cast<int>(cluster_blocks());
+  const int rank = static_cast<int>(cluster_rank());
+  const int tile = blockIdx.x / C;
+  int mi = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + g + (i >= 2 ? 8 : 0);
-    const int col = c0 + t * 2 + (i & 1);
-    if (r < M && col < N) {
-      out[static_cast<long long>(r) * N + col] = __int2float_rn(c[i]) * xs[r] * ws[col];
+  for (int i = 1; i < kMaxMembers; ++i) {
+    if (i < grp.members && tile >= grp.tile0[i]) mi = i;
+  }
+  const int N = grp.n[mi];
+  const int n0 = (tile - grp.tile0[mi]) * BN;
+  const int k0 = rank * kc;
+  const int stages = kc / kStageK;           // of this block's slice (zeros past K)
+  const int per = (BN + C - 1) / C;          // columns whose sums a block owns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int rows = M > 8 ? kMaxRows : 8;     // rows the mma's read
+  const int chunks = kc / E;                 // x's chunks in a row of the slice
+  const float w_scale = threadIdx.x < BN && n0 + threadIdx.x < N ? grp.ws[mi][n0 + threadIdx.x]
+                                                                 : 0.f;
+  const float x_scale = std::is_same<TIn, int8_t>::value && threadIdx.x < M
+                            ? xs_in[threadIdx.x] : 0.f;
+
+  // x's slice [k0, k0 + kc) as int8 in shared memory, zeros past K and M:
+  // a warp's rows w and w + 8, kXChunks chunks a lane at a time (a row of
+  // one such group, at M <= 8, stays in registers from the first pass to
+  // the second)
+  uint4 xv[kXChunks];
+  auto load_x = [&](int r, int c0) {
+    const TIn* xr = x + (r < M ? r : 0) * ldx;
+#pragma unroll
+    for (int i = 0; i < kXChunks; ++i) {
+      const int c = c0 + lane + 32 * i;
+      if constexpr (std::is_same<TIn, int8_t>::value) {
+        xv[i] = r < M && c < chunks && k0 + c * 16 < K
+                    ? __ldg(reinterpret_cast<const uint4*>(xr + k0 + c * 16)) : zero;
+      } else {
+        xv[i] = r < M && c < chunks ? load_chunk<TIn>(xr, k0 + c * E, K, vec_x) : zero;
+      }
+    }
+  };
+  // Where a warp holds a whole row of x in registers (M <= 8, K short), each
+  // block takes the rows' maxima over all of K itself, and no maxima cross
+  // the cluster; otherwise over its slice, exchanged.  A consumer's first
+  // chunks of x (of its row, or of its row's slice) are asked for before
+  // anything waits.
+  const bool whole = !std::is_same<TIn, int8_t>::value && M <= 8 &&
+                     (K + E - 1) / E <= 32 * kXChunks;
+  auto load_row = [&](int r) {
+    const TIn* xr = x + (r < M ? r : 0) * ldx;
+#pragma unroll
+    for (int i = 0; i < kXChunks; ++i) {
+      const int c = lane + 32 * i;
+      xv[i] = r < M && c * E < K ? load_chunk<TIn>(xr, c * E, K, vec_x) : zero;
+    }
+  };
+  if (warp < kGroupWarps) {
+    if (whole) {
+      load_row(warp);
+    } else {
+      load_x(warp, 0);
+    }
+  }
+  if (threadIdx.x == kGroupWarps * 32) {     // the producer's lane 0: no loads pending
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kGroupWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kGroupWarps) {
+    // the producer: the first S stages at once; the rest as the consumers
+    // free them (after the prologue's cluster barriers, which every thread
+    // of the cluster takes)
+    const CUtensorMap* map = &grp.map[mi];
+    int st = 0;
+    auto issue = [&]() {
+      const int slot = st % S;
+      if (st >= S) mbar_wait(empty(slot), ((st / S) - 1) & 1);
+      mbar_expect(full(slot), BN * kStageK);
+      tma_load(smem_addr(ring) + slot * BN * kStageK, map, k0 + st * kStageK, n0, full(slot));
+      ++st;
+    };
+    if (lane == 0) {
+      while (st < stages && st < S) issue();
+    }
+    __syncwarp();
+    cluster_wait();
+    if (!std::is_same<TIn, int8_t>::value && !whole) cluster_sync();
+    if (lane == 0) {
+      while (st < stages) issue();
+    }
+    __syncwarp();
+    cluster_sync();
+    return;
+  }
+
+  const bool kept = M <= 8 && chunks <= 32 * kXChunks;
+  if constexpr (std::is_same<TIn, int8_t>::value) {
+    for (int r = warp; r < rows; r += kGroupWarps) {
+      for (int c0 = 0; c0 < chunks; c0 += 32 * kXChunks) {
+        if (r != warp || c0 != 0) load_x(r, c0);
+#pragma unroll
+        for (int i = 0; i < kXChunks; ++i) {
+          const int c = c0 + lane + 32 * i;
+          if (c < chunks) *reinterpret_cast<uint4*>(xq + r * ldk + c * 16) = xv[i];
+        }
+      }
+    }
+    cluster_wait();
+  } else if (whole) {
+    // the row's max |x| and scale, this warp's alone; then the slice of
+    // the row quantized from registers (chunk c is lane c % 32's, its
+    // (c / 32)-th), and zeros where the slice runs past the row
+    const int r = warp;
+    float mx = 0.f;
+#pragma unroll
+    for (int i = 0; i < kXChunks; ++i) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) mx = fmaxf(mx, fabsf(chunk_elem<TIn>(xv[i], e)));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+    const float sc = r < M ? row_scale(mx) : 1.f;
+    const float inv = __frcp_rn(sc);
+    if (lane == 0 && r < M) scale[r] = sc;
+#pragma unroll 1
+    for (int i = 0; i < kXChunks; ++i) {
+      const int c = lane + 32 * i;
+      if (c * E < k0 || c * E >= k0 + kc) continue;
+      uint4 v = xv[0];
+#pragma unroll
+      for (int k = 1; k < kXChunks; ++k) v = k == i ? xv[k] : v;
+      uint32_t packed[E / 4];
+      quantize_chunk<TIn>(v, sc, inv, packed);
+      int8_t* dst = xq + r * ldk + c * E - k0;
+      if constexpr (E == 8) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = packed[0];
+      }
+    }
+    for (int c = lane; c < chunks; c += 32) {
+      if (k0 + c * E >= 32 * kXChunks * E) {
+        int8_t* dst = xq + r * ldk + c * E;
+        if constexpr (E == 8) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+        } else {
+          *reinterpret_cast<uint32_t*>(dst) = 0u;
+        }
+      }
+    }
+  } else {
+    // each row's max |x| over the slice, pushed to every block of the
+    // cluster (all of which have started by now) ...
+    cluster_wait();
+    for (int r = warp; r < M; r += kGroupWarps) {
+      float mx = 0.f;
+      for (int c0 = 0; c0 < chunks; c0 += 32 * kXChunks) {
+        if (r != warp || c0 != 0) load_x(r, c0);
+#pragma unroll
+        for (int i = 0; i < kXChunks; ++i) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) mx = fmaxf(mx, fabsf(chunk_elem<TIn>(xv[i], e)));
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+      if (lane < C) {
+        st_cluster(cluster_map(smem_addr(amax + rank * kMaxRows + r), lane), __float_as_uint(mx));
+      }
+    }
+    // ... and over the cluster's slices: the row's scale, the same in
+    // every block
+    cluster_sync();
+    if (threadIdx.x < M) {
+      float m = 0.f;
+      for (int q = 0; q < C; ++q) m = fmaxf(m, amax[q * kMaxRows + threadIdx.x]);
+      scale[threadIdx.x] = row_scale(m);
+    }
+    consumers_sync();
+    // the slice quantized (read again where it was not kept), a chunk at a
+    // time
+    for (int r = warp; r < rows; r += kGroupWarps) {
+      const float sc = r < M ? scale[r] : 1.f;
+      const float inv = __frcp_rn(sc);
+      for (int c0 = 0; c0 < chunks; c0 += 32 * kXChunks) {
+        if (!kept || r != warp || c0 != 0) load_x(r, c0);
+#pragma unroll 1
+        for (int i = 0; i < kXChunks; ++i) {
+          const int c = c0 + lane + 32 * i;
+          if (c >= chunks) break;
+          uint4 v = xv[0];
+#pragma unroll
+          for (int k = 1; k < kXChunks; ++k) v = k == i ? xv[k] : v;
+          uint32_t packed[E / 4];
+          quantize_chunk<TIn>(v, sc, inv, packed);
+          int8_t* dst = xq + r * ldk + c * E;
+          if constexpr (E == 8) {
+            *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(dst) = packed[0];
+          }
+        }
+      }
+    }
+  }
+  consumers_sync();
+
+  // the product: stage st holds steps 2st and 2st + 1 (64 bytes each) of
+  // every column of the tile; lane (g, t) reads 16 bytes of its columns'
+  // row g at byte 16·(4h + t), where the 128-byte swizzle put them.  A
+  // warp frees a stage once all its lanes have read it.
+  int acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  const int8_t* xlo = xq + g * ldk + t * 16;
+  const int8_t* xhi = xq + (g + 8) * ldk + t * 16;
+  const bool two = M > 8;
+  for (int st = 0; st < stages; ++st) {
+    const int slot = st % S;
+    mbar_wait(full(slot), (st / S) & 1);
+    const uint8_t* stage = ring + slot * BN * kStageK;
+#pragma unroll
+    for (int h = 0; h < kStageK / kStep; ++h) {
+      const int s = kStageK / kStep * st + h;
+      const uint4 lo = *reinterpret_cast<const uint4*>(xlo + s * kStep);
+      const uint4 hi = two ? *reinterpret_cast<const uint4*>(xhi + s * kStep) : zero;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int row = (warp * NT + j) * 8 + g;
+        const uint4 b = *reinterpret_cast<const uint4*>(
+            stage + row * kStageK + (((4 * h + t) ^ (row & 7)) << 4));
+        mma_step(acc[j], lo, hi, b);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(slot));
+  }
+
+  if (whole) cluster_wait();
+  // the partial tile, pushed to the blocks that own its columns: column c
+  // to block c / per, as [rank][row][c % per].  Accumulator element i of
+  // lane (g, t) for columns j is row g (+8 for i >= 2), column (w·NT + j)·8
+  // + 2t + (i & 1).
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = (warp * NT + j) * 8 + 2 * t + (i & 1);
+      const int row = g + (i >= 2 ? 8 : 0);
+      const int owner = col / per;
+      const uint32_t at = smem_addr(red + (rank * kMaxRows + row) * per + col - owner * per);
+      st_cluster(cluster_map(at, owner), static_cast<uint32_t>(acc[j][i]));
+    }
+  }
+  if (threadIdx.x < BN) wscale[threadIdx.x] = w_scale;
+  if constexpr (std::is_same<TIn, int8_t>::value) {
+    if (threadIdx.x < M) scale[threadIdx.x] = x_scale;
+  }
+  cluster_sync();
+  // this block's columns, summed over the cluster's partials in rank order
+  // (an integer sum: any order gives the same bits); the epilogue
+  // multiplies in the reference's order and rounds once.  No block reads
+  // another's shared memory after the barrier, so none waits to leave.
+  TOut* out = static_cast<TOut*>(grp.out[mi]);
+  const int c0 = rank * per;
+  const int ncols = min(BN, c0 + per) - c0;
+  for (int o = threadIdx.x; o < M * ncols; o += kGroupWarps * 32) {
+    const int r = o / ncols, cl = o % ncols;
+    const int n = n0 + c0 + cl;
+    int sum = 0;
+    for (int q = 0; q < C; ++q) sum += red[(q * kMaxRows + r) * per + cl];
+    if (n < N) {
+      out[static_cast<long long>(r) * N + n] =
+          from_float<TOut>(__int2float_rn(sum) * scale[r] * wscale[c0 + cl]);
     }
   }
 }
 
 // ------------------------------------------------------------------------- //
-// M <= 16: grid (ceil(N / (8·NT))), 4 warps splitting K.
+// quantize_rows_kernel: grid ceil(M / (256 / G)), 256 threads; a group of G
+// threads (a power of two, 32..256) per row.  Thread l of a group loads
+// chunks l, l + G, ... (16 bytes each) of the row, kQChunks at a time, all in
+// flight together.  The group's max meets through shuffles (and shared
+// memory when it spans warps); then each thread quantizes its chunks from
+// registers (a row longer than G·kQChunks chunks is read again) and writes
+// them.  xq has row stride ldq and Kq >= K columns, those past K zero.
 // ------------------------------------------------------------------------- //
-constexpr int kSkinnyWarps = 4;
-constexpr int kUnroll = 4;   // 64-byte steps of K in flight per warp
+constexpr int kQThreads = 256;
+constexpr int kQChunks = 8;                  // chunks a thread holds at once
 
-template <int NT, bool kVec>
-__global__ void __launch_bounds__(kSkinnyWarps * 32)
-qmm_skinny(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
-           const float* __restrict__ xs, const float* __restrict__ ws,
-           float* __restrict__ out, int M, int N, int K) {
-  __shared__ int red[kSkinnyWarps][NT][4][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * (8 * NT);
-  const int8_t* xlo = X + static_cast<long long>(g) * K;
-  const int8_t* xhi = X + static_cast<long long>(g + 8) * K;
-  const bool lo_ok = g < M, hi_ok = g + 8 < M;
-  const int8_t* wrow[NT];
-  bool w_ok[NT];
+template <typename T>
+__global__ void __launch_bounds__(kQThreads, 3)
+quantize_rows_kernel(const T* __restrict__ x, long long ldx, int8_t* __restrict__ xq,
+                     long long ldq, float* __restrict__ xs, int M, int K, int Kq, int G,
+                     int vec) {
+  constexpr int E = 16 / sizeof(T);
+  __shared__ float part[kQThreads / 32];
+  const int gi = threadIdx.x / G, gl = threadIdx.x % G;
+  const long long row = static_cast<long long>(blockIdx.x) * (kQThreads / G) + gi;
+  const bool live = row < M;
+  const T* xr = x + (live ? row : 0) * ldx;
+  const int nc = (K + E - 1) / E;
+  const int span = G * kQChunks;             // chunks a group holds at once
+  uint4 v[kQChunks];
+  auto load = [&](int c0) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + j * 8 + g;
-    w_ok[j] = n < N;
-    wrow[j] = Wt + static_cast<long long>(w_ok[j] ? n : 0) * K;
-  }
-
-  int acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-
-  const int steps = (K + kStep - 1) / kStep;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int s0 = warp; s0 < steps; s0 += kSkinnyWarps * kUnroll) {
-    uint4 lo[kUnroll], hi[kUnroll], b[kUnroll][NT];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * kSkinnyWarps;
-      const int k = s * kStep + t * 16;
-      const bool in = s < steps;
-      lo[u] = (in && lo_ok) ? load16<kVec>(xlo, k, K) : zero;
-      hi[u] = (in && hi_ok) ? load16<kVec>(xhi, k, K) : zero;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) b[u][j] = (in && w_ok[j]) ? load16<kVec>(wrow[j], k, K) : zero;
+    for (int i = 0; i < kQChunks; ++i) {
+      const int c = c0 + gl + i * G;
+      v[i] = live && c < nc ? load_chunk<T>(xr, c * E, K, vec) : make_uint4(0u, 0u, 0u, 0u);
     }
+  };
+  float mx = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += span) {
+    load(c0);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int i = 0; i < kQChunks; ++i) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_step(acc[j], lo[u], hi[u], b[u][j]);
+      for (int e = 0; e < E; ++e) mx = fmaxf(mx, fabsf(chunk_elem<T>(v[i], e)));
     }
   }
-
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) red[warp][j][i][lane] = acc[j][i];
+  for (int o = (G < 32 ? G : 32) / 2; o > 0; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
   }
-  __syncthreads();
-  if (warp != 0) return;
+  if (G > 32) {
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+    __syncthreads();
+    for (int w = gi * (G / 32); w < (gi + 1) * (G / 32); ++w) mx = fmaxf(mx, part[w]);
+  }
+  if (!live) return;
+  const float s = row_scale(mx);
+  const float inv = __frcp_rn(s);
+  if (gl == 0) xs[row] = s;
+  int8_t* qr = xq + row * ldq;
+  for (int c0 = 0; c0 < nc; c0 += span) {
+    if (nc > span) load(c0);                 // one span: still in registers
+#pragma unroll 1
+    for (int i = 0; i < kQChunks; ++i) {     // a chunk at a time
+      const int c = c0 + gl + i * G;
+      if (c >= nc) break;
+      uint4 vi = v[0];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+      for (int k = 1; k < kQChunks; ++k) vi = k == i ? v[k] : vi;
+      uint32_t packed[E / 4];
+      quantize_chunk<T>(vi, s, inv, packed);
+      int8_t* dst = qr + c * E;
+      if (vec) {
+        if constexpr (E == 8) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+        } else {
+          *reinterpret_cast<uint32_t*>(dst) = packed[0];
+        }
+      } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int sum = 0;
-#pragma unroll
-      for (int w = 0; w < kSkinnyWarps; ++w) sum += red[w][j][i][lane];
-      acc[j][i] = sum;
+        for (int e = 0; e < E; ++e) {
+          if (c * E + e < K) dst[e] = static_cast<int8_t>((packed[e / 4] >> (8 * (e % 4))) & 0xFFu);
+        }
+      }
     }
-    store_tile(acc[j], 0, n0 + j * 8, g, t, xs, ws, out, M, N);
   }
+  if (gl < Kq - K) qr[K + gl] = 0;
 }
 
 // ------------------------------------------------------------------------- //
@@ -197,11 +722,11 @@ qmm_skinny(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
 //     128-byte step, 4 wgmma.m64nBNk32 (s8 x s8 -> s32) read both operands
 //     straight from the stage, with one step's group in flight while the
 //     next is issued; a stage is handed back once its wgmma's are done;
-//   * the epilogue: each consumer warpgroup writes its fp32 outputs, 64 rows
-//     x 32 columns at a time, into one of two shared-memory boxes that TMA
-//     stores (when N % 4 == 0, TMA's row-stride rule; lanes store their own
-//     pairs otherwise), so the next tile's wgmma's start while the stores
-//     drain.
+//   * the epilogue: each consumer warpgroup writes its outputs (fp32 or
+//     bf16), 64 rows x 32 columns at a time, into one of two shared-memory
+//     boxes that TMA stores (when a row of out is a multiple of 16 bytes,
+//     TMA's row-stride rule; lanes store their own pairs otherwise), so the
+//     next tile's wgmma's start while the stores drain.
 //   * TMA fills rows past M or N and bytes past K with zeros and drops its
 //     stores past M or N; the lanes' own stores are masked.
 // ------------------------------------------------------------------------- //
@@ -211,8 +736,7 @@ constexpr int kStages = 4;
 constexpr int kConsumers = 2;            // consumer warpgroups
 constexpr int kWgmmaThreads = kConsumers * 128 + 32;   // + the producer warp
 
-constexpr int kOutCols = 32;             // fp32 columns a staged output box holds
-constexpr int kOutBox = 64 * kOutCols * 4;   // bytes of a box: a warpgroup's 64 rows
+constexpr int kOutBox = 64 * 128;        // bytes of a staged output box: 64 rows of <= 128
 
 template <int BN>
 constexpr int wgmma_smem() {             // + 1 KB to align the ring to 1024 bytes
@@ -297,11 +821,6 @@ struct Wgmma<128> {
   }
 };
 
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // A wgmma operand in shared memory: rows of 128 bytes (K-major), 8-row
 // groups 1024 bytes apart, in the 128-byte swizzle.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -311,51 +830,8 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          | static_cast<uint64_t>(1) << 62;               // 128-byte swizzle
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Wait for the phase of parity `parity` of the barrier to complete.  A
-// phase that never completes (a ring out of step) traps after ~2 s of the
-// SM's clock instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > 4000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// rows [row, row + box) x bytes [k, k + 128) of the map's tensor into dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
-      : "memory");
-}
-
-// the staged box at src (64 rows x 32 fp32 columns, 128-byte swizzle) into
-// the map's tensor at (row, col); rows and columns past the tensor are not
+// the staged box at src (64 rows x 128 bytes, 128-byte swizzle) into the
+// map's tensor at (row, col); rows and columns past the tensor are not
 // written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col,
                                           int row) {
@@ -380,15 +856,31 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// kStore: the epilogue stages fp32 boxes of 64 x 32 in shared memory and
-// TMA writes them out (whole 128-byte rows, asynchronously, so the next
-// tile's products start at once; needs N % 4 == 0); otherwise each lane
-// stores its own pairs of columns.
-template <int BN, bool kStore>
+// two neighbouring outputs into shared memory at `at`, as TOut (bf16: each
+// rounded to nearest even, v0 in the low half)
+template <typename TOut>
+__device__ __forceinline__ void st_pair(uint32_t at, float v0, float v1) {
+  if constexpr (std::is_same<TOut, float>::value) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at), "f"(v0), "f"(v1) : "memory");
+  } else {
+    uint32_t pair;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(pair) : "f"(v1), "f"(v0));
+    asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(pair) : "memory");
+  }
+}
+
+// kStore: the epilogue stages boxes of 64 rows x 32 columns in shared memory
+// and TMA writes them out (whole 128-byte rows, asynchronously, so the next
+// tile's products start at once; needs rows of out a multiple of 16 bytes);
+// otherwise each lane stores its own pairs of columns.  TOut: float or
+// __nv_bfloat16, rounded once from the fp32 epilogue.
+template <int BN, bool kStore, typename TOut>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
           const __grid_constant__ CUtensorMap map_out, const float* __restrict__ xs,
-          const float* __restrict__ ws, float* __restrict__ out, int M, int N, int K) {
+          const float* __restrict__ ws, TOut* __restrict__ out, int M, int N, int K) {
+  constexpr int kOutCols = 32;                      // columns a staged box holds
+  constexpr int kRowBytes = kOutCols * sizeof(TOut);  // 128 (fp32, swizzled) or 64
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -476,9 +968,9 @@ qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
 #pragma unroll
     for (int h = 0; h < 2; ++h) x_scale[h] = r0 + 8 * h < M ? xs[r0 + 8 * h] : 0.f;
     if constexpr (kStore) {
-      // box c holds columns 32c .. 32c + 31; boxes alternate between two
-      // buffers, and a buffer is written once the store that last read it
-      // has read it
+      // box c holds columns kOutCols·c .. kOutCols·(c + 1) - 1; boxes
+      // alternate between two buffers, and a buffer is written once the
+      // store that last read it has read it
 #pragma unroll
       for (int c = 0; c < BN / kOutCols; ++c) {
         const uint32_t box = o_base + (wg * 2 + (c & 1)) * kOutBox;
@@ -490,16 +982,17 @@ qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
           const int col = n0 + 8 * j + 2 * t;
           const float w0 = col < N ? ws[col] : 0.f;
           const float w1 = col + 1 < N ? ws[col + 1] : 0.f;
+          // byte of the pair in the box's row; a 128-byte row places its
+          // 16-byte pieces by the 128-byte swizzle
+          const int byte = (8 * jj + 2 * t) * static_cast<int>(sizeof(TOut));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = warp * 16 + g + 8 * h;     // within the box
             const float v0 = __int2float_rn(acc[4 * j + 2 * h]) * x_scale[h] * w0;
             const float v1 = __int2float_rn(acc[4 * j + 2 * h + 1]) * x_scale[h] * w1;
-            // 16-byte piece 2jj + t/2 of the row's 128, in the 128-byte swizzle
-            const uint32_t at =
-                box + row * 128 + (((2 * jj + (t >> 1)) ^ (row & 7)) << 4) + (t & 1) * 8;
-            asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at), "f"(v0), "f"(v1)
-                         : "memory");
+            const int piece = kRowBytes == 128 ? (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15)
+                                               : byte;
+            st_pair<TOut>(box + row * kRowBytes + piece, v0, v1);
           }
         }
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -512,7 +1005,7 @@ qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;
         if (r >= M) continue;
-        float* orow = out + static_cast<long long>(r) * N;
+        TOut* orow = out + static_cast<long long>(r) * N;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int col = n0 + 8 * j + 2 * t;
@@ -520,10 +1013,15 @@ qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
           const float v1 = __int2float_rn(acc[4 * j + 2 * h + 1]) * x_scale[h];
           if (pairs && col + 1 < N) {
             const float2 wsc = *reinterpret_cast<const float2*>(ws + col);
-            *reinterpret_cast<float2*>(orow + col) = make_float2(v0 * wsc.x, v1 * wsc.y);
+            if constexpr (std::is_same<TOut, float>::value) {
+              *reinterpret_cast<float2*>(orow + col) = make_float2(v0 * wsc.x, v1 * wsc.y);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __floats2bfloat162_rn(v0 * wsc.x, v1 * wsc.y);
+            }
           } else {
-            if (col < N) orow[col] = v0 * ws[col];
-            if (col + 1 < N) orow[col + 1] = v1 * ws[col + 1];
+            if (col < N) orow[col] = from_float<TOut>(v0 * ws[col]);
+            if (col + 1 < N) orow[col + 1] = from_float<TOut>(v1 * ws[col + 1]);
           }
         }
       }
@@ -531,27 +1029,6 @@ qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
   }
   // the last boxes' reads of shared memory, and their writes, done
   if (kStore && tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-template <int NT, bool kVec>
-void launch_skinny(const int8_t* X, const int8_t* Wt, const float* xs, const float* ws,
-                   float* out, int M, int N, int K, cudaStream_t s) {
-  const int cols = 8 * NT;
-  qmm_skinny<NT, kVec><<<(N + cols - 1) / cols, kSkinnyWarps * 32, 0, s>>>(X, Wt, xs, ws, out,
-                                                                          M, N, K);
-}
-
-template <bool kVec>
-void launch_skinny_by_width(const int8_t* X, const int8_t* Wt, const float* xs,
-                            const float* ws, float* out, int M, int N, int K, cudaStream_t s) {
-  // the most columns per block that still gives two blocks per SM (132)
-  if (N >= 32 * 264) {
-    launch_skinny<4, kVec>(X, Wt, xs, ws, out, M, N, K, s);
-  } else if (N >= 16 * 264) {
-    launch_skinny<2, kVec>(X, Wt, xs, ws, out, M, N, K, s);
-  } else {
-    launch_skinny<1, kVec>(X, Wt, xs, ws, out, M, N, K, s);
-  }
 }
 
 int num_sms() {
@@ -585,11 +1062,12 @@ EncodeTiled encode_tiled() {
 }
 
 // A TMA map of a row-major (rows, cols) tensor of `elem`-byte elements, read
-// or written in boxes of box_rows x box_cols elements (128 bytes a row) in
-// the 128-byte swizzle; reads past the tensor fill zeros, writes past it
-// are dropped.
+// or written in boxes of box_rows x box_cols elements (128 bytes a row in
+// the 128-byte swizzle, or fewer unswizzled); reads past the tensor fill
+// zeros, writes past it are dropped.
 bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
-              int rows, int cols, int box_rows, int box_cols) {
+              int rows, int cols, int box_rows, int box_cols,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -598,20 +1076,20 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int 
                                static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, boxes, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool kStore>
+template <int BN, bool kStore, typename TOut>
 int launch_wgmma(const CUtensorMap& map_x, const CUtensorMap& map_w, const CUtensorMap& map_out,
-                 const float* xs, const float* ws, float* out, int M, int N, int K,
+                 const float* xs, const float* ws, TOut* out, int M, int N, int K,
                  cudaStream_t s) {
   constexpr int smem = wgmma_smem<BN>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        qmm_wgmma<BN, kStore>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qmm_wgmma<BN, kStore, TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -619,60 +1097,200 @@ int launch_wgmma(const CUtensorMap& map_x, const CUtensorMap& map_w, const CUten
       static_cast<long long>((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
   if (tiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = static_cast<int>(tiles < num_sms() ? tiles : num_sms());
-  qmm_wgmma<BN, kStore><<<blocks, kWgmmaThreads, smem, s>>>(map_x, map_w, map_out, xs, ws, out,
-                                                            M, N, K);
+  qmm_wgmma<BN, kStore, TOut><<<blocks, kWgmmaThreads, smem, s>>>(map_x, map_w, map_out, xs, ws,
+                                                                  out, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
-int launch_wgmma(const void* X, const void* Wt, const float* xs, const float* ws, float* out,
+template <int BN, typename TOut>
+int launch_wgmma(const void* X, const void* Wt, const float* xs, const float* ws, TOut* out,
                  int M, int N, int K, cudaStream_t s) {
   CUtensorMap map_x, map_w, map_out;
   if (!make_map(&map_x, X, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, kBM, kBK) ||
       !make_map(&map_w, Wt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, BN, kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool store = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  constexpr int elem = sizeof(TOut);
+  const bool store = (N * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (store) {
-    if (!make_map(&map_out, out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, N, 64, kOutCols)) {
+    const CUtensorMapDataType type = elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!make_map(&map_out, out, type, elem, M, N, 64, 32,
+                  elem == 4 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch_wgmma<BN, true>(map_x, map_w, map_out, xs, ws, out, M, N, K, s);
+    return launch_wgmma<BN, true, TOut>(map_x, map_w, map_out, xs, ws, out, M, N, K, s);
   }
   map_out = map_w;                       // not read
-  return launch_wgmma<BN, false>(map_x, map_w, map_out, xs, ws, out, M, N, K, s);
+  return launch_wgmma<BN, false, TOut>(map_x, map_w, map_out, xs, ws, out, M, N, K, s);
+}
+
+// ------------------------------------------------------------------------- //
+// qmm_group's launch: tiles of 128 columns; K split over a cluster of about
+// as many blocks as leaves the grid at one block an SM (at most 8), each
+// block a whole number of 128-byte stages.
+// ------------------------------------------------------------------------- //
+constexpr int kMaxGroupSmem = 227 * 1024;
+
+template <typename TIn, typename TOut>
+int launch_group(const void* const* wts, const float* const* wss, void* const* outs,
+                 const int* ns, int count, const void* x, long long ldx, const float* xs, int M,
+                 int K, int Kp, bool vec_x, cudaStream_t s) {
+  constexpr int BN = kGroupBN;
+  Group g = {};
+  g.members = count;
+  int tiles = 0;
+  for (int i = 0; i < count; ++i) {
+    if (!make_map(&g.map[i], wts[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ns[i], Kp, BN, kStageK)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    g.ws[i] = wss[i];
+    g.out[i] = outs[i];
+    g.n[i] = ns[i];
+    g.tile0[i] = tiles;
+    tiles += (ns[i] + BN - 1) / BN;
+  }
+  const int stages = (Kp + kStageK - 1) / kStageK;
+  int C = num_sms() / tiles;
+  C = C < 1 ? 1 : (C > kMaxCluster ? kMaxCluster : C);
+  C = C > stages ? stages : C;
+  const int per = (stages + C - 1) / C;
+  C = (stages + per - 1) / per;
+  const int kc = per * kStageK;
+  const int ldk = kc + 64;                   // 64 mod 128: no bank conflicts
+  const int smem = kMaxRows * ldk + group_smem_fixed();
+  if (smem > kMaxGroupSmem || static_cast<long long>(tiles) * C > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = qmm_group<TIn, TOut>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxGroupSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C);
+  cfg.blockDim = dim3(kGroupThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, g, static_cast<const TIn*>(x), ldx,
+                                             xs, M, K, kc, ldk, vec_x ? 1 : 0));
+}
+
+int choose_g(int nc) {
+  // the fewest threads a row (32..256) that hold its chunks at once: a row
+  // in one warp needs no shared memory to meet, and each thread keeps more
+  // loads in flight
+  int G = 32;
+  while (G < kQThreads && (nc + G - 1) / G > kQChunks) G *= 2;
+  return G;
 }
 
 }  // namespace
 
-// xq (M, K) int8, wt (N, K) int8, both row-major with row stride K; xs (M,),
-// ws (N,) fp32; out (M, N) fp32.  M <= 16 takes qmm_skinny (bn is not
-// read); M > 16 takes qmm_wgmma with tiles of 128 x bn columns, bn 128 or
-// 256, and needs K % 16 == 0 and 16-byte aligned xq and wt (TMA's rule; the
-// wrapper pads K and copies a misaligned operand).  Returns a cudaError_t as
-// int (0 = launched).
+// xq (M, K) int8, wt (N, K) int8, both row-major with row stride K, K % 16 ==
+// 0, both 16-byte aligned (the wrapper pads K and copies a misaligned
+// operand); xs (M,), ws (N,) fp32; out (M, N) of out_dtype (0 = fp32, 1 =
+// bf16).  M <= 16 takes qmm_group on the quantized x (fp32 out only; bn is
+// not read); M > 16 takes qmm_wgmma with tiles of 128 x bn columns, bn 128 or
+// 256.  Returns a cudaError_t as int (0 = launched).
 extern "C" int quant_matmul_launch(const void* xq, const void* wt, const void* xs,
                                    const void* ws, void* out, int M, int N, int K, int bn,
-                                   void* stream) {
+                                   int out_dtype, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto X = static_cast<const int8_t*>(xq);
-  const auto Wt = static_cast<const int8_t*>(wt);
+  if (K % 16 != 0 || reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wt) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto xsf = static_cast<const float*>(xs);
   const auto wsf = static_cast<const float*>(ws);
-  const auto o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = K % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(wt) % 16 == 0;
   if (M <= 16) {
-    if (aligned) {
-      launch_skinny_by_width<true>(X, Wt, xsf, wsf, o, M, N, K, s);
-    } else {
-      launch_skinny_by_width<false>(X, Wt, xsf, wsf, o, M, N, K, s);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (out_dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_group<int8_t, float>(&wt, &wsf, &out, &N, 1, xq, K, xsf, M, K, K, true, s);
   }
-  if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
-  if (bn == 256) return launch_wgmma<256>(xq, wt, xsf, wsf, o, M, N, K, s);
-  if (bn == 128) return launch_wgmma<128>(xq, wt, xsf, wsf, o, M, N, K, s);
+  if (out_dtype == 0) {
+    float* o = static_cast<float*>(out);
+    if (bn == 256) return launch_wgmma<256, float>(xq, wt, xsf, wsf, o, M, N, K, s);
+    if (bn == 128) return launch_wgmma<128, float>(xq, wt, xsf, wsf, o, M, N, K, s);
+  } else if (out_dtype == 1) {
+    auto o = static_cast<__nv_bfloat16*>(out);
+    if (bn == 256) return launch_wgmma<256, __nv_bfloat16>(xq, wt, xsf, wsf, o, M, N, K, s);
+    if (bn == 128) return launch_wgmma<128, __nv_bfloat16>(xq, wt, xsf, wsf, o, M, N, K, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One launch of qmm_group for `count` (1-3) weights that read the same x:
+// x (M, K), M <= 16, of dtype (0 = fp32, 1 = bf16) with row stride ldx
+// elements and unit column stride; wts[i] (ns[i], Kp) int8 row-major, Kp =
+// K rounded up to 16, 16-byte aligned; wss[i] (ns[i],) fp32; outs[i] (M,
+// ns[i]) of x's dtype.  Returns a cudaError_t as int (0 = launched).
+extern "C" int quant_group_launch(const void* x, long long ldx, int dtype, int M, int K, int Kp,
+                                  const void* const* wts, const void* const* wss,
+                                  void* const* outs, const int* ns, int count, void* stream) {
+  if (M <= 0 || M > 16 || K <= 0 || Kp < K || Kp % 16 != 0 || count < 1 ||
+      count > kMaxMembers) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < count; ++i) {
+    if (ns[i] <= 0 || reinterpret_cast<uintptr_t>(wts[i]) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const auto wss_f = reinterpret_cast<const float* const*>(wss);
+  const int elem = dtype == 0 ? 4 : 2;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (ldx * elem) % 16 == 0 &&
+                   (K * elem) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_group<float, float>(wts, wss_f, outs, ns, count, x, ldx, nullptr, M, K, Kp,
+                                      vec, s);
+  }
+  if (dtype == 1) {
+    return launch_group<__nv_bfloat16, __nv_bfloat16>(wts, wss_f, outs, ns, count, x, ldx,
+                                                      nullptr, M, K, Kp, vec, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x (M, K) of dtype (0 = fp32, 1 = bf16), row stride ldx elements, unit
+// column stride; xq (M, Kq) int8 with row stride ldq, Kq >= K (columns past
+// K are written 0); xs (M,) fp32.  Returns a cudaError_t as int (0 =
+// launched).
+extern "C" int quantize_rows_launch(const void* x, long long ldx, int dtype, void* xq,
+                                    long long ldq, void* xs, int M, int K, int Kq,
+                                    void* stream) {
+  if (M <= 0 || K <= 0 || Kq < K || Kq - K >= 32 || ldq < Kq) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int elem = dtype == 0 ? 4 : 2;
+  const int E = 16 / elem;
+  const int G = choose_g((K + E - 1) / E);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (ldx * elem) % 16 == 0 &&
+                   K % E == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0 && ldq % 16 == 0;
+  const int rows = kQThreads / G;
+  const long long blocks = (static_cast<long long>(M) + rows - 1) / rows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto q = static_cast<int8_t*>(xq);
+  auto f = static_cast<float*>(xs);
+  if (dtype == 0) {
+    quantize_rows_kernel<float><<<blocks, kQThreads, 0, s>>>(
+        static_cast<const float*>(x), ldx, q, ldq, f, M, K, Kq, G, vec ? 1 : 0);
+  } else if (dtype == 1) {
+    quantize_rows_kernel<__nv_bfloat16><<<blocks, kQThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), ldx, q, ldq, f, M, K, Kq, G, vec ? 1 : 0);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ Attention itself goes through kernel 6 (ROADMAP.md, Queue 2;
 call over the whole sequence, a decode step one ``ops.flash_attention_decode``
 call over the cache, each with the layer's mask.  On the card both are the
 hand-written CUDA kernels, on the CPU their plain versions.  The
-projections go through ``linear_or_quant``, so int8 weights reach the
-``quant_matmul`` kernel.
+projections go through ``linear_or_quant`` (q, k and v as one group through
+``linear_or_quant_group``), so int8 weights reach the ``quant_matmul``
+kernels through ``ops.quant_linear``.
 
 Where the port differs in form:
 
@@ -50,7 +51,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig, BlockKind
-from repro_torch.models.layers.quant import linear_or_quant
+from repro_torch.models.layers.quant import linear_or_quant, linear_or_quant_group
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.params import bias as bias_init
 from repro_torch.models.params import linear
@@ -169,11 +170,10 @@ def attn_apply(
     hd = cfg.resolved_head_dim
     rope_on = use_rope and kind != BlockKind.ATTN_NOPE
 
-    q = linear_or_quant(x, params["wq"], "bsd,dhk->bshk")
+    q, k, v = linear_or_quant_group(x, (params["wq"], params["wk"], params["wv"]),
+                                    ("bsd,dhk->bshk",) * 3)
     if "bq" in params:
         q = q + params["bq"]
-    k = linear_or_quant(x, params["wk"], "bsd,dhk->bshk")
-    v = linear_or_quant(x, params["wv"], "bsd,dhk->bshk")
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]

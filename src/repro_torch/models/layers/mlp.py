@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers.quant import linear_or_quant
+from repro_torch.models.layers.quant import linear_or_quant, linear_or_quant_group
 from repro_torch.models.params import linear
 
 __all__ = ["mlp_init", "mlp_apply"]
@@ -33,9 +33,9 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype):
 
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if "w_gate" in params:
-        g = F.silu(linear_or_quant(x, params["w_gate"], "bsd,df->bsf", fp32_out=True))
-        u = linear_or_quant(x, params["w_up"], "bsd,df->bsf", fp32_out=True)
-        h = (g * u).to(x.dtype)
+        g, u = linear_or_quant_group(x, (params["w_gate"], params["w_up"]),
+                                     ("bsd,df->bsf",) * 2, fp32_out=True)
+        h = (F.silu(g) * u).to(x.dtype)
     else:
         h = F.gelu(linear_or_quant(x, params["w_up"], "bsd,df->bsf", fp32_out=True),
                    approximate="tanh").to(x.dtype)

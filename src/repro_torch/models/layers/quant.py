@@ -7,8 +7,14 @@ scales.  Both carry any leading stacked layer axis, and
 slices its pytree children.
 
 Layers dispatch on type: a plain tensor keeps the literal einsum, a
-``QTensor`` goes through ``ops.quant_matmul`` (the CUDA kernel on the card,
-its exact plain version on the CPU).
+``QTensor`` goes through ``ops.quant_linear`` (the CUDA kernels on the card,
+their exact plain versions on the CPU): the reference's ``quantize_rows`` →
+``quant_matmul`` → ``astype(x.dtype)``, bit for bit.  Projections that read
+the same input (q/k/v, gate/up) go through :func:`linear_or_quant_group`,
+one ``quant_linear`` call for the group: the reference has no grouped call,
+and grouping changes no bit, because the activation quantization is per
+row and each product is independent.  It saves the repeated quantization
+of x, and at a decode step the group is one kernel launch.
 
 Weight layout convention (true for every projection in ``models/layers``):
 the *contracted* axes lead and the *output-channel* axes trail, so
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.kernels import ops
 
-__all__ = ["QTensor", "quantize_weight", "linear_or_quant",
+__all__ = ["QTensor", "quantize_weight", "linear_or_quant", "linear_or_quant_group",
            "quantize_model_params"]
 
 
@@ -85,17 +91,18 @@ def quantize_weight(w: torch.Tensor, n_contract: int,
     return QTensor.from_q(q, scale, n_contract, n_batch)
 
 
-def _quant_contract(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """Contract ``x``'s trailing ``n_contract`` axes against ``w``'s leading
-    ones as one 2-D product: quantize the activation rows on the fly, run
-    ``quant_matmul`` against the (N, K) weight, dequantize in its epilogue,
-    and return in ``x``'s dtype, as the reference does."""
-    nc = w.n_contract
-    K = math.prod(w.shape[:nc])
-    out_shape = w.shape[nc:]
-    xq, xs = ops.quantize_rows(x.reshape(-1, K))
-    out = ops.quant_matmul(xq, xs, w.qt.t(), w.scale.reshape(-1))
-    return out.reshape(tuple(x.shape[:x.ndim - nc]) + out_shape).to(x.dtype)
+def _quant_contract(x: torch.Tensor, ws) -> list:
+    """Contract ``x``'s trailing ``n_contract`` axes against the leading ones
+    of each ``QTensor`` of ``ws`` (all of one ``n_contract`` and K) as 2-D
+    products: ``quant_linear`` quantizes the activation rows, runs the
+    products against the (N, K) weights, dequantizes in their epilogue and
+    returns ``x``'s dtype, as the reference does."""
+    nc = ws[0].n_contract
+    K = math.prod(ws[0].shape[:nc])
+    lead = tuple(x.shape[:x.ndim - nc])
+    outs = ops.quant_linear(x.reshape(-1, K),
+                            [(w.qt.t(), w.scale.reshape(-1)) for w in ws])
+    return [o.reshape(lead + w.shape[nc:]) for o, w in zip(outs, ws)]
 
 
 def linear_or_quant(x: torch.Tensor, w, eq: str,
@@ -108,10 +115,20 @@ def linear_or_quant(x: torch.Tensor, w, eq: str,
     A ``QTensor`` ignores it and returns ``x``'s dtype, as the reference's
     does."""
     if isinstance(w, QTensor):
-        return _quant_contract(x, w)
+        return _quant_contract(x, [w])[0]
     if fp32_out:
         return torch.einsum(eq, x.float(), w.float())
     return torch.einsum(eq, x, w)
+
+
+def linear_or_quant_group(x: torch.Tensor, ws, eqs, fp32_out: bool = False) -> list:
+    """:func:`linear_or_quant` of ``x`` with each weight of ``ws`` (and its
+    einsum of ``eqs``), with the ``QTensor``s of one contraction in one
+    ``quant_linear`` call.  Plain tensors keep their einsums."""
+    quant = all(isinstance(w, QTensor) for w in ws)
+    if quant and len({(w.n_contract, w.shape[:w.n_contract]) for w in ws}) == 1:
+        return _quant_contract(x, list(ws))
+    return [linear_or_quant(x, w, eq, fp32_out) for w, eq in zip(ws, eqs)]
 
 
 # weight name → n_contract, per module; everything absent stays as it is

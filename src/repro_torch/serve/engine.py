@@ -21,8 +21,9 @@ Device work is four functions (the reference jits them):
 Every RMSNorm goes through the ``rmsnorm`` kernel, and a Mamba-2 prefill
 runs the ``ssd_chunk_scan`` kernel once a layer.  With
 ``cfg.quantize="int8"`` every attention and MLP projection is a
-``QTensor`` and goes through the ``quant_matmul`` kernel: 7 launches a
-layer for each prefill wave and each decode step.
+``QTensor`` and goes through ``ops.quant_linear``: a decode step launches
+``qmm_group`` 4 times a layer (q/k/v, o, gate/up, down), a prefill wave
+``quantize_rows`` 4 times and ``qmm_wgmma`` 7 times a layer.
 
 Slot admission, retirement and backfill are host-side and owned by
 :class:`repro_torch.serve.scheduler.SlotScheduler`.  ``run_static`` keeps
@@ -303,7 +304,7 @@ class ServeEngine:
         sequence to a ``pad_to`` bucket, batch to a wave bucket — 1 for a
         single-request backfill, the slot count otherwise, with dummy
         length-1 rows whose scatter destination is out of range (dropped).
-        On the card that keeps the ``quant_matmul`` shapes, M = wave bucket
+        On the card that keeps the ``quant_linear`` shapes, M = wave bucket
         × sequence bucket, to a few per sequence bucket."""
         slots = np.asarray([s for s, _ in admits], np.int32)
         reqs = [r for _, r in admits]

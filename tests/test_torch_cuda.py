@@ -37,6 +37,7 @@ from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans_assign as tka
 from repro_torch.kernels import logreg_grad as tlg
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import ssd_scan as tss
@@ -94,6 +95,7 @@ def test_cuda_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert tk.launch_counts() == {"logreg_margin": 6, "logreg_xt_z": 6,
                                   "kmeans_assign": 6, "quant_matmul": 0,
+                                  "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
                                   "lm_head": 0}
@@ -226,6 +228,103 @@ def test_quant_matmul_prefill_form_at_127_and_full_depth(M, N):
     assert torch.equal(tqm.quant_matmul(*ops), tqm.quant_matmul_plain(*ops))
 
 
+def _x_rows(gen, M, K, dtype, extreme=False, ties=False, stride=0):
+    """x (M, K) on the card, viewed with row stride K + stride; with ties, row
+    0 has max |x| 127 (scale exactly 1) and values k + 0.5, row 1 is zero."""
+    x = torch.randn(M, K + stride, generator=gen, device="cuda") * 3
+    if extreme:
+        x = torch.where(x > 0, 127.0, -127.0)
+    if ties:
+        x[0, :K] = (torch.arange(K, device="cuda") % 254 - 127) + 0.5
+        x[0, 0] = 127.0
+        if M > 1:
+            x[1] = 0.0
+    return x.to(dtype)[:, :K]
+
+
+def _int8_group(gen, K, Ns, extreme=False):
+    group = []
+    for N in Ns:
+        if extreme:
+            wt = torch.full((N, K), -127, dtype=torch.int8, device="cuda")
+        else:
+            wt = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                               dtype=torch.int8)
+        group.append((wt.t(), torch.rand(N, generator=gen, device="cuda") * 0.02 + 1e-3))
+    return group
+
+
+# groups of 1-3 weights: Qwen2's q/k/v, gate/up and down, ragged K (1537,
+# 255) and ragged widths (1, 129, 255)
+QUANT_GROUPS = [(1536, (1536, 256, 256)), (1536, (8960, 8960)), (8960, (1536,)),
+                (1537, (1, 129, 255)), (255, (129, 255))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5, 8, 16, 17, 33])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_linear_kernels_match_plain_version(M, dtype):
+    """``quant_linear`` (``qmm_group`` at M <= 16; ``quantize_rows_kernel``
+    and ``qmm_wgmma`` above) bitwise against its plain version, for groups
+    of 1-3 weights, ragged K and N, a row-strided x, ±127 operands and tie
+    and zero rows; launches counted as the wrapper documents."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    cases = [dict(K=K, Ns=Ns) for K, Ns in QUANT_GROUPS]
+    cases += [dict(K=1536, Ns=(1536, 256), stride=5), dict(K=8960, Ns=(255,), extreme=True),
+              dict(K=1537, Ns=(300,), ties=True)]
+    tk.reset_launch_counts()
+    for c in cases:
+        x = _x_rows(gen, M, c["K"], dtype, c.get("extreme", False), c.get("ties", False),
+                    c.get("stride", 0))
+        group = _int8_group(gen, c["K"], c["Ns"], c.get("extreme", False))
+        got = tqm.quant_linear(x, group)
+        want = tqm.quant_linear_plain(x, group)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a, b), (M, c)
+    counts = tk.launch_counts()
+    prefill = M > tqm.SKINNY_M
+    assert counts["quant_linear"] == sum(len(c["Ns"]) if prefill else 1 for c in cases)
+    assert counts["quantize_rows"] == (len(cases) if prefill else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5, 8, 16, 17, 33, 7168])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_rows_kernel_matches_plain_version(M, dtype):
+    """``ops.quantize_rows`` on the card (``quantize_rows_kernel``) bitwise
+    against its plain version at K = 1536, 8960 and ragged 1537 and 255, a
+    row-strided x, ±127 and tie and zero rows; one launch a call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(M + 1)
+    tk.reset_launch_counts()
+    calls = 0
+    for K, kw in ((1536, {}), (8960, {}), (1537, dict(ties=True)), (255, dict(stride=3)),
+                  (1536, dict(extreme=True))):
+        x = _x_rows(gen, M, K, dtype, **kw)
+        xq, xs = tops.quantize_rows(x)
+        pq, ps = tqm.quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        calls += 1
+        assert torch.equal(xq, pq) and torch.equal(xs, ps), (M, K, kw)
+    assert tk.launch_counts()["quantize_rows"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Ns", [(1536, (1536, 256, 256)), (8960, (1536,))])
+def test_quant_linear_rows_are_batch_invariant(K, Ns):
+    """Row m's outputs are bitwise the same at M = 1 and at M = 8."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(K)
+    x = _x_rows(gen, 8, K, torch.bfloat16)
+    group = _int8_group(gen, K, Ns)
+    eight = tqm.quant_linear(x, group)
+    for m in range(8):
+        one = tqm.quant_linear(x[m:m + 1], group)
+        assert all(torch.equal(a[0], b[m]) for a, b in zip(one, eight)), m
+
+
 @pytest.mark.cuda
 def test_int8_lm_engine_on_card_matches_slot_at_a_time():
     """Qwen2-1.5B's SMOKE widths with int8 weights on the card: continuous
@@ -249,9 +348,19 @@ def test_int8_lm_engine_on_card_matches_slot_at_a_time():
                 for n, m in zip((5, 9, 12, 7, 14), (3, 8, 5, 6, 4))]
 
     tk.reset_launch_counts()
+    tqm.quant_linear.shapes.clear()
     served = eng.run(reqs())
     forwards = eng.calls["prefill_waves"] + eng.calls["decode_steps"]
-    assert tk.launch_counts()["quant_matmul"] == 7 * cfg.num_layers * forwards > 0
+    counts = tk.launch_counts()
+    groups = tqm.quant_linear.shapes
+    # 4 group calls a layer a forward: one launch each at M <= 16, one per
+    # weight (and one quantize_rows) above
+    assert sum(groups.values()) == 4 * cfg.num_layers * forwards > 0
+    assert counts["quant_linear"] == sum(
+        n * (1 if M <= tqm.SKINNY_M else len(Ns)) for (M, _, Ns), n in groups.items())
+    assert counts["quantize_rows"] == sum(
+        n for (M, _, _), n in groups.items() if M > tqm.SKINNY_M) > 0
+    assert counts["quant_matmul"] == 0
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
 

@@ -145,8 +145,11 @@ def test_cpu_tensors_use_the_plain_version_and_count_no_launch():
     tlg.logreg_xt_z(X, tlg.logreg_margin(X, torch.zeros(2, 8), torch.zeros(4)))
     tka.kmeans_assign(X, torch.ones(3, 4))
     tk.KERNELS["lm_head"](X[0], torch.ones(5, 4), tied=True)
+    tk.KERNELS["quantize_rows"](X[0])
+    tk.KERNELS["quant_linear"](X[0], [(torch.ones(4, 3, dtype=torch.int8), torch.ones(3))])
     assert tk.launch_counts() == {"logreg_margin": 0, "logreg_xt_z": 0,
                                   "kmeans_assign": 0, "quant_matmul": 0,
+                                  "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
                                   "lm_head": 0}

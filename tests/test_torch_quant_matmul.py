@@ -264,3 +264,143 @@ def test_quantize_model_params_matches_reference_tree(mode):
                                       np.asarray(jleaf.scale))
     with pytest.raises(ValueError, match="quantize="):
         tquant.quantize_model_params(ttree, "fp8")
+
+
+# --------------------------------------------------------------------------- #
+# quant_linear: the reference's _quant_contract for a group of weights
+# --------------------------------------------------------------------------- #
+def _group(rng, k, ns):
+    return [(rng.integers(-127, 128, size=(k, n)).astype(np.int8),
+             rng.uniform(1e-3, 2e-2, size=(n,)).astype(np.float32)) for n in ns]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ns", [(96,), (160, 40), (128, 32, 32)])
+def test_quant_linear_plain_bitwise_vs_reference_contract(ns, dtype):
+    """Each output of a group of 1, 2 and 3 weights is bitwise the
+    reference's ``_quant_contract`` of x with that weight alone (K ≤ 256:
+    the reference's off-TPU fp32 product is exact only while K·127² < 2²⁴)."""
+    rng = np.random.default_rng(len(ns) * 10 + len(dtype))
+    k = 256
+    x = (rng.normal(size=(7, k)) * 2).astype(np.float32)
+    x[2] = 0.0                                       # the 1e-8 floor
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+    group = _group(rng, k, ns)
+    got = tqm.quant_linear_plain(xt, [(torch.from_numpy(q), torch.from_numpy(s))
+                                      for q, s in group])
+    assert len(got) == len(ns)
+    for out, (q, s) in zip(got, group):
+        want = jquant._quant_contract(xj, jquant.QTensor(jnp.asarray(q), jnp.asarray(s), 1))
+        assert out.dtype == xt.dtype and out.shape == tuple(want.shape)
+        assert np.array_equal(out.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    # the wrapper on a CPU tensor is the plain version, and counts nothing
+    tk.reset_launch_counts()
+    same = tops.quant_linear(xt, [(torch.from_numpy(q), torch.from_numpy(s))
+                                  for q, s in group])
+    assert all(torch.equal(a, b) for a, b in zip(same, got))
+    assert tk.launch_counts()["quant_linear"] == tk.launch_counts()["quantize_rows"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_plain_ties_and_zero_rows(dtype):
+    """Rows whose max |x| is 127 have a scale of exactly 1 (1 + 1e-8 rounds
+    to 1 in fp32), so values k + 0.5, which bf16 holds exactly, land on
+    ties that must round half to even; all-zero rows take the 1e-8 floor."""
+    k = np.arange(-126, 127, dtype=np.float32)
+    row = np.concatenate([k + 0.5, [127.0, -127.0, 0.0]]).astype(np.float32)
+    x = np.stack([row, -row[::-1], np.zeros_like(row), row / 64])
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+    qj, sj = jops.quantize_rows(xj)
+    qt, st = tqm.quantize_rows_plain(xt)
+    assert np.array_equal(qt.numpy(), np.asarray(qj))
+    assert np.array_equal(st.numpy(), np.asarray(sj))
+    assert st[0].item() == 1.0 and st[2].item() == np.float32(1e-8)
+    # half to even: 0.5 → 0, 1.5 → 2, 2.5 → 2, -0.5 → 0, -1.5 → -2
+    halves = dict(zip(row[:253].tolist(), qt[0, :253].tolist()))
+    assert [halves[v] for v in (0.5, 1.5, 2.5, -0.5, -1.5)] == [0, 2, 2, 0, -2]
+    assert qt[2].abs().max().item() == 0
+
+
+def test_shape_validation_of_the_group_call():
+    x = torch.zeros(4, 8)
+    w = (torch.zeros(8, 3, dtype=torch.int8), torch.ones(3))
+    for bad in ([], [w] * 4, [(w[0][:5], w[1])], [(w[0], w[1][:2])]):
+        with pytest.raises(ValueError):
+            tops.quant_linear(x, bad)
+    with pytest.raises(ValueError, match="2-D"):
+        tops.quant_linear(x[None], [w])
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tops.quant_linear(x.to("meta"), [w])
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tops.quantize_rows(x.to("meta"))
+
+
+@pytest.fixture
+def grouped_calls(monkeypatch):
+    """The sizes of the groups the layers hand to ``ops.quant_linear``."""
+    sizes = []
+    inner = tops.quant_linear
+
+    def spy(x, weights):
+        sizes.append(len(weights))
+        return inner(x, weights)
+
+    monkeypatch.setattr(tops, "quant_linear", spy)
+    return sizes
+
+
+@pytest.mark.parametrize("layer", ["attention", "mlp"])
+def test_int8_layers_through_the_grouped_call_match_the_reference(layer, grouped_calls):
+    """Qwen2's SMOKE attention and SwiGLU MLP with int8 weights: q/k/v and
+    gate/up each go through one ``quant_linear`` call, and the layers match
+    the reference's (held at the layer tolerance of tests/test_torch_lm.py,
+    1e-5: the int8 products are exact on both sides and the fp32 around
+    them sums in other orders)."""
+    from repro.configs import get_smoke as jget_smoke
+    from repro.models.config import BlockKind as JKind
+    from repro.models.layers import attention as jattn
+    from repro.models.layers import mlp as jmlp
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.config import BlockKind
+    from repro_torch.models.layers import attention as tattn
+    from repro_torch.models.layers import mlp as tmlp
+
+    jcfg, tcfg = jget_smoke("qwen2-1.5b"), get_smoke("qwen2-1.5b")
+    if layer == "attention":
+        jp, _ = jattn.attn_init(jax.random.PRNGKey(3), jcfg, jnp.float32)
+        specs = {"wq": 1, "wk": 1, "wv": 1, "wo": 2}
+    else:
+        jp, _ = jmlp.mlp_init(jax.random.PRNGKey(2), jcfg, jnp.float32)
+        specs = {"w_gate": 1, "w_up": 1, "w_down": 1}
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    for name, nc in specs.items():
+        jp[name] = jquant.quantize_weight(jp[name], nc)
+        tp[name] = tquant.quantize_weight(tp[name], nc)
+    x = np.random.default_rng(4).normal(size=(2, 12, jcfg.d_model)).astype(np.float32)
+    if layer == "attention":
+        want, _ = jattn.attn_apply(jp, jnp.asarray(x), cfg=jcfg, kind=JKind.ATTN,
+                                   mode="prefill", positions=jnp.arange(12))
+        got, _ = tattn.attn_apply(tp, torch.from_numpy(x), cfg=tcfg, kind=BlockKind.ATTN,
+                                  mode="prefill", positions=torch.arange(12))
+        assert grouped_calls == [3, 1]
+    else:
+        want = jmlp.mlp_apply(jp, jnp.asarray(x))
+        got = tmlp.mlp_apply(tp, torch.from_numpy(x))
+        assert grouped_calls == [2, 1]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_group_dispatch_keeps_plain_einsums():
+    """Plain weights, or a group whose contractions differ, keep one
+    ``linear_or_quant`` each: the same values as called one by one."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 16)).astype(np.float32))
+    plain = [torch.from_numpy(rng.normal(size=(16, n)).astype(np.float32)) for n in (8, 4)]
+    q = tquant.quantize_weight(plain[0], 1)
+    eqs = ("bsd,df->bsf",) * 2
+    for ws in (plain, [q, plain[1]]):
+        got = tquant.linear_or_quant_group(x, ws, eqs)
+        want = [tquant.linear_or_quant(x, w, eq) for w, eq in zip(ws, eqs)]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
