@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import fixed_linear as _fixed_linear
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import kmeans_assign as _kmeans_assign
 from repro_torch.kernels import lm_head as _lm_head
@@ -28,9 +29,11 @@ KERNELS = {
     "quantize_rows": _quant_matmul.quantize_rows,
     "rmsnorm": _rmsnorm.rmsnorm,
     "ssd_chunk_scan": _ssd_scan.ssd_chunk_scan,
+    "ssd_decode": _ssd_scan.ssd_decode,
     "flash_attention": _flash_attention.flash_attention,
     "flash_attention_decode": _flash_attention.flash_attention_decode,
     "lm_head": _lm_head.lm_head,
+    "fixed_linear": _fixed_linear.fixed_linear,
 }
 
 
@@ -40,8 +43,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every launch count to 0, and clear the prefill form's route
-    counts (``flash_attention.routes``)."""
+    """Set every launch count to 0, and clear the route counts of
+    ``flash_attention``'s prefill form and ``fixed_linear`` (``.routes``)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    _flash_attention.flash_attention.routes.clear()
+    for fn in (_flash_attention.flash_attention, _fixed_linear.fixed_linear):
+        fn.routes.clear()

@@ -5,10 +5,11 @@ No counterpart in ``src/repro/``: Pallas kernels are traced in Python, while
 the port's kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/``,
 each exposing a plain C launcher.  A source is compiled at its first use
 into ``build/kernels/`` at the root of the checkout, one shared library per
-source, named by a hash of the source and flags so that an edited source
-is rebuilt.  :func:`build` compiles several sources in parallel (one
-``nvcc`` each) and returns what ``-Xptxas -v`` reported, which is kept
-beside each library (``.log``) for a later call that finds it built.
+source, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so that an edited source or header is rebuilt.
+:func:`build` compiles several sources in parallel (one ``nvcc`` each) and
+returns what ``-Xptxas -v`` reported, which is kept beside each library
+(``.log``) for a later call that finds it built.
 Nothing is built when a module is imported: the CPU tests import every
 module and have no ``nvcc``.
 """
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: every CUDA source of the package, by stem
 SOURCES = ("logreg_grad", "kmeans_assign", "quant_matmul", "rmsnorm", "ssd_scan",
-           "flash_attention", "lm_head")
+           "flash_attention", "lm_head", "fixed_linear")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,7 +63,8 @@ def find_nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

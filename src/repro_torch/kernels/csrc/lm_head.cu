@@ -28,7 +28,9 @@
 //     chain of D / 16 steps in index order, fixed by D.  An output element of
 //     mma is its own dot product, so logit (m, v) does not depend on M, on
 //     the column x's row lands in, or on the other rows of the tile: row m
-//     is bitwise the same at M = 1 and M = 8.
+//     is bitwise the same at M = 1 and M = 8.  The mma step and the streaming
+//     load are common.cuh's (port::mma_bf16_add, port::ld_stream), which
+//     fixed_linear.cu's decode products share.
 //   * fp32, tied: tied_kernel on the SIMT pipe (IEEE fp32 FMA; the port's
 //     rule keeps fp32 operands off the tensor cores and TF32 off).  D is cut
 //     into chunks of 8 elements; chunk c belongs to lane c % 32 of a warp,
@@ -68,6 +70,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -242,30 +246,8 @@ int mma_pitch(int D) {
   return bytes % 128 ? bytes : bytes + 64;
 }
 
-// 16 bytes of the table, not kept in L1 (each is read once).  The loads and
-// the mma's are volatile, so they keep their program order: a batch's loads
-// stay ahead of the mma's of the batch before it.
-__device__ __forceinline__ uint4 ld_stream(const __nv_bfloat16* p) {
-  uint4 r;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-      : "l"(p));
-  return r;
-}
-
-// acc += the m16n8k16 product of A (a0..a3) and B (b0, b1), summed by the
-// tensor core from zero.
-__device__ __forceinline__ void mma_add(float (&acc)[4], uint32_t a0, uint32_t a1,
-                                        uint32_t a2, uint32_t a3, uint32_t b0,
-                                        uint32_t b1) {
-  float d[4];
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
-}
+using port::ld_stream;
+using port::mma_bf16_add;
 
 // grid (blocks, M-tiles of 8), kMmaThreads threads, 8 * pitch bytes of
 // dynamic shared memory.  A warp walks its 16-row vocab tiles (grid-stride)
@@ -342,8 +324,8 @@ tied_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       for (int u = 0; u < kGroups; ++u) {
         if (q0 + u < groups) {
           const uint4 b = *reinterpret_cast<const uint4*>(xrow + (q0 + u) * 64);
-          mma_add(acc, cur[u][0].x, cur[u][1].x, cur[u][0].y, cur[u][1].y, b.x, b.y);
-          mma_add(acc, cur[u][0].z, cur[u][1].z, cur[u][0].w, cur[u][1].w, b.z, b.w);
+          mma_bf16_add(acc, cur[u][0].x, cur[u][1].x, cur[u][0].y, cur[u][1].y, b.x, b.y);
+          mma_bf16_add(acc, cur[u][0].z, cur[u][1].z, cur[u][0].w, cur[u][1].w, b.z, b.w);
         }
       }
 #pragma unroll

@@ -62,7 +62,7 @@
 //     at M <= 16).
 //   * M > 16 (prefill): quantize_rows_kernel, one launch per group: a row per
 //     group of 32-256 threads (by K), each thread holding its 16-byte chunks
-//     in registers (up to 8), so x is read once and xq written once.  Then
+//     in registers (up to 5), so x is read once and xq written once.  Then
 //     qmm_wgmma once per weight, on wgmma.m64nNk32 (s8 x s8 -> s32), the only
 //     route to the card's full tensor-core rate: a persistent grid of one
 //     block per SM over 128 x BN output tiles (BN 256, or 128 where that
@@ -635,12 +635,16 @@ qmm_group(const __grid_constant__ Group grp, const TIn* __restrict__ x, long lon
 // memory when it spans warps); then each thread quantizes its chunks from
 // registers (a row longer than G·kQChunks chunks is read again) and writes
 // them.  xq has row stride ldq and Kq >= K columns, those past K zero.
+// Five chunks a thread (not eight) keep it at 48 registers, 5 blocks an SM:
+// a row's loads, maxima and stores form one chain, so the kernel is held by
+// how many rows an SM has in flight (PERF.md has the times; a persistent
+// grid that staged each warp's next row through shared memory read slower).
 // ------------------------------------------------------------------------- //
 constexpr int kQThreads = 256;
-constexpr int kQChunks = 8;                  // chunks a thread holds at once
+constexpr int kQChunks = 5;                  // chunks a thread holds at once
 
 template <typename T>
-__global__ void __launch_bounds__(kQThreads, 3)
+__global__ void __launch_bounds__(kQThreads, 5)
 quantize_rows_kernel(const T* __restrict__ x, long long ldx, int8_t* __restrict__ xq,
                      long long ldq, float* __restrict__ xs, int M, int K, int Kq, int G,
                      int vec) {
@@ -684,13 +688,11 @@ quantize_rows_kernel(const T* __restrict__ x, long long ldx, int8_t* __restrict_
   int8_t* qr = xq + row * ldq;
   for (int c0 = 0; c0 < nc; c0 += span) {
     if (nc > span) load(c0);                 // one span: still in registers
-#pragma unroll 1
+#pragma unroll
     for (int i = 0; i < kQChunks; ++i) {     // a chunk at a time
       const int c = c0 + gl + i * G;
       if (c >= nc) break;
-      uint4 vi = v[0];
-#pragma unroll
-      for (int k = 1; k < kQChunks; ++k) vi = k == i ? v[k] : vi;
+      const uint4 vi = v[i];
       uint32_t packed[E / 4];
       quantize_chunk<T>(vi, s, inv, packed);
       int8_t* dst = qr + c * E;

@@ -31,6 +31,11 @@
 //   * the second pass re-reads the row (from L1/L2: a 2560-wide bf16 row is
 //     5 KB) and writes it scaled, so device memory sees x once.
 //
+// The statistics and the scaling are common.cuh's (port::sq_add,
+// port::warp_sum, port::rms_inv, port::rms_scale), which the norm prologues
+// of fixed_linear.cu and quant_matmul.cu's qmm_group share: a row they
+// normalise is bitwise the row this kernel writes.
+//
 // X and out are (rows, d) contiguous, w (d,) fp32 or bf16.  The C launcher takes
 // PyTorch's current stream, allocates nothing and returns cudaGetLastError().
 
@@ -39,10 +44,12 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = port::kRmsThreads;
+constexpr int kWarps = port::kRmsWarps;
 
 // elements in a 16-byte chunk
 template <typename T>
@@ -56,8 +63,7 @@ struct Chunk<__nv_bfloat16> {
   static constexpr int n = 8;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+using port::to_f32;
 __device__ __forceinline__ void store(float v, float* o) { *o = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* o) { *o = __float2bfloat16(v); }
 
@@ -70,17 +76,11 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ row, long long 
     const uint4 raw = *reinterpret_cast<const uint4*>(row + e0);
     const T* p = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = to_float(p[i]);
+    for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
   } else {
 #pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = e0 + i < d ? to_float(row[e0 + i]) : 0.f;
+    for (int i = 0; i < V; ++i) v[i] = e0 + i < d ? to_f32(row[e0 + i]) : 0.f;
   }
-}
-
-// the weight of element e as fp32: w[e], or 1 + w[e] (one fp32 add)
-template <bool kPlusOne, typename W>
-__device__ __forceinline__ float weight(const W* __restrict__ w, long long e) {
-  return kPlusOne ? 1.0f + to_float(w[e]) : to_float(w[e]);
 }
 
 // grid (rows); block kThreads
@@ -98,20 +98,14 @@ rmsnorm_kernel(const T* __restrict__ X, const W* __restrict__ w, T* __restrict__
     float v[V];
     load_chunk(x, e0, d, vec, v);
 #pragma unroll
-    for (int i = 0; i < V; ++i) s += v[i] * v[i];
+    for (int i = 0; i < V; ++i) s = port::sq_add(s, v[i]);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  s = port::warp_sum(s);
   __shared__ float part[kWarps];
   __shared__ float inv;
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = part[0];
-#pragma unroll
-    for (int i = 1; i < kWarps; ++i) t += part[i];
-    inv = 1.0f / sqrtf(t / static_cast<float>(d) + eps);
-  }
+  if (threadIdx.x == 0) inv = port::rms_inv(part, d, eps);
   __syncthreads();
   const float r = inv;
 
@@ -122,12 +116,16 @@ rmsnorm_kernel(const T* __restrict__ X, const W* __restrict__ w, T* __restrict__
       uint4 raw;
       T* p = reinterpret_cast<T*>(&raw);
 #pragma unroll
-      for (int i = 0; i < V; ++i) store(v[i] * r * weight<kPlusOne>(w, e0 + i), p + i);
+      for (int i = 0; i < V; ++i) {
+        store(port::rms_scale(v[i], r, port::norm_weight(w, e0 + i, kPlusOne)), p + i);
+      }
       *reinterpret_cast<uint4*>(o + e0) = raw;
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        if (e0 + i < d) store(v[i] * r * weight<kPlusOne>(w, e0 + i), o + e0 + i);
+        if (e0 + i < d) {
+          store(port::rms_scale(v[i], r, port::norm_weight(w, e0 + i, kPlusOne)), o + e0 + i);
+        }
       }
     }
   }

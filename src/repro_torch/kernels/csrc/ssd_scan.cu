@@ -95,10 +95,38 @@
 // chunks (ssd_chunk_scan_segment gives seg for a bound).  P <= 64, N <= 128,
 // L divides S.  The C launcher takes PyTorch's current stream, allocates nothing and
 // returns the first nonzero cudaGetLastError() of its launches.
+//
+// The decode step, ssd_decode_kernel: the O(1) recurrence of one token,
+//   dt = softplus(dt_raw + dt_bias),  a = exp(dt * A),  A = -exp(A_log)
+//   h  = h * a + (dt * x) (x) B                       in place
+//   y  = C . h + D * x                                 rounded to x's dtype
+// for every (b, h) of a decode batch, and with z the gate of Mamba-2's gated
+// norm in place of y: g = y * silu(z) in fp32 (y rounded to x's dtype first,
+// silu as PyTorch's CUDA kernel computes it), which the out-projection's
+// fixed_linear launch normalises in its prologue.  It replaces no TPU kernel:
+// the reference's decode is jnp (src/repro/models/layers/ssd.py:106-112), and
+// the port's layer ran it as PyTorch passes that wrote the outer product
+// (21 MB at 8 slots of Mamba2-2.7B's 80 x 64 x 128 heads) and read and wrote
+// the state three times.  The state's update is each operation of the plain
+// version rounded once, in its order (__fmul_rn / __fadd_rn, so nvcc fuses
+// nothing into an fma), and expf / log1pf as PyTorch's CUDA kernels call
+// them: h is bitwise the plain update.  y sums C . h over N in one order
+// fixed by N (an fma chain over a lane's 4 entries, then an xor butterfly),
+// never by B, so a slot's y does not depend on the batch.  What bounds it:
+// h read and written once, 2 * B * H * P * N * 4 bytes, 41.9 MB a layer at
+// 8 slots, 12.5 us at 3.35 TB/s.  The design: a block per (b, h), 8 warps;
+// a warp loads its 8 rows of h (a lane's 16 bytes of each) before it updates
+// any, so 4 KB a warp is in flight, and writes each row back once.
+// Operands: h (B, H, P, N) fp32 contiguous; dt_raw (B, H), Bm and Cm (B, N),
+// dt_bias, A_log, D (H,) fp32; x, z and y (B, H, P) contiguous, fp32 or bf16;
+// g (B, H, P) fp32.  N % 4 == 0, N <= 128.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -644,7 +672,116 @@ bool valid(int B, int H, int S, int P, int N, int L) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// ------------------------------------------------------------------------- //
+// the decode step (header): grid (H, B), kThreads threads
+// ------------------------------------------------------------------------- //
+constexpr int kDecRows = 8;     // rows of h a warp holds at once
+constexpr int kDecWarps = kThreads / 32;
+constexpr int kDecNMax = 128;   // N a warp's lanes cover in one 16-byte load each
+
+__device__ __forceinline__ float dec_in(float v) { return v; }
+__device__ __forceinline__ float dec_in(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void dec_out(float v, float* o) { *o = v; }
+__device__ __forceinline__ void dec_out(float v, __nv_bfloat16* o) { *o = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float dec_round(float v, float) { return v; }
+__device__ __forceinline__ float dec_round(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_decode_kernel(float* __restrict__ h, const float* __restrict__ dt_raw,
+                  const T* __restrict__ x, const float* __restrict__ Bm,
+                  const float* __restrict__ Cm, const float* __restrict__ dt_bias,
+                  const float* __restrict__ A_log, const float* __restrict__ D,
+                  const T* __restrict__ z, T* __restrict__ y, float* __restrict__ g, int H,
+                  int P, int N) {
+  const int hd = blockIdx.x;
+  const long long bh = static_cast<long long>(blockIdx.y) * H + hd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float v = __fadd_rn(dt_raw[bh], dt_bias[hd]);
+  const float dt = __fadd_rn(fmaxf(v, 0.f), log1pf(expf(-fabsf(v))));
+  const float a = expf(__fmul_rn(dt, -expf(A_log[hd])));
+  const float Dh = D[hd];
+  const bool mine = lane < N / 4;                 // this lane's 4 entries of n
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 b4 = mine ? reinterpret_cast<const float4*>(Bm + blockIdx.y * (long long)N)[lane]
+                         : zero;
+  const float4 c4 = mine ? reinterpret_cast<const float4*>(Cm + blockIdx.y * (long long)N)[lane]
+                         : zero;
+  for (int p0 = warp * kDecRows; p0 < P; p0 += kDecWarps * kDecRows) {
+    float4 hv[kDecRows];
+    float xv[kDecRows];
+#pragma unroll
+    for (int j = 0; j < kDecRows; ++j) {
+      const int p = p0 + j;
+      const bool row = p < P;
+      hv[j] = row && mine ? reinterpret_cast<const float4*>(h + (bh * P + p) * N)[lane] : zero;
+      xv[j] = row ? dec_in(x[bh * P + p]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kDecRows; ++j) {
+      const int p = p0 + j;
+      const float dtx = __fmul_rn(dt, xv[j]);
+      float4 n4;
+      n4.x = __fadd_rn(__fmul_rn(hv[j].x, a), __fmul_rn(dtx, b4.x));
+      n4.y = __fadd_rn(__fmul_rn(hv[j].y, a), __fmul_rn(dtx, b4.y));
+      n4.z = __fadd_rn(__fmul_rn(hv[j].z, a), __fmul_rn(dtx, b4.z));
+      n4.w = __fadd_rn(__fmul_rn(hv[j].w, a), __fmul_rn(dtx, b4.w));
+      if (p < P && mine) reinterpret_cast<float4*>(h + (bh * P + p) * N)[lane] = n4;
+      float s = fmaf(c4.x, n4.x, 0.f);
+      s = fmaf(c4.y, n4.y, s);
+      s = fmaf(c4.z, n4.z, s);
+      s = fmaf(c4.w, n4.w, s);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+      if (lane == 0 && p < P) {
+        const float yv = __fadd_rn(s, __fmul_rn(Dh, xv[j]));
+        if (z == nullptr) {
+          dec_out(yv, y + bh * P + p);
+        } else {
+          const float zv = dec_in(z[bh * P + p]);
+          g[bh * P + p] = __fmul_rn(dec_round(yv, T()), port::silu_f32(zv));
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// The decode step (header).  dtype: 0 = fp32 x, z and y, 1 = bf16.  Without
+// z (null) it writes y; with z, the gate g (fp32) in its place.  Returns a
+// cudaError_t as int (0 = launched).
+extern "C" int ssd_decode_launch(int dtype, void* h, const void* dt_raw, const void* x,
+                                 const void* Bm, const void* Cm, const void* dt_bias,
+                                 const void* A_log, const void* D, const void* z, void* y,
+                                 int B, int H, int P, int N, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || P <= 0 || N <= 0 || N % 4 || N > kDecNMax ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned16(h) || !aligned16(Bm) || !aligned16(Cm)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* f[6] = {static_cast<const float*>(dt_raw), static_cast<const float*>(Bm),
+                       static_cast<const float*>(Cm), static_cast<const float*>(dt_bias),
+                       static_cast<const float*>(A_log), static_cast<const float*>(D)};
+  if (dtype == 1) {
+    ssd_decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<float*>(h), f[0], static_cast<const __nv_bfloat16*>(x), f[1], f[2], f[3],
+        f[4], f[5], static_cast<const __nv_bfloat16*>(z), static_cast<__nv_bfloat16*>(y),
+        static_cast<float*>(y), H, P, N);
+  } else {
+    ssd_decode_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<float*>(h), f[0], static_cast<const float*>(x), f[1], f[2], f[3], f[4],
+        f[5], static_cast<const float*>(z), static_cast<float*>(y), static_cast<float*>(y), H,
+        P, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Chunks a segment may hold so that its scratch stays within max_floats
 // (at least 1, at most S / L); -1 for shapes the kernel does not take.

@@ -20,18 +20,23 @@ to XLA, and the port's is a kernel that sums each logit in one order fixed
 by D (``kernels/lm_head.py``).  Nor has ``quant_linear``: it is the
 reference's ``quantize_rows`` → ``quant_matmul`` → ``astype`` for one to
 three weights that read the same x, in one decode launch
-(``kernels/quant_matmul.py``).
+(``kernels/quant_matmul.py``).  Nor have ``fixed_linear`` (the plain-weight
+projections, in one fp32 order fixed by K, optionally behind a norm or
+Mamba-2's gated norm, ``kernels/fixed_linear.py``) and ``ssd_decode`` (the
+SSD recurrence of one decode step, which the reference writes in jnp,
+``kernels/ssd_scan.py``).
 """
 from __future__ import annotations
 
+from repro_torch.kernels.fixed_linear import fixed_linear
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
 from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.lm_head import lm_head
 from repro_torch.kernels.logreg_grad import logreg_grad
 from repro_torch.kernels.quant_matmul import quant_linear, quant_matmul, quantize_rows
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_decode
 
-__all__ = ["flash_attention", "flash_attention_decode", "kmeans_assign", "lm_head",
-           "logreg_grad", "quant_linear", "quant_matmul", "quantize_rows", "rmsnorm",
-           "ssd_chunk_scan"]
+__all__ = ["fixed_linear", "flash_attention", "flash_attention_decode", "kmeans_assign",
+           "lm_head", "logreg_grad", "quant_linear", "quant_matmul", "quantize_rows",
+           "rmsnorm", "ssd_chunk_scan", "ssd_decode"]

@@ -31,6 +31,25 @@ for a CPU tensor, and raises for anything else.
 ``ssd_chunk_scan.launches`` counts wrapper calls that launched the kernel
 (one a call, whatever number of stages) and ``ssd_chunk_scan.shapes``
 counts them by ``(B, H, S, P, N, L, with h0)``.
+
+:func:`ssd_decode` is the decode step's O(1) recurrence in one launch a
+layer (``ssd_decode_kernel`` in the same source; no TPU kernel: the
+reference's decode is jnp, ``src/repro/models/layers/ssd.py:106-112``):
+
+    dt = softplus(dt_raw + dt_bias)     a = exp(dt · A)     A = −exp(A_log)
+    h ← a · h + (dt · x) ⊗ B            (in place)
+    y = C · h + D · x                   (in x's dtype)
+
+and, given z, the gate of Mamba-2's gated norm in place of y: ``g =
+y.float() * silu(z.float())`` in fp32 (the layer's ``_gated_norm`` before
+its RMSNorm, which the out-projection's ``fixed_linear`` launch takes in
+its prologue).  The state's update is bitwise the plain version's (each
+operation rounded once, in its order), y is summed over N in one fp32 order
+fixed by N, so a slot's y does not depend on the batch, and silu is
+PyTorch's CUDA arithmetic.  Its plain version is the layer's PyTorch passes
+with y from an fp64 sum rounded to fp32.  ``ssd_decode.launches`` counts
+launches and ``ssd_decode.shapes`` counts them by ``(B, H, P, N, dtype,
+gated)``.
 """
 from __future__ import annotations
 
@@ -39,10 +58,12 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-__all__ = ["ssd_chunk_scan", "ssd_chunk_scan_plain"]
+__all__ = ["softplus", "ssd_chunk_scan", "ssd_chunk_scan_plain", "ssd_decode",
+           "ssd_decode_plain"]
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -50,6 +71,8 @@ _I64 = ctypes.c_longlong
 _lib_handle = None
 #: widths the kernel's shared-memory tiles hold
 P_MAX, N_MAX = 64, 128
+#: the decode kernel's widest N (a warp's lanes cover it in one load each)
+DECODE_N_MAX = 128
 #: bound on the stages' scratch beside the (B, H, S) running sums, unless
 #: one chunk alone needs more
 WORKSPACE_BYTES = 256 << 20
@@ -66,6 +89,8 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_chunk_scan_segment.restype = _I32
         lib.ssd_chunk_scan_workspace.argtypes = [_I32] * 7
         lib.ssd_chunk_scan_workspace.restype = _I64
+        lib.ssd_decode_launch.argtypes = [_I32] + [_P] * 10 + [_I32] * 4 + [_P]
+        lib.ssd_decode_launch.restype = _I32
         _lib_handle = lib
     return _lib_handle
 
@@ -168,3 +193,89 @@ def ssd_chunk_scan(log_a: torch.Tensor, dx: torch.Tensor, Bm: torch.Tensor,
 
 ssd_chunk_scan.launches = 0
 ssd_chunk_scan.shapes = collections.Counter()
+
+
+def softplus(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(v, 0)``) in its own arithmetic;
+    ``F.softplus`` switches to the identity above 20 instead."""
+    return v.clamp(min=0.0) + torch.log1p(torch.exp(-v.abs()))
+
+
+def _check_decode(h, dt_raw, x, Bm, Cm, dt_bias, A_log, D, z=None) -> None:
+    if h.ndim != 4:
+        raise ValueError(f"h{tuple(h.shape)} must be (B, H, P, N)")
+    B, H, P, N = h.shape
+    want = {"dt_raw": (dt_raw, (B, H)), "x": (x, (B, H, P)), "Bm": (Bm, (B, N)),
+            "Cm": (Cm, (B, N)), "dt_bias": (dt_bias, (H,)), "A_log": (A_log, (H,)),
+            "D": (D, (H,))}
+    if z is not None:
+        want["z"] = (z, (B, H, P))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"shape mismatch: {name}{tuple(t.shape)} vs {shape} for "
+                             f"h{tuple(h.shape)}")
+
+
+def ssd_decode_plain(h: torch.Tensor, dt_raw: torch.Tensor, x: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor, dt_bias: torch.Tensor,
+                     A_log: torch.Tensor, D: torch.Tensor,
+                     z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decode step as the SSD layer's PyTorch passes: h updated in place,
+    y = C·h summed in fp64 and rounded to fp32, + D·x, in x's dtype; with z,
+    ``y.float() * silu(z.float())`` in fp32."""
+    _check_decode(h, dt_raw, x, Bm, Cm, dt_bias, A_log, D, z)
+    dt = softplus(dt_raw.float() + dt_bias.float())            # (B, H)
+    a = torch.exp(dt * -torch.exp(A_log.float()))
+    xf = x.float()
+    dtx = dt[..., None] * xf                                   # (B, H, P)
+    h.mul_(a[..., None, None]).add_(dtx[..., None] * Bm.float()[:, None, None, :])
+    y = (h.double() * Cm.double()[:, None, None, :]).sum(-1).float()
+    y = (y + D.float()[None, :, None] * xf).to(x.dtype)
+    return y if z is None else y.float() * F.silu(z.float())
+
+
+def ssd_decode(h: torch.Tensor, dt_raw: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+               D: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode step of the SSD recurrence.  h (B, H, P, N) fp32, updated
+    in place; dt_raw (B, H) (the Δ projection, before its bias); x (B, H, P)
+    fp32 or bf16; Bm, Cm (B, N); dt_bias, A_log, D (H,) → y (B, H, P) in
+    x's dtype, or with z (B, H, P) in x's dtype the fp32 gate
+    ``y.float() * silu(z.float())``."""
+    _check_decode(h, dt_raw, x, Bm, Cm, dt_bias, A_log, D, z)
+    if _build.on_cpu(h):
+        return ssd_decode_plain(h, dt_raw, x, Bm, Cm, dt_bias, A_log, D, z)
+    if z is not None and z.dtype != x.dtype:
+        raise TypeError(f"z must be x's dtype {x.dtype}, got {z.dtype}")
+    for t in (dt_raw, x, Bm, Cm, dt_bias, A_log, D) + (() if z is None else (z,)):
+        if t.device != h.device:
+            raise ValueError(f"operands on {t.device} and {h.device}")
+    if h.dtype != torch.float32 or not h.is_contiguous() or h.data_ptr() % 16:
+        raise ValueError("h must be a contiguous, 16-byte aligned fp32 state (it is "
+                         "updated in place)")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    B, H, P, N = h.shape
+    if N % 4 or N > DECODE_N_MAX or B > 65535:
+        raise ValueError(f"(B, N) = ({B}, {N}): the kernel takes N a multiple of 4 up to "
+                         f"{DECODE_N_MAX} and B up to 65535")
+    f32 = [t.float().contiguous() for t in (dt_raw, Bm, Cm, dt_bias, A_log, D)]
+    f32 = [t if t.data_ptr() % 16 == 0 else t.clone() for t in f32]
+    xc = x.contiguous()
+    zc = None if z is None else z.contiguous()
+    y = torch.empty((B, H, P), dtype=x.dtype if z is None else torch.float32, device=x.device)
+    dt, Bc, Cc, bias, alog, Dc = f32
+    err = _lib().ssd_decode_launch(
+        _build.DTYPE_CODES[x.dtype], h.data_ptr(), dt.data_ptr(), xc.data_ptr(), Bc.data_ptr(),
+        Cc.data_ptr(), bias.data_ptr(), alog.data_ptr(), Dc.data_ptr(),
+        None if zc is None else zc.data_ptr(), y.data_ptr(), B, H, P, N,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_decode launch failed: CUDA error {err}")
+    ssd_decode.launches += 1
+    ssd_decode.shapes[(B, H, P, N, str(x.dtype).split(".")[-1], z is not None)] += 1
+    return y
+
+
+ssd_decode.launches = 0
+ssd_decode.shapes = collections.Counter()

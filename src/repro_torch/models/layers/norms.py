@@ -11,6 +11,13 @@ which the serving engine's continuous batching relies on.  Its plain
 version (the CPU's) rounds the mean to fp32 from an fp64 sum, the
 correctly rounded statistic (``kernels/rmsnorm.py`` says why).
 
+At a decode step the block does not apply its RMSNorm itself: it hands the
+layer a :class:`PreNorm` (the un-normed x and the norm's parameters), and
+the layer's first plain-weight products take it whole, computing the norm
+in their own launch (``ops.fixed_linear``'s ``norm=``), bitwise what
+``rmsnorm`` would hand them.  Any other reader, the int8 groups included,
+applies it with :meth:`PreNorm.apply` (the kernel, exactly as before).
+
 ``layernorm`` serves no configuration the port runs yet (Whisper's
 encoder); it keeps its statistics in fp64, rounded to fp32, the exception
 to the port's fp32 rule that ROADMAP.md's "Rules of the port" records,
@@ -18,14 +25,14 @@ until a kernel of its own takes them over.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.params import bias, ones_vec
 
-__all__ = ["rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm"]
+__all__ = ["PreNorm", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm"]
 
 
 def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None):
@@ -35,6 +42,36 @@ def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None):
 def rmsnorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     return ops.rmsnorm(x, params["scale"], eps=eps, plus_one=True)
+
+
+class PreNorm(NamedTuple):
+    """The model's RMSNorm of ``x`` (``(1 + scale)`` form), not applied yet:
+    a decode step's products fold it into their own launch.  ``shape``,
+    ``dtype`` and ``device`` are x's."""
+    x: torch.Tensor
+    scale: torch.Tensor
+    eps: float
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.x.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @property
+    def norm(self) -> Tuple[torch.Tensor, float, bool]:
+        """The kernels' ``norm=`` argument."""
+        return self.scale, self.eps, True
+
+    def apply(self) -> torch.Tensor:
+        """The normed x, through the ``rmsnorm`` kernel."""
+        return rmsnorm({"scale": self.scale}, self.x, self.eps)
 
 
 def layernorm_init(d: int, dtype=torch.bfloat16, device=None):

@@ -6,15 +6,22 @@ scales.  Both carry any leading stacked layer axis, and
 :meth:`QTensor.layer` slices one layer out, as the reference's ``lax.scan``
 slices its pytree children.
 
-Layers dispatch on type: a plain tensor keeps the literal einsum, a
-``QTensor`` goes through ``ops.quant_linear`` (the CUDA kernels on the card,
-their exact plain versions on the CPU): the reference's ``quantize_rows`` →
-``quant_matmul`` → ``astype(x.dtype)``, bit for bit.  Projections that read
-the same input (q/k/v, gate/up) go through :func:`linear_or_quant_group`,
-one ``quant_linear`` call for the group: the reference has no grouped call,
-and grouping changes no bit, because the activation quantization is per
-row and each product is independent.  It saves the repeated quantization
-of x, and at a decode step the group is one kernel launch.
+Layers dispatch on type: a ``QTensor`` goes through ``ops.quant_linear``
+(the CUDA kernels on the card, their exact plain versions on the CPU): the
+reference's ``quantize_rows`` → ``quant_matmul`` → ``astype(x.dtype)``, bit
+for bit.  A plain tensor of x's dtype goes through ``ops.fixed_linear`` at
+every row count on every device (the kernel on the card, its plain version
+on the CPU): the same sum of exact products, in one fp32 order fixed by K,
+so a row's result does not depend on how many rows share the call (cuBLAS
+picks its order by shape; the continuous-batching engine must give the
+slot-at-a-time oracle's streams, whose prefills run other row counts than
+the served waves).  Projections that read the same input (q/k/v, gate/up)
+go through :func:`linear_or_quant_group`, one kernel call for the group:
+the reference has no grouped call, and grouping changes no bit, because
+the activation quantization is per row and each product is independent.  It saves the repeated quantization of x, and at a decode step
+the group is one kernel launch.  At a decode step the block hands the
+group a ``PreNorm`` (``norms.py``): ``fixed_linear``'s launch computes the
+norm itself (``norm=``); the int8 groups apply it first.
 
 Weight layout convention (true for every projection in ``models/layers``):
 the *contracted* axes lead and the *output-channel* axes trail, so
@@ -36,6 +43,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers.norms import PreNorm
 
 __all__ = ["QTensor", "quantize_weight", "linear_or_quant", "linear_or_quant_group",
            "quantize_model_params"]
@@ -91,12 +99,29 @@ def quantize_weight(w: torch.Tensor, n_contract: int,
     return QTensor.from_q(q, scale, n_contract, n_batch)
 
 
-def _quant_contract(x: torch.Tensor, ws) -> list:
+def _unnormed(x):
+    """x's tensor, and the kernels' ``norm=`` keyword for a ``PreNorm``."""
+    return (x.x, {"norm": x.norm}) if isinstance(x, PreNorm) else (x, {})
+
+
+def _n_contract(eq: str) -> int:
+    """The contracted axes of an einsum ``"x,w->out"`` (they trail in x and
+    lead in w, the convention above)."""
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    return sum(1 for c in ws if c in xs and c not in out)
+
+
+def _quant_contract(x, ws) -> list:
     """Contract ``x``'s trailing ``n_contract`` axes against the leading ones
     of each ``QTensor`` of ``ws`` (all of one ``n_contract`` and K) as 2-D
     products: ``quant_linear`` quantizes the activation rows, runs the
     products against the (N, K) weights, dequantizes in their epilogue and
-    returns ``x``'s dtype, as the reference does."""
+    returns ``x``'s dtype, as the reference does.  A ``PreNorm`` is applied
+    first, by the ``rmsnorm`` kernel (a norm folded into ``qmm_group`` read
+    slower than the two launches; PERF.md §6)."""
+    if isinstance(x, PreNorm):
+        x = x.apply()
     nc = ws[0].n_contract
     K = math.prod(ws[0].shape[:nc])
     lead = tuple(x.shape[:x.ndim - nc])
@@ -105,30 +130,61 @@ def _quant_contract(x: torch.Tensor, ws) -> list:
     return [o.reshape(lead + w.shape[nc:]) for o, w in zip(outs, ws)]
 
 
-def linear_or_quant(x: torch.Tensor, w, eq: str,
-                    fp32_out: bool = False) -> torch.Tensor:
-    """The layer-side dispatch point: the literal einsum for a plain tensor,
-    the quantized product for a ``QTensor``.  ``fp32_out`` stands for the
-    reference's ``preferred_element_type=jnp.float32``: ``torch.einsum`` on
-    bf16 returns bf16, so the operands are cast to fp32 first (a product of
-    two bf16 values is exact in fp32, so only the summation order differs).
-    A ``QTensor`` ignores it and returns ``x``'s dtype, as the reference's
-    does."""
-    if isinstance(w, QTensor):
-        return _quant_contract(x, [w])[0]
-    if fp32_out:
-        return torch.einsum(eq, x.float(), w.float())
-    return torch.einsum(eq, x, w)
+def _fixed_contract(x, ws, nc: int, fp32_out: bool) -> list:
+    """The same contraction for plain weights through ``fixed_linear`` (the
+    norm of a ``PreNorm`` folded in): fp32 out with ``fp32_out``, else x's
+    dtype."""
+    xt, kw = _unnormed(x)
+    K = math.prod(ws[0].shape[:nc])
+    lead = tuple(xt.shape[:xt.ndim - nc])
+    dtype = torch.float32 if fp32_out else xt.dtype
+    outs = ops.fixed_linear(xt.reshape(-1, K), [w.reshape(K, -1) for w in ws],
+                            [dtype] * len(ws), **kw)
+    return [o.reshape(lead + tuple(w.shape[nc:])) for o, w in zip(outs, ws)]
 
 
-def linear_or_quant_group(x: torch.Tensor, ws, eqs, fp32_out: bool = False) -> list:
+def _fixed_rows(x: torch.Tensor, ws, eqs) -> int:
+    """The contraction's n_contract when it takes ``fixed_linear`` (plain
+    weights of x's dtype over one set of contracted axes), else 0."""
+    ncs = {_n_contract(eq) for eq in eqs}
+    if len(ncs) != 1 or any(isinstance(w, QTensor) or w.dtype != x.dtype for w in ws):
+        return 0
+    nc = ncs.pop()
+    return nc if len({tuple(w.shape[:nc]) for w in ws}) == 1 else 0
+
+
+def linear_or_quant(x, w, eq: str, fp32_out: bool = False) -> torch.Tensor:
+    """The layer-side dispatch point: the quantized product for a
+    ``QTensor``; ``fixed_linear`` for a plain tensor of x's dtype, the
+    literal einsum for any other.  ``fp32_out`` stands for the
+    reference's ``preferred_element_type=jnp.float32``: ``torch.einsum`` on bf16
+    returns bf16, so the operands are cast to fp32 first (a product of two
+    bf16 values is exact in fp32, so only the summation order differs);
+    ``fixed_linear`` writes fp32.  A ``QTensor`` ignores it and returns
+    ``x``'s dtype, as the reference's does.  ``x`` may be a ``PreNorm``."""
+    return linear_or_quant_group(x, (w,), (eq,), fp32_out)[0]
+
+
+def linear_or_quant_group(x, ws, eqs, fp32_out: bool = False) -> list:
     """:func:`linear_or_quant` of ``x`` with each weight of ``ws`` (and its
-    einsum of ``eqs``), with the ``QTensor``s of one contraction in one
-    ``quant_linear`` call.  Plain tensors keep their einsums."""
-    quant = all(isinstance(w, QTensor) for w in ws)
-    if quant and len({(w.n_contract, w.shape[:w.n_contract]) for w in ws}) == 1:
+    einsum of ``eqs``): the ``QTensor``s of one contraction in one
+    ``quant_linear`` call, plain weights of x's dtype in one
+    ``fixed_linear`` call with a ``PreNorm``'s norm folded in; any other
+    plain weight keeps its einsum on the normed x."""
+    if all(isinstance(w, QTensor) for w in ws) and \
+            len({(w.n_contract, w.shape[:w.n_contract]) for w in ws}) == 1:
         return _quant_contract(x, list(ws))
-    return [linear_or_quant(x, w, eq, fp32_out) for w, eq in zip(ws, eqs)]
+    nc = _fixed_rows(_unnormed(x)[0], ws, eqs)
+    if nc:
+        return _fixed_contract(x, list(ws), nc, fp32_out)
+    if len(ws) > 1:              # mixed kinds or contractions: one at a time
+        return [linear_or_quant(x, w, eq, fp32_out) for w, eq in zip(ws, eqs)]
+    (w,), (eq,) = ws, eqs
+    if isinstance(x, PreNorm):
+        x = x.apply()
+    if fp32_out:
+        return [torch.einsum(eq, x.float(), w.float())]
+    return [torch.einsum(eq, x, w)]
 
 
 # weight name → n_contract, per module; everything absent stays as it is

@@ -7,20 +7,30 @@ The layer computes a selective state-space model
     y_t = C_t · h_t + D ⊙ x_t
 
 with a scalar decay per head, over the expanded inner width (P = head dim,
-N = state dim).  Prefill takes the chunked dual form through
-``ops.ssd_chunk_scan`` (kernel 7 of ROADMAP Queue 2) with the reference's
-chunk rule: ``L = min(ssd_chunk, S)``, and ``L = S`` when S is not a
-multiple of it.  Decode keeps the plain O(1) recurrence, as the reference
-does.  The gated norm (RMSNorm of ``y · silu(z)`` scaled by ``norm_scale``)
-goes through ``ops.rmsnorm`` (kernel 5) in fp32, then back to x's dtype.
+N = state dim).  The projections give z, x and the output in x's dtype and
+B, C and Δ in fp32, as the reference asks with ``preferred_element_type``.
 
-The kernel takes the (B, H, S) layout and the layer keeps the reference's
-(B, S, H); the layer transposes around the call.  The projections are
-plain products, as in the reference: z, x and the output in x's dtype
-(bf16 ``torch.matmul`` on the served path), B, C and Δ in fp32, as the
-reference asks with ``preferred_element_type``.  With a cache the layer
-writes the new state and conv taps into it in place (the port's caches
-are written through per-layer views) and returns it.
+Prefill takes the chunked dual form through ``ops.ssd_chunk_scan`` (kernel
+7 of ROADMAP Queue 2) with the reference's chunk rule: ``L = min(ssd_chunk,
+S)``, and ``L = S`` when S is not a multiple of it.  The kernel takes the
+(B, H, S) layout and the layer keeps the reference's (B, S, H); the layer
+transposes around the call.  Its projections are plain ``torch.matmul``
+products, as the reference's are einsums, and the gated norm (RMSNorm of
+``y · silu(z)`` scaled by ``norm_scale``) goes through ``ops.rmsnorm``
+(kernel 5) in fp32, then back to x's dtype.
+
+Decode keeps the O(1) recurrence, as the reference does, in three launches
+that each sum in an order fixed by the widths, never by the batch, so a
+slot's step is bitwise the same in a batch of 8 and of 1:
+``ops.fixed_linear`` for the five in-projections z, x, B, C and Δ (with the
+block's RMSNorm folded in when the block hands over a ``PreNorm``);
+``ops.ssd_decode`` for the state update (h in place), y = C·h + D·x and the
+gated norm's gate y·silu(z) in fp32; and ``ops.fixed_linear`` for the
+out-projection, whose prologue takes the gate's RMSNorm and the cast to x's
+dtype, so the gated norm is ``_gated_norm``'s function with no launch of
+its own.  The causal conv's taps stay PyTorch passes.  With a cache the layer
+writes the new state and conv taps into it in place (the port's caches are
+written through per-layer views) and returns it.
 """
 from __future__ import annotations
 
@@ -30,7 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import softplus
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers.norms import PreNorm
 from repro_torch.models.params import bias, linear, ones_vec, uniform
 
 __all__ = ["ssd_shapes", "ssd_init", "ssd_apply", "init_ssd_cache"]
@@ -96,22 +108,44 @@ def _causal_conv(x, w, b, state):
     return F.silu(y.float()).to(x.dtype), xp[:, -(K - 1):]
 
 
-def _softplus(v: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` (``logaddexp(v, 0)``) in its own arithmetic;
-    ``F.softplus`` switches to the identity above 20 instead."""
-    return v.clamp(min=0.0) + torch.log1p(torch.exp(-v.abs()))
-
-
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> torch.Tensor:
     g = y.float() * F.silu(z.float())
     return ops.rmsnorm(g, scale, eps=eps).to(y.dtype)
 
 
-def ssd_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+def _decode(params: Dict[str, torch.Tensor], x, cfg: ArchConfig,
+            cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One decode step: x (B, 1, D), or a ``PreNorm`` of it → (B, 1, D)."""
+    xt, kw = (x.x, {"norm": x.norm}) if isinstance(x, PreNorm) else (x, {})
+    Bsz, dtype = xt.shape[0], xt.dtype
+    H, P = cfg.ssd_heads, cfg.ssd_head_dim
+    f32 = torch.float32
+    z, xin, Bm, Cm, dt_raw = ops.fixed_linear(
+        xt.reshape(Bsz, -1),
+        [params[k].to(dtype) for k in ("wz", "wx", "wB", "wC", "wdt")],
+        [dtype, dtype, f32, f32, f32], **kw)
+    xin, new_conv = _causal_conv(xin[:, None], params["conv_x"], params["conv_b"],
+                                 cache["conv"])
+    gate = ops.ssd_decode(cache["h"], dt_raw, xin.reshape(Bsz, H, P), Bm, Cm,
+                          params["dt_bias"], params["A_log"], params["D"],
+                          z=z.reshape(Bsz, H, P))
+    (out,) = ops.fixed_linear(gate.reshape(Bsz, H * P), [params["w_out"].to(dtype)], [dtype],
+                              norm=(params["norm_scale"], cfg.norm_eps, False))
+    cache["conv"].copy_(new_conv)
+    return out[:, None]
+
+
+def ssd_apply(params: Dict[str, torch.Tensor], x, *,
               cfg: ArchConfig, mode: str,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The SSD block on x (B, S, D) (at a decode step x may be a
+    ``PreNorm``) → (out (B, S, D), the cache or None)."""
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("SSD decode needs a cache")
+        return _decode(params, x, cfg, cache), cache
     Bsz, S, _ = x.shape
     H, P = cfg.ssd_heads, cfg.ssd_head_dim
 
@@ -122,28 +156,14 @@ def ssd_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
 
     Bmat = _proj(x, params["wB"], True)                       # (B,S,N) fp32
     Cmat = _proj(x, params["wC"], True)
-    dt = _softplus(_proj(x, params["wdt"], True)
-                   + params["dt_bias"].float())               # (B,S,H) fp32
+    dt = softplus(_proj(x, params["wdt"], True)
+                  + params["dt_bias"].float())                # (B,S,H) fp32
     A = -torch.exp(params["A_log"].float())                   # (H,) negative
     log_a = dt * A                                            # (B,S,H) ≤ 0
 
     xh = xin.reshape(Bsz, S, H, P).float()
     dtx = dt[..., None] * xh                                  # (B,S,H,P)
     D = params["D"].float()
-
-    if mode == "decode":
-        if cache is None:
-            raise ValueError("SSD decode needs a cache")
-        a = torch.exp(log_a[:, 0])                            # (B,H)
-        h = cache["h"]
-        h.mul_(a[..., None, None]).add_(
-            torch.einsum("bhp,bn->bhpn", dtx[:, 0], Bmat[:, 0]))
-        y = torch.einsum("bhpn,bn->bhp", h, Cmat[:, 0])
-        y = y + D[None, :, None] * xh[:, 0]
-        y = y.reshape(Bsz, 1, H * P).to(x.dtype)
-        out = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
-        cache["conv"].copy_(new_conv)
-        return _proj(out, params["w_out"], False), cache
 
     # ---------------- chunked dual form ---------------- #
     L = min(cfg.ssd_chunk, S)

@@ -36,11 +36,11 @@ from repro_torch.models.config import ATTENTION_KINDS, ArchConfig, BlockKind
 from repro_torch.models.layers.attention import attn_apply, attn_init, init_kv_cache
 from repro_torch.models.layers.embedding import embed_init, embed_tokens, logits_from
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
-from repro_torch.models.layers.norms import (layernorm, layernorm_init, rmsnorm,
+from repro_torch.models.layers.norms import (PreNorm, layernorm, layernorm_init, rmsnorm,
                                              rmsnorm_init)
 from repro_torch.models.layers.quant import QTensor
 from repro_torch.models.layers.ssd import init_ssd_cache, ssd_apply, ssd_init
-from repro_torch.models.params import stack_bundles
+from repro_torch.models.params import projection_contract, stack_bundles
 
 __all__ = ["init_model", "TransformerLM", "check_supported", "layer_slice"]
 
@@ -81,6 +81,15 @@ def _norm_apply(cfg: ArchConfig, params, x):
         else layernorm(params, x, cfg.norm_eps)
 
 
+def _pre_norm(cfg: ArchConfig, params, x, mode: str):
+    """A block's norm in front of its layer: at a decode step an RMSNorm is
+    handed over whole (``PreNorm``), for the layer's first products to fold
+    into their launch; otherwise it is applied here."""
+    if mode == "decode" and cfg.norm_kind == "rmsnorm":
+        return PreNorm(x, params["scale"], cfg.norm_eps)
+    return _norm_apply(cfg, params, x)
+
+
 def layer_slice(tree, i: int):
     """Layer ``i`` of a tree stacked on a leading layer axis (views)."""
     if isinstance(tree, dict):
@@ -110,14 +119,17 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind,
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     """The param tree of ``cfg``, drawn from ``gen`` on ``gen``'s device.
     The reference also returns logical sharding axes; the port has no mesh
-    yet, so it returns the params alone."""
+    yet, so it returns the params alone.  On the card the plain projection
+    weights are stacked in ``kernel_layout`` (``models/params.py``), the
+    storage the decode products read in place."""
     check_supported(cfg)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": embed_init(gen, cfg, dtype)}
     periods = [{f"b{i}": _block_init(gen, cfg, kind, dtype)
                 for i, kind in enumerate(cfg.pattern)}
                for _ in range(cfg.num_periods)]
-    params["blocks"] = stack_bundles(periods)
+    on_card = gen.device.type == "cuda"
+    params["blocks"] = stack_bundles(periods, projection_contract if on_card else None)
     params["final_norm"] = _norm_init(cfg, dtype, gen.device)
     return params
 
@@ -152,7 +164,7 @@ class TransformerLM:
     def _apply_block(self, kind: BlockKind, bp: Dict, x, *, mode: str,
                      positions=None, pos=None, cache=None, lengths=None):
         cfg = self.cfg
-        h = _norm_apply(cfg, bp["ln1"], x)
+        h = _pre_norm(cfg, bp["ln1"], x, mode)
         if kind == BlockKind.SSD:
             h, _ = ssd_apply(bp["ssd"], h, cfg=cfg, mode=mode,
                              cache=None if cache is None else cache["ssd"])
@@ -163,7 +175,7 @@ class TransformerLM:
                           use_rope=cfg.use_rope, lengths=lengths)
         x = x + h
         if "mlp" in bp:
-            h = _norm_apply(cfg, bp["ln2"], x)
+            h = _pre_norm(cfg, bp["ln2"], x, mode)
             x = x + mlp_apply(bp["mlp"], h)
         return x
 

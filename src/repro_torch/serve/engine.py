@@ -62,9 +62,9 @@ capture that fails raises: there is no eager fallback on the card.  On the
 CPU the engine stays eager.  ``calls`` counts both kinds of step
 (``decode_graph_replays``, ``decode_eager``).  A replay does not pass
 through the kernels' Python wrappers, so the capture records each
-wrapper's ``.launches`` and ``.shapes`` deltas, takes them back (capture
-runs nothing) and adds them again at every replay: launch counts stay
-exact.
+wrapper's ``.launches``, ``.shapes`` and ``.routes`` deltas, takes them
+back (capture runs nothing) and adds them again at every replay: launch
+counts stay exact.
 
 Not ported yet (ROADMAP.md, Queue 1): ``mesh=`` (slot sharding over
 ``serve/step.py``) and ``prefix_cache=`` (``serve/prefix_cache.py``) raise
@@ -83,6 +83,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import KERNELS
 from repro_torch.models.config import ATTENTION_KINDS, ArchConfig
 from repro_torch.models.layers.quant import quantize_model_params
+from repro_torch.models.params import place
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.scheduler import Request, SlotScheduler
 
@@ -93,16 +94,10 @@ def _now_zero() -> float:
     return 0.0
 
 
-def _to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 class _GraphStep:
     """One captured decode step over one engine cache: static (B, 1)
     token and (B,) position buffers, the CUDA graph, its output logits, and
-    each kernel wrapper's launches and launch shapes per replay."""
+    each kernel wrapper's launches, launch shapes and routes per replay."""
 
     def __init__(self, model: TransformerLM, params, cache, tokens: torch.Tensor,
                  pos: torch.Tensor, B: int):
@@ -110,9 +105,11 @@ class _GraphStep:
         self.tokens = torch.zeros((B, 1), dtype=tokens.dtype, device=dev)
         self.pos = torch.zeros((B,), dtype=pos.dtype, device=dev)
         self.graph = torch.cuda.CUDAGraph()
-        # the wrappers a decode step can reach all count launches by shape
+        # the wrappers a decode step can reach all count launches by shape,
+        # and some by route
         wrappers = {n: fn for n, fn in KERNELS.items() if hasattr(fn, "shapes")}
-        before = {name: (fn.launches, collections.Counter(fn.shapes))
+        before = {name: (fn.launches, collections.Counter(fn.shapes),
+                         collections.Counter(getattr(fn, "routes", {})))
                   for name, fn in wrappers.items()}
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -124,14 +121,18 @@ class _GraphStep:
         self.pool_bytes = torch.cuda.memory_allocated(dev) - allocated
         # capture ran nothing: take the wrappers' counts back, keep the deltas
         self.wrappers = wrappers
-        self.launches, self.shapes = {}, {}
+        self.launches, self.shapes, self.routes = {}, {}, {}
         for name, fn in wrappers.items():
-            n0, sh0 = before[name]
+            n0, sh0, ro0 = before[name]
             self.launches[name] = fn.launches - n0
             self.shapes[name] = collections.Counter(fn.shapes) - sh0
             fn.launches = n0
             fn.shapes.clear()
             fn.shapes.update(sh0)
+            if hasattr(fn, "routes"):
+                self.routes[name] = collections.Counter(fn.routes) - ro0
+                fn.routes.clear()
+                fn.routes.update(ro0)
 
     def replay(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         self.tokens.copy_(tokens)
@@ -140,6 +141,8 @@ class _GraphStep:
         for name, fn in self.wrappers.items():
             fn.launches += self.launches[name]
             fn.shapes.update(self.shapes[name])
+            if name in self.routes:
+                fn.routes.update(self.routes[name])
         return self.logits
 
 
@@ -176,7 +179,7 @@ class ServeEngine:
         self.model = TransformerLM(cfg, self.device)
         self.batch = int(batch_size)
         self.max_seq = int(max_seq)
-        params = _to_device(params, self.device)
+        params = place(params, self.device)
         if cfg.quantize != "none":
             params = quantize_model_params(params, cfg.quantize)
         self.params = params

@@ -28,6 +28,7 @@ from repro_torch.core.algorithms.logistic_regression import (
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.models.layers.quant import QTensor
 from repro_torch.models.layers.ssd import ssd_shapes
+from repro_torch.models.params import place
 
 __all__ = ["from_reference", "lm_from_reference"]
 
@@ -82,13 +83,19 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
     caller) and each ``QTensor`` as the tuple ``(q, scale, n_contract)``.
     ``cfg`` (the port's ``ArchConfig``), when given, is checked against the
     tree's widths: the embedding table, and every SSD block's leaves (key
-    set and shapes, stacked on the layer axis)."""
+    set and shapes, stacked on the layer axis).  The leaves reach the
+    device through ``models/params.py``'s ``place`` (on the card the plain
+    projection weights take ``kernel_layout`` on the host, before they
+    move)."""
     dev = resolve_device(device)
+    cpu = torch.device("cpu")
 
-    def walk(tree):
+    def walk(tree, path=()):
         if isinstance(tree, Mapping):
-            return {k: walk(v) for k, v in tree.items()}
-        return _lm_leaf(tree, dev)
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return _lm_leaf(tree, dev)
+        return place(_lm_leaf(tree, cpu), dev, path)
 
     out = walk(params)
     if cfg is not None:

@@ -24,6 +24,7 @@ fp32 where the plain version sums in fp64, and the output rounds to bf16
 either side of a boundary); a row's output is bitwise the same alone and in
 a batch, and at its exact length and padded.
 """
+import collections
 import itertools
 
 import numpy as np
@@ -34,6 +35,7 @@ from repro_torch import kernels as tk
 from repro_torch.core.algorithms.kmeans import KMeans
 from repro_torch.core.algorithms.logistic_regression import LogisticRegression
 from repro_torch.core.numeric_table import MLNumericTable
+from repro_torch.kernels import fixed_linear as tfl
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans_assign as tka
 from repro_torch.kernels import logreg_grad as tlg
@@ -41,6 +43,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import ssd_scan as tss
+from repro_torch.models.layers import ssd as tlssd
 from repro_torch.serve.predictor import ModelPredictor
 from repro_torch.weights import from_reference
 
@@ -98,7 +101,7 @@ def test_cuda_kernels_match_plain_versions():
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
-                                  "lm_head": 0}
+                                  "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0}
 
 
 @pytest.mark.cuda
@@ -312,7 +315,8 @@ def test_quantize_rows_kernel_matches_plain_version(M, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,Ns", [(1536, (1536, 256, 256)), (8960, (1536,))])
+@pytest.mark.parametrize("K,Ns", [(1536, (1536, 256, 256)), (8960, (1536,)),
+                                  (1152, (6912, 6912))])
 def test_quant_linear_rows_are_batch_invariant(K, Ns):
     """Row m's outputs are bitwise the same at M = 1 and at M = 8."""
     _need_card()
@@ -556,11 +560,15 @@ def test_mamba_engine_on_card_matches_slot_at_a_time():
 
     tk.reset_launch_counts()
     served = eng.run(reqs())
-    forwards = eng.calls["prefills"] + eng.calls["decode_steps"]
+    steps = eng.calls["decode_steps"]
     assert eng.calls["prefill_waves"] == 0 and eng.calls["prefills"] == 5
     counts = tk.launch_counts()
     assert counts["ssd_chunk_scan"] == cfg.num_layers * 5
-    assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * forwards
+    # a prefill runs every norm; a decode step folds the block norms into
+    # its fixed_linear launches (2 a layer) and runs the final norm alone
+    assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * 5 + steps
+    assert counts["fixed_linear"] == 2 * cfg.num_layers * steps > 0
+    assert counts["ssd_decode"] == cfg.num_layers * steps
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
 
@@ -834,8 +842,10 @@ def test_graph_replayed_engine_equals_eager(arch):
     calls = graphed.calls
     assert calls["decode_eager"] == 1
     assert calls["decode_graph_replays"] == calls["decode_steps"] - 1 > 0
+    # every norm at a prefill, the final one alone at a decode step (the
+    # block norms fold into the decode products)
     assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * (
-        calls["prefills"] + calls["prefill_waves"] + calls["decode_steps"])
+        calls["prefills"] + calls["prefill_waves"]) + calls["decode_steps"]
     assert counts["lm_head"] == calls["prefills"] + calls["prefill_waves"] + calls["decode_steps"]
     want = eager.run(reqs())
     assert eager.calls["decode_graph_replays"] == 0
@@ -843,3 +853,258 @@ def test_graph_replayed_engine_equals_eager(arch):
     solo = [graphed._run_one(r) for r in reqs()]
     assert graphed.calls["decode_eager"] == 2
     assert [r.out_tokens for r in solo] == [r.out_tokens for r in want]
+
+
+# ------------------------------------------------------------------------- #
+# fixed_linear and ssd_decode: the decode step's fixed-order kernels
+# ------------------------------------------------------------------------- #
+
+# (M, K, Ns): Mamba2-2.7B's in- and out-projections, Qwen2-1.5B's q/k/v,
+# gate/up and down, and ragged widths
+FIXED_SHAPES = [(8, 2560, (5120, 5120, 128, 128, 80)), (8, 5120, (2560,)),
+                (8, 1536, (1536, 256, 256)), (8, 1536, (8960, 8960)), (8, 8960, (1536,)),
+                (3, 64, (1, 17, 100)), (16, 264, (40,)), (1, 520, (33, 7))]
+# (M, K, Ns) above 16 rows: a prefill wave's q/k/v, gate/up and down at
+# Qwen2-1.5B's widths, and ragged M, N and K (K = 520: a partial group of 32)
+TILED_SHAPES = [(200, 1536, (1536, 256, 256)), (130, 1536, (8960, 8960)),
+                (70, 8960, (1536,)), (17, 64, (1, 17, 100)), (65, 520, (33, 7, 300))]
+
+
+def _fixed_close(got, want):
+    """Within 2e-4 of max |want| (``tests/test_kernels.py``'s fp32 tolerance:
+    the kernel sums in fp32 where the plain version sums in fp64, and a norm
+    prologue's statistics differ in the last fp32 bits, which moves an
+    element of the normed bf16 row by a step now and then), and bf16
+    outputs one bf16 step more (the two sums round either side of a
+    boundary)."""
+    g, w = got.float(), want.float()
+    lim = 2e-4 * w.abs().max().clamp(min=1e-30)
+    if got.dtype == torch.bfloat16:
+        lim = lim + torch.maximum(g.abs(), w.abs()) * 2.0 ** -7
+    return bool(((g - w).abs() <= lim).all())
+
+
+def _fixed_operands(gen, M, K, Ns, dtype):
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    ws = [(torch.randn(N, K, generator=gen, device="cuda") / K ** 0.5).to(dtype).t()
+          for N in Ns]
+    scale = (torch.randn(K, generator=gen, device="cuda") * 0.1).to(dtype)
+    z = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    return x, ws, scale, z
+
+
+def _prologue(x, scale, z, prologue):
+    """(what the product is handed, its norm=): x; x behind the model's
+    norm; or Mamba-2's gate y·silu(z) in fp32 behind the gated norm's."""
+    if prologue == "norm":
+        return x, {"norm": (scale, 1e-6, True)}
+    if prologue == "gated":
+        return x.float() * torch.nn.functional.silu(z.float()), {"norm": (scale, 1e-5, False)}
+    return x, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [None, "norm", "gated"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fixed_linear_kernel_matches_plain_version(dtype, prologue):
+    """``fixed_linear`` against its plain version at the served decode
+    shapes and ragged ones, with each prologue; one launch a call on the
+    route of its dtype."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tk.reset_launch_counts()
+    routes = collections.Counter()
+    for M, K, Ns in FIXED_SHAPES + TILED_SHAPES:
+        x, ws, scale, z = _fixed_operands(gen, M, K, Ns, dtype)
+        x, kw = _prologue(x, scale, z, prologue)
+        outs = [dtype] + [torch.float32] * (len(Ns) - 1)
+        way = tfl.route(dtype, x.dtype, bool(kw), M)
+        if way != "mma_bf16_tiled" and K > tfl.max_k(dtype, x.dtype, bool(kw)):
+            with pytest.raises(ValueError, match="the kernel takes K"):
+                tfl.fixed_linear(x, ws, outs, **kw)
+            continue
+        routes[way] += 1
+        got = tfl.fixed_linear(x, ws, outs, **kw)
+        want = tfl.fixed_linear_plain(x, ws, outs, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _fixed_close(a, b), (M, K, Ns, prologue)
+    launched = sum(routes.values())
+    assert tk.launch_counts()["fixed_linear"] == launched >= len(FIXED_SHAPES) - 1
+    assert dict(tfl.fixed_linear.routes) == dict(routes)
+    assert ("mma_bf16_tiled" in routes) == (dtype == torch.bfloat16 and prologue is None)
+
+
+@pytest.mark.cuda
+def test_fixed_linear_tiled_rows_equal_the_decode_form():
+    """Above 16 rows (bf16, no norm: a prefill wave) the tiled form sums
+    each output as the decode form does: every row bitwise equal to the
+    same row alone, at ragged M, N and K, with a row-strided x."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for M, K, Ns in TILED_SHAPES:
+        x, ws, _, _ = _fixed_operands(gen, M, K, Ns, torch.bfloat16)
+        outs = [torch.bfloat16] + [torch.float32] * (len(Ns) - 1)
+        tfl.fixed_linear.routes.clear()
+        many = tfl.fixed_linear(x, ws, outs)
+        assert dict(tfl.fixed_linear.routes) == {"mma_bf16_tiled": 1}
+        for m in sorted({0, 1, 62, 63, 64, M // 2, M - 1} & set(range(M))):
+            one = tfl.fixed_linear(x[m:m + 1], ws, outs)
+            assert all(torch.equal(a[0], b[m]) for a, b in zip(one, many)), (M, K, m)
+    wide = torch.randn(100, 2 * 264, generator=gen, device="cuda").to(torch.bfloat16)
+    (w,) = _fixed_operands(gen, 1, 264, (72,), torch.bfloat16)[1]
+    strided = tfl.fixed_linear(wide[:, :264], [w])[0]
+    assert torch.equal(strided, tfl.fixed_linear(wide[:, :264].contiguous(), [w])[0])
+    assert torch.equal(strided[7], tfl.fixed_linear(wide[7:8, :264], [w])[0][0])
+
+
+@pytest.mark.cuda
+def test_fixed_linear_raises_for_a_weight_in_another_storage():
+    """A weight on the card that is not (N, K) row-major is refused, never
+    copied for the call."""
+    _need_card()
+    x = torch.ones(8, 64, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(64, 32, device="cuda", dtype=torch.bfloat16)      # (K, N) row-major
+    with pytest.raises(ValueError, match="kernel_layout"):
+        tfl.fixed_linear(x, [w])
+    assert tfl.fixed_linear(x, [w.t().contiguous().t()])[0].shape == (8, 32)
+
+
+@pytest.mark.cuda
+def test_engine_puts_host_made_weights_in_the_kernel_layout():
+    """Params made on the host and handed to an engine on the card reach it
+    with every plain projection weight in ``kernel_layout``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.params import in_kernel_layout, projection_contract
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import ServeEngine
+
+    _need_card()
+    cfg = get_smoke("qwen2-1.5b")
+    params = init_model(torch.Generator().manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=2, max_seq=32)
+    seen = 0
+    for name, block in eng.params["blocks"].items():
+        for mod, leaves in block.items():
+            for leaf, w in leaves.items():
+                nc = projection_contract((name, mod, leaf))
+                if nc is not None:
+                    assert w.is_cuda and in_kernel_layout(w, nc, 1), (name, mod, leaf)
+                    seen += 1
+    assert seen == 7 * len(eng.params["blocks"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fixed_linear_folded_norms_equal_the_unfused_composition(dtype):
+    """The norm prologue bitwise equal to the ``rmsnorm`` kernel and then
+    the product; on the gate y·silu(z) (fp32), bitwise equal to the layer's
+    gated norm (PyTorch's silu and product, the ``rmsnorm`` kernel, the
+    cast) and then the product; and ``ssd_decode``'s gate bitwise PyTorch's
+    y·silu(z)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for M, K, Ns in FIXED_SHAPES:
+        x, ws, scale, z = _fixed_operands(gen, M, K, Ns, dtype)
+        if K > tfl.max_k(dtype, torch.float32, True):
+            continue                     # no norm in front of so wide a row
+        folded = tfl.fixed_linear(x, ws, norm=(scale, 1e-6, True))
+        unfused = tfl.fixed_linear(tops.rmsnorm(x, scale, 1e-6, plus_one=True), ws)
+        assert all(torch.equal(a, b) for a, b in zip(folded, unfused)), (M, K, "norm")
+        gate = x.float() * torch.nn.functional.silu(z.float())
+        folded = tfl.fixed_linear(gate, ws, norm=(scale, 1e-5, False))
+        unfused = tfl.fixed_linear(tlssd._gated_norm(x, z, scale, 1e-5), ws)
+        assert all(torch.equal(a, b) for a, b in zip(folded, unfused)), (M, K, "gated")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fixed_linear_rows_are_batch_invariant(dtype):
+    """Row m bitwise the same at M = 1 and at M = 8, with each prologue."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for M, K, Ns in FIXED_SHAPES[:5]:
+        x0, ws, scale, z = _fixed_operands(gen, 8, K, Ns, dtype)
+        for prologue in (None, "norm", "gated"):
+            x, kw = _prologue(x0, scale, z, prologue)
+            if K > tfl.max_k(dtype, x.dtype, bool(kw)):
+                continue
+            eight = tfl.fixed_linear(x, ws, **kw)
+            for m in range(8):
+                one = tfl.fixed_linear(x[m:m + 1], ws, **kw)
+                assert all(torch.equal(a[0], b[m]) for a, b in zip(one, eight)), (K, m, prologue)
+
+
+def _decode_operands(gen, B, H, P, N, dtype):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    h = r(B, H, P, N) * 0.5
+    return h, [r(B, H), r(B, H, P).to(dtype), r(B, N), r(B, N), r(H), torch.log(
+        1.0 + 15.0 * torch.rand(H, generator=gen, device="cuda")), torch.ones(H, device="cuda")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,P,N", [(8, 80, 64, 128), (1, 80, 64, 128), (3, 16, 16, 16),
+                                     (5, 7, 9, 44)])
+def test_ssd_decode_kernel_matches_plain_version(B, H, P, N, dtype):
+    """The state bitwise the plain update; y within ``_fixed_close`` of the
+    plain version (fp32 sum against fp64); the gate y·silu(z) bitwise
+    PyTorch's on the kernel's y; a slot alone the same bits as in the
+    batch."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(B * H + N)
+    h0, args = _decode_operands(gen, B, H, P, N, dtype)
+    ha, hb = h0.clone(), h0.clone()
+    tk.reset_launch_counts()
+    y = tss.ssd_decode(ha, *args)
+    yp = tss.ssd_decode_plain(hb, *args)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["ssd_decode"] == 1
+    assert torch.equal(ha, hb)
+    assert y.dtype == dtype and _fixed_close(y, yp)
+    z = torch.randn(B, H, P, generator=gen, device="cuda").to(dtype)
+    gate = tss.ssd_decode(h0.clone(), *args, z=z)
+    assert gate.dtype == torch.float32
+    assert torch.equal(gate, y.float() * torch.nn.functional.silu(z.float()))
+    for b in range(B):
+        hm = h0[b:b + 1].clone()
+        ym = tss.ssd_decode(hm, *[a[b:b + 1] if a.ndim > 1 else a for a in args])
+        assert torch.equal(hm[0], ha[b]) and torch.equal(ym[0], y[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-2.7b"])
+def test_plain_weight_engine_on_card_matches_slot_at_a_time(arch, dtype):
+    """SMOKE widths with plain weights (``quantize="none"``), fp32 (the
+    SIMT route) and bf16 (the tensor cores): continuous batching gives the
+    slot-at-a-time oracle's streams; a decode step runs the final norm
+    alone and folds the block norms into its fixed_linear launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = dataclasses.replace(get_smoke(arch), dtype=dtype)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=4, max_seq=96)
+
+    def reqs():
+        r = np.random.default_rng(5)
+        return [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m)
+                for n, m in zip((5, 40, 12, 33, 3, 21), (20, 8, 25, 6, 9, 14))]
+
+    tk.reset_launch_counts()
+    served = eng.run(reqs())
+    counts = tk.launch_counts()
+    steps = eng.calls["decode_steps"]
+    per_step = 2 * cfg.num_layers if arch == "mamba2-2.7b" else 4 * cfg.num_layers
+    assert counts["fixed_linear"] >= per_step * steps > 0
+    assert counts["rmsnorm"] == (2 * cfg.num_layers + 1) * (
+        eng.calls["prefills"] + eng.calls["prefill_waves"]) + steps
+    solo = [eng._run_one(r) for r in reqs()]
+    assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]

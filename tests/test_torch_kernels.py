@@ -147,12 +147,16 @@ def test_cpu_tensors_use_the_plain_version_and_count_no_launch():
     tk.KERNELS["lm_head"](X[0], torch.ones(5, 4), tied=True)
     tk.KERNELS["quantize_rows"](X[0])
     tk.KERNELS["quant_linear"](X[0], [(torch.ones(4, 3, dtype=torch.int8), torch.ones(3))])
+    tk.KERNELS["fixed_linear"](X[0], [torch.ones(4, 3)], norm=(torch.ones(4), 1e-6, True))
+    tk.KERNELS["ssd_decode"](torch.zeros(1, 1, 2, 4), torch.zeros(1, 1), torch.ones(1, 1, 2),
+                             torch.ones(1, 4), torch.ones(1, 4), torch.zeros(1),
+                             torch.zeros(1), torch.ones(1))
     assert tk.launch_counts() == {"logreg_margin": 0, "logreg_xt_z": 0,
                                   "kmeans_assign": 0, "quant_matmul": 0,
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
-                                  "lm_head": 0}
+                                  "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():

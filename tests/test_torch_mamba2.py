@@ -240,8 +240,11 @@ def test_random_deep_stack_is_chaotic(monkeypatch):
     instead of rounded from fp64 gives last-token prefill logits that
     differ by ~7e-7 of max |logit| at 2 layers, ~4e-4 at 8 and O(1) at 64
     (width 256, fp32).  chip_smoke.py therefore holds the kernels against
-    their plain versions, and the batched decode against the slot-at-a-time
-    oracle, tightly at a 2-layer cut only."""
+    their plain versions tightly at a 2-layer cut only.  The batched decode
+    it holds against the slot-at-a-time oracle at full depth, stream for
+    stream: every decode reduction (``fixed_linear``, ``ssd_decode``, the
+    norms) sums in one order fixed by the widths, never by the batch, so no
+    ulp differs between the two for the stack to amplify."""
     cfg = get_config(ARCH).scaled(d_model=256, vocab_size=4096, num_layers=64,
                                   dtype="float32")
     params = tinit(torch.Generator().manual_seed(0), cfg)
