@@ -52,7 +52,8 @@
 //         of a rounding boundary (the bound is derived at quantize());
 //       - each consumer warp multiplies its 16 columns, x's fragments
 //         and the weight's both from shared memory, the K order permuted
-//         alike for both operands (an integer sum does not notice);
+//         alike for both operands (an integer sum does not notice), and
+//         frees a stage after a proxy fence (its reads before the refill);
 //       - the int32 partial tile is pushed, column by column, to the block
 //         of the cluster that owns the column; after one cluster barrier each
 //         block sums its columns and applies the epilogue with all its
@@ -79,12 +80,34 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
+
+// the TMA ring's and the clusters' pieces, shared with fixed_linear.cu
+// (common.cuh)
+using port::cluster_arrive_relaxed;
+using port::cluster_blocks;
+using port::cluster_map;
+using port::cluster_rank;
+using port::cluster_sync;
+using port::cluster_wait;
+using port::fence_regs;
+using port::make_map;
+using port::mbar_arrive;
+using port::mbar_expect;
+using port::mbar_init;
+using port::mbar_wait;
+using port::num_sms;
+using port::smem_addr;
+using port::st_cluster;
+using port::sw128_desc;
+using port::tma_load;
+using port::tma_store;
 
 constexpr int kStep = 64;   // bytes of K per step: two m16n8k32 mma's
 
@@ -184,97 +207,6 @@ __device__ __forceinline__ void mma_step(int (&c)[4], const uint4& lo, const uin
                                          const uint4& b) {
   mma_s8(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
   mma_s8(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ------------------------------------------------------------------------- //
-// Thread block clusters: the block's rank, a barrier over the cluster (which
-// also orders shared-memory writes before it with reads after it), and reads
-// of another block's shared memory at the address a variable has in ours.
-// ------------------------------------------------------------------------- //
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_blocks() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// the same barrier split in two: no block may touch another's shared memory
-// before every block of the cluster has started, so each arrives at once
-// and waits just before its first remote store
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Wait for the phase of parity `parity` of the barrier to complete.  A
-// phase that never completes (a ring out of step) traps after ~2 s of the
-// SM's clock instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > 4000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// rows [row, row + box) x bytes [k, k + 128) of the map's tensor into dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
-      : "memory");
 }
 
 // ------------------------------------------------------------------------- //
@@ -583,6 +515,11 @@ qmm_group(const __grid_constant__ Group grp, const TIn* __restrict__ x, long lon
         mma_step(acc[j], lo, hi, b);
       }
     }
+    // the stage's reads (the generic proxy) ordered before TMA (the async
+    // proxy) fills it again: without the fence a refill overwrote weight
+    // rows still to be read in about 2 % of the launches of Qwen2's gate/up
+    // group, whose grid puts two blocks on some SMs
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(slot));
   }
@@ -823,39 +760,9 @@ struct Wgmma<128> {
   }
 };
 
-// A wgmma operand in shared memory: rows of 128 bytes (K-major), 8-row
-// groups 1024 bytes apart, in the 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)   // start address
-         | static_cast<uint64_t>(1) << 16                // leading offset (unused)
-         | static_cast<uint64_t>(1024 >> 4) << 32        // stride between 8-row groups
-         | static_cast<uint64_t>(1) << 62;               // 128-byte swizzle
-}
-
-// the staged box at src (64 rows x 128 bytes, 128-byte swizzle) into the
-// map's tensor at (row, col); rows and columns past the tensor are not
-// written
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col,
-                                          int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(col), "r"(row)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
 // the 128 threads of consumer warpgroup wg
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of an accumulator register
-// across a wgmma fence or wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // two neighbouring outputs into shared memory at `at`, as TOut (bf16: each
@@ -1031,56 +938,6 @@ qmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
   }
   // the last boxes' reads of shared memory, and their writes, done
   if (kStore && tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      n = 132;
-    }
-  }
-  return n;
-}
-
-// cuTensorMapEncodeTiled, looked up by name in libcuda (which PyTorch has
-// already loaded), so that the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    if (lib != nullptr) {
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-    }
-  }
-  return fn;
-}
-
-// A TMA map of a row-major (rows, cols) tensor of `elem`-byte elements, read
-// or written in boxes of box_rows x box_cols elements (128 bytes a row in
-// the 128-byte swizzle, or fewer unswizzled); reads past the tensor fill
-// zeros, writes past it are dropped.
-bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
-              int rows, int cols, int box_rows, int box_cols,
-              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t boxes[2] = {static_cast<cuuint32_t>(box_cols),
-                               static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, boxes, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BN, bool kStore, typename TOut>

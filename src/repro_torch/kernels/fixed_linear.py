@@ -26,20 +26,28 @@ bf16 weights (Mamba-2's gated norm: ``ssd_decode`` writes its fp32 gate
 kernel's order, so the row the product reads is bitwise what the unfused
 composition hands it.
 
-Routes (:func:`route`): bf16 weights ``"mma_bf16"`` (the tensor cores,
-``mma.sync`` m16n8k16, each k16 step summed from zero and added to its
-slice's fp32 sum, the slices added in order; 8 rows of x a tile), or, above
-16 rows of bf16 x with no norm (a prefill wave), ``"mma_bf16_tiled"``: the
-same sum, element for element, on tiles of 64 rows of x by 128 weight rows,
-so that a wave reads each weight once per 64 rows; fp32 weights ``"fma"``
-(IEEE FMA on the SIMT pipe).  x shares the weights' dtype but for the fp32
-x of a normed bf16 product.  The kernel reads each weight as ``W.T``,
-``(N, K)`` row-major: the port keeps its plain projection weights in that
-storage on the card (``models/params.py``'s ``kernel_layout``), so a weight
-is read in place; the wrapper raises for any other storage rather than copy
-the weight.  K must be a multiple of 8, and at most :func:`max_k` but on the
-tiled route; the wrapper raises otherwise.  It runs the kernel for a CUDA
-tensor and the plain version for a CPU tensor, and raises for anything else.
+Routes (:func:`route`), all in one bf16 order fixed by K: k16 steps of
+16 contiguous elements at their natural positions, chained by the tensor
+core in its own fp32 accumulator over each slice of 256 elements (the first
+step from zero), the slices' sums added in order with IEEE adds, rounded
+once.  A probe on the H100 (``tests/csrc/mma_chain_probe.cu``) found that
+chain the same bits through ``mma.sync`` and ``wgmma``, so both bf16 forms
+compute it: ``"mma_bf16"`` (bf16 weights at M ≤ 16 or behind a norm: a
+decode step, bound by the weights' bytes; ``mma.sync`` m16n8k16, the
+weights streamed through shared-memory rings into ``ldmatrix`` by clusters
+of blocks that split every tile's slices evenly over the card) and, above 16 rows of bf16 x with
+no norm (a prefill wave, bound by the tensor cores), ``"mma_bf16_tiled"``
+(``wgmma`` m64n128k16 fed by a TMA ring, 128 x 128 output tiles); fp32
+weights ``"fma"`` (IEEE FMA on the SIMT pipe).  x shares the weights' dtype
+but for the fp32 x of a normed bf16 product.
+
+The kernel reads each weight as ``W.T``, ``(N, K)`` row-major: the port
+keeps its plain projection weights in that storage on the card
+(``models/params.py``'s ``kernel_layout``), so a weight is read in place;
+the wrapper raises for any other storage rather than copy the weight.  K
+must be a multiple of 8, and at most :func:`max_k` but on the tiled route;
+the wrapper raises otherwise.  It runs the kernel for a CUDA tensor and the
+plain version for a CPU tensor, and raises for anything else.
 ``fixed_linear.launches`` counts launches, ``.shapes`` counts them by
 ``(M, K, (N, ...), prologue)`` (``"norm"`` or None) and ``.routes`` by
 route.
@@ -61,7 +69,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
-__all__ = ["fixed_linear", "fixed_linear_plain", "max_k", "route"]
+__all__ = ["fixed_linear", "fixed_linear_plain", "max_k", "plan", "route"]
 
 #: weights one launch takes at most (Mamba-2's z, x, B, C and Δ)
 MAX_GROUP = 5
@@ -86,17 +94,37 @@ def _lib() -> ctypes.CDLL:
         lib.fixed_linear_max_k.restype = _I32
         lib.fixed_linear_route.argtypes = [_I32, _I32, _I32, _I32]
         lib.fixed_linear_route.restype = _I32
+        lib.fixed_linear_plan.argtypes = [_I32, _I32, _I32, _I32, _P]
+        lib.fixed_linear_plan.restype = _I32
         _lib_handle = lib
     return _lib_handle
 
 
 def max_k(dtype: torch.dtype, x_dtype: torch.dtype, norm: bool) -> int:
     """The widest K one launch of the decode form (or the SIMT route) takes
-    on the card with weights of ``dtype`` and x of ``x_dtype`` (x's rows and
-    the partial sums must fit a block's shared memory); the tiled form takes
-    any K."""
+    on the card with weights of ``dtype`` and x of ``x_dtype`` (a tile's
+    partial sums, and behind a norm x's whole rows, must fit a block's
+    shared memory); the tiled form takes any K."""
     codes = _build.DTYPE_CODES
     return _lib().fixed_linear_max_k(codes[dtype], codes[x_dtype], int(norm))
+
+
+def plan(x_dtype: torch.dtype, scale_dtype: Optional[torch.dtype], K: int,
+         Ns: Sequence[int]) -> dict:
+    """How the decode form splits a launch with bf16 weights of widths
+    ``Ns`` over this card: blocks a cluster, clusters, tiles of 16 weight
+    rows a cluster takes at once (more tiles run in waves), phases of x's
+    rows (1 where they fit shared memory whole; else 4,096 elements a
+    phase), and 4 KB pieces of weights each warp keeps in flight (x of ``x_dtype``; ``scale_dtype``
+    the norm's, or None without a norm)."""
+    codes = _build.DTYPE_CODES
+    out = (_I32 * 5)()
+    scale = 0 if scale_dtype is None else (1 if scale_dtype == torch.bfloat16 else 2)
+    tiles = sum((int(N) + 15) // 16 for N in Ns)
+    err = _lib().fixed_linear_plan(codes[x_dtype], scale, K, tiles, out)
+    if err:
+        raise ValueError(f"no decode-form plan for K = {K}, N = {tuple(Ns)}: CUDA error {err}")
+    return dict(zip(("cluster", "clusters", "wave", "phases", "pieces"), out))
 
 
 #: the routes, by the C launcher's code
@@ -212,7 +240,7 @@ def fixed_linear(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if scale is not None:
         if scale.dtype not in _build.DTYPE_CODES:
             raise TypeError(f"the norm's scale must be float32 or bfloat16, got {scale.dtype}")
-        scale = scale.contiguous()
+        scale = _aligned(scale.contiguous())
     n = len(weights)
     ptrs = lambda ts: (_P * n)(*[t.data_ptr() for t in ts])  # noqa: E731
     codes = _build.DTYPE_CODES

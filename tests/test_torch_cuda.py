@@ -293,6 +293,26 @@ def test_quant_linear_kernels_match_plain_version(M, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 16])
+def test_quant_linear_group_gives_the_same_bits_launch_after_launch(M):
+    """``qmm_group`` at Qwen2's gate/up group (140 column tiles, clusters of
+    one block, two blocks on some SMs; the weight ring wraps) equal to its
+    plain version in each of 300 launches.  Without the proxy fence before a
+    warp frees a ring stage, about 2 % of these launches read weight rows
+    that the next TMA fill had overwritten."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    x = _x_rows(gen, M, 1536, torch.bfloat16)
+    group = _int8_group(gen, 1536, (8960, 8960))
+    want = tqm.quant_linear_plain(x, group)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(300):
+        got = tqm.quant_linear(x, group)
+        bad += sum((a != b).any().long() for a, b in zip(got, want))
+    assert int(bad) == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 5, 8, 16, 17, 33, 7168])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_quantize_rows_kernel_matches_plain_version(M, dtype):
@@ -860,21 +880,32 @@ def test_graph_replayed_engine_equals_eager(arch):
 # ------------------------------------------------------------------------- #
 
 # (M, K, Ns): Mamba2-2.7B's in- and out-projections, Qwen2-1.5B's q/k/v,
-# gate/up and down, and ragged widths
+# gate/up and down, ragged widths, and Qwen2-1.5B's o
 FIXED_SHAPES = [(8, 2560, (5120, 5120, 128, 128, 80)), (8, 5120, (2560,)),
                 (8, 1536, (1536, 256, 256)), (8, 1536, (8960, 8960)), (8, 8960, (1536,)),
-                (3, 64, (1, 17, 100)), (16, 264, (40,)), (1, 520, (33, 7))]
+                (3, 64, (1, 17, 100)), (16, 264, (40,)), (1, 520, (33, 7)),
+                (8, 1536, (1536,))]
 # (M, K, Ns) above 16 rows: a prefill wave's q/k/v, gate/up and down at
-# Qwen2-1.5B's widths, and ragged M, N and K (K = 520: a partial group of 32)
+# Qwen2-1.5B's widths, ragged M, N and K (K = 520: a partial group of 32),
+# Qwen2-1.5B's o and Mamba2-2.7B's in- and out-projections
 TILED_SHAPES = [(200, 1536, (1536, 256, 256)), (130, 1536, (8960, 8960)),
-                (70, 8960, (1536,)), (17, 64, (1, 17, 100)), (65, 520, (33, 7, 300))]
+                (70, 8960, (1536,)), (17, 64, (1, 17, 100)), (65, 520, (33, 7, 300)),
+                (64, 1536, (1536,)), (100, 2560, (5120, 5120, 128, 128, 80)),
+                (33, 5120, (2560,))]
+# (K, Ns, prologue) at every served width: Mamba2-2.7B's in-projections
+# (behind the block's norm) and out-projection (behind the gated norm),
+# Qwen2-1.5B's q/k/v and gate/up (behind the block's norm), o and down; and
+# the row counts a row is held bitwise across (the decode form to 16 rows,
+# the tiled form above, but behind a norm)
+SERVED_WIDTHS = [(2560, (5120, 5120, 128, 128, 80), "norm"), (5120, (2560,), "gated"),
+                 (1536, (1536, 256, 256), "norm"), (1536, (1536,), None),
+                 (1536, (8960, 8960), "norm"), (8960, (1536,), None)]
+ACROSS_M = (1, 8, 16, 17, 64, 65, 1000)
 
 
 def _fixed_close(got, want):
     """Within 2e-4 of max |want| (``tests/test_kernels.py``'s fp32 tolerance:
-    the kernel sums in fp32 where the plain version sums in fp64, and a norm
-    prologue's statistics differ in the last fp32 bits, which moves an
-    element of the normed bf16 row by a step now and then), and bf16
+    the kernel sums in fp32 where the plain version sums in fp64), and bf16
     outputs one bf16 step more (the two sums round either side of a
     boundary)."""
     g, w = got.float(), want.float()
@@ -903,20 +934,34 @@ def _prologue(x, scale, z, prologue):
     return x, {}
 
 
+def _normed(x, scale, z, prologue):
+    """The rows an unfused product is handed behind the prologue: the
+    ``rmsnorm`` kernel's, or the layer's gated norm's (which runs that
+    kernel).  The folded prologue hands the product these rows bit for bit
+    (``test_fixed_linear_folded_norms_equal_the_unfused_composition``)."""
+    if prologue == "norm":
+        return tops.rmsnorm(x, scale, 1e-6, plus_one=True)
+    return tlssd._gated_norm(x, z, scale, 1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prologue", [None, "norm", "gated"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fixed_linear_kernel_matches_plain_version(dtype, prologue):
-    """``fixed_linear`` against its plain version at the served decode
-    shapes and ragged ones, with each prologue; one launch a call on the
-    route of its dtype."""
+    """``fixed_linear`` against its plain version at every served width
+    (decode and wave row counts) and ragged ones, with each prologue; one
+    launch a call on the route of its dtype.  Behind a norm the plain
+    product is taken of the rows the norm's own kernel gives (``_normed``):
+    an element of the normed row one bf16 step from ``rmsnorm_plain``'s
+    moves the product by more than the sum's tolerance, and the norm's
+    kernel is held to its plain version by its own test."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     tk.reset_launch_counts()
     routes = collections.Counter()
     for M, K, Ns in FIXED_SHAPES + TILED_SHAPES:
-        x, ws, scale, z = _fixed_operands(gen, M, K, Ns, dtype)
-        x, kw = _prologue(x, scale, z, prologue)
+        x0, ws, scale, z = _fixed_operands(gen, M, K, Ns, dtype)
+        x, kw = _prologue(x0, scale, z, prologue)
         outs = [dtype] + [torch.float32] * (len(Ns) - 1)
         way = tfl.route(dtype, x.dtype, bool(kw), M)
         if way != "mma_bf16_tiled" and K > tfl.max_k(dtype, x.dtype, bool(kw)):
@@ -925,7 +970,7 @@ def test_fixed_linear_kernel_matches_plain_version(dtype, prologue):
             continue
         routes[way] += 1
         got = tfl.fixed_linear(x, ws, outs, **kw)
-        want = tfl.fixed_linear_plain(x, ws, outs, **kw)
+        want = tfl.fixed_linear_plain(_normed(x0, scale, z, prologue) if kw else x, ws, outs)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape
@@ -957,6 +1002,210 @@ def test_fixed_linear_tiled_rows_equal_the_decode_form():
     strided = tfl.fixed_linear(wide[:, :264], [w])[0]
     assert torch.equal(strided, tfl.fixed_linear(wide[:, :264].contiguous(), [w])[0])
     assert torch.equal(strided[7], tfl.fixed_linear(wide[7:8, :264], [w])[0][0])
+
+
+def _chain_probe():
+    """``tests/csrc/mma_chain_probe.cu`` built with the kernels' flags and
+    loaded (its entry point: the outputs of one chain of k16 steps through
+    mma.sync and through wgmma)."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    src = Path(__file__).resolve().parent / "csrc" / "mma_chain_probe.cu"
+    out = _build.BUILD_DIR / "libmma_chain_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build._FLAGS, "-I", str(_build.CSRC), "-o", str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P = ctypes.c_void_p
+    lib.mma_chain_probe.argtypes = [P, P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                    P, P, P, P, P, P]
+    lib.mma_chain_probe.restype = ctypes.c_int
+    return lib
+
+
+def _chain_operands(gen, kind, N, K):
+    """x (64, K) and w (N, K) bf16: normal values; products that cancel in
+    pairs within a k16 step (exactly, or to a bf16 step); exponents over
+    2^-24..2^24; or a first half of large positive products that the second
+    half takes back."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    x, w = r(64, K), r(N, K)
+    if kind == "cancel":
+        x[:, 1::2] = x[:, 0::2]
+        w[:, 1::2] = -w[:, 0::2] * torch.where(r(N, K // 2) > 0, 1.0, 1.0 + 2.0 ** -6)
+    elif kind == "wide":
+        e = lambda *s: torch.randint(-24, 25, s, generator=gen, device="cuda")  # noqa: E731
+        x, w = x * 2.0 ** e(64, K), w * 2.0 ** e(N, K)
+    elif kind == "halves":
+        x, w = x.abs(), 1000 * w.abs()
+        w[:, K // 2:] *= -1
+    return x.to(torch.bfloat16), w.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tensor_core_chain_is_the_same_bits_in_mma_sync_and_wgmma():
+    """The probe behind ``fixed_linear``'s sum order: a chain of 16 bf16 k16
+    steps at natural positions, accumulated by the tensor core (the first
+    step from zero), gives the same fp32 bits through ``mma.sync.m16n8k16``
+    (the decode form: weights as A) as through ``wgmma.m64nNk16`` (the
+    tiled form: x as A) at N = 64, 128 and 256, and with the operands'
+    sides swapped; k16 steps of zeros past the data leave the chain as it
+    is.  Prints how many outputs the per-step order (each step from zero,
+    IEEE adds) gives other bits."""
+    _need_card()
+    lib = _chain_probe()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    K = 256
+    stream = torch.cuda.current_stream().cuda_stream
+    for N, kind in itertools.product((64, 128, 256), ("normal", "cancel", "wide", "halves")):
+        x, w = _chain_operands(gen, kind, N, K)
+        outs = [torch.full((64, N), float("nan"), device="cuda") for _ in range(5)]
+        wg, swap, wa, xa, steps = outs
+        assert lib.mma_chain_probe(x.data_ptr(), w.data_ptr(), K, N, K,
+                                   *[o.data_ptr() for o in outs], stream) == 0
+        torch.cuda.synchronize()
+        swap = swap.view(N, 64).t()
+        assert torch.equal(wg, wa) and torch.equal(wg, xa) and torch.equal(wg, swap), (N, kind)
+        ref = x.double() @ w.double().t()
+        size = x.double().abs() @ w.double().abs().t()
+        assert bool(((wg.double() - ref).abs() <= 1e-4 * size + 1e-30).all()), (N, kind)
+        print(f"chain probe N={N} {kind}: mma.sync == wgmma == swapped sides bitwise; the "
+              f"per-step order differs in {int((steps != wg).sum())} of {wg.numel()}")
+    # zero steps past K: the chain over 208 elements, and over 256 whose last
+    # 48 are zeros (the tiled form's TMA fill), the same bits
+    x, w = _chain_operands(gen, "normal", 128, K)
+    x[:, 208:] = 0
+    w[:, 208:] = 0
+    full, short = (torch.empty(64, 128, device="cuda") for _ in range(2))
+    spare = [torch.empty(64, 128, device="cuda") for _ in range(3)]
+    assert lib.mma_chain_probe(x.data_ptr(), w.data_ptr(), K, 128, K, full.data_ptr(), None,
+                               *[t.data_ptr() for t in spare], stream) == 0
+    assert lib.mma_chain_probe(x.data_ptr(), w.data_ptr(), K, 128, 208, None, None,
+                               short.data_ptr(), spare[1].data_ptr(), spare[2].data_ptr(),
+                               stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(full, short) and torch.equal(spare[0], short)
+
+
+@pytest.mark.cuda
+def test_fixed_linear_rows_are_bitwise_the_same_across_both_forms():
+    """At every served width, with its served N and with a ragged one: the
+    rows of a launch of M = 1000 bitwise the same as in launches of M = 1,
+    8, 16 (the decode form) and 17, 64, 65 (the tiled form, or the decode
+    form behind a norm), and from a row-strided x; behind a norm, every row
+    bitwise the unfused composition (the norm's own kernel, then the product
+    on the tiled form at M = 1000)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for K, Ns, prologue in SERVED_WIDTHS:
+        for widths in (Ns, (Ns[0] - 5,) + Ns[1:]):
+            x0, ws, scale, z = _fixed_operands(gen, ACROSS_M[-1], K, widths, torch.bfloat16)
+            x, kw = _prologue(x0, scale, z, prologue)
+            outs = [torch.bfloat16] + [torch.float32] * (len(widths) - 1)
+            what = (K, widths, prologue)
+            full = tfl.fixed_linear(x, ws, outs, **kw)
+            for M in ACROSS_M[:-1]:
+                part = tfl.fixed_linear(x[:M], ws, outs, **kw)
+                assert all(torch.equal(a, b[:M]) for a, b in zip(part, full)), (what, M)
+            for m in (7, 16, 64, 999):
+                one = tfl.fixed_linear(x[m:m + 1], ws, outs, **kw)
+                assert all(torch.equal(a[0], b[m]) for a, b in zip(one, full)), (what, m)
+            wide = torch.zeros(ACROSS_M[-1], K + 64, dtype=x.dtype, device="cuda")
+            wide[:, 8:8 + K] = x
+            for M in (8, 65):
+                strided = tfl.fixed_linear(wide[:M, 8:8 + K], ws, outs, **kw)
+                assert all(torch.equal(a, b[:M]) for a, b in zip(strided, full)), (what, M)
+            if prologue is not None:
+                tfl.fixed_linear.routes.clear()
+                unfused = tfl.fixed_linear(_normed(x0, scale, z, prologue), ws, outs)
+                assert dict(tfl.fixed_linear.routes) == {"mma_bf16_tiled": 1}
+                assert all(torch.equal(a, b) for a, b in zip(unfused, full)), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Ns", [(2560, (80000,)), (8960, (4000,))])
+def test_fixed_linear_decode_form_runs_its_waves(K, Ns):
+    """Widths whose partials do not fit a block at once: the decode form
+    runs its tiles in waves (a second cluster barrier a wave), within the
+    tolerance of the plain version, row m bitwise the same at M = 1 and
+    M = 8."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, ws, _, _ = _fixed_operands(gen, 8, K, Ns, torch.bfloat16)
+    plan = tfl.plan(torch.bfloat16, None, K, Ns)
+    tiles = sum((N + 15) // 16 for N in Ns)
+    assert plan["clusters"] * plan["wave"] < tiles       # more than one wave
+    got = tfl.fixed_linear(x, ws)
+    want = tfl.fixed_linear_plain(x, ws)
+    torch.cuda.synchronize()
+    assert _fixed_close(got[0], want[0])
+    for m in (0, 5):
+        assert torch.equal(tfl.fixed_linear(x[m:m + 1], ws)[0][0], got[0][m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Ns,prologue", [(12800, (4096,), None), (8192, (1024,), "norm"),
+                                           (8192, (1024,), "gated")])
+def test_fixed_linear_decode_form_takes_wide_rows(K, Ns, prologue):
+    """The decode form takes K = 12,800 (Granite-3-8B's d_ff) without a
+    norm, x's rows staged in phases of 4,096 elements, and K = 8,192 behind
+    either norm (the rows whole; behind the block's norm with an fp32 scale,
+    beside one piece a warp): within the tolerance of the plain product of
+    the rows it reads, row m bitwise the same at M = 1, 8 and 16, and behind
+    a norm bitwise the unfused composition."""
+    _need_card()
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert tfl.max_k(bf16, bf16, False) >= 12800
+    assert min(tfl.max_k(bf16, bf16, True), tfl.max_k(bf16, f32, True)) >= 8192
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x0, ws, scale, z = _fixed_operands(gen, 16, K, Ns, bf16)
+    scale = scale.float()
+    x, kw = _prologue(x0, scale, z, prologue)
+    plan = tfl.plan(x.dtype, scale.dtype if kw else None, K, Ns)
+    assert plan["phases"] == (1 if kw else 4)
+    assert (plan["pieces"] == 1) == (prologue == "norm")
+    sixteen = tfl.fixed_linear(x, ws, **kw)[0]
+    eight = tfl.fixed_linear(x[:8], ws, **kw)[0]
+    want = tfl.fixed_linear_plain(_normed(x0[:8], scale, z[:8], prologue) if kw else x[:8], ws)
+    torch.cuda.synchronize()
+    assert _fixed_close(eight, want[0])
+    assert torch.equal(eight, sixteen[:8])
+    for m in (0, 5, 15):
+        assert torch.equal(tfl.fixed_linear(x[m:m + 1], ws, **kw)[0][0], sixteen[m]), m
+    if kw:
+        unfused = tfl.fixed_linear(_normed(x0, scale, z, prologue), ws)[0]
+        assert torch.equal(unfused, sixteen)
+
+
+@pytest.mark.cuda
+def test_fixed_linear_replayed_in_a_cuda_graph_equals_the_eager_launch():
+    """A decode-form launch captured in a CUDA graph and replayed gives the
+    eager launch's bits, on the inputs it was captured on and on new ones
+    copied into them (Mamba2's two launches, Qwen2's q/k/v, each behind its
+    norm)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for K, Ns, prologue in (SERVED_WIDTHS[0], SERVED_WIDTHS[1], SERVED_WIDTHS[2]):
+        x0, ws, scale, z = _fixed_operands(gen, 8, K, Ns, torch.bfloat16)
+        x, kw = _prologue(x0, scale, z, prologue)
+        outs = [torch.bfloat16] + [torch.float32] * (len(Ns) - 1)
+        eager = tfl.fixed_linear(x, ws, outs, **kw)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = tfl.fixed_linear(x, ws, outs, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager)), (K, Ns)
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype))
+        eager = tfl.fixed_linear(x, ws, outs, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager)), (K, Ns, "new x")
 
 
 @pytest.mark.cuda
