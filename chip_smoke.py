@@ -13,19 +13,35 @@ Phases (each one that fails makes the script exit non-zero):
   3. kernels  — each kernel of the first path against its plain PyTorch
                 version on the card, in fp32 and bf16, with ragged n, d and k,
                 k = 65 and 257, planted ties, and a small fit on the card
-                against the same fit on the CPU.
+                against the same fit on the CPU; kmeans_assign's rows bitwise
+                the same across n, P, offset, form (stream, split) and route
+                (TMA, general: contiguous, 16-byte-aligned and unaligned row
+                strides, bf16, d = 1031, 4099 and 1), and the plain version's
+                picks but for ties within fp32 rounding at d of several slices
+                in both forms.
   4. logistic regression at the paper's width: a 65,536 x (1 + 160,000) fp32
                 table made on the card from a seed (the paper's 200K rows do
                 not fit 80 GB at fp32, so rows are cut), 8 partitions, 3 rounds
                 of each solver through the kernels, against the plain path.
   5. k-means   — 1,048,576 x 4,096 (synth_imagenet_features' width), k = 50
                 (Fig. A2), 8 partitions, 3 Lloyd rounds through the kernel,
-                against the plain expanded form.
+                against plain Lloyd rounds that sum in the kernel's order
+                (the distance to the plain expanded form's printed).
   6. serving   — 16 requests of mixed sizes to each fitted model through the
                 port's ModelPredictor.
   7. timing    — each kernel of the first path at its shapes with CUDA events,
                 beside its plain version, a one-call library yardstick where
-                there is one, and its bound.  The two tables are freed after.
+                there is one, and its bound.  For kmeans_assign also: each of
+                3 Lloyd rounds' picks against the expanded form's on the same
+                centroids; every served pick bitwise the full table's launch's;
+                a serving microbatch (1, 2048, 4096), the wrapper's call in a
+                CUDA graph and its kernel alone by torch.profiler; a fit round
+                by CUDA events after a warm round (the kernel's fit and the
+                plain one in turns) and a torch.profiler split of one round
+                (assignment kernel, one_hot, batched product, combine, update,
+                the rest); its two bars (KMEANS_FIT_BAR, KMEANS_SERVE_BAR)
+                printed met or MISSED; its registers (no spill).  The two
+                tables are freed after.
   8. LM serving — Qwen2-1.5B at full width and depth (28 layers, d_model 1536,
                 vocab 151,936), bf16 weights made from a seed, int8
                 projections (quantize="int8"), 8 slots, max_seq 2,048: 16
@@ -208,6 +224,7 @@ repository's ``src/`` beside it and one CUDA card.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -236,6 +253,13 @@ DEVICE = "cuda"
 SEED = 0
 LOGREG_ROWS, LOGREG_FEATURES = 65_536, 160_000
 KMEANS_ROWS, KMEANS_FEATURES, KMEANS_K = 1_048_576, 4_096, 50
+# kmeans_assign's bars, printed met or MISSED (a kernel that misses one stays
+# in, with its times): at the fit's shape below the plain composition and at
+# this share of the operations bound or more; at a serving microbatch of
+# KMEANS_SERVE_ROWS rows this share of its bound or more
+KMEANS_FIT_BAR, KMEANS_SERVE_BAR, KMEANS_SERVE_ROWS = 0.50, 0.25, 2048
+# the elements of d each of kmeans_assign's chains runs over (kSlice)
+KMEANS_SLICE = 512
 SHARDS, ROUNDS, SGD_BATCH = 8, 3, 256
 FP32_TOL = 2e-4      # tests/test_kernels.py's fp32 tolerance
 BF16_TOL = 5e-2      # and its bf16 one
@@ -561,6 +585,7 @@ def phase_kernels(gen: torch.Generator) -> None:
     check(torch.equal(a, kka.kmeans_assign(X, C0)) and int(a.max()) < 4,
           "planted ties did not go to the lowest index")
     say("kmeans_assign: planted 3-way ties go to the lowest index")
+    kmeans_invariance(gen)
 
     # a small fit on the card (kernels) against the same fit on the CPU (plain)
     rng = np.random.default_rng(SEED)
@@ -586,6 +611,76 @@ def phase_kernels(gen: torch.Generator) -> None:
     e = (card.centroids.cpu() - cpu.centroids).abs().max().item()
     check(e <= FP32_TOL, f"small k-means fit: card vs CPU {e}")
     say(f"small k-means fit: card (kernel) vs CPU (direct form) centroids max abs err {e:.3g}")
+
+
+def kmeans_invariance(gen: torch.Generator) -> None:
+    """kmeans_assign's picks bitwise the same for a row wherever it lies:
+    at n = 1, 7, 128 and 2048, at offsets, as (P, n, d) and (n, d), in a
+    launch of 8,192 rows (the split form) and of 32,768 (the stream form);
+    and contiguous, in a 16-byte-aligned strided view (the TMA route) and
+    an unaligned one (row stride d + 1, the general route), in fp32 and
+    bf16 at ragged n and d; and at shapes of several 512-element slices in
+    both forms, the plain version's picks but for ties within fp32 rounding
+    (tests/test_torch_cuda.py's shapes)."""
+    from repro_torch.kernels import kmeans_assign as kka
+
+    forms, routes = kka.kmeans_assign.forms, kka.kmeans_assign.routes
+    forms.clear()
+    big = torch.randn(2, 16384, 4096, generator=gen, device=DEVICE)
+    X = big[:, :4096]
+    for k in (1, 50, 64, 65, 257):
+        C = torch.randn(k, 4096, generator=gen, device=DEVICE)
+        full = kka.kmeans_assign(X, C)
+        check(torch.equal(full, kka.kmeans_assign(big, C)[:, :4096]),
+              f"kmeans_assign k={k}: X's rows differ between the forms")
+        for n, off in itertools.product((1, 7, 128, 2048), (0, 1, 1000)):
+            off = min(off, 4096 - n)
+            check(torch.equal(kka.kmeans_assign(X[:, off:off + n], C), full[:, off:off + n])
+                  and torch.equal(kka.kmeans_assign(X[1, off:off + n], C),
+                                  full[1, off:off + n]),
+                  f"kmeans_assign k={k}: rows {off}..{off + n} differ from X's launch")
+    check(forms["stream"] > 0 and forms["split"] > 0, f"kmeans_assign forms {dict(forms)}")
+    say(f"kmeans_assign: every row's pick bitwise the same at n = 1, 7, 128, 2048, "
+        f"4096, 16384, at offsets, P = 1, 2, k = 1, 50, 64, 65, 257; launches by "
+        f"form {dict(forms)}")
+    del big, X
+    routes.clear()
+    for n, d, k in ((300, 1031, 50), (77, 4099, 65), (1000, 4096, 50), (2500, 33, 7),
+                    (129, 1, 3), (5, 512, 257)):
+        for dtype in (torch.float32, torch.bfloat16):
+            Xr = torch.randn(2, n, d, generator=gen, device=DEVICE).to(dtype)
+            C = torch.randn(k, d, generator=gen, device=DEVICE)
+            step = 16 // Xr.element_size()
+            aligned = torch.zeros(2, n, -(-d // step) * step + step, dtype=dtype,
+                                  device=DEVICE)
+            aligned[..., :d] = Xr
+            unaligned = torch.zeros(2, n, d + 1, dtype=dtype, device=DEVICE)
+            unaligned[..., 1:] = Xr
+            want = kka.kmeans_assign(Xr, C)
+            differ, gap, ratio = score_gap(Xr, C, want, kka.kmeans_assign_plain(Xr, C))
+            check(ratio <= 1.0, f"kmeans_assign X{(2, n, d)} k={k} {dtype}: {differ} picks "
+                  f"differ from the plain version's beyond rounding ({ratio}x)")
+            for view in (aligned[..., :d], unaligned[..., 1:]):
+                check(torch.equal(kka.kmeans_assign(view, C), want)
+                      and torch.equal(kka.kmeans_assign(view[:, 1:], C), want[:, 1:]),
+                      f"kmeans_assign X{(2, n, d)} k={k} {dtype}: a strided view differs")
+    check(routes["tma"] > 0 and routes["general"] > 0, f"kmeans_assign routes {dict(routes)}")
+    say(f"kmeans_assign: the same picks contiguous, 16-byte-aligned and unaligned, "
+        f"the plain version's but for ties within fp32 rounding (fp32, bf16; d = 1031, "
+        f"4099, 4096, 33, 1, 512); launches by route {dict(routes)}")
+    forms.clear()
+    for shape in ((3, 333, 1031, 50), (1, 2048, 4096, 50), (2, 12000, 1031, 50),
+                  (1, 20000, 4096, 50)):
+        *xs, k = shape
+        Xm = torch.randn(*xs, generator=gen, device=DEVICE)
+        C = torch.randn(k, xs[-1], generator=gen, device=DEVICE)
+        differ, gap, ratio = score_gap(Xm, C, kka.kmeans_assign(Xm, C),
+                                       kka.kmeans_assign_plain(Xm, C))
+        check(ratio <= 1.0, f"kmeans_assign X{tuple(xs)} k={k}: {differ} picks differ "
+              f"from the plain version's beyond rounding ({ratio}x)")
+    check(forms["stream"] == 2 and forms["split"] == 2, f"kmeans_assign forms {dict(forms)}")
+    say(f"kmeans_assign: several slices (d = 1031, 4096) in both forms {dict(forms)}, "
+        f"the plain version's picks but for ties within fp32 rounding")
 
 
 def logreg_table(gen: torch.Generator) -> torch.Tensor:
@@ -666,14 +761,85 @@ def kmeans_table(gen: torch.Generator) -> torch.Tensor:
     return data
 
 
-def plain_lloyd(blocks: torch.Tensor, C: torch.Tensor, rounds: int):
-    """Lloyd rounds with the plain expanded-form assignment, written out
+def rounds_ms(fit, rounds: int) -> float:
+    """Device ms a round of ``fit()`` (``rounds`` rounds), by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    fit()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / rounds
+
+
+def kmeans_round_split(blocks: torch.Tensor, C: torch.Tensor) -> dict:
+    """Device ms of one Lloyd round through the kernel by part
+    (torch.profiler over a round after a warm one), the round made of the
+    calls the port's KMeans makes each round (``_local_stats``, the
+    runner's combine, ``_centroid_update``): the assignment kernel (by its
+    name, ``assign_``), one_hot, the batched product (aten::bmm), the
+    combine and the update (each under a label), and the rest (||c||², the
+    one-hot's dtype copy, counts, concatenation); ``round`` is every kernel
+    of the round."""
+    import repro_torch.core.algorithms.kmeans as km
+    from repro_torch.core.runner import _emulated_combine
+    from torch.profiler import DeviceType, ProfilerActivity, profile, record_function
+
+    def lloyd_round():
+        stats = km._local_stats(blocks, C, use_kernel=True)
+        with record_function("kmeans.combine"):
+            tot = _emulated_combine(stats, "sum")
+        with record_function("kmeans.update"):
+            return km._centroid_update(C, tot)
+
+    lloyd_round()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lloyd_round()
+        sync()
+    events = prof.events()
+
+    def part(name):
+        return sum(e.device_time_total for e in events
+                   if e.device_type == DeviceType.CPU and e.name == name) / 1e3
+
+    # the kernels themselves, without the labels' device-side ranges
+    kernels = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("kmeans."):
+            kernels[e.name[:60]] += e.self_device_time_total / 1e3
+    parts = {"assignment kernel": sum(v for k, v in kernels.items() if "assign_" in k),
+             "one_hot": part("aten::one_hot"), "batched product": part("aten::bmm"),
+             "combine": part("kmeans.combine"), "update": part("kmeans.update")}
+    check(parts["assignment kernel"] > 0, "the round's split saw no assign_ kernel")
+    parts["round"] = sum(kernels.values())
+    parts["rest"] = parts["round"] - sum(v for k, v in parts.items() if k != "round")
+    parts["kernels"] = dict(kernels.most_common(6))
+    return parts
+
+
+def sliced_plain_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """The plain composition in kmeans_assign's order: d in slices of
+    KMEANS_SLICE elements (csrc/kmeans_assign.cu's kSlice), each slice's
+    products by one matmul, the slices' products added in slice order onto
+    0, then the first argmin of ||c||² − 2·sum."""
+    Cf = C.float()
+    total = torch.zeros(X.shape[:-1] + (C.shape[0],), dtype=torch.float32, device=X.device)
+    for s0 in range(0, X.shape[-1], KMEANS_SLICE):
+        total = total + X[..., s0:s0 + KMEANS_SLICE].float() @ Cf[:, s0:s0 + KMEANS_SLICE].T
+    return torch.argmin((Cf * Cf).sum(dim=1) - 2.0 * total, dim=-1).to(torch.int32)
+
+
+def plain_lloyd(blocks: torch.Tensor, C: torch.Tensor, rounds: int, assign=None):
+    """Lloyd rounds with a plain assignment (the expanded form
+    ``kmeans_assign_plain`` unless ``assign`` is given), written out
     independently of the port's KMeans."""
     from repro_torch.kernels.kmeans_assign import kmeans_assign_plain
 
+    assign = assign or kmeans_assign_plain
     k = C.shape[0]
     for _ in range(rounds):
-        a = kmeans_assign_plain(blocks, C).long()
+        a = assign(blocks, C).long()
         onehot = torch.nn.functional.one_hot(a, k).float()
         sums = (onehot.transpose(1, 2) @ blocks).sum(0)
         counts = onehot.sum((0, 1)).unsqueeze(-1)
@@ -708,21 +874,91 @@ def phase_kmeans(gen, counts, report) -> None:
     say(f"launches of kmeans_assign in the fit: {got} over {ROUNDS} rounds "
         f"(expected 1 a round)")
     check(got == ROUNDS, f"k-means fit launches {got}")
+    blocks = data.view(SHARDS, -1, KMEANS_FEATURES)
     t0 = time.perf_counter()
-    C_plain = plain_lloyd(data.view(SHARDS, -1, KMEANS_FEATURES), init, ROUNDS)
+    C_plain = plain_lloyd(blocks, init, ROUNDS)
     sync()
     t_plain = (time.perf_counter() - t0) / ROUNDS
     C = model.centroids
-    e = (C - C_plain).abs().max().item()
     check(C.shape == (KMEANS_K, KMEANS_FEATURES) and bool(torch.isfinite(C).all()),
           "centroids not finite or misshapen")
-    # a centroid is a mean over ~2·10^4 rows: one tie row moving between
-    # clusters shifts a coordinate by well under 1e-3
-    check(e <= 1e-3, f"centroids kernel vs plain max abs err {e}")
+    # The kernel sums each row's products in 512-element slices added in
+    # order; the expanded form's matmul sums them in one chain.  Rows whose
+    # two best scores lie within fp32 rounding may go either way, and one
+    # such row moving between clusters of 1 to ~4·10^4 rows shifts a
+    # coordinate of a small one by up to ~4·10^-2.  So the fit is held at
+    # 1e-3 against plain Lloyd rounds that sum in the kernel's order; each
+    # round's picks are held against the expanded form's in phase 7 (every
+    # difference a tie within fp32 rounding), and the distance between the
+    # two fits is printed.
+    e = (C - plain_lloyd(blocks, init, ROUNDS, assign=sliced_plain_assign)).abs().max().item()
+    check(e <= 1e-3, f"centroids kernel vs plain in the kernel's order max abs err {e}")
+    e_plain = (C - C_plain).abs().max().item()
     say(f"fit: {t_fit:.4f} s/round through the kernel (1 launch a round), "
-        f"{t_plain:.4f} s/round plain expanded form; centroids max abs err "
-        f"vs plain {e:.3g}")
-    report["kmeans"] = {"table": table, "model": model}
+        f"{t_plain:.4f} s/round plain expanded form (host clock, the first fit); "
+        f"centroids max abs err vs plain rounds in the kernel's order {e:.3g}, vs the "
+        f"expanded form's {e_plain:.3g}")
+    report["kmeans"] = {"table": table, "model": model, "init": init}
+
+
+def kmeans_rounds_against_plain(blocks: torch.Tensor, init: torch.Tensor,
+                                fitted: torch.Tensor) -> None:
+    """Lloyd rounds from ``init`` through the kernel, each round's picks
+    held against the expanded form's on the same centroids (every
+    difference a tie within fp32 rounding, ``score_gap``), and the last
+    round's centroids against the fit's."""
+    from repro_torch.kernels import kmeans_assign as kka
+
+    rounds = []
+
+    def checked(X, C):
+        a = kka.kmeans_assign(X, C)
+        ties, gap, ratio = score_gap(X, C, a, kka.kmeans_assign_plain(X, C))
+        check(ratio <= 1.0, f"round {len(rounds) + 1}: {ties} picks differ from the "
+              f"expanded form's beyond rounding (gap {gap}, {ratio}x the scale)")
+        smallest = int(torch.bincount(a.flatten().long(), minlength=C.shape[0]).min())
+        rounds.append(f"{ties} (gap {gap:.3g}, {ratio:.3g}x; smallest cluster {smallest})")
+        return a
+
+    e = (plain_lloyd(blocks, init, ROUNDS, assign=checked) - fitted).abs().max().item()
+    check(e <= 1e-3, f"Lloyd rounds through the kernel vs the fit: max abs err {e}")
+    say(f"k-means rounds 1..{ROUNDS} through the kernel: picks that differ from the "
+        f"expanded form's on the same centroids, each a tie within fp32 rounding: "
+        f"{'; '.join(rounds)}; centroids vs the fit's max abs err {e:.3g}")
+
+
+def kmeans_round_times(table, init) -> dict:
+    """Device ms a fit round by CUDA events after a warm round, the
+    kernel's fit (KMeans) and the plain expanded form's in turns."""
+    from repro_torch.core.algorithms.kmeans import KMeans
+
+    blocks = table.data.view(SHARDS, -1, KMEANS_FEATURES)
+    fits = {"kernel": lambda r: KMeans(k=KMEANS_K, max_iter=r, seed=SEED,
+                                       use_kernel=True).fit(table, init_centroids=init),
+            "plain": lambda r: plain_lloyd(blocks, init, r)}
+    got = {name: [] for name in fits}
+    for fit in fits.values():
+        fit(1)
+    for _ in range(2):
+        for name, fit in fits.items():
+            got[name].append(rounds_ms(lambda: fit(ROUNDS), ROUNDS))
+    return got
+
+
+def kmeans_round_timing(report) -> None:
+    """Phase 7's fit round: its time and its split by part."""
+    table, init = report["kmeans"]["table"], report["kmeans"]["init"]
+    got = kmeans_round_times(table, init)
+    split = kmeans_round_split(table.data.view(SHARDS, -1, KMEANS_FEATURES), init)
+    say(f"a fit round by CUDA events (after a warm round; kernel and plain in turns): "
+        f"kernel {', '.join(f'{v:.4f}' for v in got['kernel'])} ms, plain "
+        f"{', '.join(f'{v:.4f}' for v in got['plain'])} ms")
+    say("one round through the kernel by part (torch.profiler, device ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if k != "kernels"))
+    say("its largest kernels (device ms): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in split["kernels"].items()))
+    report["kmeans"]["round_ms"] = got
+    report["kmeans"]["round_split"] = split
 
 
 def phase_serving(gen, counts, report) -> None:
@@ -752,8 +988,11 @@ def phase_serving(gen, counts, report) -> None:
         counts[f"serve_{name}"] = got
         check(got == svc.batches, f"{name} serving: {got} launches for "
               f"{svc.batches} microbatches")
-        # each result against the plain path on the same rows
+        # each result against the plain path on the same rows (the k-means
+        # picks against the full table's launch in phase 7)
         mismatched = 0
+        if name == "k-means":
+            report["kmeans"]["served"] = list(zip(starts, sizes, results))
         for b, r in zip(blocks, results):
             x = torch.from_numpy(b).to(DEVICE)
             if name == "k-means":
@@ -858,24 +1097,113 @@ def phase_timing(gen, counts, report) -> list:
                 "fit_sgd": counts["sgd"][name], "fit_gd": counts["gd"][name],
                 "serve": counts["serve_logreg"] if name == "logreg_margin" else 0},
         })
+    records.append(kmeans_timing(counts, report))
+    return records
+
+
+def kernel_device_ms(fn, key: str, calls: int = 20) -> float:
+    """Mean device time of the CUDA functions whose name holds ``key``, a
+    call of ``fn`` (torch.profiler over ``calls`` calls after a warm one)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key) / 1e3 / calls
+
+
+def kmeans_shape_times(Xk: torch.Tensor, Xs: torch.Tensor, C: torch.Tensor) -> dict:
+    """kmeans_assign at the fit's shape ``Xk`` (CUDA events) and at a
+    serving microbatch ``Xs`` (the wrapper's call, as the served path makes
+    it, in a CUDA graph), each beside its plain version, and the
+    microbatch's kernel alone (torch.profiler: the functions whose name
+    holds ``assign_``)."""
+    from repro_torch.kernels import kmeans_assign as kka
+
+    return {"ms": cuda_ms(lambda: kka.kmeans_assign(Xk, C), 5),
+            "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(Xk, C), 5),
+            "serve_call_ms": graph_ms(lambda: kka.kmeans_assign(Xs, C)),
+            "serve_plain_ms": graph_ms(lambda: kka.kmeans_assign_plain(Xs, C)),
+            "serve_kernel_ms": kernel_device_ms(lambda: kka.kmeans_assign(Xs, C), "assign_")}
+
+
+def kmeans_timing(counts, report) -> dict:
+    """kmeans_assign at the fit's shape and at a serving microbatch, beside
+    its plain version and both bounds, with its bars; each fit round's
+    picks against the expanded form's; the served picks against the full
+    table's launch; the fit round's time and split; its registers (no
+    spill)."""
+    from repro_torch.kernels import kmeans_assign as kka
+
     data = report["kmeans"]["table"].data
     Xk = data.view(SHARDS, -1, KMEANS_FEATURES)
     C = report["kmeans"]["model"].centroids
+    forms = kka.kmeans_assign.forms
+    before = forms["stream"]
     a, ap = kka.kmeans_assign(Xk, C), kka.kmeans_assign_plain(Xk, C)
     sync()
+    check(forms["stream"] == before + 1, "kmeans_assign at the fit's shape: not the stream form")
     differ, gap, ratio = score_gap(Xk, C, a, ap)
     check(ratio <= 1.0, f"kmeans_assign at the main shape: {differ} picks "
           f"differ beyond rounding")
-    ms = cuda_ms(lambda: kka.kmeans_assign(Xk, C), 5)
-    plain_ms = cuda_ms(lambda: kka.kmeans_assign_plain(Xk, C), 5)
+    kmeans_rounds_against_plain(Xk, report["kmeans"]["init"], C)
+    table_picks = a.flatten()
+    for s0, m, r in report["kmeans"]["served"]:
+        check(torch.equal(torch.from_numpy(r).to(DEVICE).to(torch.int32),
+                          table_picks[s0:s0 + m]),
+              f"served picks of rows {s0}..{s0 + m} differ from the table's launch")
+    Xs = Xk[0, :KMEANS_SERVE_ROWS].unsqueeze(0)
+    before = forms["split"]
+    check(torch.equal(kka.kmeans_assign(Xs, C), a[:1, :KMEANS_SERVE_ROWS])
+          and forms["split"] == before + 1,
+          "kmeans_assign: a serving microbatch's picks differ from the fit shape's, "
+          "or it did not take the split form")
+    say(f"kmeans_assign: every served pick ({len(report['kmeans']['served'])} requests) "
+        f"bitwise the full table's launch's; a microbatch X(1, {KMEANS_SERVE_ROWS}, "
+        f"{KMEANS_FEATURES}) (the split form) bitwise the fit shape's (the stream form)")
+    times = kmeans_shape_times(Xk, Xs, C)
+    check(times["serve_kernel_ms"] > 0, "torch.profiler saw no assign_ kernel at the microbatch")
+    kmeans_round_timing(report)
+
+    def bounds(rows):
+        return (4.0 * (rows * KMEANS_FEATURES + KMEANS_K * KMEANS_FEATURES + rows)
+                / HBM_BYTES_PER_S * 1e3,
+                2.0 * rows * KMEANS_FEATURES * KMEANS_K / FP32_OPS_PER_S * 1e3)
+
     nk = Xk.shape[0] * Xk.shape[1]
-    t_b, by = bound(4 * (nk * KMEANS_FEATURES + KMEANS_K * KMEANS_FEATURES + nk),
-                    2.0 * nk * KMEANS_FEATURES * KMEANS_K)
+    fit_bytes, fit_ops = bounds(nk)
+    serve_bytes, serve_ops = bounds(KMEANS_SERVE_ROWS)
+    t_b, by = max((fit_bytes, "bytes"), (fit_ops, "operations"))
+    s_b = max(serve_bytes, serve_ops)
+    ms, plain_ms, serve_ms = times["ms"], times["plain_ms"], times["serve_call_ms"]
+    # the serving bar reads the wrapper's call, its ||c||² (two PyTorch
+    # launches) included, as every served microbatch pays it
+    bars = {
+        f"fit below the plain composition and >= {KMEANS_FIT_BAR:.0%} of its bound":
+            "met" if ms < plain_ms and t_b / ms >= KMEANS_FIT_BAR else "MISSED",
+        f"serving microbatch (the wrapper's call) >= {KMEANS_SERVE_BAR:.0%} of its bound":
+            "met" if s_b / serve_ms >= KMEANS_SERVE_BAR else "MISSED"}
     say(f"kmeans_assign X{tuple(Xk.shape)} k={KMEANS_K}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library none, bound {t_b:.4f} ms ({by}); {differ} "
+        f"{plain_ms:.4f} ms, library none, bound {t_b:.4f} ms ({by}; operations "
+        f"{fit_ops:.4f}, bytes {fit_bytes:.4f}; {t_b / ms:.1%}); {differ} "
         f"assignments differ from the plain version, each a tie within fp32 "
         f"rounding (largest gap {gap:.3g}, {ratio:.3g}x the rounding scale)")
-    records.append({
+    say(f"kmeans_assign X(1, {KMEANS_SERVE_ROWS}, {KMEANS_FEATURES}) k={KMEANS_K} (a serving "
+        f"microbatch): the wrapper's call {serve_ms:.4f} ms ({s_b / serve_ms:.1%} of the "
+        f"bound; {'faster' if serve_ms < times['serve_plain_ms'] else 'slower'} than plain) and "
+        f"plain {times['serve_plain_ms']:.4f} ms (CUDA graph); the kernel alone "
+        f"{times['serve_kernel_ms']:.4f} ms (torch.profiler; {s_b / times['serve_kernel_ms']:.1%}); "
+        f"bound {s_b:.4f} ms (operations {serve_ops:.4f}, bytes {serve_bytes:.4f})")
+    say(f"kmeans_assign bars (a kernel that misses one stays in): {bars}")
+    check_no_spill("kmeans_assign", {
+        f"{form} {t} TN={tn}": rf"assign_{form}I{m}Li{tn}E"
+        for form in ("stream", "split") for t, m in (("fp32", "f"), ("bf16", "13__nv_bfloat16"))
+        for tn in (4, 8, 13, 16)})
+    return {
         "name": "kmeans_assign", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign.py:75",
@@ -883,10 +1211,14 @@ def phase_timing(gen, counts, report) -> list:
         "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": t_b, "bound_by": by, "library_ms": None,
         "shape": list(Xk.shape) + [KMEANS_K], "tie_picks": differ,
-        "launches_by_path": {"fit": counts["kmeans_fit"],
-                             "serve": counts["serve_k-means"]},
-    })
-    return records
+        "bound_ops_ms": fit_ops, "bound_bytes_ms": fit_bytes,
+        "serve_shape": [1, KMEANS_SERVE_ROWS, KMEANS_FEATURES, KMEANS_K],
+        "serve_ms": serve_ms, "serve_kernel_ms": times["serve_kernel_ms"],
+        "serve_plain_ms": times["serve_plain_ms"], "serve_bound_ms": s_b,
+        "serve_bound_ops_ms": serve_ops, "serve_bound_bytes_ms": serve_bytes,
+        "round_ms": report["kmeans"]["round_ms"], "bars": bars,
+        "launches_by_path": {"fit": counts["kmeans_fit"], "serve": counts["serve_k-means"]},
+    }
 
 
 def free_tables(report) -> None:

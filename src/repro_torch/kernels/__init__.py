@@ -44,8 +44,12 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every launch count to 0, and clear the route counts of
-    ``flash_attention``'s prefill form and ``fixed_linear`` (``.routes``)."""
+    ``flash_attention``'s prefill form, ``fixed_linear`` and
+    ``kmeans_assign`` (``.routes``) and ``kmeans_assign``'s form counts
+    (``.forms``)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for fn in (_flash_attention.flash_attention, _fixed_linear.fixed_linear):
+    for fn in (_flash_attention.flash_attention, _fixed_linear.fixed_linear,
+               _kmeans_assign.kmeans_assign):
         fn.routes.clear()
+    _kmeans_assign.kmeans_assign.forms.clear()

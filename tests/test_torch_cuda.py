@@ -10,7 +10,9 @@ Tests marked ``cuda`` decide inside the test whether a card is present and
 skip without one.  Tolerances are ``tests/test_kernels.py``'s fp32 2e-4
 (for the gradient: max abs error over the largest entry); k-means
 assignments are compared exactly on random data, where fp32 ties do not
-occur; ``quant_matmul`` is bitwise (its sum is integer), and greedy token
+occur, at d of one 512-element slice, and at d of several (where the kernel
+sums in slices and the plain version in one chain) differ only where two
+scores lie within fp32 rounding; ``quant_matmul`` is bitwise (its sum is integer), and greedy token
 streams are compared exactly.  ``rmsnorm`` is held at rtol = atol = 1e-5
 in fp32 and within one bf16 step (rtol 2⁻⁷) in bf16 (only the order of a
 row's sum of squares differs), and bitwise between a row alone and in a
@@ -149,6 +151,103 @@ def test_kmeans_fit_and_serving_on_card():
     assert tk.launch_counts()["kmeans_assign"] == svc.batches == 5
     want = cpu.predict(torch.from_numpy(X[:300])).numpy()
     np.testing.assert_array_equal(np.concatenate(got), want)
+
+
+def _kmeans_ties_only(X, C, got, want):
+    """Every row where two assignments differ is a tie within fp32
+    rounding: the two scores ||c||² − 2·x·c, in fp64, lie within twice the
+    error bound of an fp32 sum of d products (d·2⁻²⁴ times the sum of the
+    magnitudes) of each other (chip_smoke.py's ``score_gap``)."""
+    rows = (got != want).nonzero(as_tuple=True)
+    if rows[0].numel() == 0:
+        return True
+    x, Cd = X[rows].double(), C.double()
+    cn = (Cd * Cd).sum(1)
+    ca, cb = Cd[got[rows].long()], Cd[want[rows].long()]
+    gap = ((cn[got[rows].long()] - 2 * (x * ca).sum(-1))
+           - (cn[want[rows].long()] - 2 * (x * cb).sum(-1))).abs()
+    mag = cn.max() + 2 * torch.maximum((x.abs() * ca.abs()).sum(-1),
+                                       (x.abs() * cb.abs()).sum(-1))
+    return bool((gap <= 2 * X.shape[-1] * 2.0 ** -24 * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n,d,k,form", [(3, 333, 1031, 50, "split"),
+                                          (1, 2048, 4096, 50, "split"),
+                                          (2, 12000, 1031, 50, "stream"),
+                                          (1, 20000, 4096, 65, "stream")])
+def test_kmeans_assign_slices_match_plain_version(P, n, d, k, form):
+    """At d of several 512-element slices, in the form the shape takes, the
+    kernel's picks are the plain version's but for ties within fp32
+    rounding: a dropped or reordered slice, or a wrong cross-block sum,
+    moves picks by far more."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(P + n + d + k)
+    X = torch.randn(P, n, d, generator=gen, device="cuda")
+    C = torch.randn(k, d, generator=gen, device="cuda")
+    tka.kmeans_assign.forms.clear()
+    got = tka.kmeans_assign(X, C)
+    torch.cuda.synchronize()
+    assert dict(tka.kmeans_assign.forms) == {form: 1}
+    assert _kmeans_ties_only(X, C, got, tka.kmeans_assign_plain(X, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 50, 64, 65, 257])
+def test_kmeans_assign_rows_are_batch_invariant(k):
+    """A row's pick is bitwise the same in a launch of any size, at any
+    offset and in either form: sub-batches of X (2, 4096, 4096) at n = 1,
+    7, 128 and 2048, at offsets, as (P, n, d) and as (n, d), against X's
+    launch (the split form), and X's rows against a launch of a
+    (2, 16384, 4096) table whose first 4096 rows a partition are X's (the
+    stream form)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    big = torch.randn(2, 16384, 4096, generator=gen, device="cuda")
+    C = torch.randn(k, 4096, generator=gen, device="cuda")
+    X = big[:, :4096]
+    tka.kmeans_assign.forms.clear()
+    whole = tka.kmeans_assign(big, C)
+    full = tka.kmeans_assign(X, C)
+    assert torch.equal(full, whole[:, :4096])
+    for n in (1, 7, 128, 2048):
+        for off in (0, 1, 1000, 4096 - n):
+            assert torch.equal(tka.kmeans_assign(X[:, off:off + n], C),
+                               full[:, off:off + n]), (n, off)
+            assert torch.equal(tka.kmeans_assign(X[1, off:off + n], C),
+                               full[1, off:off + n]), (n, off)
+    torch.cuda.synchronize()
+    assert tka.kmeans_assign.forms["stream"] >= 1
+    assert tka.kmeans_assign.forms["split"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(300, 1031, 50), (77, 4099, 65), (1000, 4096, 50),
+                                   (2500, 33, 7), (129, 1, 3), (5, 512, 257)])
+def test_kmeans_assign_routes_agree(n, d, k, dtype):
+    """The same rows contiguous, in a 16-byte-aligned strided view (the TMA
+    route) and in an unaligned one (row stride d + 1, the general route):
+    bitwise the same picks, and the first n − 1 rows alone the same too;
+    the plain version's but for ties within fp32 rounding."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + d + k)
+    X = torch.randn(2, n, d, generator=gen, device="cuda").to(dtype)
+    C = torch.randn(k, d, generator=gen, device="cuda")
+    step = 16 // X.element_size()
+    aligned = torch.zeros(2, n, -(-d // step) * step + step, dtype=dtype, device="cuda")
+    aligned[..., :d] = X
+    unaligned = torch.zeros(2, n, d + 1, dtype=dtype, device="cuda")
+    unaligned[..., 1:] = X
+    tka.kmeans_assign.routes.clear()
+    want = tka.kmeans_assign(X, C)
+    assert _kmeans_ties_only(X, C, want, tka.kmeans_assign_plain(X, C))
+    for view in (aligned[..., :d], unaligned[..., 1:]):
+        assert torch.equal(tka.kmeans_assign(view, C), want)
+        assert torch.equal(tka.kmeans_assign(view[:, 1:], C), want[:, 1:])
+    torch.cuda.synchronize()
+    assert tka.kmeans_assign.routes["tma"] >= 2
+    assert tka.kmeans_assign.routes["general"] >= 2
 
 
 @pytest.mark.cuda

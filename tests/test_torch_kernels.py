@@ -95,7 +95,7 @@ def test_logreg_reads_strided_feature_columns():
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("n,d,k", [(256, 64, 8), (77, 33, 65), (200, 96, 257),
-                                   (5, 3, 1), (129, 50, 50)])
+                                   (5, 3, 1), (129, 50, 50), (256, 4096, 50)])
 def test_kmeans_assign_matches_pallas(n, d, k, dtype):
     rng = np.random.default_rng(n + d + k)
     Xj, Xt = _pair(rng.normal(size=(2, n, d)), dtype)
