@@ -211,12 +211,36 @@ Phases (each one that fails makes the script exit non-zero):
                 every normed shape, FIXED_TILED_RATIO at every wave,
                 SSD_DECODE_MIN_SHARE) printed met or MISSED; registers and
                 spills of the kernels (none may spill).
+ 20. Fig. A2   — the paper's own program end to end, between phases 7
+                and 8: 32,768 labeled raw-text docs of
+                128 words (fig_corpus; no doc cut) through two pipelines of
+                8 partitions on the card: (a) NGrams(n=2, top=30,000) ->
+                TfIdf -> KMeans(k=50, 10 rounds, kernel 3) and (b) NGrams ->
+                TfIdf -> Standardizer -> LogisticRegression (kernels 1-2,
+                examples/text_pipeline.py's parameters); 256 raw-text
+                requests of 1..16 docs to each through ModelPredictor.
+                Checked: the launches of kernels 1-3 on this path and no
+                other kernel; the vocabulary 30,000 bigrams; (b) bitwise its
+                hand-composed chain (statistics, weights, predictions); the
+                tables (32,768 x 30,000 and x 30,001, fp32) and (b)'s IDF
+                weights, tf-idf rows, shift and scale against fp64 on the
+                card (FIG_TOL); (a)'s centroids within 1e-3 of plain rounds
+                in kmeans_assign's order, the three schedules' inertia
+                within 1e-3, fitted.predict of raw docs bitwise the model's
+                picks on the table; (b)'s weights within FIG_TOL of the
+                use_kernel=False fit, and the same fit on the table rounded
+                to bf16 beyond FIG_TOL; every served result bitwise
+                the offline prediction.  Printed: the seconds of each stage,
+                serving latency, the memo's hits and misses, kernels 1-3 at
+                this path's shapes beside their plain versions, library
+                calls and bounds, the peak memory.  It runs after phase 7.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 8, then phase 11, then phase 14, then phase 18) and read just
-after it: they count those paths only.  A decode step that replays a CUDA graph adds the
+then phase 20, then phase 8, then phase 11, then phase 14, then phase 18)
+and read just after it: they count those paths only (phase 20's launches
+are added to kernels 1-3's records under "fig_a2").  A decode step that replays a CUDA graph adds the
 launches the graph holds (``ServeEngine``), so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
@@ -262,6 +286,29 @@ KMEANS_FIT_BAR, KMEANS_SERVE_BAR, KMEANS_SERVE_ROWS = 0.50, 0.25, 2048
 KMEANS_SLICE = 512
 SHARDS, ROUNDS, SGD_BATCH = 8, 3, 256
 FP32_TOL = 2e-4      # tests/test_kernels.py's fp32 tolerance
+# phase 20, the paper's Fig. A2 program: FIG_DOCS labeled docs of FIG_WORDS
+# words drawn from FIG_VOCAB made-up words (fig_corpus), NGrams(n=2,
+# top=FIG_TOP) -> TfIdf -> KMeans(k=FIG_K, max_iter=FIG_ROUNDS) (pipeline a)
+# and -> Standardizer -> LogisticRegression(**FIG_LOGREG) (pipeline b, the
+# stages and parameters of examples/text_pipeline.py); FIG_REQUESTS raw-text
+# requests of 1..FIG_REQ_MAX docs from the first FIG_SERVE_POOL docs to each;
+# fitted.predict replayed on the first FIG_REPLAY raw docs
+FIG_DOCS, FIG_WORDS, FIG_VOCAB, FIG_TOP, FIG_K, FIG_ROUNDS = 32_768, 128, 4_096, 30_000, 50, 10
+FIG_LOGREG = dict(learning_rate=0.5, max_iter=8, local_batch_size=4)
+FIG_REQUESTS, FIG_REQ_MAX, FIG_SERVE_POOL, FIG_REPLAY = 256, 16, 1_024, 4_096
+# phase 20's tolerances, fixed before its first run: against the same
+# formulas in fp64, the IDF weights and tf-idf rows (max error over the
+# largest entry; fp32 rounds each to ~6e-8 of itself), the Standardizer's
+# shift (over the largest) and scale (entry by entry: ss/N − mean² in fp32
+# loses digits where mean² is near ss/N); (b)'s weights against the same
+# fit with use_kernel=False (max error over the largest).  The weights'
+# bound is not phase 4's 1e-3: SGD at learning rate 0.5 on 30,000
+# standardized features moves a row's margin by ~0.125·|x|² ≈ 4·10³ a step,
+# so rounding in a margin near 0 is amplified before the sigmoid saturates:
+# the same plain fit read 5.44e-3 apart in two summation orders of its
+# gradient (fp32 and fp64-accumulated products; H100, PERF.md §6), and the
+# phase checks that the fit on the table rounded to bf16 lies above the bound
+FIG_TOL = {"idf": 1e-6, "tfidf": 1e-6, "shift": 1e-5, "scale": 1e-4, "weights": 2e-2}
 BF16_TOL = 5e-2      # and its bf16 one
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
@@ -783,7 +830,7 @@ def kmeans_round_split(blocks: torch.Tensor, C: torch.Tensor) -> dict:
     of the round."""
     import repro_torch.core.algorithms.kmeans as km
     from repro_torch.core.runner import _emulated_combine
-    from torch.profiler import DeviceType, ProfilerActivity, profile, record_function
+    from torch.profiler import DeviceType, record_function
 
     def lloyd_round():
         stats = km._local_stats(blocks, C, use_kernel=True)
@@ -794,10 +841,7 @@ def kmeans_round_split(blocks: torch.Tensor, C: torch.Tensor) -> dict:
 
     lloyd_round()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lloyd_round()
-        sync()
-    events = prof.events()
+    events = profile_steps(lloyd_round, 1).events()
 
     def part(name):
         return sum(e.device_time_total for e in events
@@ -806,7 +850,8 @@ def kmeans_round_split(blocks: torch.Tensor, C: torch.Tensor) -> dict:
     # the kernels themselves, without the labels' device-side ranges
     kernels = collections.Counter()
     for e in events:
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("kmeans."):
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("kmeans.",
+                                                                       "ProfilerStep")):
             kernels[e.name[:60]] += e.self_device_time_total / 1e3
     parts = {"assignment kernel": sum(v for k, v in kernels.items() if "assign_" in k),
              "one_hot": part("aten::one_hot"), "batched product": part("aten::bmm"),
@@ -1104,14 +1149,11 @@ def phase_timing(gen, counts, report) -> list:
 def kernel_device_ms(fn, key: str, calls: int = 20) -> float:
     """Mean device time of the CUDA functions whose name holds ``key``, a
     call of ``fn`` (torch.profiler over ``calls`` calls after a warm one)."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync()
+    prof = profile_steps(fn, calls)
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and key in e.key) / 1e3 / calls
 
@@ -1228,6 +1270,382 @@ def free_tables(report) -> None:
     free_device_memory()
     say(f"tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         f"allocated")
+
+
+# --------------------------------------------------------------------------- #
+# phase 20: the paper's Fig. A2 program end to end
+# --------------------------------------------------------------------------- #
+def fig_corpus(seed: int) -> list:
+    """FIG_DOCS (label, text) rows of FIG_WORDS words: made-up words of two
+    or three consonant-vowel syllables, FIG_VOCAB of them, drawn with Zipf
+    weights (exponent 1.1), each class tripling the weight of its half of
+    the vocabulary (as synth_labeled_text favours half its words).  The
+    package's generators draw from 26 words, so they make at most 676
+    bigrams, which cannot fill top = 30,000."""
+    rng = np.random.default_rng(seed)
+    cons, vows = np.array(list("bcdfghjklmnprstvz")), np.array(list("aeiou"))
+    words = set()
+    while len(words) < FIG_VOCAB:
+        words.add("".join(rng.choice(cons) + rng.choice(vows)
+                          for _ in range(int(rng.integers(2, 4)))))
+    words = np.array(sorted(words))
+    rng.shuffle(words)
+    zipf = 1.0 / np.arange(1, FIG_VOCAB + 1) ** 1.1
+    labels = np.arange(FIG_DOCS) % 2
+    idx = np.empty((FIG_DOCS, FIG_WORDS), np.int64)
+    for c in (0, 1):
+        w = zipf.copy()
+        w[np.arange(FIG_VOCAB) % 2 == c] *= 3.0
+        rows = labels == c
+        idx[rows] = rng.choice(FIG_VOCAB, size=(int(rows.sum()), FIG_WORDS), p=w / w.sum())
+    return [(float(y), " ".join(words[i])) for y, i in zip(labels, idx)]
+
+
+def fig_pipelines():
+    """Pipelines (a) and (b) of phase 20: Fig. A2's k-means program and its
+    supervised twin (examples/text_pipeline.py's stages and parameters)."""
+    from repro_torch.core.algorithms.kmeans import KMeans
+    from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+    from repro_torch.features import NGrams, Standardizer, TfIdf
+    from repro_torch.pipeline import Pipeline
+
+    a = Pipeline([NGrams(n=2, top=FIG_TOP, column="text", keep_columns=False), TfIdf(),
+                  KMeans(k=FIG_K, max_iter=FIG_ROUNDS, seed=SEED, use_kernel=True)],
+                 num_shards=SHARDS, device=DEVICE)
+    b = Pipeline([NGrams(n=2, top=FIG_TOP, column="text"), TfIdf(), Standardizer(),
+                  LogisticRegression(**FIG_LOGREG, use_kernel=True)],
+                 num_shards=SHARDS, device=DEVICE)
+    return a, b
+
+
+def fig_requests() -> list:
+    """FIG_REQUESTS requests of 1..FIG_REQ_MAX docs, drawn with repeats from
+    the first FIG_SERVE_POOL docs (so the featurize memo is hit): a list of
+    doc index arrays."""
+    rng = np.random.default_rng(SEED + 1)
+    sizes = rng.integers(1, FIG_REQ_MAX + 1, size=FIG_REQUESTS)
+    return [rng.integers(0, FIG_SERVE_POOL, size=int(m)) for m in sizes]
+
+
+def fig_serve(fitted, texts: list, requests: list) -> dict:
+    """Each request through a ModelPredictor of ``fitted``, one flush each,
+    timed by the host clock (a flush ends in the result's copy to the
+    host, which waits for the card)."""
+    from repro_torch.serve.predictor import ModelPredictor, PredictRequest
+
+    svc = ModelPredictor(fitted, max_batch=FIG_REQ_MAX, device=DEVICE)
+    latencies, results = [], []
+    t0 = time.perf_counter()
+    for idx in requests:
+        t1 = time.perf_counter()
+        req = svc.submit(PredictRequest(features=[texts[i] for i in idx]))
+        svc.flush()
+        latencies.append((time.perf_counter() - t1) * 1e3)
+        results.append(req.result)
+    return {"seconds": time.perf_counter() - t0, "latencies": latencies,
+            "results": results, "report": svc.report()}
+
+
+def _rel64(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got − want| over max|want|, in fp64."""
+    return ((got.double() - want).abs().max() / want.abs().max().clamp(min=1e-300)).item()
+
+
+def fig_fp64_errors(counts: torch.Tensor, tfidf: torch.Tensor, fitted,
+                    rows: int = 2048) -> dict:
+    """Pipeline (b)'s statistics against the same formulas in fp64 on the
+    card (in row chunks): the IDF weights log((1 + N) / (1 + df)) from the
+    count table, the tf-idf rows count / row total · idf from the counts,
+    and the Standardizer's shift (the mean) and scale (sqrt(ss/N − mean²) +
+    1e-8, identity where that variance is ≤ 1e-12) from the fp32 tf-idf
+    table it was fitted on.  Column 0 is the label."""
+    n = counts.shape[0]
+    df = torch.zeros(counts.shape[1] - 1, dtype=torch.float64, device=counts.device)
+    for i in range(0, n, rows):
+        df += (counts[i:i + rows, 1:] > 0).sum(0).double()
+    idf64 = torch.log((1.0 + n) / (1.0 + df))
+    s, ss = torch.zeros_like(df), torch.zeros_like(df)
+    tf_err = tf_max = 0.0
+    for i in range(0, n, rows):
+        c = counts[i:i + rows, 1:].double()
+        want = c / c.sum(1, keepdim=True).clamp(min=1.0) * idf64
+        got = tfidf[i:i + rows, 1:].double()
+        tf_err = max(tf_err, (got - want).abs().max().item())
+        tf_max = max(tf_max, want.abs().max().item())
+        s += got.sum(0)
+        ss += (got * got).sum(0)
+    mean = s / n
+    var = (ss / n - mean * mean).clamp(min=0.0)
+    live = var > 1e-12
+    shift_want = torch.where(live, mean, 0.0)
+    scale_want = torch.where(live, var.sqrt() + 1e-8, 1.0)
+    idf = fitted["tfidf"].idf
+    st = fitted["standardizer"]
+    return {"idf": _rel64(idf[1:], idf64), "tfidf": tf_err / tf_max,
+            "shift": _rel64(st.shift[1:], shift_want),
+            "scale": ((st.scale[1:].double() - scale_want).abs() / scale_want).max().item(),
+            "label": [idf[0].item(), st.shift[0].item(), st.scale[0].item()],
+            "passthrough": [int((~live).sum()),
+                            int(((st.shift[1:] == 0) & (st.scale[1:] == 1)).sum())]}
+
+
+def fig_kernel_times(table_a, centroids, final, w) -> dict:
+    """Kernels 1-3 at phase 20's shapes against their plain versions, timed
+    beside the plain version, the library call where there is one, and the
+    bound: kmeans_assign at the fit's (P, n, 30,000), k = 50 (CUDA events);
+    logreg_margin and logreg_xt_z at the fit's chunk (P, local_batch_size,
+    30,000) of the table's feature columns (row stride 30,001), and
+    logreg_margin at a served microbatch (FIG_REQ_MAX, 30,000) against zero
+    labels, each launch a few µs, so in CUDA graphs (graph_ms)."""
+    from repro_torch.kernels import kmeans_assign as kka
+    from repro_torch.kernels import logreg_grad as klg
+
+    out = {}
+    Xk = table_a.data.view(SHARDS, -1, FIG_TOP)
+    P, n, d = Xk.shape
+    a = kka.kmeans_assign(Xk, centroids)
+    differ, gap, ratio = score_gap(Xk, centroids, a, kka.kmeans_assign_plain(Xk, centroids))
+    check(ratio <= 1.0, f"kmeans_assign at {tuple(Xk.shape)}: {differ} picks differ "
+          f"from the plain version beyond rounding ({ratio}x)")
+    t_b, by = bound(4.0 * (P * n * d + FIG_K * d + P * n), 2.0 * P * n * FIG_K * d)
+    out["kmeans_assign"] = {
+        "shape": [P, n, d, FIG_K], "ms": cuda_ms(lambda: kka.kmeans_assign(Xk, centroids), 5),
+        "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(Xk, centroids), 5),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": gap,
+        "tie_picks": differ}
+
+    bs = FIG_LOGREG["local_batch_size"]
+    blocks = final.data.view(SHARDS, -1, final.num_cols)
+    X, y = blocks[:, :bs, 1:], blocks[:, :bs, 0].contiguous()
+    W = w.expand(SHARDS, -1).contiguous()
+    Xs = final.data[:FIG_REQ_MAX, 1:].contiguous()
+    zeros = torch.zeros(FIG_REQ_MAX, device=final.device)
+    z, zp = klg.logreg_margin(X, y, W), klg.logreg_margin_plain(X, y, W)
+    zs, zsp = klg.logreg_margin(Xs, zeros, w), klg.logreg_margin_plain(Xs, zeros, w)
+    g, gp = klg.logreg_xt_z(X, zp), klg.logreg_xt_z_plain(X, zp)
+    sync()
+    err_z = max((z - zp).abs().max().item(), (zs - zsp).abs().max().item())
+    check(err_z <= FP32_TOL, f"logreg_margin at phase 20's shapes: err {err_z}")
+    check(rel_err(g, gp) <= FP32_TOL, f"logreg_xt_z at phase 20's shape: rel err {rel_err(g, gp)}")
+    t_b, by = bound(4.0 * (P * bs * d + P * d + 2 * P * bs), 2.0 * P * bs * d)
+    t_s, by_s = bound(4.0 * (FIG_REQ_MAX * d + d + 2 * FIG_REQ_MAX), 2.0 * FIG_REQ_MAX * d)
+    out["logreg_margin"] = {
+        "shape": [P, bs, d], "row_stride": X.stride(1),
+        "ms": graph_ms(lambda: klg.logreg_margin(X, y, W)),
+        "plain_ms": graph_ms(lambda: klg.logreg_margin_plain(X, y, W)),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": err_z,
+        "serve_shape": [FIG_REQ_MAX, d],
+        "serve_ms": graph_ms(lambda: klg.logreg_margin(Xs, zeros, w)),
+        "serve_plain_ms": graph_ms(lambda: klg.logreg_margin_plain(Xs, zeros, w)),
+        "serve_bound_ms": t_s, "serve_bound_by": by_s}
+    t_b, by = bound(4.0 * (P * bs * d + P * bs + P * d), 2.0 * P * bs * d)
+    out["logreg_xt_z"] = {
+        "shape": [P, bs, d], "row_stride": X.stride(1),
+        "ms": graph_ms(lambda: klg.logreg_xt_z(X, zp)),
+        "plain_ms": graph_ms(lambda: klg.logreg_xt_z_plain(X, zp)),
+        "bound_ms": t_b, "bound_by": by,
+        "library_ms": graph_ms(lambda: torch.matmul(X.transpose(1, 2), zp.unsqueeze(-1))),
+        "max_abs_err": (g - gp).abs().max().item()}
+    for name, r in out.items():
+        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+        say(f"{name} X{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%}); max abs err {r['max_abs_err']:.3g}")
+    r = out["logreg_margin"]
+    say(f"logreg_margin X({FIG_REQ_MAX}, {FIG_TOP}) (a served microbatch): kernel "
+        f"{r['serve_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, bound "
+        f"{r['serve_bound_ms']:.5f} ms ({r['serve_bound_by']})")
+    return out
+
+
+def phase_fig_a2() -> dict:
+    """Phase 20: pipelines (a) and (b) fitted on a raw-text table and
+    served raw-text requests, its launches counted; then the checks and
+    the kernels at its shapes.  Returns each kernel's launches and times
+    on this path."""
+    from repro_torch.core.algorithms.kmeans import KMeans
+    from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+    from repro_torch.core.collectives import CollectiveSchedule
+    from repro_torch.core.mltable import MLTable
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.features import NGrams, Standardizer, TfIdf
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    phase(f"20. Fig. A2: {FIG_DOCS:,} raw docs -> NGrams(n=2, top={FIG_TOP:,}) -> TfIdf -> "
+          f"KMeans(k={FIG_K}) | Standardizer -> LogisticRegression, served as raw text")
+    mem_reset()
+    t0 = time.perf_counter()
+    rows = fig_corpus(SEED)
+    texts = [t for _, t in rows]
+    raw = MLTable.from_rows(rows, names=["label", "text"], num_partitions=SHARDS)
+    requests = fig_requests()
+    say(f"corpus: {FIG_DOCS} labeled docs of {FIG_WORDS} words from {FIG_VOCAB} made-up words "
+        f"(Zipf 1.1, class-biased), {SHARDS} partitions, made in "
+        f"{time.perf_counter() - t0:.2f} s; no docs cut")
+    pipe_a, pipe_b = fig_pipelines()
+    secs = {}
+
+    reset_launch_counts()            # phase 20's path starts here
+    for name, pipe in (("a", pipe_a), ("b", pipe_b)):
+        t0 = time.perf_counter()
+        fitted = pipe.fit(raw)
+        sync()
+        secs[f"pipeline ({name}) fit"] = time.perf_counter() - t0
+        if name == "a":
+            fit_a = fitted
+        else:
+            fit_b = fitted
+    served_a = fig_serve(fit_a, texts, requests)
+    served_b = fig_serve(fit_b, texts, requests)
+    got = launch_counts()            # ... and ends here
+    path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
+    steps = FIG_LOGREG["max_iter"] * (FIG_DOCS // SHARDS // FIG_LOGREG["local_batch_size"])
+    want = {"kmeans_assign": FIG_ROUNDS + served_a["report"]["batches"],
+            "logreg_margin": steps + served_b["report"]["batches"], "logreg_xt_z": steps}
+    say(f"launches on phase 20's path: {got} (expected {want}; every other kernel 0)")
+    check(all(got[k] == want[k] for k in path)
+          and all(v == 0 for k, v in got.items() if k not in path),
+          f"phase 20 launched {got}, expected {want}")
+    vocab = fit_a["ngrams"].vocab
+    check(len(vocab) == FIG_TOP and vocab == fit_b["ngrams"].vocab,
+          f"the vocabulary holds {len(vocab)} bigrams, not {FIG_TOP} (fewer distinct "
+          f"bigrams in the corpus?), or differs between the pipelines")
+
+    # ---- pipeline (b) against its hand-composed chain, stage by stage ----
+    t0 = time.perf_counter()
+    ngrams = NGrams(n=2, top=FIG_TOP, column="text").fit(raw)
+    secs["NGrams fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    count_table = ngrams.transform(raw)
+    secs["host transform"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = count_table.to_numeric(num_shards=SHARDS, device=DEVICE)
+    sync()
+    secs["commit to the card"] = time.perf_counter() - t0
+    del count_table
+    t0 = time.perf_counter()
+    tfidf = TfIdf().fit(counts, default_skip=(0,))
+    scaled = tfidf.transform(counts)
+    sync()
+    secs["TfIdf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    std = Standardizer().fit(scaled, default_skip=(0,))
+    final = std.transform(scaled)
+    sync()
+    secs["Standardizer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hand = LogisticRegression(**FIG_LOGREG, use_kernel=True).fit(final)
+    sync()
+    secs["LogisticRegression fit"] = time.perf_counter() - t0
+    check(ngrams.vocab == vocab and torch.equal(tfidf.idf, fit_b["tfidf"].idf)
+          and torch.equal(std.shift, fit_b["standardizer"].shift)
+          and torch.equal(std.scale, fit_b["standardizer"].scale)
+          and torch.equal(hand.weights, fit_b.model.weights),
+          "pipeline (b) differs from its hand-composed chain (vocabulary, IDF, "
+          "shift, scale or weights)")
+    check(tuple(counts.data.shape) == (FIG_DOCS, FIG_TOP + 1) and final.data.dtype == torch.float32
+          and final.device.type == DEVICE and tuple(final.data.shape) == (FIG_DOCS, FIG_TOP + 1),
+          f"table (b) {tuple(final.data.shape)} {final.data.dtype} {final.data.device}")
+    errs = fig_fp64_errors(counts.data, scaled.data, fit_b)
+    say(f"(b) against fp64 on the card: IDF {errs['idf']:.3g} (tol {FIG_TOL['idf']}), tf-idf "
+        f"rows {errs['tfidf']:.3g} (tol {FIG_TOL['tfidf']}), shift {errs['shift']:.3g} (tol "
+        f"{FIG_TOL['shift']}), scale {errs['scale']:.3g} (tol {FIG_TOL['scale']}, entry by "
+        f"entry); label column idf/shift/scale {errs['label']}; pass-through columns "
+        f"(fp64, fitted) {errs['passthrough']}")
+    check(all(errs[k] <= FIG_TOL[k] for k in ("idf", "tfidf", "shift", "scale"))
+          and errs["label"] == [0.0, 0.0, 1.0]
+          and errs["passthrough"][0] == errs["passthrough"][1],
+          f"(b)'s statistics against fp64: {errs}")
+    del counts
+
+    # ---- pipeline (a): the featurized table and the k-means fit ----
+    t0 = time.perf_counter()
+    table_a = fit_a.transform(raw)
+    sync()
+    secs["pipeline (a) transform"] = time.perf_counter() - t0
+    check(tuple(table_a.data.shape) == (FIG_DOCS, FIG_TOP) and table_a.device.type == DEVICE
+          and table_a.data.dtype == torch.float32
+          and torch.equal(table_a.data, scaled.data[:, 1:])
+          and torch.equal(fit_a["tfidf"].idf, tfidf.idf[1:]),
+          "table (a) is not (b)'s tf-idf columns bitwise, or misshapen")
+    del scaled
+    C = fit_a.model.centroids
+    init = KMeans(k=FIG_K, max_iter=0, seed=SEED).fit(table_a).centroids
+    blocks = table_a.data.view(SHARDS, -1, FIG_TOP)
+    e = (C - plain_lloyd(blocks, init, FIG_ROUNDS, assign=sliced_plain_assign)).abs().max().item()
+    e_exp = (C - plain_lloyd(blocks, init, FIG_ROUNDS)).abs().max().item()
+    check(bool(torch.isfinite(C).all()) and e <= 1e-3,
+          f"(a)'s centroids vs plain rounds in the kernel's order: max abs err {e}")
+    inertia = {}
+    for sched in CollectiveSchedule:
+        t0 = time.perf_counter()
+        m = KMeans(k=FIG_K, max_iter=FIG_ROUNDS, seed=SEED, schedule=sched,
+                   use_kernel=True).fit(table_a)
+        sync()
+        secs.setdefault("KMeans fit", time.perf_counter() - t0)
+        inertia[sched.value] = m.inertia(table_a.data).item()
+    spread = max(inertia.values()) - min(inertia.values())
+    check(spread <= 1e-3 * max(inertia.values()), f"schedules disagree: {inertia}")
+    offline_a = fit_a.model.predict(table_a.data)
+    check(torch.equal(fit_a.predict(texts[:FIG_REPLAY]), offline_a[:FIG_REPLAY]),
+          f"(a): fitted.predict of the first {FIG_REPLAY} raw docs differs from the "
+          f"model's picks on the table")
+    sizes = torch.bincount(offline_a.long(), minlength=FIG_K)
+    say(f"(a): centroids vs plain rounds in the kernel's order max abs err {e:.3g}, vs the "
+        f"expanded form's {e_exp:.3g}; inertia by schedule {inertia} (spread {spread:.3g}); "
+        f"fitted.predict({FIG_REPLAY} raw docs) bitwise the model's picks on the table; "
+        f"cluster sizes {sizes.min().item()}..{sizes.max().item()}")
+
+    # ---- pipeline (b): the classifier ----
+    offline_b = fit_b.model.predict(final.data[:, 1:])
+    check(torch.equal(hand.predict(final.data[:, 1:]), offline_b),
+          "(b)'s predictions differ from the hand-composed chain's")
+    plain = LogisticRegression(**FIG_LOGREG, use_kernel=False).fit(final)
+    e_w = rel_err(fit_b.model.weights, plain.weights)
+    # the bound's upper side: the same plain fit on the table rounded to bf16
+    rounded = MLNumericTable(final.data.to(torch.bfloat16).float(),
+                             num_shards=final.num_shards, names=final.names)
+    e_bf16 = rel_err(LogisticRegression(**FIG_LOGREG, use_kernel=False).fit(rounded).weights,
+                     plain.weights)
+    del rounded
+    y = final.data[:, 0]
+    acc = (offline_b == y).float().mean().item()
+    plain_pred = plain.predict(final.data[:, 1:])
+    acc_plain = (plain_pred == y).float().mean().item()
+    say(f"(b): weights bitwise the hand-composed chain's; vs use_kernel=False rel err "
+        f"{e_w:.3g} (tol {FIG_TOL['weights']}; the plain fit vs the same on the table "
+        f"rounded to bf16 {e_bf16:.3g}); training accuracy {acc:.4f} (plain fit "
+        f"{acc_plain:.4f}; {(plain_pred == offline_b).float().mean().item():.4f} of the "
+        f"labels the same)")
+    check(bool(torch.isfinite(fit_b.model.weights).all()) and e_w <= FIG_TOL["weights"],
+          f"(b)'s weights vs use_kernel=False: rel err {e_w}")
+    check(e_bf16 > FIG_TOL["weights"],
+          f"the weights' bound does not see the fit on a bf16-rounded table: {e_bf16}")
+
+    # ---- serving: every served result bitwise the offline prediction ----
+    for name, served, offline in (("a", served_a, offline_a), ("b", served_b, offline_b)):
+        host = offline.cpu().numpy()
+        bad = sum(not np.array_equal(r, host[idx])
+                  for idx, r in zip(requests, served["results"]))
+        rep = served["report"]
+        secs[f"serving ({name})"] = served["seconds"]
+        say(f"({name}) served {len(requests)} raw-text requests of 1..{FIG_REQ_MAX} docs "
+            f"({rep['rows_served']} rows) in {rep['batches']} microbatches of {FIG_REQ_MAX}: "
+            f"latency median {float(np.median(served['latencies'])):.3f} ms, max "
+            f"{max(served['latencies']):.3f} ms; memo hits {rep['featurize_hits']}, misses "
+            f"{rep['featurize_misses']}; {bad} requests differ from the offline prediction")
+        check(bad == 0, f"({name}): {bad} served results differ from the offline prediction")
+
+    times = fig_kernel_times(table_a, C, final, fit_b.model.weights)
+    say("stage seconds (host clock, each ended by a sync; the NGrams, TfIdf, Standardizer "
+        "and LogisticRegression stages of (b)'s hand-composed chain, which makes the "
+        "pipeline's calls): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    peak = mem_peak("phase 20")
+    for name in path:
+        times[name]["launches"] = got[name]
+    return {"kernels": times, "seconds": secs, "peak_gb": peak,
+            "latency_ms": {k: float(np.median(s["latencies"]))
+                           for k, s in (("a", served_a), ("b", served_b))}}
 
 
 def lm_requests(cfg):
@@ -1652,7 +2070,8 @@ def _kernel_times(prof, per: int = 1):
     each of the port's kernels' device ms, per ``per`` calls."""
     from torch.profiler import DeviceType
 
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]   # the step's own range
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
     ours = {name: sum(e.self_device_time_total for e in kernels
                       if any(k in e.key for k in keys)) / 1e3 / per
@@ -1671,6 +2090,27 @@ def _print_top(kernels, n: int, per: int = 1) -> None:
             f"{e.count // per:5d} x  {e.key[:90]}")
 
 
+def profile_steps(step, steps: int):
+    """torch.profiler (CUDA activity) over ``steps`` calls of ``step``,
+    after one call that the profiler traces and discards (its schedule's
+    warm-up).  A window opened cold lost the first device records of its
+    first call now and then (4 to 54 of a decode step's, among them an
+    rmsnorm, in 13 windows of 16) while every launch ran; no warm window
+    lost one.  The schedule's "ProfilerStep" range is not a kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        step()
+        sync()
+        prof.step()
+        for _ in range(steps):
+            step()
+        sync()
+        prof.step()
+    return prof
+
+
 def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     """Where a decode step's time goes: device time by kernel over
     ``steps`` profiled steps (torch.profiler, CUDA activity), of an eager
@@ -1680,8 +2120,6 @@ def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     Returns, for each kind, the device-busy ms per step and each of the
     port's kernels' device ms per step, or None where the profiler saw no
     device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     B = engine.batch
     toks = engine._tensor(np.zeros((B, 1), np.int32))
     pos = engine._tensor(np.full(B, pos, np.int32))
@@ -1693,10 +2131,7 @@ def decode_profile(engine, step_ms: float, pos: int, steps: int = 3):
     for kind, step in kinds.items():
         step()
         sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            sync()
+        prof = profile_steps(step, steps)
         kernels, device_ms, ours = _kernel_times(prof, steps)
         if device_ms == 0:
             say(f"decode step profile ({kind}): the profiler saw no device time "
@@ -1733,17 +2168,20 @@ def prefill_profile(engine, reqs, model: str):
     activity), against the host clock around the same wave.  Returns the
     wave's host ms, device-busy ms and each of the port's kernels' device
     ms, or None where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     admits = list(enumerate(reqs[:engine.batch]))
     S = -(-max(len(r.prompt) for _, r in admits) // 8) * 8
     cache = engine.init_shared_cache()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def wave():
         t0 = time.perf_counter()
         engine._prefill_into(cache, admits)
         sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    sync()
+    prof = profile_steps(wave, 1)
+    wall_ms = walls[-1]
     kernels, device_ms, ours = _kernel_times(prof)
     if device_ms == 0:
         say(f"{model} prefill wave profile: the profiler saw no device time (not measured)")
@@ -2886,14 +3324,11 @@ def stage_ms(fn, calls: int = 5) -> dict:
     time)."""
     import re
 
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync()
+    prof = profile_steps(fn, calls)
     out = {}
     for e in prof.key_averages():
         m = re.search(r"ssd_[a-z]+_kernel", e.key)
@@ -4016,6 +4451,15 @@ def main() -> int:
     for r in records:
         check(r["launches"] == totals[r["name"]], f"{r['name']} launch bookkeeping")
     free_tables(report)
+    fig = phase_fig_a2()             # counts its own launches
+    free_device_memory()
+    say(f"phase 20's tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated")
+    for r in records:
+        if r["name"] in fig["kernels"]:
+            r["fig_a2"] = fig["kernels"][r["name"]]
+            r["launches"] += r["fig_a2"]["launches"]
+            r["launches_by_path"]["fig_a2"] = r["fig_a2"]["launches"]
 
     phase_lm(counts, report)
     phase_mamba(counts)

@@ -1,16 +1,18 @@
 """Estimator / Model interfaces — the MLI contract (paper §III-C).
 
 Counterpart: ``src/repro/core/interfaces.py`` (``Model``, ``Estimator``,
-``Algorithm`` and ``NumericAlgorithm``):
+``Transformer``, ``FittedTransformer``, ``Algorithm`` and
+``NumericAlgorithm``):
 
     est = SomeEstimator(learning_rate=0.3)     # hyperparameters in the ctor
     fitted = est.fit(table)                    # -> fitted Model
     fitted.predict(x)                          # replayable on any rows
 
 Fitted objects expose ``partial`` (their state as a dict of tensors) and
-estimators ``rebuild(partial)`` a fitted object from it.  The transformer,
-streaming and search mixins and the deprecated ``train`` shims wait for
-later slices.
+estimators ``rebuild(partial)`` a fitted object from it.  Featurizers are
+``Transformer``s whose ``fit`` returns a ``FittedTransformer``; a pipeline composes them with one terminal
+estimator.  The streaming and search mixins and the deprecated ``train``
+shims wait for later slices.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ from typing import Any, ClassVar, Generic, Optional, TypeVar
 
 import torch
 
-__all__ = ["Estimator", "FittedEstimator", "Algorithm", "NumericAlgorithm",
-           "Model"]
+__all__ = ["Estimator", "FittedEstimator", "Transformer", "FittedTransformer",
+           "Algorithm", "NumericAlgorithm", "Model"]
 
 P_ = TypeVar("P_")  # hyperparameter dataclass
 M_ = TypeVar("M_", bound="Model")
@@ -63,6 +65,77 @@ class Estimator(abc.ABC):
         """Reconstruct a fitted object from its ``partial`` state."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support rebuild()")
+
+
+class FittedTransformer(abc.ABC):
+    """A fitted feature transformer: corpus statistics (vocabulary, IDF
+    weights, column means/stds) are computed once at ``fit`` and *replayed*
+    at ``transform`` on any table or raw serving row — never refit, so a
+    transformer fit on train folds cannot leak validation statistics.
+
+    ``tier`` declares where the transform runs: ``"host"`` stages are
+    schema-changing row programs (text → counts) executed on the MLTable
+    tier; ``"device"`` stages are pure numeric maps whose :meth:`apply`
+    runs on label-free feature rows on the table's device (inside the
+    serving microbatch).
+    """
+
+    tier: ClassVar[str] = "device"
+
+    @abc.abstractmethod
+    def transform(self, table: Any) -> Any:
+        """Replay the fitted statistics over a whole table."""
+
+    def __call__(self, table: Any) -> Any:
+        return self.transform(table)
+
+    def apply(self, feats: torch.Tensor) -> torch.Tensor:
+        """Device-tier row replay on label-free feature rows.  Host-tier
+        transformers raise; use :meth:`transform_rows`."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no device-tier apply()")
+
+    def transform_rows(self, rows: Any) -> Any:
+        """Host-tier row replay (e.g. raw text → count vectors)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no host-tier transform_rows()")
+
+    @property
+    def partial(self) -> Any:
+        """Fitted state as a dict of tensors (may be empty)."""
+        return {}
+
+    def host_state(self) -> dict:
+        """Fitted state that is not tensors (vocabulary, column indices) as
+        a JSON-able dict; together with ``partial`` it fully determines the
+        fitted transformer (see ``from_state``)."""
+        return {}
+
+
+class Transformer(Estimator):
+    """An Estimator whose fitted form transforms tables (same contract as
+    the algorithms: statistics at fit, replay at transform)."""
+
+    tier: ClassVar[str] = "device"
+
+    def fit_transform(self, table: Any):
+        """Convenience: fit on ``table`` and transform it; returns
+        ``(fitted, transformed_table)``."""
+        fitted = self.fit(table)
+        return fitted, fitted.transform(table)
+
+    def clone_with(self, **overrides: Any) -> "Transformer":
+        """A new transformer of the same type with some constructor
+        hyperparameters replaced (how model search addresses nested stage
+        params, ``"tfidf.skip"``)."""
+        cfg = dict(getattr(self, "_config", {}))
+        for k in overrides:
+            if k not in cfg:
+                raise ValueError(
+                    f"{type(self).__name__} has no hyperparameter {k!r} "
+                    f"(searchable: {sorted(cfg)})")
+        cfg.update(overrides)
+        return type(self)(**cfg)
 
 
 class Algorithm(Estimator, Generic[P_, M_]):

@@ -2,4 +2,6 @@
 from repro_torch.data.synthetic import (  # noqa: F401
     synth_classification,
     synth_imagenet_features,
+    synth_labeled_text,
+    synth_text_corpus,
 )

@@ -1,20 +1,24 @@
 """Synthetic datasets matching the paper's experimental data — the port's own
-numpy copy of ``src/repro/data/synthetic.py`` (``synth_classification`` and
-``synth_imagenet_features``), so the port needs nothing from the reference
-package.  Same seeds give the same arrays as the reference.
+numpy copy of ``src/repro/data/synthetic.py`` (``synth_classification``,
+``synth_imagenet_features``, ``synth_text_corpus`` and
+``synth_labeled_text``), so the port needs nothing from the reference
+package.  Same seeds give the same arrays and strings as the reference.
 
   * ``synth_imagenet_features`` — the paper's §IV-A data: dense feature
     vectors (they used 160K-dim featurized ImageNet) with labels from a
     planted linear model.
   * ``synth_classification`` — small dense classification sets for tests.
+  * ``synth_text_corpus`` / ``synth_labeled_text`` — text for the Fig. A2
+    pipeline (topic- or class-biased draws from a 26-word vocabulary).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["synth_classification", "synth_imagenet_features"]
+__all__ = ["synth_classification", "synth_imagenet_features",
+           "synth_text_corpus", "synth_labeled_text"]
 
 
 def synth_classification(n: int, d: int, seed: int = 0, noise: float = 0.05
@@ -39,3 +43,45 @@ def synth_imagenet_features(n: int, d: int = 4096, seed: int = 0
     w = rng.normal(size=d) / np.sqrt(d)
     y = ((X @ w) > np.median(X @ w)).astype(np.float32)
     return X, y
+
+
+_WORDS = ("the quick brown fox jumps over lazy dog machine learning api "
+          "distributed table matrix gradient descent cluster spark data "
+          "feature model train test scale pod mesh kernel").split()
+
+
+def synth_text_corpus(n_docs: int = 64, words_per_doc: int = 30,
+                      seed: int = 0) -> List[str]:
+    """Tiny synthetic corpus for the Fig. A2 pipeline (nGrams → tfIdf →
+    KMeans).  Docs are drawn from topic-biased word distributions so
+    clustering has structure to find."""
+    rng = np.random.default_rng(seed)
+    n_topics = 4
+    topic_bias = rng.dirichlet(np.ones(len(_WORDS)) * 0.3, size=n_topics)
+    docs = []
+    for i in range(n_docs):
+        p = topic_bias[i % n_topics]
+        docs.append(" ".join(rng.choice(_WORDS, size=words_per_doc, p=p)))
+    return docs
+
+
+def synth_labeled_text(n_docs: int = 64, words_per_doc: int = 20,
+                       seed: int = 0) -> List[Tuple[float, str]]:
+    """Binary text-classification corpus for the Fig. A2 end-to-end story:
+    ``(label, text)`` rows whose word distributions are class-biased (each
+    class favors half the vocabulary), so a served text pipeline has
+    signal to learn.  Pure function of the arguments."""
+    rng = np.random.default_rng(seed)
+    half = len(_WORDS) // 2
+    bias = np.full(len(_WORDS), 0.25 / (len(_WORDS) - half))
+    p0, p1 = bias.copy(), bias.copy()
+    p0[:half] = 0.75 / half
+    p1[half:] = 0.75 / (len(_WORDS) - half)
+    p0, p1 = p0 / p0.sum(), p1 / p1.sum()
+    rows = []
+    for i in range(n_docs):
+        label = i % 2
+        p = p1 if label else p0
+        rows.append((float(label),
+                     " ".join(rng.choice(_WORDS, size=words_per_doc, p=p))))
+    return rows

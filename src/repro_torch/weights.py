@@ -1,11 +1,17 @@
 """Carry a model of the JAX reference into the port.
 
-No counterpart module in ``src/repro/``.  Two entry points:
+No counterpart module in ``src/repro/``.  Three entry points:
 
 * :func:`from_reference` — a fitted model's state: the reference's models
   expose it as ``partial`` — ``{"weights": (d,)}`` for logistic
   regression, ``{"centroids": (k, d)}`` for k-means — and this turns it
   into the port's fitted model on ``device``.
+* :func:`pipeline_from_reference` — a fitted pipeline: the reference's
+  ``FittedPipeline.host_state()`` (the vocabulary, ``n``, ``column``,
+  ``keep_columns``, the skip and label indices, each stage's kind) and
+  its ``partial`` (the IDF weights, ``shift`` / ``scale``, the terminal
+  model's state) — the two halves its ``save`` writes — as the port's
+  ``FittedPipeline`` on ``device``.
 * :func:`lm_from_reference` — the param tree of the reference's
   ``init_model`` (optionally after its ``quantize_model_params``) as the
   port's transformer params, leaf for leaf under the same key names.
@@ -30,7 +36,7 @@ from repro_torch.models.layers.quant import QTensor
 from repro_torch.models.layers.ssd import ssd_shapes
 from repro_torch.models.params import place
 
-__all__ = ["from_reference", "lm_from_reference"]
+__all__ = ["from_reference", "pipeline_from_reference", "lm_from_reference"]
 
 _KINDS = {
     "logistic_regression": ("weights", LogisticRegressionParameters),
@@ -57,6 +63,38 @@ def from_reference(kind: str, partial: Mapping[str, Any],
     if kind == "kmeans":
         return KMeansModel(state, params)
     return LogisticRegressionModel(params, state)
+
+
+def pipeline_from_reference(pipeline: Any, host_state: Mapping[str, Any],
+                            partial: Mapping[str, Any],
+                            device: DeviceLike = None):
+    """The port's fitted form of ``pipeline`` (a port
+    :class:`~repro_torch.pipeline.Pipeline` with the reference pipeline's
+    stages) from the reference ``FittedPipeline``'s ``host_state()`` and
+    ``partial`` (host arrays), on ``device`` (the CUDA card unless
+    ``device="cpu"``).  The terminal model comes through
+    :func:`from_reference` with the port estimator's parameters."""
+    from repro_torch.core.algorithms.kmeans import KMeans
+    from repro_torch.pipeline.pipeline import FITTED_KINDS, FittedPipeline
+
+    dev = resolve_device(device)
+    names = [name for name, _ in host_state["stages"]]
+    if names != pipeline.stage_names():
+        raise ValueError(f"the reference's stages {names} are not the "
+                         f"pipeline's {pipeline.stage_names()}")
+    arrays = partial.get("stages", {})
+    stages = [(name, FITTED_KINDS[hs["kind"]].from_state(
+                   hs, arrays.get(name, {}), device=dev))
+              for name, hs in host_state["stages"]]
+    model = None
+    if "model" in partial:
+        est = pipeline.estimator
+        if est is None:
+            raise ValueError("the reference carries a trained model but the "
+                             "pipeline has no terminal estimator")
+        kind = "kmeans" if isinstance(est, KMeans) else "logistic_regression"
+        model = from_reference(kind, partial["model"], est.params, dev)
+    return FittedPipeline(pipeline, stages, model, host_state["num_cols"], dev)
 
 
 def _lm_leaf(leaf, device: torch.device):

@@ -46,7 +46,12 @@ from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import ssd_scan as tss
 from repro_torch.models.layers import ssd as tlssd
-from repro_torch.serve.predictor import ModelPredictor
+from repro_torch.core.local_matrix import LocalMatrix
+from repro_torch.core.mltable import MLTable
+from repro_torch.data.synthetic import synth_labeled_text, synth_text_corpus
+from repro_torch.features import NGrams, Standardizer, TfIdf, tf_idf
+from repro_torch.pipeline import Pipeline
+from repro_torch.serve.predictor import ModelPredictor, PredictRequest
 from repro_torch.weights import from_reference
 
 
@@ -57,14 +62,37 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _device_of_work(call):
+    """Where ``call`` computed, for an entry point whose result comes back
+    to the host: the card if it allocated there."""
+    def allocated():
+        return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+    before = allocated() if torch.cuda.is_available() else 0
+    call()
+    return torch.device("cuda" if allocated() > before else "cpu")
+
+
 def test_entry_points_default_to_the_card():
     """Without ``device=`` an entry point runs on the card, or raises where
     there is none — never quietly on the CPU."""
     rows = np.ones((8, 6), np.float32)
+    docs = MLTable.from_text(["a b c", "b c d"], num_partitions=1)
+    counts = NGrams(n=1).fit(docs).transform(docs)   # the host tier
     calls = [
         lambda: MLNumericTable.from_numpy(rows).data.device,
         lambda: ModelPredictor(model=None, predict_fn=lambda x: x).device,
         lambda: from_reference("kmeans", {"centroids": rows[:4]}).centroids.device,
+        lambda: MLTable.from_numpy(rows).to_numeric().data.device,
+        lambda: Pipeline([NGrams(n=1), TfIdf()]).fit(docs).device,
+        lambda: TfIdf().fit(counts).idf.device,
+        lambda: _device_of_work(lambda: TfIdf().fit_transform(counts)),
+        lambda: _device_of_work(lambda: tf_idf(counts)),
+        lambda: LocalMatrix.zeros(2, 3).data.device,
+        lambda: LocalMatrix.ones(2).data.device,
+        lambda: LocalMatrix.eye(3).data.device,
+        lambda: LocalMatrix.rand(3, 2).data.device,
+        lambda: LocalMatrix(rows).data.device,
     ]
     for call in calls:
         if torch.cuda.is_available():
@@ -151,6 +179,84 @@ def test_kmeans_fit_and_serving_on_card():
     assert tk.launch_counts()["kmeans_assign"] == svc.batches == 5
     want = cpu.predict(torch.from_numpy(X[:300])).numpy()
     np.testing.assert_array_equal(np.concatenate(got), want)
+
+
+def _fig_a2_pipes(device):
+    """The Fig. A2 flows at the examples' sizes, k-means and classifier,
+    through the kernels (the plain versions on the CPU)."""
+    kmeans = Pipeline([NGrams(n=2, top=64), TfIdf(),
+                       KMeans(k=4, max_iter=10, seed=0, use_kernel=True)],
+                      num_shards=4, device=device)
+    text = Pipeline([NGrams(n=1, top=64, column="text"), TfIdf(), Standardizer(),
+                     LogisticRegression(learning_rate=0.5, max_iter=8, local_batch_size=4,
+                                        use_kernel=True)], num_shards=8, device=device)
+    return kmeans, text
+
+
+@pytest.mark.cuda
+def test_fig_a2_pipelines_on_card_match_cpu():
+    """Both Fig. A2 flows fitted on the card equal the same flows on the
+    CPU: the featurized tables and the statistics at fp32 rtol = atol =
+    1e-6, centroids and weights at 2e-4, labels exactly; kernels 1-3 carry
+    the estimators (one kmeans_assign launch a round, one logreg_margin and
+    one logreg_xt_z launch a step)."""
+    _need_card()
+    docs = MLTable.from_text(synth_text_corpus(n_docs=64, words_per_doc=40), 4)
+    rows = synth_labeled_text(n_docs=128, words_per_doc=20, seed=0)
+    labeled = MLTable.from_rows(rows, names=["label", "text"], num_partitions=4)
+    (card_k, card_t), (cpu_k, cpu_t) = _fig_a2_pipes(None), _fig_a2_pipes("cpu")
+    tk.reset_launch_counts()
+    fits = [(card_k.fit(docs), cpu_k.fit(docs), docs),
+            (card_t.fit(labeled), cpu_t.fit(labeled), labeled)]
+    got = tk.launch_counts()
+    assert (got["kmeans_assign"], got["logreg_margin"], got["logreg_xt_z"]) == \
+        (10, 8 * 16 // 4, 8 * 16 // 4)
+    for card, cpu, raw in fits:
+        assert card.device.type == "cuda" and card["ngrams"].vocab == cpu["ngrams"].vocab
+        torch.testing.assert_close(card.transform(raw).data.cpu(), cpu.transform(raw).data,
+                                   rtol=1e-6, atol=1e-6)
+    (ck, pk, _), (ct, pt, _) = fits
+    torch.testing.assert_close(ck.model.centroids.cpu(), pk.model.centroids,
+                               rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(ct.model.weights.cpu(), pt.model.weights, rtol=2e-4, atol=2e-4)
+    for card, cpu, texts in ((ck, pk, synth_text_corpus(n_docs=64, words_per_doc=40)),
+                             (ct, pt, [t for _, t in rows])):
+        np.testing.assert_array_equal(card.predict(texts).cpu().numpy(),
+                                      cpu.predict(texts).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow", ["kmeans", "text"])
+def test_fig_a2_served_raw_text_is_the_offline_prediction_bitwise(flow):
+    """Raw-text requests of 1..7 docs through ModelPredictor on the card:
+    every result bitwise the fitted model's prediction on the featurized
+    table (kernel 3 at any row count, kernel 1 at any row stride), one
+    kernel launch a microbatch, the memo hit on repeats."""
+    _need_card()
+    if flow == "kmeans":
+        texts = synth_text_corpus(n_docs=64, words_per_doc=40)
+        raw, pipe = MLTable.from_text(texts, 4), _fig_a2_pipes(None)[0]
+    else:
+        rows = synth_labeled_text(n_docs=128, words_per_doc=20, seed=0)
+        texts = [t for _, t in rows]
+        raw = MLTable.from_rows(rows, names=["label", "text"], num_partitions=4)
+        pipe = _fig_a2_pipes(None)[1]
+    fitted = pipe.fit(raw)
+    table = fitted.transform(raw).data
+    offline = fitted.model.predict(table if flow == "kmeans" else table[:, 1:]).cpu().numpy()
+    rng = np.random.default_rng(5)
+    idx = [rng.integers(0, 32, size=int(m)) for m in rng.integers(1, 8, size=40)]
+    svc = ModelPredictor(fitted, max_batch=8)
+    kernel = "kmeans_assign" if flow == "kmeans" else "logreg_margin"
+    tk.reset_launch_counts()
+    reqs = [svc.submit(PredictRequest(features=[texts[i] for i in ix])) for ix in idx]
+    svc.flush()
+    assert tk.launch_counts()[kernel] == svc.batches
+    for ix, r in zip(idx, reqs):
+        np.testing.assert_array_equal(r.result, offline[ix])
+    rep = svc.report()
+    assert rep["featurize_hits"] > 0 and rep["featurize_hits"] + rep["featurize_misses"] == \
+        sum(len(ix) for ix in idx)
 
 
 def _kmeans_ties_only(X, C, got, want):

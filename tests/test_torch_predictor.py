@@ -69,8 +69,12 @@ def test_single_row_requests_and_request_fields():
     assert t_req.features.shape == j_req.features.shape == (1, 3)
     with pytest.raises(ValueError, match=r"\(n, d\) rows"):
         TRequest(features=np.ones((2, 2, 2)))
+    # raw (string) rows are a request of their own; a service without a
+    # featurizer refuses them at submit, as the reference's does
+    t_raw, j_raw = TRequest(features="raw text"), JRequest(features="raw text")
+    assert t_raw.raw and j_raw.raw and t_raw.features.shape == j_raw.features.shape == (1,)
     with pytest.raises(ValueError, match="featurizer"):
-        TRequest(features="raw text")
+        TPredictor(model=None, predict_fn=lambda X: X, device="cpu").submit(t_raw)
     with pytest.raises(ValueError, match="max_batch must be positive"):
         TPredictor(model=None, max_batch=0, device="cpu")
 
