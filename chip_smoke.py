@@ -41,7 +41,7 @@ Phases (each one that fails makes the script exit non-zero):
                 (assignment kernel, one_hot, batched product, combine, update,
                 the rest); its two bars (KMEANS_FIT_BAR, KMEANS_SERVE_BAR)
                 printed met or MISSED; its registers (no spill).  The two
-                tables are freed after.
+                tables are freed in phase 21, after its GLM part.
   8. LM serving — Qwen2-1.5B at full width and depth (28 layers, d_model 1536,
                 vocab 151,936), bf16 weights made from a seed, int8
                 projections (quantize="int8"), 8 slots, max_seq 2,048: 16
@@ -211,7 +211,36 @@ Phases (each one that fails makes the script exit non-zero):
                 every normed shape, FIXED_TILED_RATIO at every wave,
                 SSD_DECODE_MIN_SHARE) printed met or MISSED; registers and
                 spills of the kernels (none may spill).
- 20. Fig. A2   — the paper's own program end to end, between phases 7
+ 21. estimators — the paper's §IV-B and the other estimators, right after
+                phase 7 (before phase 20); no kernel of the port runs here,
+                and the phase checks that none launched.  (c) first, on
+                phase 4's table: LinearRegression with an elastic net and
+                LinearSVM (labels mapped to ±1 in place and back, exactly),
+                3 rounds of 256-row chunks at lr = 0.5 / λ_max, each held
+                within GLM_TOL of fp64 SGD over the same chunks, 32 served
+                requests bitwise the offline prediction; then the first
+                path's tables are freed.  (a) BroadcastALS at the Netflix
+                Prize's shape (480,184 users x 17,768 movies, ~1.0e8 ratings
+                drawn on the card with synth_netflix_tiled's recipe, packed
+                by pack_csr_table on the card; rank 10, λ 0.01, 10
+                iterations, GATHER_BROADCAST, 8 partitions): training RMSE by
+                iteration (falls, ends <= ALS_RMSE_BAR), the fit bitwise the
+                same with 1 partition and as ten chained one-iteration
+                fits, a half-sweep of each table against fp64
+                (ALS_HALF_TOL), examples/als_recommender.py's table fitted on
+                the card and on the CPU from one init (ALS_DEVICE_TOL), 256
+                requests of 1..64 (user, item) pairs served bitwise the
+                offline prediction, user 0's top-5 unseen movies; printed:
+                generation and packing seconds, each half-sweep's ms (CUDA
+                events) against its bound, a torch.profiler split of the
+                users' half-sweep, the peak memory.  (b)
+                examples/pca_naive_bayes.py at 1,048,576 x 4,096 (50
+                Gaussian classes): PCA(64) against fp64 eigh of the fp64
+                covariance (PCA_TOL; components up to sign) and with 1
+                partition, GaussianNaiveBayes(50) on [y | Z] against fp64
+                (NB_TOL) and with 1 partition, accuracy > 0.9, 256 served
+                requests bitwise the offline prediction.
+ 20. Fig. A2   — the paper's own program end to end, between phases 21
                 and 8: 32,768 labeled raw-text docs of
                 128 words (fig_corpus; no doc cut) through two pipelines of
                 8 partitions on the card: (a) NGrams(n=2, top=30,000) ->
@@ -233,13 +262,14 @@ Phases (each one that fails makes the script exit non-zero):
                 the offline prediction.  Printed: the seconds of each stage,
                 serving latency, the memo's hits and misses, kernels 1-3 at
                 this path's shapes beside their plain versions, library
-                calls and bounds, the peak memory.  It runs after phase 7.
+                calls and bounds, the peak memory.  It runs after phase 21.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 20, then phase 8, then phase 11, then phase 14, then phase 18)
-and read just after it: they count those paths only (phase 20's launches
+then phase 21, then phase 20, then phase 8, then phase 11, then phase 14,
+then phase 18) and read just after it: they count those paths only (phase
+21 must launch none; phase 20's launches
 are added to kernels 1-3's records under "fig_a2").  A decode step that replays a CUDA graph adds the
 launches the graph holds (``ServeEngine``), so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
@@ -310,6 +340,50 @@ FIG_REQUESTS, FIG_REQ_MAX, FIG_SERVE_POOL, FIG_REPLAY = 256, 16, 1_024, 4_096
 # phase checks that the fit on the table rounded to bf16 lies above the bound
 FIG_TOL = {"idf": 1e-6, "tfidf": 1e-6, "shift": 1e-5, "scale": 1e-4, "weights": 2e-2}
 BF16_TOL = 5e-2      # and its bf16 one
+# phase 21 (a): BroadcastALS at the Netflix Prize's shape (480,189 users x
+# 17,770 movies, 100,480,507 ratings), cut to NF_USERS x NF_ITEMS so that
+# SHARDS partitions divide both tables; the paper's hyperparameters
+NF_USERS, NF_ITEMS = 480_184, 17_768
+NF_DENSITY = 100_480_507 / (480_189 * 17_770)
+NF_RANK, NF_LAM, NF_ITERS, NF_GEN_USERS = 10, 0.01, 10, 16_384
+# ALS_REQUESTS requests of 1..ALS_REQ_MAX (user, item) pairs drawn from a pool
+# of ALS_SERVE_POOL, served in microbatches of ALS_SERVE_BATCH pairs
+ALS_REQUESTS, ALS_REQ_MAX, ALS_SERVE_BATCH, ALS_SERVE_POOL = 256, 64, 256, 65_536
+# (a)'s tolerances, fixed before its first run (PERF.md §6, PR 25): the
+# training RMSE after NF_ITERS iterations (the ratings' noise floor is
+# 1.5 · 0.1 = 0.15, but rank 10 cannot hold the offset 2.5 beside the rank-10
+# base, and a rehearsal on the CPU at 24,000 users stalled at 0.2016); one
+# fp32 half-sweep against the fitted factor against the same in fp64 (max
+# abs error over max |factor|); the example's fit on the card against the
+# CPU's from the same init (of max |factor|)
+ALS_RMSE_BAR = 0.22
+ALS_HALF_TOL = 1e-4
+ALS_DEVICE_TOL = 1e-3
+# phase 21 (b): examples/pca_naive_bayes.py at the card's scale: PCA_ROWS
+# rows of PCA_FEATURES (synth_imagenet_features' width, phase 5's rows) in
+# PCA_CLASSES Gaussian classes, PCA to PCA_K, GaussianNaiveBayes on [y | Z];
+# fp64 sums over row slabs of PCA_SLAB; PCA_REQUESTS requests of
+# 1..PCA_REQ_MAX Z rows from the first PCA_SERVE_POOL
+PCA_ROWS, PCA_FEATURES, PCA_CLASSES, PCA_K, PCA_SLAB = 1_048_576, 4_096, 50, 64, 65_536
+PCA_REQUESTS, PCA_REQ_MAX, PCA_SERVE_POOL = 256, 16, 4_096
+# (b)'s tolerances, fixed before its first run: PCA against fp64 (and 8
+# partitions against 1): explained variance over the largest; components up
+# to sign where the fp64 gap to both neighbours is >= PCA_GAP of the largest
+# eigenvalue (max abs error); every component's eigen-residual over the
+# largest; naive Bayes' priors and means (over the largest) and variances
+# (entry by entry, over s2/cnt) against fp64 and 8 partitions against 1
+PCA_GAP = 1e-3
+PCA_TOL = {"variance": 1e-5, "component": 1e-3, "residual": 2e-5}
+NB_TOL = 1e-5
+# phase 21 (c): LinearRegression (elastic net, alpha GLM_ALPHA, l1_ratio 0.5)
+# and LinearSVM (its default l2) on phase 4's table, GLM_ROUNDS rounds of
+# GLM_BATCH-row chunks at lr = GLM_LR_SCALE / λ_max; GLM_REQUESTS requests of
+# 1..GLM_REQ_MAX rows from the first GLM_SERVE_POOL; the weights against fp64
+# SGD over the same chunks within GLM_TOL (max abs error over max |w|)
+GLM_ROUNDS, GLM_BATCH, GLM_LR_SCALE, GLM_ALPHA = 3, 256, 0.5, 0.5
+GLM_REQUESTS, GLM_REQ_MAX, GLM_SERVE_POOL = 32, 16, 512
+GLM_TOL = 1e-3
+
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
 LM_REQUESTS, LM_PROMPT_MIN, LM_PROMPT_MAX, LM_NEW = 16, 128, 1024, 64
@@ -1264,7 +1338,8 @@ def kmeans_timing(counts, report) -> dict:
 
 
 def free_tables(report) -> None:
-    """Drop the first path's tables (41.9 GB and 17.2 GB) before the LM."""
+    """Drop the first path's tables (41.9 GB and 17.2 GB): phase 21 calls it
+    after its GLM part, which reads phase 4's table."""
     report.pop("logreg", None)
     report.pop("kmeans", None)
     free_device_memory()
@@ -1327,18 +1402,18 @@ def fig_requests() -> list:
     return [rng.integers(0, FIG_SERVE_POOL, size=int(m)) for m in sizes]
 
 
-def fig_serve(fitted, texts: list, requests: list) -> dict:
-    """Each request through a ModelPredictor of ``fitted``, one flush each,
+def serve_blocks(model, blocks: list, max_batch: int) -> dict:
+    """Each block through a ModelPredictor of ``model``, one flush each,
     timed by the host clock (a flush ends in the result's copy to the
     host, which waits for the card)."""
     from repro_torch.serve.predictor import ModelPredictor, PredictRequest
 
-    svc = ModelPredictor(fitted, max_batch=FIG_REQ_MAX, device=DEVICE)
+    svc = ModelPredictor(model, max_batch=max_batch, device=DEVICE)
     latencies, results = [], []
     t0 = time.perf_counter()
-    for idx in requests:
+    for block in blocks:
         t1 = time.perf_counter()
-        req = svc.submit(PredictRequest(features=[texts[i] for i in idx]))
+        req = svc.submit(PredictRequest(features=block))
         svc.flush()
         latencies.append((time.perf_counter() - t1) * 1e3)
         results.append(req.result)
@@ -1495,8 +1570,9 @@ def phase_fig_a2() -> dict:
             fit_a = fitted
         else:
             fit_b = fitted
-    served_a = fig_serve(fit_a, texts, requests)
-    served_b = fig_serve(fit_b, texts, requests)
+    blocks = [[texts[i] for i in idx] for idx in requests]
+    served_a = serve_blocks(fit_a, blocks, FIG_REQ_MAX)
+    served_b = serve_blocks(fit_b, blocks, FIG_REQ_MAX)
     got = launch_counts()            # ... and ends here
     path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
     steps = FIG_LOGREG["max_iter"] * (FIG_DOCS // SHARDS // FIG_LOGREG["local_batch_size"])
@@ -1646,6 +1722,543 @@ def phase_fig_a2() -> dict:
     return {"kernels": times, "seconds": secs, "peak_gb": peak,
             "latency_ms": {k: float(np.median(s["latencies"]))
                            for k, s in (("a", served_a), ("b", served_b))}}
+
+
+# --------------------------------------------------------------------------- #
+# phase 21: the paper's §IV-B (BroadcastALS) and the other estimators
+# --------------------------------------------------------------------------- #
+def served_against_offline(what: str, model, pool: np.ndarray, requests: int,
+                           req_max: int, max_batch: int, seed: int) -> dict:
+    """``requests`` requests of 1..req_max consecutive rows of ``pool``
+    served through ModelPredictor; each result must be bitwise the offline
+    ``predict`` of the whole pool."""
+    offline = model.predict(torch.from_numpy(pool).to(DEVICE)).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, req_max + 1, size=requests)
+    starts = rng.integers(0, len(pool) - req_max, size=requests)
+    served = serve_blocks(model, [pool[s:s + m] for s, m in zip(starts, sizes)], max_batch)
+    bad = sum(not np.array_equal(r, offline[s:s + m])
+              for s, m, r in zip(starts, sizes, served["results"]))
+    rep = served["report"]
+    say(f"{what}: served {requests} requests of 1..{req_max} rows ({rep['rows_served']} rows) "
+        f"in {rep['batches']} microbatches of {max_batch} ({rep['rows_padded']} pad rows): "
+        f"latency median {float(np.median(served['latencies'])):.3f} ms, max "
+        f"{max(served['latencies']):.3f} ms; {bad} requests differ from the offline "
+        f"prediction of the pool ({len(pool)} rows)")
+    check(bad == 0, f"{what}: {bad} served results differ from the offline prediction")
+    return {"seconds": served["seconds"],
+            "latency_ms": float(np.median(served["latencies"]))}
+
+
+def netflix_ratings(gen: torch.Generator):
+    """The §IV-B ratings on the card, with synth_netflix_tiled's recipe: a
+    rank-NF_RANK base U·Vᵀ (U, V normal / √rank) plus 0.1·noise, mapped to
+    2.5 + 1.5·(that) and clipped to [1, 5], kept where a Bernoulli(NF_DENSITY)
+    mask is set; NF_GEN_USERS users at a time, as row-major COO (rows,
+    cols int64, ratings fp32).  The noise is drawn for the kept entries
+    only, which leaves their distribution as the recipe's."""
+    Uf = torch.randn((NF_USERS, NF_RANK), generator=gen, device=DEVICE) / math.sqrt(NF_RANK)
+    Vf = torch.randn((NF_ITEMS, NF_RANK), generator=gen, device=DEVICE) / math.sqrt(NF_RANK)
+    rows, cols, vals = [], [], []
+    for u0 in range(0, NF_USERS, NF_GEN_USERS):
+        m = min(NF_GEN_USERS, NF_USERS - u0)
+        keep = torch.rand((m, NF_ITEMS), generator=gen, device=DEVICE) < NF_DENSITY
+        r, c = keep.nonzero(as_tuple=True)
+        del keep
+        r = r + u0
+        base = (Uf[r] * Vf[c]).sum(1) + 0.1 * torch.randn(r.shape, generator=gen, device=DEVICE)
+        rows.append(r)
+        cols.append(c)
+        vals.append(torch.clamp(2.5 + 1.5 * base, 1.0, 5.0))
+    return torch.cat(rows), torch.cat(cols), torch.cat(vals)
+
+
+def als_fp64_error(table, Y: torch.Tensor) -> float:
+    """One half-sweep on ``table`` against ``Y`` in fp32 (compute_factor)
+    against the same in fp64 (_local_als on fp64 copies, a partition at a
+    time): max abs error over max |fp64 factor|."""
+    from repro_torch.core.algorithms.als import BroadcastALS, _local_als
+
+    got = BroadcastALS.compute_factor(table, Y, NF_LAM)
+    blocks = table.data.view(SHARDS, -1, table.num_cols)
+    want = torch.cat([_local_als(blocks[p:p + 1].double(), Y.double(), NF_LAM)[0]
+                      for p in range(SHARDS)])
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def als_split(table, Y: torch.Tensor) -> dict:
+    """Device ms of one half-sweep by part (torch.profiler over one after a
+    warm one), the half-sweep made of the calls compute_factor makes
+    (``_local_als``'s three steps and the runner's concat, each under a
+    label); ``half-sweep`` is every kernel of it."""
+    import repro_torch.core.algorithms.als as als
+    from repro_torch.core.partition import partition_rows
+    from repro_torch.core.runner import _emulated_combine
+    from torch.profiler import DeviceType, record_function
+
+    blocks = partition_rows(table.data, SHARDS)
+    k = Y.shape[1]
+
+    def half_sweep():
+        with record_function("als.gather and mask"):
+            idx, val, msk = als.unpack_csr_block(blocks.reshape(-1, blocks.shape[-1]))
+            Yq = als._gather_masked(idx, msk, Y)
+        with record_function("als.Gram and right-hand side"):
+            A, b = als._normal_equations(Yq, val, msk, NF_LAM)
+        with record_function("als.solve"):
+            x = als._solve(A, b).reshape(SHARDS, -1, k)
+        with record_function("als.concat"):
+            return _emulated_combine(x, "concat")
+
+    check(torch.equal(half_sweep(), als.BroadcastALS.compute_factor(table, Y, NF_LAM)),
+          "the split's half-sweep is not compute_factor's, bitwise")
+    sync()
+    events = profile_steps(half_sweep, 1).events()
+
+    def part(name):
+        return sum(e.device_time_total for e in events
+                   if e.device_type == DeviceType.CPU and e.name == name) / 1e3
+
+    parts = {name: part(f"als.{name}") for name in
+             ("gather and mask", "Gram and right-hand side", "solve", "concat")}
+    kernels = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("als.",
+                                                                       "ProfilerStep")):
+            kernels[e.name[:60]] += e.self_device_time_total / 1e3
+    parts["half-sweep"] = sum(kernels.values())
+    parts["kernels"] = dict(kernels.most_common(6))
+    check(parts["half-sweep"] > 0, "the half-sweep's profile saw no device time")
+    return parts
+
+
+def als_example_card_vs_cpu() -> dict:
+    """examples/als_recommender.py's table, packed and fitted on the card
+    and on the CPU from the same init_factors (drawn on the host)."""
+    from repro_torch.core.algorithms.als import BroadcastALS, pack_csr_table
+    from repro_torch.data import synth_netflix_tiled
+
+    M = synth_netflix_tiled(users=128, items=96, rank=6, tiles=2, density=0.15)
+    m, n = M.shape
+    r, c = np.nonzero(M)
+    v = M[r, c]
+    w = int(max((M != 0).sum(1).max(), (M != 0).sum(0).max()))
+    gen = torch.Generator().manual_seed(SEED)
+    init = (torch.rand((m, NF_RANK), generator=gen), torch.rand((n, NF_RANK), generator=gen))
+    fits = {}
+    for dev in (DEVICE, "cpu"):
+        data = pack_csr_table(r, c, v, m, w, num_shards=4, device=dev)
+        data_t = pack_csr_table(c, r, v, n, w, num_shards=4, device=dev)
+        fits[dev] = BroadcastALS(rank=NF_RANK, lam=NF_LAM, max_iter=NF_ITERS).fit(
+            data, data_transposed=data_t, init_factors=init)
+    card, cpu = fits[DEVICE], fits["cpu"]
+    err = max(rel_err(card.U.cpu(), cpu.U), rel_err(card.V.cpu(), cpu.V))
+    rmse = (card.rmse(r, c, v).item(), cpu.rmse(r, c, v).item())
+    seen = set(c[r == 0].tolist())
+
+    def top5(model):
+        scores = (model.U[0] @ model.V.T).cpu().numpy()
+        return [int(j) for j in np.argsort(-scores) if j not in seen][:5]
+
+    say(f"examples/als_recommender.py's table ({m} x {n}, {len(v)} ratings): the card's fit "
+        f"vs the CPU's from the same init, max abs err over max |factor| {err:.3g} (tol "
+        f"{ALS_DEVICE_TOL}); RMSE {rmse[0]:.6f} (card), {rmse[1]:.6f} (CPU); top-5 unseen "
+        f"items for user 0: {top5(card)} (card), {top5(cpu)} (CPU)")
+    check(err <= ALS_DEVICE_TOL and max(rmse) < 0.5,
+          f"the example's fit on the card vs the CPU: err {err}, RMSE {rmse}")
+    return {"err": err, "rmse": rmse}
+
+
+def phase_als(gen: torch.Generator) -> dict:
+    """Part (a) of phase 21: BroadcastALS at the Netflix Prize's shape."""
+    from repro_torch.core.algorithms.als import ALSParameters, BroadcastALS, pack_csr_table
+    from repro_torch.core.collectives import CollectiveSchedule
+    from repro_torch.core.numeric_table import MLNumericTable
+
+    mem_reset()
+    out = {}
+    t0 = time.perf_counter()
+    rows, cols, vals = netflix_ratings(gen)
+    sync()
+    out["generate_s"] = time.perf_counter() - t0
+    nnz = rows.numel()
+    deg_u = torch.bincount(rows, minlength=NF_USERS)
+    deg_i = torch.bincount(cols, minlength=NF_ITEMS)
+    w_u, w_i = int(deg_u.max()), int(deg_i.max())
+    t0 = time.perf_counter()
+    users = pack_csr_table(rows, cols, vals, NF_USERS, w_u, num_shards=SHARDS, device=DEVICE)
+    movies = pack_csr_table(cols, rows, vals, NF_ITEMS, w_i, num_shards=SHARDS, device=DEVICE)
+    sync()
+    out["pack_s"] = time.perf_counter() - t0
+    table_gb = (users.data.numel() + movies.data.numel()) * 4 / 1e9
+    say(f"ratings: {NF_USERS:,} users x {NF_ITEMS:,} movies, {nnz:,} ratings (density "
+        f"{nnz / (NF_USERS * NF_ITEMS):.6f}; Netflix {NF_DENSITY:.6f}), drawn on the card in "
+        f"{out['generate_s']:.3f} s; degrees: users {deg_u.float().mean().item():.1f} mean, "
+        f"{deg_u.min().item()}..{w_u}; movies {deg_i.float().mean().item():.1f} mean, "
+        f"{deg_i.min().item()}..{w_i}")
+    say(f"reduced: users 480,189 -> {NF_USERS:,} and movies 17,770 -> {NF_ITEMS:,} (8 partitions "
+        f"divide both tables); degrees Binomial, not Netflix's skew (its widest movie has "
+        f"~2.3e5 ratings: a table padded to it would not fit); ratings synthetic, not "
+        f"Netflix's")
+    say(f"packed on the card in {out['pack_s']:.3f} s: users ({NF_USERS:,}, 3 x {w_u}) and "
+        f"movies ({NF_ITEMS:,}, 3 x {w_i}) fp32, {table_gb:.2f} GB together")
+    check(int(torch.count_nonzero(users.data[:, 2 * w_u:])) == nnz
+          and int(torch.count_nonzero(movies.data[:, 2 * w_i:])) == nnz,
+          "a packed table lost ratings")
+
+    p = ALSParameters(rank=NF_RANK, lam=NF_LAM, max_iter=1, seed=SEED,
+                      schedule=CollectiveSchedule.GATHER_BROADCAST)
+    # iteration by iteration: a half-sweep reads only the other factor, so
+    # ten chained one-iteration fits are the ten-iteration fit
+    model = BroadcastALS(p).fit(users, data_transposed=movies)
+    rmse = [model.rmse(rows, cols, vals).item()]
+    for _ in range(1, NF_ITERS):
+        model = BroadcastALS(p).fit(users, data_transposed=movies,
+                                    init_factors=(model.U, model.V))
+        rmse.append(model.rmse(rows, cols, vals).item())
+    sync()
+    t0 = time.perf_counter()
+    fit = BroadcastALS(p, max_iter=NF_ITERS).fit(users, data_transposed=movies)
+    sync()
+    out["fit_s"] = time.perf_counter() - t0
+    say(f"BroadcastALS(rank={NF_RANK}, lam={NF_LAM}, {NF_ITERS} iterations, GATHER_BROADCAST, "
+        f"{SHARDS} partitions): {out['fit_s']:.3f} s (host clock); training RMSE by iteration "
+        f"{fmt(rmse)} (bar {ALS_RMSE_BAR}; noise floor 0.15)")
+    check(torch.equal(fit.U, model.U) and torch.equal(fit.V, model.V),
+          "the ten-iteration fit differs from ten chained one-iteration fits")
+    check(bool(torch.isfinite(fit.U).all() and torch.isfinite(fit.V).all())
+          and rmse[-1] < rmse[0] and rmse[-1] <= ALS_RMSE_BAR,
+          f"training RMSE {rmse} (bar {ALS_RMSE_BAR})")
+    out["rmse"] = rmse
+
+    one = BroadcastALS(p, max_iter=NF_ITERS).fit(
+        MLNumericTable(users.data, num_shards=1),
+        data_transposed=MLNumericTable(movies.data, num_shards=1))
+    same = torch.equal(one.U, fit.U) and torch.equal(one.V, fit.V)
+    say(f"partition invariance: U and V with {SHARDS} partitions and with 1 "
+        f"{'bitwise the same' if same else 'DIFFER'}")
+    check(same, "the fit with 8 partitions differs from the fit with 1")
+
+    err_u, err_i = als_fp64_error(users, fit.V), als_fp64_error(movies, fit.U)
+    say(f"one half-sweep against the fitted factor, fp32 vs fp64 (max abs err over max "
+        f"|factor|): users {err_u:.3g}, movies {err_i:.3g} (tol {ALS_HALF_TOL})")
+    check(err_u <= ALS_HALF_TOL and err_i <= ALS_HALF_TOL,
+          f"a half-sweep against fp64: {err_u}, {err_i}")
+    out["fp64_err"] = {"users": err_u, "movies": err_i}
+
+    # device time of each half-sweep (CUDA events, after the warm call
+    # cuda_ms makes); the bound: the packed table read once at the memory
+    # rate with both factors L2-resident, or the normal equations' and the
+    # solves' operations at the fp32 rate, whichever is longer
+    out["half_sweep"] = {}
+    for name, table, Y, n_rows in (("users", users, fit.V, NF_USERS),
+                                   ("movies", movies, fit.U, NF_ITEMS)):
+        ms = cuda_ms(lambda: BroadcastALS.compute_factor(table, Y, NF_LAM), 3)
+        k = NF_RANK
+        ops = nnz * (2 * k * k + 2 * k) + n_rows * (2 * k ** 3 / 3 + 2 * k * k)
+        t_b, by = bound(4 * (table.data.numel() + Y.numel() + n_rows * k), ops)
+        out["half_sweep"][name] = {"ms": ms, "bound_ms": t_b, "bound_by": by,
+                                   "table_gb": table.data.numel() * 4 / 1e9}
+        say(f"half-sweep over the {name} table ({table.data.numel() * 4 / 1e9:.2f} GB): "
+            f"{ms:.4f} ms (CUDA events), bound {t_b:.4f} ms ({by}; {t_b / ms:.1%}; "
+            f"{ms / t_b:.1f}x the bound)")
+    split = als_split(users, fit.V)
+    out["split"] = split
+    say("users half-sweep by part (torch.profiler, device ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if k != "kernels"))
+    say(f"    its largest kernels: {split['kernels']}")
+
+    g = np.random.default_rng(SEED + 2)
+    pool = np.stack([g.integers(0, NF_USERS, ALS_SERVE_POOL),
+                     g.integers(0, NF_ITEMS, ALS_SERVE_POOL)], 1)
+    out["serving"] = served_against_offline(
+        "(user, item) pairs", fit, pool, ALS_REQUESTS, ALS_REQ_MAX, ALS_SERVE_BATCH, SEED + 3)
+    seen = set(cols[rows == 0].tolist())
+    scores = (fit.U[0] @ fit.V.T).cpu().numpy()
+    top = [int(j) for j in np.argsort(-scores) if j not in seen][:5]
+    say(f"top-5 unseen movies for user 0 (of {len(seen)} rated): {top}, predicted "
+        f"{fmt(scores[top])}")
+    check(len(top) == 5 and not set(top) & seen, "user 0's recommendations")
+    out["example"] = als_example_card_vs_cpu()
+    out["peak_gb"] = mem_peak("phase 21 (a)")
+    return out
+
+
+def glm_learning_rate(X: torch.Tensor) -> tuple:
+    """A learning rate with lr·λ_max < 1, where λ_max is the largest
+    eigenvalue of a chunk's XᵀX/m (the squared loss's Hessian) over the
+    first chunk of every partition: that of XXᵀ/m, m x m, in fp64."""
+    blocks = X.view(SHARDS, -1, X.shape[1])
+    lam = max(torch.linalg.eigvalsh((c @ c.T).double() / GLM_BATCH)[-1].item()
+              for c in blocks[:, :GLM_BATCH])
+    return GLM_LR_SCALE / lam, lam
+
+
+def glm_fp64(table, kind: str, lr: float, reg) -> torch.Tensor:
+    """The same SGD in fp64, written out: every partition steps through its
+    GLM_BATCH-row chunks in order with the mean of its rows' (loss gradient
+    + l2·w), then the L1 prox; the partitions' weights are averaged after
+    each of GLM_ROUNDS rounds."""
+    blocks = table.data.view(SHARDS, -1, table.num_cols)
+    w = torch.zeros(table.num_cols - 1, dtype=torch.float64, device=DEVICE)
+    for _ in range(GLM_ROUNDS):
+        W = w.expand(SHARDS, -1).clone()
+        for s in range(0, blocks.shape[1], GLM_BATCH):
+            chunk = blocks[:, s:s + GLM_BATCH].double()
+            x, y = chunk[..., 1:], chunk[..., 0]
+            z = torch.bmm(x, W.unsqueeze(-1)).squeeze(-1)
+            coef = z - y if kind == "linear regression" else \
+                torch.where(y * z < 1.0, -y, torch.zeros_like(y))
+            g = torch.bmm(coef.unsqueeze(1), x).squeeze(1) / GLM_BATCH + reg.l2 * W
+            W = W - lr * g
+            if reg.l1:
+                W = torch.sign(W) * torch.clamp(W.abs() - reg.l1 * lr, min=0.0)
+        w = W.mean(0)
+    return w
+
+
+def phase_glm(table) -> dict:
+    """Part (c) of phase 21: LinearRegression (elastic net) and LinearSVM
+    on phase 4's table, each against fp64 SGD over the same chunks."""
+    from repro_torch.core.algorithms.linear_models import (
+        LinearRegression, LinearSVM, Regularization)
+
+    mem_reset()
+    out = {}
+    X = table.data[:, 1:]
+    lr, lam = glm_learning_rate(X)
+    say(f"learning rate {lr:.4g}: lr·λ_max = {lr * lam:.3f} (λ_max {lam:.5g}, the largest "
+        f"eigenvalue of a {GLM_BATCH}-row chunk's XᵀX/m; rows have |x|² ≈ "
+        f"{(X[:GLM_BATCH] ** 2).sum(1).mean().item():.4g}, so the reference's default 0.1 "
+        f"diverges)")
+    labels = table.data[:, 0].clone()
+    reg_en = Regularization.elastic_net(GLM_ALPHA, 0.5)
+    fits = (("linear regression", LinearRegression, reg_en),
+            ("linear SVM", LinearSVM, Regularization(l2=1e-3)))
+    for name, est, reg in fits:
+        if name == "linear SVM":                      # {0, 1} -> {-1, +1}, exact
+            table.data[:, 0].mul_(2.0).sub_(1.0)
+        sync()
+        t0 = time.perf_counter()
+        model = est(learning_rate=lr, max_iter=GLM_ROUNDS, local_batch_size=GLM_BATCH,
+                    reg=reg, schedule="gather_broadcast").fit(table)
+        sync()
+        secs = time.perf_counter() - t0
+        want = glm_fp64(table, name, lr, reg)
+        err = rel_err(model.weights.double(), want)
+        zeros = int((model.weights == 0).sum())
+        y = table.data[:GLM_SERVE_POOL, 0].cpu().numpy()
+        pool = X[:GLM_SERVE_POOL].cpu().numpy()
+        served = served_against_offline(f"{name}", model, pool, GLM_REQUESTS, GLM_REQ_MAX,
+                                        GLM_REQ_MAX, SEED + 4)
+        pred = model.predict(X[:GLM_SERVE_POOL]).cpu().numpy()
+        quality = (f"accuracy {(pred == y).mean():.4f}" if name == "linear SVM" else
+                   f"RMSE {np.sqrt(((pred - y) ** 2).mean()):.4f} (labels' std {y.std():.4f}, "
+                   f"all-zero weights {np.sqrt((y ** 2).mean()):.4f})")
+        if name == "linear SVM":                      # and back, exact
+            table.data[:, 0].add_(1.0).mul_(0.5)
+        say(f"{name} ({reg}), {GLM_ROUNDS} rounds of {GLM_BATCH}-row chunks: {secs:.3f} s "
+            f"(host clock); weights vs fp64 SGD over the same chunks {err:.3g} (tol "
+            f"{GLM_TOL}); {zeros} of {X.shape[1]:,} weights 0; {quality} on the first "
+            f"{GLM_SERVE_POOL} rows")
+        check(bool(torch.isfinite(model.weights).all()) and err <= GLM_TOL,
+              f"{name}: weights vs fp64 {err}")
+        out[name] = {"fit_s": secs, "err": err, "zero_weights": zeros, **served}
+    check(torch.equal(table.data[:, 0], labels), "the labels did not come back exactly")
+    check(out["linear regression"]["zero_weights"] > 0,
+          "the elastic net's L1 prox zeroed no weight")
+    out["peak_gb"] = mem_peak("phase 21 (c)")
+    return out
+
+
+def pca_data(gen: torch.Generator):
+    """PCA_ROWS rows of PCA_FEATURES features on the card: PCA_CLASSES
+    Gaussian classes (unit noise around centers ×3, as
+    examples/pca_naive_bayes.py), row i of class i mod PCA_CLASSES."""
+    centers = torch.randn((PCA_CLASSES, PCA_FEATURES), generator=gen, device=DEVICE) * 3
+    y = torch.arange(PCA_ROWS, device=DEVICE) % PCA_CLASSES
+    X = torch.empty((PCA_ROWS, PCA_FEATURES), dtype=torch.float32, device=DEVICE)
+    for i in range(0, PCA_ROWS, PCA_SLAB):
+        X[i:i + PCA_SLAB].normal_(generator=gen).add_(centers[y[i:i + PCA_SLAB]])
+    return X, y
+
+
+def pca_fp64(X: torch.Tensor):
+    """The covariance in fp64 (sums over row slabs), its eigenvalues
+    descending and eigenvectors as rows."""
+    s = torch.zeros(X.shape[1], dtype=torch.float64, device=DEVICE)
+    G = torch.zeros((X.shape[1], X.shape[1]), dtype=torch.float64, device=DEVICE)
+    for i in range(0, X.shape[0], PCA_SLAB):
+        x = X[i:i + PCA_SLAB].double()
+        s += x.sum(0)
+        G += x.T @ x
+    mean = s / X.shape[0]
+    cov = G / X.shape[0] - torch.outer(mean, mean)
+    evals, evecs = torch.linalg.eigh(cov)
+    return cov, evals.flip(0), evecs.flip(1).T
+
+
+def pca_gapped(evals64: torch.Tensor) -> torch.Tensor:
+    """The first PCA_K components whose fp64 eigenvalue lies at least
+    PCA_GAP of the largest from both neighbours.  Inside the noise bulk
+    neighbours lie ~1e-4 apart, and a component there is any vector of
+    their span: rounding picks one."""
+    lam = evals64[:PCA_K + 1]
+    below = (lam[:-1] - lam[1:]).abs()
+    above = torch.cat([torch.full_like(lam[:1], float("inf")), below[:-1]])
+    return (torch.minimum(below, above) >= PCA_GAP * lam[0]).nonzero().flatten()
+
+
+def pca_compare(model, ev_ref, vecs_ref, sel, top: float, cov64=None) -> dict:
+    """``model``'s explained variance against ``ev_ref`` (over ``top``, the
+    largest eigenvalue), its components ``sel`` against ``vecs_ref``'s each
+    up to its sign, and with ``cov64`` every component's residual
+    |cov·c − (cᵀ·cov·c)·c| over ``top``."""
+    k = model.components.shape[0]
+    ev = model.explained_variance.double()
+    out = {"variance": ((ev - ev_ref[:k].double()).abs().max() / top).item()}
+    C = model.components.double()
+    ref = vecs_ref[:k].double()
+    signs = torch.sign((C * ref).sum(1, keepdim=True))
+    out["compared"] = int(sel.numel())
+    out["component"] = ((C * signs - ref)[sel].abs().max().item()
+                        if sel.numel() else 0.0)
+    if cov64 is not None:
+        Cc = C @ cov64
+        rq = (Cc * C).sum(1, keepdim=True)
+        out["residual"] = ((Cc - rq * C).norm(dim=1).max() / top).item()
+    return out
+
+
+def nb_fp64(Z: torch.Tensor, y: torch.Tensor, var_smoothing: float) -> dict:
+    """Naive Bayes' statistics by the reference's formulas in fp64, with
+    each variance's scale s2/cnt (the terms its formula subtracts)."""
+    onehot = (y.unsqueeze(1) == torch.arange(PCA_CLASSES, device=DEVICE)).double()
+    Zd = Z.double()
+    cnt = torch.clamp(onehot.sum(0), min=1.0)
+    s1, s2 = onehot.T @ Zd, onehot.T @ (Zd * Zd)
+    mean = s1 / cnt[:, None]
+    var = torch.clamp(s2 / cnt[:, None] - mean ** 2, min=0.0) + var_smoothing
+    return {"priors": cnt / Z.shape[0], "means": mean, "variances": var,
+            "scale": s2 / cnt[:, None]}
+
+
+def phase_pca_nb(gen: torch.Generator) -> dict:
+    """Part (b) of phase 21: examples/pca_naive_bayes.py's program at the
+    card's scale."""
+    from repro_torch.core.algorithms.naive_bayes import GaussianNaiveBayes
+    from repro_torch.core.algorithms.pca import PCA
+    from repro_torch.core.numeric_table import MLNumericTable
+
+    mem_reset()
+    out = {}
+    t0 = time.perf_counter()
+    X, y = pca_data(gen)
+    sync()
+    out["generate_s"] = time.perf_counter() - t0
+    say(f"table {PCA_ROWS:,} x {PCA_FEATURES:,} fp32 ({X.numel() * 4 / 1e9:.1f} GB), "
+        f"{PCA_CLASSES} Gaussian classes, made on the card in {out['generate_s']:.3f} s; "
+        f"{SHARDS} partitions; XᵀX is {2 * PCA_ROWS * PCA_FEATURES ** 2 / 1e12:.1f} TFLOP of "
+        f"IEEE fp32 (TF32 off)")
+    fits = {}
+    for shards in (SHARDS, 1):
+        sync()
+        t0 = time.perf_counter()
+        fits[shards] = PCA(n_components=PCA_K).fit(MLNumericTable(X, num_shards=shards))
+        sync()
+        out[f"pca_fit_s_{shards}"] = time.perf_counter() - t0
+    pca = fits[SHARDS]
+    t0 = time.perf_counter()
+    cov64, evals64, evecs64 = pca_fp64(X)
+    sync()
+    out["fp64_s"] = time.perf_counter() - t0
+    sel, top = pca_gapped(evals64), evals64[0].item()
+    vs64 = pca_compare(pca, evals64, evecs64, sel, top, cov64)
+    vs1 = pca_compare(pca, fits[1].explained_variance, fits[1].components, sel, top)
+    say(f"PCA(n_components={PCA_K}) fit {out[f'pca_fit_s_{SHARDS}']:.3f} s with {SHARDS} "
+        f"partitions, {out['pca_fit_s_1']:.3f} s with 1 (host clock); explained variance "
+        f"{fmt(pca.explained_variance[:3].tolist())} ... {fmt(pca.explained_variance[-2:].tolist())}")
+    say(f"  against fp64 eigh of the fp64 covariance ({out['fp64_s']:.3f} s): variance "
+        f"{vs64['variance']:.3g} of the largest (tol {PCA_TOL['variance']}); components up to "
+        f"sign {vs64['component']:.3g} (tol {PCA_TOL['component']}) over the "
+        f"{vs64['compared']} with a gap >= {PCA_GAP} of the largest; every component's "
+        f"residual {vs64['residual']:.3g} (tol {PCA_TOL['residual']})")
+    say(f"  {SHARDS} partitions against 1: variance {vs1['variance']:.3g}, components up to "
+        f"sign {vs1['component']:.3g} over {vs1['compared']}")
+    check(all(vs64[k] <= PCA_TOL[k] for k in ("variance", "component", "residual"))
+          and vs1["variance"] <= PCA_TOL["variance"]
+          and vs1["component"] <= PCA_TOL["component"] and vs64["compared"] > 0,
+          f"PCA against fp64 {vs64}, 8 partitions against 1 {vs1}")
+    del cov64
+
+    t0 = time.perf_counter()
+    Z = torch.cat([pca.transform(X[i:i + PCA_SLAB]) for i in range(0, PCA_ROWS, PCA_SLAB)])
+    sync()
+    out["transform_s"] = time.perf_counter() - t0
+    labeled = torch.cat([y.unsqueeze(1).float(), Z], 1)
+    nb_est = GaussianNaiveBayes(num_classes=PCA_CLASSES)
+    nbs = {}
+    for shards in (SHARDS, 1):
+        sync()
+        t0 = time.perf_counter()
+        nbs[shards] = nb_est.fit(MLNumericTable(labeled, num_shards=shards))
+        sync()
+        out[f"nb_fit_s_{shards}"] = time.perf_counter() - t0
+    nb = nbs[SHARDS]
+    want = nb_fp64(Z, y, nb_est.params.var_smoothing)
+    errs = {"priors": rel_err(nb.priors.double(), want["priors"]),
+            "means": rel_err(nb.means.double(), want["means"]),
+            "variances": ((nb.variances.double() - want["variances"]).abs()
+                          / want["scale"]).max().item()}
+    errs1 = {"priors": rel_err(nb.priors, nbs[1].priors),
+             "means": rel_err(nb.means, nbs[1].means),
+             "variances": ((nb.variances.double() - nbs[1].variances.double()).abs()
+                           / want["scale"]).max().item()}
+    t0 = time.perf_counter()
+    pred = nb.predict(Z)
+    sync()
+    out["predict_s"] = time.perf_counter() - t0
+    acc = (pred.long() == y).float().mean().item()
+    say(f"GaussianNaiveBayes(num_classes={PCA_CLASSES}) on [y | Z] ({PCA_ROWS:,} x "
+        f"{PCA_K + 1}): fit {out[f'nb_fit_s_{SHARDS}']:.4f} s; statistics against fp64: priors "
+        f"{errs['priors']:.3g}, means {errs['means']:.3g} (of the largest), variances "
+        f"{errs['variances']:.3g} (entry by entry, of s2/cnt: the formula cancels) (tol "
+        f"{NB_TOL}); {SHARDS} partitions against 1: {fmt(errs1.values())} (tol {NB_TOL}); "
+        f"predict {out['predict_s']:.4f} s, training accuracy {acc:.4f} (bar 0.9)")
+    check(all(v <= NB_TOL for v in errs.values()) and all(v <= NB_TOL for v in errs1.values())
+          and acc > 0.9, f"naive Bayes: vs fp64 {errs}, 8 vs 1 {errs1}, accuracy {acc}")
+    out.update(pca_vs_fp64=vs64, pca_8_vs_1=vs1, nb_vs_fp64=errs, nb_8_vs_1=errs1, accuracy=acc)
+    out["serving"] = served_against_offline(
+        "naive Bayes on Z rows", nb, Z[:PCA_SERVE_POOL].cpu().numpy(), PCA_REQUESTS,
+        PCA_REQ_MAX, PCA_REQ_MAX, SEED + 5)
+    out["peak_gb"] = mem_peak("phase 21 (b)")
+    return out
+
+
+def phase_estimators(gen: torch.Generator, report) -> dict:
+    """Phase 21: (c) the GLMs on phase 4's table, then the first path's
+    tables freed, (a) BroadcastALS at the Netflix Prize's shape and (b)
+    PCA -> naive Bayes; no kernel of the port may launch on this path."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    phase(f"21. BroadcastALS at the Netflix Prize's shape, PCA -> GaussianNaiveBayes, "
+          f"LinearRegression and LinearSVM (no kernel of the port on this path)")
+    reset_launch_counts()            # phase 21's path starts here
+    t0 = time.perf_counter()
+    out = {"c": phase_glm(report["logreg"]["table"])}
+    out["c"]["seconds"] = time.perf_counter() - t0
+    free_tables(report)
+    for part, fn in (("a", phase_als), ("b", phase_pca_nb)):
+        t0 = time.perf_counter()
+        out[part] = fn(gen)
+        free_device_memory()
+        out[part]["seconds"] = time.perf_counter() - t0
+    got = launch_counts()            # ... and ends here
+    say(f"launches of the port's kernels on phase 21's path: {got} (every one 0); seconds "
+        f"(a) {out['a']['seconds']:.1f}, (b) {out['b']['seconds']:.1f}, (c) "
+        f"{out['c']['seconds']:.1f}")
+    check(all(v == 0 for v in got.values()), f"a kernel of the port launched in phase 21: {got}")
+    return out
 
 
 def lm_requests(cfg):
@@ -4450,7 +5063,10 @@ def main() -> int:
     records = phase_timing(gen, counts, report)
     for r in records:
         check(r["launches"] == totals[r["name"]], f"{r['name']} launch bookkeeping")
-    free_tables(report)
+    # phase 21 fits the GLMs on phase 4's table, then frees the first
+    # path's tables (free_tables) before its ALS and PCA parts
+    phase_estimators(gen, report)
+    free_device_memory()
     fig = phase_fig_a2()             # counts its own launches
     free_device_memory()
     say(f"phase 20's tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "

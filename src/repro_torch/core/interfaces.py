@@ -11,13 +11,16 @@ Counterpart: ``src/repro/core/interfaces.py`` (``Model``, ``Estimator``,
 Fitted objects expose ``partial`` (their state as a dict of tensors) and
 estimators ``rebuild(partial)`` a fitted object from it.  Featurizers are
 ``Transformer``s whose ``fit`` returns a ``FittedTransformer``; a pipeline composes them with one terminal
-estimator.  The streaming and search mixins and the deprecated ``train``
-shims wait for later slices.
+estimator.  ``Algorithm`` keeps the reference's deprecated classmethod
+spellings, ``train`` and ``defaultParameters``, as shims that warn and
+delegate.  The streaming and search mixins (and ``train_stream``) wait for
+later slices.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import warnings
 from typing import Any, ClassVar, Generic, Optional, TypeVar
 
 import torch
@@ -27,6 +30,14 @@ __all__ = ["Estimator", "FittedEstimator", "Transformer", "FittedTransformer",
 
 P_ = TypeVar("P_")  # hyperparameter dataclass
 M_ = TypeVar("M_", bound="Model")
+
+
+def _warn_deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"{old} is deprecated; use {new} — the instance-based Estimator "
+        f"contract (hyperparameters in the constructor, fit() returning a "
+        f"fitted model). The shim delegates and is bit-identical.",
+        DeprecationWarning, stacklevel=3)
 
 
 class Model(abc.ABC):
@@ -171,6 +182,21 @@ class Algorithm(Estimator, Generic[P_, M_]):
     @classmethod
     def default_parameters(cls) -> P_:
         return cls.Parameters()
+
+    # legacy classmethod contract (deprecation shims) ------------------------ #
+    @classmethod
+    def train(cls, data: Any, params: Optional[P_] = None, **kwargs: Any) -> M_:
+        """Deprecated: ``cls.train(data, params)`` → ``cls(params).fit(data)``
+        (it *is* the new path, so the result is bit-identical)."""
+        _warn_deprecated(f"{cls.__name__}.train(data, params)",
+                         f"{cls.__name__}(params).fit(data)")
+        return cls(params).fit(data, **kwargs)
+
+    @classmethod
+    def defaultParameters(cls) -> P_:  # paper spelling
+        _warn_deprecated(f"{cls.__name__}.defaultParameters()",
+                         f"{cls.__name__}.default_parameters()")
+        return cls.default_parameters()
 
 
 class NumericAlgorithm(Algorithm[P_, M_]):

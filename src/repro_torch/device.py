@@ -14,7 +14,7 @@ from typing import Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_tensor"]
+__all__ = ["resolve_device", "to_tensor", "on_device"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -43,3 +43,9 @@ def to_tensor(array, device: torch.device) -> torch.Tensor:
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
     return torch.tensor(arr, device=device)
+
+
+def on_device(x, device: torch.device) -> torch.Tensor:
+    """A tensor moved to ``device`` (no copy where it lies there already),
+    or a host array copied there by :func:`to_tensor`."""
+    return x.to(device) if isinstance(x, torch.Tensor) else to_tensor(x, device)

@@ -62,6 +62,11 @@ _DEFAULT_NAMES = {
     "BiasAdder": "bias",
     "LogisticRegressionAlgorithm": "logreg",
     "KMeans": "kmeans",
+    "PCA": "pca",
+    "GaussianNaiveBayes": "naive_bayes",
+    "BroadcastALS": "als",
+    "LinearRegressionAlgorithm": "linreg",
+    "LinearSVMAlgorithm": "svm",
 }
 
 #: host-state ``kind`` → fitted transformer class (``from_state``)

@@ -11,7 +11,11 @@ shard-aware predict waits for mesh mode).
 Microbatches have a static row count (``max_batch``; the short final batch
 is right-padded with zeros and the pad rows sliced off), so every batch has
 the same shape — for a fitted k-means model with ``use_kernel``, one
-``kmeans_assign`` launch per microbatch.  A raw-text request served to a
+``kmeans_assign`` launch per microbatch.  Any fitted model's ``predict``
+is served: a ``MatrixFactorizationModel`` takes integer (user, item) pair
+rows, whose zero pad rows are the valid pair (0, 0); the GLM, naive Bayes
+and MF models sum in an order fixed by the width, so a served row is
+bitwise its offline prediction.  A raw-text request served to a
 :class:`repro_torch.pipeline.FittedPipeline` runs its vocab lookup on the
 host (``featurize_rows``), then the pipeline's device chain and model.
 """

@@ -4,8 +4,10 @@ No counterpart module in ``src/repro/``.  Three entry points:
 
 * :func:`from_reference` — a fitted model's state: the reference's models
   expose it as ``partial`` — ``{"weights": (d,)}`` for logistic
-  regression, ``{"centroids": (k, d)}`` for k-means — and this turns it
-  into the port's fitted model on ``device``.
+  regression and the two GLMs, ``{"centroids": (k, d)}`` for k-means,
+  ``{"components", "mean", "explained_variance"}`` for PCA, ``{"priors",
+  "means", "variances"}`` for naive Bayes, ``{"U", "V"}`` for ALS — and
+  this turns it into the port's fitted model on ``device``.
 * :func:`pipeline_from_reference` — a fitted pipeline: the reference's
   ``FittedPipeline.host_state()`` (the vocabulary, ``n``, ``column``,
   ``keep_columns``, the skip and label indices, each stage's kind) and
@@ -26,11 +28,30 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms.kmeans import KMeansModel, KMeansParameters
+from repro_torch.core.algorithms.als import (
+    ALSParameters,
+    BroadcastALS,
+    MatrixFactorizationModel,
+)
+from repro_torch.core.algorithms.kmeans import KMeans, KMeansModel, KMeansParameters
+from repro_torch.core.algorithms.linear_models import (
+    GeneralizedLinearModel,
+    LinearRegressionAlgorithm,
+    LinearRegressionParameters,
+    LinearSVMAlgorithm,
+    LinearSVMParameters,
+)
 from repro_torch.core.algorithms.logistic_regression import (
+    LogisticRegressionAlgorithm,
     LogisticRegressionModel,
     LogisticRegressionParameters,
 )
+from repro_torch.core.algorithms.naive_bayes import (
+    GaussianNaiveBayes,
+    NaiveBayesModel,
+    NaiveBayesParameters,
+)
+from repro_torch.core.algorithms.pca import PCA, PCAModel, PCAParameters
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.models.layers.quant import QTensor
 from repro_torch.models.layers.ssd import ssd_shapes
@@ -38,31 +59,50 @@ from repro_torch.models.params import place
 
 __all__ = ["from_reference", "pipeline_from_reference", "lm_from_reference"]
 
+#: kind → (its partial's keys, its parameters class, the model's builder
+#: ``(state dict, params) -> model``)
 _KINDS = {
-    "logistic_regression": ("weights", LogisticRegressionParameters),
-    "kmeans": ("centroids", KMeansParameters),
+    "logistic_regression": (("weights",), LogisticRegressionParameters,
+                            lambda s, p: LogisticRegressionModel(p, s["weights"])),
+    "kmeans": (("centroids",), KMeansParameters,
+               lambda s, p: KMeansModel(s["centroids"], p)),
+    "linear_regression": (("weights",), LinearRegressionParameters,
+                          lambda s, p: GeneralizedLinearModel(s["weights"])),
+    "linear_svm": (("weights",), LinearSVMParameters,
+                   lambda s, p: GeneralizedLinearModel(s["weights"], link=torch.sign)),
+    "pca": (("components", "mean", "explained_variance"), PCAParameters,
+            lambda s, p: PCAModel(s["components"], s["mean"], s["explained_variance"])),
+    "naive_bayes": (("priors", "means", "variances"), NaiveBayesParameters,
+                    lambda s, p: NaiveBayesModel(s["priors"], s["means"], s["variances"])),
+    "als": (("U", "V"), ALSParameters,
+            lambda s, p: MatrixFactorizationModel(s["U"], s["V"], p)),
 }
+
+#: the port's estimator classes → their kind
+_KIND_OF = {LogisticRegressionAlgorithm: "logistic_regression", KMeans: "kmeans",
+            LinearRegressionAlgorithm: "linear_regression",
+            LinearSVMAlgorithm: "linear_svm", PCA: "pca",
+            GaussianNaiveBayes: "naive_bayes", BroadcastALS: "als"}
 
 
 def from_reference(kind: str, partial: Mapping[str, Any],
                    params: Optional[Any] = None,
                    device: DeviceLike = None):
-    """The port's fitted model of ``kind`` (``"logistic_regression"`` or
-    ``"kmeans"``) from the reference model's ``partial`` state, on
-    ``device`` (the CUDA card unless ``device="cpu"``).  ``params`` are the
-    port's parameters for the model (defaults when omitted)."""
+    """The port's fitted model of ``kind`` (one of ``_KINDS``:
+    ``"logistic_regression"``, ``"kmeans"``, ``"linear_regression"``,
+    ``"linear_svm"``, ``"pca"``, ``"naive_bayes"``, ``"als"``) from the
+    reference model's ``partial`` state, on ``device`` (the CUDA card
+    unless ``device="cpu"``).  ``params`` are the port's parameters for the
+    model (defaults when omitted)."""
     if kind not in _KINDS:
         raise ValueError(f"unknown model kind {kind!r} (one of {sorted(_KINDS)})")
-    key, params_cls = _KINDS[kind]
-    if set(partial) != {key}:
-        raise ValueError(f"a {kind} partial holds exactly {{{key!r}}}, got "
+    keys, params_cls, build = _KINDS[kind]
+    if set(partial) != set(keys):
+        raise ValueError(f"a {kind} partial holds exactly {sorted(keys)}, got "
                          f"{sorted(partial)}")
     dev = resolve_device(device)
-    state = to_tensor(partial[key], dev)
-    params = params if params is not None else params_cls()
-    if kind == "kmeans":
-        return KMeansModel(state, params)
-    return LogisticRegressionModel(params, state)
+    state = {k: to_tensor(partial[k], dev) for k in keys}
+    return build(state, params if params is not None else params_cls())
 
 
 def pipeline_from_reference(pipeline: Any, host_state: Mapping[str, Any],
@@ -74,7 +114,6 @@ def pipeline_from_reference(pipeline: Any, host_state: Mapping[str, Any],
     ``partial`` (host arrays), on ``device`` (the CUDA card unless
     ``device="cpu"``).  The terminal model comes through
     :func:`from_reference` with the port estimator's parameters."""
-    from repro_torch.core.algorithms.kmeans import KMeans
     from repro_torch.pipeline.pipeline import FITTED_KINDS, FittedPipeline
 
     dev = resolve_device(device)
@@ -92,8 +131,8 @@ def pipeline_from_reference(pipeline: Any, host_state: Mapping[str, Any],
         if est is None:
             raise ValueError("the reference carries a trained model but the "
                              "pipeline has no terminal estimator")
-        kind = "kmeans" if isinstance(est, KMeans) else "logistic_regression"
-        model = from_reference(kind, partial["model"], est.params, dev)
+        model = from_reference(_KIND_OF[type(est)], partial["model"],
+                               est.params, dev)
     return FittedPipeline(pipeline, stages, model, host_state["num_cols"], dev)
 
 

@@ -53,6 +53,12 @@ from repro_torch.features import NGrams, Standardizer, TfIdf, tf_idf
 from repro_torch.pipeline import Pipeline
 from repro_torch.serve.predictor import ModelPredictor, PredictRequest
 from repro_torch.weights import from_reference
+from repro_torch.core.algorithms.als import BroadcastALS, pack_csr_table
+from repro_torch.core.algorithms.linear_models import LinearRegression, LinearSVM
+from repro_torch.core.algorithms.naive_bayes import GaussianNaiveBayes
+from repro_torch.core.algorithms.pca import PCA
+from repro_torch.core.local_matrix import PaddedCSR
+from repro_torch.data.synthetic import synth_netflix_tiled
 
 
 def _need_card():
@@ -93,6 +99,16 @@ def test_entry_points_default_to_the_card():
         lambda: LocalMatrix.eye(3).data.device,
         lambda: LocalMatrix.rand(3, 2).data.device,
         lambda: LocalMatrix(rows).data.device,
+        lambda: PaddedCSR.from_dense(rows).indices.device,
+        lambda: PaddedCSR.from_coo([0, 1], [1, 0], [1.0, 2.0], 2, 1).values.device,
+        lambda: pack_csr_table([0, 1], [1, 0], [1.0, 2.0], 2, 1).data.device,
+        lambda: from_reference("als", {"U": rows, "V": rows}).U.device,
+        lambda: from_reference("linear_regression", {"weights": rows[0]}).weights.device,
+        lambda: from_reference("linear_svm", {"weights": rows[0]}).weights.device,
+        lambda: from_reference("pca", {"components": rows[:2], "mean": rows[0],
+                                       "explained_variance": rows[0, :2]}).mean.device,
+        lambda: from_reference("naive_bayes", {"priors": rows[0, :2], "means": rows[:2],
+                                               "variances": rows[:2]}).means.device,
     ]
     for call in calls:
         if torch.cuda.is_available():
@@ -1562,3 +1578,98 @@ def test_plain_weight_engine_on_card_matches_slot_at_a_time(arch, dtype):
         eng.calls["prefills"] + eng.calls["prefill_waves"]) + steps
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
+
+
+# --------------------------------------------------------------------------- #
+# the paper's §IV-B and the other estimators (no kernel of the port)
+# --------------------------------------------------------------------------- #
+def _als_tables(device, shards):
+    """``examples/als_recommender.py``'s ratings, packed on ``device``."""
+    M = synth_netflix_tiled(users=128, items=96, rank=6, tiles=2, density=0.15)
+    r, c = np.nonzero(M)
+    v = M[r, c]
+    w = int(max((M != 0).sum(1).max(), (M != 0).sum(0).max()))
+    return (pack_csr_table(r, c, v, M.shape[0], w, num_shards=shards, device=device),
+            pack_csr_table(c, r, v, M.shape[1], w, num_shards=shards, device=device),
+            (r, c, v))
+
+
+@pytest.mark.cuda
+def test_als_half_sweep_and_fit_are_bitwise_the_same_for_any_partition_count():
+    """A half-sweep solves every partition's rows as one batch, so U and V
+    do not depend on P; the fit on the card is within 1e-3 of max |U| of
+    the same fit on the CPU from the same init; no kernel of the port
+    launches."""
+    _need_card()
+    tk.reset_launch_counts()
+    fits, factors = [], []
+    for shards in (1, 4, 8):
+        data, data_t, _ = _als_tables("cuda", shards)
+        V = torch.rand((data_t.num_rows, 10), generator=torch.Generator().manual_seed(0))
+        factors.append(BroadcastALS.compute_factor(data, V.cuda(), 0.01))
+        fits.append(BroadcastALS(max_iter=10).fit(data, data_transposed=data_t))
+    for f, m in zip(factors[1:], fits[1:]):
+        assert torch.equal(f, factors[0])
+        assert torch.equal(m.U, fits[0].U) and torch.equal(m.V, fits[0].V)
+    assert all(v == 0 for v in tk.launch_counts().values())
+    data, data_t, (r, c, v) = _als_tables("cpu", 4)
+    card, card_t, _ = _als_tables("cuda", 4)
+    gen = torch.Generator().manual_seed(1)
+    init = (torch.rand((data.num_rows, 10), generator=gen),
+            torch.rand((data_t.num_rows, 10), generator=gen))
+    on_card = BroadcastALS(max_iter=10).fit(card, data_transposed=card_t, init_factors=init)
+    on_cpu = BroadcastALS(max_iter=10).fit(data, data_transposed=data_t, init_factors=init)
+    for a, b in ((on_card.U, on_cpu.U), (on_card.V, on_cpu.V)):
+        assert ((a.cpu() - b).abs().max() / b.abs().max()).item() <= 1e-3
+    assert fits[0].rmse(r, c, v).item() < 0.5
+
+
+@pytest.mark.cuda
+def test_served_mf_pairs_and_glm_rows_are_bitwise_the_offline_prediction():
+    """(user, item) pairs in microbatches of 64 (zero pad rows: the pair
+    (0, 0)) and GLM / naive Bayes rows in microbatches of 16, each served
+    result bitwise the offline predict of every row at once."""
+    _need_card()
+    data, data_t, _ = _als_tables("cuda", 4)
+    mf = BroadcastALS(max_iter=3).fit(data, data_transposed=data_t)
+    rng = np.random.default_rng(0)
+    pairs = np.stack([rng.integers(0, data.num_rows, 3000),
+                      rng.integers(0, data_t.num_rows, 3000)], 1)
+    X = rng.normal(size=(512, 4097)).astype(np.float32)
+    tab = np.concatenate([np.sign(X[:, :1]), X[:, 1:]], 1)
+    table = MLNumericTable.from_numpy(tab, num_shards=4)
+    nb_tab = np.concatenate([(X[:, :1] > 0).astype(np.float32), X[:, 1:65]], 1)
+    models = [(mf, pairs, 64),
+              (LinearRegression(max_iter=2, learning_rate=1e-4,
+                                local_batch_size=16).fit(table), X[:, 1:], 16),
+              (LinearSVM(max_iter=2, learning_rate=1e-4,
+                         local_batch_size=16).fit(table), X[:, 1:], 16),
+              (GaussianNaiveBayes(num_classes=2).fit(
+                  MLNumericTable.from_numpy(nb_tab, num_shards=4)), X[:, 1:65], 16)]
+    for model, rows, batch in models:
+        offline = model.predict(torch.as_tensor(rows).cuda()).cpu().numpy()
+        sizes = rng.integers(1, batch + 1, 200)
+        starts = np.cumsum(np.concatenate([[0], sizes]))
+        starts = starts[starts <= len(rows)]
+        blocks = [rows[a:b] for a, b in zip(starts[:-1], starts[1:])]
+        served = ModelPredictor(model, max_batch=batch).predict_many(blocks)
+        for a, block, out in zip(starts, blocks, served):
+            assert np.array_equal(out, offline[a:a + len(block)])
+
+
+@pytest.mark.cuda
+def test_pca_on_the_card_matches_fp64_up_to_sign():
+    _need_card()
+    rng = np.random.default_rng(1)
+    X = (rng.normal(size=(4096, 64)) + rng.normal(size=(8, 64))[np.arange(4096) % 8] * 3)
+    model = PCA(n_components=4).fit(MLNumericTable.from_numpy(X.astype(np.float32),
+                                                              num_shards=8))
+    Xd = torch.as_tensor(X.astype(np.float32)).double()
+    mean = Xd.mean(0)
+    evals, evecs = torch.linalg.eigh((Xd - mean).T @ (Xd - mean) / len(X))
+    ev64, comp64 = evals.flip(0)[:4], evecs.flip(1)[:, :4].T
+    assert ((model.explained_variance.cpu().double() - ev64).abs().max()
+            / ev64[0]).item() <= 1e-4
+    c = model.components.cpu().double()
+    c = c * torch.sign((c * comp64).sum(1, keepdim=True))
+    assert (c - comp64).abs().max().item() <= 1e-3

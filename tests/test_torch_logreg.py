@@ -148,6 +148,6 @@ def test_from_reference_round_trips_a_jax_fit():
     back = {k: v.numpy() for k, v in tm.partial.items()}
     np.testing.assert_array_equal(back["weights"], partial["weights"])
     with pytest.raises(ValueError, match="unknown model kind"):
-        from_reference("pca", partial, device="cpu")
+        from_reference("random_forest", partial, device="cpu")
     with pytest.raises(ValueError, match="holds exactly"):
         from_reference("logistic_regression", {"w": 1}, device="cpu")
