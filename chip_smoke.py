@@ -263,14 +263,46 @@ Phases (each one that fails makes the script exit non-zero):
                 serving latency, the memo's hits and misses, kernels 1-3 at
                 this path's shapes beside their plain versions, library
                 calls and bounds, the peak memory.  It runs after phase 21.
+ 22. streaming + checkpoint — right after phase 20 (before phase 8): the
+                port's streaming epochs, atomic checkpoints and exact resume
+                on kernels 1-3 at the paper's widths.  (a) Logistic
+                regression at 160,000 features from windows of 4,096 rows
+                (8 partitions, 4 rounds an epoch, one SGD step of 128 rows a
+                partition a round; window step mod 4 of a 10.5 GB pool made
+                on the card from the seed and kept in pinned host memory),
+                16 epochs: leg 1 uninterrupted in this process; leg 2 the
+                same fit in a child process (chip_smoke.py --stream-child)
+                with a snapshot every epoch, whose stream sends it SIGKILL
+                when asked for step 8 (rc -9, newest snapshot epoch 8); leg
+                3 a resume here, bitwise leg 1's weights; leg 1's weights at
+                epoch 4 within 1e-3 of use_kernel=False's.  (b) K-means at
+                d = 4,096, k = 50 from windows of 131,072 rows, 8 epochs of
+                4 rounds, stopped with a snapshot at epoch 4 and resumed,
+                bitwise the uninterrupted centroids; one streamed round's
+                picks against use_kernel=False's (near-ties only).  (c) Fig.
+                A2's demo 3: NGrams(n=2, top=30,000) -> TfIdf -> KMeans(k=50)
+                with fit_stream (8 partitions, 6 epochs of 2 rounds) on
+                8,192 docs of phase 20's generator, preempted at epoch 3 and
+                resumed (centroids bitwise, vocabulary equal), then
+                FittedPipeline.save -> Pipeline.load and 256 raw-text
+                requests through ModelPredictor(loaded) bitwise the fitted
+                pipeline's offline predictions.  (d) python -m
+                repro_torch.launch.fit --algorithm kmeans with --ckpt-dir in
+                a child process (on the card), then with --resume (prints
+                "resuming from step ..."), beside the rest of the phase.
+                Printed: host->device GB/s and s an epoch, snapshot write ms
+                and resume s, peak memory, kernels 1-3 at the stream's
+                shapes beside their plain versions, library calls and
+                bounds, launches by kernel.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 21, then phase 20, then phase 8, then phase 11, then phase 14,
-then phase 18) and read just after it: they count those paths only (phase
-21 must launch none; phase 20's launches
-are added to kernels 1-3's records under "fig_a2").  A decode step that replays a CUDA graph adds the
+then phase 21, then phase 20, then phase 22, then phase 8, then phase 11,
+then phase 14, then phase 18) and read just after it: they count those
+paths only (phase 21 must launch none; phase 20's launches are added to
+kernels 1-3's records under "fig_a2", phase 22's under "stream"; the
+launches of phase 22's child processes are their own).  A decode step that replays a CUDA graph adds the
 launches the graph holds (``ServeEngine``), so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
@@ -383,6 +415,25 @@ NB_TOL = 1e-5
 GLM_ROUNDS, GLM_BATCH, GLM_LR_SCALE, GLM_ALPHA = 3, 256, 0.5, 0.5
 GLM_REQUESTS, GLM_REQ_MAX, GLM_SERVE_POOL = 32, 16, 512
 GLM_TOL = 1e-3
+# phase 22, streaming epochs with atomic checkpoints and exact kill-and-resume.
+# (a) LogisticRegression(**STREAM_LR, use_kernel=True).fit_stream at
+# LOGREG_FEATURES features: windows of STREAM_LR_ROWS rows (SHARDS partitions,
+# STREAM_CHUNKS rounds an epoch, one local batch a chunk), window step mod
+# STREAM_LR_POOL of a pool made on the card from the seed and kept in pinned
+# host memory, STREAM_LR_EPOCHS epochs; a child process killed by SIGKILL
+# when its stream is asked for step STREAM_KILL; the weights after
+# STREAM_PLAIN_EPOCHS epochs against use_kernel=False at phase 4's 1e-3.
+# (b) KMeans(k=KMEANS_K) at KMEANS_FEATURES from windows of STREAM_KM_ROWS
+# rows (a pool of STREAM_KM_POOL), STREAM_KM_EPOCHS epochs, stopped at
+# STREAM_KM_STOP and resumed.  (c) Fig. A2's demo 3 on the first
+# STREAM_FIG_DOCS docs of fig_corpus's generator (cut from FIG_DOCS for the
+# run's time), STREAM_FIG_EPOCHS epochs of STREAM_FIG_CHUNKS rounds,
+# preempted at STREAM_FIG_STOP
+STREAM_LR_ROWS, STREAM_LR_POOL, STREAM_LR_EPOCHS, STREAM_KILL = 4_096, 4, 16, 8
+STREAM_CHUNKS, STREAM_PLAIN_EPOCHS = 4, 4
+STREAM_LR = dict(learning_rate=1e-7, local_batch_size=128)
+STREAM_KM_ROWS, STREAM_KM_POOL, STREAM_KM_EPOCHS, STREAM_KM_STOP = 131_072, 2, 8, 4
+STREAM_FIG_DOCS, STREAM_FIG_EPOCHS, STREAM_FIG_CHUNKS, STREAM_FIG_STOP = 8_192, 6, 2, 3
 
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
@@ -1350,9 +1401,9 @@ def free_tables(report) -> None:
 # --------------------------------------------------------------------------- #
 # phase 20: the paper's Fig. A2 program end to end
 # --------------------------------------------------------------------------- #
-def fig_corpus(seed: int) -> list:
-    """FIG_DOCS (label, text) rows of FIG_WORDS words: made-up words of two
-    or three consonant-vowel syllables, FIG_VOCAB of them, drawn with Zipf
+def fig_corpus(seed: int, docs: int = None) -> list:
+    """``docs`` (FIG_DOCS by default) (label, text) rows of FIG_WORDS words:
+    made-up words of two or three consonant-vowel syllables, FIG_VOCAB of them, drawn with Zipf
     weights (exponent 1.1), each class tripling the weight of its half of
     the vocabulary (as synth_labeled_text favours half its words).  The
     package's generators draw from 26 words, so they make at most 676
@@ -1366,8 +1417,9 @@ def fig_corpus(seed: int) -> list:
     words = np.array(sorted(words))
     rng.shuffle(words)
     zipf = 1.0 / np.arange(1, FIG_VOCAB + 1) ** 1.1
-    labels = np.arange(FIG_DOCS) % 2
-    idx = np.empty((FIG_DOCS, FIG_WORDS), np.int64)
+    docs = FIG_DOCS if docs is None else docs
+    labels = np.arange(docs) % 2
+    idx = np.empty((docs, FIG_WORDS), np.int64)
     for c in (0, 1):
         w = zipf.copy()
         w[np.arange(FIG_VOCAB) % 2 == c] *= 3.0
@@ -1722,6 +1774,544 @@ def phase_fig_a2() -> dict:
     return {"kernels": times, "seconds": secs, "peak_gb": peak,
             "latency_ms": {k: float(np.median(s["latencies"]))
                            for k, s in (("a", served_a), ("b", served_b))}}
+
+
+# --------------------------------------------------------------------------- #
+# phase 22: streaming epochs, atomic checkpoints and exact kill-and-resume
+# --------------------------------------------------------------------------- #
+class KillAt:
+    """The reference's ChaosInjector pattern (its chaos harness is not
+    ported): a stream wrapper that sends this process SIGKILL when the
+    stream is asked for window ``step`` — an uncatchable preemption, with
+    the snapshots before it on disk."""
+
+    def __init__(self, stream, step: int):
+        self.stream, self.kill = stream, step
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.stream.step == self.kill:
+            import signal
+
+            os.kill(os.getpid(), signal.SIGKILL)
+        return next(self.stream)
+
+
+class StoreTimes:
+    """Host seconds of every snapshot write (``save_checkpoint``) and
+    restore (``restore_with_metadata``) while the block runs: the store's
+    functions are wrapped, and the runner and the pipeline look them up at
+    each call."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+
+        self.store, self.saves, self.restores = store, [], []
+        self.orig = (store.save_checkpoint, store.restore_with_metadata)
+
+        def timed(fn, into):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        store.save_checkpoint = timed(self.orig[0], self.saves)
+        store.restore_with_metadata = timed(self.orig[1], self.restores)
+        return self
+
+    def __exit__(self, *exc):
+        self.store.save_checkpoint, self.store.restore_with_metadata = self.orig
+
+    def line(self) -> str:
+        ms = [1e3 * t for t in self.saves]
+        return (f"{len(ms)} snapshot writes, median {float(np.median(ms)) if ms else 0:.2f} "
+                f"ms (max {max(ms, default=0):.2f}); {len(self.restores)} restores, "
+                f"{1e3 * sum(self.restores):.2f} ms in all")
+
+
+def pool_source(pool: torch.Tensor):
+    """A stream source over a pool of windows: window ``step mod len(pool)``,
+    a read-only slice of the pool (pinned on the card's machine, so the
+    copy to the card is non-blocking; nothing overwrites the pool)."""
+    return lambda step: {"data": pool[step % pool.shape[0]]}
+
+
+def pinned(shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, pin_memory=DEVICE == "cuda")
+
+
+def stream_logreg_pool() -> torch.Tensor:
+    """Phase 22 (a)'s pool: STREAM_LR_POOL windows of STREAM_LR_ROWS x (1 +
+    LOGREG_FEATURES) fp32, each made on the card as logreg_table makes its
+    table (ReLU'd gaussian features, labels from a planted linear model
+    split at the window's median) and copied to pinned host memory; the
+    generator is seeded SEED + 22, so a child process makes the same bits."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    n, d = STREAM_LR_ROWS, LOGREG_FEATURES
+    pool = pinned((STREAM_LR_POOL, n, d + 1))
+    w_true = torch.randn(d, generator=gen, device=DEVICE) / math.sqrt(d)
+    window = torch.empty((n, d + 1), dtype=torch.float32, device=DEVICE)
+    for i in range(STREAM_LR_POOL):
+        window[:, 1:].normal_(generator=gen).clamp_(min=0.0)
+        margin = window[:, 1:] @ w_true
+        window[:, 0] = (margin > margin.median()).float()
+        pool[i].copy_(window)
+    sync()
+    return pool
+
+
+def stream_kmeans_pool() -> torch.Tensor:
+    """Phase 22 (b)'s pool: STREAM_KM_POOL windows of STREAM_KM_ROWS x
+    KMEANS_FEATURES fp32 made on the card as kmeans_table makes its table,
+    in pinned host memory."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    pool = pinned((STREAM_KM_POOL, STREAM_KM_ROWS, KMEANS_FEATURES))
+    window = torch.empty(pool.shape[1:], dtype=torch.float32, device=DEVICE)
+    for i in range(STREAM_KM_POOL):
+        pool[i].copy_(window.normal_(generator=gen).clamp_(min=0.0))
+    sync()
+    return pool
+
+
+def stream_logreg_fit(pool, epochs: int, ckpt=None, resume: bool = False,
+                      use_kernel: bool = True, kill=None):
+    """LogisticRegression.fit_stream over ``pool``'s windows (phase 22 (a));
+    returns the weights and the stream."""
+    from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+    from repro_torch.data import BatchIterator
+
+    stream = BatchIterator(pool_source(pool), device=DEVICE)
+    model = LogisticRegression(**STREAM_LR, use_kernel=use_kernel).fit_stream(
+        stream if kill is None else KillAt(stream, kill), num_epochs=epochs,
+        num_shards=SHARDS, chunks_per_epoch=STREAM_CHUNKS, checkpoint=ckpt, resume=resume)
+    return model.weights, stream
+
+
+def stream_child(ckpt_dir: str) -> int:
+    """``python3 chip_smoke.py --stream-child DIR``: leg 2 of phase 22 (a).
+    It makes the pool from the seed and runs leg 1's fit with a snapshot
+    every epoch into DIR; its stream sends it SIGKILL when asked for window
+    STREAM_KILL, so it never returns."""
+    from repro_torch.core.runner import CheckpointPolicy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pool = stream_logreg_pool()
+    print(f"stream child: pool made in {time.perf_counter() - t0:.2f} s", flush=True)
+    stream_logreg_fit(pool, STREAM_LR_EPOCHS, ckpt=CheckpointPolicy(ckpt_dir, every_epochs=1),
+                      kill=STREAM_KILL)
+    print("stream child: the SIGKILL did not fire", flush=True)
+    return 3
+
+
+def stream_child_cmd(ckpt_dir: str) -> list:
+    """The command of leg 2's child process."""
+    return [sys.executable, os.path.abspath(__file__), "--stream-child", ckpt_dir]
+
+
+def h2d_gbps(window: torch.Tensor) -> float:
+    """Host→device GB/s of one window's copy from the pool (CUDA events
+    around a non-blocking copy from pinned memory)."""
+    dst = torch.empty(window.shape, dtype=window.dtype, device=DEVICE)
+    ms = cuda_ms(lambda: dst.copy_(window, non_blocking=True), 3)
+    return window.numel() * window.element_size() / ms / 1e6
+
+
+def start_fit_cli(ckpt_dir: str, procs: list):
+    """Part (d): ``python -m repro_torch.launch.fit --algorithm kmeans`` at
+    its default sizes with ``--ckpt-dir``, then again with ``--resume``, in
+    child processes one after the other, beside the rest of the phase (a
+    thread waits for them); returns the future of their outputs."""
+    import concurrent.futures
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.fit", "--algorithm", "kmeans",
+           "--ckpt-dir", ckpt_dir]
+
+    def run():
+        outs = []
+        for extra in ([], ["--resume"]):
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd + extra, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            procs.append(proc)
+            out, _ = proc.communicate(timeout=180)
+            outs.append((proc.returncode, out, time.perf_counter() - t0))
+            if proc.returncode:
+                break
+        return outs
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
+def stream_part_a(work: str, procs: list, out: dict) -> None:
+    """Part (a): the 160,000-feature logistic regression streamed; leg 2
+    (the child, started first) runs beside legs 1 and the plain run."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.core.runner import CheckpointPolicy
+
+    killed_dir, leg1_dir = os.path.join(work, "a-killed"), os.path.join(work, "a-leg1")
+    log = open(os.path.join(work, "a-child.log"), "w")
+    child = subprocess.Popen(stream_child_cmd(killed_dir), stdout=log, stderr=subprocess.STDOUT)
+    procs.append(child)
+    t0 = time.perf_counter()
+    pool = stream_logreg_pool()
+    t_pool = time.perf_counter() - t0
+    window_gb = pool[0].numel() * 4 / 1e9
+    mem_reset()
+    with StoreTimes() as st1:
+        t0 = time.perf_counter()
+        w1, s1 = stream_logreg_fit(pool, STREAM_LR_EPOCHS,
+                                   ckpt=CheckpointPolicy(leg1_dir, every_epochs=4))
+        sync()
+        t_leg1 = time.perf_counter() - t0
+    check(s1.step == STREAM_LR_EPOCHS and latest_step(leg1_dir) == STREAM_LR_EPOCHS,
+          f"leg 1 ended at step {s1.step}, snapshot {latest_step(leg1_dir)}")
+    # leg 1's weights after STREAM_PLAIN_EPOCHS epochs against the plain path
+    w4, _ = restore_checkpoint(leg1_dir, w1, step=STREAM_PLAIN_EPOCHS, device=DEVICE)
+    plain, _ = stream_logreg_fit(pool, STREAM_PLAIN_EPOCHS, use_kernel=False)
+    e_plain = rel_err(w4, plain)
+    check(bool(torch.isfinite(w1).all()) and e_plain <= 1e-3,
+          f"(a) weights after {STREAM_PLAIN_EPOCHS} epochs vs use_kernel=False: rel err {e_plain}")
+    out["a"] = dict(pool=pool, w1=w1, child=child, log=log, killed_dir=killed_dir,
+                    window_gb=window_gb)
+    mem_peak("phase 22 (a), leg 1")
+    say(f"(a) pool {STREAM_LR_POOL} x {STREAM_LR_ROWS} x {LOGREG_FEATURES + 1} fp32 "
+        f"({STREAM_LR_POOL * window_gb:.2f} GB pinned) made in {t_pool:.2f} s; leg 1: "
+        f"{STREAM_LR_EPOCHS} epochs in {t_leg1:.2f} s ({t_leg1 / STREAM_LR_EPOCHS:.4f} s an "
+        f"epoch, {window_gb * STREAM_LR_EPOCHS / t_leg1:.2f} GB/s of windows, with the "
+        f"child on the card beside it); {st1.line()}; weights after "
+        f"{STREAM_PLAIN_EPOCHS} epochs vs use_kernel=False rel err {e_plain:.3g} (tol 1e-3)")
+
+
+def stream_part_a_resume(out: dict) -> None:
+    """Legs 2 (the child's end) and 3 of part (a)."""
+    from repro_torch.checkpoint import latest_step, load_metadata
+    from repro_torch.core.runner import CheckpointPolicy
+
+    a = out["a"]
+    rc = a["child"].wait(timeout=300)
+    a["log"].close()
+    with open(a["log"].name) as f:
+        child_log = f.read().strip()
+    check(rc == -9, f"(a) the child ended with rc {rc}, not -9 (SIGKILL): {child_log[-2000:]}")
+    newest = latest_step(a["killed_dir"])
+    meta = load_metadata(a["killed_dir"])
+    check(newest == STREAM_KILL and meta["epoch"] == STREAM_KILL
+          and meta["stream_step"] == STREAM_KILL,
+          f"(a) the newest snapshot is step {newest}, {meta}")
+    mem_reset()
+    with StoreTimes() as st3:
+        t0 = time.perf_counter()
+        w3, s3 = stream_logreg_fit(a["pool"], STREAM_LR_EPOCHS,
+                                   ckpt=CheckpointPolicy(a["killed_dir"]), resume=True)
+        sync()
+        t_leg3 = time.perf_counter() - t0
+    check(s3.step == STREAM_LR_EPOCHS and torch.equal(w3, a["w1"]),
+          f"(a) the resumed weights differ from leg 1's (max abs "
+          f"{(w3 - a['w1']).abs().max().item()}), or the stream ended at {s3.step}")
+    gbps = h2d_gbps(a["pool"][0])
+    epochs3 = STREAM_LR_EPOCHS - STREAM_KILL
+    mem_peak("phase 22 (a), leg 3")
+    say(f"(a) leg 2: the child died of SIGKILL (rc {rc}) asked for window {STREAM_KILL}; "
+        f"newest snapshot epoch {meta['epoch']}, stream step {meta['stream_step']} "
+        f"({child_log.splitlines()[0] if child_log else 'no output'}); leg 3: resumed "
+        f"{epochs3} epochs in {t_leg3:.2f} s ({t_leg3 / epochs3:.4f} s an epoch, restore "
+        f"{1e3 * sum(st3.restores):.2f} ms; {st3.line()}); weights bitwise leg 1's; "
+        f"host->device {gbps:.2f} GB/s (one {a['window_gb']:.2f} GB window from pinned "
+        f"memory, CUDA events)")
+
+
+def stream_part_b(out: dict) -> None:
+    """Part (b): k-means streamed at d = 4,096, k = KMEANS_K, stopped with a
+    snapshot at STREAM_KM_STOP and resumed."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.algorithms.kmeans import KMeans
+    from repro_torch.core.runner import CheckpointPolicy
+    from repro_torch.data import BatchIterator
+
+    t0 = time.perf_counter()
+    pool = stream_kmeans_pool()
+    t_pool = time.perf_counter() - t0
+    mem_reset()
+
+    def fit(epochs, ckpt=None, resume=False):
+        stream = BatchIterator(pool_source(pool), device=DEVICE)
+        return KMeans(k=KMEANS_K, use_kernel=True).fit_stream(
+            stream, num_epochs=epochs, num_shards=SHARDS, chunks_per_epoch=STREAM_CHUNKS,
+            checkpoint=ckpt, resume=resume).centroids
+
+    t0 = time.perf_counter()
+    straight = fit(STREAM_KM_EPOCHS)
+    sync()
+    t_straight = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="chip_smoke_kmeans_")
+    with StoreTimes() as st:
+        fit(STREAM_KM_STOP, CheckpointPolicy(work))
+        t0 = time.perf_counter()
+        resumed = fit(STREAM_KM_EPOCHS, CheckpointPolicy(work), resume=True)
+        sync()
+        t_resume = time.perf_counter() - t0
+    check(bool(torch.isfinite(straight).all()) and torch.equal(resumed, straight),
+          f"(b) resumed centroids differ from the uninterrupted run's: max abs "
+          f"{(resumed - straight).abs().max().item()}")
+    C4, _ = restore_checkpoint(work, straight, step=STREAM_KM_STOP, device=DEVICE)
+    window = pool[STREAM_KM_STOP % STREAM_KM_POOL].to(DEVICE)
+    chunk = window.view(SHARDS, -1, KMEANS_FEATURES)[:, :STREAM_KM_ROWS // SHARDS // STREAM_CHUNKS]
+    window_gb = pool[0].numel() * 4 / 1e9
+    gbps = h2d_gbps(pool[0])
+    out["b"] = dict(chunk=chunk, C4=C4, work=work)
+    mem_peak("phase 22 (b)")
+    epochs = STREAM_KM_EPOCHS - STREAM_KM_STOP
+    say(f"(b) pool {STREAM_KM_POOL} x {STREAM_KM_ROWS} x {KMEANS_FEATURES} fp32 "
+        f"({STREAM_KM_POOL * window_gb:.2f} GB pinned) made in {t_pool:.2f} s; "
+        f"{STREAM_KM_EPOCHS} epochs in {t_straight:.2f} s ({t_straight / STREAM_KM_EPOCHS:.4f} "
+        f"s an epoch); stopped at epoch {STREAM_KM_STOP} and resumed: {epochs} epochs in "
+        f"{t_resume:.2f} s (restore {1e3 * sum(st.restores):.2f} ms; {st.line()}); "
+        f"centroids bitwise the uninterrupted run's; host->device {gbps:.2f} GB/s")
+
+
+def stream_part_c(out: dict) -> None:
+    """Part (c): Fig. A2's demo 3 at its widths — NGrams(n=2, top=FIG_TOP)
+    -> TfIdf -> KMeans(k=FIG_K) fitted from a stream, preempted at
+    STREAM_FIG_STOP and resumed, then saved, loaded and served."""
+    import tempfile
+
+    from repro_torch.core.algorithms.kmeans import KMeans
+    from repro_torch.core.mltable import MLTable
+    from repro_torch.features import NGrams, TfIdf
+    from repro_torch.pipeline import Pipeline
+
+    def pipe():
+        return Pipeline([NGrams(n=2, top=FIG_TOP, column="text", keep_columns=False),
+                         TfIdf(), KMeans(k=FIG_K, seed=SEED, use_kernel=True)],
+                        num_shards=SHARDS, device=DEVICE)
+
+    mem_reset()
+    rows = fig_corpus(SEED, STREAM_FIG_DOCS)
+    texts = [t for _, t in rows]
+    raw = MLTable.from_rows(rows, names=["label", "text"], num_partitions=SHARDS)
+    kw = dict(chunks_per_epoch=STREAM_FIG_CHUNKS)
+    secs = {}
+    t0 = time.perf_counter()
+    straight = pipe().fit_stream(raw, num_epochs=STREAM_FIG_EPOCHS, **kw)
+    sync()
+    secs["uninterrupted fit_stream"] = time.perf_counter() - t0
+    vocab = straight["ngrams"].vocab
+    check(len(vocab) == FIG_TOP, f"(c) the vocabulary holds {len(vocab)} bigrams, not {FIG_TOP}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_fig_")
+    ckdir, artifact = os.path.join(work, "ck"), os.path.join(work, "artifact")
+    with StoreTimes() as st:
+        t0 = time.perf_counter()
+        pipe().fit_stream(raw, num_epochs=STREAM_FIG_STOP, checkpoint=ckdir, **kw)
+        sync()
+        secs["preempted fit_stream"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = pipe().fit_stream(raw, num_epochs=STREAM_FIG_EPOCHS, checkpoint=ckdir,
+                                    resume=True, **kw)
+        sync()
+        secs["resume"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        straight.save(artifact)
+        secs["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = pipe().load(artifact)
+        secs["load"] = time.perf_counter() - t0
+    C = straight.model.centroids
+    check(resumed["ngrams"].vocab == vocab and torch.equal(resumed.model.centroids, C)
+          and torch.equal(resumed["tfidf"].idf, straight["tfidf"].idf),
+          f"(c) the resumed pipeline differs from the uninterrupted one (centroids max abs "
+          f"{(resumed.model.centroids - C).abs().max().item()})")
+    check(loaded["ngrams"].vocab == vocab and torch.equal(loaded.model.centroids, C)
+          and torch.equal(loaded["tfidf"].idf, straight["tfidf"].idf)
+          and loaded.model.centroids.device.type == DEVICE,
+          "(c) the loaded pipeline differs from the saved one")
+    requests = fig_requests()
+    t0 = time.perf_counter()
+    offline = straight.predict(texts[:FIG_SERVE_POOL]).cpu().numpy()
+    secs["offline predict"] = time.perf_counter() - t0
+    served = serve_blocks(loaded, [[texts[i] for i in idx] for idx in requests], FIG_REQ_MAX)
+    bad = sum(not np.array_equal(r, offline[idx]) for idx, r in zip(requests, served["results"]))
+    check(bad == 0, f"(c) {bad} requests served by the loaded pipeline differ from the fitted "
+          f"pipeline's offline predictions")
+    out["c"] = dict(served=served, table=resumed, raw=raw, work=work)
+    mem_peak("phase 22 (c)")
+    rep = served["report"]
+    say(f"(c) {STREAM_FIG_DOCS} docs, vocabulary {len(vocab)} bigrams, {STREAM_FIG_EPOCHS} "
+        f"epochs of {STREAM_FIG_CHUNKS} rounds (the window is the featurized table on the "
+        f"card, so no epoch copies it): preempted at epoch {STREAM_FIG_STOP} and resumed "
+        f"bitwise (featurizers restored, not refit); save -> load exact; "
+        f"{len(requests)} raw-text requests ({rep['rows_served']} docs, {rep['batches']} "
+        f"microbatches) through ModelPredictor(loaded) bitwise the offline predictions, "
+        f"latency median {float(np.median(served['latencies'])):.3f} ms; {st.line()}; "
+        f"seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+
+
+def stream_part_d(future) -> None:
+    """Part (d)'s two launcher runs: the second must resume."""
+    outs = future.result(timeout=300)
+    check(len(outs) == 2 and all(rc == 0 for rc, _, _ in outs),
+          f"(d) launch.fit failed: {[(rc, out[-1500:]) for rc, out, _ in outs]}")
+    (_, first, t1), (_, second, t2) = outs
+    check("resuming from step " in second and "on cuda" in first,
+          f"(d) the --resume run did not resume, or ran off the card: {second[-1500:]}")
+    line = next(ln for ln in second.splitlines() if ln.startswith("resuming from step"))
+    say(f"(d) python -m repro_torch.launch.fit --algorithm kmeans --ckpt-dir D: {t1:.2f} s "
+        f"({first.splitlines()[0]}); again with --resume: {t2:.2f} s, '{line.split(' in ')[0]}'")
+
+
+def stream_kernel_times(out: dict) -> dict:
+    """Kernels 1-3 at phase 22's shapes against their plain versions, with
+    CUDA events, beside the library call where there is one and the bound:
+    logreg_margin and logreg_xt_z at (a)'s chunk (SHARDS, local batch,
+    LOGREG_FEATURES) of a window on the card (row stride 1 + d, partition
+    stride rows/P·(1 + d)); kmeans_assign at (b)'s chunk and at (c)'s
+    (SHARDS, docs/P/chunks, FIG_TOP); (b)'s picks on the centroids of its
+    epoch-STREAM_KM_STOP snapshot held against use_kernel=False's (the
+    direct form) as phase 7 holds a Lloyd round: near-ties only."""
+    from repro_torch.core.algorithms import kmeans as km
+    from repro_torch.kernels import kmeans_assign as kka
+    from repro_torch.kernels import logreg_grad as klg
+
+    times = {}
+    a = out["a"]
+    window = a["pool"][0].to(DEVICE)
+    bs = STREAM_LR["local_batch_size"]
+    blocks = window.view(SHARDS, -1, LOGREG_FEATURES + 1)
+    X, y = blocks[:, :bs, 1:], blocks[:, :bs, 0].contiguous()
+    W = a["w1"].expand(SHARDS, -1).contiguous()
+    P, n, d = X.shape
+    z, zp = klg.logreg_margin(X, y, W), klg.logreg_margin_plain(X, y, W)
+    g, gp = klg.logreg_xt_z(X, zp), klg.logreg_xt_z_plain(X, zp)
+    sync()
+    err_z, err_g = (z - zp).abs().max().item(), rel_err(g, gp)
+    check(err_z <= FP32_TOL and err_g <= FP32_TOL,
+          f"kernels 1-2 at phase 22's chunk: margin err {err_z}, xt_z rel err {err_g}")
+    t_b, by = bound(4.0 * (P * n * d + P * d + 2 * P * n), 2.0 * P * n * d)
+    times["logreg_margin"] = {
+        "shape": [P, n, d], "row_stride": X.stride(1), "partition_stride": X.stride(0),
+        "ms": cuda_ms(lambda: klg.logreg_margin(X, y, W), 10),
+        "plain_ms": cuda_ms(lambda: klg.logreg_margin_plain(X, y, W), 10),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": err_z}
+    t_b, by = bound(4.0 * (P * n * d + P * n + P * d), 2.0 * P * n * d)
+    times["logreg_xt_z"] = {
+        "shape": [P, n, d], "row_stride": X.stride(1), "partition_stride": X.stride(0),
+        "ms": cuda_ms(lambda: klg.logreg_xt_z(X, zp), 10),
+        "plain_ms": cuda_ms(lambda: klg.logreg_xt_z_plain(X, zp), 10),
+        "bound_ms": t_b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.matmul(X.transpose(1, 2), zp.unsqueeze(-1)), 10),
+        "max_abs_err": (g - gp).abs().max().item()}
+    del window, blocks, X
+
+    b = out["b"]
+    chunk, C4 = b["chunk"], b["C4"]
+    picks = kka.kmeans_assign(chunk, C4)
+    ties, gap, ratio = score_gap(chunk, C4, picks, km._assign(chunk, C4, use_kernel=False))
+    check(ratio <= 1.0, f"(b) a streamed round's picks: {ties} differ from use_kernel=False's "
+          f"beyond rounding (gap {gap}, {ratio}x the scale)")
+    P, n, d = chunk.shape
+    t_b, by = bound(4.0 * (P * n * d + KMEANS_K * d + P * n), 2.0 * P * n * KMEANS_K * d)
+    times["kmeans_assign"] = {
+        "shape": [P, n, d, KMEANS_K], "partition_stride": chunk.stride(0),
+        "ms": cuda_ms(lambda: kka.kmeans_assign(chunk, C4), 10),
+        "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(chunk, C4), 10),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": gap,
+        "tie_picks": ties, "tie_ratio": ratio}
+    c = out["c"]
+    table = c["table"].transform(c["raw"]).data
+    Cf = c["table"].model.centroids
+    fchunk = table.view(SHARDS, -1, FIG_TOP)[:, :STREAM_FIG_DOCS // SHARDS // STREAM_FIG_CHUNKS]
+    P, n, d = fchunk.shape
+    fa = kka.kmeans_assign(fchunk, Cf)
+    fties, fgap, fratio = score_gap(fchunk, Cf, fa, kka.kmeans_assign_plain(fchunk, Cf))
+    check(fratio <= 1.0, f"kmeans_assign at (c)'s chunk: {fties} picks differ from the plain "
+          f"version beyond rounding ({fratio}x)")
+    t_b, by = bound(4.0 * (P * n * d + FIG_K * d + P * n), 2.0 * P * n * FIG_K * d)
+    times["kmeans_assign"]["fig_a2_stream"] = {
+        "shape": [P, n, d, FIG_K], "partition_stride": fchunk.stride(0),
+        "ms": cuda_ms(lambda: kka.kmeans_assign(fchunk, Cf), 10),
+        "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(fchunk, Cf), 10),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": fgap,
+        "tie_picks": fties}
+    for name, r in list(times.items()) + [("kmeans_assign (c)", times["kmeans_assign"]["fig_a2_stream"])]:
+        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+        say(f"{name} X{tuple(r['shape'])} (a chunk view, partition stride "
+            f"{r['partition_stride']:,}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%}); max abs err {r['max_abs_err']:.3g}")
+    say(f"(b) a streamed round's picks (epoch {STREAM_KM_STOP}'s first chunk on its snapshot's "
+        f"centroids) vs use_kernel=False's direct form: {ties} differ, each a near-tie (gap "
+        f"{gap:.3g}, {ratio:.3g}x the fp32 scale)")
+    return times
+
+
+def phase_stream() -> dict:
+    """Phase 22: streaming epochs with atomic checkpoints and exact
+    kill-and-resume on kernels 1-3 at the paper's widths.  Returns each
+    kernel's launches and times on this path."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    phase(f"22. streaming + checkpoint: logreg {STREAM_LR_ROWS:,}-row windows x "
+          f"{LOGREG_FEATURES:,} (SIGKILL at step {STREAM_KILL}), k-means {STREAM_KM_ROWS:,} x "
+          f"{KMEANS_FEATURES:,} k={KMEANS_K}, Fig. A2 demo 3 on {STREAM_FIG_DOCS:,} docs, "
+          f"launch.fit --resume")
+    work = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    procs, out = [], {}
+    try:
+        reset_launch_counts()        # phase 22's path starts here
+        cli = start_fit_cli(os.path.join(work, "d"), procs)
+        stream_part_a(work, procs, out)
+        stream_part_b(out)
+        stream_part_c(out)
+        stream_part_a_resume(out)
+        got = launch_counts()        # ... and ends here
+        stream_part_d(cli)
+        path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
+        lr_steps = (2 * STREAM_LR_EPOCHS - STREAM_KILL) * STREAM_CHUNKS * (
+            STREAM_LR_ROWS // SHARDS // STREAM_CHUNKS // STREAM_LR["local_batch_size"])
+        fig_rounds = 2 * STREAM_FIG_EPOCHS * STREAM_FIG_CHUNKS
+        want = {"logreg_margin": lr_steps, "logreg_xt_z": lr_steps,
+                "kmeans_assign": 2 * STREAM_KM_EPOCHS * STREAM_CHUNKS + fig_rounds
+                + out["c"]["served"]["report"]["batches"] + 1}
+        say(f"launches on phase 22's path (this process; the children's are their own): "
+            f"{got} (expected {want}; every other kernel 0)")
+        check(all(got[k] == want[k] for k in path)
+              and all(v == 0 for k, v in got.items() if k not in path),
+              f"phase 22 launched {got}, expected {want}")
+        times = stream_kernel_times(out)
+        for name in path:
+            times[name]["launches"] = got[name]
+        return {"kernels": times}
+    finally:
+        if "a" in out:
+            out["a"]["log"].close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for part in ("b", "c"):
+            if part in out:
+                shutil.rmtree(out[part]["work"], ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+        out.clear()
+        free_device_memory()
 
 
 # --------------------------------------------------------------------------- #
@@ -5071,11 +5661,13 @@ def main() -> int:
     free_device_memory()
     say(f"phase 20's tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         f"allocated")
+    stream = phase_stream()          # counts its own launches, frees its pools
     for r in records:
-        if r["name"] in fig["kernels"]:
-            r["fig_a2"] = fig["kernels"][r["name"]]
-            r["launches"] += r["fig_a2"]["launches"]
-            r["launches_by_path"]["fig_a2"] = r["fig_a2"]["launches"]
+        for key, part in (("fig_a2", fig), ("stream", stream)):
+            if r["name"] in part["kernels"]:
+                r[key] = part["kernels"][r["name"]]
+                r["launches"] += r[key]["launches"]
+                r["launches_by_path"][key] = r[key]["launches"]
 
     phase_lm(counts, report)
     phase_mamba(counts)
@@ -5111,4 +5703,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--stream-child"]:
+        sys.exit(stream_child(sys.argv[2]))
     sys.exit(main())

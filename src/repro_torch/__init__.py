@@ -12,8 +12,11 @@ front of it runs the paper's Fig. A2 program: raw text in a host-tier
 :class:`~repro_torch.core.mltable.MLTable` → ``features`` (``NGrams``,
 ``TfIdf``, ``Standardizer``) → an estimator, as one
 :class:`~repro_torch.pipeline.Pipeline` whose fitted form serves raw-text
-requests.  The LM serving stack (``models``, ``serve.engine``) carries the
-other kernels.
+requests.  The same estimators and pipelines also train from a stream of
+per-epoch windows (``data.BatchIterator``, ``DistributedRunner.run_epochs``)
+with atomic snapshots in the reference's file format (``checkpoint``) and
+exact resume (``launch.fit``).  The LM serving stack (``models``,
+``serve.engine``) carries the other kernels.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
 (see :func:`repro_torch.device.resolve_device`).

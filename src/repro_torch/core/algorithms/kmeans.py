@@ -2,8 +2,9 @@
 ``KMeans(featurizedTable, k=50)``).
 
 Counterpart: ``src/repro/core/algorithms/kmeans.py`` (parameters, model,
-``_assign``, ``_local_stats``, ``_centroid_update`` and ``fit``;
-``fit_stream`` and ``trial_spec`` wait for later slices).
+``_assign``, ``_local_stats``, ``_centroid_update``, ``fit``,
+``fit_stream`` and ``stream_state_template``; ``trial_spec`` waits for the
+model-search slice).
 
 Lloyd's algorithm in MLI primitives: :func:`_local_stats` computes every
 partition's (per-cluster sum, count) statistics against the current
@@ -29,9 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.collectives import CollectiveSchedule
-from repro_torch.core.interfaces import Model, NumericAlgorithm
+from repro_torch.core.interfaces import Model, NumericAlgorithm, StreamFitable
 from repro_torch.core.numeric_table import MLNumericTable
-from repro_torch.core.runner import DistributedRunner
+from repro_torch.core.runner import CheckpointPolicy, DistributedRunner
+from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels import kmeans_assign as kka
 
 __all__ = ["KMeansParameters", "KMeansModel", "KMeans"]
@@ -112,7 +114,7 @@ def _centroid_update(centroids: torch.Tensor, tot: torch.Tensor) -> torch.Tensor
                        centroids)
 
 
-class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel]):
+class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable):
     """Instance-based Estimator: ``KMeans(k=4, seed=0).fit(table) ->
     KMeansModel``."""
 
@@ -153,3 +155,64 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel]):
 
     def rebuild(self, partial) -> KMeansModel:
         return KMeansModel(partial["centroids"], self.params)
+
+    def stream_state_template(self, num_cols: int) -> torch.Tensor:
+        """Shape and dtype template of the streaming carry (the centroids)
+        for a table of ``num_cols`` feature columns."""
+        return torch.zeros((self.params.k, num_cols), dtype=torch.float32)
+
+    def fit_stream(self, stream, *, num_epochs: Optional[int] = None,
+                   num_shards: int = 1,
+                   chunks_per_epoch: Optional[int] = None,
+                   checkpoint: Optional[CheckpointPolicy] = None,
+                   resume: bool = False,
+                   init_centroids: Optional[torch.Tensor] = None
+                   ) -> KMeansModel:
+        """Streaming Lloyd rounds over minibatch windows: every round
+        re-assigns one window chunk of each partition to the current
+        centroids (one ``kmeans_assign`` launch for all partitions with
+        ``use_kernel``), sums the per-partition (cluster sums, counts)
+        statistics and rebuilds the centroids — mini-batch k-means in MLI
+        primitives.  ``checkpoint``/``resume`` make long runs
+        preemption-safe.
+
+        Centroids start from the first ``k`` rows of the stream's current
+        window (peeked without consuming it) unless ``init_centroids`` is
+        given; on resume the snapshot overwrites them, so only the shape
+        matters.  The centroids live on the stream's device."""
+        p = self.params
+        device = getattr(stream, "device", None)
+        if init_centroids is None:
+            if not hasattr(stream, "source"):
+                raise ValueError("pass init_centroids= for non-peekable streams")
+            first = stream.source(stream.step)["data"]
+            if p.k > first.shape[0]:
+                raise ValueError("k exceeds rows in the first window")
+            init_centroids = first[: p.k]
+        if isinstance(init_centroids, torch.Tensor):
+            centroids = init_centroids.to(device or init_centroids.device)
+        else:
+            centroids = to_tensor(init_centroids, resolve_device(device))
+
+        def local_step(blocks, centroids, r):
+            return _local_stats(blocks, centroids, p.use_kernel)
+
+        def update(centroids, tot, r):
+            return _centroid_update(centroids, tot)
+
+        runner = DistributedRunner(num_shards=num_shards, schedule=p.schedule)
+        epochs = num_epochs if num_epochs is not None else p.max_iter
+        if resume:
+            if checkpoint is None:
+                raise ValueError("resume=True requires a CheckpointPolicy")
+            centroids = runner.resume(checkpoint.ckpt_dir, stream, centroids,
+                                      local_step, epochs, combine="sum",
+                                      update=update,
+                                      chunks_per_epoch=chunks_per_epoch,
+                                      checkpoint=checkpoint)
+        else:
+            centroids = runner.run_epochs(stream, centroids, local_step, epochs,
+                                          combine="sum", update=update,
+                                          chunks_per_epoch=chunks_per_epoch or 1,
+                                          checkpoint=checkpoint)
+        return KMeansModel(centroids, p)

@@ -1,8 +1,9 @@
 """Logistic regression via partition-local SGD (paper §IV-A, Fig. A4).
 
 Counterpart: ``src/repro/core/algorithms/logistic_regression.py``
-(parameters, model, ``_make_gradient`` and ``fit``; ``fit_stream`` and
-``trial_spec`` wait for later slices).
+(parameters, model, ``_make_gradient``, ``fit``, ``fit_stream`` and
+``stream_state_template``; ``trial_spec`` waits for the model-search
+slice).
 
 Library convention (as in Fig. A4): the table carries the label in column 0
 and the features in columns 1..d.  The paper's gradient closure
@@ -18,16 +19,19 @@ gradients.  With ``use_kernel`` that is one launch each of the
 where the reference calls its Pallas kernel once per row on a (1, d) block
 under ``vmap``; the mean the SGD step takes is the same.  Like the
 reference, the kernel path drops ``l2`` (``l1`` still applies, as a prox).
+``fit_stream`` trains the same SGD from a stream of windows; its chunks
+are views of the window with a partition stride, which the kernels take
+as they are.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.core.collectives import CollectiveSchedule
-from repro_torch.core.interfaces import Model, NumericAlgorithm
+from repro_torch.core.interfaces import Model, NumericAlgorithm, StreamFitable
 from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.core.optimizer import (
     GradientDescent,
@@ -112,6 +116,7 @@ def _make_gradient(p: LogisticRegressionParameters):
 
 class LogisticRegressionAlgorithm(
     NumericAlgorithm[LogisticRegressionParameters, LogisticRegressionModel],
+    StreamFitable,
 ):
     """Instance-based Estimator: ``LogisticRegression(learning_rate=0.3)
     .fit(table) -> LogisticRegressionModel``.  The model's weights are fp32
@@ -142,6 +147,51 @@ class LogisticRegressionAlgorithm(
 
     def rebuild(self, partial) -> LogisticRegressionModel:
         return LogisticRegressionModel(self.params, partial["weights"])
+
+    def stream_state_template(self, num_cols: int) -> torch.Tensor:
+        """Shape and dtype template of the streaming carry for a table of
+        ``num_cols`` columns (label included) — what a checkpointed
+        pipeline restores into (on the CPU: only its structure is read)."""
+        return torch.zeros((num_cols - 1,), dtype=torch.float32)
+
+    def fit_stream(self, stream, *, num_epochs: Optional[int] = None,
+                   num_features: Optional[int] = None, num_shards: int = 1,
+                   chunks_per_epoch: Optional[int] = None,
+                   checkpoint=None, resume: bool = False
+                   ) -> LogisticRegressionModel:
+        """Streaming training over a :class:`repro_torch.data.pipeline.
+        BatchIterator` whose windows follow the library convention (label
+        in column 0): one window per epoch, ``chunks_per_epoch`` SGD rounds
+        per window, optional checkpoint and resume (see
+        :meth:`repro_torch.core.runner.DistributedRunner.run_epochs`).
+
+        ``num_features`` may be omitted when the stream has a peekable
+        ``source``: it is read off ``stream.source(stream.step)`` without
+        consuming the window.  Only the ``"sgd"`` solver streams — full-
+        batch GD needs the whole table resident.  The weights live on the
+        stream's device."""
+        p = self.params
+        if p.solver != "sgd":
+            raise ValueError(
+                f"streaming supports solver='sgd' only, got {p.solver!r} "
+                f"(full-batch GD is a resident-table method)")
+        if num_features is None:
+            if not hasattr(stream, "source"):
+                raise ValueError("pass num_features= for non-peekable streams")
+            num_features = stream.source(stream.step)["data"].shape[1] - 1
+        prox = soft_threshold(p.l1) if p.l1 else None
+        w0 = torch.zeros((num_features,), dtype=torch.float32,
+                         device=getattr(stream, "device", None))
+        opt = StochasticGradientDescent(StochasticGradientDescentParameters(
+            w_init=w0, grad=_make_gradient(p), learning_rate=p.learning_rate,
+            max_iter=p.max_iter, schedule=p.schedule,
+            local_batch_size=p.local_batch_size, prox=prox,
+            lr_decay=p.lr_decay))
+        weights = opt.apply_stream(
+            stream, num_epochs if num_epochs is not None else p.max_iter,
+            num_shards=num_shards, chunks_per_epoch=chunks_per_epoch,
+            checkpoint=checkpoint, resume=resume)
+        return LogisticRegressionModel(p, weights)
 
 
 #: estimator-style name for the paper's Fig. A2 terminal stage

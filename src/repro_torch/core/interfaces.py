@@ -1,8 +1,8 @@
 """Estimator / Model interfaces — the MLI contract (paper §III-C).
 
 Counterpart: ``src/repro/core/interfaces.py`` (``Model``, ``Estimator``,
-``Transformer``, ``FittedTransformer``, ``Algorithm`` and
-``NumericAlgorithm``):
+``StreamFitable``, ``Transformer``, ``FittedTransformer``, ``Algorithm``
+and ``NumericAlgorithm``):
 
     est = SomeEstimator(learning_rate=0.3)     # hyperparameters in the ctor
     fitted = est.fit(table)                    # -> fitted Model
@@ -11,10 +11,11 @@ Counterpart: ``src/repro/core/interfaces.py`` (``Model``, ``Estimator``,
 Fitted objects expose ``partial`` (their state as a dict of tensors) and
 estimators ``rebuild(partial)`` a fitted object from it.  Featurizers are
 ``Transformer``s whose ``fit`` returns a ``FittedTransformer``; a pipeline composes them with one terminal
-estimator.  ``Algorithm`` keeps the reference's deprecated classmethod
-spellings, ``train`` and ``defaultParameters``, as shims that warn and
-delegate.  The streaming and search mixins (and ``train_stream``) wait for
-later slices.
+estimator.  ``StreamFitable`` marks an estimator that trains from a stream
+of per-epoch windows.  ``Algorithm`` keeps the reference's deprecated
+classmethod spellings, ``train`` and ``defaultParameters``, as shims that
+warn and delegate, and its quiet ``train_stream``.  The search mixin waits
+for the model-search slice.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from typing import Any, ClassVar, Generic, Optional, TypeVar
 
 import torch
 
-__all__ = ["Estimator", "FittedEstimator", "Transformer", "FittedTransformer",
-           "Algorithm", "NumericAlgorithm", "Model"]
+__all__ = ["Estimator", "FittedEstimator", "StreamFitable", "Transformer",
+           "FittedTransformer", "Algorithm", "NumericAlgorithm", "Model"]
 
 P_ = TypeVar("P_")  # hyperparameter dataclass
 M_ = TypeVar("M_", bound="Model")
@@ -76,6 +77,17 @@ class Estimator(abc.ABC):
         """Reconstruct a fitted object from its ``partial`` state."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support rebuild()")
+
+
+class StreamFitable(abc.ABC):
+    """Capability mixin: the estimator trains from a stream of per-epoch
+    minibatch windows (:class:`repro_torch.data.pipeline.BatchIterator`)
+    through :meth:`repro_torch.core.runner.DistributedRunner.run_epochs`,
+    and inherits its checkpoint and resume."""
+
+    @abc.abstractmethod
+    def fit_stream(self, stream: Any, **kwargs: Any) -> FittedEstimator:
+        ...
 
 
 class FittedTransformer(abc.ABC):
@@ -191,6 +203,13 @@ class Algorithm(Estimator, Generic[P_, M_]):
         _warn_deprecated(f"{cls.__name__}.train(data, params)",
                          f"{cls.__name__}(params).fit(data)")
         return cls(params).fit(data, **kwargs)
+
+    @classmethod
+    def train_stream(cls, stream: Any, params: Optional[P_] = None,
+                     **kwargs: Any) -> M_:
+        """Legacy spelling of :meth:`StreamFitable.fit_stream` (quiet, as
+        in the reference: its launchers routed through it)."""
+        return cls(params).fit_stream(stream, **kwargs)
 
     @classmethod
     def defaultParameters(cls) -> P_:  # paper spelling

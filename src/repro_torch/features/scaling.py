@@ -157,6 +157,13 @@ class FittedStandardizer(FittedTransformer):
                 "label": list(self.label_idx),
                 "num_cols": int(self.shift.shape[0])}
 
+    @staticmethod
+    def partial_template(host_state: dict) -> dict:
+        """Structure of ``partial`` for a checkpoint restore (values unread)."""
+        n = int(host_state["num_cols"])
+        return {"shift": torch.zeros((n,), dtype=torch.float32),
+                "scale": torch.zeros((n,), dtype=torch.float32)}
+
     @classmethod
     def from_state(cls, host_state: dict, partial: dict,
                    device: DeviceLike = None) -> "FittedStandardizer":
@@ -249,6 +256,10 @@ class FittedBiasAdder(FittedTransformer):
     def host_state(self) -> dict:
         return {"kind": "bias", "at": self.at, "num_cols": self.num_cols,
                 "skip": list(self.skip_idx), "label": list(self.label_idx)}
+
+    @staticmethod
+    def partial_template(host_state: dict) -> dict:
+        return {}
 
     @classmethod
     def from_state(cls, host_state: dict, partial: dict,

@@ -164,6 +164,10 @@ class FittedNGrams(FittedTransformer):
         return {"kind": "ngrams", "vocab": list(self.vocab), "n": self.n,
                 "column": self.column, "keep_columns": self.keep_columns}
 
+    @staticmethod
+    def partial_template(host_state: dict) -> dict:
+        return {}
+
     @classmethod
     def from_state(cls, host_state: dict, partial: dict,
                    device: DeviceLike = None) -> "FittedNGrams":
@@ -231,6 +235,10 @@ class FittedHashingVectorizer(FittedTransformer):
         return {"kind": "hashing", "num_features": self.num_features,
                 "n": self.n, "column": self.column,
                 "keep_columns": self.keep_columns}
+
+    @staticmethod
+    def partial_template(host_state: dict) -> dict:
+        return {}
 
     @classmethod
     def from_state(cls, host_state: dict, partial: dict,
@@ -334,6 +342,11 @@ class FittedTfIdf(FittedTransformer):
     def host_state(self) -> dict:
         return {"kind": "tfidf", "skip": list(self.skip_idx),
                 "label": list(self.label_idx), "num_cols": self.num_cols}
+
+    @staticmethod
+    def partial_template(host_state: dict) -> dict:
+        """Structure of ``partial`` for a checkpoint restore (values unread)."""
+        return {"idf": torch.zeros((int(host_state["num_cols"]),), dtype=torch.float32)}
 
     @classmethod
     def from_state(cls, host_state: dict, partial: dict,

@@ -1,11 +1,12 @@
 """Pipeline — the paper's Fig. A2 program as ONE fitted object.
 
 Counterpart: ``src/repro/pipeline/pipeline.py`` (``Pipeline`` and
-``FittedPipeline``: ``fit``, ``transform``, ``featurize_rows``,
-``apply_features``, ``predict``, ``__getitem__``, ``describe``,
-``partial``, ``estimator``, ``stage_names``).  ``fit_stream``,
-``save``/``load`` and the search plumbing (``split_config``,
-``with_stage_config``) wait for the streaming and search slices.
+``FittedPipeline``: ``fit``, ``fit_stream``, ``transform``,
+``featurize_rows``, ``apply_features``, ``predict``, ``__getitem__``,
+``describe``, ``partial``, ``estimator``, ``stage_names``, ``save``,
+``load`` and the restore helpers ``_stage_templates``, ``_rebuild_stages``
+and ``_restore_stages``).  The search plumbing (``split_config``,
+``with_stage_config``) waits for the model-search slice.
 
 ``Pipeline([NGrams(...), TfIdf(), Standardizer(), LogisticRegression(...)])``
 composes fitted transformers and a terminal estimator:
@@ -16,6 +17,16 @@ composes fitted transformers and a terminal estimator:
     is committed to ``device`` before the first device stage), then the
     estimator trains through the emulated
     :class:`repro_torch.core.runner.DistributedRunner`;
+  * **fit_stream** — the same featurization, then the estimator trains
+    from per-epoch windows of the featurized table; with a
+    :class:`repro_torch.core.runner.CheckpointPolicy` every snapshot is ONE
+    atomic file holding the featurizer state, the model carry and the
+    stream position, and ``resume=True`` restores all three from it (the
+    featurizers are *restored*, never refit);
+  * **save / load** — ``FittedPipeline.save`` publishes the whole fitted
+    pipeline as one atomic artifact in the reference's format, and
+    ``Pipeline.load`` restores it value- and dtype-exactly (an artifact the
+    reference saved loads too);
   * **serve** — the fitted pipeline is a model whose ``predict`` accepts
     raw serving rows: host-tier vocab lookup, then the device-tier tf-idf
     → standardize → predict chain on the fitted device, which is how
@@ -30,7 +41,7 @@ every featurizer unscathed, and is stripped before the fitted model's
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,10 +51,12 @@ from repro_torch.core.interfaces import (
     Estimator,
     FittedEstimator,
     FittedTransformer,
+    StreamFitable,
     Transformer,
 )
 from repro_torch.core.mltable import MLTable
-from repro_torch.device import DeviceLike, to_tensor
+from repro_torch.core.runner import CheckpointPolicy
+from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.features.scaling import FittedBiasAdder, FittedStandardizer
 from repro_torch.features.text import (
     FittedHashingVectorizer,
@@ -184,8 +197,18 @@ class FittedPipeline(FittedEstimator):
                 for k, v in self.model.partial.items()}
         return state
 
+    def save(self, ckpt_dir: str) -> str:
+        """Publish the whole fitted pipeline (featurizer statistics + model
+        state + configuration) as ONE atomic artifact through
+        :mod:`repro_torch.checkpoint.store`; :meth:`Pipeline.load` restores
+        it value- and dtype-exactly."""
+        from repro_torch.checkpoint.store import save_artifact
 
-class Pipeline(Estimator):
+        return save_artifact(ckpt_dir, self.partial,
+                             metadata={"pipeline": self.host_state()})
+
+
+class Pipeline(Estimator, StreamFitable):
     """Composable Estimator: transformer stages + one terminal estimator.
 
     Parameters
@@ -340,3 +363,127 @@ class Pipeline(Estimator):
         fitted, final = self._fit_stages(data)
         model = self._estimator.fit(final) if self._estimator else None
         return FittedPipeline(self, fitted, model, final.num_cols, final.device)
+
+    def fit_stream(self, data: Any, *, num_epochs: Optional[int] = None,
+                   chunks_per_epoch: int = 1,
+                   checkpoint: Union[None, str, CheckpointPolicy] = None,
+                   resume: bool = False, **stream_kwargs: Any
+                   ) -> FittedPipeline:
+        """Streaming fit: the transformers fit (or, on resume, are
+        *restored*) as in :meth:`fit`, then the estimator trains from
+        per-epoch windows of the featurized table through
+        :meth:`repro_torch.core.runner.DistributedRunner.run_epochs` (the
+        window is the table on its device, so no epoch copies it).
+
+        With a checkpoint, every snapshot is ONE atomic file holding the
+        featurizer state, the model state and the stream position
+        (:class:`CheckpointPolicy` ``extra_state``); ``resume=True``
+        restores all three from the newest snapshot and continues bit for
+        bit — the featurizers are rebuilt from the snapshot, never refit,
+        and a snapshot without pipeline state refuses."""
+        from repro_torch.data.pipeline import BatchIterator
+
+        est = self._estimator
+        if not isinstance(est, StreamFitable):
+            raise TypeError(
+                f"terminal estimator {type(est).__name__} does not "
+                f"support fit_stream")
+        if isinstance(checkpoint, str):
+            checkpoint = CheckpointPolicy(checkpoint)
+        if resume and checkpoint is None:
+            raise ValueError("resume=True requires a checkpoint")
+
+        if resume:
+            fitted, num_cols = self._restore_stages(checkpoint, est)
+            final = self._transform_stages(fitted, data)
+            if final.num_cols != num_cols:
+                raise ValueError(
+                    f"resumed featurizers produce {final.num_cols} columns "
+                    f"but the snapshot was written with {num_cols} — "
+                    f"different raw data?")
+        else:
+            fitted, final = self._fit_stages(data)
+            num_cols = final.num_cols
+            if checkpoint is not None:
+                checkpoint.extra_state = {
+                    "stages": {n: f.partial for n, f in fitted}}
+                checkpoint.extra_metadata = {"pipeline": {
+                    "stages": [[n, f.host_state()] for n, f in fitted],
+                    "num_cols": int(num_cols)}}
+
+        X = final.data
+        stream = BatchIterator(lambda step: {"data": X}, device=final.device)
+        model = est.fit_stream(stream, num_epochs=num_epochs,
+                               num_shards=final.num_shards,
+                               chunks_per_epoch=chunks_per_epoch,
+                               checkpoint=checkpoint, resume=resume,
+                               **stream_kwargs)
+        return FittedPipeline(self, fitted, model, num_cols, final.device)
+
+    # ------------------------------------------------------------------ #
+    # restore
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _stage_templates(pmeta: dict) -> Dict[str, Any]:
+        return {name: FITTED_KINDS[hs["kind"]].partial_template(hs)
+                for name, hs in pmeta["stages"]}
+
+    @staticmethod
+    def _rebuild_stages(pmeta: dict, arrays: Dict[str, Any],
+                        device: torch.device) -> List[Tuple[str, FittedTransformer]]:
+        return [(name, FITTED_KINDS[hs["kind"]].from_state(
+                     hs, arrays.get(name, {}), device=device))
+                for name, hs in pmeta["stages"]]
+
+    def _restore_stages(self, policy: CheckpointPolicy, est: Any):
+        """Rebuild the fitted featurizers from the newest streaming
+        snapshot (one atomic file: the model carry restores beside them in
+        :meth:`DistributedRunner.resume`) and prime the policy so later
+        snapshots keep carrying the same state."""
+        from repro_torch.checkpoint.store import load_metadata, \
+            restore_with_metadata
+
+        meta = load_metadata(policy.ckpt_dir)
+        if not meta or "pipeline" not in (meta.get("extra") or {}):
+            raise ValueError(
+                f"newest checkpoint under {policy.ckpt_dir} carries no "
+                f"pipeline state — was it written by Pipeline.fit_stream?")
+        pmeta = meta["extra"]["pipeline"]
+        num_cols = int(pmeta["num_cols"])
+        device = resolve_device(self.device)
+        templates = {"stages": self._stage_templates(pmeta)}
+        tree, _, _ = restore_with_metadata(
+            policy.ckpt_dir,
+            {"state": est.stream_state_template(num_cols), "extra": templates},
+            device=device)
+        fitted = self._rebuild_stages(pmeta, tree["extra"]["stages"], device)
+        policy.extra_state = tree["extra"]
+        policy.extra_metadata = meta["extra"]
+        return fitted, num_cols
+
+    def load(self, ckpt_dir: str) -> FittedPipeline:
+        """Restore a fitted pipeline published by :meth:`FittedPipeline.save`
+        (by either package) onto the pipeline's device — featurizer
+        statistics and model state come back value- and dtype-exact."""
+        from repro_torch.checkpoint.store import ARTIFACT_STEP, load_artifact, \
+            load_metadata
+
+        meta = load_metadata(ckpt_dir, ARTIFACT_STEP)
+        if not meta or "pipeline" not in meta:
+            raise ValueError(f"{ckpt_dir} holds no pipeline artifact")
+        pmeta = meta["pipeline"]
+        device = resolve_device(self.device)
+        template: Dict[str, Any] = {"stages": self._stage_templates(pmeta)}
+        if "model_shapes" in pmeta:
+            # only the structure of a template is read
+            template["model"] = {k: torch.empty(0) for k in pmeta["model_shapes"]}
+        tree, _ = load_artifact(ckpt_dir, template, device=device)
+        fitted = self._rebuild_stages(pmeta, tree["stages"], device)
+        model = None
+        if "model" in template:
+            if self._estimator is None:
+                raise ValueError(
+                    "artifact carries a trained model but this pipeline "
+                    "has no terminal estimator to rebuild it")
+            model = self._estimator.rebuild(tree["model"])
+        return FittedPipeline(self, fitted, model, int(pmeta["num_cols"]), device)

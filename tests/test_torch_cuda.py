@@ -59,6 +59,9 @@ from repro_torch.core.algorithms.naive_bayes import GaussianNaiveBayes
 from repro_torch.core.algorithms.pca import PCA
 from repro_torch.core.local_matrix import PaddedCSR
 from repro_torch.data.synthetic import synth_netflix_tiled
+from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.core.runner import CheckpointPolicy
+from repro_torch.data import BatchIterator
 
 
 def _need_card():
@@ -79,10 +82,11 @@ def _device_of_work(call):
     return torch.device("cuda" if allocated() > before else "cpu")
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     """Without ``device=`` an entry point runs on the card, or raises where
     there is none — never quietly on the CPU."""
     rows = np.ones((8, 6), np.float32)
+    save_checkpoint(str(tmp_path), 0, {"w": torch.zeros(3)})
     docs = MLTable.from_text(["a b c", "b c d"], num_partitions=1)
     counts = NGrams(n=1).fit(docs).transform(docs)   # the host tier
     calls = [
@@ -109,6 +113,8 @@ def test_entry_points_default_to_the_card():
                                        "explained_variance": rows[0, :2]}).mean.device,
         lambda: from_reference("naive_bayes", {"priors": rows[0, :2], "means": rows[:2],
                                                "variances": rows[:2]}).means.device,
+        lambda: BatchIterator(lambda step: {"data": rows}).device,
+        lambda: restore_checkpoint(str(tmp_path), {"w": 0})[0]["w"].device,
     ]
     for call in calls:
         if torch.cuda.is_available():
@@ -1673,3 +1679,93 @@ def test_pca_on_the_card_matches_fp64_up_to_sign():
     c = model.components.cpu().double()
     c = c * torch.sign((c * comp64).sum(1, keepdim=True))
     assert (c - comp64).abs().max().item() <= 1e-3
+
+
+# --------------------------------------------------------------------------- #
+# streaming epochs, checkpoints and resume on the card
+# --------------------------------------------------------------------------- #
+def _pinned_pool(rows, cols, windows, seed):
+    """A pool of windows in pinned host memory; a source hands out its
+    read-only slices, so a non-blocking copy never races a rewrite."""
+    rng = np.random.default_rng(seed)
+    pool = torch.from_numpy(rng.normal(size=(windows, rows, cols)).astype(np.float32))
+    pool[:, :, 0] = (pool[:, :, 1:5].sum(-1) > 0).float()
+    return pool.pin_memory()
+
+
+@pytest.mark.cuda
+def test_streamed_fits_launch_the_kernels_and_match_the_cpu():
+    """A streamed logreg and k-means fit on the card launch kernels 1-2 once
+    a local batch and kernel 3 once a round, and agree with the same fits
+    through the plain versions on the CPU."""
+    _need_card()
+    pool = _pinned_pool(256, 65, 3, 3)
+
+    def source(step):
+        return {"data": pool[step % 3]}
+
+    tk.reset_launch_counts()
+    lr = LogisticRegression(learning_rate=0.1, local_batch_size=8, use_kernel=True)
+    card = lr.fit_stream(BatchIterator(source), num_epochs=3, num_shards=4,
+                         chunks_per_epoch=2)
+    got = tk.launch_counts()
+    assert got["logreg_margin"] == got["logreg_xt_z"] == 3 * 2 * (256 // 4 // 2 // 8)
+    cpu = lr.fit_stream(BatchIterator(source, device="cpu"), num_epochs=3,
+                        num_shards=4, chunks_per_epoch=2)
+    err = (card.weights.cpu() - cpu.weights).abs().max() / cpu.weights.abs().max()
+    assert card.weights.device.type == "cuda" and err.item() < 2e-4
+
+    def km_source(step):
+        return {"data": pool[step % 3, :, 1:]}
+
+    tk.reset_launch_counts()
+    km = KMeans(k=5, use_kernel=True)
+    card = km.fit_stream(BatchIterator(km_source), num_epochs=3, num_shards=4,
+                         chunks_per_epoch=2)
+    assert tk.launch_counts()["kmeans_assign"] == 3 * 2
+    cpu = KMeans(k=5).fit_stream(BatchIterator(km_source, device="cpu"), num_epochs=3,
+                                 num_shards=4, chunks_per_epoch=2)
+    torch.testing.assert_close(card.centroids.cpu(), cpu.centroids, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["logreg", "kmeans"])
+def test_streamed_fit_resumes_bitwise_on_the_card(algo, tmp_path):
+    _need_card()
+    pool = _pinned_pool(512, 33, 2, 4)
+
+    def source(step):
+        window = pool[step % 2]
+        return {"data": window if algo == "logreg" else window[:, 1:]}
+
+    def fit(epochs, ckpt=None, resume=False):
+        stream = BatchIterator(source)
+        kw = dict(num_epochs=epochs, num_shards=8, chunks_per_epoch=4,
+                  checkpoint=ckpt, resume=resume)
+        if algo == "logreg":
+            return LogisticRegression(learning_rate=0.05, local_batch_size=16,
+                                      use_kernel=True).fit_stream(stream, **kw).weights
+        return KMeans(k=6, use_kernel=True).fit_stream(stream, **kw).centroids
+
+    straight = fit(6)
+    fit(3, CheckpointPolicy(str(tmp_path)))
+    assert latest_step(str(tmp_path)) == 3
+    resumed = fit(6, CheckpointPolicy(str(tmp_path)), resume=True)
+    assert resumed.device.type == "cuda" and torch.equal(resumed, straight)
+
+
+@pytest.mark.cuda
+def test_bf16_state_round_trips_the_store_on_the_card(tmp_path):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tree = {"w": torch.randn(7, 33, generator=gen, device="cuda").to(torch.bfloat16),
+            "step": torch.tensor(3, device="cuda"),
+            "f8": torch.randn(5, generator=gen, device="cuda").to(torch.float8_e4m3fn)}
+    save_checkpoint(str(tmp_path), 1, tree)
+    got, _ = restore_checkpoint(str(tmp_path), tree)
+    for k, v in tree.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k].view(torch.uint8) if v.dtype.itemsize == 1 and
+                           v.is_floating_point() else got[k],
+                           v.view(torch.uint8) if v.dtype.itemsize == 1 and
+                           v.is_floating_point() else v)
