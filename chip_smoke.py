@@ -233,7 +233,14 @@ Phases (each one that fails makes the script exit non-zero):
                 offline prediction, user 0's top-5 unseen movies; printed:
                 generation and packing seconds, each half-sweep's ms (CUDA
                 events) against its bound, a torch.profiler split of the
-                users' half-sweep, the peak memory.  (b)
+                users' half-sweep, the peak memory.  Within (a), while its
+                tables are resident (phase 23's leg (e)):
+                BroadcastALS.train_stacked with K = 4, λ in {0.01, 0.03, 0.1,
+                0.3}, rank 10, 10 iterations, every lane from the fit's seed
+                (lane 0 is the fit's config) — lane 0 within
+                ALS_STACKED_TOL of the fit (bitwise or not printed), each
+                lane's training RMSE, its seconds beside 4 x the fit's, its
+                peak memory (< 80 GB).  (b)
                 examples/pca_naive_bayes.py at 1,048,576 x 4,096 (50
                 Gaussian classes): PCA(64) against fp64 eigh of the fp64
                 covariance (PCA_TOL; components up to sign) and with 1
@@ -241,8 +248,9 @@ Phases (each one that fails makes the script exit non-zero):
                 (NB_TOL) and with 1 partition, accuracy > 0.9, 256 served
                 requests bitwise the offline prediction.
  20. Fig. A2   — the paper's own program end to end, between phases 21
-                and 8: 32,768 labeled raw-text docs of
-                128 words (fig_corpus; no doc cut) through two pipelines of
+                and 8: 16,384 labeled raw-text docs of
+                128 words (fig_corpus; cut from 32,768 for the run's time)
+                through two pipelines of
                 8 partitions on the card: (a) NGrams(n=2, top=30,000) ->
                 TfIdf -> KMeans(k=50, 10 rounds, kernel 3) and (b) NGrams ->
                 TfIdf -> Standardizer -> LogisticRegression (kernels 1-2,
@@ -251,7 +259,7 @@ Phases (each one that fails makes the script exit non-zero):
                 Checked: the launches of kernels 1-3 on this path and no
                 other kernel; the vocabulary 30,000 bigrams; (b) bitwise its
                 hand-composed chain (statistics, weights, predictions); the
-                tables (32,768 x 30,000 and x 30,001, fp32) and (b)'s IDF
+                tables (16,384 x 30,000 and x 30,001, fp32) and (b)'s IDF
                 weights, tf-idf rows, shift and scale against fp64 on the
                 card (FIG_TOL); (a)'s centroids within 1e-3 of plain rounds
                 in kmeans_assign's order, the three schedules' inertia
@@ -294,13 +302,50 @@ Phases (each one that fails makes the script exit non-zero):
                 and resume s, peak memory, kernels 1-3 at the stream's
                 shapes beside their plain versions, library calls and
                 bounds, launches by kernel.
+ 23. model search — right after phase 22 (before phase 8); no kernel of
+                the port runs here (the trial forms refuse the kernel paths,
+                as the reference's do), and the phase checks that none
+                launched.  (a) Logistic regression at 160,000 features: a
+                16,384-row table made on the card with phase 4's recipe, 8
+                partitions, holdout 0.25 (12,288 train rows, 4,096
+                validation); the grid {learning_rate 0.05, 0.1, 0.2, 0.3} x
+                {l2 0, 0.01} (benchmarks/model_search.py's), local batch
+                128, 3 epochs of one round; stacked (one unit of 8 lanes) and
+                sequential (8 units) under each of the three schedules:
+                stacked == sequential bitwise, every trial within
+                SEARCH_FIT_TOL of LogisticRegression(**config).fit on the
+                train view (bitwise or not printed), one best config in all
+                six runs, scores across schedules within 1e-4; then a
+                median-rule search with record_evaluation, one epoch a rung:
+                a frozen lane keeps its bits, the history equals the rung
+                scores.  (b) ASHA on (a)'s table: 32 configs sampled (lr
+                loguniform 0.01..1, l2 0 or 0.01), reduction factor 3, 8
+                slots, 9 epochs (rungs 1, 3, 9): stacked and sequential make
+                the same (trial, rungs, stopped) sequence with bitwise
+                scores, every finisher has 3 rung scores.  (c) K-means at d
+                = 4,096 on 131,072 rows, {k 25, 50} x {seed 0..3} (two stacked
+                units of 4 lanes), silhouette_lite: stacked == sequential
+                bitwise.  (d) Pipeline search on phase 22 (c)'s 8,192 docs:
+                NGrams(n=2) -> TfIdf -> Standardizer -> LogisticRegression,
+                {ngrams.top 10,000, 30,000} x {logreg.learning_rate 0.1,
+                0.5}: one featurization per top, fit on the train fold only;
+                the winner's fitted pipeline serves 64 raw-text requests
+                through ModelPredictor bitwise its offline predictions.  (f)
+                python -m repro_torch.launch.tune killed by SIGKILL after
+                its third trial, then --resume, in child processes started
+                with phase 22 (their start-up runs beside phases 22 and 23):
+                the resumed RESULT line equals an uninterrupted run's (this
+                process).  Printed: each leg's seconds (host
+                clock, ended by a sync), stacked against sequential seconds
+                and trials/s, ASHA's trials evaluated and slot-epochs, the
+                peak memory with its holders.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 21, then phase 20, then phase 22, then phase 8, then phase 11,
-then phase 14, then phase 18) and read just after it: they count those
-paths only (phase 21 must launch none; phase 20's launches are added to
+then phase 21, then phase 20, then phase 22, then phase 23, then phase 8,
+then phase 11, then phase 14, then phase 18) and read just after it: they
+count those paths only (phases 21 and 23 must launch none; phase 20's launches are added to
 kernels 1-3's records under "fig_a2", phase 22's under "stream"; the
 launches of phase 22's child processes are their own).  A decode step that replays a CUDA graph adds the
 launches the graph holds (``ServeEngine``), so the counts stay exact.  The
@@ -354,8 +399,10 @@ FP32_TOL = 2e-4      # tests/test_kernels.py's fp32 tolerance
 # and -> Standardizer -> LogisticRegression(**FIG_LOGREG) (pipeline b, the
 # stages and parameters of examples/text_pipeline.py); FIG_REQUESTS raw-text
 # requests of 1..FIG_REQ_MAX docs from the first FIG_SERVE_POOL docs to each;
-# fitted.predict replayed on the first FIG_REPLAY raw docs
-FIG_DOCS, FIG_WORDS, FIG_VOCAB, FIG_TOP, FIG_K, FIG_ROUNDS = 32_768, 128, 4_096, 30_000, 50, 10
+# fitted.predict replayed on the first FIG_REPLAY raw docs.  FIG_DOCS is cut
+# from 32,768 to 16,384 (the depth, not the 30,000-wide vocabulary) to keep
+# the run within its time with phase 23
+FIG_DOCS, FIG_WORDS, FIG_VOCAB, FIG_TOP, FIG_K, FIG_ROUNDS = 16_384, 128, 4_096, 30_000, 50, 10
 FIG_LOGREG = dict(learning_rate=0.5, max_iter=8, local_batch_size=4)
 FIG_REQUESTS, FIG_REQ_MAX, FIG_SERVE_POOL, FIG_REPLAY = 256, 16, 1_024, 4_096
 # phase 20's tolerances, fixed before its first run: against the same
@@ -434,6 +481,43 @@ STREAM_CHUNKS, STREAM_PLAIN_EPOCHS = 4, 4
 STREAM_LR = dict(learning_rate=1e-7, local_batch_size=128)
 STREAM_KM_ROWS, STREAM_KM_POOL, STREAM_KM_EPOCHS, STREAM_KM_STOP = 131_072, 2, 8, 4
 STREAM_FIG_DOCS, STREAM_FIG_EPOCHS, STREAM_FIG_CHUNKS, STREAM_FIG_STOP = 8_192, 6, 2, 3
+# phase 23, model search.  (a) SEARCH_ROWS rows of phase 4's recipe at
+# LOGREG_FEATURES (10.49 GB), SEARCH_GRID with SEARCH_LR, SEARCH_EPOCHS
+# epochs of one round, holdout 0.25; the median-rule search over
+# SEARCH_MEDIAN_LRS (around phase 4's SGD rate, where the accuracies differ)
+# one epoch a rung.  (b) ASHA: SEARCH_ASHA_SAMPLES configs of
+# SEARCH_ASHA_SPACE, reduction factor 3, SEARCH_ASHA_SLOTS slots,
+# SEARCH_ASHA_EPOCHS epochs.  (c) k-means: SEARCH_KM_ROWS x KMEANS_FEATURES
+# of phase 5's recipe, SEARCH_KM_GRID, SEARCH_KM_EPOCHS epochs.  (d) the
+# first STREAM_FIG_DOCS docs of fig_corpus, SEARCH_PIPE_GRID,
+# SEARCH_PIPE_EPOCHS epochs, SEARCH_REQUESTS raw-text requests of
+# 1..FIG_REQ_MAX docs.  (e) BroadcastALS.train_stacked over SEARCH_ALS_LAMS.
+# (f) launch.tune with SEARCH_CLI_ARGS, killed after SEARCH_CLI_KILL trials.
+SEARCH_ROWS, SEARCH_EPOCHS = 16_384, 3
+SEARCH_GRID = {"learning_rate": [0.05, 0.1, 0.2, 0.3], "l2": [0.0, 0.01]}
+SEARCH_LR = dict(local_batch_size=128)
+SEARCH_MEDIAN_LRS = [1e-9, 1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6, 1e-5]
+SEARCH_ASHA_SPACE = {"learning_rate": ("loguniform", 0.01, 1.0), "l2": [0.0, 0.01]}
+SEARCH_ASHA_SAMPLES, SEARCH_ASHA_SLOTS, SEARCH_ASHA_EPOCHS = 32, 8, 9
+SEARCH_KM_ROWS, SEARCH_KM_EPOCHS = 131_072, 2
+SEARCH_KM_GRID = {"k": [25, 50], "seed": [0, 1, 2, 3]}
+SEARCH_PIPE_GRID = {"ngrams.top": [10_000, 30_000], "logreg.learning_rate": [0.1, 0.5]}
+SEARCH_PIPE_LR = dict(local_batch_size=16)
+SEARCH_PIPE_EPOCHS, SEARCH_REQUESTS = 2, 64
+SEARCH_ALS_LAMS = (NF_LAM, 0.03, 0.1, 0.3)
+SEARCH_CLI_ARGS = ["--algorithm", "logreg", "--grid", "learning_rate=0.05,0.1,0.3;l2=0.0,0.01",
+                   "--rows", "64", "--features", "6", "--epochs", "3",
+                   "--chunks-per-epoch", "2", "--folds", "2", "--exec", "sequential",
+                   "--seed", "0", "--json"]
+SEARCH_CLI_KILL = 3
+# phase 23's tolerances, fixed before its first run: a trial against the
+# same config's fit on the train view (max abs error over max |w|): the
+# reference's 1e-5 (tests/test_tune.py); the port runs a trial's launches as
+# the fit runs them, so the run expects 0 and prints whether it is bitwise.
+# Scores across schedules: tests/test_tune_determinism.py's 1e-4.  ALS's
+# stacked lane 0 against the fit (of max |factor|): the batched solve sees
+# another batch size than the fit's, so phase 21's card-vs-CPU ALS_DEVICE_TOL
+SEARCH_FIT_TOL, SEARCH_SCORE_TOL, ALS_STACKED_TOL = 1e-5, 1e-4, 1e-3
 
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
@@ -855,11 +939,11 @@ def kmeans_invariance(gen: torch.Generator) -> None:
         f"the plain version's picks but for ties within fp32 rounding")
 
 
-def logreg_table(gen: torch.Generator) -> torch.Tensor:
+def logreg_table(gen: torch.Generator, rows: int = LOGREG_ROWS) -> torch.Tensor:
     """(rows, 1 + d) fp32 on the card: ReLU'd gaussian features (as
     synth_imagenet_features) and labels from a planted linear model split
     at its median; made in row slabs, never on the host."""
-    n, d = LOGREG_ROWS, LOGREG_FEATURES
+    n, d = rows, LOGREG_FEATURES
     table = torch.empty((n, d + 1), dtype=torch.float32, device=DEVICE)
     w_true = torch.randn(d, generator=gen, device=DEVICE) / math.sqrt(d)
     for i in range(0, n, 4096):
@@ -926,8 +1010,8 @@ def phase_logreg(gen, counts, report) -> None:
         report["logreg"][solver] = fused
 
 
-def kmeans_table(gen: torch.Generator) -> torch.Tensor:
-    n, d = KMEANS_ROWS, KMEANS_FEATURES
+def kmeans_table(gen: torch.Generator, rows: int = KMEANS_ROWS) -> torch.Tensor:
+    n, d = rows, KMEANS_FEATURES
     data = torch.empty((n, d), dtype=torch.float32, device=DEVICE)
     data.normal_(generator=gen).clamp_(min=0.0)
     return data
@@ -1608,7 +1692,7 @@ def phase_fig_a2() -> dict:
     requests = fig_requests()
     say(f"corpus: {FIG_DOCS} labeled docs of {FIG_WORDS} words from {FIG_VOCAB} made-up words "
         f"(Zipf 1.1, class-biased), {SHARDS} partitions, made in "
-        f"{time.perf_counter() - t0:.2f} s; no docs cut")
+        f"{time.perf_counter() - t0:.2f} s; cut from 32,768 docs for the run's time")
     pipe_a, pipe_b = fig_pipelines()
     secs = {}
 
@@ -2315,6 +2399,337 @@ def phase_stream() -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 23: model search
+# --------------------------------------------------------------------------- #
+def timed(fn):
+    """``(fn(), seconds)`` on the host clock, ended by a sync."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def same_trials(a, b) -> bool:
+    """Two searches' trials equal bit for bit: configs, rung scores,
+    stopped flags and states."""
+    return len(a.trials) == len(b.trials) and all(
+        x.index == y.index and x.config == y.config and x.rung_scores == y.rung_scores
+        and x.stopped == y.stopped and torch.equal(x.state, y.state)
+        for x, y in zip(a.trials, b.trials))
+
+
+def start_tune_cli(work: str, procs: list):
+    """Part (f): ``python -m repro_torch.launch.tune`` with --ckpt-dir and
+    --kill-after-trial SEARCH_CLI_KILL in a child process on the card, then
+    again with --resume, one after the other (a thread waits for them);
+    returns the future of their outputs."""
+    import concurrent.futures
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.tune", *SEARCH_CLI_ARGS,
+           "--ckpt-dir", os.path.join(work, "f")]
+
+    def run():
+        outs = []
+        for extra in (["--kill-after-trial", str(SEARCH_CLI_KILL)], ["--resume"]):
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd + extra, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            procs.append(proc)
+            out, _ = proc.communicate(timeout=180)
+            outs.append((proc.returncode, out, time.perf_counter() - t0))
+        return outs
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
+def search_part_a(gen, out: dict) -> None:
+    """Part (a): the grid at 160,000 features, stacked and sequential under
+    the three schedules, each trial against its fit; then a median-rule
+    search with record_evaluation."""
+    from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.eval.metrics import MetricHistory
+    from repro_torch.tune import (MedianStoppingRule, ModelSearch, fold_view, grid,
+                                  holdout_split, record_evaluation)
+
+    mem_reset()
+    (data, t_table) = timed(lambda: logreg_table(gen, SEARCH_ROWS))
+    table = MLNumericTable(data, num_shards=SHARDS)
+    configs = [{**c, **SEARCH_LR} for c in grid(SEARCH_GRID)]
+    kw = dict(num_epochs=SEARCH_EPOCHS, chunks_per_epoch=1, val_fraction=0.25, seed=SEED)
+    runs, secs = {}, {}
+    for sched in ("allreduce", "gather_broadcast", "reduce_scatter"):
+        for mode in ("stacked", "sequential"):
+            runs[sched, mode], secs[sched, mode] = timed(lambda: ModelSearch(
+                "logreg", configs, schedule=sched, execution=mode, **kw).run(table))
+    ref = runs["allreduce", "stacked"]
+    best = {key: r.best.config for key, r in runs.items()}
+    spread = max(abs(a - b) for r in runs.values() for a, b in zip(r.scores, ref.scores))
+    tr, _ = holdout_split(SEARCH_ROWS, 0.25, seed=SEED)
+    view = fold_view(table, tr)
+    errs, bitwise, t_fits = [], 0, 0.0
+    for t in ref.trials:
+        solo, secs_fit = timed(lambda: LogisticRegression(
+            max_iter=SEARCH_EPOCHS, schedule="allreduce", **t.config).fit(view))
+        t_fits += secs_fit
+        errs.append(rel_err(t.state, solo.weights))
+        bitwise += int(torch.equal(t.state, solo.weights))
+    del view
+    # the median rule: a frozen lane keeps its bits (a stopped trial's final
+    # state is its state at the rung it was stopped at, read by a
+    # rung-boundary callback), the history is the rung scores
+    history, seen = MetricHistory(), []
+
+    def watch(env):
+        if env.evals:                # a rung boundary (not an epoch inside one)
+            seen.append(env.state.clone())
+    med_configs = [{"learning_rate": lr, **SEARCH_LR} for lr in SEARCH_MEDIAN_LRS]
+    med, t_med = timed(lambda: ModelSearch(
+        "logreg", med_configs, execution="stacked", rung_epochs=1, metric="log_loss",
+        early_stop=MedianStoppingRule(), callbacks=(record_evaluation(history), watch),
+        **kw).run(table))
+    stopped = [t for t in med.trials if t.stopped]
+    frozen = sum(len(seen) - len(t.rung_scores) for t in stopped)
+    out["a"] = dict(seconds=secs)
+    peak = mem_peak("phase 23 (a): the table, its train and validation views")
+    n = len(configs)
+    say(f"(a) table {SEARCH_ROWS:,} x {LOGREG_FEATURES + 1:,} fp32 ({data.numel() * 4 / 1e9:.2f} "
+        f"GB) made in {t_table:.3f} s; {n} configs x {SEARCH_EPOCHS} epochs: "
+        + "; ".join(f"{s} stacked {secs[s, 'stacked']:.3f} s ({n / secs[s, 'stacked']:.2f} "
+                    f"trials/s), sequential {secs[s, 'sequential']:.3f} s "
+                    f"({n / secs[s, 'sequential']:.2f} trials/s)"
+                    for s in ("allreduce", "gather_broadcast", "reduce_scatter")))
+    say(f"(a) stacked against sequential bitwise under each schedule: "
+        f"{[same_trials(runs[x, 'stacked'], runs[x, 'sequential']) for x in ('allreduce', 'gather_broadcast', 'reduce_scatter')]}; "
+        f"best {ref.best.config} (score {ref.best.score:.6f}); bests {len(set(json.dumps(b, sort_keys=True) for b in best.values()))} "
+        f"distinct over the six runs; scores {fmt(ref.scores)}, spread "
+        f"across schedules {spread:.3g} (tol {SEARCH_SCORE_TOL}); each trial against "
+        f"LogisticRegression(**config).fit on the train view: max rel err {max(errs):.3g} "
+        f"(tol {SEARCH_FIT_TOL}), {bitwise} of {n} bitwise; the {n} fits {t_fits:.3f} s")
+    for sched in ("allreduce", "gather_broadcast", "reduce_scatter"):
+        check(same_trials(runs[sched, "stacked"], runs[sched, "sequential"]),
+              f"(a) {sched}: stacked differs from sequential")
+    check(len({json.dumps(b, sort_keys=True) for b in best.values()}) == 1,
+          f"(a) the best config differs between runs: {best}")
+    check(spread <= SEARCH_SCORE_TOL, f"(a) scores across schedules {spread}")
+    check(max(errs) <= SEARCH_FIT_TOL, f"(a) a trial against its fit: {errs}")
+    say(f"(a) median rule over lr {fmt(SEARCH_MEDIAN_LRS)}, one epoch a rung, negated "
+        f"log loss: rung scores {[fmt(t.rung_scores) for t in med.trials]}; "
+        f"{len(stopped)} of {len(med.trials)} stopped, their lanes frozen for {frozen} "
+        f"rungs; best {med.best.config}; {t_med:.3f} s; peak {peak:.2f} GB (the table "
+        f"{data.numel() * 4 / 1e9:.2f} GB, its fold views the same again)")
+    check(frozen >= 1, "(a) the median rule froze no lane")
+    for t in stopped:
+        check(torch.equal(seen[len(t.rung_scores) - 1][t.index], t.state),
+              f"(a) the frozen lane of trial {t.index} moved")
+    check(all([v for _, v in history.series(t.index, "log_loss")] == t.rung_scores
+               for t in med.trials), "(a) the recorded history differs from the rung scores")
+    out["table"] = table
+
+
+def search_part_b(out: dict) -> None:
+    """Part (b): ASHA over SEARCH_ASHA_SAMPLES sampled configs on (a)'s
+    table, stacked and sequential."""
+    from repro_torch.tune import AsyncSuccessiveHalving, ModelSearch, sample
+
+    table = out.pop("table")
+    configs = [{**c, **SEARCH_LR} for c in
+               sample(SEARCH_ASHA_SPACE, SEARCH_ASHA_SAMPLES, seed=SEED)]
+    rule = AsyncSuccessiveHalving(reduction_factor=3, min_rounds=1, slots=SEARCH_ASHA_SLOTS)
+    runs, secs = {}, {}
+    for mode in ("stacked", "sequential"):
+        runs[mode], secs[mode] = timed(lambda: ModelSearch(
+            "logreg", configs, num_epochs=SEARCH_ASHA_EPOCHS, execution=mode,
+            early_stop=rule, seed=SEED).run(table))
+    a, b = runs["stacked"], runs["sequential"]
+    check(same_trials(a, b), "(b) ASHA: stacked and sequential differ")
+    ladder = rule.rung_epochs(SEARCH_ASHA_EPOCHS)
+    finished = [t for t in a.trials if not t.stopped]
+    check(finished and all(len(t.rung_scores) == len(ladder) for t in finished),
+          f"(b) a finisher without {len(ladder)} rung scores")
+    slot_epochs = sum(ladder[len(t.rung_scores) - 1] for t in a.trials)
+    say(f"(b) ASHA (rf 3, {SEARCH_ASHA_SLOTS} slots, rungs {ladder}) over "
+        f"{len(configs)} sampled configs: {len(a.trials)} trials evaluated, "
+        f"{len(finished)} finished, {slot_epochs} slot-epochs "
+        f"(of {len(configs) * SEARCH_ASHA_EPOCHS} for the whole pool); stacked "
+        f"{secs['stacked']:.3f} s, sequential {secs['sequential']:.3f} s, the same "
+        f"(trial, rungs, stopped) sequence, scores bitwise; best {a.best.config} "
+        f"({a.best.score:.6f})")
+    out["b"] = dict(seconds=secs, slot_epochs=slot_epochs)
+    del table
+    free_device_memory()
+
+
+def search_part_c(gen, out: dict) -> None:
+    """Part (c): k-means at d = 4,096 over SEARCH_KM_GRID (two stacked
+    units of 4 lanes), stacked against sequential."""
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.tune import ModelSearch, grid
+
+    mem_reset()
+    data = kmeans_table(gen, SEARCH_KM_ROWS)
+    table = MLNumericTable(data, num_shards=SHARDS)
+    configs = grid(SEARCH_KM_GRID)
+    runs, secs = {}, {}
+    for mode in ("stacked", "sequential"):
+        runs[mode], secs[mode] = timed(lambda: ModelSearch(
+            "kmeans", configs, num_epochs=SEARCH_KM_EPOCHS, execution=mode,
+            seed=SEED).run(table))
+    check(same_trials(runs["stacked"], runs["sequential"]),
+          "(c) k-means: stacked differs from sequential")
+    res = runs["stacked"]
+    check(all(np.isfinite(t.score) for t in res.trials), "(c) a score is not finite")
+    peak = mem_peak("phase 23 (c)")
+    say(f"(c) k-means {SEARCH_KM_ROWS:,} x {KMEANS_FEATURES:,} ({data.numel() * 4 / 1e9:.2f} "
+        f"GB), {len(configs)} configs, {SEARCH_KM_EPOCHS} epochs: stacked "
+        f"{secs['stacked']:.3f} s, sequential {secs['sequential']:.3f} s, bitwise; "
+        f"silhouette_lite {fmt(res.scores)}; best {res.best.config}; peak {peak:.2f} GB")
+    out["c"] = dict(seconds=secs)
+    del table, data
+    free_device_memory()
+
+
+def search_part_d(out: dict) -> None:
+    """Part (d): a pipeline search on phase 22 (c)'s docs; the winner serves
+    raw text."""
+    from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+    from repro_torch.core.mltable import MLTable
+    from repro_torch.features import NGrams, Standardizer, TfIdf
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.tune import ModelSearch, grid, holdout_split
+
+    mem_reset()
+    rows = fig_corpus(SEED, STREAM_FIG_DOCS)
+    texts = [t for _, t in rows]
+    raw = MLTable.from_rows(rows, names=["label", "text"], num_partitions=SHARDS)
+    pipe = Pipeline([NGrams(n=2, top=FIG_TOP, column="text"), TfIdf(), Standardizer(),
+                     LogisticRegression(**SEARCH_PIPE_LR)], num_shards=SHARDS, device=DEVICE)
+    fits, originals = [], {}
+    for cls in (NGrams, TfIdf, Standardizer):
+        originals[cls] = cls.fit
+
+        def fit(self, table, *a, _orig=cls.fit, **k):
+            fits.append((type(self).__name__, getattr(self, "top", None), table.num_rows))
+            return _orig(self, table, *a, **k)
+        cls.fit = fit
+    try:
+        res, t_search = timed(lambda: ModelSearch(
+            pipe, grid(SEARCH_PIPE_GRID), num_epochs=SEARCH_PIPE_EPOCHS, seed=SEED).run(raw))
+    finally:
+        for cls, f in originals.items():
+            cls.fit = f
+    n_train = len(holdout_split(STREAM_FIG_DOCS, 0.25, seed=SEED)[0])
+    tops = sorted(t for name, t, _ in fits if name == "NGrams")
+    check(tops == sorted(SEARCH_PIPE_GRID["ngrams.top"])
+          and all(n == n_train for _, _, n in fits) and len(fits) == 3 * len(tops),
+          f"(d) featurizer fits {fits}: want one per top, each on the {n_train} train docs")
+    best = res.best.pipeline
+    requests = [np.random.default_rng(SEED + 23 + i).integers(
+        0, FIG_SERVE_POOL, size=int(m)) for i, m in enumerate(
+        np.random.default_rng(SEED + 23).integers(1, FIG_REQ_MAX + 1, SEARCH_REQUESTS))]
+    offline = best.predict(texts[:FIG_SERVE_POOL]).cpu().numpy()
+    served = serve_blocks(best, [[texts[i] for i in idx] for idx in requests], FIG_REQ_MAX)
+    bad = sum(not np.array_equal(r, offline[idx]) for idx, r in zip(requests, served["results"]))
+    check(bad == 0, f"(d) {bad} served requests differ from the winner's offline predictions")
+    peak = mem_peak("phase 23 (d)")
+    say(f"(d) pipeline search on {STREAM_FIG_DOCS:,} docs, {len(res.trials)} configs "
+        f"{SEARCH_PIPE_GRID}: {t_search:.3f} s; featurizer fits (stage, top, rows) {fits}; "
+        f"scores {fmt(res.scores)}; best {res.best.config}; {len(requests)} raw-text requests "
+        f"through ModelPredictor(winner) bitwise its offline predictions, latency median "
+        f"{float(np.median(served['latencies'])):.3f} ms; peak {peak:.2f} GB")
+    out["d"] = dict(seconds=t_search)
+
+
+def search_part_f(future) -> None:
+    """Part (f): the killed and resumed launcher runs against an
+    uninterrupted run in this process."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import tune
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, t_here = timed(lambda: tune.main(SEARCH_CLI_ARGS))
+
+    def result(text):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESULT::")]
+        return json.loads(lines[-1][len("RESULT::"):]) if lines else None
+
+    outs = future.result(timeout=300)
+    (rc1, killed, t1), (rc2, resumed, t2) = outs
+    check(rc1 == -9, f"(f) the killed run ended with rc {rc1}, not -9: {killed[-1500:]}")
+    check(rc2 == 0 and f"resuming from unit {SEARCH_CLI_KILL}" in resumed,
+          f"(f) the --resume run did not resume: {resumed[-1500:]}")
+    check(f"on {DEVICE}" in resumed, f"(f) the launcher ran off the card: {resumed[-800:]}")
+    want, got = result(buf.getvalue()), result(resumed)
+    check(want is not None and got == want,
+          "(f) the resumed RESULT line differs from the uninterrupted run's")
+    say(f"(f) python -m repro_torch.launch.tune {' '.join(SEARCH_CLI_ARGS)}: SIGKILLed after "
+        f"trial {SEARCH_CLI_KILL} ({t1:.2f} s, rc {rc1}), --resume {t2:.2f} s; its RESULT "
+        f"line equals this process's uninterrupted run ({t_here:.2f} s), "
+        f"{len(got['trials'])} trials, best {got['best']['config']}")
+
+
+class TuneCLI:
+    """Part (f)'s two launcher runs (``start_tune_cli``), started when
+    phase 22 starts: each child spends ≈ 8-12 s reaching the card, so the
+    pair runs beside phases 22 and 23 and phase 23 reads the results.
+    ``close`` stops whatever is still running and removes the work
+    directory."""
+
+    def __init__(self):
+        import tempfile
+
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+        self.procs: list = []
+        self.future = start_tune_cli(self.work, self.procs)
+
+    def close(self) -> None:
+        import shutil
+
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_search(gen, cli: TuneCLI) -> dict:
+    """Phase 23: model search at the paper's widths; no kernel of the port
+    may launch.  ``cli`` holds part (f)'s launcher runs."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    phase(f"23. model search: logreg {SEARCH_ROWS:,} x {LOGREG_FEATURES:,} (grid x 3 "
+          f"schedules x stacked/sequential, median rule, ASHA over {SEARCH_ASHA_SAMPLES}), "
+          f"k-means {SEARCH_KM_ROWS:,} x {KMEANS_FEATURES:,}, pipeline search on "
+          f"{STREAM_FIG_DOCS:,} docs, launch.tune kill + resume (no kernel of the port)")
+    out = {}
+    try:
+        reset_launch_counts()        # phase 23's path starts here
+        for part, fn in (("a", lambda: search_part_a(gen, out)),
+                         ("b", lambda: search_part_b(out)),
+                         ("c", lambda: search_part_c(gen, out)),
+                         ("d", lambda: search_part_d(out))):
+            _, out[f"{part}_s"] = timed(fn)
+        search_part_f(cli.future)
+        got = launch_counts()        # ... and ends here
+        say(f"launches of the port's kernels on phase 23's path: {got} (every one 0); "
+            f"seconds " + ", ".join(f"({p}) {out[p + '_s']:.1f}" for p in "abcd"))
+        check(all(v == 0 for v in got.values()), f"a kernel of the port launched in phase 23: {got}")
+        return out
+    finally:
+        out.pop("table", None)
+        free_device_memory()
+
+
+# --------------------------------------------------------------------------- #
 # phase 21: the paper's §IV-B (BroadcastALS) and the other estimators
 # --------------------------------------------------------------------------- #
 def served_against_offline(what: str, model, pool: np.ndarray, requests: int,
@@ -2459,6 +2874,34 @@ def als_example_card_vs_cpu() -> dict:
     return {"err": err, "rmse": rmse}
 
 
+def als_train_stacked(users, movies, ratings, fit, p, fit_s: float) -> dict:
+    """Phase 23's leg (e), inside phase 21 (a) while its tables are
+    resident: BroadcastALS.train_stacked over SEARCH_ALS_LAMS from the
+    fit's seed; lane 0 (the fit's config) against the fit."""
+    import dataclasses
+
+    from repro_torch.core.algorithms.als import BroadcastALS
+
+    ps = [dataclasses.replace(p, lam=lam, max_iter=NF_ITERS) for lam in SEARCH_ALS_LAMS]
+    mem_reset()
+    models, secs = timed(lambda: BroadcastALS.train_stacked(users, ps, movies))
+    peak = mem_peak(f"phase 21 (a), train_stacked K = {len(ps)} (the packed tables, the "
+                    f"ratings and the fit resident)")
+    err = max(rel_err(models[0].U, fit.U), rel_err(models[0].V, fit.V))
+    same = torch.equal(models[0].U, fit.U) and torch.equal(models[0].V, fit.V)
+    rmse = [m.rmse(*ratings).item() for m in models]
+    check(err <= ALS_STACKED_TOL and all(math.isfinite(r) for r in rmse) and peak < 80,
+          f"(e) train_stacked: lane 0 vs the fit {err} (tol {ALS_STACKED_TOL}), RMSE "
+          f"{rmse}, peak {peak:.2f} GB")
+    say(f"(e) BroadcastALS.train_stacked, K = {len(ps)}, λ {SEARCH_ALS_LAMS}, rank "
+        f"{NF_RANK}, {NF_ITERS} iterations: {secs:.3f} s (host clock) against 4 x the fit's "
+        f"{fit_s:.3f} s = {4 * fit_s:.3f} s; lane 0 against the fit: rel err {err:.3g} "
+        f"(tol {ALS_STACKED_TOL}), {'bitwise the same' if same else 'not bitwise'}; "
+        f"training RMSE by lane {fmt(rmse)}; peak {peak:.2f} GB")
+    return {"seconds": secs, "lane0_err": err, "bitwise": same, "rmse": rmse,
+            "peak_gb": peak}
+
+
 def phase_als(gen: torch.Generator) -> dict:
     """Part (a) of phase 21: BroadcastALS at the Netflix Prize's shape."""
     from repro_torch.core.algorithms.als import ALSParameters, BroadcastALS, pack_csr_table
@@ -2520,6 +2963,8 @@ def phase_als(gen: torch.Generator) -> dict:
           and rmse[-1] < rmse[0] and rmse[-1] <= ALS_RMSE_BAR,
           f"training RMSE {rmse} (bar {ALS_RMSE_BAR})")
     out["rmse"] = rmse
+    out["stacked"] = als_train_stacked(users, movies, (rows, cols, vals), fit, p,
+                                       out["fit_s"])
 
     one = BroadcastALS(p, max_iter=NF_ITERS).fit(
         MLNumericTable(users.data, num_shards=1),
@@ -5661,7 +6106,12 @@ def main() -> int:
     free_device_memory()
     say(f"phase 20's tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         f"allocated")
-    stream = phase_stream()          # counts its own launches, frees its pools
+    tune_cli = TuneCLI()             # phase 23 (f)'s children, beside phases 22-23
+    try:
+        stream = phase_stream()      # counts its own launches, frees its pools
+        phase_search(gen, tune_cli)  # launches no kernel (checked)
+    finally:
+        tune_cli.close()
     for r in records:
         for key, part in (("fig_a2", fig), ("stream", stream)):
             if r["name"] in part["kernels"]:

@@ -2,9 +2,9 @@
 
 Counterpart: ``src/repro/core/algorithms/als.py`` (``pack_csr_table``,
 ``unpack_csr_block``, ``ALSParameters``, ``MatrixFactorizationModel``,
-``_local_als``, ``BroadcastALS`` with ``compute_factor``, ``fit``,
-``rebuild`` and ``train``; ``train_stacked`` waits for the model-search
-slice).
+``_local_als``, ``_local_als_stacked``, ``BroadcastALS`` with
+``compute_factor``, ``fit``, ``rebuild``, ``train`` and
+``train_stacked``).
 
 ``BroadcastALS`` updates the rows of U (users) with V broadcast to every
 partition, then the rows of V with U broadcast, over the *transposed*
@@ -24,7 +24,14 @@ loop; the port's is :class:`PaddedCSR`'s stable sort on the device.
 Initialisation differs from the reference, which draws U0 and V0 with
 ``jax.random.uniform`` under a split ``PRNGKey``: ``fit`` draws them
 uniform in [0, 1) from a ``torch.Generator`` seeded from ``seed`` on the
-table's device, or starts from ``init_factors=(U0, V0)``.
+table's device, or starts from ``init_factors=(U0, V0)``;
+``train_stacked`` takes one such pair per config.
+
+``train_stacked`` factors the same ratings under K configs at once: the K
+λ values ride as a (K,) tensor, the K lanes' rows are gathered, multiplied
+and solved as one batch, and one ``concat`` combine a half-sweep carries
+all K factors.  Its lanes share one batched solve, so a lane is held to
+its solo fit at a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -153,6 +160,28 @@ def _local_als(blocks: torch.Tensor, Y: torch.Tensor, lam: float) -> torch.Tenso
     return _solve(A, b).reshape(*lead, Y.shape[1])
 
 
+def _local_als_stacked(blocks: torch.Tensor, Ys: torch.Tensor,
+                       lams: torch.Tensor) -> torch.Tensor:
+    """K stacked half-sweep solves: ``Ys`` (K, n, k), ``lams`` (K,).  The
+    K lanes' masked projections are one gather from the flattened factors,
+    their normal equations one batched product and their solves one
+    batch; the result is rows-major, ``blocks`` (P, rows, 3w) → (P, rows,
+    K, k), so the partitions' blocks concatenate over rows and one
+    ``concat`` combine carries all K factors."""
+    lead = blocks.shape[:-1]
+    K, n, k = Ys.shape
+    idx, val, msk = unpack_csr_block(blocks.reshape(-1, blocks.shape[-1]))
+    R, w = idx.shape
+    lanes = (torch.arange(K, device=idx.device, dtype=idx.dtype) * n).view(K, 1, 1)
+    Yq = _gather_masked((idx.unsqueeze(0) + lanes).reshape(K * R, w),
+                        msk.repeat(K, 1), Ys.reshape(K * n, k))
+    A = torch.bmm(Yq.transpose(1, 2), Yq)
+    A.view(K, R, k, k).diagonal(dim1=-2, dim2=-1).add_(lams.view(K, 1, 1))
+    b = torch.bmm(Yq.transpose(1, 2), (val * msk).repeat(K, 1).unsqueeze(-1))
+    x = _solve(A, b).view(K, R, k)
+    return x.transpose(0, 1).reshape(*lead, K, k)
+
+
 class BroadcastALS(NumericAlgorithm[ALSParameters, MatrixFactorizationModel]):
     """Instance-based Estimator: ``BroadcastALS(rank=10).fit(packed,
     data_transposed=packed_T) -> (U, V) model``."""
@@ -187,17 +216,7 @@ class BroadcastALS(NumericAlgorithm[ALSParameters, MatrixFactorizationModel]):
         p = self.params
         m, n = data.num_rows, data_transposed.num_rows
         dev = data.device
-        if init_factors is None:
-            gen = torch.Generator(device=dev).manual_seed(p.seed)
-            U = torch.rand((m, p.rank), generator=gen, device=dev)
-            V = torch.rand((n, p.rank), generator=gen, device=dev)
-        else:
-            U, V = (on_device(f, dev).to(torch.float32) for f in init_factors)
-            if tuple(U.shape) != (m, p.rank) or tuple(V.shape) != (n, p.rank):
-                raise ValueError(
-                    f"init_factors {tuple(U.shape)}, {tuple(V.shape)} must be "
-                    f"({m}, {p.rank}), ({n}, {p.rank})")
-
+        U, V = self._init(p, m, n, dev, init_factors)
         runner = DistributedRunner.for_table(data, schedule=p.schedule)
         for _ in range(p.max_iter):
             U = runner.partition_apply(data.data, _local_als, (V, p.lam),
@@ -205,6 +224,23 @@ class BroadcastALS(NumericAlgorithm[ALSParameters, MatrixFactorizationModel]):
             V = runner.partition_apply(data_transposed.data, _local_als,
                                        (U, p.lam), combine="concat")
         return MatrixFactorizationModel(U, V, p)
+
+    @staticmethod
+    def _init(p: ALSParameters, m: int, n: int, dev: torch.device,
+              init_factors: Optional[Sequence[torch.Tensor]]):
+        """(U0, V0): ``init_factors`` on ``dev``, or uniform in [0, 1) from
+        a ``torch.Generator`` on ``dev`` seeded from ``p.seed``."""
+        if init_factors is None:
+            gen = torch.Generator(device=dev).manual_seed(p.seed)
+            U = torch.rand((m, p.rank), generator=gen, device=dev)
+            V = torch.rand((n, p.rank), generator=gen, device=dev)
+            return U, V
+        U, V = (on_device(f, dev).to(torch.float32) for f in init_factors)
+        if tuple(U.shape) != (m, p.rank) or tuple(V.shape) != (n, p.rank):
+            raise ValueError(
+                f"init_factors {tuple(U.shape)}, {tuple(V.shape)} must be "
+                f"({m}, {p.rank}), ({n}, {p.rank})")
+        return U, V
 
     def rebuild(self, partial) -> MatrixFactorizationModel:
         return MatrixFactorizationModel(partial["U"], partial["V"], self.params)
@@ -220,3 +256,48 @@ class BroadcastALS(NumericAlgorithm[ALSParameters, MatrixFactorizationModel]):
             f"{cls.__name__}.train(data, params, data_transposed)",
             f"{cls.__name__}(params).fit(data, data_transposed=…)")
         return cls(params).fit(data, data_transposed=data_transposed)
+
+    @classmethod
+    def train_stacked(cls, data: MLNumericTable, params_list: list,
+                      data_transposed: MLNumericTable, *,
+                      init_factors: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                      ) -> list:
+        """Factor the SAME ratings under K configs at once (model search
+        over ``lam`` / ``seed``).  ``rank`` and ``max_iter`` must agree
+        across configs.  ``init_factors`` is one ``(U0, V0)`` per config
+        (else each config draws its own from its seed, as :meth:`fit`
+        does).  Each half-sweep solves all K lanes in one batch
+        (:func:`_local_als_stacked`) and broadcasts them with ONE
+        ``concat`` combine.  Returns one :class:`MatrixFactorizationModel`
+        per config, each within fp32 rounding of its solo fit."""
+        ps = [p or cls.default_parameters() for p in params_list]
+        if not ps:
+            raise ValueError("params_list must not be empty")
+        for field in ("rank", "max_iter"):
+            vals = {getattr(p, field) for p in ps}
+            if len(vals) > 1:
+                raise ValueError(
+                    f"stacked ALS trials must share {field}, got {sorted(vals)}"
+                    f" — run ragged configs in separate calls")
+        if init_factors is not None and len(init_factors) != len(ps):
+            raise ValueError(f"init_factors has {len(init_factors)} pairs for "
+                             f"{len(ps)} configs")
+        p0 = ps[0]
+        m, n, dev = data.num_rows, data_transposed.num_rows, data.device
+        inits = [cls._init(p, m, n, dev, None if init_factors is None else init_factors[i])
+                 for i, p in enumerate(ps)]
+        U = torch.stack([u for u, _ in inits])                  # (K, m, rank)
+        V = torch.stack([v for _, v in inits])                  # (K, n, rank)
+        del inits
+        lams = torch.tensor([p.lam for p in ps], dtype=torch.float32, device=dev)
+        runner = DistributedRunner.for_table(data, schedule=p0.schedule)
+
+        def half_sweep(ratings: MLNumericTable, fixed: torch.Tensor) -> torch.Tensor:
+            rows_major = runner.partition_apply(
+                ratings.data, _local_als_stacked, (fixed, lams), combine="concat")
+            return rows_major.transpose(0, 1).contiguous()       # (K, rows, rank)
+
+        for _ in range(p0.max_iter):
+            U = half_sweep(data, V)
+            V = half_sweep(data_transposed, U)
+        return [MatrixFactorizationModel(U[i], V[i], ps[i]) for i in range(len(ps))]

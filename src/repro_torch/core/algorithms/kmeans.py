@@ -3,8 +3,9 @@
 
 Counterpart: ``src/repro/core/algorithms/kmeans.py`` (parameters, model,
 ``_assign``, ``_local_stats``, ``_centroid_update``, ``fit``,
-``fit_stream`` and ``stream_state_template``; ``trial_spec`` waits for the
-model-search slice).
+``fit_stream``, ``stream_state_template``, and the trial form:
+``_trial_stats``, ``_trial_update``, ``_silhouette_score``,
+``trial_spec``).
 
 Lloyd's algorithm in MLI primitives: :func:`_local_stats` computes every
 partition's (per-cluster sum, count) statistics against the current
@@ -18,8 +19,11 @@ near-ties only: the default is the direct difference form
 launch per round for all partitions.
 
 Initialisation differs from the reference, which draws rows with
-``jax.random.permutation``: ``fit`` draws ``k`` distinct rows with a
-``torch.Generator`` seeded from ``seed``, or starts from ``init_centroids``.
+``jax.random.permutation``: ``fit`` and a trial's ``init`` draw ``k``
+distinct rows with ``torch.randperm`` on a ``torch.Generator`` seeded from
+``seed``; ``fit`` also starts from ``init_centroids``.  A trial is scored
+lane by lane with ``silhouette_lite``, so its score never depends on the
+stack.
 """
 from __future__ import annotations
 
@@ -30,7 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.collectives import CollectiveSchedule
-from repro_torch.core.interfaces import Model, NumericAlgorithm, StreamFitable
+from repro_torch.core.interfaces import (
+    Model,
+    NumericAlgorithm,
+    Searchable,
+    StreamFitable,
+)
 from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.core.runner import CheckpointPolicy, DistributedRunner
 from repro_torch.device import resolve_device, to_tensor
@@ -114,7 +123,39 @@ def _centroid_update(centroids: torch.Tensor, tot: torch.Tensor) -> torch.Tensor
                        centroids)
 
 
-class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable):
+# --------------------------------------------------------------------------- #
+# trial form (model search; repro_torch.tune)
+# --------------------------------------------------------------------------- #
+def _trial_stats(blocks: torch.Tensor, centroids: torch.Tensor, r: int,
+                 hyper: dict) -> torch.Tensor:
+    """Lloyd statistics in trial form: k-means has no continuous
+    hyperparameters, so ``hyper`` is empty and trials differ only in their
+    seeded init (and ``k``, in the stack key)."""
+    return _local_stats(blocks, centroids)
+
+
+def _trial_update(centroids: torch.Tensor, tot: torch.Tensor, r: int,
+                  hyper: dict) -> torch.Tensor:
+    return _centroid_update(centroids, tot)
+
+
+def _silhouette_score(val_table, centroids, schedule) -> torch.Tensor:
+    """(K,) ``silhouette_lite`` scores of stacked centroids (K, k, d), one
+    lane at a time."""
+    from repro_torch.eval import metrics as M
+
+    return torch.stack([M.silhouette_lite(val_table, c, schedule=schedule)
+                        for c in centroids])
+
+
+def _init_rows(seed: int, n: int, k: int) -> torch.Tensor:
+    """``k`` distinct row indices of ``n``: ``torch.randperm`` on a CPU
+    generator seeded from ``seed`` (the port's k-means init)."""
+    return torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:k]
+
+
+class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
+             Searchable):
     """Instance-based Estimator: ``KMeans(k=4, seed=0).fit(table) ->
     KMeansModel``."""
 
@@ -131,9 +172,7 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable):
         if p.k > n:
             raise ValueError("k exceeds number of rows")
         if init_centroids is None:
-            gen = torch.Generator().manual_seed(p.seed)
-            rows = torch.randperm(n, generator=gen)[: p.k]
-            centroids = data.data[rows.to(data.device)]
+            centroids = data.data[_init_rows(p.seed, n, p.k).to(data.device)]
         else:
             centroids = torch.as_tensor(init_centroids).to(
                 device=data.device, dtype=data.data.dtype)
@@ -160,6 +199,33 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable):
         """Shape and dtype template of the streaming carry (the centroids)
         for a table of ``num_cols`` feature columns."""
         return torch.zeros((self.params.k, num_cols), dtype=torch.float32)
+
+    @classmethod
+    def trial_spec(cls, config: dict, metric: str = "silhouette"):
+        """One model-search trial (:mod:`repro_torch.tune`) over ``seed``
+        (restarts) and ``k``: same-``k`` trials stack; different ``k`` are
+        ragged.  Scored with ``silhouette_lite`` on the validation view.
+        The kernel path is refused, as in the reference."""
+        from repro_torch.tune.trials import TrialSpec
+
+        p = dataclasses.replace(cls.default_parameters(), **config)
+        if metric != "silhouette":
+            raise ValueError(f"unknown kmeans metric {metric!r} (silhouette)")
+        if p.use_kernel:
+            raise ValueError("model search does not stack the kernel "
+                             "assignment")
+
+        def init(table) -> torch.Tensor:
+            if p.k > table.num_rows:
+                raise ValueError("k exceeds rows in the training view")
+            rows = _init_rows(p.seed, table.num_rows, p.k)
+            return table.data[rows.to(table.device)]
+
+        return TrialSpec(
+            config=dict(config), hyper={}, init=init,
+            local_step=_trial_stats, combine="sum", update=_trial_update,
+            stack_key=("kmeans", int(p.k)), score=_silhouette_score,
+            finalize=lambda c: KMeansModel(c, p))
 
     def fit_stream(self, stream, *, num_epochs: Optional[int] = None,
                    num_shards: int = 1,

@@ -1,9 +1,9 @@
 """Logistic regression via partition-local SGD (paper §IV-A, Fig. A4).
 
 Counterpart: ``src/repro/core/algorithms/logistic_regression.py``
-(parameters, model, ``_make_gradient``, ``fit``, ``fit_stream`` and
-``stream_state_template``; ``trial_spec`` waits for the model-search
-slice).
+(parameters, model, ``_make_gradient``, ``fit``, ``fit_stream``,
+``stream_state_template``, and the trial form: ``_hyper_gradient``,
+``_trial_round``, ``_scorer``, ``trial_spec``).
 
 Library convention (as in Fig. A4): the table carries the label in column 0
 and the features in columns 1..d.  The paper's gradient closure
@@ -22,6 +22,11 @@ reference, the kernel path drops ``l2`` (``l1`` still applies, as a prox).
 ``fit_stream`` trains the same SGD from a stream of windows; its chunks
 are views of the window with a partition stride, which the kernels take
 as they are.
+
+The trial form (model search) adds L2 as ``m·l2·W`` per lane to the chunk
+sum — the step the GLMs take (`linear_models.py`) — and, like the reference,
+refuses ``use_kernel``.  Its scorer predicts each lane with its own
+``X @ w``, so a lane's score never depends on the stack.
 """
 from __future__ import annotations
 
@@ -31,13 +36,19 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.collectives import CollectiveSchedule
-from repro_torch.core.interfaces import Model, NumericAlgorithm, StreamFitable
+from repro_torch.core.interfaces import (
+    Model,
+    NumericAlgorithm,
+    Searchable,
+    StreamFitable,
+)
 from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.core.optimizer import (
     GradientDescent,
     GradientDescentParameters,
     StochasticGradientDescent,
     StochasticGradientDescentParameters,
+    sgd_trial_round,
     soft_threshold,
 )
 from repro_torch.kernels import logreg_grad as klg
@@ -114,9 +125,64 @@ def _make_gradient(p: LogisticRegressionParameters):
     return gradient
 
 
+# --------------------------------------------------------------------------- #
+# trial form (model search; repro_torch.tune)
+# --------------------------------------------------------------------------- #
+def _hyper_gradient(chunks: torch.Tensor, W: torch.Tensor, hyper: dict
+                    ) -> torch.Tensor:
+    """The chunk gradient with L2 as a hyperparameter: each partition's sum
+    of the paper's row gradients plus ``m·l2·W`` (``l2 = 0`` adds zeros,
+    so regularized and unregularized configs share one stack)."""
+    g = klg.logreg_grad_plain(chunks[..., 1:], chunks[..., 0], W)
+    return g + (chunks.shape[-2] * hyper["l2"]) * W
+
+
+# one local round per local_batch_size: every trial of a stack group (and
+# every fold and rung segment) shares the same function object
+_TRIAL_ROUNDS: dict = {}
+
+
+def _trial_round(local_batch_size: int):
+    if local_batch_size not in _TRIAL_ROUNDS:
+        _TRIAL_ROUNDS[local_batch_size] = sgd_trial_round(
+            _hyper_gradient, local_batch_size)
+    return _TRIAL_ROUNDS[local_batch_size]
+
+
+_SCORERS: dict = {}
+
+
+def _scorer(metric: str):
+    """``(val_table, stacked W (K, d), schedule) -> (K,)`` higher-is-better
+    scores (:mod:`repro_torch.eval.metrics`), lane by lane."""
+    if metric in _SCORERS:
+        return _SCORERS[metric]
+    from repro_torch.eval import metrics as M
+
+    if metric == "accuracy":
+        def one(val_table, w, schedule):
+            return M.accuracy(
+                val_table,
+                lambda X: (torch.sigmoid(X @ w) > 0.5).to(torch.float32),
+                schedule=schedule)
+    elif metric == "log_loss":
+        def one(val_table, w, schedule):
+            return -M.log_loss(val_table, lambda X: torch.sigmoid(X @ w),
+                               schedule=schedule)
+    else:
+        raise ValueError(
+            f"unknown logreg metric {metric!r} (accuracy | log_loss)")
+
+    def score(val_table, W, schedule):
+        return torch.stack([one(val_table, w, schedule) for w in W])
+
+    _SCORERS[metric] = score
+    return score
+
+
 class LogisticRegressionAlgorithm(
     NumericAlgorithm[LogisticRegressionParameters, LogisticRegressionModel],
-    StreamFitable,
+    StreamFitable, Searchable,
 ):
     """Instance-based Estimator: ``LogisticRegression(learning_rate=0.3)
     .fit(table) -> LogisticRegressionModel``.  The model's weights are fp32
@@ -153,6 +219,39 @@ class LogisticRegressionAlgorithm(
         ``num_cols`` columns (label included) — what a checkpointed
         pipeline restores into (on the CPU: only its structure is read)."""
         return torch.zeros((num_cols - 1,), dtype=torch.float32)
+
+    @classmethod
+    def trial_spec(cls, config: dict, metric: str = "accuracy"):
+        """One model-search trial (:mod:`repro_torch.tune`): ``config``
+        overrides :class:`LogisticRegressionParameters` fields;
+        ``learning_rate``, ``lr_decay``, ``l1`` and ``l2`` ride in the
+        trial's hyper tree (0-d fp32 CPU tensors), so configs differing
+        only there stack; ``local_batch_size`` changes the fold and rides
+        in the stack key.  Only the paper's ``"sgd"`` solver is searchable,
+        and not the kernel path (its L2 is dropped, as in the reference)."""
+        from repro_torch.tune.trials import TrialSpec
+
+        p = dataclasses.replace(cls.default_parameters(), **config)
+        if p.solver != "sgd":
+            raise ValueError(
+                f"model search supports solver='sgd' only, got {p.solver!r}")
+        if p.use_kernel:
+            raise ValueError("model search does not stack the kernel "
+                             "gradient (its L2 term is not a hyperparameter)")
+        hyper = {name: torch.tensor(float(v), dtype=torch.float32)
+                 for name, v in (("lr", p.learning_rate), ("decay", p.lr_decay),
+                                 ("l1", p.l1), ("l2", p.l2))}
+
+        def init(table) -> torch.Tensor:
+            return torch.zeros((table.num_cols - 1,), dtype=torch.float32,
+                               device=table.device)
+
+        return TrialSpec(
+            config=dict(config), hyper=hyper, init=init,
+            local_step=_trial_round(p.local_batch_size), combine="mean",
+            stack_key=("logreg", "sgd", int(p.local_batch_size)),
+            score=_scorer(metric),
+            finalize=lambda w: LogisticRegressionModel(p, w))
 
     def fit_stream(self, stream, *, num_epochs: Optional[int] = None,
                    num_features: Optional[int] = None, num_shards: int = 1,

@@ -12,10 +12,10 @@ Fitted objects expose ``partial`` (their state as a dict of tensors) and
 estimators ``rebuild(partial)`` a fitted object from it.  Featurizers are
 ``Transformer``s whose ``fit`` returns a ``FittedTransformer``; a pipeline composes them with one terminal
 estimator.  ``StreamFitable`` marks an estimator that trains from a stream
-of per-epoch windows.  ``Algorithm`` keeps the reference's deprecated
-classmethod spellings, ``train`` and ``defaultParameters``, as shims that
-warn and delegate, and its quiet ``train_stream``.  The search mixin waits
-for the model-search slice.
+of per-epoch windows, ``Searchable`` one that describes a model-search
+trial (:mod:`repro_torch.tune`).  ``Algorithm`` keeps the reference's
+deprecated classmethod spellings, ``train`` and ``defaultParameters``, as
+shims that warn and delegate, and its quiet ``train_stream``.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Any, ClassVar, Generic, Optional, TypeVar
 
 import torch
 
-__all__ = ["Estimator", "FittedEstimator", "StreamFitable", "Transformer",
+__all__ = ["Estimator", "FittedEstimator", "StreamFitable", "Searchable", "Transformer",
            "FittedTransformer", "Algorithm", "NumericAlgorithm", "Model"]
 
 P_ = TypeVar("P_")  # hyperparameter dataclass
@@ -87,6 +87,17 @@ class StreamFitable(abc.ABC):
 
     @abc.abstractmethod
     def fit_stream(self, stream: Any, **kwargs: Any) -> FittedEstimator:
+        ...
+
+
+class Searchable(abc.ABC):
+    """Capability mixin: the estimator describes one model-search trial as
+    a :class:`repro_torch.tune.trials.TrialSpec` (stackable where shapes
+    allow; see :mod:`repro_torch.tune`)."""
+
+    @classmethod
+    @abc.abstractmethod
+    def trial_spec(cls, config: dict, metric: Optional[str] = None):
         ...
 
 

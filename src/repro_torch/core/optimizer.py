@@ -2,7 +2,8 @@
 
 Counterpart: ``src/repro/core/optimizer.py`` (``soft_threshold``,
 ``StochasticGradientDescent`` with ``_local_round`` and ``apply_stream``,
-``GradientDescent``, ``MinibatchSGD`` and ``_stream_fit``).
+``GradientDescent``, ``MinibatchSGD``, ``_stream_fit`` and
+``sgd_trial_round``).
 
   * ``StochasticGradientDescent`` — Fig. A4: partition-local SGD over the
     rows in sub-batches of ``local_batch_size``, then averaging;
@@ -24,7 +25,7 @@ rows' gradients.  ``w`` is ``(d,)`` when all partitions share it (GD) or
 minibatch steps divide by ``m`` (the rows of the minibatch) — the
 reference's mean — and GD uses the sum directly.  Not ported yet: the
 streaming paths' stale-synchronous lane (``store``, ``staleness``),
-``allow_resize`` and ``trace``, and the trial-stackable round.
+``allow_resize`` and ``trace``.
 """
 from __future__ import annotations
 
@@ -47,12 +48,15 @@ __all__ = [
     "MinibatchSGDParameters",
     "MinibatchSGD",
     "soft_threshold",
+    "sgd_trial_round",
 ]
 
 # grad_fn(chunks (P, m, cols), w (d,) | (P, d)) -> (P, d) per-partition sum
 GradFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # prox_fn(weights, step) -> weights  (proximal operator, e.g. L1 soft-threshold)
 ProxFn = Callable[[torch.Tensor, float], torch.Tensor]
+# hyper_grad(chunks (P, m, cols), W (P, d), hyper) -> (P, d) per-partition sum
+HyperGradFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
 
 
 def soft_threshold(lam: float) -> ProxFn:
@@ -102,6 +106,46 @@ def _stream_fit(stream, w_init: torch.Tensor, num_epochs: int, local_round,
                              combine="mean",
                              chunks_per_epoch=chunks_per_epoch or 1,
                              checkpoint=checkpoint)
+
+
+# --------------------------------------------------------------------------- #
+# trial-stackable SGD round (model search; repro_torch.tune)
+# --------------------------------------------------------------------------- #
+def sgd_trial_round(grad: HyperGradFn, local_batch_size: int = 1):
+    """Trial form of the Fig. A4 partition-local SGD pass: the fold over
+    rows of :meth:`StochasticGradientDescent._local_round`, with every
+    hyperparameter read from the trial's ``hyper`` tree of 0-d tensors:
+
+      * ``hyper["lr"]`` / ``hyper["decay"]`` — the round's step
+        ``lr * decay**r`` (r the trial-local round);
+      * ``hyper["l1"]`` — the L1 soft threshold after every step; at
+        ``l1 = 0`` it is the exact identity (sign(w)·max(|w| − 0, 0) = w
+        bit for bit), so unregularized configs stack with regularized ones;
+      * anything ``grad(chunks, W, hyper)`` reads (e.g. ``hyper["l2"]``).
+
+    ``grad`` keeps the port's chunk-sum contract (module docstring).
+    Returns ``local_round(blocks (P, rows, cols), w (d,), r, hyper) ->
+    (P, d)``, one trial's round; the stacked runner calls it lane by lane.
+    """
+    bs = int(local_batch_size)
+
+    def local_round(blocks: torch.Tensor, w: torch.Tensor, r: int,
+                    hyper: dict) -> torch.Tensor:
+        num_parts, rows = blocks.shape[0], blocks.shape[1]
+        if rows % bs != 0:
+            raise ValueError(
+                f"rows-per-shard {rows} must be divisible by "
+                f"local_batch_size {bs}")
+        lr = hyper["lr"] * hyper["decay"] ** r
+        t = hyper["l1"] * lr
+        W = w.expand(num_parts, -1).clone()
+        for start in range(0, rows, bs):
+            g = grad(blocks[:, start:start + bs], W, hyper) / bs
+            W = W - lr * g
+            W = torch.sign(W) * torch.clamp(torch.abs(W) - t, min=0.0)
+        return W
+
+    return local_round
 
 
 # --------------------------------------------------------------------------- #

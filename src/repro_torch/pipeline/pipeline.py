@@ -4,9 +4,9 @@ Counterpart: ``src/repro/pipeline/pipeline.py`` (``Pipeline`` and
 ``FittedPipeline``: ``fit``, ``fit_stream``, ``transform``,
 ``featurize_rows``, ``apply_features``, ``predict``, ``__getitem__``,
 ``describe``, ``partial``, ``estimator``, ``stage_names``, ``save``,
-``load`` and the restore helpers ``_stage_templates``, ``_rebuild_stages``
-and ``_restore_stages``).  The search plumbing (``split_config``,
-``with_stage_config``) waits for the model-search slice.
+``load``, the restore helpers ``_stage_templates``, ``_rebuild_stages``
+and ``_restore_stages``, and the search plumbing ``split_config`` and
+``with_stage_config``, which :class:`repro_torch.tune.ModelSearch` reads).
 
 ``Pipeline([NGrams(...), TfIdf(), Standardizer(), LogisticRegression(...)])``
 composes fitted transformers and a terminal estimator:
@@ -300,6 +300,42 @@ class Pipeline(Estimator, StreamFitable):
                  sorted(self._estimator.overrides().items())}
                 if isinstance(self._estimator, Algorithm) else {}]
         return desc
+
+    def split_config(self, config: Dict[str, Any]
+                     ) -> Tuple[Dict[str, Dict[str, Any]], Dict[str, Any]]:
+        """Split a nested search config (``{"ngrams.top": 32,
+        "logreg.learning_rate": 0.3}``) into per-transformer overrides and
+        the estimator config.  Bare keys go to the estimator."""
+        stage_names = set(self.stage_names())
+        feat: Dict[str, Dict[str, Any]] = {}
+        est: Dict[str, Any] = {}
+        for key, v in config.items():
+            if "." in key:
+                stage, param = key.split(".", 1)
+                if stage == self._estimator_name:
+                    est[param] = v
+                elif stage in stage_names:
+                    feat.setdefault(stage, {})[param] = v
+                else:
+                    raise KeyError(
+                        f"config key {key!r} addresses unknown stage "
+                        f"{stage!r} (stages: {sorted(stage_names)}, "
+                        f"estimator: {self._estimator_name!r})")
+            else:
+                est[key] = v
+        return feat, est
+
+    def with_stage_config(self, feat_cfgs: Dict[str, Dict[str, Any]]
+                          ) -> "Pipeline":
+        """A clone with transformer hyperparameters replaced (the estimator
+        instance is shared — its trials carry their own config)."""
+        stages: List[Any] = [
+            (n, s.clone_with(**feat_cfgs[n]) if n in feat_cfgs else s)
+            for n, s in self._stages]
+        if self._estimator is not None:
+            stages.append((self._estimator_name, self._estimator))
+        return Pipeline(stages, num_shards=self.num_shards, device=self.device,
+                        supervised=self.supervised)
 
     # ------------------------------------------------------------------ #
     # tier plumbing

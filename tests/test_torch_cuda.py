@@ -1769,3 +1769,88 @@ def test_bf16_state_round_trips_the_store_on_the_card(tmp_path):
                            v.is_floating_point() else got[k],
                            v.view(torch.uint8) if v.dtype.itemsize == 1 and
                            v.is_floating_point() else v)
+
+
+# --------------------------------------------------------------------------- #
+# model search (sixteenth slice): stacked == sequential bitwise on the card
+# --------------------------------------------------------------------------- #
+def _search_table(device, kind, rows=256, d=40, shards=4):
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(rows, d)).astype(np.float32)
+    if kind == "kmeans":
+        X[: rows // 2] += 3.0
+        return MLNumericTable.from_numpy(X, num_shards=shards, device=device)
+    y = (X @ np.linspace(-1, 1, d).astype(np.float32) > 0).astype(np.float32)
+    return MLNumericTable.from_numpy(np.concatenate([y[:, None], X], 1),
+                                     num_shards=shards, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["logreg", "kmeans"])
+def test_search_stacked_equals_sequential_bitwise_on_the_card(kind):
+    """A lane runs its trial's launches alone, so on the card too a stacked
+    search equals the sequential one bit for bit — weights, scores and the
+    winner — and no kernel of the port launches (the trial forms refuse the
+    kernel paths, as the reference's do).  A logistic trial equals its
+    estimator's fit on the train view bit for bit."""
+    from repro_torch.tune import ModelSearch, fold_view, grid, holdout_split
+
+    _need_card()
+    table = _search_table("cuda", kind)
+    configs = (grid({"learning_rate": [0.05, 0.1, 0.3], "l2": [0.0, 0.01],
+                     "local_batch_size": [4]}) if kind == "logreg"
+               else grid({"k": [2, 3], "seed": [0, 1, 2]}))
+    tk.reset_launch_counts()
+    runs = [ModelSearch(kind, configs, num_epochs=3, chunks_per_epoch=2, folds=2,
+                        execution=mode, seed=0).run(table)
+            for mode in ("stacked", "sequential")]
+    assert all(v == 0 for v in tk.launch_counts().values())
+    for a, b in zip(*(r.trials for r in runs)):
+        assert a.state.device.type == "cuda"
+        assert a.rung_scores == b.rung_scores and torch.equal(a.state, b.state)
+    assert runs[0].best.index == runs[1].best.index
+    if kind == "logreg":
+        res = ModelSearch(kind, configs, num_epochs=3, seed=0).run(table)
+        view = fold_view(table, holdout_split(table.num_rows, 0.25, 0)[0])
+        for t in res.trials:
+            solo = LogisticRegression(max_iter=3, schedule="allreduce", **t.config).fit(view)
+            assert torch.equal(solo.weights, t.state)
+
+
+@pytest.mark.cuda
+def test_asha_stacked_equals_sequential_bitwise_on_the_card():
+    from repro_torch.tune import AsyncSuccessiveHalving, ModelSearch, sample
+
+    _need_card()
+    table = _search_table("cuda", "logreg")
+    configs = sample({"learning_rate": ("loguniform", 0.01, 1.0), "l2": [0.0, 0.01]},
+                     12, seed=0)
+    runs = [ModelSearch("logreg", configs, num_epochs=9, execution=mode, seed=0,
+                        early_stop=AsyncSuccessiveHalving(3, 1, slots=4)).run(table)
+            for mode in ("auto", "sequential")]
+    assert [(t.index, t.stopped, t.rung_scores) for t in runs[0].trials] == \
+           [(t.index, t.stopped, t.rung_scores) for t in runs[1].trials]
+    for a, b in zip(*(r.trials for r in runs)):
+        assert torch.equal(a.state, b.state)
+
+
+@pytest.mark.cuda
+def test_train_stacked_lane_matches_the_solo_fit_on_the_card():
+    """``train_stacked``'s lanes share one batched solve: lane j is held to
+    the solo fit from the same init at 1e-3 of max |U| (the ALS fit's
+    tolerance); the lanes differ with λ; no kernel of the port launches."""
+    from repro_torch.core.algorithms.als import ALSParameters
+
+    _need_card()
+    data, data_t, (r, c, v) = _als_tables("cuda", 4)
+    ps = [ALSParameters(rank=10, lam=lam, max_iter=5, seed=s)
+          for lam, s in ((0.01, 0), (0.1, 0), (0.03, 1))]
+    tk.reset_launch_counts()
+    models = BroadcastALS.train_stacked(data, ps, data_t)
+    assert all(v == 0 for v in tk.launch_counts().values())
+    for p, m in zip(ps, models):
+        solo = BroadcastALS(p).fit(data, data_transposed=data_t)
+        for a, b in ((m.U, solo.U), (m.V, solo.V)):
+            assert a.device.type == "cuda"
+            assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
+    assert not torch.allclose(models[0].U, models[1].U)

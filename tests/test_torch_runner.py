@@ -49,14 +49,16 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
-    # the Fig. A2 and the streaming slices' modules are among the files checked
+    # the Fig. A2, the streaming and the model-search slices' modules are
+    # among the files checked
     port = REPO / "src" / "repro_torch"
     for name in ("core/schema.py", "core/mltable.py", "core/local_matrix.py",
                  "features/__init__.py", "features/scaling.py", "features/text.py",
                  "eval/__init__.py", "eval/metrics.py", "pipeline/__init__.py",
                  "pipeline/pipeline.py", "checkpoint/__init__.py",
                  "checkpoint/store.py", "data/__init__.py", "data/pipeline.py",
-                 "launch/fit.py"):
+                 "launch/fit.py", "tune/__init__.py", "tune/cv.py", "tune/trials.py",
+                 "tune/callback.py", "tune/search.py", "launch/tune.py"):
         assert port / name in files, name
     for path in files:
         for name in _imports(path):
