@@ -248,7 +248,7 @@ Phases (each one that fails makes the script exit non-zero):
                 (NB_TOL) and with 1 partition, accuracy > 0.9, 256 served
                 requests bitwise the offline prediction.
  20. Fig. A2   — the paper's own program end to end, between phases 21
-                and 8: 16,384 labeled raw-text docs of
+                and 8: 8,192 labeled raw-text docs of
                 128 words (fig_corpus; cut from 32,768 for the run's time)
                 through two pipelines of
                 8 partitions on the card: (a) NGrams(n=2, top=30,000) ->
@@ -259,7 +259,7 @@ Phases (each one that fails makes the script exit non-zero):
                 Checked: the launches of kernels 1-3 on this path and no
                 other kernel; the vocabulary 30,000 bigrams; (b) bitwise its
                 hand-composed chain (statistics, weights, predictions); the
-                tables (16,384 x 30,000 and x 30,001, fp32) and (b)'s IDF
+                tables (8,192 x 30,000 and x 30,001, fp32) and (b)'s IDF
                 weights, tf-idf rows, shift and scale against fp64 on the
                 card (FIG_TOL); (a)'s centroids within 1e-3 of plain rounds
                 in kmeans_assign's order, the three schedules' inertia
@@ -268,15 +268,15 @@ Phases (each one that fails makes the script exit non-zero):
                 use_kernel=False fit, and the same fit on the table rounded
                 to bf16 beyond FIG_TOL; every served result bitwise
                 the offline prediction.  Printed: the seconds of each stage,
-                serving latency, the memo's hits and misses, kernels 1-3 at
-                this path's shapes beside their plain versions, library
-                calls and bounds, the peak memory.  It runs after phase 21.
+                serving latency, the memo's hits and misses, the peak
+                memory (kernels 1-3 at this path's shapes: phase 25).  It
+                runs after phase 21.
  22. streaming + checkpoint — right after phase 20 (before phase 8): the
                 port's streaming epochs, atomic checkpoints and exact resume
                 on kernels 1-3 at the paper's widths.  (a) Logistic
                 regression at 160,000 features from windows of 4,096 rows
                 (8 partitions, 4 rounds an epoch, one SGD step of 128 rows a
-                partition a round; window step mod 4 of a 10.5 GB pool made
+                partition a round; window step mod 2 of a 5.2 GB pool made
                 on the card from the seed and kept in pinned host memory),
                 16 epochs: leg 1 uninterrupted in this process; leg 2 the
                 same fit in a child process (chip_smoke.py --stream-child)
@@ -297,11 +297,10 @@ Phases (each one that fails makes the script exit non-zero):
                 pipeline's offline predictions.  (d) python -m
                 repro_torch.launch.fit --algorithm kmeans with --ckpt-dir in
                 a child process (on the card), then with --resume (prints
-                "resuming from step ..."), beside the rest of the phase.
+                "resuming from step ..."), started with phase 20.
                 Printed: host->device GB/s and s an epoch, snapshot write ms
-                and resume s, peak memory, kernels 1-3 at the stream's
-                shapes beside their plain versions, library calls and
-                bounds, launches by kernel.
+                and resume s, peak memory, launches by kernel (kernels 1-3
+                at the stream's shapes: phase 25).
  23. model search — right after phase 22 (before phase 8); no kernel of
                 the port runs here (the trial forms refuse the kernel paths,
                 as the reference's do), and the phase checks that none
@@ -318,7 +317,7 @@ Phases (each one that fails makes the script exit non-zero):
                 six runs, scores across schedules within 1e-4; then a
                 median-rule search with record_evaluation, one epoch a rung:
                 a frozen lane keeps its bits, the history equals the rung
-                scores.  (b) ASHA on (a)'s table: 32 configs sampled (lr
+                scores.  (b) ASHA on (a)'s table: 16 configs sampled (lr
                 loguniform 0.01..1, l2 0 or 0.01), reduction factor 3, 8
                 slots, 9 epochs (rungs 1, 3, 9): stacked and sequential make
                 the same (trial, rungs, stopped) sequence with bitwise
@@ -333,21 +332,66 @@ Phases (each one that fails makes the script exit non-zero):
                 through ModelPredictor bitwise its offline predictions.  (f)
                 python -m repro_torch.launch.tune killed by SIGKILL after
                 its third trial, then --resume, in child processes started
-                with phase 22 (their start-up runs beside phases 22 and 23):
+                with phase 20 (their start-up runs beside phases 20-22):
                 the resumed RESULT line equals an uninterrupted run's (this
                 process).  Printed: each leg's seconds (host
                 clock, ended by a sync), stacked against sequential seconds
                 and trials/s, ASHA's trials evaluated and slot-epochs, the
                 peak memory with its holders.
 
+ 24. mesh mode — right after phase 23 (before phase 8): (a) MESH_HOSTS host
+                processes (python3 chip_smoke.py --mesh-host, started with
+                phase 20 and held until the card is free) x MESH_LOCAL
+                partitions joined by a gloo group on this one card (NCCL
+                refuses two ranks on one GPU; CUDA partials cross through
+                pinned host buffers): each makes its own 32,768 rows of
+                phase 4's table from the seed on the card and runs phase 4's
+                sgd fit through kernels 1-2 under the three schedules —
+                gather_broadcast bitwise phase 4's 8 emulated partitions,
+                allreduce and reduce_scatter within MESH_TOL of max |w| (the
+                distance printed) — then its rows of a {0,1} lattice table
+                (131,072 x 4,096) and k-means k = 50 through kernel 3, every
+                schedule bitwise this process's 1 x 8 emulated fit, and a
+                concat gather bitwise under all three; the gloo combine's ms
+                a round.  (b) An NCCL group of one in this process, 8 local
+                partitions: k-means and logistic regression at (a)'s
+                lattice shape bitwise the emulated fits under every
+                schedule; the group torn down; the same tables fitted with
+                use_kernel=False: logistic regression within FP32_TOL,
+                k-means bitwise or every differing pick a tie within fp32
+                rounding.  (c) repro_torch.launch.fit --algorithm logreg
+                --hosts 2 --staleness 0 at 160,000 features (phase 22's
+                4,096-row windows, drawn on the card by card_windows through
+                python3 chip_smoke.py --fit, which passes them to
+                launch.fit's main): both hosts bitwise each other
+                and a sequential replay of both here; then --staleness 1
+                with a delay fault on host 1: every traced read within the
+                bound, host 0's waits printed.  (d) launch.fit --hosts 2
+                --devices-per-host 4 --elastic with host 1 SIGKILLed at step
+                MESH_KILL: generation 1 (1 host x 4 partitions) resumes with
+                allow_resize, bitwise a 1-host resume of the same snapshot
+                here; the restart latency printed.  (c) and (d) run in
+                threads started with phase 20.  The mesh path's launches of
+                kernels 1-3 ((a)'s hosts' and (b)'s mesh fits) go under
+                launches_by_path["mesh"].
+ 25. kernels 1-3 at the shapes of phases 20, 22 and 24 — right after
+                phase 24, once every child process has ended, so that no
+                other work shares the card: each held against its plain
+                version and timed beside it, the library call where there
+                is one and the bound (phase 24's: (a)'s per-host chunks,
+                (b)'s, (c)'s and (d)'s).
+
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
-then phase 21, then phase 20, then phase 22, then phase 23, then phase 8,
+then phase 21, then phase 20, then phase 22, then phase 23, then phase 24,
+then phase 8,
 then phase 11, then phase 14, then phase 18) and read just after it: they
 count those paths only (phases 21 and 23 must launch none; phase 20's launches are added to
-kernels 1-3's records under "fig_a2", phase 22's under "stream"; the
-launches of phase 22's child processes are their own).  A decode step that replays a CUDA graph adds the
+kernels 1-3's records under "fig_a2", phase 22's under "stream", phase
+24's under "mesh": its host processes report theirs, and its emulated
+twins' do not count; the launches of phase 22's child processes are their
+own).  A decode step that replays a CUDA graph adds the
 launches the graph holds (``ServeEngine``), so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
@@ -400,9 +444,9 @@ FP32_TOL = 2e-4      # tests/test_kernels.py's fp32 tolerance
 # stages and parameters of examples/text_pipeline.py); FIG_REQUESTS raw-text
 # requests of 1..FIG_REQ_MAX docs from the first FIG_SERVE_POOL docs to each;
 # fitted.predict replayed on the first FIG_REPLAY raw docs.  FIG_DOCS is cut
-# from 32,768 to 16,384 (the depth, not the 30,000-wide vocabulary) to keep
-# the run within its time with phase 23
-FIG_DOCS, FIG_WORDS, FIG_VOCAB, FIG_TOP, FIG_K, FIG_ROUNDS = 16_384, 128, 4_096, 30_000, 50, 10
+# from 32,768 to 16,384 with phase 23 and to 8,192 with phase 24 (the depth,
+# not the 30,000-wide vocabulary) to keep the run within its time
+FIG_DOCS, FIG_WORDS, FIG_VOCAB, FIG_TOP, FIG_K, FIG_ROUNDS = 8_192, 128, 4_096, 30_000, 50, 10
 FIG_LOGREG = dict(learning_rate=0.5, max_iter=8, local_batch_size=4)
 FIG_REQUESTS, FIG_REQ_MAX, FIG_SERVE_POOL, FIG_REPLAY = 256, 16, 1_024, 4_096
 # phase 20's tolerances, fixed before its first run: against the same
@@ -475,8 +519,9 @@ GLM_TOL = 1e-3
 # STREAM_KM_STOP and resumed.  (c) Fig. A2's demo 3 on the first
 # STREAM_FIG_DOCS docs of fig_corpus's generator (cut from FIG_DOCS for the
 # run's time), STREAM_FIG_EPOCHS epochs of STREAM_FIG_CHUNKS rounds,
-# preempted at STREAM_FIG_STOP
-STREAM_LR_ROWS, STREAM_LR_POOL, STREAM_LR_EPOCHS, STREAM_KILL = 4_096, 4, 16, 8
+# preempted at STREAM_FIG_STOP.  STREAM_LR_POOL is cut from 4 windows to 2
+# with phase 24 (the pool's depth, not the windows' width)
+STREAM_LR_ROWS, STREAM_LR_POOL, STREAM_LR_EPOCHS, STREAM_KILL = 4_096, 2, 16, 8
 STREAM_CHUNKS, STREAM_PLAIN_EPOCHS = 4, 4
 STREAM_LR = dict(learning_rate=1e-7, local_batch_size=128)
 STREAM_KM_ROWS, STREAM_KM_POOL, STREAM_KM_EPOCHS, STREAM_KM_STOP = 131_072, 2, 8, 4
@@ -498,7 +543,8 @@ SEARCH_GRID = {"learning_rate": [0.05, 0.1, 0.2, 0.3], "l2": [0.0, 0.01]}
 SEARCH_LR = dict(local_batch_size=128)
 SEARCH_MEDIAN_LRS = [1e-9, 1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6, 1e-5]
 SEARCH_ASHA_SPACE = {"learning_rate": ("loguniform", 0.01, 1.0), "l2": [0.0, 0.01]}
-SEARCH_ASHA_SAMPLES, SEARCH_ASHA_SLOTS, SEARCH_ASHA_EPOCHS = 32, 8, 9
+# SEARCH_ASHA_SAMPLES cut from 32 to 16 with phase 24 (the pool's depth)
+SEARCH_ASHA_SAMPLES, SEARCH_ASHA_SLOTS, SEARCH_ASHA_EPOCHS = 16, 8, 9
 SEARCH_KM_ROWS, SEARCH_KM_EPOCHS = 131_072, 2
 SEARCH_KM_GRID = {"k": [25, 50], "seed": [0, 1, 2, 3]}
 SEARCH_PIPE_GRID = {"ngrams.top": [10_000, 30_000], "logreg.learning_rate": [0.1, 0.5]}
@@ -518,6 +564,26 @@ SEARCH_CLI_KILL = 3
 # stacked lane 0 against the fit (of max |factor|): the batched solve sees
 # another batch size than the fit's, so phase 21's card-vs-CPU ALS_DEVICE_TOL
 SEARCH_FIT_TOL, SEARCH_SCORE_TOL, ALS_STACKED_TOL = 1e-5, 1e-4, 1e-3
+# phase 24, mesh mode across host processes on this card.  (a) MESH_HOSTS
+# host processes x MESH_LOCAL partitions (gloo: the hosts share the card):
+# phase 4's sgd fit on phase 4's table (each host makes its rows with
+# logreg_rows, generators from MESH_LR_SEED) and k-means on MESH_KM_ROWS
+# {0,1} lattice rows (MESH_KM_SEED), under MESH_SCHEDULES; (b) the same
+# lattice in this process on an NCCL group of one; (c) launch.fit --hosts 2
+# --staleness 0, then 1 with a MESH_SSP_DELAY (host, round, seconds) delay,
+# MESH_SSP_EPOCHS epochs of phase 22 (a)'s windows; (d) launch.fit --hosts 2
+# --elastic for MESH_ELASTIC_EPOCHS epochs, host 1 killed at step MESH_KILL.
+# MESH_TOL, fixed before the first run: the reduction schedules' weights
+# against phase 4's, max abs over max |w| (tests/chaos/
+# test_multihost_determinism.py's 1e-5).  MESH_TIMEOUT: every group's and
+# child's limit
+MESH_HOSTS, MESH_LOCAL, MESH_KM_ROWS, MESH_TIMEOUT = 2, 4, 131_072, 300.0
+MESH_LR_SEED, MESH_KM_SEED = SEED + 4, SEED + 24
+MESH_SCHEDULES = ("gather_broadcast", "allreduce", "reduce_scatter")
+MESH_SSP_EPOCHS, MESH_SSP_DELAY = 4, (1, 1, 1.0)
+MESH_ELASTIC_EPOCHS, MESH_KILL = 6, 3
+MESH_LR_BATCH = 128      # (c) and (d)'s SGD batch: one a partition's chunk
+MESH_TOL = 1e-5
 
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
@@ -939,18 +1005,32 @@ def kmeans_invariance(gen: torch.Generator) -> None:
         f"the plain version's picks but for ties within fp32 rounding")
 
 
-def logreg_table(gen: torch.Generator, rows: int = LOGREG_ROWS) -> torch.Tensor:
-    """(rows, 1 + d) fp32 on the card: ReLU'd gaussian features (as
-    synth_imagenet_features) and labels from a planted linear model split
-    at its median; made in row slabs, never on the host."""
-    n, d = rows, LOGREG_FEATURES
-    table = torch.empty((n, d + 1), dtype=torch.float32, device=DEVICE)
+def logreg_rows(keep: slice, rows: int = LOGREG_ROWS) -> torch.Tensor:
+    """Rows ``keep`` of phase 4's (rows, 1 + d) fp32 table, made on the card:
+    ReLU'd gaussian features (as synth_imagenet_features), each 4,096-row
+    slab from its own generator (seed MESH_LR_SEED + 1 + slab), labels from
+    a planted linear model (seed MESH_LR_SEED) split at the median of every
+    row's margin.  A host process thus makes its own rows bitwise those of
+    the whole table, at the cost of drawing every slab once for the
+    margins; ``keep`` must lie on slab boundaries."""
+    n, d, slab = rows, LOGREG_FEATURES, 4096
+    gen = torch.Generator(device=DEVICE).manual_seed(MESH_LR_SEED)
     w_true = torch.randn(d, generator=gen, device=DEVICE) / math.sqrt(d)
-    for i in range(0, n, 4096):
-        slab = table[i:i + 4096, 1:]
-        slab.normal_(generator=gen).clamp_(min=0.0)
-        table[i:i + 4096, 0] = slab @ w_true
-    table[:, 0] = (table[:, 0] > table[:, 0].median()).float()
+    table = torch.empty((keep.stop - keep.start, d + 1), dtype=torch.float32, device=DEVICE)
+    margins = torch.empty(n, dtype=torch.float32, device=DEVICE)
+    scratch = None
+    for i in range(0, n, slab):
+        gen.manual_seed(MESH_LR_SEED + 1 + i // slab)
+        if keep.start <= i < keep.stop:
+            block = table[i - keep.start:i - keep.start + slab]
+        else:
+            if scratch is None:
+                scratch = torch.empty((slab, d + 1), dtype=torch.float32, device=DEVICE)
+            block = scratch
+        x = block[:, 1:]
+        x.normal_(generator=gen).clamp_(min=0.0)
+        margins[i:i + slab] = x @ w_true
+    table[:, 0] = (margins[keep] > margins.median()).float()
     return table
 
 
@@ -962,7 +1042,7 @@ def phase_logreg(gen, counts, report) -> None:
     phase(f"4. logistic regression, {LOGREG_ROWS:,} x {LOGREG_FEATURES:,}, "
           f"{SHARDS} partitions")
     t0 = time.perf_counter()
-    data = logreg_table(gen)
+    data = logreg_rows(slice(0, LOGREG_ROWS))
     sync()
     say(f"table {LOGREG_ROWS} x {LOGREG_FEATURES + 1} fp32 "
         f"({data.numel() * 4 / 1e9:.1f} GB) made on the card in "
@@ -1601,79 +1681,47 @@ def fig_fp64_errors(counts: torch.Tensor, tfidf: torch.Tensor, fitted,
 
 
 def fig_kernel_times(table_a, centroids, final, w) -> dict:
-    """Kernels 1-3 at phase 20's shapes against their plain versions, timed
-    beside the plain version, the library call where there is one, and the
-    bound: kmeans_assign at the fit's (P, n, 30,000), k = 50 (CUDA events);
+    """Kernels 1-3 at phase 20's shapes (kmeans_shape_row,
+    logreg_pair_times): kmeans_assign at the fit's (P, n, 30,000), k = 50;
     logreg_margin and logreg_xt_z at the fit's chunk (P, local_batch_size,
     30,000) of the table's feature columns (row stride 30,001), and
     logreg_margin at a served microbatch (FIG_REQ_MAX, 30,000) against zero
-    labels, each launch a few µs, so in CUDA graphs (graph_ms)."""
-    from repro_torch.kernels import kmeans_assign as kka
+    labels, a few µs a launch, so in CUDA graphs (graph_ms)."""
     from repro_torch.kernels import logreg_grad as klg
 
-    out = {}
-    Xk = table_a.data.view(SHARDS, -1, FIG_TOP)
-    P, n, d = Xk.shape
-    a = kka.kmeans_assign(Xk, centroids)
-    differ, gap, ratio = score_gap(Xk, centroids, a, kka.kmeans_assign_plain(Xk, centroids))
-    check(ratio <= 1.0, f"kmeans_assign at {tuple(Xk.shape)}: {differ} picks differ "
-          f"from the plain version beyond rounding ({ratio}x)")
-    t_b, by = bound(4.0 * (P * n * d + FIG_K * d + P * n), 2.0 * P * n * FIG_K * d)
-    out["kmeans_assign"] = {
-        "shape": [P, n, d, FIG_K], "ms": cuda_ms(lambda: kka.kmeans_assign(Xk, centroids), 5),
-        "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(Xk, centroids), 5),
-        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": gap,
-        "tie_picks": differ}
-
+    out = {"kmeans_assign": kmeans_shape_row(
+        "Fig. A2", table_a.data.view(SHARDS, -1, FIG_TOP), centroids)}
     bs = FIG_LOGREG["local_batch_size"]
     blocks = final.data.view(SHARDS, -1, final.num_cols)
-    X, y = blocks[:, :bs, 1:], blocks[:, :bs, 0].contiguous()
-    W = w.expand(SHARDS, -1).contiguous()
+    out.update(logreg_pair_times("Fig. A2 chunk", blocks[:, :bs, 1:],
+                                 blocks[:, :bs, 0].contiguous(),
+                                 w.expand(SHARDS, -1).contiguous()))
     Xs = final.data[:FIG_REQ_MAX, 1:].contiguous()
     zeros = torch.zeros(FIG_REQ_MAX, device=final.device)
-    z, zp = klg.logreg_margin(X, y, W), klg.logreg_margin_plain(X, y, W)
-    zs, zsp = klg.logreg_margin(Xs, zeros, w), klg.logreg_margin_plain(Xs, zeros, w)
-    g, gp = klg.logreg_xt_z(X, zp), klg.logreg_xt_z_plain(X, zp)
-    sync()
-    err_z = max((z - zp).abs().max().item(), (zs - zsp).abs().max().item())
-    check(err_z <= FP32_TOL, f"logreg_margin at phase 20's shapes: err {err_z}")
-    check(rel_err(g, gp) <= FP32_TOL, f"logreg_xt_z at phase 20's shape: rel err {rel_err(g, gp)}")
-    t_b, by = bound(4.0 * (P * bs * d + P * d + 2 * P * bs), 2.0 * P * bs * d)
-    t_s, by_s = bound(4.0 * (FIG_REQ_MAX * d + d + 2 * FIG_REQ_MAX), 2.0 * FIG_REQ_MAX * d)
-    out["logreg_margin"] = {
-        "shape": [P, bs, d], "row_stride": X.stride(1),
-        "ms": graph_ms(lambda: klg.logreg_margin(X, y, W)),
-        "plain_ms": graph_ms(lambda: klg.logreg_margin_plain(X, y, W)),
-        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": err_z,
-        "serve_shape": [FIG_REQ_MAX, d],
-        "serve_ms": graph_ms(lambda: klg.logreg_margin(Xs, zeros, w)),
-        "serve_plain_ms": graph_ms(lambda: klg.logreg_margin_plain(Xs, zeros, w)),
-        "serve_bound_ms": t_s, "serve_bound_by": by_s}
-    t_b, by = bound(4.0 * (P * bs * d + P * bs + P * d), 2.0 * P * bs * d)
-    out["logreg_xt_z"] = {
-        "shape": [P, bs, d], "row_stride": X.stride(1),
-        "ms": graph_ms(lambda: klg.logreg_xt_z(X, zp)),
-        "plain_ms": graph_ms(lambda: klg.logreg_xt_z_plain(X, zp)),
-        "bound_ms": t_b, "bound_by": by,
-        "library_ms": graph_ms(lambda: torch.matmul(X.transpose(1, 2), zp.unsqueeze(-1))),
-        "max_abs_err": (g - gp).abs().max().item()}
-    for name, r in out.items():
-        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
-        say(f"{name} X{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms, library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['bound_ms'] / r['ms']:.1%}); max abs err {r['max_abs_err']:.3g}")
+    err = (klg.logreg_margin(Xs, zeros, w)
+           - klg.logreg_margin_plain(Xs, zeros, w)).abs().max().item()
+    check(err <= FP32_TOL, f"logreg_margin at a served microbatch: err {err}")
+    t_s, by_s = bound(4.0 * (FIG_REQ_MAX * FIG_TOP + FIG_TOP + 2 * FIG_REQ_MAX),
+                      2.0 * FIG_REQ_MAX * FIG_TOP)
     r = out["logreg_margin"]
+    r.update(serve_shape=[FIG_REQ_MAX, FIG_TOP], serve_bound_ms=t_s, serve_bound_by=by_s,
+             serve_ms=graph_ms(lambda: klg.logreg_margin(Xs, zeros, w)),
+             serve_plain_ms=graph_ms(lambda: klg.logreg_margin_plain(Xs, zeros, w)),
+             serve_max_abs_err=err)
+    for name, row in out.items():
+        say_kernel_row(name, row)
     say(f"logreg_margin X({FIG_REQ_MAX}, {FIG_TOP}) (a served microbatch): kernel "
         f"{r['serve_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, bound "
-        f"{r['serve_bound_ms']:.5f} ms ({r['serve_bound_by']})")
+        f"{r['serve_bound_ms']:.5f} ms ({r['serve_bound_by']}); max abs err {err:.3g}")
     return out
 
 
 def phase_fig_a2() -> dict:
     """Phase 20: pipelines (a) and (b) fitted on a raw-text table and
-    served raw-text requests, its launches counted; then the checks and
-    the kernels at its shapes.  Returns each kernel's launches and times
-    on this path."""
+    served raw-text requests, its launches counted; then the checks.
+    Returns each kernel's launches on this path, and under "times" the
+    call that holds and times the kernels at its shapes (phase 25 makes
+    it, once no child process shares the card)."""
     from repro_torch.core.algorithms.kmeans import KMeans
     from repro_torch.core.algorithms.logistic_regression import LogisticRegression
     from repro_torch.core.collectives import CollectiveSchedule
@@ -1683,7 +1731,9 @@ def phase_fig_a2() -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     phase(f"20. Fig. A2: {FIG_DOCS:,} raw docs -> NGrams(n=2, top={FIG_TOP:,}) -> TfIdf -> "
-          f"KMeans(k={FIG_K}) | Standardizer -> LogisticRegression, served as raw text")
+          f"KMeans(k={FIG_K}) | Standardizer -> LogisticRegression, served as raw text "
+          f"(its stage seconds read beside the child processes of phases 22-24; its "
+          f"kernels timed alone in phase 25)")
     mem_reset()
     t0 = time.perf_counter()
     rows = fig_corpus(SEED)
@@ -1848,14 +1898,14 @@ def phase_fig_a2() -> dict:
             f"{rep['featurize_misses']}; {bad} requests differ from the offline prediction")
         check(bad == 0, f"({name}): {bad} served results differ from the offline prediction")
 
-    times = fig_kernel_times(table_a, C, final, fit_b.model.weights)
+    w_b = fit_b.model.weights
     say("stage seconds (host clock, each ended by a sync; the NGrams, TfIdf, Standardizer "
         "and LogisticRegression stages of (b)'s hand-composed chain, which makes the "
         "pipeline's calls): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     peak = mem_peak("phase 20")
-    for name in path:
-        times[name]["launches"] = got[name]
-    return {"kernels": times, "seconds": secs, "peak_gb": peak,
+    return {"kernels": {name: {"launches": got[name]} for name in path},
+            "times": lambda: fig_kernel_times(table_a, C, final, w_b),
+            "seconds": secs, "peak_gb": peak,
             "latency_ms": {k: float(np.median(s["latencies"]))
                            for k, s in (("a", served_a), ("b", served_b))}}
 
@@ -1933,7 +1983,7 @@ def pinned(shape) -> torch.Tensor:
 
 def stream_logreg_pool() -> torch.Tensor:
     """Phase 22 (a)'s pool: STREAM_LR_POOL windows of STREAM_LR_ROWS x (1 +
-    LOGREG_FEATURES) fp32, each made on the card as logreg_table makes its
+    LOGREG_FEATURES) fp32, each made on the card as logreg_rows makes its
     table (ReLU'd gaussian features, labels from a planted linear model
     split at the window's median) and copied to pinned host memory; the
     generator is seeded SEED + 22, so a child process makes the same bits."""
@@ -2012,8 +2062,9 @@ def h2d_gbps(window: torch.Tensor) -> float:
 def start_fit_cli(ckpt_dir: str, procs: list):
     """Part (d): ``python -m repro_torch.launch.fit --algorithm kmeans`` at
     its default sizes with ``--ckpt-dir``, then again with ``--resume``, in
-    child processes one after the other, beside the rest of the phase (a
-    thread waits for them); returns the future of their outputs."""
+    child processes one after the other, beside the phases that run
+    meanwhile (a thread waits for them); returns the future of their
+    outputs."""
     import concurrent.futures
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
@@ -2259,94 +2310,72 @@ def stream_part_d(future) -> None:
 
 
 def stream_kernel_times(out: dict) -> dict:
-    """Kernels 1-3 at phase 22's shapes against their plain versions, with
-    CUDA events, beside the library call where there is one and the bound:
-    logreg_margin and logreg_xt_z at (a)'s chunk (SHARDS, local batch,
-    LOGREG_FEATURES) of a window on the card (row stride 1 + d, partition
-    stride rows/P·(1 + d)); kmeans_assign at (b)'s chunk and at (c)'s
-    (SHARDS, docs/P/chunks, FIG_TOP); (b)'s picks on the centroids of its
-    epoch-STREAM_KM_STOP snapshot held against use_kernel=False's (the
-    direct form) as phase 7 holds a Lloyd round: near-ties only."""
+    """Kernels 1-3 at phase 22's shapes (logreg_pair_times,
+    kmeans_shape_row): logreg_margin and logreg_xt_z at (a)'s chunk
+    (SHARDS, local batch, LOGREG_FEATURES) of a window on the card (row
+    stride 1 + d, partition stride rows/P·(1 + d)); kmeans_assign at (b)'s
+    chunk and at (c)'s (SHARDS, docs/P/chunks, FIG_TOP); (b)'s picks on the
+    centroids of its epoch-STREAM_KM_STOP snapshot also held against
+    use_kernel=False's (the direct form) as phase 7 holds a Lloyd round:
+    near-ties only."""
     from repro_torch.core.algorithms import kmeans as km
     from repro_torch.kernels import kmeans_assign as kka
-    from repro_torch.kernels import logreg_grad as klg
 
-    times = {}
     a = out["a"]
-    window = a["pool"][0].to(DEVICE)
     bs = STREAM_LR["local_batch_size"]
-    blocks = window.view(SHARDS, -1, LOGREG_FEATURES + 1)
-    X, y = blocks[:, :bs, 1:], blocks[:, :bs, 0].contiguous()
-    W = a["w1"].expand(SHARDS, -1).contiguous()
-    P, n, d = X.shape
-    z, zp = klg.logreg_margin(X, y, W), klg.logreg_margin_plain(X, y, W)
-    g, gp = klg.logreg_xt_z(X, zp), klg.logreg_xt_z_plain(X, zp)
-    sync()
-    err_z, err_g = (z - zp).abs().max().item(), rel_err(g, gp)
-    check(err_z <= FP32_TOL and err_g <= FP32_TOL,
-          f"kernels 1-2 at phase 22's chunk: margin err {err_z}, xt_z rel err {err_g}")
-    t_b, by = bound(4.0 * (P * n * d + P * d + 2 * P * n), 2.0 * P * n * d)
-    times["logreg_margin"] = {
-        "shape": [P, n, d], "row_stride": X.stride(1), "partition_stride": X.stride(0),
-        "ms": cuda_ms(lambda: klg.logreg_margin(X, y, W), 10),
-        "plain_ms": cuda_ms(lambda: klg.logreg_margin_plain(X, y, W), 10),
-        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": err_z}
-    t_b, by = bound(4.0 * (P * n * d + P * n + P * d), 2.0 * P * n * d)
-    times["logreg_xt_z"] = {
-        "shape": [P, n, d], "row_stride": X.stride(1), "partition_stride": X.stride(0),
-        "ms": cuda_ms(lambda: klg.logreg_xt_z(X, zp), 10),
-        "plain_ms": cuda_ms(lambda: klg.logreg_xt_z_plain(X, zp), 10),
-        "bound_ms": t_b, "bound_by": by,
-        "library_ms": cuda_ms(lambda: torch.matmul(X.transpose(1, 2), zp.unsqueeze(-1)), 10),
-        "max_abs_err": (g - gp).abs().max().item()}
-    del window, blocks, X
+    blocks = a["pool"][0].to(DEVICE).view(SHARDS, -1, LOGREG_FEATURES + 1)
+    times = logreg_pair_times("phase 22 (a)'s chunk", blocks[:, :bs, 1:],
+                              blocks[:, :bs, 0].contiguous(),
+                              a["w1"].expand(SHARDS, -1).contiguous())
+    del blocks
 
-    b = out["b"]
-    chunk, C4 = b["chunk"], b["C4"]
-    picks = kka.kmeans_assign(chunk, C4)
-    ties, gap, ratio = score_gap(chunk, C4, picks, km._assign(chunk, C4, use_kernel=False))
+    chunk, C4 = out["b"]["chunk"], out["b"]["C4"]
+    times["kmeans_assign"] = kmeans_shape_row("phase 22 (b)'s chunk", chunk, C4)
+    ties, gap, ratio = score_gap(chunk, C4, kka.kmeans_assign(chunk, C4),
+                                 km._assign(chunk, C4, use_kernel=False))
     check(ratio <= 1.0, f"(b) a streamed round's picks: {ties} differ from use_kernel=False's "
           f"beyond rounding (gap {gap}, {ratio}x the scale)")
-    P, n, d = chunk.shape
-    t_b, by = bound(4.0 * (P * n * d + KMEANS_K * d + P * n), 2.0 * P * n * KMEANS_K * d)
-    times["kmeans_assign"] = {
-        "shape": [P, n, d, KMEANS_K], "partition_stride": chunk.stride(0),
-        "ms": cuda_ms(lambda: kka.kmeans_assign(chunk, C4), 10),
-        "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(chunk, C4), 10),
-        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": gap,
-        "tie_picks": ties, "tie_ratio": ratio}
     c = out["c"]
     table = c["table"].transform(c["raw"]).data
-    Cf = c["table"].model.centroids
     fchunk = table.view(SHARDS, -1, FIG_TOP)[:, :STREAM_FIG_DOCS // SHARDS // STREAM_FIG_CHUNKS]
-    P, n, d = fchunk.shape
-    fa = kka.kmeans_assign(fchunk, Cf)
-    fties, fgap, fratio = score_gap(fchunk, Cf, fa, kka.kmeans_assign_plain(fchunk, Cf))
-    check(fratio <= 1.0, f"kmeans_assign at (c)'s chunk: {fties} picks differ from the plain "
-          f"version beyond rounding ({fratio}x)")
-    t_b, by = bound(4.0 * (P * n * d + FIG_K * d + P * n), 2.0 * P * n * FIG_K * d)
-    times["kmeans_assign"]["fig_a2_stream"] = {
-        "shape": [P, n, d, FIG_K], "partition_stride": fchunk.stride(0),
-        "ms": cuda_ms(lambda: kka.kmeans_assign(fchunk, Cf), 10),
-        "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(fchunk, Cf), 10),
-        "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": fgap,
-        "tie_picks": fties}
-    for name, r in list(times.items()) + [("kmeans_assign (c)", times["kmeans_assign"]["fig_a2_stream"])]:
-        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
-        say(f"{name} X{tuple(r['shape'])} (a chunk view, partition stride "
-            f"{r['partition_stride']:,}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['bound_ms'] / r['ms']:.1%}); max abs err {r['max_abs_err']:.3g}")
+    fig = kmeans_shape_row("phase 22 (c)'s chunk", fchunk, c["table"].model.centroids)
+    times["kmeans_assign"]["fig_a2_stream"] = fig
+    for name, r in list(times.items()) + [("kmeans_assign", fig)]:
+        say_kernel_row(name, r)
     say(f"(b) a streamed round's picks (epoch {STREAM_KM_STOP}'s first chunk on its snapshot's "
         f"centroids) vs use_kernel=False's direct form: {ties} differ, each a near-tie (gap "
         f"{gap:.3g}, {ratio:.3g}x the fp32 scale)")
     return times
 
 
-def phase_stream() -> dict:
+class FitCLI:
+    """Part (d)'s two launcher runs (``start_fit_cli``), started with phase
+    20 beside the other phases' children (each child spends ≈ 8-15 s
+    reaching the card); phase 22 reads the results.  ``close`` stops
+    whatever still runs and removes the work directory."""
+
+    def __init__(self):
+        import tempfile
+
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+        self.procs: list = []
+        self.future = start_fit_cli(os.path.join(self.work, "d"), self.procs)
+
+    def close(self) -> None:
+        import shutil
+
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_stream(fit_cli: FitCLI) -> dict:
     """Phase 22: streaming epochs with atomic checkpoints and exact
     kill-and-resume on kernels 1-3 at the paper's widths.  Returns each
-    kernel's launches and times on this path."""
+    kernel's launches on this path, and under "times" the call that holds
+    and times the kernels at its shapes (made in phase 25)."""
     import shutil
     import tempfile
 
@@ -2360,13 +2389,12 @@ def phase_stream() -> dict:
     procs, out = [], {}
     try:
         reset_launch_counts()        # phase 22's path starts here
-        cli = start_fit_cli(os.path.join(work, "d"), procs)
         stream_part_a(work, procs, out)
         stream_part_b(out)
         stream_part_c(out)
         stream_part_a_resume(out)
         got = launch_counts()        # ... and ends here
-        stream_part_d(cli)
+        stream_part_d(fit_cli.future)
         path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
         lr_steps = (2 * STREAM_LR_EPOCHS - STREAM_KILL) * STREAM_CHUNKS * (
             STREAM_LR_ROWS // SHARDS // STREAM_CHUNKS // STREAM_LR["local_batch_size"])
@@ -2379,10 +2407,11 @@ def phase_stream() -> dict:
         check(all(got[k] == want[k] for k in path)
               and all(v == 0 for k, v in got.items() if k not in path),
               f"phase 22 launched {got}, expected {want}")
-        times = stream_kernel_times(out)
-        for name in path:
-            times[name]["launches"] = got[name]
-        return {"kernels": times}
+        kept = {"a": {"pool": out["a"]["pool"][:1].clone(), "w1": out["a"]["w1"]},
+                "b": {k: out["b"][k] for k in ("chunk", "C4")},
+                "c": {k: out["c"][k] for k in ("table", "raw")}}
+        return {"kernels": {name: {"launches": got[name]} for name in path},
+                "times": lambda: stream_kernel_times(kept)}
     finally:
         if "a" in out:
             out["a"]["log"].close()
@@ -2459,7 +2488,7 @@ def search_part_a(gen, out: dict) -> None:
                                   holdout_split, record_evaluation)
 
     mem_reset()
-    (data, t_table) = timed(lambda: logreg_table(gen, SEARCH_ROWS))
+    (data, t_table) = timed(lambda: logreg_rows(slice(0, SEARCH_ROWS), SEARCH_ROWS))
     table = MLNumericTable(data, num_shards=SHARDS)
     configs = [{**c, **SEARCH_LR} for c in grid(SEARCH_GRID)]
     kw = dict(num_epochs=SEARCH_EPOCHS, chunks_per_epoch=1, val_fraction=0.25, seed=SEED)
@@ -2679,8 +2708,8 @@ def search_part_f(future) -> None:
 
 class TuneCLI:
     """Part (f)'s two launcher runs (``start_tune_cli``), started when
-    phase 22 starts: each child spends ≈ 8-12 s reaching the card, so the
-    pair runs beside phases 22 and 23 and phase 23 reads the results.
+    phase 20 starts: each child spends ≈ 8-12 s reaching the card, so the
+    pair runs beside phases 20-23 and phase 23 reads the results.
     ``close`` stops whatever is still running and removes the work
     directory."""
 
@@ -2726,6 +2755,651 @@ def phase_search(gen, cli: TuneCLI) -> dict:
         return out
     finally:
         out.pop("table", None)
+        free_device_memory()
+
+
+# --------------------------------------------------------------------------- #
+# phase 24: mesh mode across host processes, the SSP lane, elastic resize
+# --------------------------------------------------------------------------- #
+def lattice_rows(keep: slice, rows: int = MESH_KM_ROWS) -> torch.Tensor:
+    """Rows ``keep`` of phase 24's {0,1} lattice table (rows x
+    KMEANS_FEATURES fp32): slab i of 4,096 rows from generator MESH_KM_SEED
+    + i, so a host makes its own rows.  Cluster sums and counts of such rows
+    are integers below 2^24, exact in fp32 in any order."""
+    out = torch.empty((keep.stop - keep.start, KMEANS_FEATURES), dtype=torch.float32,
+                      device=DEVICE)
+    for i in range(keep.start, keep.stop, 4096):
+        g = torch.Generator(device=DEVICE).manual_seed(MESH_KM_SEED + i // 4096)
+        out[i - keep.start:i - keep.start + 4096] = torch.randint(
+            0, 2, (4096, KMEANS_FEATURES), generator=g, device=DEVICE, dtype=torch.float32)
+    return out
+
+
+def mesh_logreg(table, schedule: str, use_kernel: bool = True):
+    """Phase 4's sgd fit (through the kernels unless ``use_kernel`` is
+    False) on ``table`` (emulated or on a mesh) under ``schedule``."""
+    from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+
+    return LogisticRegression(solver="sgd", learning_rate=1e-7, max_iter=ROUNDS,
+                              local_batch_size=SGD_BATCH, use_kernel=use_kernel,
+                              schedule=schedule).fit(table).weights
+
+
+def mesh_kmeans(table, schedule: str, use_kernel: bool = True, rounds: int = ROUNDS):
+    """KMeans(k=KMEANS_K), ``rounds`` Lloyd rounds from rows drawn with
+    SEED, through the kernel unless ``use_kernel`` is False."""
+    from repro_torch.core.algorithms.kmeans import KMeans
+
+    return KMeans(k=KMEANS_K, seed=SEED, max_iter=rounds, use_kernel=use_kernel,
+                  schedule=schedule).fit(table).centroids
+
+
+def mesh_concat_view(blocks: torch.Tensor) -> torch.Tensor:
+    """What (a)'s concat combine gathers: each partition's first 256 rows'
+    first 64 columns."""
+    return blocks[:, :256, :64]
+
+
+def sha(x: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def mesh_host(work: str) -> int:
+    """``python3 chip_smoke.py --mesh-host WORK``: one host of phase 24 (a).
+    It joins the gloo group of MESH_HOSTS host processes on this card
+    (REPRO_* variables), waits for WORK/go (the parent writes it when the
+    card's memory is free), then makes its rows of phase 4's table and fits
+    it under the three schedules, makes its rows of the lattice table and
+    fits k-means, and gathers a concat; host 0 saves the states in WORK.
+    It prints one RESULT:: line: shas, seconds, gloo combine ms a round,
+    peak memory and its kernel launches."""
+    from repro_torch.checkpoint import atomic_write_text
+    from repro_torch.core import hostmesh
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.core.runner import DistributedRunner
+    from repro_torch.kernels import launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    hostmesh.initialize_from_env(DEVICE, timeout=MESH_TIMEOUT)
+    mesh = hostmesh.make_mesh(MESH_LOCAL, DEVICE)
+    out = {"host": mesh.host_id, "backend": mesh.backend, "ready_s": time.perf_counter() - t0}
+    deadline = time.monotonic() + MESH_TIMEOUT
+    while not os.path.exists(os.path.join(work, "go")):
+        if time.monotonic() > deadline:
+            print("mesh host: no go within the timeout", flush=True)
+            return 3
+        time.sleep(0.02)
+    spent = []
+    combine = DistributedRunner._combine
+
+    def timed_combine(self, stacked, how):
+        sync()
+        t = time.perf_counter()
+        got = combine(self, stacked, how)
+        sync()
+        spent.append(time.perf_counter() - t)
+        return got
+
+    DistributedRunner._combine = timed_combine
+    t_go = time.perf_counter()
+    for what, make, fit, rows in (("lr", logreg_rows, mesh_logreg, LOGREG_ROWS),
+                                  ("km", lattice_rows, mesh_kmeans, MESH_KM_ROWS)):
+        mem_reset()
+        t = time.perf_counter()
+        table = MLNumericTable(make(hostmesh.local_row_slice(rows, mesh)), mesh=mesh)
+        sync()
+        out[f"{what}_table_s"] = time.perf_counter() - t
+        for s in MESH_SCHEDULES:
+            spent.clear()
+            t = time.perf_counter()
+            state = fit(table, s)
+            sync()
+            out[f"{what}/{s}"] = {"sha": sha(state), "s": time.perf_counter() - t,
+                                  "combine_ms": 1e3 * sum(spent) / max(1, len(spent)),
+                                  "rounds": len(spent)}
+            if mesh.host_id == 0:
+                torch.save(state.cpu(), os.path.join(work, f"{what}_{s}.pt"))
+            if what == "km":
+                cat = DistributedRunner.for_table(table, schedule=s).partition_apply(
+                    table.data, mesh_concat_view, combine="concat")
+                out[f"concat/{s}"] = sha(cat)
+        out[f"{what}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del table
+        torch.cuda.empty_cache()
+    out["work_s"] = time.perf_counter() - t_go
+    out["launches"] = launch_counts()
+    # the result file first: the parent reads it without waiting for this
+    # process's exit (the group's and the card's teardown)
+    atomic_write_text(os.path.join(work, f"host{mesh.host_id}.json"), json.dumps(out))
+    print("RESULT::" + json.dumps(out), flush=True)
+    hostmesh.shutdown()
+    return 0
+
+
+def fit_cli_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def card_windows(algorithm: str, rows: int, features: int, seed: int, device):
+    """launch.fit's logreg windows (make_source's recipe: gaussian rows,
+    labels from the planted model linspace(-1, 1)) drawn on the card from a
+    generator seeded ``seed * 100_003 + step``, a pure function of the step
+    as make_source is, but not its numbers: a 4,096 x 160,000 window takes
+    milliseconds here and seconds of numpy sampling on the host."""
+    check(algorithm == "logreg", f"card_windows draws logreg windows, not {algorithm}")
+
+    def source(step: int):
+        g = torch.Generator(device=device).manual_seed(seed * 100_003 + step)
+        X = torch.randn((rows, features), generator=g, device=device)
+        y = (X @ torch.linspace(-1, 1, features, device=device) > 0).to(torch.float32)
+        return {"data": torch.cat([y[:, None], X], 1)}
+    return source
+
+
+def fit_main(args: list):
+    """``python3 chip_smoke.py --fit ARGS``: launch.fit's main on
+    card_windows; in driver mode each host process runs this entry too."""
+    from repro_torch.launch import fit as tfit
+
+    return tfit.main(args, source=card_windows,
+                     child=[sys.executable, os.path.abspath(__file__), "--fit"])
+
+
+def fit_cli_args(work: str) -> list:
+    """launch.fit at phase 22 (a)'s widths: windows of STREAM_LR_ROWS rows x
+    LOGREG_FEATURES drawn on the card (card_windows), SGD batches of 128
+    rows, lr 1e-7, through the kernels."""
+    return [sys.executable, os.path.abspath(__file__), "--fit", "--algorithm", "logreg",
+            "--use-kernel", "--json",
+            "--features", str(LOGREG_FEATURES), "--rows-per-epoch", str(STREAM_LR_ROWS),
+            "--chunks-per-epoch", str(STREAM_CHUNKS), "--local-batch-size", str(MESH_LR_BATCH),
+            "--lr", "1e-7", "--seed", str(SEED), "--ckpt-dir", work]
+
+
+class MeshChildren:
+    """Phase 24's child processes, started with phase 20 so that their
+    start-up (≈ 8-15 s each to reach the card) runs beside phases 20-23:
+    (a)'s MESH_HOSTS host processes (gloo on this card; they wait for
+    ``go``) and, in two threads, (c)'s two SSP launcher runs and (d)'s
+    elastic launcher run.  ``close`` stops whatever still runs and removes
+    the work directory."""
+
+    def __init__(self):
+        import concurrent.futures
+        import tempfile
+
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        self.procs: list = []
+        self.logs = []
+        for h in range(MESH_HOSTS):
+            log = open(os.path.join(self.work, f"host{h}.log"), "w+")
+            self.logs.append(log)
+            env = dict(fit_cli_env(), REPRO_COORDINATOR=f"file://{self.work}/rendezvous",
+                       REPRO_NUM_HOSTS=str(MESH_HOSTS), REPRO_HOST_ID=str(h))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-host", self.work],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        self.ssp = pool.submit(self._run_ssp)
+        self.elastic = pool.submit(self._run_elastic)
+        pool.shutdown(wait=False)
+
+    def _launch(self, args: list, chaos=None):
+        from repro_torch.testing import faults_to_env
+
+        env = fit_cli_env()
+        env.pop("REPRO_CHAOS", None)
+        if chaos:
+            env.update(faults_to_env(chaos))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(args, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        self.procs.append(proc)
+        out, _ = proc.communicate(timeout=MESH_TIMEOUT)
+        return proc.returncode, out, time.perf_counter() - t0
+
+    def _run_ssp(self):
+        from repro_torch.testing import Fault
+
+        host, rnd, secs = MESH_SSP_DELAY
+        base = fit_cli_args(os.path.join(self.work, "c")) + [
+            "--hosts", "2", "--devices-per-host", str(SHARDS), "--epochs", str(MESH_SSP_EPOCHS)]
+        first = self._launch(base + ["--staleness", "0"])
+        base[base.index("--ckpt-dir") + 1] = os.path.join(self.work, "c1")
+        second = self._launch(base + ["--staleness", "1"],
+                              [Fault(host=host, round=rnd, action="delay", seconds=secs)])
+        return first, second
+
+    def _run_elastic(self):
+        from repro_torch.testing import Fault
+
+        args = fit_cli_args(os.path.join(self.work, "d")) + [
+            "--hosts", "2", "--devices-per-host", str(MESH_LOCAL), "--elastic",
+            "--epochs", str(MESH_ELASTIC_EPOCHS), "--schedule", "gather_broadcast"]
+        return self._launch(args, [Fault(host=1, round=MESH_KILL, action="kill")])
+
+    def go(self) -> None:
+        from repro_torch.checkpoint import atomic_write_text
+
+        atomic_write_text(os.path.join(self.work, "go"), "go")
+
+    def host_results(self) -> list:
+        """Each host's result file, as soon as it is written (a host that
+        ends without one fails the phase)."""
+        out = []
+        deadline = time.monotonic() + MESH_TIMEOUT
+        for h, proc in enumerate(self.procs[:MESH_HOSTS]):
+            path = os.path.join(self.work, f"host{h}.json")
+            while not os.path.exists(path):
+                rc = proc.poll()
+                if rc is not None or time.monotonic() > deadline:
+                    self.logs[h].seek(0)
+                    check(False, f"(a) mesh host {h} ended with rc {rc} and no result: "
+                                 f"{self.logs[h].read()[-2500:]}")
+                time.sleep(0.01)
+            with open(path) as f:
+                out.append(json.load(f))
+        return out
+
+    def close(self) -> None:
+        import shutil
+
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in self.logs:
+            log.close()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def mesh_part_b(out: dict) -> None:
+    """(b): an NCCL group of one in this process, 8 local partitions:
+    k-means on the lattice table and logistic regression at its shape
+    (labels from a planted model) through the kernels, bitwise the
+    8-partition emulated fits under every schedule."""
+    from repro_torch.core import hostmesh
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    lattice = out["lattice"]
+    g = torch.Generator(device=DEVICE).manual_seed(MESH_KM_SEED - 1)
+    X = torch.empty((MESH_KM_ROWS, KMEANS_FEATURES + 1), dtype=torch.float32, device=DEVICE)
+    X[:, 1:] = lattice
+    X[:, 0] = (lattice @ torch.randn(KMEANS_FEATURES, generator=g, device=DEVICE) > 0).float()
+    t0 = time.perf_counter()
+    info = hostmesh.initialize(f"file://{out['work']}/nccl", 1, 0, device=DEVICE,
+                               timeout=MESH_TIMEOUT)
+    try:
+        mesh = hostmesh.make_mesh(SHARDS, DEVICE)
+        want = "nccl" if DEVICE == "cuda" else "gloo"
+        check(info.backend == mesh.backend == want,
+              f"(b) a world of one on {DEVICE} chose {info.backend}, not {want}")
+        launches = collections.Counter()
+        fits = {}
+        for s in MESH_SCHEDULES:
+            for name, fit, data in (("logreg", mesh_logreg, X), ("kmeans", mesh_kmeans, lattice)):
+                reset_launch_counts()
+                got = fit(MLNumericTable(data, mesh=mesh), s)
+                launches.update(launch_counts())
+                want = fit(MLNumericTable(data, num_shards=SHARDS), s)
+                check(torch.equal(got, want) and sha(got) == sha(want),
+                      f"(b) {name} under {s} on an NCCL world of 1 differs from the "
+                      f"emulated fit: max abs {(got - want).abs().max().item():.3g}")
+                fits[name, s] = got
+    finally:
+        hostmesh.shutdown()
+    sync()
+    out["b_s"] = time.perf_counter() - t0
+    out["b_launches"] = {k: v for k, v in launches.items() if v}
+    launches = out["b_launches"]
+    say(f"(b) NCCL group of 1, {SHARDS} local partitions: logreg {MESH_KM_ROWS:,} x "
+        f"{KMEANS_FEATURES + 1:,} and k-means {MESH_KM_ROWS:,} x {KMEANS_FEATURES:,} "
+        f"bitwise the emulated fits under all three schedules; {out['b_s']:.2f} s with "
+        f"the emulated twins; the group torn down; launches {dict(launches)}")
+    # the same tables fitted with use_kernel=False: logistic regression
+    # within FP32_TOL; k-means bitwise, or else every pick where the kernel's
+    # rounds part from the plain version's a tie within fp32 rounding
+    t1 = time.perf_counter()
+    w_k, c_k = fits["logreg", "gather_broadcast"], fits["kmeans", "gather_broadcast"]
+    w_p = mesh_logreg(MLNumericTable(X, num_shards=SHARDS), "gather_broadcast", False)
+    e_lr = rel_err(w_k, w_p)
+    check(e_lr <= FP32_TOL, f"(b) logreg through the kernels vs use_kernel=False: rel err "
+          f"{e_lr} over {FP32_TOL}")
+    km_table = MLNumericTable(lattice, num_shards=SHARDS)
+    c_p = mesh_kmeans(km_table, "gather_broadcast", False)
+    km_same = torch.equal(c_k, c_p)
+    if not km_same:
+        init = mesh_kmeans(km_table, "gather_broadcast", rounds=0)
+        kmeans_rounds_against_plain(lattice.view(SHARDS, -1, KMEANS_FEATURES), init, c_k)
+    out["b_plain_s"] = time.perf_counter() - t1
+    out["b_fits"] = {"X": X, "lattice": lattice, "w": w_k, "centroids": c_k}
+    say(f"(b) the same tables with use_kernel=False: logreg weights rel err {e_lr:.3g} "
+        f"(<= {FP32_TOL}); k-means centroids "
+        + ("bitwise the kernel fit's" if km_same else
+           f"max abs {(c_k - c_p).abs().max().item():.3g} from the kernel fit's, every "
+           f"differing pick a tie (above)") + f"; {out['b_plain_s']:.2f} s")
+
+
+def mesh_part_a(children: MeshChildren, out: dict, phase4_w: torch.Tensor) -> None:
+    """(a)'s checks: the hosts' states against phase 4's 8 emulated
+    partitions (logreg) and this process's 1 x 8 emulated lattice fit."""
+    res = children.host_results()
+    h0, h1 = res
+    check(h0["backend"] == h1["backend"] == "gloo", f"(a) backend {h0['backend']}, not gloo")
+    for key in [k for k in h0 if "/" in k]:
+        a, b = h0[key], h1[key]
+        check((a["sha"] if isinstance(a, dict) else a) == (b["sha"] if isinstance(b, dict) else b),
+              f"(a) the two hosts' {key} differ")
+    lr = {s: torch.load(os.path.join(children.work, f"lr_{s}.pt")).to(DEVICE)
+          for s in MESH_SCHEDULES}
+    check(torch.equal(lr["gather_broadcast"], phase4_w) and
+          h0["lr/gather_broadcast"]["sha"] == sha(phase4_w),
+          f"(a) logreg gather_broadcast on 2 x {MESH_LOCAL} differs from phase 4's "
+          f"{SHARDS} emulated partitions: max abs "
+          f"{(lr['gather_broadcast'] - phase4_w).abs().max().item():.3g}")
+    scale = phase4_w.abs().max().item()
+    dist = {s: (lr[s] - phase4_w).abs().max().item() / scale
+            for s in ("allreduce", "reduce_scatter")}
+    check(all(v <= MESH_TOL for v in dist.values()),
+          f"(a) logreg reduction schedules beyond {MESH_TOL} of max |w|: {dist}")
+    want_km = mesh_kmeans(out["lattice_table"], "gather_broadcast")
+    for s in MESH_SCHEDULES:
+        check(h0[f"km/{s}"]["sha"] == sha(want_km),
+              f"(a) k-means lattice under {s} on 2 x {MESH_LOCAL} differs from the 1 x "
+              f"{SHARDS} emulated fit")
+    cat = mesh_concat_view(out["lattice"].view(SHARDS, -1, KMEANS_FEATURES)).flatten(0, 1)
+    check(all(h0[f"concat/{s}"] == sha(cat) for s in MESH_SCHEDULES),
+          "(a) concat differs across schedules or from the table's rows")
+    lr_steps = ROUNDS * (LOGREG_ROWS // SHARDS // SGD_BATCH) * len(MESH_SCHEDULES)
+    want = {"logreg_margin": lr_steps, "logreg_xt_z": lr_steps,
+            "kmeans_assign": ROUNDS * len(MESH_SCHEDULES)}
+    for r in res:
+        got = {k: v for k, v in r["launches"].items() if v}
+        check(got == want, f"(a) host {r['host']} launched {got}, expected {want}")
+    out["a_launches"] = {k: sum(r["launches"][k] for r in res) for k in want}
+    out["a_hosts"] = res
+    say(f"(a) {MESH_HOSTS} host processes x {MESH_LOCAL} partitions on this card, gloo "
+        f"(CUDA partials through pinned host buffers): logreg {LOGREG_ROWS:,} x "
+        f"{LOGREG_FEATURES + 1:,} sgd {ROUNDS} rounds, gather_broadcast bitwise phase 4's "
+        f"{SHARDS} emulated partitions; allreduce / reduce_scatter at "
+        f"{dist['allreduce']:.3g} / {dist['reduce_scatter']:.3g} of max |w| (<= {MESH_TOL}); "
+        f"k-means lattice {MESH_KM_ROWS:,} x {KMEANS_FEATURES:,} k={KMEANS_K} bitwise the "
+        f"1 x {SHARDS} emulated fit under all three schedules; concat bitwise")
+    for r in res:
+        say(f"(a) host {r['host']}: reached the group in {r['ready_s']:.2f} s (beside "
+            f"phases 20-23); after go {r['work_s']:.2f} s: its {LOGREG_ROWS // MESH_HOSTS:,} "
+            f"logreg rows made in {r['lr_table_s']:.2f} s, fits "
+            + ", ".join(f"{s} {r['lr/' + s]['s']:.2f} s (gloo combine "
+                        f"{r['lr/' + s]['combine_ms']:.3f} ms a round)" for s in MESH_SCHEDULES)
+            + f"; lattice rows {r['km_table_s']:.2f} s, k-means "
+            + ", ".join(f"{s} {r['km/' + s]['s']:.2f} s ({r['km/' + s]['combine_ms']:.3f} ms)"
+                        for s in MESH_SCHEDULES)
+            + f"; peak memory {r['lr_peak_gb']:.2f} GB (logreg), {r['km_peak_gb']:.2f} GB "
+              f"(k-means); launches {({k: v for k, v in r['launches'].items() if v})}")
+
+
+def host_lines(text: str, gen: int) -> dict:
+    """Each host's RESULT of generation ``gen`` in a launch.fit driver's
+    output, by host id."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith(f"[generation {gen} ") and "RESULT::" in ln:
+            res = json.loads(ln.split("RESULT::", 1)[1])
+            out[res["host"]] = res
+    return out
+
+
+def ssp_replay(epochs: int, work: str) -> str:
+    """The sequential replay of (c)'s s = 0 cohort in this process: each
+    host's epoch (its own windows, seed SEED + 7919·host) from the merged
+    state through ``run_epochs_ssp`` on a one-host store, then the merge in
+    host-id order — the simulator of tests/chaos/test_ssp_executor.py."""
+    from repro_torch.core.algorithms.logistic_regression import (
+        LogisticRegressionParameters, _make_gradient)
+    from repro_torch.core.exchange import ParamStore
+    from repro_torch.core.optimizer import (StochasticGradientDescent,
+                                            StochasticGradientDescentParameters)
+    from repro_torch.core.runner import DistributedRunner
+    from repro_torch.data import BatchIterator
+    from repro_torch.launch.fit import SSP_SEED_STRIDE
+
+    p = LogisticRegressionParameters(learning_rate=1e-7, local_batch_size=MESH_LR_BATCH,
+                                     schedule="allreduce", use_kernel=True)
+    step = StochasticGradientDescent._local_round(StochasticGradientDescentParameters(
+        w_init=None, grad=_make_gradient(p), learning_rate=p.learning_rate,
+        schedule=p.schedule, local_batch_size=p.local_batch_size, lr_decay=p.lr_decay))
+    runner = DistributedRunner(num_shards=SHARDS, schedule=p.schedule)
+    streams = [BatchIterator(card_windows(
+        "logreg", STREAM_LR_ROWS, LOGREG_FEATURES, SEED + SSP_SEED_STRIDE * h, DEVICE),
+        device=DEVICE) for h in range(2)]
+    w = torch.zeros(LOGREG_FEATURES, dtype=torch.float32, device=DEVICE)
+    for e in range(epochs):
+        mines = [runner.run_epochs_ssp(
+            streams[h], w, step, e + 1, store=ParamStore(os.path.join(work, f"solo{h}_{e}"), 0, 1),
+            staleness=0, chunks_per_epoch=STREAM_CHUNKS, start_epoch=e) for h in range(2)]
+        w = torch.stack(mines).mean(dim=0)
+    return sha(w)
+
+
+def mesh_part_c(children: MeshChildren, out: dict) -> None:
+    """(c): the two SSP launcher runs — s = 0 bitwise across hosts and
+    against the replay; s = 1 under a delay fault within its bound."""
+    (rc0, text0, t0), (rc1, text1, t1) = children.ssp.result(timeout=MESH_TIMEOUT)
+    check(rc0 == 0 and rc1 == 0, f"(c) launch.fit --staleness failed: {rc0} {text0[-2000:]} "
+          f"| {rc1} {text1[-2000:]}")
+    s0 = host_lines(text0, 0)
+    check(sorted(s0) == [0, 1] and s0[0]["sha"] == s0[1]["sha"],
+          f"(c) staleness 0: the two hosts' weights differ: {s0}")
+    check(all(t["reads"] == {str(1 - h): t["epoch"]} for h in (0, 1) for t in s0[h]["trace"]),
+          "(c) staleness 0 read another round than its own")
+    t_replay = time.perf_counter()
+    replay = ssp_replay(MESH_SSP_EPOCHS, out["work"])
+    t_replay = time.perf_counter() - t_replay
+    check(s0[0]["sha"] == replay, "(c) staleness 0 differs from the sequential replay")
+    s1 = host_lines(text1, 0)
+    host, rnd, secs = MESH_SSP_DELAY
+    reads = [(h, t["epoch"], r) for h in (0, 1) for t in s1[h]["trace"]
+             for r in t["reads"].values()]
+    check(all(e - 1 <= r <= e for _, e, r in reads),
+          f"(c) staleness 1: a read outside the bound: {reads}")
+    stale = sum(r < e for _, e, r in reads)
+    waits = [round(t["wait_seconds"], 3) for t in s1[0]["trace"]]
+    say(f"(c) python -m repro_torch.launch.fit --hosts 2 --staleness 0 ({SHARDS} partitions "
+        f"a host, {STREAM_LR_ROWS:,}-row windows x {LOGREG_FEATURES:,} drawn on the card, "
+        f"{MESH_SSP_EPOCHS} epochs): both hosts bitwise each other and the sequential "
+        f"replay here ({t_replay:.2f} s); {t0:.2f} s (read beside phases 20-23)")
+    say(f"(c) --staleness 1 with a {secs:.1f} s delay on host {host} at round {rnd}: every "
+        f"read within the bound ({stale} stale of {len(reads)}); host 0's waits by round "
+        f"{waits} s; {t1:.2f} s")
+
+
+def mesh_part_d(children: MeshChildren, out: dict) -> None:
+    """(d): the elastic launcher run — a kill on host 1, a restart on one
+    host, an allow_resize resume bitwise the same resume run here."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch import fit as tfit
+
+    rc, text, t_all = children.elastic.result(timeout=MESH_TIMEOUT)
+    check(rc == 0, f"(d) the elastic run failed: rc {rc}: {text[-2500:]}")
+    gen1 = host_lines(text, 1)
+    check(0 in gen1 and gen1[0]["partitions"] == MESH_LOCAL and gen1[0]["num_hosts"] == 1,
+          f"(d) no generation 1 on one host of {MESH_LOCAL} partitions: {text[-2000:]}")
+    m = gen1[0]
+    check(1 <= m["resumed_from"] <= MESH_KILL and m["stream_step"] == MESH_ELASTIC_EPOCHS,
+          f"(d) generation 1 resumed from {m['resumed_from']} to {m['stream_step']}")
+    lat = next((ln for ln in text.splitlines() if ln.startswith("elastic:")), "")
+    ck = os.path.join(children.work, "d")
+    ref = os.path.join(out["work"], "d-ref")
+    shutil.copytree(ck, ref, ignore=shutil.ignore_patterns("rendezvous"))
+    for fn in os.listdir(ref):
+        if fn.startswith("step_") and int(fn[5:-4]) > m["resumed_from"]:
+            os.remove(os.path.join(ref, fn))
+    args = fit_cli_args(ref)[3:] + ["--num-shards", str(MESH_LOCAL), "--elastic", "--resume",
+                                    "--epochs", str(MESH_ELASTIC_EPOCHS),
+                                    "--schedule", "gather_broadcast"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        model, t_here = timed(lambda: tfit.main(args, source=card_windows))
+    check(sha(model.weights) == m["sha"],
+          "(d) generation 1's weights differ from the 1-host resume of the same snapshot")
+    say(f"(d) launch.fit --hosts 2 --devices-per-host {MESH_LOCAL} --elastic, SIGKILL on "
+        f"host 1 at step {MESH_KILL}: generation 1 on 1 host x {MESH_LOCAL} resumed from "
+        f"step {m['resumed_from']} with allow_resize ({2 * MESH_LOCAL} -> {MESH_LOCAL} "
+        f"partitions), bitwise this process's 1-host resume ({t_here:.2f} s); {lat}; "
+        f"{t_all:.2f} s in all (read beside phases 20-23)")
+
+
+def say_kernel_row(name: str, r: dict) -> None:
+    """One line for a kernel's row of logreg_pair_times / kmeans_shape_row."""
+    lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+    say(f"{name} {r['label']} X{tuple(r['shape'])} (partition stride "
+        f"{r['partition_stride']:,}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{r['bound_ms'] / r['ms']:.1%}); max abs err {r['max_abs_err']:.3g}")
+
+
+def logreg_pair_times(label: str, X: torch.Tensor, y: torch.Tensor,
+                      W: torch.Tensor) -> dict:
+    """logreg_margin and logreg_xt_z on the chunk view X (P, n, d) against
+    their plain versions (margin within FP32_TOL absolute, Xᵀz within
+    FP32_TOL relative), each timed beside its plain version, the library
+    call where there is one (Xᵀz: torch.matmul) and the bound; in CUDA
+    graphs where the bound is under 20 µs."""
+    from repro_torch.kernels import logreg_grad as klg
+
+    P, n, d = X.shape
+    z, zp = klg.logreg_margin(X, y, W), klg.logreg_margin_plain(X, y, W)
+    g, gp = klg.logreg_xt_z(X, zp), klg.logreg_xt_z_plain(X, zp)
+    sync()
+    err_z, err_g = (z - zp).abs().max().item(), rel_err(g, gp)
+    check(err_z <= FP32_TOL and err_g <= FP32_TOL,
+          f"kernels 1-2 at {label} {tuple(X.shape)}: margin err {err_z}, xt_z rel err {err_g}")
+    rows = {}
+    for name, moved, fn, plain, lib in (
+            ("logreg_margin", P * n * d + P * d + 2 * P * n,
+             lambda: klg.logreg_margin(X, y, W), lambda: klg.logreg_margin_plain(X, y, W), None),
+            ("logreg_xt_z", P * n * d + P * n + P * d,
+             lambda: klg.logreg_xt_z(X, zp), lambda: klg.logreg_xt_z_plain(X, zp),
+             lambda: torch.matmul(X.transpose(1, 2), zp.unsqueeze(-1)))):
+        t_b, by = bound(4.0 * moved, 2.0 * P * n * d)
+        timer = graph_ms if t_b < 0.02 else (lambda f: cuda_ms(f, 10))
+        rows[name] = {"label": label, "shape": [P, n, d], "row_stride": X.stride(1),
+                      "partition_stride": X.stride(0), "ms": timer(fn), "plain_ms": timer(plain),
+                      "bound_ms": t_b, "bound_by": by,
+                      "library_ms": timer(lib) if lib else None,
+                      "max_abs_err": err_z if name == "logreg_margin"
+                      else (g - gp).abs().max().item()}
+    return rows
+
+
+def kmeans_shape_row(label: str, X: torch.Tensor, C: torch.Tensor) -> dict:
+    """kmeans_assign on X (P, n, d) against its plain version (a differing
+    pick must be a tie within fp32 rounding, score_gap), timed beside it
+    and the bound."""
+    from repro_torch.kernels import kmeans_assign as kka
+
+    P, n, d = X.shape
+    k = C.shape[0]
+    ties, gap, ratio = score_gap(X, C, kka.kmeans_assign(X, C), kka.kmeans_assign_plain(X, C))
+    check(ratio <= 1.0, f"kmeans_assign at {label} {tuple(X.shape)}: {ties} picks differ from "
+          f"the plain version beyond rounding ({ratio}x)")
+    t_b, by = bound(4.0 * (P * n * d + k * d + P * n), 2.0 * P * n * k * d)
+    return {"label": label, "shape": [P, n, d, k], "partition_stride": X.stride(0),
+            "ms": cuda_ms(lambda: kka.kmeans_assign(X, C), 10),
+            "plain_ms": cuda_ms(lambda: kka.kmeans_assign_plain(X, C), 10),
+            "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": gap,
+            "tie_picks": ties}
+
+
+def mesh_kernel_times(kept: dict) -> dict:
+    """Kernels 1-3 at the shapes the mesh path gave them, against their
+    plain versions and timed: (a)'s per-host chunks (MESH_LOCAL, SGD_BATCH,
+    LOGREG_FEATURES) of host 0's rows (remade here) and (MESH_LOCAL,
+    MESH_KM_ROWS / SHARDS, 4,096) of the lattice; (b)'s (SHARDS, SGD_BATCH,
+    4,096) and (SHARDS, MESH_KM_ROWS / SHARDS, 4,096); (c)'s (SHARDS,
+    MESH_LR_BATCH, LOGREG_FEATURES) and (d)'s (MESH_LOCAL, MESH_LR_BATCH,
+    LOGREG_FEATURES) chunks of a card_windows window."""
+    d, dk = LOGREG_FEATURES, KMEANS_FEATURES
+    lr, km = [], []
+    host = logreg_rows(slice(0, LOGREG_ROWS // MESH_HOSTS)).view(MESH_LOCAL, -1, d + 1)
+    W4 = kept["phase4_w"].expand(MESH_LOCAL, -1).contiguous()
+    lr.append(logreg_pair_times("(a) a host's chunk", host[:, :SGD_BATCH, 1:],
+                                host[:, :SGD_BATCH, 0].contiguous(), W4))
+    del host
+    free_device_memory()
+    window = card_windows("logreg", STREAM_LR_ROWS, d, SEED, DEVICE)(0)["data"]
+    W8 = kept["phase4_w"].expand(SHARDS, -1).contiguous()
+    for label, P, W in (("(c) an SSP host's chunk", SHARDS, W8),
+                        ("(d) an elastic generation's chunk", MESH_LOCAL, W4)):
+        blocks = window.view(P, -1, d + 1)
+        lr.append(logreg_pair_times(label, blocks[:, :MESH_LR_BATCH, 1:],
+                                    blocks[:, :MESH_LR_BATCH, 0].contiguous(), W))
+    del window, blocks
+    Xb = kept["X"].view(SHARDS, -1, dk + 1)
+    lr.append(logreg_pair_times("(b) NCCL world of 1, chunk", Xb[:, :SGD_BATCH, 1:],
+                                Xb[:, :SGD_BATCH, 0].contiguous(),
+                                kept["w"].expand(SHARDS, -1).contiguous()))
+    lattice, C = kept["lattice"], kept["centroids"]
+    km.append(kmeans_shape_row("(a) a host's partitions",
+                               lattice[:MESH_KM_ROWS // MESH_HOSTS].view(MESH_LOCAL, -1, dk), C))
+    km.append(kmeans_shape_row("(b) NCCL world of 1", lattice.view(SHARDS, -1, dk), C))
+    out = {"logreg_margin": [r["logreg_margin"] for r in lr],
+           "logreg_xt_z": [r["logreg_xt_z"] for r in lr], "kmeans_assign": km}
+    for name, rows in out.items():
+        for r in rows:
+            say_kernel_row(name, r)
+    return {name: {"shapes": rows} for name, rows in out.items()}
+
+
+def phase_mesh(children: MeshChildren, phase4_w: torch.Tensor) -> dict:
+    """Phase 24: mesh mode across host processes on this card, the SSP lane
+    and elastic resize.  Returns kernels 1-3's launches on the mesh path:
+    (a)'s hosts' and (b)'s (every launch of a mesh run; the emulated twins
+    do not count), and under "times" the call that holds and times the
+    kernels at the path's shapes (made in phase 25)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.numeric_table import MLNumericTable
+
+    phase(f"24. mesh mode: {MESH_HOSTS} host processes x {MESH_LOCAL} partitions (gloo) on "
+          f"logreg {LOGREG_ROWS:,} x {LOGREG_FEATURES:,} and k-means lattice {MESH_KM_ROWS:,} "
+          f"x {KMEANS_FEATURES:,}, NCCL at a world of 1, SSP s=0 and s=1 with a delay, "
+          f"elastic kill-resize-resume")
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_parent_")
+    out = {"work": work}
+    try:
+        mem_reset()
+        children.go()                # (a)'s hosts make their rows and fit now
+        out["lattice"] = lattice_rows(slice(0, MESH_KM_ROWS))
+        out["lattice_table"] = MLNumericTable(out["lattice"], num_shards=SHARDS)
+        (_, t_b) = timed(lambda: mesh_part_b(out))
+        _, t_a = timed(lambda: mesh_part_a(children, out, phase4_w))
+        mem_peak("phase 24 (this process; read beside the hosts)")
+        _, t_c = timed(lambda: mesh_part_c(children, out))
+        _, t_d = timed(lambda: mesh_part_d(children, out))
+        launches = {k: out["a_launches"][k] + out["b_launches"].get(k, 0)
+                    for k in out["a_launches"]}
+        say(f"launches of kernels 1-3 on the mesh path: {launches} ((a)'s hosts "
+            f"{out['a_launches']}, (b) {out['b_launches']}); seconds here: (b) {t_b:.1f}, "
+            f"(a) wait + checks {t_a:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}")
+        check(all(v > 0 for v in launches.values()), f"a kernel never launched on the mesh "
+              f"path: {launches}")
+        kept = dict(out["b_fits"], phase4_w=phase4_w)
+        return {"kernels": {k: {"launches": v} for k, v in launches.items()},
+                "times": lambda: mesh_kernel_times(kept)}
+    finally:
+        out.clear()
+        shutil.rmtree(work, ignore_errors=True)
         free_device_memory()
 
 
@@ -6087,6 +6761,7 @@ def main() -> int:
     first_path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
     reset_launch_counts()            # the first path's run starts here
     phase_logreg(gen, counts, report)
+    phase4_w = report["logreg"]["sgd"].weights.clone()   # phase 24 (a) holds it
     phase_kmeans(gen, counts, report)
     phase_serving(gen, counts, report)
     totals = launch_counts()         # ... and ends here
@@ -6102,18 +6777,31 @@ def main() -> int:
     # path's tables (free_tables) before its ALS and PCA parts
     phase_estimators(gen, report)
     free_device_memory()
-    fig = phase_fig_a2()             # counts its own launches
-    free_device_memory()
-    say(f"phase 20's tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
-        f"allocated")
-    tune_cli = TuneCLI()             # phase 23 (f)'s children, beside phases 22-23
+    # the child processes of phases 22 (d), 23 (f) and 24 start here, once
+    # the first path's tables are freed: each spends ≈ 8-15 s reaching the
+    # card, so they run beside phases 20-23 (whose times are read beside
+    # them) instead of in series with the phase that reads them
+    children = [FitCLI(), TuneCLI(), MeshChildren()]
+    fit_cli, tune_cli, mesh_children = children
     try:
-        stream = phase_stream()      # counts its own launches, frees its pools
-        phase_search(gen, tune_cli)  # launches no kernel (checked)
+        fig = phase_fig_a2()             # counts its own launches
+        free_device_memory()
+        say(f"after phase 20: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated "
+            f"(its tables kept for phase 25)")
+        stream = phase_stream(fit_cli)   # counts its own launches, frees its pools
+        phase_search(gen, tune_cli)      # launches no kernel (checked)
+        mesh = phase_mesh(mesh_children, phase4_w)  # counts the mesh path's launches
     finally:
-        tune_cli.close()
+        for child in children:
+            child.close()
+    phase("25. kernels 1-3 held and timed at the shapes of phases 20, 22 and 24, once no "
+          "child process shares the card")
+    for part in (fig, stream, mesh):
+        for name, times in part.pop("times")().items():
+            part["kernels"][name].update(times)
+    free_device_memory()
     for r in records:
-        for key, part in (("fig_a2", fig), ("stream", stream)):
+        for key, part in (("fig_a2", fig), ("stream", stream), ("mesh", mesh)):
             if r["name"] in part["kernels"]:
                 r[key] = part["kernels"][r["name"]]
                 r["launches"] += r[key]["launches"]
@@ -6155,4 +6843,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--stream-child"]:
         sys.exit(stream_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-host"]:
+        sys.exit(mesh_host(sys.argv[2]))
+    if sys.argv[1:2] == ["--fit"]:
+        fit_main(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

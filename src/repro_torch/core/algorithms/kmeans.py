@@ -21,7 +21,10 @@ launch per round for all partitions.
 Initialisation differs from the reference, which draws rows with
 ``jax.random.permutation``: ``fit`` and a trial's ``init`` draw ``k``
 distinct rows with ``torch.randperm`` on a ``torch.Generator`` seeded from
-``seed``; ``fit`` also starts from ``init_centroids``.  A trial is scored
+``seed``; ``fit`` also starts from ``init_centroids``.  On a mesh table
+each host holds some of the drawn rows, and a sum combine of the rows placed
+at their index in zeros gives every host all ``k`` (exact: each entry is
+one row's value plus zeros).  A trial is scored
 lane by lane with ``silhouette_lite``, so its score never depends on the
 stack.
 """
@@ -154,6 +157,24 @@ def _init_rows(seed: int, n: int, k: int) -> torch.Tensor:
     return torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:k]
 
 
+def _draw_rows(data: MLNumericTable, rows: torch.Tensor) -> torch.Tensor:
+    """Rows ``rows`` (global indices) of ``data`` on every host: a gather
+    on an emulated table; on a mesh, this host's rows placed in a (k, d)
+    zero tensor and summed over the hosts."""
+    if data.mesh is None:
+        return data.data[rows.to(data.device)]
+    from repro_torch.core.collectives import combine_sum
+
+    local = data.data.shape[0]
+    lo = data.mesh.host_id * local
+    mine = (rows >= lo) & (rows < lo + local)
+    out = torch.zeros((rows.shape[0], data.num_cols), dtype=data.data.dtype,
+                      device=data.device)
+    idx = torch.nonzero(mine).flatten()
+    out[idx.to(data.device)] = data.data[(rows[idx] - lo).to(data.device)]
+    return combine_sum(out.unsqueeze(0), data.mesh, "gather_broadcast")
+
+
 class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
              Searchable):
     """Instance-based Estimator: ``KMeans(k=4, seed=0).fit(table) ->
@@ -172,7 +193,7 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
         if p.k > n:
             raise ValueError("k exceeds number of rows")
         if init_centroids is None:
-            centroids = data.data[_init_rows(p.seed, n, p.k).to(data.device)]
+            centroids = _draw_rows(data, _init_rows(p.seed, n, p.k))
         else:
             centroids = torch.as_tensor(init_centroids).to(
                 device=data.device, dtype=data.data.dtype)
@@ -232,7 +253,10 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
                    chunks_per_epoch: Optional[int] = None,
                    checkpoint: Optional[CheckpointPolicy] = None,
                    resume: bool = False,
-                   init_centroids: Optional[torch.Tensor] = None
+                   init_centroids: Optional[torch.Tensor] = None,
+                   store=None, staleness: int = 0,
+                   allow_resize: bool = False,
+                   trace: Optional[list] = None
                    ) -> KMeansModel:
         """Streaming Lloyd rounds over minibatch windows: every round
         re-assigns one window chunk of each partition to the current
@@ -245,7 +269,16 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
         Centroids start from the first ``k`` rows of the stream's current
         window (peeked without consuming it) unless ``init_centroids`` is
         given; on resume the snapshot overwrites them, so only the shape
-        matters.  The centroids live on the stream's device."""
+        matters.  The centroids live on the stream's device (every host's,
+        on a stream with a mesh).
+
+        ``store`` (a :class:`repro_torch.core.exchange.ParamStore`) selects
+        the stale-synchronous lane: every epoch this host publishes its
+        (cluster sums, counts) statistics and rebuilds the centroids from
+        the cross-host sum under the ``staleness`` bound; the exchange
+        round is the Lloyd round, so ``chunks_per_epoch`` must be 1.
+        ``allow_resize=True`` lets a resumed run continue on a mesh of
+        another world size (elastic restart)."""
         p = self.params
         device = getattr(stream, "device", None)
         if init_centroids is None:
@@ -266,16 +299,32 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
         def update(centroids, tot, r):
             return _centroid_update(centroids, tot)
 
-        runner = DistributedRunner(num_shards=num_shards, schedule=p.schedule)
+        runner = DistributedRunner(num_shards=num_shards, schedule=p.schedule,
+                                   mesh=getattr(stream, "mesh", None))
         epochs = num_epochs if num_epochs is not None else p.max_iter
-        if resume:
+        if store is not None:
+            if resume:
+                if checkpoint is None:
+                    raise ValueError("resume=True requires a CheckpointPolicy")
+                centroids = runner.resume_ssp(
+                    checkpoint.ckpt_dir, stream, centroids, local_step, epochs,
+                    store=store, staleness=staleness, combine="sum",
+                    update=update, checkpoint=checkpoint, trace=trace)
+            else:
+                centroids = runner.run_epochs_ssp(
+                    stream, centroids, local_step, epochs, store=store,
+                    staleness=staleness, combine="sum", update=update,
+                    chunks_per_epoch=chunks_per_epoch or 1,
+                    checkpoint=checkpoint, trace=trace)
+        elif resume:
             if checkpoint is None:
                 raise ValueError("resume=True requires a CheckpointPolicy")
             centroids = runner.resume(checkpoint.ckpt_dir, stream, centroids,
                                       local_step, epochs, combine="sum",
                                       update=update,
                                       chunks_per_epoch=chunks_per_epoch,
-                                      checkpoint=checkpoint)
+                                      checkpoint=checkpoint,
+                                      allow_resize=allow_resize)
         else:
             centroids = runner.run_epochs(stream, centroids, local_step, epochs,
                                           combine="sum", update=update,

@@ -256,7 +256,9 @@ class LogisticRegressionAlgorithm(
     def fit_stream(self, stream, *, num_epochs: Optional[int] = None,
                    num_features: Optional[int] = None, num_shards: int = 1,
                    chunks_per_epoch: Optional[int] = None,
-                   checkpoint=None, resume: bool = False
+                   checkpoint=None, resume: bool = False, store=None,
+                   staleness: int = 0, allow_resize: bool = False,
+                   trace: Optional[list] = None
                    ) -> LogisticRegressionModel:
         """Streaming training over a :class:`repro_torch.data.pipeline.
         BatchIterator` whose windows follow the library convention (label
@@ -268,7 +270,13 @@ class LogisticRegressionAlgorithm(
         ``source``: it is read off ``stream.source(stream.step)`` without
         consuming the window.  Only the ``"sgd"`` solver streams — full-
         batch GD needs the whole table resident.  The weights live on the
-        stream's device."""
+        stream's device; on a stream with a mesh every host holds them.
+
+        ``store`` (a :class:`repro_torch.core.exchange.ParamStore`) selects
+        the stale-synchronous multi-host lane: this host trains on its own
+        windows each epoch and averages weights with its peers under the
+        ``staleness`` bound.  ``allow_resize=True`` lets a resumed run
+        continue on a mesh of another world size (elastic restart)."""
         p = self.params
         if p.solver != "sgd":
             raise ValueError(
@@ -289,7 +297,8 @@ class LogisticRegressionAlgorithm(
         weights = opt.apply_stream(
             stream, num_epochs if num_epochs is not None else p.max_iter,
             num_shards=num_shards, chunks_per_epoch=chunks_per_epoch,
-            checkpoint=checkpoint, resume=resume)
+            checkpoint=checkpoint, resume=resume, store=store,
+            staleness=staleness, allow_resize=allow_resize, trace=trace)
         return LogisticRegressionModel(p, weights)
 
 

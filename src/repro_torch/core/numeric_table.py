@@ -1,17 +1,22 @@
-"""Device-tier MLNumericTable (paper §III-A), emulated mode.
+"""Device-tier MLNumericTable (paper §III-A).
 
 Counterpart: ``src/repro/core/numeric_table.py``.  An MLNumericTable is the
 all-numeric table most algorithms consume: each row is one feature vector.
-Here it is a 2-D tensor on one device, split into ``num_shards`` logical row
-partitions; :class:`repro_torch.core.runner.DistributedRunner` views it as
-one ``(num_shards, rows_per_shard, cols)`` tensor.  ``map_rows``,
+In emulated mode it is a 2-D tensor on one device, split into
+``num_shards`` logical row partitions;
+:class:`repro_torch.core.runner.DistributedRunner` views it as one
+``(num_shards, rows_per_shard, cols)`` tensor.  On a host mesh (``mesh=``,
+a :class:`repro_torch.core.hostmesh.HostMesh`) each host keeps only its own
+rows on its device, as ``L`` partitions of the mesh's ``H·L``: ``data`` is
+that host's ``(rows/H, cols)`` slice, while ``num_rows`` and
+``num_shards`` describe the global table.  The row-wise operations below
+(``map_rows``, ``reduce``, ``matrix_batch_map``, ...) are emulated only.  ``map_rows``,
 ``filter_mask`` and ``reduce`` take a function of one row (``(d,)`` tensors),
 mapped over rows with ``torch.vmap`` where the reference ``jax.vmap``s;
 ``matrix_batch_map`` hands each partition's block to the partition function
 as a :class:`~repro_torch.core.local_matrix.LocalMatrix`, one partition
 after another.  Global combination is explicit (``reduce``,
 ``matrix_batch_map`` + a reduce), the paper's shared-nothing principle.
-Mesh mode waits for the ``torch.distributed`` slice.
 """
 from __future__ import annotations
 
@@ -53,13 +58,23 @@ class MLNumericTable:
     without a copy — how a table larger than host memory is made on the
     card; :meth:`from_numpy` copies a host array to a device.  ``names``
     are the column names (an ``MLTable``'s schema names after
-    ``to_numeric``), read by the featurizers' label and bias skips."""
+    ``to_numeric``), read by the featurizers' label and bias skips.  With
+    ``mesh=`` the tensor is this host's own rows (its slice of the global
+    table, :func:`repro_torch.core.hostmesh.local_row_slice`) and
+    ``num_shards`` is the mesh's."""
 
     def __init__(self, data: torch.Tensor, num_shards: int = 1,
-                 names: Optional[Sequence[Optional[str]]] = None) -> None:
+                 names: Optional[Sequence[Optional[str]]] = None,
+                 mesh=None) -> None:
         if data.ndim != 2:
             raise ValueError("MLNumericTable holds a 2-D (rows, features) array")
-        pt.check_rows_divisible(data.shape[0], num_shards)
+        self.mesh = mesh
+        if mesh is not None:
+            num_shards = mesh.num_partitions
+            pt.check_rows_divisible(data.shape[0], mesh.local_partitions,
+                                    what="local partitions")
+        else:
+            pt.check_rows_divisible(data.shape[0], num_shards)
         self.data = data
         self.num_shards = int(num_shards)
         self.names = tuple(names) if names is not None else None
@@ -67,14 +82,25 @@ class MLNumericTable:
     @classmethod
     def from_numpy(cls, array: np.ndarray, num_shards: Optional[int] = None,
                    device: DeviceLike = None,
-                   names: Optional[Sequence[Optional[str]]] = None
-                   ) -> "MLNumericTable":
+                   names: Optional[Sequence[Optional[str]]] = None,
+                   mesh=None) -> "MLNumericTable":
         """Copy a host array to ``device`` (the CUDA card unless
-        ``device="cpu"``); float64 arrives as float32, as in the reference."""
+        ``device="cpu"``); float64 arrives as float32, as in the reference.
+        With ``mesh=``, ``array`` is the global table (every host passes
+        the same) and only this host's rows go to the mesh's device."""
+        if mesh is not None:
+            return cls(pt.place_rows(array, mesh), names=names, mesh=mesh)
         return cls(to_tensor(array, resolve_device(device)),
                    num_shards=num_shards or 1, names=names)
 
+    def _emulated_only(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the row-wise table operations run on emulated tables only; "
+                "a mesh table holds one host's rows")
+
     def _like(self, data: torch.Tensor, names=None) -> "MLNumericTable":
+        self._emulated_only()
         return MLNumericTable(data, num_shards=self.num_shards, names=names)
 
     # ------------------------------------------------------------------ #
@@ -82,7 +108,9 @@ class MLNumericTable:
     # ------------------------------------------------------------------ #
     @property
     def num_rows(self) -> int:
-        return self.data.shape[0]
+        """Rows of the global table (on a mesh: every host's)."""
+        hosts = self.mesh.num_hosts if self.mesh is not None else 1
+        return self.data.shape[0] * hosts
 
     @property
     def num_cols(self) -> int:
@@ -99,6 +127,7 @@ class MLNumericTable:
         return self.data.device
 
     def to_numpy(self) -> np.ndarray:
+        self._emulated_only()
         return self.data.cpu().numpy()
 
     def to_local_matrix(self) -> LocalMatrix:
@@ -139,6 +168,7 @@ class MLNumericTable:
 
         Reduces within each partition, then across partitions — matching the
         distributed execution order."""
+        self._emulated_only()
         if identity is None:
             identity = torch.zeros((self.num_cols,), dtype=self.data.dtype,
                                    device=self.device)
@@ -147,9 +177,11 @@ class MLNumericTable:
         return _tree_fold_rows(partials, fn, identity)
 
     def sum_rows(self) -> torch.Tensor:
+        self._emulated_only()
         return torch.sum(self.data, dim=0)
 
     def mean_rows(self) -> torch.Tensor:
+        self._emulated_only()
         return torch.mean(self.data, dim=0)
 
     # ------------------------------------------------------------------ #
@@ -169,6 +201,7 @@ class MLNumericTable:
         LocalMatrix and must return a LocalMatrix (or tensor) with the same
         number of rows for every partition.
         """
+        self._emulated_only()
         outs = []
         for block in pt.partition_rows(self.data, self.num_shards):
             out = fn(LocalMatrix(block), *broadcast_args)

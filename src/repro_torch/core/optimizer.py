@@ -23,9 +23,10 @@ row chunks and returns ``(P, d)``: for every partition the *sum* of its
 rows' gradients.  ``w`` is ``(d,)`` when all partitions share it (GD) or
 ``(P, d)`` when each partition holds a private copy (SGD).  The SGD and
 minibatch steps divide by ``m`` (the rows of the minibatch) — the
-reference's mean — and GD uses the sum directly.  Not ported yet: the
-streaming paths' stale-synchronous lane (``store``, ``staleness``),
-``allow_resize`` and ``trace``.
+reference's mean — and GD uses the sum directly.  The streaming paths take
+the reference's ``store`` and ``staleness`` (the stale-synchronous lane),
+``allow_resize`` (an elastic resume) and ``trace``, and run on the
+stream's mesh when it has one (``BatchIterator(mesh=)``).
 """
 from __future__ import annotations
 
@@ -86,22 +87,44 @@ def _stream_fit(stream, w_init: torch.Tensor, num_epochs: int, local_round,
                 num_shards: int = 1,
                 chunks_per_epoch: Optional[int] = None,
                 checkpoint: Optional[CheckpointPolicy] = None,
-                resume: bool = False) -> torch.Tensor:
+                resume: bool = False, store=None, staleness: int = 0,
+                allow_resize: bool = False,
+                trace: Optional[list] = None) -> torch.Tensor:
     """Streaming counterpart of ``apply``: one window per epoch from
-    ``stream`` (a :class:`repro_torch.data.pipeline.BatchIterator`),
-    iterated by :meth:`DistributedRunner.run_epochs` with mean-combined
-    weights.  With ``resume=True`` the run restarts from
+    ``stream`` (a :class:`repro_torch.data.pipeline.BatchIterator`, on its
+    mesh when it has one), iterated by :meth:`DistributedRunner.run_epochs`
+    with mean-combined weights.  With ``resume=True`` the run restarts from
     ``checkpoint.ckpt_dir``; ``chunks_per_epoch=None`` then inherits the
     checkpointed layout, while an explicit value is cross-checked against
-    it (a mismatch raises)."""
-    runner = DistributedRunner(num_shards=num_shards, schedule=schedule)
+    it (a mismatch raises).
+
+    ``store`` (a :class:`repro_torch.core.exchange.ParamStore`) switches to
+    the stale-synchronous lane: independent hosts exchanging post-epoch
+    weights under the ``staleness`` bound
+    (:meth:`DistributedRunner.run_epochs_ssp`).  ``allow_resize`` lets a
+    resume repartition onto another world size (the elastic path)."""
+    runner = DistributedRunner(num_shards=num_shards, schedule=schedule,
+                               mesh=getattr(stream, "mesh", None))
+    if store is not None:
+        if resume:
+            if checkpoint is None:
+                raise ValueError("resume=True requires a CheckpointPolicy")
+            return runner.resume_ssp(checkpoint.ckpt_dir, stream, w_init,
+                                     local_round, num_epochs, store=store,
+                                     staleness=staleness, combine="mean",
+                                     checkpoint=checkpoint, trace=trace)
+        return runner.run_epochs_ssp(stream, w_init, local_round, num_epochs,
+                                     store=store, staleness=staleness,
+                                     combine="mean",
+                                     chunks_per_epoch=chunks_per_epoch or 1,
+                                     checkpoint=checkpoint, trace=trace)
     if resume:
         if checkpoint is None:
             raise ValueError("resume=True requires a CheckpointPolicy")
         return runner.resume(checkpoint.ckpt_dir, stream, w_init, local_round,
                              num_epochs, combine="mean",
                              chunks_per_epoch=chunks_per_epoch,
-                             checkpoint=checkpoint)
+                             checkpoint=checkpoint, allow_resize=allow_resize)
     return runner.run_epochs(stream, w_init, local_round, num_epochs,
                              combine="mean",
                              chunks_per_epoch=chunks_per_epoch or 1,
@@ -209,19 +232,25 @@ class StochasticGradientDescent(Optimizer):
     def apply_stream(self, stream, num_epochs: int, *, num_shards: int = 1,
                      chunks_per_epoch: Optional[int] = None,
                      checkpoint: Optional[CheckpointPolicy] = None,
-                     resume: bool = False, params=None) -> torch.Tensor:
+                     resume: bool = False, params=None, store=None,
+                     staleness: int = 0, allow_resize: bool = False,
+                     trace: Optional[list] = None) -> torch.Tensor:
         """Streaming fit: each epoch's window is split into
         ``chunks_per_epoch`` rounds; every round each partition folds over
         its chunk's rows exactly as the resident path folds over its
         partition, then the weights are mean-combined.  ``lr_decay`` reads
         the global round index.  ``checkpoint``/``resume`` make the run
         preemption-safe (see :class:`repro_torch.core.runner.
-        CheckpointPolicy`)."""
+        CheckpointPolicy`).  ``store`` + ``staleness`` select the
+        stale-synchronous lane; ``allow_resize`` permits an elastic resume
+        on a resized mesh."""
         p = params or self.params
         return _stream_fit(stream, p.w_init, num_epochs, self._local_round(p),
                            p.schedule, num_shards=num_shards,
                            chunks_per_epoch=chunks_per_epoch,
-                           checkpoint=checkpoint, resume=resume)
+                           checkpoint=checkpoint, resume=resume, store=store,
+                           staleness=staleness, allow_resize=allow_resize,
+                           trace=trace)
 
 
 # --------------------------------------------------------------------------- #
@@ -329,14 +358,20 @@ class MinibatchSGD(Optimizer):
     def apply_stream(self, stream, num_epochs: int, *, num_shards: int = 1,
                      chunks_per_epoch: Optional[int] = None,
                      checkpoint: Optional[CheckpointPolicy] = None,
-                     resume: bool = False, params=None) -> torch.Tensor:
+                     resume: bool = False, params=None, store=None,
+                     staleness: int = 0, allow_resize: bool = False,
+                     trace: Optional[list] = None) -> torch.Tensor:
         """Streaming minibatch SGD: each of the window's
         ``chunks_per_epoch`` chunks is one minibatch per partition — mean
         gradient, local step, mean-combined weights.  Preemption-safe
-        through ``checkpoint``/``resume``."""
+        through ``checkpoint``/``resume``; ``store``, ``staleness``,
+        ``allow_resize`` and ``trace`` as :meth:`StochasticGradientDescent.
+        apply_stream`."""
         p = params or self.params
         return _stream_fit(stream, p.w_init, num_epochs,
                            self._streaming_round(p), p.schedule,
                            num_shards=num_shards,
                            chunks_per_epoch=chunks_per_epoch,
-                           checkpoint=checkpoint, resume=resume)
+                           checkpoint=checkpoint, resume=resume, store=store,
+                           staleness=staleness, allow_resize=allow_resize,
+                           trace=trace)

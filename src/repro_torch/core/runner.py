@@ -1,9 +1,10 @@
-"""DistributedRunner — the shared execution layer, emulated mode.
+"""DistributedRunner — the shared execution layer.
 
 Counterpart: ``src/repro/core/runner.py`` (``partition_apply``,
-``run_once``, ``run_rounds``, ``_emulated_combine``, the streaming mode:
-``CheckpointPolicy``, ``run_epochs``, ``_save_snapshot``, ``resume`` and
-``_check_window``, and the stacked trials below).
+``run_once``, ``run_rounds``, ``_emulated_combine``, mesh mode, the
+streaming mode: ``CheckpointPolicy``, ``run_epochs``, ``_save_snapshot``,
+``resume`` with ``allow_resize`` and ``_check_window``, the
+stale-synchronous lane, and the stacked trials below).
 
 Algorithms express their per-partition compute as local functions and
 delegate partitioning, iteration and the combine here:
@@ -17,9 +18,9 @@ the port writes the partition dimension out: a local function receives the
 whole ``(num_shards, rows_per_shard, cols)`` stack and returns one partial
 per partition stacked on a leading axis.  One kernel launch therefore
 covers every partition.  The reference's ``lax.scan`` over rounds is a
-Python loop.  Partitions are emulated on the table's device, so the combine
-is the local reduction of each collective and the schedule does not change
-the arithmetic.
+Python loop.  In emulated mode the partitions lie on the table's device, so
+the combine is the local reduction of each collective and the schedule does
+not change the arithmetic.
 
 Beyond the paper's resident-table loop, the runner has a **streaming mode**
 (:meth:`DistributedRunner.run_epochs`): each epoch pulls one host window
@@ -56,9 +57,29 @@ the trial-local round ``r - round_offsets[j]``.  The active mask, the
 offsets and the hyperparameters are host (CPU) tensors, read per lane
 without waiting for the card.
 
-Not ported yet: mesh mode, ``allow_resize`` and the stale-synchronous lane
-(``run_epochs_ssp``, ``resume_ssp``); the signatures leave those arguments
-out.  ``epoch_fn`` has no twin: there is no compiled epoch to cache.
+**Mesh mode** (``mesh=``, a :class:`repro_torch.core.hostmesh.HostMesh`):
+host processes joined by a ``torch.distributed`` group, each holding ``L``
+of the ``P = H·L`` partitions.  A host's table or window holds only its
+own rows; every round runs ONE local-step launch over the host's ``(L,
+rows, cols)`` stack, as emulated mode does over its ``(P, rows, cols)``
+stack, and the combine runs the schedule over the group
+(:mod:`repro_torch.core.collectives`); every host then holds the same
+state.  Host 0 alone writes the snapshots of a mesh run (one writer per
+global mesh, a shared filesystem), recording the global rows and
+partitions, and ``resume(..., allow_resize=True)`` picks a run up on
+another world size through :func:`repro_torch.core.partition.plan_resize`.
+The stacked-trial entry points are emulated only.
+
+**Stale-synchronous lane** (counterpart ``_ssp_merge``, ``run_epochs_ssp``,
+``resume_ssp``): independent hosts, each with its own runner (emulated or
+its own mesh), exchange through a shared
+:class:`repro_torch.core.exchange.ParamStore` under a staleness bound
+instead of lock-step collectives; merges stack the entries in host-id order
+and reduce on the device, so ``staleness=0`` is bitwise a sequential replay
+of the hosts.
+
+The reference's ``_canonical_state`` has no twin (there is no compiled
+epoch whose input sharding could drift), nor has ``epoch_fn``.
 """
 from __future__ import annotations
 
@@ -67,8 +88,9 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.core import partition as pt
-from repro_torch.core.collectives import CollectiveSchedule
+from repro_torch.core.collectives import CollectiveSchedule, _tree_map, ssp_read_round
 
 __all__ = ["CheckpointPolicy", "DistributedRunner"]
 
@@ -83,18 +105,6 @@ TrialStep = Callable[[torch.Tensor, Any, int, Any], Any]
 TrialUpdateFn = Callable[[Any, Any, int, Any], Any]
 # round_fn(blocks, state, round_index) -> next state: one whole round
 RoundFn = Callable[[torch.Tensor, Any, int], Any]
-
-
-def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of ``tree`` (dicts, lists and tuples are
-    nodes; anything else is a leaf), zipped with the same leaves of
-    ``rest`` — ``jax.tree.map`` for the trees this package carries."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(o[k] for o in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [_tree_map(fn, v, *(o[i] for o in rest)) for i, v in enumerate(tree)]
-        return out if isinstance(tree, list) else tuple(out)
-    return fn(tree, *rest)
 
 
 def _tree_leaves(tree: Any) -> List[Any]:
@@ -118,14 +128,11 @@ def _emulated_combine(stacked: Any, combine: str) -> Any:
     raise ValueError(f"unknown combine {combine!r}")
 
 
-def _round_fn(local_step: LocalStep, update: Optional[UpdateFn],
-              combine: str) -> RoundFn:
-    """One round of the paper's loop: local step → combine → update."""
-    def round_fn(blocks: torch.Tensor, state: Any, r: int) -> Any:
-        combined = _emulated_combine(local_step(blocks, state, r), combine)
-        return combined if update is None else update(state, combined, r)
-
-    return round_fn
+_MESH_COMBINERS = {
+    "mean": coll.combine_mean,
+    "sum": coll.combine_sum,
+    "concat": coll.combine_concat,
+}
 
 
 def _mask_tree(active: Sequence[bool], new: dict, old: Any) -> Any:
@@ -229,15 +236,20 @@ def _first_device(tree: Any) -> Optional[torch.device]:
 class DistributedRunner:
     """Owns data partitioning, the round loop and the per-round combine.
 
-    ``num_shards`` is the emulated partition count; ``schedule`` the
-    :class:`CollectiveSchedule` of every global combine.
+    ``mesh`` is a :class:`repro_torch.core.hostmesh.HostMesh`, or None for
+    emulated partitions on one device; ``num_shards`` is the emulated
+    partition count (with a mesh, the mesh's ``H·L`` partitions);
+    ``schedule`` the :class:`CollectiveSchedule` of every global combine.
     """
 
     num_shards: int = 1
     schedule: Union[str, CollectiveSchedule] = CollectiveSchedule.ALLREDUCE
+    mesh: Any = None
 
     def __post_init__(self) -> None:
         self.schedule = CollectiveSchedule.parse(self.schedule)
+        if self.mesh is not None:
+            self.num_shards = self.mesh.num_partitions
         if self.num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {self.num_shards}")
 
@@ -245,19 +257,49 @@ class DistributedRunner:
     def for_table(cls, table: Any,
                   schedule: Union[str, CollectiveSchedule] = CollectiveSchedule.ALLREDUCE
                   ) -> "DistributedRunner":
-        """A runner matching a table's partition layout."""
-        return cls(num_shards=table.num_shards, schedule=schedule)
+        """A runner matching a table's partition layout (and mesh)."""
+        return cls(num_shards=table.num_shards, schedule=schedule,
+                   mesh=getattr(table, "mesh", None))
+
+    @property
+    def local_shards(self) -> int:
+        """Partitions this process holds: the mesh's ``L``, or all of them
+        in emulated mode."""
+        return self.mesh.local_partitions if self.mesh is not None else self.num_shards
+
+    @property
+    def num_hosts(self) -> int:
+        return self.mesh.num_hosts if self.mesh is not None else 1
+
+    def _combine(self, stacked: Any, combine: str) -> Any:
+        """Combine this process's stacked partials over every partition:
+        the collective under the schedule on a mesh, else the local form."""
+        if self.mesh is None:
+            return _emulated_combine(stacked, combine)
+        if combine not in _MESH_COMBINERS:
+            raise ValueError(f"unknown combine {combine!r}")
+        return _MESH_COMBINERS[combine](stacked, self.mesh, self.schedule)
+
+    def _round_fn(self, local_step: LocalStep, update: Optional[UpdateFn],
+                  combine: str) -> RoundFn:
+        """One round of the paper's loop: local step → combine → update."""
+        def round_fn(blocks: torch.Tensor, state: Any, r: int) -> Any:
+            combined = self._combine(local_step(blocks, state, r), combine)
+            return combined if update is None else update(state, combined, r)
+
+        return round_fn
 
     def partition_apply(self, data: torch.Tensor, fn: Callable,
                         broadcast: Sequence[Any] = (),
                         combine: Optional[str] = None) -> torch.Tensor:
-        """Run ``fn(blocks, *broadcast)`` once over the ``(num_shards,
-        rows, ...)`` view of ``data``.  ``combine=None`` returns the stacked
-        per-partition results; ``"mean" | "sum" | "concat"`` combines them."""
-        out = fn(pt.partition_rows(data, self.num_shards), *broadcast)
+        """Run ``fn(blocks, *broadcast)`` once over the ``(local_shards,
+        rows, ...)`` view of ``data`` (this process's rows).
+        ``combine=None`` returns the stacked per-partition results;
+        ``"mean" | "sum" | "concat"`` combines them over every partition."""
+        out = fn(pt.partition_rows(data, self.local_shards), *broadcast)
         if combine is None:
             return out
-        return _emulated_combine(out, combine)
+        return self._combine(out, combine)
 
     def run_once(self, table: Any, local_fn: Callable, *broadcast: Any,
                  combine: str = "sum") -> torch.Tensor:
@@ -278,12 +320,13 @@ class DistributedRunner:
         ``update``; sufficient-statistics methods (k-means, full-batch GD)
         pass ``combine="sum"`` and an ``update``.  ``start_round`` offsets
         the round indices ``local_step`` sees."""
-        return self._rounds(table, init_state, _round_fn(local_step, update, combine),
+        return self._rounds(table, init_state,
+                            self._round_fn(local_step, update, combine),
                             num_rounds, start_round)
 
     def _rounds(self, table: Any, state: Any, round_fn: RoundFn,
                 num_rounds: int, start_round: int) -> Any:
-        blocks = pt.partition_rows(table.data, self.num_shards)
+        blocks = pt.partition_rows(table.data, self.local_shards)
         for r in range(start_round, start_round + num_rounds):
             state = round_fn(blocks, state, r)
         return state
@@ -292,9 +335,10 @@ class DistributedRunner:
     # streaming mode: epochs over minibatch windows (beyond the paper)
     # ------------------------------------------------------------------ #
     def _check_window(self, window: torch.Tensor, chunks_per_epoch: int) -> None:
-        pt.check_rows_divisible(window.shape[0], self.num_shards,
+        """``window`` is this process's rows of the epoch's window."""
+        pt.check_rows_divisible(window.shape[0], self.local_shards,
                                 what="stream partitions")
-        per_shard = window.shape[0] // self.num_shards
+        per_shard = window.shape[0] // self.local_shards
         if per_shard % chunks_per_epoch != 0:
             raise ValueError(
                 f"rows-per-shard {per_shard} must divide into "
@@ -332,7 +376,8 @@ class DistributedRunner:
         ...]`` and may raise
         :class:`repro_torch.tune.callback.EarlyStopException` to end the
         loop — the tail checkpoint is still written."""
-        return self._epochs(stream, init_state, _round_fn(local_step, update, combine),
+        return self._epochs(stream, init_state,
+                            self._round_fn(local_step, update, combine),
                             num_epochs, chunks_per_epoch=chunks_per_epoch,
                             checkpoint=checkpoint, rng=rng, start_epoch=start_epoch,
                             callbacks=callbacks, eval_fn=eval_fn)
@@ -381,15 +426,7 @@ class DistributedRunner:
                     done = e
                     break
                 state = swaps.get("state", state)
-            batch = next(stream)
-            window = batch["data"] if isinstance(batch, dict) else batch
-            self._check_window(window, chunks)
-            rows = int(window.shape[0])
-            blocks = pt.partition_rows(window, self.num_shards)
-            cr = blocks.shape[1] // chunks
-            for r in range(e * chunks, (e + 1) * chunks):
-                c = r % chunks
-                state = round_fn(blocks[:, c * cr:(c + 1) * cr], state, r)
+            state, rows = self._window_rounds(stream, state, round_fn, e, chunks)
             done = e + 1
             stopped = False
             if after:
@@ -409,11 +446,31 @@ class DistributedRunner:
                                 rows=rows)
         return state
 
+    def _window_rounds(self, stream: Iterator, state: Any, round_fn: RoundFn,
+                       epoch: int, chunks: int) -> tuple:
+        """Epoch ``epoch`` over the stream's next window: ``chunks`` rounds,
+        round ``r`` on chunk ``r % chunks`` of every partition (a view).
+        Returns ``(state, global rows of the window)``."""
+        batch = next(stream)
+        window = batch["data"] if isinstance(batch, dict) else batch
+        self._check_window(window, chunks)
+        blocks = pt.partition_rows(window, self.local_shards)
+        cr = blocks.shape[1] // chunks
+        for r in range(epoch * chunks, (epoch + 1) * chunks):
+            c = r % chunks
+            state = round_fn(blocks[:, c * cr:(c + 1) * cr], state, r)
+        return state, int(window.shape[0]) * self.num_hosts
+
     def _save_snapshot(self, policy: CheckpointPolicy, stream: Any, state: Any,
                        epoch: int, chunks: int, rng: Optional[torch.Tensor], *,
-                       rows: Optional[int] = None) -> None:
+                       rows: Optional[int] = None,
+                       extra_meta: Optional[dict] = None) -> None:
         from repro_torch.checkpoint.store import save_checkpoint
 
+        if self.mesh is not None and self.mesh.host_id != 0:
+            # one writer per global mesh: every host holds the same combined
+            # state, host 0 persists it (a shared filesystem)
+            return
         stream_step = getattr(stream, "step", None)
         if stream_step is None:
             raise TypeError(
@@ -427,7 +484,7 @@ class DistributedRunner:
             "chunks_per_epoch": chunks,
             "schedule": self.schedule.value,
             "num_shards": self.num_shards,
-            "num_hosts": 1,
+            "num_hosts": self.num_hosts,
             "rows_per_epoch": rows,
             "every_epochs": policy.every_epochs,
             "keep": policy.keep,
@@ -438,6 +495,8 @@ class DistributedRunner:
             # one atomic unit: the training carry plus the caller's extra
             # state (e.g. a pipeline's fitted featurizer statistics)
             tree = {"state": state, "extra": policy.extra_state}
+        if extra_meta:
+            meta.update(extra_meta)
         if policy.extra_metadata is not None:
             meta["extra"] = policy.extra_metadata
         save_checkpoint(policy.ckpt_dir, epoch, tree, metadata=meta,
@@ -448,7 +507,8 @@ class DistributedRunner:
                combine: str = "mean", update: Optional[UpdateFn] = None,
                chunks_per_epoch: Optional[int] = None,
                checkpoint: Optional[CheckpointPolicy] = None,
-               step: Optional[int] = None) -> Any:
+               step: Optional[int] = None,
+               allow_resize: bool = False) -> Any:
         """Restart a killed :meth:`run_epochs` run from its newest (or
         ``step``-selected) checkpoint and continue to ``num_epochs``.
 
@@ -461,11 +521,19 @@ class DistributedRunner:
         resumed run repeats the same launches on the same values, so the
         final state equals an uninterrupted run's bit for bit.  A snapshot
         written by the reference's runner resumes here, and the other way
-        round: the file format and the metadata are the reference's."""
+        round: the file format and the metadata are the reference's.
+
+        ``allow_resize=True`` is the elastic path: the shard-count check is
+        replaced by a :func:`repro_torch.core.partition.plan_resize`
+        validation of the snapshot's rows over this runner's partitions, so
+        a mesh of another world size (or emulated partitions) picks the run
+        up from the same snapshot.  The state tree is layout-free (every
+        combine leaves it whole), so only the windows' partitioning
+        changes."""
         from repro_torch.checkpoint.store import load_metadata, \
             restore_with_metadata
 
-        device = getattr(stream, "device", None) or _first_device(init_state)
+        device = self._state_device(stream, init_state)
         peek = load_metadata(ckpt_dir, step) or {}
         wrapped = bool(peek.get("wrapped"))
         template = init_state
@@ -490,10 +558,21 @@ class DistributedRunner:
         for name, have in (("schedule", self.schedule.value),
                            ("num_shards", self.num_shards)):
             want = meta.get(name)
-            if want is not None and want != have:
-                raise ValueError(
-                    f"cannot resume: checkpoint was written with "
-                    f"{name}={want!r} but this runner has {name}={have!r}")
+            if want is None or want == have:
+                continue
+            if name == "num_shards" and allow_resize:
+                rows = meta.get("rows_per_epoch")
+                if rows:
+                    # raises before any state is used when the rows cannot
+                    # split evenly over the surviving partitions
+                    pt.plan_resize(int(rows), int(want), int(have))
+                continue
+            raise ValueError(
+                f"cannot resume: checkpoint was written with "
+                f"{name}={want!r} but this runner has {name}={have!r}"
+                + ("" if name != "num_shards" else
+                   " (pass allow_resize=True to repartition onto the "
+                   "surviving mesh)"))
         chunks = int(meta.get("chunks_per_epoch", 1))
         if chunks_per_epoch is not None and chunks_per_epoch != chunks:
             raise ValueError(
@@ -516,9 +595,186 @@ class DistributedRunner:
                                chunks_per_epoch=chunks, checkpoint=checkpoint,
                                rng=rng, start_epoch=epoch)
 
+    def _state_device(self, stream: Any, tree: Any) -> Optional[torch.device]:
+        """Where a restored state goes: the stream's device, the mesh's, or
+        the template's."""
+        device = getattr(stream, "device", None)
+        if device is None and self.mesh is not None:
+            device = self.mesh.device
+        return device or _first_device(tree)
+
+    # ------------------------------------------------------------------ #
+    # stale-synchronous parallel lane: independent hosts, bounded clocks
+    # ------------------------------------------------------------------ #
+    def _ssp_merge(self, entries: Sequence[tuple], combine: str) -> Any:
+        """Combine ``[(host_id, tree), ...]`` across hosts in host-id order:
+        the trees stacked on a new leading axis and reduced on the device,
+        the same arithmetic on every host and in a sequential replay."""
+        trees = [t for _, t in sorted(entries, key=lambda kv: kv[0])]
+        if combine == "mean":
+            return _tree_map(lambda *xs: torch.stack(xs).mean(dim=0), *trees)
+        if combine == "sum":
+            return _tree_map(lambda *xs: torch.stack(xs).sum(dim=0), *trees)
+        raise ValueError(f"SSP lane supports combine='mean'|'sum', "
+                         f"got {combine!r}")
+
+    def run_epochs_ssp(self, stream: Iterator, init_state: Any,
+                       local_step: LocalStep, num_epochs: int, *,
+                       store: Any, staleness: int = 0,
+                       combine: str = "mean",
+                       update: Optional[UpdateFn] = None,
+                       chunks_per_epoch: int = 1,
+                       checkpoint: Optional[CheckpointPolicy] = None,
+                       rng: Optional[torch.Tensor] = None,
+                       start_epoch: int = 0,
+                       trace: Optional[list] = None) -> Any:
+        """Streaming epochs with **stale-synchronous** cross-host exchange.
+
+        Hosts are independent programs (each with this runner over its own
+        partitions) that exchange through a shared
+        :class:`repro_torch.core.exchange.ParamStore`.  Each exchange round
+        (one epoch) host ``h``:
+
+          1. computes its contribution for round ``e`` and **publishes** it
+             (atomic, the checkpoint store's machinery);
+          2. **waits** until every live peer has published round ``>= e -
+             staleness``;
+          3. **reads** each peer's freshest publication capped at its own
+             round (:func:`repro_torch.core.collectives.ssp_read_round`) and
+             merges in host-id order (:meth:`_ssp_merge`).
+
+        ``staleness=0`` is lock-step BSP: every host merges the same entries
+        in the same order, bitwise a sequential replay of the hosts.
+
+        ``"mean"``: the contribution is the host's post-epoch state (its
+        ``chunks_per_epoch`` rounds, combined over its own partitions); the
+        merge averages states.  ``"sum"`` + ``update``: the contribution is
+        the host's statistics for the round (combined over its partitions);
+        the merge sums them and ``update`` rebuilds the state; this needs
+        ``chunks_per_epoch == 1``.
+
+        Departed peers (``store.mark_left()``) are dropped once their last
+        in-bound contribution ages out.  ``trace`` receives one ``{"epoch",
+        "reads", "wait_seconds"}`` record per round.  Checkpoints are per
+        host (its own directory; ``staleness`` and the store's world in the
+        metadata); :meth:`resume_ssp` restarts a killed host against the
+        same store."""
+        import time
+
+        if num_epochs < start_epoch:
+            raise ValueError(f"num_epochs {num_epochs} < start_epoch {start_epoch}")
+        staleness = int(staleness)
+        if staleness < 0:
+            raise ValueError(f"staleness must be >= 0, got {staleness}")
+        chunks = int(chunks_per_epoch)
+        if chunks < 1:
+            raise ValueError(f"chunks_per_epoch must be >= 1, got {chunks}")
+        stats_lane = combine == "sum"
+        if stats_lane:
+            if update is None:
+                raise ValueError(
+                    "SSP combine='sum' is the sufficient-statistics lane — "
+                    "it needs an update(state, merged_stats, r) to rebuild "
+                    "the state from the cross-host sum")
+            if chunks != 1:
+                raise ValueError(
+                    "SSP combine='sum' requires chunks_per_epoch=1 so "
+                    "exchange rounds and algorithm rounds coincide")
+            round_fn = lambda blocks, state, r: self._combine(  # noqa: E731
+                local_step(blocks, state, r), "sum")
+        elif combine == "mean":
+            round_fn = self._round_fn(local_step, update, combine)
+        else:
+            raise ValueError(f"SSP lane supports combine='mean'|'sum', "
+                             f"got {combine!r}")
+        ssp_meta = {"staleness": staleness, "ssp_hosts": store.num_hosts,
+                    "ssp_host_id": store.host_id}
+        state = init_state
+        rows = None
+        last_saved = None
+        for e in range(start_epoch, num_epochs):
+            mine, rows = self._window_rounds(stream, state, round_fn, e, chunks)
+            store.publish(e, mine)
+            entries = [(store.host_id, mine)]
+            reads = {}
+            waited = 0.0
+            for p in store.peers():
+                t0 = time.monotonic()
+                clock = store.wait_clock(p, e - staleness + 1)
+                waited += time.monotonic() - t0
+                if clock <= e - staleness:
+                    # a departed peer whose last word is out of bound: it
+                    # has aged out of the cohort (in-place shrink)
+                    continue
+                got = store.read_at_most(p, ssp_read_round(e, clock, staleness), mine)
+                if got is None:
+                    continue
+                entries.append((p, got[0]))
+                reads[p] = got[1]
+            merged = self._ssp_merge(entries, combine)
+            state = update(state, merged, e) if stats_lane else merged
+            if trace is not None:
+                trace.append({"epoch": e, "reads": reads, "wait_seconds": waited})
+            if checkpoint is not None and (e + 1) % checkpoint.every_epochs == 0:
+                self._save_snapshot(checkpoint, stream, state, e + 1, chunks, rng,
+                                    rows=rows, extra_meta=ssp_meta)
+                last_saved = e + 1
+        if checkpoint is not None and last_saved != num_epochs:
+            self._save_snapshot(checkpoint, stream, state, num_epochs, chunks,
+                                rng, rows=rows, extra_meta=ssp_meta)
+        return state
+
+    def resume_ssp(self, ckpt_dir: str, stream: Any, init_state: Any,
+                   local_step: LocalStep, num_epochs: int, *,
+                   store: Any, staleness: Optional[int] = None,
+                   combine: str = "mean", update: Optional[UpdateFn] = None,
+                   checkpoint: Optional[CheckpointPolicy] = None,
+                   step: Optional[int] = None,
+                   trace: Optional[list] = None) -> Any:
+        """Restart one killed SSP host from its own checkpoint and rejoin
+        the cohort on the same store.  Peers' publications survive on disk,
+        so the host replays from its snapshot (the same launches on the same
+        values) and re-publishes the rounds it had shared, byte for byte.
+        ``staleness`` defaults to the checkpointed value."""
+        from repro_torch.checkpoint.store import restore_with_metadata
+
+        state, ck_step, meta = restore_with_metadata(
+            ckpt_dir, init_state, step,
+            device=self._state_device(stream, init_state))
+        if meta is None:
+            raise ValueError(
+                f"checkpoint step {ck_step} under {ckpt_dir} carries no "
+                f"resume metadata — was it written by run_epochs_ssp?")
+        if staleness is None:
+            staleness = int(meta.get("staleness", 0))
+        chunks = int(meta.get("chunks_per_epoch", 1))
+        if not hasattr(stream, "seek"):
+            raise TypeError("resume requires a seekable stream "
+                            "(BatchIterator or anything with .seek(step))")
+        stream.seek(meta["stream_step"])
+        rng = (torch.tensor(meta["rng"], dtype=torch.int64)
+               if meta.get("rng") is not None else None)
+        epoch = int(meta["epoch"])
+        if checkpoint is None and meta.get("every_epochs"):
+            checkpoint = CheckpointPolicy(ckpt_dir, meta["every_epochs"],
+                                          meta.get("keep"))
+        if epoch >= num_epochs:
+            return state
+        return self.run_epochs_ssp(
+            stream, state, local_step, num_epochs, store=store,
+            staleness=staleness, combine=combine, update=update,
+            chunks_per_epoch=chunks, checkpoint=checkpoint, rng=rng,
+            start_epoch=epoch, trace=trace)
+
     # ------------------------------------------------------------------ #
     # stacked trials: K models a round (model search; repro_torch.tune)
     # ------------------------------------------------------------------ #
+    def _emulated_only(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} runs emulated partitions only (a model search on a "
+                f"mesh is not ported)")
+
     @staticmethod
     def _stacked_carry(trial_states: Any, trial_hyper: Any,
                        active: Any = None, offsets: Any = None) -> dict:
@@ -587,6 +843,7 @@ class DistributedRunner:
         combined, r, hyper)`` describe ONE trial.  ``active`` freezes the
         lanes it marks False.  Returns the final stacked states (new
         tensors; the inputs are not changed)."""
+        self._emulated_only("run_stacked_rounds")
         carry = self._stacked_carry(trial_states, trial_hyper, active)
         out = self._rounds(table, carry, self._stacked_fns(trial_step, update, combine),
                            num_rounds, start_round)
@@ -618,6 +875,7 @@ class DistributedRunner:
         ``active``; a ``{"state"|"hyper"|"active": ...}`` return swaps that
         component.  ``eval_fn(trial_states, epoch)`` returns the boundary's
         ``EvalEntry`` list.  Returns the final stacked states."""
+        self._emulated_only("run_stacked_epochs")
         carry = self._stacked_carry(trial_states, trial_hyper, active,
                                     round_offsets)
         run_eval = None

@@ -7,13 +7,16 @@ the source is a pure function of it, so the stream is *seekable*:
 :meth:`repro_torch.core.runner.DistributedRunner.resume` replays a killed
 run bit for bit (the checkpoint's metadata records the step).
 
-Where the reference takes ``mesh=`` and lays each batch's rows out over the
-mesh's data axes, the port takes ``device=`` (the CUDA card unless
-``device="cpu"``; with no card and no ``device="cpu"`` it raises) and puts
-each batch there whole: the runner views a window as ``(num_shards,
-rows_per_shard, cols)`` partition blocks on that one device, which is the
-layout of a resident :class:`repro_torch.core.numeric_table.MLNumericTable`.
-The multi-host placement (``hostmesh``) waits for the mesh slice.
+The port takes ``device=`` (the CUDA card unless ``device="cpu"``; with no
+card and no ``device="cpu"`` it raises) and puts each batch there whole:
+the runner views a window as ``(num_shards, rows_per_shard, cols)``
+partition blocks on that one device, which is the layout of a resident
+:class:`repro_torch.core.numeric_table.MLNumericTable`.  With ``mesh=`` (a
+:class:`repro_torch.core.hostmesh.HostMesh`), as the reference lays a
+batch's rows out over the mesh, every host receives the same host window
+and carves out its own rows (:func:`repro_torch.core.hostmesh.
+local_row_slice`) onto the mesh's device: the runner then views them as the
+host's ``L`` partitions.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ def _place(v: Any, device: torch.device) -> torch.Tensor:
     return to_tensor(v, device)
 
 
-def shard_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    """Put each value of a host batch on ``device``.
+def shard_batch(batch: Dict[str, Any], device: torch.device,
+                mesh=None) -> Dict[str, torch.Tensor]:
+    """Put each value of a host batch on ``device``; with ``mesh=``, only
+    this host's rows of each value (and on the mesh's device).
 
     A value may be a numpy array (copied to the device; float64 becomes
     float32, as ``jnp.asarray`` makes it) or a tensor.  A CPU tensor goes to
@@ -48,7 +53,12 @@ def shard_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.
     epoch): the sources of this package and of ``chip_smoke.py`` hand out
     read-only slices of a pool made once, which nothing overwrites.  A
     tensor already on ``device`` is not copied."""
-    return {k: _place(v, device) for k, v in batch.items()}
+    if mesh is None:
+        return {k: _place(v, device) for k, v in batch.items()}
+    from repro_torch.core.hostmesh import local_row_slice
+
+    return {k: _place(v[local_row_slice(int(v.shape[0]), mesh)], mesh.device)
+            for k, v in batch.items()}
 
 
 class BatchIterator:
@@ -61,9 +71,11 @@ class BatchIterator:
     """
 
     def __init__(self, source: Callable[[int], Dict[str, Any]],
-                 device: DeviceLike = None, start_step: int = 0):
+                 device: DeviceLike = None, start_step: int = 0,
+                 mesh=None):
         self.source = source
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.step = int(start_step)
 
     def seek(self, step: int) -> "BatchIterator":
@@ -116,12 +128,13 @@ class BatchIterator:
                     f"{sizes}) — the restriction would be silently ignored")
             return out
 
-        return BatchIterator(restricted, device=self.device, start_step=self.step)
+        return BatchIterator(restricted, device=self.device, start_step=self.step,
+                             mesh=self.mesh)
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        batch = shard_batch(self.source(self.step), self.device)
+        batch = shard_batch(self.source(self.step), self.device, self.mesh)
         self.step += 1
         return batch

@@ -86,18 +86,24 @@ def _as_parts(X: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 # --------------------------------------------------------------------------- #
 def logreg_margin_plain(X: torch.Tensor, y: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
-    """z = σ(Xw) − y in fp32; shapes as :func:`logreg_margin`."""
-    Xf, wf = X.float(), w.float()
-    if wf.ndim == 2:                       # per-partition weights
-        margin = (Xf @ wf.unsqueeze(-1)).squeeze(-1)
-    else:
-        margin = Xf @ wf
-    return torch.sigmoid(margin) - y.float()
+    """z = σ(Xw) − y in fp32; shapes as :func:`logreg_margin`.  With a
+    partition dimension, one product per partition: a partition's margins
+    then never depend on how many partitions share the call (a batched
+    product may pick its blocking by the batch), as the kernels' do not."""
+    if X.ndim == 3:
+        return torch.stack([
+            logreg_margin_plain(X[i], y[i], w[i] if w.ndim == 2 else w)
+            for i in range(X.shape[0])])
+    return torch.sigmoid(X.float() @ w.float()) - y.float()
 
 
 def logreg_xt_z_plain(X: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """g = Xᵀz in fp32; shapes as :func:`logreg_xt_z`."""
-    return (X.float().transpose(-1, -2) @ z.float().unsqueeze(-1)).squeeze(-1)
+    """g = Xᵀz in fp32; shapes as :func:`logreg_xt_z`, one product per
+    partition (as :func:`logreg_margin_plain`)."""
+    if X.ndim == 3:
+        return torch.stack([logreg_xt_z_plain(X[i], z[i])
+                            for i in range(X.shape[0])])
+    return X.float().t() @ z.float()
 
 
 def logreg_grad_plain(X: torch.Tensor, y: torch.Tensor,

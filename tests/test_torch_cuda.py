@@ -1854,3 +1854,135 @@ def test_train_stacked_lane_matches_the_solo_fit_on_the_card():
             assert a.device.type == "cuda"
             assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
     assert not torch.allclose(models[0].U, models[1].U)
+
+
+# --------------------------------------------------------------------------- #
+# mesh mode on the card (seventeenth slice)
+# --------------------------------------------------------------------------- #
+_CARD_HOST = r'''
+import json, os
+import torch
+from repro_torch.core import collectives as coll, hostmesh
+from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+from repro_torch.core.numeric_table import MLNumericTable
+
+torch.backends.cuda.matmul.allow_tf32 = False
+info = hostmesh.initialize_from_env("cuda", timeout=120)
+mesh = hostmesh.make_mesh(4, "cuda")
+g = torch.Generator(device="cuda").manual_seed(0)
+parts = torch.randn(8, 3001, generator=g, device="cuda")
+mine = parts[4 * mesh.host_id: 4 * mesh.host_id + 4]
+out = {"backend": mesh.backend, "device": str(mesh.device)}
+for s in ("gather_broadcast", "allreduce", "reduce_scatter"):
+    out["mean/" + s] = coll.combine_mean(mine, mesh, s).cpu().numpy().tobytes().hex()
+    out["sum/" + s] = coll.combine_sum(mine, mesh, s).cpu().numpy().tobytes().hex()
+    out["concat/" + s] = coll.combine_concat(mine, mesh, s).cpu().numpy().tobytes().hex()
+X = torch.randn(512, 2049, generator=g, device="cuda")
+X[:, 0] = (X[:, 1] > 0).float()
+rows = hostmesh.local_row_slice(512, mesh)
+w = LogisticRegression(learning_rate=0.3, local_batch_size=16, max_iter=2,
+                       schedule="gather_broadcast", use_kernel=True).fit(
+    MLNumericTable(X[rows].clone(), mesh=mesh)).weights
+out["fit"] = w.cpu().numpy().tobytes().hex()
+print("RESULT::" + json.dumps(out))
+hostmesh.shutdown()
+'''
+
+
+def _hex(t: torch.Tensor) -> str:
+    return t.cpu().numpy().tobytes().hex()
+
+
+@pytest.mark.cuda
+def test_two_hosts_on_the_card_combine_cuda_partials_under_gloo_bitwise(tmp_path):
+    """Two host processes share the one card (so gloo, CUDA partials staged
+    through pinned buffers): gather_broadcast and concat bitwise the
+    emulated combine, the reduction schedules within fp32 rounding, and a
+    kernel fit on the 2 x 4 mesh bitwise the 8-partition emulated fit."""
+    import json
+    import os
+    import sys
+
+    from repro_torch.launch.elastic import ElasticController
+
+    _need_card()
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    ctl = ElasticController([sys.executable, "-c", _CARD_HOST], 2,
+                            env={"PYTHONPATH": src}, max_restarts=0, timeout=300,
+                            rendezvous_dir=str(tmp_path))
+    exits = sorted(ctl.run().final.exits, key=lambda e: e.host_id)
+    res = []
+    for e in exits:
+        assert e.returncode == 0, e.stderr[-3000:]
+        res.append(json.loads([ln for ln in e.stdout.splitlines()
+                               if ln.startswith("RESULT::")][-1][8:]))
+    assert res[0] == res[1] and res[0]["backend"] == "gloo"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    parts = torch.randn(8, 3001, generator=g, device="cuda")
+    assert res[0]["mean/gather_broadcast"] == _hex(parts.mean(0))
+    assert res[0]["sum/gather_broadcast"] == _hex(parts.sum(0))
+    for s in ("gather_broadcast", "allreduce", "reduce_scatter"):
+        assert res[0]["concat/" + s] == _hex(parts.flatten(0, 1))
+        for kind, want in (("mean", parts.mean(0)), ("sum", parts.sum(0))):
+            got = np.frombuffer(bytes.fromhex(res[0][f"{kind}/{s}"]), np.float32)
+            np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    X = torch.randn(512, 2049, generator=g, device="cuda")
+    X[:, 0] = (X[:, 1] > 0).float()
+    w = LogisticRegression(learning_rate=0.3, local_batch_size=16, max_iter=2,
+                           schedule="gather_broadcast", use_kernel=True).fit(
+        MLNumericTable(X, num_shards=8)).weights
+    assert res[0]["fit"] == _hex(w)
+
+
+@pytest.mark.cuda
+def test_nccl_at_a_world_of_one_is_bitwise_the_emulated_run(tmp_path):
+    """One process, one card, an NCCL group of 1 with 8 local partitions:
+    k-means and logistic regression through the kernels bitwise the
+    8-partition emulated fits under every schedule."""
+    from repro_torch.core import hostmesh
+
+    _need_card()
+    info = hostmesh.initialize(f"file://{tmp_path}/rdv", 1, 0, device="cuda",
+                               timeout=120)
+    try:
+        assert info.backend == "nccl"
+        mesh = hostmesh.make_mesh(8, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        X = torch.randn(4096, 1025, generator=g, device="cuda")
+        X[:, 0] = (X[:, 1] > 0).float()
+        L = torch.randint(0, 2, (4096, 256), generator=g, device="cuda").float()
+        for s in ("gather_broadcast", "allreduce", "reduce_scatter"):
+            lr = dict(learning_rate=0.3, local_batch_size=64, max_iter=2,
+                      schedule=s, use_kernel=True)
+            got = LogisticRegression(**lr).fit(MLNumericTable(X, mesh=mesh)).weights
+            want = LogisticRegression(**lr).fit(MLNumericTable(X, num_shards=8)).weights
+            assert torch.equal(got, want), s
+            km = dict(k=8, seed=0, max_iter=3, schedule=s, use_kernel=True)
+            got = KMeans(**km).fit(MLNumericTable(L, mesh=mesh)).centroids
+            want = KMeans(**km).fit(MLNumericTable(L, num_shards=8)).centroids
+            assert torch.equal(got, want), s
+    finally:
+        hostmesh.shutdown()
+
+
+@pytest.mark.cuda
+def test_kernel_partials_do_not_depend_on_the_partition_count():
+    """A partition's margin, gradient and k-means picks are bitwise the same
+    in a launch of 8 partitions and of 4 (L = 4 on each of 2 hosts against P
+    = 8 in one process)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    X = torch.randn(8, 256, 160_001, generator=g, device="cuda")
+    y = (X[..., 0] > 0).float()
+    W = torch.randn(8, 160_000, generator=g, device="cuda") * 1e-3
+    F = X[..., 1:]
+    z = tlg.logreg_margin(F, y, W)
+    halves = [tlg.logreg_margin(F[i:i + 4], y[i:i + 4], W[i:i + 4]) for i in (0, 4)]
+    assert torch.equal(z, torch.cat(halves))
+    gr = tlg.logreg_xt_z(F, z)
+    assert torch.equal(gr, torch.cat([tlg.logreg_xt_z(F[i:i + 4], z[i:i + 4])
+                                      for i in (0, 4)]))
+    K = torch.randn(8, 2048, 4096, generator=g, device="cuda")
+    C = torch.randn(50, 4096, generator=g, device="cuda")
+    a = tka.kmeans_assign(K, C)
+    assert torch.equal(a, torch.cat([tka.kmeans_assign(K[i:i + 4], C) for i in (0, 4)]))
