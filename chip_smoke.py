@@ -13,7 +13,11 @@ Phases (each one that fails makes the script exit non-zero):
   3. kernels  — each kernel of the first path against its plain PyTorch
                 version on the card, in fp32 and bf16, with ragged n, d and k,
                 k = 65 and 257, planted ties, and a small fit on the card
-                against the same fit on the CPU; kmeans_assign's rows bitwise
+                against the same fit on the CPU; logreg_grad (the one-pass
+                gradient, every launch on its one_pass route) also bitwise
+                the same for 8 and 4 + 4 partitions, for a strided view and
+                its copy, and over GRAD_REPEATS launches, and the clusters
+                the card holds for its plans; kmeans_assign's rows bitwise
                 the same across n, P, offset, form (stream, split) and route
                 (TMA, general: contiguous, 16-byte-aligned and unaligned row
                 strides, bf16, d = 1031, 4099 and 1), and the plain version's
@@ -22,7 +26,9 @@ Phases (each one that fails makes the script exit non-zero):
   4. logistic regression at the paper's width: a 65,536 x (1 + 160,000) fp32
                 table made on the card from a seed (the paper's 200K rows do
                 not fit 80 GB at fp32, so rows are cut), 8 partitions, 3 rounds
-                of each solver through the kernels, against the plain path.
+                of each solver through the kernels (one logreg_grad launch a
+                step, no logreg_margin or logreg_xt_z), against the plain
+                path.
   5. k-means   — 1,048,576 x 4,096 (synth_imagenet_features' width), k = 50
                 (Fig. A2), 8 partitions, 3 Lloyd rounds through the kernel,
                 against plain Lloyd rounds that sum in the kernel's order
@@ -31,15 +37,21 @@ Phases (each one that fails makes the script exit non-zero):
                 port's ModelPredictor.
   7. timing    — each kernel of the first path at its shapes with CUDA events,
                 beside its plain version, a one-call library yardstick where
-                there is one, and its bound.  For kmeans_assign also: each of
-                3 Lloyd rounds' picks against the expanded form's on the same
+                there is one, and its bound; logreg_grad at the gd shape and
+                the sgd chunk also beside the standalone pair (logreg_margin,
+                logreg_xt_z) and logreg_margin + torch.matmul(Xᵀ, z), with its
+                two bars (GRAD_BOUND_BAR of the one-pass bound; faster than
+                logreg_margin + torch.matmul) printed met or MISSED.  For
+                kmeans_assign also: each of 3 Lloyd rounds' picks against the
+                expanded form's on the same
                 centroids; every served pick bitwise the full table's launch's;
                 a serving microbatch (1, 2048, 4096), the wrapper's call in a
                 CUDA graph and its kernel alone by torch.profiler; a fit round
                 by CUDA events after a warm round (the kernel's fit and the
                 plain one in turns) and a torch.profiler split of one round
                 (assignment kernel, one_hot, batched product, combine, update,
-                the rest); its two bars (KMEANS_FIT_BAR, KMEANS_SERVE_BAR)
+                the rest; a window that lost the kernel's record is taken
+                again, up to SPLIT_WINDOWS); its two bars (KMEANS_FIT_BAR, KMEANS_SERVE_BAR)
                 printed met or MISSED; its registers (no spill).  The two
                 tables are freed in phase 21, after its GLM part.
   8. LM serving — Qwen2-1.5B at full width and depth (28 layers, d_model 1536,
@@ -379,7 +391,8 @@ Phases (each one that fails makes the script exit non-zero):
                 other work shares the card: each held against its plain
                 version and timed beside it, the library call where there
                 is one and the bound (phase 24's: (a)'s per-host chunks,
-                (b)'s, (c)'s and (d)'s).
+                (b)'s, (c)'s and (d)'s); logreg_grad also beside the pair
+                and logreg_margin + torch.matmul, with that bar.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
@@ -437,6 +450,16 @@ KMEANS_FIT_BAR, KMEANS_SERVE_BAR, KMEANS_SERVE_ROWS = 0.50, 0.25, 2048
 KMEANS_SLICE = 512
 SHARDS, ROUNDS, SGD_BATCH = 8, 3, 256
 FP32_TOL = 2e-4      # tests/test_kernels.py's fp32 tolerance
+# logreg_grad's bars, printed met or MISSED (a kernel that misses one stays
+# in, with its times): at phase 4's gd shape and sgd chunk this share of the
+# one-pass byte bound or more; at every shape timed, faster than
+# logreg_margin followed by one torch.matmul(Xᵀ, z)
+GRAD_BOUND_BAR = 0.75
+# launches of logreg_grad held bitwise the first one's (phase 3)
+GRAD_REPEATS = 300
+# torch.profiler windows phase 7's Lloyd-round split may take: a window that
+# lost the assignment kernel's record is taken again (a warm window has lost it)
+SPLIT_WINDOWS = 3
 # phase 20, the paper's Fig. A2 program: FIG_DOCS labeled docs of FIG_WORDS
 # words drawn from FIG_VOCAB made-up words (fig_corpus), NGrams(n=2,
 # top=FIG_TOP) -> TfIdf -> KMeans(k=FIG_K, max_iter=FIG_ROUNDS) (pipeline a)
@@ -881,13 +904,18 @@ def phase_kernels(gen: torch.Generator) -> None:
                 zp = klg.logreg_margin_plain(X, y, w)
                 g = klg.logreg_xt_z(X, zp)
                 gp = klg.logreg_xt_z_plain(X, zp)
+                gg, ggp = klg.logreg_grad(X, y, w), klg.logreg_grad_plain(X, y, w)
                 sync()
-                ez, eg = (z - zp).abs().max().item(), rel_err(g, gp)
-                check(ez <= tol and eg <= tol,
+                ez, eg, egg = (z - zp).abs().max().item(), rel_err(g, gp), rel_err(gg, ggp)
+                check(ez <= tol and eg <= tol and egg <= tol,
                       f"logreg X{(P, n, d)} {dtype} w{tuple(w.shape)}: "
-                      f"z err {ez}, g rel err {eg}")
+                      f"z err {ez}, g rel err {eg}, one-pass g rel err {egg}")
             say(f"logreg {str(dtype)[6:]} X{(P, n, d)} (strided view), shared "
-                f"and per-partition w: z err {ez:.3g}, g rel err {eg:.3g}")
+                f"and per-partition w: z err {ez:.3g}, g rel err {eg:.3g}, "
+                f"logreg_grad (one pass, plan {grad_plan_text(n, d)}) rel err {egg:.3g}")
+    routes = dict(klg.logreg_grad.routes)
+    check(set(routes) == {"one_pass"}, f"logreg_grad routes {routes}")
+    logreg_grad_invariance(gen)
     for P, n, d, k in [(3, 333, 1031, 50), (2, 129, 33, 7), (1, 5, 3, 1),
                        (2, 300, 70, 65), (1, 513, 100, 257), (2, 1000, 64, 64)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -933,6 +961,53 @@ def phase_kernels(gen: torch.Generator) -> None:
     e = (card.centroids.cpu() - cpu.centroids).abs().max().item()
     check(e <= FP32_TOL, f"small k-means fit: card vs CPU {e}")
     say(f"small k-means fit: card (kernel) vs CPU (direct form) centroids max abs err {e:.3g}")
+
+
+def logreg_grad_routes():
+    """logreg_grad's launches by route since the last reset_launch_counts."""
+    from repro_torch.kernels.logreg_grad import logreg_grad
+
+    return logreg_grad.routes
+
+
+def grad_plan_text(n: int, d: int) -> str:
+    from repro_torch.kernels.logreg_grad import grad_plan
+
+    p = grad_plan(n, d)
+    return (f"C={p.clusters} W={p.width} Rc={p.chunk_rows} Q={p.chunks} "
+            f"R={p.group_rows} S={p.stages}")
+
+
+def logreg_grad_invariance(gen: torch.Generator) -> None:
+    """logreg_grad's partitions bitwise the same in a launch of 8 and of
+    4 + 4, for the table's strided view and its contiguous copy, and over
+    repeated launches (GRAD_REPEATS), at the main path's (8, 256, 160,000)
+    sgd chunk and Fig. A2's (8, 4, 30,000); and the cluster counts the card
+    holds for the plans of phases 4, 20 and 24 (b)."""
+    from repro_torch.kernels import logreg_grad as klg
+
+    for P, n, d in ((SHARDS, SGD_BATCH, LOGREG_FEATURES), (SHARDS, 4, FIG_TOP)):
+        table = torch.randn(P, n, d + 1, generator=gen, device=DEVICE).clamp_(min=0.0)
+        X, y = table[..., 1:], (table[..., 0] > 0.5).float()
+        W = torch.randn(P, d, generator=gen, device=DEVICE) * 0.01
+        g = klg.logreg_grad(X, y, W)
+        half = P // 2
+        split = torch.cat([klg.logreg_grad(X[i:i + half], y[i:i + half], W[i:i + half])
+                           for i in (0, half)])
+        check(torch.equal(g, split), f"logreg_grad X{(P, n, d)}: {P} partitions differ from "
+              f"{half} + {half}")
+        check(torch.equal(g, klg.logreg_grad(X.contiguous(), y.contiguous(), W)),
+              f"logreg_grad X{(P, n, d)}: the strided view differs from its copy")
+        same = sum(torch.equal(klg.logreg_grad(X, y, W), g) for _ in range(GRAD_REPEATS))
+        check(same == GRAD_REPEATS, f"logreg_grad X{(P, n, d)}: {GRAD_REPEATS - same} of "
+              f"{GRAD_REPEATS} repeated launches differ")
+        say(f"logreg_grad X{(P, n, d)}: bitwise {P} vs {half} + {half} partitions, strided "
+            f"vs contiguous, and over {GRAD_REPEATS} repeated launches")
+        del table, X
+    held = {f"(n, d) = {(n, d)}": klg.grad_clusters(klg.grad_plan(n, d))
+            for n, d in ((SGD_BATCH, LOGREG_FEATURES), (4, FIG_TOP), (SGD_BATCH, 4096))}
+    say(f"logreg_grad: clusters the card holds at once (cudaOccupancyMaxActiveClusters) "
+        f"for the plans {held}")
 
 
 def kmeans_invariance(gen: torch.Generator) -> None:
@@ -1071,11 +1146,11 @@ def phase_logreg(gen, counts, report) -> None:
         sync()
         t_plain = (time.perf_counter() - t0) / ROUNDS
         per_round = rows_per_shard // SGD_BATCH if solver == "sgd" else 1
-        got = {k: after[k] - before[k] for k in ("logreg_margin", "logreg_xt_z")}
+        got = {k: after[k] - before[k] for k in ("logreg_grad", "logreg_margin", "logreg_xt_z")}
         counts[solver] = got
         say(f"launches in the {solver} fit: {got} over {ROUNDS} rounds "
-            f"(expected {per_round} of each kernel per round)")
-        check(all(v == per_round * ROUNDS for v in got.values()),
+            f"(expected {per_round} logreg_grad per round, one a step, and no other)")
+        check(got == {"logreg_grad": per_round * ROUNDS, "logreg_margin": 0, "logreg_xt_z": 0},
               f"{solver} launches {got}")
         w = fused.weights
         check(w.shape == (LOGREG_FEATURES,) and bool(torch.isfinite(w).all()),
@@ -1130,24 +1205,35 @@ def kmeans_round_split(blocks: torch.Tensor, C: torch.Tensor) -> dict:
 
     lloyd_round()
     sync()
-    events = profile_steps(lloyd_round, 1).events()
+    # a window that recorded no assign_ kernel (a lost profiler record: the
+    # kernel's launches and CUDA-event times are checked elsewhere) is
+    # profiled again, up to SPLIT_WINDOWS windows
+    for window in range(SPLIT_WINDOWS):
+        events = profile_steps(lloyd_round, 1).events()
+        kernels = collections.Counter()  # the kernels, without the labels' ranges
+        for e in events:
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(("kmeans.",
+                                                                           "ProfilerStep")):
+                kernels[e.name[:60]] += e.self_device_time_total / 1e3
+        if any("assign_" in k for k in kernels):
+            break
+    lost = window if any("assign_" in k for k in kernels) else SPLIT_WINDOWS
+    say(f"the round's split: {lost} of {min(lost + 1, SPLIT_WINDOWS)} profiler windows lost "
+        f"the assign_ kernel's record")
 
     def part(name):
         return sum(e.device_time_total for e in events
                    if e.device_type == DeviceType.CPU and e.name == name) / 1e3
 
-    # the kernels themselves, without the labels' device-side ranges
-    kernels = collections.Counter()
-    for e in events:
-        if e.device_type == DeviceType.CUDA and not e.name.startswith(("kmeans.",
-                                                                       "ProfilerStep")):
-            kernels[e.name[:60]] += e.self_device_time_total / 1e3
     parts = {"assignment kernel": sum(v for k, v in kernels.items() if "assign_" in k),
              "one_hot": part("aten::one_hot"), "batched product": part("aten::bmm"),
              "combine": part("kmeans.combine"), "update": part("kmeans.update")}
-    check(parts["assignment kernel"] > 0, "the round's split saw no assign_ kernel")
+    check(parts["assignment kernel"] > 0, f"the round's split saw no assign_ kernel in "
+          f"{SPLIT_WINDOWS} profiler windows")
+    parts["lost_windows"] = lost
     parts["round"] = sum(kernels.values())
-    parts["rest"] = parts["round"] - sum(v for k, v in parts.items() if k != "round")
+    parts["rest"] = parts["round"] - sum(v for k, v in parts.items()
+                                         if k not in ("round", "lost_windows"))
     parts["kernels"] = dict(kernels.most_common(6))
     return parts
 
@@ -1288,7 +1374,8 @@ def kmeans_round_timing(report) -> None:
         f"kernel {', '.join(f'{v:.4f}' for v in got['kernel'])} ms, plain "
         f"{', '.join(f'{v:.4f}' for v in got['plain'])} ms")
     say("one round through the kernel by part (torch.profiler, device ms): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if k != "kernels"))
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()
+                    if k not in ("kernels", "lost_windows")))
     say("its largest kernels (device ms): "
         + "; ".join(f"{k} {v:.4f}" for k, v in split["kernels"].items()))
     report["kmeans"]["round_ms"] = got
@@ -1431,8 +1518,77 @@ def phase_timing(gen, counts, report) -> list:
                 "fit_sgd": counts["sgd"][name], "fit_gd": counts["gd"][name],
                 "serve": counts["serve_logreg"] if name == "logreg_margin" else 0},
         })
+
+    # the one-pass gradient, the fits' kernel, at both shapes
+    gd, sgd = grad_row("gd", X, y, w), grad_row("sgd chunk", Xs, ys, Ws)
+    bars = grad_bars([gd, sgd], share_bar=True)
+    records.insert(0, {
+        "name": "logreg_grad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/logreg_grad.cu",
+        "replaces": "src/repro/kernels/logreg_grad.py:128",
+        "launches": counts["sgd"]["logreg_grad"] + counts["gd"]["logreg_grad"],
+        "max_abs_err": max(gd["max_abs_err"], sgd["max_abs_err"]),
+        "ms": gd["ms"], "plain_ms": gd["plain_ms"], "bound_ms": gd["bound_ms"],
+        "bound_by": gd["bound_by"], "library_ms": None, "shape": gd["shape"],
+        "pair_ms": gd["pair_ms"], "margin_matmul_ms": gd["margin_matmul_ms"],
+        "sgd_shape": sgd["shape"], "sgd_ms": sgd["ms"], "sgd_plain_ms": sgd["plain_ms"],
+        "sgd_bound_ms": sgd["bound_ms"], "sgd_pair_ms": sgd["pair_ms"],
+        "sgd_margin_matmul_ms": sgd["margin_matmul_ms"], "plans": [gd["plan"], sgd["plan"]],
+        "bars": bars,
+        "launches_by_path": {"fit_sgd": counts["sgd"]["logreg_grad"],
+                             "fit_gd": counts["gd"]["logreg_grad"]}})
     records.append(kmeans_timing(counts, report))
     return records
+
+
+def grad_row(label: str, X: torch.Tensor, y: torch.Tensor, W: torch.Tensor) -> dict:
+    """logreg_grad on the chunk view X (P, n, d) against logreg_grad_plain
+    (within FP32_TOL of its largest entry), timed beside its plain version,
+    the standalone pair (logreg_margin, then logreg_xt_z), logreg_margin
+    followed by one torch.matmul(Xᵀ, z), and its one-pass bound (X, y, w and
+    g moved once; 4 operations an element of X); in CUDA graphs where the
+    bound is under 20 µs.  No one PyTorch call computes the gradient, so
+    library_ms is None."""
+    from repro_torch.kernels import logreg_grad as klg
+
+    P, n, d = X.shape
+    g, gp = klg.logreg_grad(X, y, W), klg.logreg_grad_plain(X, y, W)
+    sync()
+    err = rel_err(g, gp)
+    check(err <= FP32_TOL, f"logreg_grad at {label} {tuple(X.shape)}: rel err {err}")
+    t_b, by = bound(4.0 * (P * n * d + P * n + W.numel() + P * d), 4.0 * P * n * d)
+    timer = graph_ms if t_b < 0.02 else (lambda f: cuda_ms(f, 5 if n > 1024 else 20))
+    return {"label": label, "shape": [P, n, d], "row_stride": X.stride(1),
+            "partition_stride": X.stride(0), "plan": grad_plan_text(n, d),
+            "ms": timer(lambda: klg.logreg_grad(X, y, W)),
+            "plain_ms": timer(lambda: klg.logreg_grad_plain(X, y, W)),
+            "pair_ms": timer(lambda: klg.logreg_xt_z(X, klg.logreg_margin(X, y, W))),
+            "margin_matmul_ms": timer(lambda: torch.matmul(
+                X.transpose(1, 2), klg.logreg_margin(X, y, W).unsqueeze(-1))),
+            "bound_ms": t_b, "bound_by": by, "library_ms": None,
+            "max_abs_err": (g - gp).abs().max().item(), "rel_err": err}
+
+
+def grad_bars(rows: list, share_bar: bool) -> dict:
+    """Print each row of grad_row and logreg_grad's bars, met or MISSED: at
+    least GRAD_BOUND_BAR of the one-pass bound (share_bar: phase 7's gd and
+    sgd shapes) and faster than logreg_margin + torch.matmul at every row."""
+    for r in rows:
+        say(f"logreg_grad {r['label']} X{tuple(r['shape'])} (row stride {r['row_stride']:,}; "
+            f"{r['plan']}): kernel {r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} of the "
+            f"one-pass bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the pair (logreg_margin, "
+            f"logreg_xt_z) {r['pair_ms']:.4f} ms; logreg_margin + torch.matmul "
+            f"{r['margin_matmul_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; max abs err "
+            f"{r['max_abs_err']:.3g} (rel {r['rel_err']:.3g})")
+    shapes = ", ".join(str(tuple(r["shape"])) for r in rows)
+    bars = {f"faster than logreg_margin + torch.matmul at {shapes}":
+            "met" if all(r["ms"] < r["margin_matmul_ms"] for r in rows) else "MISSED"}
+    if share_bar:
+        bars[f">= {GRAD_BOUND_BAR:.0%} of the one-pass bound at {shapes}"] = (
+            "met" if all(r["bound_ms"] / r["ms"] >= GRAD_BOUND_BAR for r in rows) else "MISSED")
+    say(f"logreg_grad bars (a kernel that misses one stays; its times are in the kernels "
+        f"line): {bars}")
+    return bars
 
 
 def kernel_device_ms(fn, key: str, calls: int = 20) -> float:
@@ -1697,19 +1853,20 @@ def fig_kernel_times(table_a, centroids, final, w) -> dict:
                                  blocks[:, :bs, 0].contiguous(),
                                  w.expand(SHARDS, -1).contiguous()))
     Xs = final.data[:FIG_REQ_MAX, 1:].contiguous()
-    zeros = torch.zeros(FIG_REQ_MAX, device=final.device)
-    err = (klg.logreg_margin(Xs, zeros, w)
-           - klg.logreg_margin_plain(Xs, zeros, w)).abs().max().item()
+    # as predict_proba serves it: no labels, σ(Xw) alone
+    err = (klg.logreg_margin(Xs, None, w)
+           - klg.logreg_margin_plain(Xs, None, w)).abs().max().item()
     check(err <= FP32_TOL, f"logreg_margin at a served microbatch: err {err}")
     t_s, by_s = bound(4.0 * (FIG_REQ_MAX * FIG_TOP + FIG_TOP + 2 * FIG_REQ_MAX),
                       2.0 * FIG_REQ_MAX * FIG_TOP)
     r = out["logreg_margin"]
     r.update(serve_shape=[FIG_REQ_MAX, FIG_TOP], serve_bound_ms=t_s, serve_bound_by=by_s,
-             serve_ms=graph_ms(lambda: klg.logreg_margin(Xs, zeros, w)),
-             serve_plain_ms=graph_ms(lambda: klg.logreg_margin_plain(Xs, zeros, w)),
+             serve_ms=graph_ms(lambda: klg.logreg_margin(Xs, None, w)),
+             serve_plain_ms=graph_ms(lambda: klg.logreg_margin_plain(Xs, None, w)),
              serve_max_abs_err=err)
     for name, row in out.items():
-        say_kernel_row(name, row)
+        if name != "logreg_grad":    # grad_bars printed it
+            say_kernel_row(name, row)
     say(f"logreg_margin X({FIG_REQ_MAX}, {FIG_TOP}) (a served microbatch): kernel "
         f"{r['serve_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, bound "
         f"{r['serve_bound_ms']:.5f} ms ({r['serve_bound_by']}); max abs err {err:.3g}")
@@ -1760,14 +1917,19 @@ def phase_fig_a2() -> dict:
     served_a = serve_blocks(fit_a, blocks, FIG_REQ_MAX)
     served_b = serve_blocks(fit_b, blocks, FIG_REQ_MAX)
     got = launch_counts()            # ... and ends here
-    path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
     steps = FIG_LOGREG["max_iter"] * (FIG_DOCS // SHARDS // FIG_LOGREG["local_batch_size"])
+    # the fit one logreg_grad a step, the served path one logreg_margin a
+    # microbatch
     want = {"kmeans_assign": FIG_ROUNDS + served_a["report"]["batches"],
-            "logreg_margin": steps + served_b["report"]["batches"], "logreg_xt_z": steps}
-    say(f"launches on phase 20's path: {got} (expected {want}; every other kernel 0)")
+            "logreg_grad": steps, "logreg_margin": served_b["report"]["batches"],
+            "logreg_xt_z": 0}
+    path = tuple(want)
+    say(f"launches on phase 20's path: {got} (expected {want}; every other kernel 0); "
+        f"logreg_grad by route {dict(logreg_grad_routes())}")
     check(all(got[k] == want[k] for k in path)
-          and all(v == 0 for k, v in got.items() if k not in path),
-          f"phase 20 launched {got}, expected {want}")
+          and all(v == 0 for k, v in got.items() if k not in path)
+          and set(logreg_grad_routes()) == {"one_pass"},
+          f"phase 20 launched {got}, expected {want}, routes {dict(logreg_grad_routes())}")
     vocab = fit_a["ngrams"].vocab
     check(len(vocab) == FIG_TOP and vocab == fit_b["ngrams"].vocab,
           f"the vocabulary holds {len(vocab)} bigrams, not {FIG_TOP} (fewer distinct "
@@ -2341,7 +2503,8 @@ def stream_kernel_times(out: dict) -> dict:
     fig = kmeans_shape_row("phase 22 (c)'s chunk", fchunk, c["table"].model.centroids)
     times["kmeans_assign"]["fig_a2_stream"] = fig
     for name, r in list(times.items()) + [("kmeans_assign", fig)]:
-        say_kernel_row(name, r)
+        if name != "logreg_grad":    # grad_bars printed it
+            say_kernel_row(name, r)
     say(f"(b) a streamed round's picks (epoch {STREAM_KM_STOP}'s first chunk on its snapshot's "
         f"centroids) vs use_kernel=False's direct form: {ties} differ, each a near-tie (gap "
         f"{gap:.3g}, {ratio:.3g}x the fp32 scale)")
@@ -2395,18 +2558,20 @@ def phase_stream(fit_cli: FitCLI) -> dict:
         stream_part_a_resume(out)
         got = launch_counts()        # ... and ends here
         stream_part_d(fit_cli.future)
-        path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
         lr_steps = (2 * STREAM_LR_EPOCHS - STREAM_KILL) * STREAM_CHUNKS * (
             STREAM_LR_ROWS // SHARDS // STREAM_CHUNKS // STREAM_LR["local_batch_size"])
         fig_rounds = 2 * STREAM_FIG_EPOCHS * STREAM_FIG_CHUNKS
-        want = {"logreg_margin": lr_steps, "logreg_xt_z": lr_steps,
+        want = {"logreg_grad": lr_steps, "logreg_margin": 0, "logreg_xt_z": 0,
                 "kmeans_assign": 2 * STREAM_KM_EPOCHS * STREAM_CHUNKS + fig_rounds
                 + out["c"]["served"]["report"]["batches"] + 1}
+        path = tuple(want)
         say(f"launches on phase 22's path (this process; the children's are their own): "
-            f"{got} (expected {want}; every other kernel 0)")
+            f"{got} (expected {want}; every other kernel 0); logreg_grad by route "
+            f"{dict(logreg_grad_routes())}")
         check(all(got[k] == want[k] for k in path)
-              and all(v == 0 for k, v in got.items() if k not in path),
-              f"phase 22 launched {got}, expected {want}")
+              and all(v == 0 for k, v in got.items() if k not in path)
+              and set(logreg_grad_routes()) == {"one_pass"},
+              f"phase 22 launched {got}, expected {want}, routes {dict(logreg_grad_routes())}")
         kept = {"a": {"pool": out["a"]["pool"][:1].clone(), "w1": out["a"]["w1"]},
                 "b": {k: out["b"][k] for k in ("chunk", "C4")},
                 "c": {k: out["c"][k] for k in ("table", "raw")}}
@@ -3117,8 +3282,7 @@ def mesh_part_a(children: MeshChildren, out: dict, phase4_w: torch.Tensor) -> No
     check(all(h0[f"concat/{s}"] == sha(cat) for s in MESH_SCHEDULES),
           "(a) concat differs across schedules or from the table's rows")
     lr_steps = ROUNDS * (LOGREG_ROWS // SHARDS // SGD_BATCH) * len(MESH_SCHEDULES)
-    want = {"logreg_margin": lr_steps, "logreg_xt_z": lr_steps,
-            "kmeans_assign": ROUNDS * len(MESH_SCHEDULES)}
+    want = {"logreg_grad": lr_steps, "kmeans_assign": ROUNDS * len(MESH_SCHEDULES)}
     for r in res:
         got = {k: v for k, v in r["launches"].items() if v}
         check(got == want, f"(a) host {r['host']} launched {got}, expected {want}")
@@ -3269,11 +3433,12 @@ def say_kernel_row(name: str, r: dict) -> None:
 
 def logreg_pair_times(label: str, X: torch.Tensor, y: torch.Tensor,
                       W: torch.Tensor) -> dict:
-    """logreg_margin and logreg_xt_z on the chunk view X (P, n, d) against
-    their plain versions (margin within FP32_TOL absolute, Xᵀz within
-    FP32_TOL relative), each timed beside its plain version, the library
-    call where there is one (Xᵀz: torch.matmul) and the bound; in CUDA
-    graphs where the bound is under 20 µs."""
+    """logreg_grad (grad_row, its bar printed), logreg_margin and
+    logreg_xt_z on the chunk view X (P, n, d) against their plain versions
+    (margin within FP32_TOL absolute, Xᵀz within FP32_TOL relative), each
+    timed beside its plain version, the library call where there is one
+    (Xᵀz: torch.matmul) and the bound; in CUDA graphs where the bound is
+    under 20 µs."""
     from repro_torch.kernels import logreg_grad as klg
 
     P, n, d = X.shape
@@ -3298,6 +3463,8 @@ def logreg_pair_times(label: str, X: torch.Tensor, y: torch.Tensor,
                       "library_ms": timer(lib) if lib else None,
                       "max_abs_err": err_z if name == "logreg_margin"
                       else (g - gp).abs().max().item()}
+    rows["logreg_grad"] = grad_row(label, X, y, W)
+    rows["logreg_grad"]["bars"] = grad_bars([rows["logreg_grad"]], share_bar=False)
     return rows
 
 
@@ -3352,11 +3519,13 @@ def mesh_kernel_times(kept: dict) -> dict:
     km.append(kmeans_shape_row("(a) a host's partitions",
                                lattice[:MESH_KM_ROWS // MESH_HOSTS].view(MESH_LOCAL, -1, dk), C))
     km.append(kmeans_shape_row("(b) NCCL world of 1", lattice.view(SHARDS, -1, dk), C))
-    out = {"logreg_margin": [r["logreg_margin"] for r in lr],
+    out = {"logreg_grad": [r["logreg_grad"] for r in lr],
+           "logreg_margin": [r["logreg_margin"] for r in lr],
            "logreg_xt_z": [r["logreg_xt_z"] for r in lr], "kmeans_assign": km}
     for name, rows in out.items():
         for r in rows:
-            say_kernel_row(name, r)
+            if name != "logreg_grad":    # grad_bars printed it
+                say_kernel_row(name, r)
     return {name: {"shapes": rows} for name, rows in out.items()}
 
 
@@ -6758,7 +6927,7 @@ def main() -> int:
     phase_kernels(gen)
 
     counts, report = {}, {}
-    first_path = ("logreg_margin", "logreg_xt_z", "kmeans_assign")
+    first_path = ("logreg_grad", "logreg_margin", "kmeans_assign")
     reset_launch_counts()            # the first path's run starts here
     phase_logreg(gen, counts, report)
     phase4_w = report["logreg"]["sgd"].weights.clone()   # phase 24 (a) holds it
@@ -6767,8 +6936,10 @@ def main() -> int:
     totals = launch_counts()         # ... and ends here
     say(f"launches on the first path: {totals}")
     check(all(totals[k] > 0 for k in first_path)
-          and all(v == 0 for k, v in totals.items() if k not in first_path),
-          f"a kernel of the first path never launched, or another did: {totals}")
+          and all(v == 0 for k, v in totals.items() if k not in first_path)
+          and set(logreg_grad_routes()) == {"one_pass"},
+          f"a kernel of the first path never launched, or another did: {totals}; "
+          f"logreg_grad by route {dict(logreg_grad_routes())}")
 
     records = phase_timing(gen, counts, report)
     for r in records:
@@ -6798,7 +6969,9 @@ def main() -> int:
           "child process shares the card")
     for part in (fig, stream, mesh):
         for name, times in part.pop("times")().items():
-            part["kernels"][name].update(times)
+            # a kernel held and timed at a path's shapes that the path did
+            # not launch (logreg_xt_z since the one-pass gradient) counts 0
+            part["kernels"].setdefault(name, {"launches": 0}).update(times)
     free_device_memory()
     for r in records:
         for key, part in (("fig_a2", fig), ("stream", stream), ("mesh", mesh)):
@@ -6827,8 +7000,11 @@ def main() -> int:
     worst = phase_fixed_check(gen, counts)
     records.extend(phase_fixed_timing(gen, counts, worst))
     end_phase()
-    check(len(records) == 12 and all(r["launches"] > 0 for r in records),
-          f"a kernel was never launched on its path: "
+    # logreg_xt_z is on no path since the fits take logreg_grad: the checks
+    # and a width no cluster holds launch it
+    check(len(records) == 13
+          and all((r["launches"] == 0) == (r["name"] == "logreg_xt_z") for r in records),
+          f"a kernel was never launched on its path, or logreg_xt_z was: "
           f"{[(r['name'], r['launches']) for r in records]}")
     say(f"smoke run {time.perf_counter() - t_start:.1f} s; seconds by phase: "
         f"{PHASE_SECONDS}")

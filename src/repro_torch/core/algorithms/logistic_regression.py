@@ -14,10 +14,10 @@ and the features in columns 1..d.  The paper's gradient closure
 
 becomes a chunk gradient here (see :mod:`repro_torch.core.optimizer`): for
 a ``(P, m, 1 + d)`` stack of row chunks, each partition's sum of row
-gradients.  With ``use_kernel`` that is one launch each of the
-``logreg_margin`` and ``logreg_xt_z`` CUDA kernels for the whole stack,
-where the reference calls its Pallas kernel once per row on a (1, d) block
-under ``vmap``; the mean the SGD step takes is the same.  Like the
+gradients.  With ``use_kernel`` that is one launch of the ``logreg_grad``
+CUDA kernel for the whole stack (X read once), where the reference calls
+its Pallas kernels once per row on a (1, d) block under ``vmap``; the mean
+the SGD step takes is the same.  Like the
 reference, the kernel path drops ``l2`` (``l1`` still applies, as a prox).
 ``fit_stream`` trains the same SGD from a stream of windows; its chunks
 are views of the window with a partition stride, which the kernels take
@@ -83,13 +83,12 @@ class LogisticRegressionModel(Model):
     def predict_proba(self, x: torch.Tensor) -> torch.Tensor:
         """σ(x·w) for rows ``x`` (n, d) or one row (d,).  With
         ``use_kernel`` the product goes through the ``logreg_margin`` kernel
-        with zero labels (σ(xw) − 0); the reference computes it as a plain
-        product, and the two agree to fp32 rounding."""
+        with no labels (σ(xw): one launch, no fill of zero labels beside
+        it); the reference computes it as a plain product, and the two agree
+        to fp32 rounding."""
         if self.params.use_kernel:
             rows = x if x.ndim == 2 else x.unsqueeze(0)
-            zeros = torch.zeros(rows.shape[0], dtype=torch.float32,
-                                device=rows.device)
-            proba = klg.logreg_margin(rows, zeros, self.weights)
+            proba = klg.logreg_margin(rows, None, self.weights)
             return proba if x.ndim == 2 else proba[0]
         return torch.sigmoid(x @ self.weights)
 

@@ -21,6 +21,7 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 
 #: every kernel wrapper of the package, by kernel name
 KERNELS = {
+    "logreg_grad": _logreg_grad.logreg_grad,
     "logreg_margin": _logreg_grad.logreg_margin,
     "logreg_xt_z": _logreg_grad.logreg_xt_z,
     "kmeans_assign": _kmeans_assign.kmeans_assign,
@@ -44,12 +45,12 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every launch count to 0, and clear the route counts of
-    ``flash_attention``'s prefill form, ``fixed_linear`` and
-    ``kmeans_assign`` (``.routes``) and ``kmeans_assign``'s form counts
+    ``logreg_grad``, ``flash_attention``'s prefill form, ``fixed_linear``
+    and ``kmeans_assign`` (``.routes``) and ``kmeans_assign``'s form counts
     (``.forms``)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for fn in (_flash_attention.flash_attention, _fixed_linear.fixed_linear,
-               _kmeans_assign.kmeans_assign):
+    for fn in (_logreg_grad.logreg_grad, _flash_attention.flash_attention,
+               _fixed_linear.fixed_linear, _kmeans_assign.kmeans_assign):
         fn.routes.clear()
     _kmeans_assign.kmeans_assign.forms.clear()

@@ -148,7 +148,7 @@ def test_cuda_kernels_match_plain_versions():
             assert torch.equal(tka.kmeans_assign(X, C),
                                tka.kmeans_assign_plain(X, C))
     torch.cuda.synchronize()
-    assert tk.launch_counts() == {"logreg_margin": 6, "logreg_xt_z": 6,
+    assert tk.launch_counts() == {"logreg_grad": 0, "logreg_margin": 6, "logreg_xt_z": 6,
                                   "kmeans_assign": 6, "quant_matmul": 0,
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
@@ -160,7 +160,8 @@ def test_cuda_kernels_match_plain_versions():
 @pytest.mark.parametrize("solver,lr", [("sgd", 0.1), ("gd", 0.002)])
 def test_logreg_fit_on_card_matches_cpu(solver, lr):
     """The fit through the kernels on the card equals the same fit through
-    the plain versions on the CPU; one launch of each kernel per chunk."""
+    the plain versions on the CPU; one logreg_grad launch per chunk, and no
+    launch of the two-kernel chain."""
     _need_card()
     rng = np.random.default_rng(1)
     data = rng.normal(size=(512, 65)).astype(np.float32)
@@ -170,7 +171,8 @@ def test_logreg_fit_on_card_matches_cpu(solver, lr):
     tk.reset_launch_counts()
     card = LogisticRegression(**kw).fit(MLNumericTable.from_numpy(data, num_shards=4))
     per_round = 128 // 8 if solver == "sgd" else 1
-    assert tk.launch_counts()["logreg_margin"] == 3 * per_round
+    got = tk.launch_counts()
+    assert (got["logreg_grad"], got["logreg_margin"], got["logreg_xt_z"]) == (3 * per_round, 0, 0)
     cpu = LogisticRegression(**kw).fit(
         MLNumericTable.from_numpy(data, num_shards=4, device="cpu"))
     err = (card.weights.cpu() - cpu.weights).abs().max() / cpu.weights.abs().max()
@@ -220,8 +222,8 @@ def test_fig_a2_pipelines_on_card_match_cpu():
     """Both Fig. A2 flows fitted on the card equal the same flows on the
     CPU: the featurized tables and the statistics at fp32 rtol = atol =
     1e-6, centroids and weights at 2e-4, labels exactly; kernels 1-3 carry
-    the estimators (one kmeans_assign launch a round, one logreg_margin and
-    one logreg_xt_z launch a step)."""
+    the estimators (one kmeans_assign launch a round, one logreg_grad launch
+    a step)."""
     _need_card()
     docs = MLTable.from_text(synth_text_corpus(n_docs=64, words_per_doc=40), 4)
     rows = synth_labeled_text(n_docs=128, words_per_doc=20, seed=0)
@@ -231,8 +233,8 @@ def test_fig_a2_pipelines_on_card_match_cpu():
     fits = [(card_k.fit(docs), cpu_k.fit(docs), docs),
             (card_t.fit(labeled), cpu_t.fit(labeled), labeled)]
     got = tk.launch_counts()
-    assert (got["kmeans_assign"], got["logreg_margin"], got["logreg_xt_z"]) == \
-        (10, 8 * 16 // 4, 8 * 16 // 4)
+    assert (got["kmeans_assign"], got["logreg_grad"], got["logreg_margin"],
+            got["logreg_xt_z"]) == (10, 8 * 16 // 4, 0, 0)
     for card, cpu, raw in fits:
         assert card.device.type == "cuda" and card["ngrams"].vocab == cpu["ngrams"].vocab
         torch.testing.assert_close(card.transform(raw).data.cpu(), cpu.transform(raw).data,
@@ -1695,7 +1697,7 @@ def _pinned_pool(rows, cols, windows, seed):
 
 @pytest.mark.cuda
 def test_streamed_fits_launch_the_kernels_and_match_the_cpu():
-    """A streamed logreg and k-means fit on the card launch kernels 1-2 once
+    """A streamed logreg and k-means fit on the card launch logreg_grad once
     a local batch and kernel 3 once a round, and agree with the same fits
     through the plain versions on the CPU."""
     _need_card()
@@ -1709,7 +1711,8 @@ def test_streamed_fits_launch_the_kernels_and_match_the_cpu():
     card = lr.fit_stream(BatchIterator(source), num_epochs=3, num_shards=4,
                          chunks_per_epoch=2)
     got = tk.launch_counts()
-    assert got["logreg_margin"] == got["logreg_xt_z"] == 3 * 2 * (256 // 4 // 2 // 8)
+    assert got["logreg_grad"] == 3 * 2 * (256 // 4 // 2 // 8)
+    assert got["logreg_margin"] == got["logreg_xt_z"] == 0
     cpu = lr.fit_stream(BatchIterator(source, device="cpu"), num_epochs=3,
                         num_shards=4, chunks_per_epoch=2)
     err = (card.weights.cpu() - cpu.weights).abs().max() / cpu.weights.abs().max()
@@ -1967,9 +1970,10 @@ def test_nccl_at_a_world_of_one_is_bitwise_the_emulated_run(tmp_path):
 
 @pytest.mark.cuda
 def test_kernel_partials_do_not_depend_on_the_partition_count():
-    """A partition's margin, gradient and k-means picks are bitwise the same
-    in a launch of 8 partitions and of 4 (L = 4 on each of 2 hosts against P
-    = 8 in one process)."""
+    """A partition's margin, gradient (the two kernels and the one-pass
+    logreg_grad) and k-means picks are bitwise the same in a launch of 8
+    partitions and of 4 (L = 4 on each of 2 hosts against P = 8 in one
+    process)."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(2)
     X = torch.randn(8, 256, 160_001, generator=g, device="cuda")
@@ -1982,7 +1986,157 @@ def test_kernel_partials_do_not_depend_on_the_partition_count():
     gr = tlg.logreg_xt_z(F, z)
     assert torch.equal(gr, torch.cat([tlg.logreg_xt_z(F[i:i + 4], z[i:i + 4])
                                       for i in (0, 4)]))
+    one = tlg.logreg_grad(F, y, W)
+    assert torch.equal(one, torch.cat([tlg.logreg_grad(F[i:i + 4], y[i:i + 4], W[i:i + 4])
+                                       for i in (0, 4)]))
     K = torch.randn(8, 2048, 4096, generator=g, device="cuda")
     C = torch.randn(50, 4096, generator=g, device="cuda")
     a = tka.kmeans_assign(K, C)
     assert torch.equal(a, torch.cat([tka.kmeans_assign(K[i:i + 4], C) for i in (0, 4)]))
+
+
+# ---- the one-pass gradient, logreg_grad ----------------------------------- #
+
+# ragged (P, n, d): d = 1, each form's slice widths and the form boundaries
+# ± 1 (4,096, 10,240, 32,768), slices too narrow for the loop without a
+# test on every column (10,241: 3,414 wide; 33,000: 8,250), a ragged last
+# slice (150,001), the widest one-pass width and the next (the chain
+# route), and the paper's widths
+_GRAD_SHAPES = [(3, 77, 1031), (1, 1, 1), (2, 40, 1), (1, 3, 7), (2, 300, 4095),
+                (2, 300, 4096), (2, 300, 4097), (3, 70, 10239), (3, 70, 10240),
+                (3, 70, 10241), (2, 33, 30000), (2, 41, 32768), (2, 41, 32769),
+                (2, 50, 33000), (2, 9, 150001), (2, 100, 163840), (1, 20, 163841),
+                (2, 37, 160000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logreg_grad_matches_plain_at_ragged_shapes(dtype):
+    """logreg_grad against logreg_grad_plain within rel 2e-4 (max abs error
+    over the largest entry) at ragged (P, n, d), in fp32 and bf16, with w
+    shared and per partition, on the strided view after a label column;
+    one launch a call on the one-pass route, the chain route only where no
+    cluster holds d."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tk.reset_launch_counts()
+    calls = 0
+    for P, n, d in _GRAD_SHAPES:
+        table = torch.randn(P, n, d + 1, generator=gen, device="cuda").to(getattr(torch, dtype))
+        X, y = table[..., 1:], (table[..., 0] > 0).float()
+        for w in (torch.randn(d, generator=gen, device="cuda") * 0.05,
+                  torch.randn(P, d, generator=gen, device="cuda") * 0.05):
+            g, gp = tlg.logreg_grad(X, y, w), tlg.logreg_grad_plain(X, y, w)
+            err = ((g - gp).abs().max() / gp.abs().max().clamp(min=1e-30)).item()
+            assert g.shape == (P, d) and err < 2e-4, (P, n, d, dtype, tuple(w.shape), err)
+            calls += 1
+    chain = 2 * sum(tlg.grad_plan(n, d) is None for _, n, d in _GRAD_SHAPES)
+    assert chain == 2
+    assert dict(tlg.logreg_grad.routes) == {"one_pass": calls - chain, "chain": chain}
+    assert tk.launch_counts()["logreg_grad"] == calls - chain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n,d", [(8, 256, 160000), (8, 4, 30000), (3, 77, 1031)])
+def test_logreg_grad_strided_view_is_bitwise_its_copy(P, n, d):
+    """A partition's gradient is bitwise the same from the table's strided
+    view, from its contiguous copy, and alone as a 2-D X."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    table = torch.randn(P, n, d + 1, generator=gen, device="cuda").clamp_(min=0.0)
+    X, y = table[..., 1:], (table[..., 0] > 0.5).float()
+    W = torch.randn(P, d, generator=gen, device="cuda") * 0.01
+    g = tlg.logreg_grad(X, y, W)
+    assert torch.equal(g, tlg.logreg_grad(X.contiguous(), y, W))
+    assert torch.equal(g, tlg.logreg_grad(X, table[..., 0].gt(0.5).float().contiguous(), W))
+    assert torch.equal(g[P - 1], tlg.logreg_grad(X[P - 1], y[P - 1], W[P - 1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n,d", [(8, 256, 160000), (8, 4, 30000)])
+def test_logreg_grad_is_bitwise_over_repeated_launches(P, n, d):
+    """300 launches give the first launch's bits: the exchange of partial
+    margins between a cluster's blocks and the reuse of the ring's stages
+    leave no race that would show as rare wrong bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    table = torch.randn(P, n, d + 1, generator=gen, device="cuda").clamp_(min=0.0)
+    X, y = table[..., 1:], (table[..., 0] > 0.5).float()
+    W = torch.randn(P, d, generator=gen, device="cuda") * 0.01
+    g = tlg.logreg_grad(X, y, W)
+    differ = sum(not torch.equal(tlg.logreg_grad(X, y, W), g) for _ in range(300))
+    assert differ == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n,d", [(8, 256, 4096), (8, 4, 30000), (4, 128, 160000)])
+def test_logreg_grad_replays_in_a_cuda_graph(P, n, d):
+    """A step is one launch with nothing beside it (the chunk tickets are
+    left at zero by the kernel), so it captures into a CUDA graph whose
+    replays give the eager launch's bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    table = torch.randn(P, n, d + 1, generator=gen, device="cuda").clamp_(min=0.0)
+    X, y = table[..., 1:], (table[..., 0] > 0.5).float()
+    W = torch.randn(P, d, generator=gen, device="cuda") * 0.01
+    want = tlg.logreg_grad(X, y, W)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    tk.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        outs = [tlg.logreg_grad(X, y, W) for _ in range(3)]
+    assert tk.launch_counts()["logreg_grad"] == 3
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_served_logreg_is_one_margin_launch_and_no_fill():
+    """predict_proba through the kernel is one logreg_margin launch and no
+    fill (no zero labels, no ticket reset beside it): torch.profiler sees
+    one margin_kernel and no FillFunctor kernel in a served call.  A
+    profiler window that lost the kernel's record is taken again, up to 3
+    windows."""
+    _need_card()
+    rng = np.random.default_rng(15)
+    data = rng.normal(size=(512, 65)).astype(np.float32)
+    data[:, 0] = data[:, 1:] @ rng.normal(size=64) > 0
+    model = LogisticRegression(learning_rate=0.1, max_iter=2, local_batch_size=8,
+                               use_kernel=True).fit(MLNumericTable.from_numpy(data, num_shards=4))
+    x = torch.from_numpy(data[:16, 1:]).cuda()
+    model.predict_proba(x)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        tk.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.predict_proba(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if any("margin_kernel" in k for k in names):
+            break
+    assert tk.launch_counts()["logreg_margin"] == 1
+    assert sum("margin_kernel" in k for k in names) == 1
+    assert not any("Fill" in k for k in names), names
+
+
+@pytest.mark.cuda
+def test_logreg_grad_refuses_a_plan_its_kernel_cannot_run(monkeypatch):
+    """The C launcher checks the plan it is handed: more cluster ranks than
+    warp 0's lanes for a row (slices of the 8-column form in a cluster of
+    15) or a ring of 2 stages raise instead of running."""
+    _need_card()
+    import dataclasses
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    X = torch.randn(8, 4, 30000, generator=gen, device="cuda")
+    y, w = torch.zeros(8, 4, device="cuda"), torch.zeros(30000, device="cuda")
+    plan = tlg.grad_plan(4, 30000)
+    for bad in (dataclasses.replace(plan, clusters=15, width=2000),
+                dataclasses.replace(plan, stages=2)):
+        monkeypatch.setattr(tlg, "grad_plan", lambda n, d, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="logreg_grad launch failed"):
+            tlg.logreg_grad(X, y, w)

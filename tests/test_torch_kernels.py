@@ -151,7 +151,7 @@ def test_cpu_tensors_use_the_plain_version_and_count_no_launch():
     tk.KERNELS["ssd_decode"](torch.zeros(1, 1, 2, 4), torch.zeros(1, 1), torch.ones(1, 1, 2),
                              torch.ones(1, 4), torch.ones(1, 4), torch.zeros(1),
                              torch.zeros(1), torch.ones(1))
-    assert tk.launch_counts() == {"logreg_margin": 0, "logreg_xt_z": 0,
+    assert tk.launch_counts() == {"logreg_grad": 0, "logreg_margin": 0, "logreg_xt_z": 0,
                                   "kmeans_assign": 0, "quant_matmul": 0,
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
