@@ -7,7 +7,7 @@ Phases (each one that fails makes the script exit non-zero):
 
   1. device   — the card's name and power limit, torch and CUDA versions;
                 TF32 is switched off, so fp32 means IEEE fp32 throughout.
-  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (eight
+  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (nine
                 sources and their shared header) with nvcc (one process per
                 source, in parallel), into ``build/``.
   3. kernels  — each kernel of the first path against its plain PyTorch
@@ -57,7 +57,7 @@ Phases (each one that fails makes the script exit non-zero):
   8. LM serving — Qwen2-1.5B at full width and depth (28 layers, d_model 1536,
                 vocab 151,936), bf16 weights made from a seed, int8
                 projections (quantize="int8"), 8 slots, max_seq 2,048: 16
-                requests of 128..1,024 prompt tokens and 64 new tokens each,
+                requests of 128..1,024 prompt tokens and 16 new tokens each,
                 all at once, through ServeEngine.run, whose decode steps are
                 CUDA graph replays (the warm-up captured the graph).
                 Checked: the int8 projections as 4 quant_linear groups a
@@ -101,21 +101,21 @@ Phases (each one that fails makes the script exit non-zero):
                 reference point, not the same function); the prefill products
                 (qmm_wgmma, bf16 out) beside the same launch with fp32 out,
                 the plain version, torch._int_mm, the first prefill form
-                (QMM_TILED_MS, which every one must beat) and the fp32-out
-                form before the bf16 epilogue (QMM_WGMMA_FP32_MS, within
-                5 %); (8000, 1536, 8960) within QMM_LIMIT_MS; quantize_rows
+                (QMM_TILED_MS, which every one must beat); bf16 out within
+                5 % of the fp32-out launch timed beside it (QMM_WGMMA_FP32_MS,
+                the form before the bf16 epilogue, printed); (8000, 1536, 8960) within QMM_LIMIT_MS; quantize_rows
                 at every served prefill (M, K), each launch on its own copy
                 of x (so x comes from HBM), at least QROWS_MIN_SHARE of its
                 byte bound;
                 the bounds, launches on the path, and registers of every
                 instance (no spill).
                 Phases 9 and 10 run after phase 14.
- 11. Mamba2 serving — Mamba2-2.7B at full width and depth (64 SSD layers,
-                d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
+ 11. Mamba2 serving — Mamba2-2.7B at full width and MB_LAYERS (32) of its
+                64 SSD layers (d_model 2560, 80 heads of P = 64, N = 128, vocab 50,280),
                 bf16 weights made from a seed, 8 slots, max_seq 2,048: 16
                 requests, all at once (8 prompts of 256..1,024 tokens, a
                 multiple of the 256 chunk, and 8 ragged ones of 142..998,
-                one chunk each), 64 new tokens each, through ServeEngine.run
+                one chunk each), 16 new tokens each, through ServeEngine.run
                 with its per-request prefill.  Checked: one ssd_chunk_scan
                 launch a layer a prefill and 2 rmsnorm launches a layer and
                 the final norm per prefill; a decode step as 2 fixed_linear
@@ -125,10 +125,10 @@ Phases (each one that fails makes the script exit non-zero):
                 y·silu(z)), and 1 rmsnorm (the final norm);
                 every first token and every prefilled SSD state (bitwise)
                 equal to the slot-at-a-time _run_one's; every stream equal
-                to _run_one's at 64 layers and at a 2-layer cut (where one
+                to _run_one's at MB_LAYERS layers and at a 2-layer cut (where one
                 leaves it, _run_one's top-2 logit gap there is printed); the
                 last-token prefill logits through the kernels against the
-                same model through the plain versions, at 2 and at 64
+                same model through the plain versions, at 2 and at MB_LAYERS
                 layers; a profile of the graph-replayed decode step.
  12. rmsnorm and ssd_chunk_scan against their plain versions at every shape
                 phases 8 and 11 launched, at ragged shapes, and (the scan)
@@ -149,7 +149,7 @@ Phases (each one that fails makes the script exit non-zero):
                 262,144), bf16 weights made from a seed, int8 projections, 8
                 slots, max_seq 2,048: 16 requests of 40..1,960 prompt tokens
                 (some overflow the ring at prefill, some wrap it mid-decode;
-                the global caches run to 2,024 positions), 64 new tokens
+                the global caches run to 1,975 positions), 16 new tokens
                 each, all at once.  Checked: 26 flash_attention launches per
                 prefill wave and 26 flash_attention_decode per decode step,
                 4 quant_linear groups a layer per forward (launches as in
@@ -393,19 +393,55 @@ Phases (each one that fails makes the script exit non-zero):
                 is one and the bound (phase 24's: (a)'s per-host chunks,
                 (b)'s, (c)'s and (d)'s); logreg_grad also beside the pair
                 and logreg_margin + torch.matmul, with that bar.
+ 26. the model zoo — last, on an otherwise empty card: Granite-3-8B (40
+                layers, GQA 32/8, vocab 49,155), RecurrentGemma-9B (38
+                layers: 26 RG-LRU blocks and 12 local-attention ones with 16
+                q heads on one kv head of 256, window 2,048; every block
+                with its MLP) and Qwen1.5-32B (64 layers, MHA 40/40 with QKV
+                bias, d_ff 27,392, vocab 152,064) at their published widths
+                and depths, bf16 weights made from the seed and quantized to
+                int8 a period at a time as they are drawn (the 32B model's
+                bf16 tree, ≈ 69 GB, never exists), 8 slots, max_seq 2,048:
+                16, 16 and 8 requests (prompts of 128..1,024 tokens, the
+                hybrid's up to 1,960) of 64, 64 and 32 new tokens through
+                ServeEngine.run (the dense two in ragged waves, the hybrid
+                per request), decode steps as CUDA graph replays.  Checked
+                for each: every launch count of the path from its layers
+                (an attention layer 4 projection groups, a recurrent one 2
+                and 3 fixed_linear launches a forward, one rglru_scan a
+                recurrent layer a prefill, the norms, kernel 6's two forms,
+                one lm_head a forward; no other kernel), a decode step's
+                launches by kernel (one more replay), every stream equal to
+                _run_one's; printed: weight generation's seconds and peak,
+                tokens/s, prefill s, decode ms a step, the served run's and
+                the oracle's peak memory, a profile of the replayed step.
+                Each model is freed before the next.  26b: its kernels held
+                and timed at its shapes: kernel 6's decode at its three
+                groups (16, 4, 1; every head bitwise alone) and each model's
+                widest prefill, rglru_scan at the longest prompt (bitwise
+                its plain version, a row bitwise alone in a batch of 3; no
+                spill), lm_head at V = 49,155, 152,064 and 256,000,
+                quant_linear at every decode group and each model's widest
+                prefill product and quantize_rows rows (bitwise), rmsnorm,
+                and fixed_linear at the hybrid's three decode launches (the
+                folded norm bitwise the unfused row), each beside its plain
+                version, the library call where there is one and the bound;
+                the zoo's launches join the kernels line.
 
 Every phase prints its seconds; the run ends within 240 s on one H100.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
 then phase 21, then phase 20, then phase 22, then phase 23, then phase 24,
 then phase 8,
-then phase 11, then phase 14, then phase 18) and read just after it: they
+then phase 11, then phase 14, then phase 18, then each model of phase 26)
+and read just after it: they
 count those paths only (phases 21 and 23 must launch none; phase 20's launches are added to
 kernels 1-3's records under "fig_a2", phase 22's under "stream", phase
 24's under "mesh": its host processes report theirs, and its emulated
 twins' do not count; the launches of phase 22's child processes are their
-own).  A decode step that replays a CUDA graph adds the
-launches the graph holds (``ServeEngine``), so the counts stay exact.  The
+own; phase 26's are added under "zoo_<model>").  A decode step that
+replays a CUDA graph adds the launches the graph holds (``ServeEngine``),
+so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
 kernel; the last line is the device summary.  The script needs the
 repository's ``src/`` beside it and one CUDA card.
@@ -610,7 +646,7 @@ MESH_TOL = 1e-5
 
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
-LM_REQUESTS, LM_PROMPT_MIN, LM_PROMPT_MAX, LM_NEW = 16, 128, 1024, 64
+LM_REQUESTS, LM_PROMPT_MIN, LM_PROMPT_MAX, LM_NEW = 16, 128, 1024, 16   # new tokens cut from 64 for the run's time
 INT8_LOGIT_TOL = 0.20   # tests/test_serve_router.py's int8 bound on its 2-layer
                         # model, relative to max |logit|
 # ... and at all 28 layers, where random weights make the int8 error grow.
@@ -639,7 +675,8 @@ QMM_TILED_MS = {
 QMM_LIMIT_MS = {(8000, 1536, 8960): (0.40, 0.25)}
 # qmm_wgmma with fp32 output (before its epilogue wrote x's dtype), device ms
 # at the served prefill shapes (NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6
-# row 4): with bf16 output it may be at most 5 % slower
+# row 4), printed: with bf16 output it may be at most 5 % slower than the
+# fp32-out form timed beside it in the same run
 QMM_WGMMA_FP32_MS = {
     (7168, 1536, 256): 0.0108, (7168, 1536, 1536): 0.0503, (7168, 1536, 8960): 0.2304,
     (7168, 8960, 1536): 0.1557, (8000, 1536, 256): 0.0104, (8000, 1536, 1536): 0.0520,
@@ -674,12 +711,12 @@ LM_HEAD_LIMIT_MS = {(8, 1152, 262144): (0.26, 0.21), (8, 1536, 151936): (0.19, 0
                     (8, 2560, 50280): (0.11, 0.09)}
 # the Mamba2 serving phase: 8 prompts a multiple of the 256 chunk (each
 # twice) and 8 ragged ones drawn from MB_RAGGED (one chunk of L = S each)
-MB_ARCH, MB_SLOTS, MB_MAX_SEQ, MB_NEW = "mamba2-2.7b", 8, 2048, 64
-MB_LAYERS = 64          # the published depth
+MB_ARCH, MB_SLOTS, MB_MAX_SEQ, MB_NEW = "mamba2-2.7b", 8, 2048, 16   # new tokens cut from 64 for the run's time
+MB_LAYERS = 32          # of the published 64, cut for the run's time
 MB_ALIGNED, MB_RAGGED = (256, 512, 768, 1024), (142, 998)
 # the plain-weight LM serving phase (18): Qwen2-1.5B with quantize="none" at
-# this depth (the published 28: the run's 240 s leave room for it)
-LM_PLAIN_LAYERS = 28
+# this depth (of the published 28, cut for the run's 240 s)
+LM_PLAIN_LAYERS = 14
 # The bars of the decode step's kernels, printed met or MISSED and kept in
 # the kernels line (a kernel that misses one stays in, with its times):
 # fixed_linear's product alone at Mamba2's decode shapes within this many
@@ -708,7 +745,7 @@ SSD_LIMIT_MS = {"several chunks": (0.30, 0.15), "one ragged chunk": (0.45, 0.27)
 SSD_STAGES = ("ssd_cum_kernel", "ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
 # the Gemma3 serving phase: the prompts are served short and long in turns,
 # so that each admission wave pads short prompts to long ones
-G3_ARCH, G3_SLOTS, G3_MAX_SEQ, G3_NEW = "gemma3-1b", 8, 2048, 64
+G3_ARCH, G3_SLOTS, G3_MAX_SEQ, G3_NEW = "gemma3-1b", 8, 2048, 16   # new tokens cut from 64 for the run's time
 G3_PROMPTS = (40, 127, 128, 300, 480, 500, 511, 512, 513, 700, 1023, 1024, 1300,
               1536, 1800, 1960)
 # last-token prefill logits through the kernels against the plain versions,
@@ -716,6 +753,14 @@ G3_PROMPTS = (40, 127, 128, 300, 480, 500, 511, 512, 513, 700, 1023, 1024, 1300,
 # run, as phase 11's bound (rounding alone, carried through bf16 casts and
 # int8 activations, reads ~1e-3 there)
 G3_PLAIN_TOL = 0.02
+# the model zoo's phase (26): each configuration at its published widths and
+# depth, int8 projections: (requests, new tokens each), in the order served
+ZOO = {"granite-3-8b": (16, 64), "recurrentgemma-9b": (16, 64), "qwen1.5-32b": (8, 32)}
+ZOO_SLOTS, ZOO_MAX_SEQ = 8, 2048
+# prompt lengths drawn from the seed; the hybrid's reach ≈ 2,000 tokens so
+# that its scan runs at a full prompt (a 2,048-slot window: no ring wrap)
+ZOO_PROMPT_MIN, ZOO_PROMPT_MAX = 128, 1024
+RG_ARCH, RG_PROMPT_MAX = "recurrentgemma-9b", 1960
 # flash_attention against its plain version: tests/test_kernels.py's fp32
 # tolerance; in bf16 one bf16 step of each value (the kernel sums in fp32,
 # the plain version in fp64, and the outputs round to bf16 either side of a
@@ -4166,7 +4211,10 @@ def phase_lm(counts, report) -> None:
           f"projections, {LM_SLOTS} slots, max_seq {LM_MAX_SEQ}")
     mem_reset()
     t0 = time.perf_counter()
-    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    # drawn plain (the checks below hold the engine's int8 tree against it);
+    # the engine quantizes it
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED),
+                        dataclasses.replace(cfg, quantize="none"))
     engine = ServeEngine(cfg, params, batch_size=LM_SLOTS, max_seq=LM_MAX_SEQ,
                          device=DEVICE)
     sync()
@@ -5105,9 +5153,11 @@ def phase_qmm_timing(gen, counts, worst) -> list:
                   f"{r['ms']:.4f} ms, not faster than qmm_tiled's {QMM_TILED_MS[shape]} ms")
         fp32 = QMM_WGMMA_FP32_MS.get(shape)
         if fp32:
-            check(r["ms"] <= 1.05 * fp32, f"qmm_wgmma {r['label']} {shape}: "
+            # held against the fp32-out form timed beside it on this card:
+            # the constant, another machine's reading, moves with the host
+            check(r["ms"] <= 1.05 * r["fp32_out_ms"], f"qmm_wgmma {r['label']} {shape}: "
                   f"bf16 out {r['ms']:.4f} ms, over 1.05 x the fp32-out form's "
-                  f"{fp32} ms (PR 19 reading)")
+                  f"{r['fp32_out_ms']:.4f} ms timed beside it (the constant: {fp32} ms)")
         limit = QMM_LIMIT_MS.get(shape)
         if limit:
             say(f"qmm_wgmma {shape}: {r['ms']:.4f} ms against the must {limit[0]} ms and "
@@ -5929,7 +5979,10 @@ def phase_gemma3(counts, report) -> None:
           f"max_seq {G3_MAX_SEQ}")
     mem_reset()
     t0 = time.perf_counter()
-    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    # drawn plain (the checks below hold the engine's int8 tree against it);
+    # the engine quantizes it
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED),
+                        dataclasses.replace(cfg, quantize="none"))
     engine = ServeEngine(cfg, params, batch_size=G3_SLOTS, max_seq=G3_MAX_SEQ,
                          device=DEVICE)
     sync()
@@ -6912,6 +6965,589 @@ def phase_fixed_timing(gen, counts, worst) -> list:
     return records
 
 
+# --------------------------------------------------------------------------- #
+# phase 26: the model zoo (Granite-3-8B, RecurrentGemma-9B, Qwen1.5-32B)
+# --------------------------------------------------------------------------- #
+def zoo_requests(cfg):
+    """The zoo phase's requests for ``cfg``: ZOO's count and new tokens,
+    prompts drawn from the seed (the hybrid's up to RG_PROMPT_MAX, so that
+    its scan runs at a prompt of ≈ 2,000 tokens)."""
+    from repro_torch.serve import Request
+
+    n, new = ZOO[cfg.name]
+    rng = np.random.default_rng(SEED)
+    hi = RG_PROMPT_MAX if cfg.name == RG_ARCH else ZOO_PROMPT_MAX
+    lens = rng.integers(ZOO_PROMPT_MIN, hi + 1, size=n)
+    lens[0] = hi                     # the longest prompt is always served
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=int(m)).astype(np.int32),
+                    max_new_tokens=new) for m in lens]
+
+
+def zoo_layers(cfg) -> dict:
+    """Layers by kind over the whole depth: attention (A) and RG-LRU (R)."""
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.num_layers)]
+    return {"A": sum(k.value.startswith("attn") for k in kinds),
+            "R": sum(k.value == "rglru" for k in kinds)}
+
+
+def zoo_expected_launches(cfg, calls, steps: int) -> dict:
+    """Each kernel's launches over a serving run of ``calls`` (the engine's
+    counts) with int8 projections: an attention layer's 4 projection groups
+    (q/k/v, o, gate/up, down), an RG-LRU layer's 2 (its MLP) and 3
+    fixed_linear launches (the branches, the gates, the out-projection) at
+    a prefill and at a decode step, one rglru_scan a recurrent layer a
+    prefill; every norm a launch at a prefill, and at a decode step all but
+    the recurrent blocks' first (folded into their branches' launch); one
+    lm_head a forward."""
+    n = zoo_layers(cfg)
+    A, R, L = n["A"], n["R"], cfg.num_layers
+    F = calls["prefill_waves"] + calls["prefills"]
+    groups = 4 * A + 2 * R
+    return {"quant_linear": groups * steps + (7 * A + 3 * R) * F,
+            "quantize_rows": groups * F, "rmsnorm": (2 * L + 1) * F + (2 * L + 1 - R) * steps,
+            "flash_attention": A * F, "flash_attention_decode": A * steps,
+            "fixed_linear": 3 * R * (F + steps), "rglru_scan": R * calls["prefills"],
+            "lm_head": F + steps}
+
+
+def zoo_step_launches(engine) -> dict:
+    """The kernels' launches of one decode step, by name: one more graph
+    replay on the engine's cache (whose wrappers' counts the replay adds)."""
+    from repro_torch.kernels import launch_counts
+
+    B = engine.batch
+    before = launch_counts()
+    engine._decode(engine.params, engine._tensor(np.zeros((B, 1), np.int32)),
+                   engine._tensor(np.full(B, 64, np.int32)), engine.init_shared_cache())
+    sync()
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def zoo_graph_profile(engine, step_ms: float, steps: int = 3):
+    """Device time of the graph-replayed decode step by kernel (torch.profiler,
+    CUDA activity) against the served run's step; None where the profiler
+    saw no device time."""
+    B = engine.batch
+    toks = engine._tensor(np.zeros((B, 1), np.int32))
+    pos = engine._tensor(np.full(B, 64, np.int32))
+    shared = engine.init_shared_cache()
+    prof = profile_steps(lambda: engine._decode(engine.params, toks, pos, shared), steps)
+    kernels, busy, ours = _kernel_times(prof, steps)
+    if busy == 0:
+        say("decode step profile (graph): the profiler saw no device time (not measured)")
+        return None
+    launches = sum(e.count for e in kernels) / steps
+    say(f"decode step profile (graph, {steps} steps, {B} slots): device busy {busy:.3f} ms, "
+        f"{busy / step_ms:.1%} of the served run's {step_ms:.2f} ms step, {launches:.0f} "
+        f"kernel launches a step; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v))
+    _print_top(kernels, 8, steps)
+    return {"busy_ms": busy, "launches": launches, **ours}
+
+
+def zoo_serve(arch: str, counts, report) -> None:
+    """One model of the zoo at its published widths and depth, int8
+    projections, ZOO_SLOTS slots, max_seq ZOO_MAX_SEQ, weights from the seed
+    drawn and quantized a period at a time; its requests served with
+    continuous batching, every stream held against _run_one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.models.layers.quant import QTensor
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import ServeEngine, SlotScheduler
+
+    cfg = dataclasses.replace(get_config(arch), quantize="int8")
+    n = zoo_layers(cfg)
+    say(f"{cfg.name}: {cfg.num_layers} layers ({n['A']} attention, {n['R']} RG-LRU), "
+        f"d_model {cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,}, "
+        f"{'QKV bias, ' if cfg.qkv_bias else ''}{cfg.dtype}, int8 projections, "
+        f"{ZOO_SLOTS} slots, max_seq {ZOO_MAX_SEQ}")
+    free_device_memory()
+    mem_reset()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    sync()
+    t_init = time.perf_counter() - t0
+    q = [t for t in _leaves(params, qtensors=True)]
+    q_bytes = _storage_bytes([t for x in q for t in (x.qt, x.scale)])
+    plain_bytes = _storage_bytes(_leaves(params))
+    init_peak = mem_peak(f"{cfg.name}'s weights drawn and quantized a period at a time")
+    say(f"weights made on the card from seed {SEED} in {t_init:.2f} s: "
+        f"{sum(x.qt.numel() for x in q) / 1e9:.3f} B int8 projection parameters "
+        f"({q_bytes / 1e9:.3f} GB with their scales), {plain_bytes / 1e9:.3f} GB of "
+        f"{cfg.dtype} leaves (embedding, norms, biases, RG-LRU blocks)")
+    check(all(isinstance(x, QTensor) for x in q) and len(q) > 0,
+          f"{cfg.name}: no int8 projection in the drawn tree")
+    engine = ServeEngine(cfg, params, batch_size=ZOO_SLOTS, max_seq=ZOO_MAX_SEQ,
+                         device=DEVICE)
+    reqs = zoo_requests(cfg)
+    lens = [len(r.prompt) for r in reqs]
+    engine.warmup(prompt_lens=[min(lens)])
+    sync()
+    waves = []
+    prefill_into = engine._prefill_into
+
+    def timed_prefill_into(*a, **kw):
+        t = time.perf_counter()
+        out = prefill_into(*a, **kw)
+        waves.append(time.perf_counter() - t)
+        return out
+
+    engine._prefill_into = timed_prefill_into
+    for k in engine.calls:
+        engine.calls[k] = 0
+    for fn in KERNELS.values():
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+    sched = SlotScheduler(ZOO_SLOTS)
+    sync()
+    mem_reset()
+    reset_launch_counts()            # this model's served run starts here
+    t0 = time.perf_counter()
+    served = engine.run(reqs, scheduler=sched)
+    sync()
+    t_run = time.perf_counter() - t0
+    got = launch_counts()            # ... and ends here
+    peak = mem_peak(f"{cfg.name}'s served run")
+    del engine._prefill_into, prefill_into, timed_prefill_into   # no reference to the engine
+    shapes = {name: dict(fn.shapes) for name, fn in KERNELS.items()
+              if hasattr(fn, "shapes") and fn.shapes}
+    steps = engine.calls["decode_steps"]
+    want = zoo_expected_launches(cfg, engine.calls, steps)
+    say(f"launches in the serving run: {got}; {engine.calls['prefill_waves']} prefill waves, "
+        f"{engine.calls['prefills']} per-request prefills, {steps} decode steps")
+    check(all(got[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in got.items() if k not in want),
+          f"{cfg.name}: launches {got} are not the expected {want}")
+    check(all(v > 0 for k, v in got.items() if k in want and want[k]),
+          f"{cfg.name}: a kernel of the path never launched: {got}")
+    check(engine.ragged_ok == (n["R"] == 0),
+          f"{cfg.name}: ragged prefill {engine.ragged_ok} with {n['R']} RG-LRU layers")
+    check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 0, "the served run")
+    check(all(r.done and len(r.out_tokens) == r.max_new_tokens for r in served),
+          "a request did not finish with its tokens")
+    new = sum(len(r.out_tokens) for r in served)
+    t_prefill = sum(waves)
+    step_ms = (t_run - t_prefill) / max(steps, 1) * 1e3
+    say(f"served {len(served)} requests (prompts {lens}, {sum(lens)} tokens) / {new} new "
+        f"tokens in {t_run:.3f} s: {new / t_run:.1f} tokens/s; prefill {t_prefill:.3f} s "
+        f"in {len(waves)} admissions; decode {step_ms:.2f} ms per step ({steps} steps of "
+        f"{ZOO_SLOTS} slots); peak device memory {peak:.2f} GB (weights {init_peak:.2f} GB "
+        f"at their peak while drawn); backfills {sched.backfills}")
+    per_step = zoo_step_launches(engine)
+    A, R, L = n["A"], n["R"], cfg.num_layers
+    step_want = {k: v for k, v in (("quant_linear", 4 * A + 2 * R), ("rmsnorm", 2 * L + 1 - R),
+                                   ("flash_attention_decode", A), ("fixed_linear", 3 * R),
+                                   ("lm_head", 1)) if v}
+    say(f"launches by kernel a decode step (a graph replay): {per_step}")
+    check(per_step == step_want, f"{cfg.name}: a decode step's launches {per_step}, "
+          f"not {step_want}")
+    prof = zoo_graph_profile(engine, step_ms)
+    rep = {"tokens_per_s": new / t_run, "prefill_s": t_prefill, "decode_ms_per_step": step_ms,
+           "peak_gb": peak, "init_s": t_init, "init_peak_gb": init_peak,
+           "int8_gb": q_bytes / 1e9, "plain_gb": plain_bytes / 1e9, "seconds": t_run,
+           "new_tokens": new, "steps": steps, "launches": got, "step_launches": per_step,
+           "decode_profile": prof, "prompts": lens}
+
+    # every stream equals the slot-at-a-time oracle's
+    calls = dict(engine.calls)
+    mem_reset()
+    t0 = time.perf_counter()
+    solo = [engine._run_one(r) for r in zoo_requests(cfg)]
+    rep["oracle_s"] = time.perf_counter() - t0
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(served, solo))
+    rep["oracle_peak_gb"] = mem_peak(f"{cfg.name}'s oracle")
+    say(f"streams equal to the slot-at-a-time _run_one: {same} of {len(served)} "
+        f"({rep['oracle_s']:.1f} s for the oracle)")
+    check(same == len(served), f"{cfg.name}: {len(served) - same} streams differ from _run_one")
+    check_graph_steps(engine, calls, 1, "the oracle")
+    counts.setdefault("zoo", {})[cfg.name] = {"launches": got, "shapes": shapes}
+    report.setdefault("zoo", {})[cfg.name] = rep
+    del engine, params, q, served, solo
+    free_device_memory()
+    say(f"{cfg.name} freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated")
+
+
+def phase_zoo(counts, report) -> None:
+    phase("26. the model zoo: " + ", ".join(ZOO) + " at their published widths and depths")
+    for arch in ZOO:
+        zoo_serve(arch, counts, report)
+
+
+def _zoo_shapes(counts, kernel: str) -> dict:
+    """A kernel's launches by shape over the zoo's served runs."""
+    out = collections.Counter()
+    for model in counts["zoo"].values():
+        out.update(model["shapes"].get(kernel, {}))
+    return dict(out)
+
+
+def zoo_flash_rows(gen, counts) -> list:
+    """Kernel 6 at the zoo's served shapes: each decode shape (the three
+    groups) and each model's widest prefill against the plain versions
+    (FLASH_TOL), every decode head bitwise the same as the head alone in a
+    group of 1; timed beside the plain version, one SDPA call and the bound."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import _admitted, slot_positions
+
+    rows = []
+    dec = _zoo_shapes(counts, "flash_attention_decode")
+    for key, launched in sorted(dec.items()):
+        B, H, KV, slots, hd, mk = key
+        if B != ZOO_SLOTS:
+            continue
+        kw = _mask_kwargs(mk)
+        q, kc, vc, pos = _decode_inputs(gen, torch.bfloat16, B, H, KV, slots, hd, 2 * slots)
+        got = kfa.flash_attention_decode(q, kc, vc, pos, **kw)
+        want = kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw)
+        sync()
+        ok, err, ratio = _flash_err(got, want, torch.bfloat16)
+        check(ok, f"flash_attention_decode {key}: max abs err {err} ({ratio:.3g} x)")
+        G = H // KV
+        for h in range(0, H, max(1, G // 4)):
+            kvh = h // G
+            one = kfa.flash_attention_decode(q[:, h:h + 1], kc[:, :, kvh:kvh + 1],
+                                             vc[:, :, kvh:kvh + 1], pos, **kw)
+            check(torch.equal(one[:, 0], got[:, h]),
+                  f"flash_attention_decode {key}: head {h} differs alone")
+        # time the end of a served stream: every row near position 2,048
+        pos = torch.clamp(pos + slots // 2, max=ZOO_MAX_SEQ - 1)
+        ms = graph_ms(lambda: kfa.flash_attention_decode(q, kc, vc, pos, **kw))
+        plain_ms = cuda_ms(lambda: kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw), 3)
+        sp = slot_positions(pos, slots)
+        valid = (sp >= 0) & _admitted(pos[:, None], sp, **kw)
+        lib, backend = sdpa_yardstick(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                                      scale=hd ** -0.5, attn_mask=valid[:, None, None, :])
+        lib_ms, backend = library_time(lib, backend, eager=False)
+        pairs = _attention_pairs(B, H, 1, slots, kw, pos=pos, slots=slots)
+        n_valid = float(valid.sum().item())
+        t_b, by = bound(2 * (2 * n_valid * KV * hd + 2 * B * H * hd), 4.0 * hd * pairs)
+        say(f"flash_attention_decode zoo (B, H, KV, slots, hd) = {(B, H, KV, slots, hd)} {kw}"
+            f" (group {G}), bf16, {launched} launches on the path: within the tolerance "
+            f"(max abs err {err:.3g}), heads bitwise alone; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}), "
+            f"bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
+        rows.append({"label": f"zoo decode, group {G}", "kernel": "flash_attention_decode",
+                     "shape": [B, H, KV, slots, hd], "mask": kw, "launches": launched,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_note": backend, "bound_ms": t_b, "bound_by": by})
+        del q, kc, vc
+    pre = _zoo_shapes(counts, "flash_attention")
+    for model in counts["zoo"]:
+        mine = counts["zoo"][model]["shapes"].get("flash_attention", {})
+        B, H, KV, Sq, Sk, hd, mk = max(mine, key=lambda k: (k[0] * k[3], k[3]))
+        kw = _mask_kwargs(mk)
+        q, k, v = _flash_inputs(gen, torch.bfloat16, B, H, KV, Sq, Sk, hd)
+        a, b = kfa.flash_attention(q, k, v, **kw), kfa.flash_attention_plain(q, k, v, **kw)
+        sync()
+        ok, err, ratio = _flash_err(a, b, torch.bfloat16)
+        check(ok, f"flash_attention {model} {(B, H, KV, Sq, Sk, hd)}: max abs err {err}")
+        del a, b
+        ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw), 5)
+        plain_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v, **kw), 1)
+        mask = _admitted(torch.arange(Sq, device=DEVICE)[:, None] + (Sk - Sq),
+                         torch.arange(Sk, device=DEVICE)[None, :], **kw)
+        if kw["window"] is not None or kw["chunk"] is not None:
+            lib, backend = sdpa_yardstick(q, k, v, attn_mask=mask, scale=hd ** -0.5)
+        else:
+            lib, backend = sdpa_yardstick(q, k, v, is_causal=True, scale=hd ** -0.5)
+        lib_ms, backend = library_time(lib, backend, eager=True)
+        pairs = _attention_pairs(B, H, Sq, Sk, kw)
+        t_b, by = bound(2 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd), 4.0 * hd * pairs,
+                        BF16_OPS_PER_S)
+        launched = pre.get((B, H, KV, Sq, Sk, hd, mk), 0)
+        say(f"flash_attention zoo prefill {model} (B, H, KV, Sq, Sk, hd) = "
+            f"{(B, H, KV, Sq, Sk, hd)} {kw}, bf16, {launched} launches of this shape: within "
+            f"the tolerance (max abs err {err:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}), bound {t_b:.4f} ms "
+            f"({by}, bf16 tensor cores), {t_b / ms:.1%} of it")
+        rows.append({"label": f"zoo prefill, {model}", "kernel": "flash_attention",
+                     "shape": [B, H, KV, Sq, Sk, hd], "mask": kw, "launches": launched,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_note": backend, "bound_ms": t_b, "bound_by": by})
+        del q, k, v, mask
+        free_device_memory()
+    return rows
+
+
+def zoo_scan_record(gen, counts) -> dict:
+    """rglru_scan at the served run's longest prompt (1, S, r) and a decode
+    wave's batch, bitwise its plain version, a row bitwise alone, timed
+    beside the plain version and the bound (no PyTorch call computes the
+    recurrence: library none)."""
+    from repro_torch.kernels import rglru_scan as krs
+
+    served = _zoo_shapes(counts, "rglru_scan")
+    B, S, r, with_h0 = max(served, key=lambda k: k[1])
+    a = torch.rand(B, S, r, generator=gen, device=DEVICE) * 0.2 + 0.8
+    b = torch.randn(B, S, r, generator=gen, device=DEVICE)
+    h0 = torch.randn(B, r, generator=gen, device=DEVICE) if with_h0 else None
+    hs, last = krs.rglru_scan(a, b, h0)
+    want, want_last = krs.rglru_scan_plain(a, b, h0)
+    sync()
+    check(torch.equal(hs, want) and torch.equal(last, want_last),
+          f"rglru_scan {(B, S, r)}: not bitwise its plain version")
+    three = torch.cat([a, a.flip(0) * 0.99, a], 0), torch.cat([b, -b, b], 0)
+    hs3, _ = krs.rglru_scan(*three, None if h0 is None else h0.repeat(3, 1))
+    check(torch.equal(hs3[0], hs[0]) and torch.equal(hs3[2], hs[0]),
+          "rglru_scan: a row differs in a batch of 3")
+    ms = graph_ms(lambda: krs.rglru_scan(a, b, h0), launches=5)
+    plain_ms = cuda_ms(lambda: krs.rglru_scan_plain(a, b, h0), 1)
+    t_b, by = bound(4 * (3 * B * S * r + 2 * B * r), 2.0 * B * S * r)
+    usage = ptxas_usage("rglru_scan")
+    launched = sum(served.values())
+    say(f"rglru_scan (B, S, r) = {(B, S, r)}, h0 given: {with_h0}, {launched} launches on "
+        f"the path (prompts of {sorted({k[1] for k in served})} tokens): bitwise its plain "
+        f"version, a row bitwise the same in a batch of 3; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library none, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it; "
+        f"-Xptxas -v {usage}")
+    check_no_spill("rglru_scan", {"rglru_scan_kernel": r"rglru_scan_kernel"})
+    del a, b, hs, want, hs3
+    free_device_memory()
+    return {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "none: the reference's RG-LRU recurrence "
+                    "(src/repro/models/layers/rglru.py:122-131), "
+                    "jax.lax.associative_scan left to XLA",
+        "launches": launched, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": t_b, "bound_by": by, "library_ms": None, "shape": [B, S, r],
+        "launches_by_path": {"zoo_serve": launched}}
+
+
+def zoo_head_rows(gen, counts) -> list:
+    """lm_head at the zoo's (D, V) tables, M = 8 and 1: against the plain
+    version (rtol = atol = 2e-4), row m bitwise at M = 1 and 8, timed
+    beside one torch.mm(out_dtype=float32) and the bound."""
+    from repro_torch.kernels import lm_head as klm
+
+    served = _zoo_shapes(counts, "lm_head")
+    rows = []
+    for D, V in sorted({(D, V) for _, D, V, _ in served}):
+        w = torch.randn(V, D, generator=gen, device=DEVICE).bfloat16() * D ** -0.5
+        x = torch.randn(ZOO_SLOTS, D, generator=gen, device=DEVICE).bfloat16()
+        eight, want = klm.lm_head(x, w, tied=True), klm.lm_head_plain(x, w, tied=True)
+        sync()
+        err = (eight - want).abs()
+        check(bool((err <= 2e-4 + 2e-4 * want.abs()).all()),
+              f"lm_head {(ZOO_SLOTS, D, V)}: max abs error {err.max().item()}")
+        for m in range(ZOO_SLOTS):
+            check(torch.equal(klm.lm_head(x[m:m + 1], w, tied=True)[0], eight[m]),
+                  f"lm_head {(D, V)}: row {m} differs at M = 1")
+        for M in (ZOO_SLOTS, 1):
+            xm = x[:M]
+            ms = graph_ms(lambda: klm.lm_head(xm, w, tied=True), launches=5)
+            plain_ms = cuda_ms(lambda: klm.lm_head_plain(xm, w, tied=True), 1)
+            lib_ms = graph_ms(lambda: mm_fp32_out(xm, w), launches=5)
+            t_b, by = bound(V * D * 2 + M * D * 2 + M * V * 4, 2.0 * M * V * D)
+            launched = served.get((M, D, V, True), 0)
+            say(f"lm_head zoo (M, D, V) = {(M, D, V)} tied, bf16, {launched} launches on the "
+                f"path: within the tolerance (max abs err {err.max().item():.3g}), rows "
+                f"bitwise at M = 1; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mm "
+                f"out_dtype=fp32 {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%}")
+            rows.append({"label": f"zoo, V = {V:,}", "shape": [M, D, V], "tied": True,
+                         "launches": launched, "max_abs_err": err.max().item(), "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": t_b,
+                         "bound_by": by})
+        del w, x, want
+    return rows
+
+
+def zoo_qmm_rows(gen, counts) -> tuple:
+    """quant_linear at the zoo's decode groups (M = 8, weights from HBM) and
+    each model's widest prefill product: bitwise the plain version, timed
+    beside it and the bound (int8 tensor-core rate; library none for the
+    grouped function, torch._int_mm beside a prefill product); quantize_rows
+    at each model's widest prefill rows against its byte bound."""
+    from repro_torch.kernels import quant_matmul as kqm
+
+    rows, qrows = [], []
+    for model, data in counts["zoo"].items():
+        by_shape = data["shapes"].get("quant_linear", {})
+        for (M, K, Ns), calls in sorted(by_shape.items()):
+            if M != ZOO_SLOTS:
+                continue
+            x, group = _group_operands(gen, M, K, Ns)
+            check(all(torch.equal(a, b) for a, b in zip(kqm.quant_linear(x, group),
+                                                        kqm.quant_linear_plain(x, group))),
+                  f"quant_linear {model} {(M, K, Ns)}: not bitwise its plain version")
+            nsum = sum(Ns)
+            sets = _cold_sets(group, K * nsum)
+            t_b, by = bound(2 * M * K + K * nsum + 4 * nsum + 2 * M * nsum,
+                            2.0 * M * K * nsum, INT8_OPS_PER_S)
+            ms = graph_ms([lambda g=g: kqm.quant_linear(x, g) for g in sets])
+            plain_ms = cuda_ms(lambda: kqm.quant_linear_plain(x, group), 3)
+            say(f"quant_linear zoo {model} decode (M, K, N) = {(M, K, Ns)}, {calls} launches: "
+                f"bitwise; kernel {ms:.4f} ms (weights from HBM), plain {plain_ms:.4f} ms, "
+                f"library none, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
+            rows.append({"label": f"{model} decode", "shape": [M, K, list(Ns)],
+                         "launches": calls, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         "bound_ms": t_b, "bound_by": by})
+            del x, group, sets
+            free_device_memory()
+        prefill = [(M, K, N) for (M, K, Ns) in by_shape if M > kqm.SKINNY_M for N in Ns]
+        M, K, N = max(prefill, key=lambda s: s[0] * s[1] * s[2])
+        xq, xs, wq, ws = _qmm_operands(gen, M, K, N)
+        check(torch.equal(kqm.quant_matmul(xq, xs, wq, ws), kqm.quant_matmul_plain(xq, xs, wq, ws)),
+              f"quant_matmul {model} {(M, K, N)}: not bitwise its plain version")
+        wt, out = wq.t(), torch.empty((M, N), dtype=torch.bfloat16, device=DEVICE)
+        bn = kqm.tile_n(M, N, torch.cuda.get_device_properties(0).multi_processor_count)
+        ms = graph_ms(lambda: kqm._launch_product(xq, xs, wt, ws, out, M, N, K, bn), 5, 4)
+        plain_ms = cuda_ms(lambda: kqm.quant_matmul_plain(xq, xs, wq, ws).to(torch.bfloat16), 1)
+        wk = wq.contiguous()
+        lib_ms = graph_ms(lambda: torch._int_mm(xq, wk), 5, 4)
+        t_b, by = bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2.0 * M * K * N,
+                        INT8_OPS_PER_S)
+        launched = sum(c for (Mx, Kx, Ns), c in by_shape.items() if (Mx, Kx) == (M, K)
+                       and N in Ns)
+        say(f"qmm_wgmma zoo {model} prefill (M, K, N) = {(M, K, N)}, {launched} launches: "
+            f"bitwise; bf16 out {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+            f"{lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
+        rows.append({"label": f"{model} prefill", "shape": [M, K, N], "launches": launched,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": t_b,
+                     "bound_by": by})
+        del xq, xs, wq, ws, wt, wk, out
+        free_device_memory()
+        rq = data["shapes"].get("quantize_rows", {})
+        (M, K, dt), launched = max(rq.items(), key=lambda kv: kv[0][0] * kv[0][1])
+        x, _ = _group_operands(gen, M, K, ())
+        got, want = kqm.quantize_rows(x), kqm.quantize_rows_plain(x)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"quantize_rows {model} {(M, K)}: not bitwise its plain version")
+        ms = graph_ms(lambda: kqm.quantize_rows(x), 5, 4)
+        plain_ms = cuda_ms(lambda: kqm.quantize_rows_plain(x), 3)
+        t_b, by = bound(3 * M * K + 4 * M, 0.0)
+        say(f"quantize_rows zoo {model} (M, K) = {(M, K)} bf16, {launched} launches of this "
+            f"shape: bitwise; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {t_b:.4f} ms "
+            f"({by}), {t_b / ms:.1%} of it")
+        qrows.append({"label": f"{model} prefill", "shape": [M, K], "launches": launched,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": t_b,
+                      "bound_by": by})
+        del x, got, want
+    return rows, qrows
+
+
+def zoo_norm_rows(gen, counts) -> list:
+    """rmsnorm at the zoo's decode rows and widest prefill rows: within one
+    bf16 step of the plain version, rows bitwise alone, timed beside
+    F.rms_norm and the bound."""
+    from repro_torch.kernels import rmsnorm as krn
+
+    served = _zoo_shapes(counts, "rmsnorm")
+    rows = []
+    for d in sorted({d for _, d, _ in served}):
+        for n in (ZOO_SLOTS, max(m for m, dd, _ in served if dd == d)):
+            x = torch.randn(n, d, generator=gen, device=DEVICE).bfloat16()
+            w = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).bfloat16()
+            got = krn.rmsnorm(x, w, plus_one=True)
+            want = krn.rmsnorm_plain(x, w, plus_one=True)
+            sync()
+            g, t = got.float(), want.float()
+            check(bool(((g - t).abs() <= RMS_BF16_TOL * t.abs() + 1e-6).all()),
+                  f"rmsnorm {(n, d)}: beyond one bf16 step of the plain version")
+            check(torch.equal(krn.rmsnorm(x[:1], w, plus_one=True)[0], got[0]),
+                  f"rmsnorm {(n, d)}: row 0 differs alone")
+            ms = graph_ms(lambda: krn.rmsnorm(x, w, plus_one=True), launches=10)
+            plain_ms = cuda_ms(lambda: krn.rmsnorm_plain(x, w, plus_one=True), 3)
+            wl = (1 + w.float()).bfloat16()
+            lib_ms = graph_ms(lambda: torch.nn.functional.rms_norm(x, (d,), wl, 1e-6),
+                              launches=10)
+            t_b, by = bound(2 * n * d * 2 + 2 * d, 3.0 * n * d)
+            launched = served.get((n, d, "bfloat16"), 0)
+            say(f"rmsnorm zoo ({n}, {d}) bf16, {launched} launches of this shape: within one "
+                f"bf16 step, rows bitwise alone; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"F.rms_norm {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
+            rows.append({"label": f"zoo ({n}, {d})", "shape": [n, d, "bfloat16"],
+                         "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": t_b, "bound_by": by})
+            del x, got, want
+    return rows
+
+
+def zoo_fixed_rows(gen, counts) -> list:
+    """fixed_linear at the hybrid's three decode launches a recurrent layer
+    (the branches with the block's norm folded in; the gates, fp32 out; the
+    out-projection): against the plain version (_close_fixed), the folded
+    norm bitwise the rmsnorm kernel's row, timed with weights from HBM
+    beside one torch.mm(out_dtype=float32) of the same (M, K, sum N)."""
+    from repro_torch.kernels import fixed_linear as kfl
+
+    served = _zoo_shapes(counts, "fixed_linear")
+    rows = []
+    for (M, K, Ns, pro), launched in sorted(served.items(), key=str):
+        if M != ZOO_SLOTS:
+            continue
+        x, ws, kw, xin = _fixed_case(gen, M, K, Ns, pro)
+        # the branches and the gates write fp32, the out-projection x's dtype
+        outs = [torch.float32] * len(Ns) if len(Ns) > 1 else [torch.bfloat16]
+        got = kfl.fixed_linear(x, ws, outs, **kw)
+        want = kfl.fixed_linear_plain(x, ws, outs, **kw)
+        unfused = kfl.fixed_linear(xin, ws, outs)
+        sync()
+        check(all(_close_fixed(a, b) for a, b in zip(got, want)),
+              f"fixed_linear {(M, K, Ns, pro)}: beyond the tolerance")
+        check(all(torch.equal(a, b) for a, b in zip(got, unfused)),
+              f"fixed_linear {(M, K, Ns, pro)}: the folded norm differs from the unfused row")
+        nsum = sum(Ns)
+        copies = max(1, math.ceil(COLD_BYTES / (2 * K * nsum)))
+        sets = [ws] + [[w.t().contiguous().t() for w in ws] for _ in range(copies - 1)]
+        ms = graph_ms([lambda s=s: kfl.fixed_linear(x, s, outs, **kw) for s in sets])
+        plain_ms = cuda_ms(lambda: kfl.fixed_linear_plain(x, ws, outs, **kw), 3)
+        wcat = torch.cat([w for w in ws], 1).t().contiguous()
+        lib_ms = graph_ms(lambda: mm_fp32_out(xin, wcat), launches=10)
+        t_b, by = bound(2 * M * K + 2 * K * nsum + outs[0].itemsize * M * nsum,
+                        2.0 * M * K * nsum, BF16_OPS_PER_S)
+        say(f"fixed_linear zoo (M, K, N, prologue) = {(M, K, Ns, pro)}, {launched} launches: "
+            f"within the tolerance, the folded norm bitwise the unfused row; kernel "
+            f"{ms:.4f} ms (weights from HBM), plain {plain_ms:.4f} ms, torch.mm "
+            f"out_dtype=fp32 {lib_ms:.4f} ms (weights from L2), bound {t_b:.4f} ms ({by}), "
+            f"{t_b / ms:.1%} of it")
+        rows.append({"label": f"RecurrentGemma decode {Ns} {pro}", "shape": [M, K, list(Ns)],
+                     "prologue": pro, "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": t_b, "bound_by": by})
+        del x, ws, sets, wcat
+        free_device_memory()
+    return rows
+
+
+# the records of the kernels line each zoo launch counts under, by wrapper
+ZOO_RECORD_OF = {"quant_linear": "quant_matmul", "quantize_rows": "quantize_rows",
+                 "rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
+                 "flash_attention_decode": "flash_attention_decode", "lm_head": "lm_head",
+                 "fixed_linear": "fixed_linear", "rglru_scan": "rglru_scan"}
+
+
+def phase_zoo_kernels(gen, counts, records) -> None:
+    """The zoo path's kernels held against their plain versions and timed at
+    its shapes; their launches on the path added to the kernels line."""
+    phase("26b. the zoo's kernels held and timed at its served shapes")
+    say(f"card: {CARD}")
+    records.append(zoo_scan_record(gen, counts))
+    by_name = {r["name"]: r for r in records}
+    zoo_rows = {"flash": zoo_flash_rows(gen, counts), "lm_head": zoo_head_rows(gen, counts),
+                "rmsnorm": zoo_norm_rows(gen, counts), "fixed_linear": zoo_fixed_rows(gen, counts)}
+    zoo_rows["quant_matmul"], zoo_rows["quantize_rows"] = zoo_qmm_rows(gen, counts)
+    for rec, rows in (("lm_head", zoo_rows["lm_head"]), ("rmsnorm", zoo_rows["rmsnorm"]),
+                      ("fixed_linear", zoo_rows["fixed_linear"]),
+                      ("quant_matmul", zoo_rows["quant_matmul"]),
+                      ("quantize_rows", zoo_rows["quantize_rows"])):
+        by_name[rec]["zoo_shapes"] = rows
+    for kernel in ("flash_attention", "flash_attention_decode"):
+        by_name[kernel]["zoo_shapes"] = [r for r in zoo_rows["flash"] if r["kernel"] == kernel]
+        by_name[kernel]["max_abs_err"] = max(
+            [by_name[kernel]["max_abs_err"]] + [r["max_abs_err"] for r in zoo_rows["flash"]
+                                                if r["kernel"] == kernel])
+    for model, data in counts["zoo"].items():
+        for wrapper, n in data["launches"].items():
+            if n and wrapper != "rglru_scan":
+                rec = by_name[ZOO_RECORD_OF[wrapper]]
+                rec["launches"] += n
+                rec["launches_by_path"][f"zoo_{model}"] = n
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -6999,10 +7635,14 @@ def main() -> int:
     records.append(phase_head(gen, counts))
     worst = phase_fixed_check(gen, counts)
     records.extend(phase_fixed_timing(gen, counts, worst))
+    # the model zoo last, on an otherwise empty card (Qwen1.5-32B's int8
+    # weights and caches take ≈ 70 GB), then its kernels at its shapes
+    phase_zoo(counts, report)
+    phase_zoo_kernels(gen, counts, records)
     end_phase()
     # logreg_xt_z is on no path since the fits take logreg_grad: the checks
     # and a width no cluster holds launch it
-    check(len(records) == 13
+    check(len(records) == 14
           and all((r["launches"] == 0) == (r["name"] == "logreg_xt_z") for r in records),
           f"a kernel was never launched on its path, or logreg_xt_z was: "
           f"{[(r['name'], r['launches']) for r in records]}")

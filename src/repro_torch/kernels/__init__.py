@@ -14,6 +14,7 @@ from repro_torch.kernels import kmeans_assign as _kmeans_assign
 from repro_torch.kernels import lm_head as _lm_head
 from repro_torch.kernels import logreg_grad as _logreg_grad
 from repro_torch.kernels import quant_matmul as _quant_matmul
+from repro_torch.kernels import rglru_scan as _rglru_scan
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd_scan as _ssd_scan
 
@@ -35,6 +36,7 @@ KERNELS = {
     "flash_attention_decode": _flash_attention.flash_attention_decode,
     "lm_head": _lm_head.lm_head,
     "fixed_linear": _fixed_linear.fixed_linear,
+    "rglru_scan": _rglru_scan.rglru_scan,
 }
 
 

@@ -5,8 +5,9 @@ No counterpart in ``src/repro/``: Pallas kernels are traced in Python, while
 the port's kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/``,
 each exposing a plain C launcher.  A source is compiled at its first use
 into ``build/kernels/`` at the root of the checkout, one shared library per
-source, named by a hash of the source, the shared headers (``csrc/*.cuh``)
-and the flags, so that an edited source or header is rebuilt.
+source, named by a hash of the source, any source it includes, the shared
+headers (``csrc/*.cuh``) and the flags, so that an edited source or header
+is rebuilt.
 :func:`build` compiles several sources in parallel (one ``nvcc`` each) and
 returns what ``-Xptxas -v`` reported, which is kept beside each library
 (``.log``) for a later call that finds it built.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,7 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: every CUDA source of the package, by stem
 SOURCES = ("logreg_grad", "kmeans_assign", "quant_matmul", "rmsnorm", "ssd_scan",
-           "flash_attention", "lm_head", "fixed_linear")
+           "flash_attention", "flash_decode", "lm_head", "fixed_linear", "rglru_scan")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,8 +65,12 @@ def find_nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # a source that includes another (flash_decode.cu) is rebuilt with it
+    included = b"".join((CSRC / n.decode()).read_bytes()
+                        for n in re.findall(rb'#include "(\w+\.cu)"', src))
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + included + headers
+                            + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

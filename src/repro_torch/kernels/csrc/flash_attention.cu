@@ -108,7 +108,10 @@
 //     (the block's rows share one position).  K and V tiles travel as
 //     16-byte cp.async copies into a ring of 3 stages in shared memory, in
 //     the cache's dtype, with one barrier a tile.  The block's rows are the
-//     group's q heads (an instance for G <= 4 and one for G <= 8), held in
+//     group's q heads (an instance of 4 heads and, below hd 256, where it
+//     would spill, one of 8; a group is cut into sets of 4 at hd 256 and,
+//     above 4 heads, of 8 below, a block each, which read the span's K and
+//     V again from L2), held in
 //     registers: lane l of a key group holds dims 8l..8l+7 of every row, so
 //     a dot is an fma chain over 8 dims and a fixed butterfly over the
 //     hd / 8 lanes of the key.  Each of the 8 key groups takes keys j,
@@ -129,6 +132,12 @@
 // 256.  The C launchers take PyTorch's current stream, allocate nothing
 // (the decode form's scratch comes from the wrapper) and return
 // cudaGetLastError().
+//
+// The file is two translation units, built at once: alone it is the
+// prefill forms' library; csrc/flash_decode.cu includes it with
+// FLASH_DECODE defined, and is the decode form's.  Each compiles only its
+// form's kernels and C launchers, so that the two instance sets, the
+// package's longest build as one file, compile in parallel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -215,6 +224,7 @@ struct Ring {
   }
 };
 
+#ifndef FLASH_DECODE
 // Thread layouts of a block of kRows rows, by phase.
 template <int kRows, int HD>
 struct Layout {
@@ -844,6 +854,9 @@ int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, i
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif  // !FLASH_DECODE
+
+#ifdef FLASH_DECODE
 // ------------------------------------------------------------------------
 // Decode form: the slots split into spans from slot 0, one block a
 // (span, kv head, batch row), then a merge over the spans in span order.
@@ -857,7 +870,7 @@ constexpr int kGroups = 8;                     // key groups of a decode block
 constexpr int kGroupKeys = kTile / kGroups;    // keys a group takes from a tile
 constexpr int kLaneElems = 8;                  // head dims a lane holds
 constexpr int kStages = 3;                     // tiles in flight (cp.async ring)
-constexpr int kDecodeGroupMax = 8;             // q heads a kv head, at most
+constexpr int kDecodeGroupMax = 16;            // q heads a kv head, at most
 constexpr int kMergeThreads = 256;
 
 // 8 consecutive elements as floats, from 16-byte aligned global or shared
@@ -896,12 +909,16 @@ struct DecodeLayout {
   static_assert(KL >= 1 && KL <= 32 && (KL & (KL - 1)) == 0, "decode layout");
 };
 
-// One block: the G <= kG q heads of kv head blockIdx.y of batch row
+// One block: up to kG of the G q heads of one kv head of batch row
 // blockIdx.z, all at query position pos[b], against slots [s0, s0 + span)
-// of the ring, s0 = blockIdx.x * span, span = span_slots(HD).  Key group j (kLaneElems dims a
-// lane, KL lanes a key) takes keys j, j + 8, j + 16, j + 24 of each tile,
-// in tile order, with its own running (m, l, acc); the groups then merge in
-// group order, and the block writes the span's (m, l, acc) in fp32.
+// of the ring, s0 = blockIdx.x * span, span = span_slots(HD).  A group
+// wider than kG is cut into nsub = ceil(G / kG) sets of kG heads, each a
+// block of its own: blockIdx.y = kvh * nsub + set, heads set * kG onwards.
+// Key group j (kLaneElems dims a lane, KL lanes a key) takes keys j, j + 8,
+// j + 16, j + 24 of each tile, in tile order, with its own running (m, l,
+// acc); the groups then merge in group order, and the block writes the
+// span's (m, l, acc) in fp32.  A head's arithmetic is its own: nothing of
+// it depends on kG, on the set it falls in or on the other heads.
 template <typename T, int HD, int kG>
 __global__ void __launch_bounds__(HD, 2)
 decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -917,7 +934,10 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* stage = reinterpret_cast<T*>(smem4);
 
   const int G = H / KV;
-  const int kvh = blockIdx.y;
+  const int nsub = (G + kG - 1) / kG;
+  const int kvh = blockIdx.y / nsub;
+  const int h0 = (blockIdx.y % nsub) * kG;       // the set's first head of the group
+  const int Gb = G - h0 < kG ? G - h0 : kG;      // heads this block holds
   const long long b = blockIdx.z;
   const long long s0 = (long long)blockIdx.x * kSpan;
   const long long pq = pos[b];
@@ -928,9 +948,9 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // a span above the query position holds no written slot: skip it before
   // any load
   if (s0 > pq) {
-    if (t < G) {
-      part_m[part * G + t] = kNegInf;
-      part_l[part * G + t] = 0.f;
+    if (t < Gb) {
+      part_m[part * G + h0 + t] = kNegInf;
+      part_l[part * G + h0 + t] = 0.f;
     }
     return;
   }
@@ -978,8 +998,8 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qf[kG][kLaneElems];
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
-    if (g < G) {
-      load8(q + b * qs.b + (long long)(kvh * G + g) * qs.h + kl * kLaneElems, qf[g]);
+    if (g < Gb) {
+      load8(q + b * qs.b + (long long)(kvh * G + h0 + g) * qs.h + kl * kLaneElems, qf[g]);
     } else {
 #pragma unroll
       for (int e = 0; e < kLaneElems; ++e) qf[g][e] = 0.f;
@@ -1014,7 +1034,7 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         float dot = 0.f;
-        if (g < G) {
+        if (g < Gb) {
 #pragma unroll
           for (int e = 0; e < kLaneElems; ++e) dot = fmaf(qf[g][e], kf[e], dot);
 #pragma unroll
@@ -1026,10 +1046,10 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     // online softmax over the group's keys of the tile, in key order (rows
-    // past G are never written, and skipped)
+    // past Gb are never written, and skipped)
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
-      if (g >= G) continue;
+      if (g >= Gb) continue;
       float mx = m[g];
 #pragma unroll
       for (int u = 0; u < kGroupKeys; ++u) mx = fmaxf(mx, p[g][u]);
@@ -1052,7 +1072,7 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load8(Vt + (grp + u * kGroups) * HD + kl * kLaneElems, vf);
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
-        if (g >= G) continue;
+        if (g >= Gb) continue;
 #pragma unroll
         for (int e = 0; e < kLaneElems; ++e) acc[g][e] = fmaf(p[g][u], vf[e], acc[g][e]);
       }
@@ -1077,7 +1097,7 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
     *reinterpret_cast<float4*>(a + 4) = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
   }
   __syncthreads();
-  for (int idx = t; idx < G * HD; idx += NT) {
+  for (int idx = t; idx < Gb * HD; idx += NT) {
     const int g = idx / HD, d = idx % HD;
     float mx = kNegInf;
 #pragma unroll
@@ -1092,10 +1112,10 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
         as = fmaf(Ag[(j * kG + g) * HD + d], w, as);
       }
     }
-    part_acc[(part * G + g) * HD + d] = as;
+    part_acc[(part * G + h0 + g) * HD + d] = as;
     if (d == 0) {
-      part_m[part * G + g] = mx;
-      part_l[part * G + g] = ls;
+      part_m[part * G + h0 + g] = mx;
+      part_l[part * G + h0 + g] = ls;
     }
   }
 }
@@ -1180,8 +1200,11 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
   float* part_m = scratch;
   float* part_l = part_m + parts;
   float* part_acc = part_l + parts;
+  const int nsub = (H / KV + kG - 1) / kG;
+  if ((long long)KV * nsub > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   decode_span_kernel<T, HD, kG>
-      <<<dim3(static_cast<unsigned>(nspans), KV, B), DL::kThreadsD, DL::kBytes, stream>>>(
+      <<<dim3(static_cast<unsigned>(nspans), KV * nsub, B), DL::kThreadsD, DL::kBytes,
+         stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
           part_m, part_l, part_acc, H, KV, slots, static_cast<int>(nspans), qs, ks, vs, mask,
           scale);
@@ -1213,13 +1236,19 @@ int launch_decode_hd(int hd, const void* q, const void* k, const void* v, void* 
       return launch_decode<T, 128, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs, ks,
                                        vs, os, mask, scale, s);
     case 256:
-      return launch_decode<T, 256, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs, ks,
-                                       vs, os, mask, scale, s);
+      if constexpr (kG == 4) {     // decode_set: hd 256 runs sets of 4
+        return launch_decode<T, 256, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs,
+                                         ks, vs, os, mask, scale, s);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+#endif  // FLASH_DECODE
+
+#ifndef FLASH_DECODE
 // fp32 operands to flash_kernel, bf16 operands to flash_mma_kernel (with p
 // in `terms` bf16 terms); no other route
 template <int HD>
@@ -1260,6 +1289,8 @@ int launch_prefill_hd(int dtype, int hd, const void* q, const void* k, const voi
   }
 }
 
+#endif  // !FLASH_DECODE
+
 Mask make_mask(int causal, int has_window, long long window, int has_chunk,
                long long chunk) {
   Mask m;
@@ -1273,6 +1304,7 @@ Mask make_mask(int causal, int has_window, long long window, int has_chunk,
 
 }  // namespace
 
+#ifndef FLASH_DECODE
 namespace {
 
 int prefill(int dtype, int hd, const void* q, const void* k, const void* v, void* out, int B,
@@ -1329,17 +1361,29 @@ extern "C" int flash_prefill_terms_launch(int terms, int hd, const void* q, cons
                  stream);
 }
 
+#endif  // !FLASH_DECODE
+
+#ifdef FLASH_DECODE
 // Floats of fp32 scratch the decode form needs: (m, l, acc) of every span
 // of every (batch row, q head).
 extern "C" long long flash_decode_scratch_floats(int B, int H, long long slots, int hd) {
   return (long long)B * H * decode_spans(slots, hd) * (hd + 2);
 }
 
+// The instance's head set for G = H / KV q heads a kv head at head dim hd:
+// 4 up to G = 4 and at hd 256 (where an instance of 8 would spill: its acc
+// and q rows are 128 registers of the 128 its two blocks an SM leave a
+// thread, so none is built), else 8.  A head's sums do not depend on the
+// set it runs in.
+static int decode_set(int G, int hd) {
+  return G <= 4 || hd >= 256 ? 4 : 8;
+}
+
 // Decode form.  q and out (B, H, hd) with strides (batch, head); the caches
 // (B, slots, KV, hd) with strides (batch, head, slot); pos (B,) int64 on
 // the device; scratch holds flash_decode_scratch_floats floats.  H / KV must
-// be at most 8.  Launches the span kernel, then the merge.  Returns a
-// cudaError_t as int.
+// be at most 16.  Launches the span kernel (a block a head set of
+// decode_set's width), then the merge.  Returns a cudaError_t as int.
 extern "C" int flash_decode_launch(int dtype, int hd, const void* q, const void* kc,
                                    const void* vc, void* out, const void* pos, void* scratch,
                                    int B, int H, int KV, long long slots, long long qsb,
@@ -1358,7 +1402,7 @@ extern "C" int flash_decode_launch(int dtype, int hd, const void* q, const void*
   const long long* p = static_cast<const long long*>(pos);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool small = H / KV <= 4;
+  const bool small = decode_set(H / KV, hd) == 4;
   if (dtype == 0) {
     return small ? launch_decode_hd<float, 4>(hd, q, kc, vc, out, p, sc, B, H, KV, slots, qs,
                                               ks, vs, os, m, scale, s)
@@ -1373,3 +1417,4 @@ extern "C" int flash_decode_launch(int dtype, int hd, const void* q, const void*
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif  // FLASH_DECODE

@@ -25,7 +25,8 @@ averages V over such a row instead; the port follows the kernel.)
   pos ≥ slots (idle slots of the engine keep stale positions).
 
 The kernels (``csrc/flash_attention.cu``, where the design and bound are
-described) sum every row in one order fixed by hd and a key tile of fixed
+described; the decode form is built from it as ``csrc/flash_decode.cu``,
+a library of its own) sum every row in one order fixed by hd and a key tile of fixed
 width from key 0 (the decode form: tiles within spans from slot 0, 64
 slots wide at hd 256 and 128 below, the spans merged in span order by a
 second kernel of the same launch), so a row's result does not depend on
@@ -33,8 +34,11 @@ the batch, the position or padding: that is what lets continuous batching
 give the slot-at-a-time oracle's streams without the fp64 sums the port's
 attention took before.
 They take fp32 or bf16 (q, k and v of one dtype), hd 32, 64, 128 or 256,
-and in the decode form at most 8 q heads a kv head; inputs are read through
-their strides.  The prefill form has two routes, by dtype and nothing else:
+and in the decode form at most 16 q heads a kv head (a group runs as sets
+of 4 heads at hd 256 and, above 4 heads, of 8 below, a block each; a
+head's sums are its own, so its result does not depend on the group's
+size); inputs
+are read through their strides.  The prefill form has two routes, by dtype and nothing else:
 fp32 operands go to an IEEE-fp32 kernel on the SIMT pipe, bf16 operands to
 a tensor-core kernel (``mma.sync`` bf16 with fp32 accumulation), whose
 products are all exact (bf16 × bf16, and each fp32 probability split into
@@ -77,8 +81,9 @@ NEG_INF = -2.0e38
 MASK_ARGS = ("causal", "window", "chunk")
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128, 256)
-#: q heads a kv head the decode kernel holds (its block's rows)
-DECODE_GROUP_MAX = 8
+#: q heads a kv head the decode kernel takes (RecurrentGemma-9B's local
+#: layers: 16 on one kv head)
+DECODE_GROUP_MAX = 16
 #: the prefill form's kernel for each operand dtype, as ``.routes`` counts it
 ROUTES = {torch.float32: "fp32", torch.bfloat16: "mma_bf16"}
 #: bf16 terms a probability takes in the tensor-core kernel's P · V
@@ -88,9 +93,11 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_longlong
 _lib_handle = None
+_decode_lib_handle = None
 
 
 def _lib() -> ctypes.CDLL:
+    """The prefill forms' library (``csrc/flash_attention.cu``)."""
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("flash_attention")
@@ -98,14 +105,24 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = ([_I32, _I32] + [_P] * 4 + [_I32] * 3 + [_I64] * 2 + [_I64] * 12
                            + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
             fn.restype = _I32
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _decode_lib() -> ctypes.CDLL:
+    """The decode form's library (``csrc/flash_decode.cu``: the same source
+    built with ``FLASH_DECODE``, beside the prefill forms')."""
+    global _decode_lib_handle
+    if _decode_lib_handle is None:
+        lib = _build.load("flash_decode")
         lib.flash_decode_launch.argtypes = (
             [_I32, _I32] + [_P] * 6 + [_I32] * 3 + [_I64] + [_I64] * 10
             + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
         lib.flash_decode_launch.restype = _I32
         lib.flash_decode_scratch_floats.argtypes = [_I32, _I32, _I64, _I32]
         lib.flash_decode_scratch_floats.restype = _I64
-        _lib_handle = lib
-    return _lib_handle
+        _decode_lib_handle = lib
+    return _decode_lib_handle
 
 
 # --------------------------------------------------------------------------- #
@@ -377,7 +394,7 @@ def flash_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     q, k_cache, v_cache = (_kernel_view(t, vec) for t in (q, k_cache, v_cache))
     pos = pos.to(torch.int64).contiguous()
     out = _kernel_view(torch.empty_like(q))
-    lib = _lib()
+    lib = _decode_lib()
     scratch = torch.empty(lib.flash_decode_scratch_floats(B, H, slots, hd),
                           dtype=torch.float32, device=q.device)
     err = lib.flash_decode_launch(

@@ -24,7 +24,9 @@ three weights that read the same x, in one decode launch
 projections, in one fp32 order fixed by K, optionally behind a norm or
 Mamba-2's gated norm, ``kernels/fixed_linear.py``) and ``ssd_decode`` (the
 SSD recurrence of one decode step, which the reference writes in jnp,
-``kernels/ssd_scan.py``).
+``kernels/ssd_scan.py``) and ``rglru_scan`` (the RG-LRU recurrence of a
+prefill, which the reference leaves to ``jax.lax.associative_scan``,
+``kernels/rglru_scan.py``).
 """
 from __future__ import annotations
 
@@ -34,9 +36,10 @@ from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.lm_head import lm_head
 from repro_torch.kernels.logreg_grad import logreg_grad
 from repro_torch.kernels.quant_matmul import quant_linear, quant_matmul, quantize_rows
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_decode
 
 __all__ = ["fixed_linear", "flash_attention", "flash_attention_decode", "kmeans_assign",
            "lm_head", "logreg_grad", "quant_linear", "quant_matmul", "quantize_rows",
-           "rmsnorm", "ssd_chunk_scan", "ssd_decode"]
+           "rglru_scan", "rmsnorm", "ssd_chunk_scan", "ssd_decode"]

@@ -6,8 +6,9 @@
     prompts arrive on an all-at-once / Poisson / uniform / burst trace, are
     queued, admitted into decode slots (backfilled mid-decode), and
     greedy-decoded through one fused per-slot-position step.  Weights are
-    made from ``--seed``; ``--quantize int8`` sends every projection
-    through the ``quant_matmul`` kernel.
+    made from ``--seed``, quantized a period at a time as they are drawn;
+    ``--quantize int8`` sends every attention and MLP projection through
+    the ``quant_matmul`` kernel.
   * ``--engine model`` — the prediction service for fitted models
     (``serve/predictor.py``): fit a small logistic regression or k-means on
     synthetic data, then serve feature-block requests through the
@@ -18,7 +19,8 @@ up on the trace's shapes before the timed run.  ``--json`` prints the
 report as a ``RESULT::{json}`` line.  Not ported yet (ROADMAP.md, Queue 1):
 ``--replicas`` (the router fleet), ``--mesh`` and ``--prefix-cache``.
 
-Examples (CPU):
+Examples (CPU; ``--arch`` also ``granite-3-8b``, ``qwen1.5-32b``,
+``recurrentgemma-9b``, ``gemma3-1b``, ``mamba2-2.7b``):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
         --arch qwen2-1.5b --smoke --quantize int8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine model \
@@ -74,6 +76,8 @@ def run_lm(args) -> dict:
     if args.quantize != "none":
         cfg = dataclasses.replace(cfg, quantize=args.quantize)
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    # quantized a period at a time as drawn: Qwen1.5-32B's bf16 tree would
+    # not fit the card
     params = init_model(gen, cfg)
 
     lens = [int(x) for x in args.prompt_lens.split(",") if x]

@@ -12,8 +12,11 @@ assigned architectures' layer interleavings:
     mamba2               pattern=[SSD]
     whisper              decoder pattern=[ATTN] + cross-attention, encoder stack
 
-Every block is followed by its MLP (dense or MoE) except SSD/RGLRU blocks,
-which are self-contained (mamba2 has no MLP: d_ff=0).
+Every block is followed by its MLP (dense or MoE) except SSD blocks, which
+are self-contained (mamba2 has no MLP: d_ff=0).  RG-LRU blocks have their
+MLP too: the reference's code gives it them
+(``src/repro/models/transformer.py:70-74``, ``:237-240``), although its copy
+of this docstring says they are self-contained.
 """
 from __future__ import annotations
 

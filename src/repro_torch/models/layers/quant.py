@@ -75,6 +75,10 @@ class QTensor:
         """The int8 weight in the reference's shape (a view of ``qt``)."""
         return self.qt.transpose(-1, -2).reshape(self.shape)
 
+    def to(self, device) -> "QTensor":
+        """The same QTensor on ``device`` (itself where it lies there)."""
+        return QTensor(self.qt.to(device), self.scale.to(device), self.n_contract, self.shape)
+
     def layer(self, i: int) -> "QTensor":
         """Layer ``i`` of a QTensor stacked on a leading layer axis."""
         return QTensor(self.qt[i], self.scale[i], self.n_contract, self.shape[1:])
@@ -196,7 +200,10 @@ _QUANT_SPECS: Dict[str, Dict[str, int]] = {
 }
 
 
-def _quantize_blocks(blocks: Dict[str, Any]) -> Dict[str, Any]:
+def _quantize_blocks(blocks: Dict[str, Any], n_batch: int = 1) -> Dict[str, Any]:
+    """The projections of ``_QUANT_SPECS`` as QTensors (``n_batch`` leading
+    axes: 1 for blocks stacked along the layer axis, 0 for one period's);
+    a weight that is a QTensor already stays as it is."""
     out = {}
     for bk, block in blocks.items():
         nb = dict(block)
@@ -204,9 +211,8 @@ def _quantize_blocks(blocks: Dict[str, Any]) -> Dict[str, Any]:
             if mod in nb:
                 m = dict(nb[mod])
                 for name, nc in specs.items():
-                    if name in m:
-                        # stacked along the leading layer axis → n_batch=1
-                        m[name] = quantize_weight(m[name], nc, n_batch=1)
+                    if name in m and not isinstance(m[name], QTensor):
+                        m[name] = quantize_weight(m[name], nc, n_batch=n_batch)
                 nb[mod] = m
         out[bk] = nb
     return out
@@ -226,11 +232,27 @@ def quantize_model_params(params: Dict[str, Any], mode: str) -> Dict[str, Any]:
     ``"none"`` returns the tree unchanged; ``"bf16"`` casts every floating
     leaf to bfloat16 (weight-only — activations keep the config dtype);
     ``"int8"`` quantizes the attention/MLP projections per
-    ``_QUANT_SPECS`` and leaves everything else as it is."""
+    ``_QUANT_SPECS`` and leaves everything else as it is.  A tree that is
+    quantized already (``init_model`` quantizes as ``cfg.quantize`` says)
+    comes back as it is."""
+    return _quantize(params, mode, period=False)
+
+
+def _quantize_period(period: Dict[str, Any], mode: str) -> Dict[str, Any]:
+    """One period's blocks (``{"b0": ..., ...}``, no layer axis) as
+    :func:`quantize_model_params` leaves the stacked blocks, value for
+    value: ``init_model`` quantizes each period as it is drawn, so that a
+    model whose plain weights do not fit the card never holds them all."""
+    return _quantize(period, mode, period=True)
+
+
+def _quantize(tree: Dict[str, Any], mode: str, period: bool) -> Dict[str, Any]:
     if mode == "none":
-        return params
+        return tree
     if mode == "bf16":
-        return _map_float(params, lambda a: a.to(torch.bfloat16))
+        return _map_float(tree, lambda a: a.to(torch.bfloat16))
     if mode != "int8":
         raise ValueError(f"quantize={mode!r} (want none|bf16|int8)")
-    return {**params, "blocks": _quantize_blocks(params["blocks"])}
+    if period:
+        return _quantize_blocks(tree, n_batch=0)
+    return {**tree, "blocks": _quantize_blocks(tree["blocks"])}

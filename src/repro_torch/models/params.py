@@ -10,9 +10,11 @@ test that compares the two packages carries the reference's weights across
 
 The tree is nested dicts of tensors with the reference's key names.  The
 reference also returns logical sharding axes; the port has no mesh yet
-(ROADMAP.md, Queue 1), so there are none.  :func:`stack_bundles` stacks
-per-period trees on a leading layer axis, as the reference does for its
-``lax.scan``, so weights carry across one to one.
+(ROADMAP.md, Queue 1), so there are none.  :class:`LayerStack` stacks
+per-period trees on a leading layer axis, as the reference's
+``stack_bundles`` does for its ``lax.scan``, so weights carry across one
+to one; it takes one period at a time, so a model is drawn without ever
+holding all its periods apart.
 
 On the card the plain projection weights (:data:`PROJECTIONS`) are stored
 in :func:`kernel_layout`: the same shape, with the contracted axes fastest,
@@ -30,8 +32,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["PROJECTIONS", "linear", "bias", "ones_vec", "table", "uniform", "kernel_layout",
-           "in_kernel_layout", "place", "projection_contract", "stack_bundles"]
+__all__ = ["PROJECTIONS", "LayerStack", "linear", "bias", "ones_vec", "table", "uniform",
+           "kernel_layout", "in_kernel_layout", "place", "projection_contract"]
 
 #: the plain projection weights the decode products read, by module and
 #: name, with the number of their leading (contracted) axes
@@ -39,6 +41,7 @@ PROJECTIONS: Dict[str, Dict[str, int]] = {
     "attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 2},
     "mlp": {"w_gate": 1, "w_up": 1, "w_down": 1},
     "ssd": {"wz": 1, "wx": 1, "wB": 1, "wC": 1, "wdt": 1, "w_out": 1},
+    "rglru": {"w_gate_branch": 1, "w_rec_branch": 1, "w_a": 1, "w_i": 1, "w_out": 1},
 }
 
 
@@ -115,37 +118,63 @@ def place(tree: Any, device: torch.device, path: Tuple[str, ...] = ()) -> Any:
     (on the host for a tree from the host); any other leaf moves as it is."""
     if isinstance(tree, dict):
         return {k: place(v, device, path + (k,)) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):      # a QTensor
+        return tree.to(device)
     nc = projection_contract(path) if device.type == "cuda" else None
-    if nc is None or not isinstance(tree, torch.Tensor) or in_kernel_layout(tree, nc, 1):
+    if nc is None or in_kernel_layout(tree, nc, 1):
         return tree.to(device)
     return kernel_layout(tree, nc, n_batch=1).to(device)
 
 
-def _stack_kernel_layout(trees: Sequence[torch.Tensor], n_contract: int) -> torch.Tensor:
-    """``kernel_layout(torch.stack(trees), n_contract, 1)``, written layer by
-    layer into one allocation, as ``torch.stack`` would allocate."""
-    shape = tuple(trees[0].shape)
-    K = math.prod(shape[:n_contract])
-    out = torch.empty((len(trees), math.prod(shape) // K, K), dtype=trees[0].dtype,
-                      device=trees[0].device)
-    for i, t in enumerate(trees):
-        out[i].copy_(t.reshape(K, -1).t())
-    return out.transpose(1, 2).reshape((len(trees),) + shape)
+class LayerStack:
+    """Per-period param trees written one at a time into one tree stacked
+    on a leading layer axis of ``count``: each leaf is allocated at its
+    first period and every period is copied into its layer, so a caller
+    that drops each period after :meth:`add` holds the stack and one
+    period, never the whole list.  The result is what ``torch.stack`` of
+    the periods gives, value for value; with ``n_contract`` (a leaf's key
+    path → its contracted axes, or None) the leaves it names are stacked in
+    :func:`kernel_layout`, and a ``QTensor`` leaf stacks its ``qt`` and
+    ``scale`` (``models/layers/quant.py``)."""
 
+    def __init__(self, count: int,
+                 n_contract: Optional[Callable[[Tuple[str, ...]], Optional[int]]] = None):
+        self.count = int(count)
+        self.n_contract = n_contract
+        self.tree: Any = None
 
-def stack_bundles(trees: Sequence[Dict[str, Any]],
-                  n_contract: Optional[Callable[[Tuple[str, ...]], Optional[int]]] = None,
-                  ) -> Dict[str, Any]:
-    """Stack per-period param trees along a leading layer axis.  With
-    ``n_contract`` (a leaf's key path → its contracted axes, or None), the
-    leaves it names are stacked in :func:`kernel_layout`."""
-    def stack(group, path):
-        first = group[0]
-        if isinstance(first, dict):
-            return {k: stack([t[k] for t in group], path + (k,)) for k in first}
-        nc = n_contract(path) if n_contract is not None else None
+    def add(self, i: int, tree: Any) -> None:
+        self.tree = self._put(self.tree, tree, i, ())
+
+    def _empty(self, leaf: Any, path: Tuple[str, ...]) -> Any:
+        from repro_torch.models.layers.quant import QTensor
+
+        n = self.count
+        if isinstance(leaf, QTensor):
+            return QTensor(torch.empty((n,) + tuple(leaf.qt.shape), dtype=leaf.qt.dtype,
+                                       device=leaf.qt.device),
+                           torch.empty((n,) + tuple(leaf.scale.shape), dtype=leaf.scale.dtype,
+                                       device=leaf.scale.device),
+                           leaf.n_contract, (n,) + leaf.shape)
+        nc = self.n_contract(path) if self.n_contract is not None else None
         if nc is None:
-            return torch.stack(list(group), dim=0)
-        return _stack_kernel_layout(group, nc)
+            return torch.empty((n,) + tuple(leaf.shape), dtype=leaf.dtype, device=leaf.device)
+        shape = tuple(leaf.shape)
+        K = math.prod(shape[:nc])
+        raw = torch.empty((n, math.prod(shape) // K, K), dtype=leaf.dtype, device=leaf.device)
+        return raw.transpose(1, 2).reshape((n,) + shape)
 
-    return stack(trees, ())
+    def _put(self, out: Any, leaf: Any, i: int, path: Tuple[str, ...]) -> Any:
+        if isinstance(leaf, dict):
+            out = {} if out is None else out
+            for k, v in leaf.items():
+                out[k] = self._put(out.get(k), v, i, path + (k,))
+            return out
+        if out is None:
+            out = self._empty(leaf, path)
+        if isinstance(leaf, torch.Tensor):
+            out[i].copy_(leaf)
+        else:                                   # a QTensor
+            out.qt[i].copy_(leaf.qt)
+            out.scale[i].copy_(leaf.scale)
+        return out

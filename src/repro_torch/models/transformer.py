@@ -18,12 +18,22 @@ Public entry points:
     TransformerLM.init_cache(...)        -> cache
 
 The port runs decoders whose pattern entries are ``ATTENTION_KINDS``
-(with a dense MLP, or none) and Mamba-2 SSD blocks (``ssd.py``, no MLP),
-with no encoder, no vision tokens and no cross-attention.  MoE, RG-LRU,
-encoder and vision blocks raise ``NotImplementedError`` until their slices
-(ROADMAP.md, Queue 1).  ``prefill_ragged`` serves attention-only stacks
-alone: a recurrent state would absorb the pad tail, so those stacks
-prefill per request (the serving engine picks the path).
+(with a dense MLP, or none), Mamba-2 SSD blocks (``ssd.py``, no MLP) and
+Griffin's RG-LRU blocks (``rglru.py``, each with its MLP, as the
+reference's code has it), with no encoder, no vision tokens and no
+cross-attention.  MoE, encoder and vision blocks and learned position
+tables raise ``NotImplementedError`` until their slices (ROADMAP.md, Queue
+1).  ``prefill_ragged`` serves attention-only stacks alone: a recurrent
+state would absorb the pad tail, so those stacks prefill per request (the
+serving engine picks the path).
+
+``init_model`` draws one period at a time and writes it into the stacked
+tree (``models/params.py``'s ``LayerStack``).  It quantizes each period
+as ``cfg.quantize`` says as it is drawn, before the next one is drawn, so
+the tree is bitwise the plain tree of the same draws put through
+``quantize_model_params`` (the generator is consumed in the same order)
+and a model whose bf16 weights do not fit the card (Qwen1.5-32B's ≈ 69 GB)
+never holds more than one period of them.
 """
 from __future__ import annotations
 
@@ -38,9 +48,11 @@ from repro_torch.models.layers.embedding import embed_init, embed_tokens, logits
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import (PreNorm, layernorm, layernorm_init, rmsnorm,
                                              rmsnorm_init)
-from repro_torch.models.layers.quant import QTensor
+from repro_torch.models.layers.quant import (QTensor, _quantize_period,
+                                             quantize_model_params)
+from repro_torch.models.layers.rglru import init_rglru_cache, rglru_apply, rglru_init
 from repro_torch.models.layers.ssd import init_ssd_cache, ssd_apply, ssd_init
-from repro_torch.models.params import projection_contract, stack_bundles
+from repro_torch.models.params import LayerStack, projection_contract
 
 __all__ = ["init_model", "TransformerLM", "check_supported", "layer_slice"]
 
@@ -50,7 +62,7 @@ def check_supported(cfg: ArchConfig) -> None:
     yet."""
     missing = []
     kinds = sorted(k.value for k in cfg.pattern
-                   if k not in ATTENTION_KINDS and k != BlockKind.SSD)
+                   if k not in ATTENTION_KINDS and k not in (BlockKind.SSD, BlockKind.RGLRU))
     if kinds:
         missing.append(f"block kinds {kinds}")
     if cfg.num_experts:
@@ -64,7 +76,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1); the port runs dense attention and SSD decoders")
+            f"Queue 1); the port runs dense attention, SSD and RG-LRU decoders")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -109,7 +121,10 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind,
     if kind == BlockKind.SSD:
         block["ssd"] = ssd_init(gen, cfg, dtype)
         return block
-    block["attn"] = attn_init(gen, cfg, dtype)
+    if kind == BlockKind.RGLRU:
+        block["rglru"] = rglru_init(gen, cfg, dtype)
+    else:
+        block["attn"] = attn_init(gen, cfg, dtype)
     if cfg.mlp_kind != "none":
         block["ln2"] = _norm_init(cfg, dtype, dev)
         block["mlp"] = mlp_init(gen, cfg, dtype)
@@ -117,21 +132,29 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind,
 
 
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
-    """The param tree of ``cfg``, drawn from ``gen`` on ``gen``'s device.
-    The reference also returns logical sharding axes; the port has no mesh
-    yet, so it returns the params alone.  On the card the plain projection
-    weights are stacked in ``kernel_layout`` (``models/params.py``), the
-    storage the decode products read in place."""
+    """The param tree of ``cfg``, drawn from ``gen`` on ``gen``'s device,
+    one period at a time.  The reference also returns logical sharding
+    axes; the port has no mesh yet, so it returns the params alone.  On the
+    card the plain projection weights are stacked in ``kernel_layout``
+    (``models/params.py``), the storage the decode products read in place.
+    Each period is quantized as ``cfg.quantize`` says as soon as it is
+    drawn, so a model whose plain weights do not fit the card never holds
+    them all; the tree is bitwise the plain tree of the same draws put
+    through ``quantize_model_params(tree, cfg.quantize)``."""
     check_supported(cfg)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": embed_init(gen, cfg, dtype)}
-    periods = [{f"b{i}": _block_init(gen, cfg, kind, dtype)
-                for i, kind in enumerate(cfg.pattern)}
-               for _ in range(cfg.num_periods)]
     on_card = gen.device.type == "cuda"
-    params["blocks"] = stack_bundles(periods, projection_contract if on_card else None)
+    stack = LayerStack(cfg.num_periods, projection_contract if on_card else None)
+    for p in range(cfg.num_periods):
+        period = {f"b{i}": _block_init(gen, cfg, kind, dtype)
+                  for i, kind in enumerate(cfg.pattern)}
+        stack.add(p, _quantize_period(period, cfg.quantize))
+        del period                   # before the next period is drawn
+    params["blocks"] = stack.tree
     params["final_norm"] = _norm_init(cfg, dtype, gen.device)
-    return params
+    # "bf16" casts the embedding and the final norm too; the blocks are done
+    return quantize_model_params(params, cfg.quantize)
 
 
 # --------------------------------------------------------------------------- #
@@ -153,12 +176,15 @@ class TransformerLM:
         def block_cache(kind: BlockKind):
             if kind == BlockKind.SSD:
                 return {"ssd": init_ssd_cache(cfg, batch, _dtype(cfg), self.device)}
+            if kind == BlockKind.RGLRU:
+                return {"rglru": init_rglru_cache(cfg, batch, _dtype(cfg), self.device)}
             return {"attn": init_kv_cache(cfg, kind, batch, max_seq, _dtype(cfg),
                                           self.device)}
 
-        per_period = [{f"b{i}": block_cache(kind) for i, kind in enumerate(cfg.pattern)}
-                      for _ in range(cfg.num_periods)]
-        return stack_bundles(per_period)
+        stack = LayerStack(cfg.num_periods)
+        for p in range(cfg.num_periods):
+            stack.add(p, {f"b{i}": block_cache(kind) for i, kind in enumerate(cfg.pattern)})
+        return stack.tree
 
     # ---------------- block application ---------------- #
     def _apply_block(self, kind: BlockKind, bp: Dict, x, *, mode: str,
@@ -169,10 +195,14 @@ class TransformerLM:
             h, _ = ssd_apply(bp["ssd"], h, cfg=cfg, mode=mode,
                              cache=None if cache is None else cache["ssd"])
             return x + h
-        h, _ = attn_apply(bp["attn"], h, cfg=cfg, kind=kind, mode=mode,
-                          positions=positions, pos=pos,
-                          cache=None if cache is None else cache["attn"],
-                          use_rope=cfg.use_rope, lengths=lengths)
+        if kind == BlockKind.RGLRU:
+            h, _ = rglru_apply(bp["rglru"], h, cfg=cfg, mode=mode,
+                               cache=None if cache is None else cache["rglru"])
+        else:
+            h, _ = attn_apply(bp["attn"], h, cfg=cfg, kind=kind, mode=mode,
+                              positions=positions, pos=pos,
+                              cache=None if cache is None else cache["attn"],
+                              use_rope=cfg.use_rope, lengths=lengths)
         x = x + h
         if "mlp" in bp:
             h = _pre_norm(cfg, bp["ln2"], x, mode)
@@ -225,7 +255,7 @@ class TransformerLM:
         real token's view, and the cache fill drops them, so each row's
         cache is what a lone batch-1 prefill would write.  Returns (per-row
         next-token logits (B, 1, V), cache).  Attention-only stacks alone:
-        a recurrent state (SSD h, conv taps) would absorb the pad tail, so
+        a recurrent state (SSD or RG-LRU h, conv taps) would absorb the pad tail, so
         those stacks raise the reference's ``ValueError`` and prefill per
         request instead.  ``start_pos`` (the prefix cache's tail prefill) is
         not ported yet."""

@@ -9,8 +9,9 @@ Device work is four functions (the reference jits them):
     a lone batch-1 prefill would have written.  Attention-only dense stacks
     only (``ragged_ok``).
   * **per-request prefill** — every other stack (here: Mamba-2's SSD
-    blocks, whose recurrent state would absorb a pad tail) prefills each
-    admitted prompt alone into a batch-1 cache (``TransformerLM.prefill``).
+    blocks and RecurrentGemma's RG-LRU blocks, whose recurrent state would
+    absorb a pad tail) prefills each admitted prompt alone into a batch-1
+    cache (``TransformerLM.prefill``).
   * **fused decode** — ONE masked decode step advances every busy slot,
     each at its own position (``pos`` is a (B,) vector).  On the card it
     runs as a CUDA graph, the counterpart of the reference's
@@ -18,8 +19,9 @@ Device work is four functions (the reference jits them):
   * **cache scatter** — drops a prefilled wave into its slots of the shared
     cache.
 
-Every RMSNorm goes through the ``rmsnorm`` kernel, and a Mamba-2 prefill
-runs the ``ssd_chunk_scan`` kernel once a layer.  With
+Every RMSNorm goes through the ``rmsnorm`` kernel, a Mamba-2 prefill
+runs the ``ssd_chunk_scan`` kernel once a layer and an RG-LRU prefill the
+``rglru_scan`` kernel once a recurrent layer.  With
 ``cfg.quantize="int8"`` every attention and MLP projection is a
 ``QTensor`` and goes through ``ops.quant_linear``: a decode step launches
 ``qmm_group`` 4 times a layer (q/k/v, o, gate/up, down), a prefill wave
@@ -43,12 +45,21 @@ earlier request leaks into a later one:
     each decode step the position it decodes, so every slot that reads as
     non-empty was written by this request; slots above the position read
     as empty, whatever an earlier request left there.  ``run`` goes
-    further: it prefills into a fresh cache and scatters whole slot rows;
-  * the SSD layer's prefill reads its cache's ``h`` and ``conv`` as the
-    initial state and the left context of the convolution, and overwrites
-    both with its final ones.  So ``_run_one`` and ``_run_group``, which
-    prefill into the engine's cache, zero those two first
+    further: it prefills into a fresh cache and scatters it into the slot
+    rows (below);
+  * the SSD and RG-LRU layers' prefill reads its cache's ``h`` and
+    ``conv`` as the initial state and the left context of the convolution,
+    and overwrites both with its final ones.  So ``_run_one`` and
+    ``_run_group``, which prefill into the engine's cache, zero those first
     (``_fresh_recurrent``); ``run`` scatters them from its fresh cache.
+
+A ragged prefill wave writes a cache of its own whose attention caches hold
+the wave's padded length S (a ring of ``window`` slots holds min(window, S)),
+and the scatter copies those first slots of each row: a slot s < S holds the
+same position in both (positions 0..S−1 wrap a ring only where its slots
+are the full cache's), and the slots past S keep whatever an earlier
+request left there, which reads as empty (above).  At Qwen1.5-32B's widths a
+wave cache of ``max_seq`` slots would be a second 21.5 GB cache.
 
 On the card the first decode on an engine cache runs eagerly (a warm-up,
 on a side stream), and is then captured, ``TransformerLM.decode_step``
@@ -252,11 +263,13 @@ class ServeEngine:
 
     @staticmethod
     def _fresh_recurrent(cache):
-        """Zero the SSD ``h`` and ``conv`` states of a reused cache before a
-        prefill into it, which reads them as its initial state."""
+        """Zero the SSD and RG-LRU ``h`` and ``conv`` states of a reused
+        cache before a prefill into it, which reads them as its initial
+        state."""
         for block in cache.values():
-            for t in block.get("ssd", {}).values():
-                t.zero_()
+            for kind in ("ssd", "rglru"):
+                for t in block.get(kind, {}).values():
+                    t.zero_()
         return cache
 
     def _tensor(self, a) -> torch.Tensor:
@@ -273,9 +286,10 @@ class ServeEngine:
     def _scatter(self, cache, sub_cache, slots: np.ndarray):
         """Drop ``sub_cache`` (batch = len(slots)) into ``cache`` at slot
         indices ``slots`` along the batch axis (axis 1 — axis 0 is the
-        stacked-periods axis), in place.  Out-of-range slot indices are
-        dropped: the ragged prefill pads its admission wave with dummy rows
-        routed to slot ``num_slots``."""
+        stacked-periods axis), in place; an attention cache of fewer slots
+        (a wave's) fills the first slots of each row (module docstring).
+        Out-of-range slot indices are dropped: the ragged prefill pads its
+        admission wave with dummy rows routed to slot ``num_slots``."""
         slots = np.asarray(slots)
         # torch's index assignment has no mode="drop": keep the in-range rows
         keep = np.nonzero(slots < self.batch)[0]
@@ -287,7 +301,8 @@ class ServeEngine:
                 for k in full:
                     put(full[k], sub[k])
             else:
-                full[:, dst] = sub[:, src]
+                full[(slice(None), dst) + tuple(slice(0, n) for n in sub.shape[2:])] = \
+                    sub[:, src]
 
         put(cache, sub_cache)
         return cache
@@ -335,7 +350,7 @@ class ServeEngine:
             padded[i, : lens[i]] = r.prompt
             full_lens[i] = lens[i]
             full_slots[i] = slots[i]
-        sub = self.model.init_cache(wb, self.max_seq)
+        sub = self.model.init_cache(wb, S)
         logits, sub = self._prefill_ragged(
             self.params, self._tensor(padded), self._tensor(full_lens), sub)
         cache = self._scatter(cache, sub, full_slots)

@@ -54,6 +54,7 @@ from repro_torch.core.algorithms.naive_bayes import (
 from repro_torch.core.algorithms.pca import PCA, PCAModel, PCAParameters
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.models.layers.quant import QTensor
+from repro_torch.models.layers.rglru import rglru_shapes
 from repro_torch.models.layers.ssd import ssd_shapes
 from repro_torch.models.params import place
 
@@ -159,8 +160,8 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
     arrays (bf16 as ``ml_dtypes.bfloat16`` or cast to float32 by the
     caller) and each ``QTensor`` as the tuple ``(q, scale, n_contract)``.
     ``cfg`` (the port's ``ArchConfig``), when given, is checked against the
-    tree's widths: the embedding table, and every SSD block's leaves (key
-    set and shapes, stacked on the layer axis).  The leaves reach the
+    tree's widths: the embedding table, and every SSD and RG-LRU block's
+    leaves (key set and shapes, stacked on the layer axis).  The leaves reach the
     device through ``models/params.py``'s ``place`` (on the card the plain
     projection weights take ``kernel_layout`` on the host, before they
     move)."""
@@ -180,13 +181,14 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
         if tuple(tok.shape) != (cfg.vocab_size, cfg.d_model):
             raise ValueError(f"embed/tok {tuple(tok.shape)} does not match "
                              f"{cfg.name}'s ({cfg.vocab_size}, {cfg.d_model})")
-        want = {k: (cfg.num_periods,) + v for k, v in ssd_shapes(cfg).items()}
-        for name, block in out["blocks"].items():
-            if "ssd" not in block:
-                continue
-            got = {k: tuple(v.shape) for k, v in block["ssd"].items()}
-            if got != want:
-                raise ValueError(f"blocks/{name}/ssd {got} does not match "
-                                 f"{cfg.name}'s {want}")
+        for kind, shapes in (("ssd", ssd_shapes), ("rglru", rglru_shapes)):
+            want = {k: (cfg.num_periods,) + v for k, v in shapes(cfg).items()}
+            for name, block in out["blocks"].items():
+                if kind not in block:
+                    continue
+                got = {k: tuple(v.shape) for k, v in block[kind].items()}
+                if got != want:
+                    raise ValueError(f"blocks/{name}/{kind} {got} does not match "
+                                     f"{cfg.name}'s {want}")
     return out
 

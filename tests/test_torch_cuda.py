@@ -153,7 +153,8 @@ def test_cuda_kernels_match_plain_versions():
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
-                                  "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0}
+                                  "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0,
+                                  "rglru_scan": 0}
 
 
 @pytest.mark.cuda
@@ -869,8 +870,8 @@ def test_flash_kernels_match_plain_versions(dtype):
             **_flash_tol(dtype))
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(randn(1, 2, 8, 48), randn(1, 2, 8, 48), randn(1, 2, 8, 48))
-    with pytest.raises(ValueError, match="at most 8"):
-        tfa.flash_attention_decode(randn(1, 16, 32), randn(1, 8, 1, 32),
+    with pytest.raises(ValueError, match="at most 16"):
+        tfa.flash_attention_decode(randn(1, 32, 32), randn(1, 8, 1, 32),
                                    randn(1, 8, 1, 32), torch.zeros(1, device="cuda"))
     torch.cuda.synchronize()
     assert tk.launch_counts()["flash_attention"] == len(prefill)
@@ -2140,3 +2141,125 @@ def test_logreg_grad_refuses_a_plan_its_kernel_cannot_run(monkeypatch):
         monkeypatch.setattr(tlg, "grad_plan", lambda n, d, bad=bad: bad)
         with pytest.raises(RuntimeError, match="logreg_grad launch failed"):
             tlg.logreg_grad(X, y, w)
+
+
+# ------------------------------------------------------------------------- #
+# the model zoo's slice: rglru_scan, kernel 6's decode at 16 heads a kv
+# head, and the hybrid stack on the card
+# ------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,r,with_h0", [(1, 1, 64, False), (1, 1999, 4096, True),
+                                            (3, 37, 130, True), (8, 300, 4096, False),
+                                            (2, 9, 1, True)])
+def test_rglru_scan_kernel_is_bitwise_its_plain_version(B, S, r, with_h0):
+    """The scan's order is the plain loop's (a multiply, then an add, in time
+    order): every h_t and the final state bitwise, at ragged widths and a
+    prompt's length, from zero and from a given state."""
+    from repro_torch.kernels import rglru_scan as trs
+
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    a = torch.rand(B, S, r, generator=gen, device="cuda") * 0.2 + 0.8
+    b = torch.randn(B, S, r, generator=gen, device="cuda")
+    h0 = torch.randn(B, r, generator=gen, device="cuda") if with_h0 else None
+    tk.reset_launch_counts()
+    hs, last = trs.rglru_scan(a, b, h0)
+    want, want_last = trs.rglru_scan_plain(a, b, h0)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["rglru_scan"] == 1
+    assert torch.equal(hs, want) and torch.equal(last, want_last)
+    for row in range(B):     # a row alone is the same row in the batch
+        alone, _ = trs.rglru_scan(a[row:row + 1], b[row:row + 1],
+                                  None if h0 is None else h0[row:row + 1])
+        assert torch.equal(alone[0], hs[row]), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,slots,hd,kw", [
+    (8, 40, 40, 2048, 128, dict()),                  # Qwen1.5-32B: group 1
+    (8, 32, 8, 2048, 128, dict()),                   # Granite-3-8B: group 4
+    (8, 16, 1, 2048, 256, dict(window=2048)),        # RecurrentGemma-9B: group 16
+    (3, 12, 1, 300, 64, dict(window=100)),           # group 12 of 8 + 4 below hd 256
+    (2, 10, 1, 64, 256, dict(chunk=16))])            # group 10 at hd 256: 4 + 4 + 2
+def test_flash_decode_takes_groups_up_to_16(B, H, KV, slots, hd, kw):
+    """Kernel 6's decode form at the zoo's groups against its plain version
+    (positions spread over two rings, wrapped), bf16 within one bf16 step;
+    every head bitwise the same as the same head in a group of 1 (its sums
+    are its own, whatever the set it falls in)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(H)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, kc, vc = randn(B, H, hd), randn(B, slots, KV, hd), randn(B, slots, KV, hd)
+    pos = torch.linspace(0, 2 * slots - 1, B, device="cuda").long()
+    got = tfa.flash_attention_decode(q, kc, vc, pos, **kw)
+    want = tfa.flash_attention_decode_plain(q, kc, vc, pos, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **_flash_tol(torch.bfloat16))
+    G = H // KV
+    for h in range(0, H, max(1, H // 5)):
+        kvh = h // G
+        one = tfa.flash_attention_decode(q[:, h:h + 1], kc[:, :, kvh:kvh + 1],
+                                         vc[:, :, kvh:kvh + 1], pos, **kw)
+        assert torch.equal(one[:, 0], got[:, h]), h
+
+
+@pytest.mark.cuda
+def test_flash_decode_at_16_heads_is_the_same_bits_over_300_launches():
+    """RecurrentGemma-9B's local decode (8, 16, 1, 2,048 slots, hd 256),
+    launched 300 times on the same inputs: every launch the first one's
+    bits (no race between the head sets' blocks or the span merge)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    q = torch.randn(8, 16, 256, generator=gen, device="cuda").bfloat16()
+    kc = torch.randn(8, 2048, 1, 256, generator=gen, device="cuda").bfloat16()
+    vc = torch.randn(8, 2048, 1, 256, generator=gen, device="cuda").bfloat16()
+    pos = torch.linspace(100, 4000, 8, device="cuda").long()
+    first = tfa.flash_attention_decode(q, kc, vc, pos, window=2048)
+    differ = 0
+    for _ in range(300):
+        differ += not torch.equal(tfa.flash_attention_decode(q, kc, vc, pos, window=2048),
+                                  first)
+    torch.cuda.synchronize()
+    assert differ == 0, f"{differ} of 300 launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_hybrid_engine_on_card_matches_slot_at_a_time(quantize):
+    """RecurrentGemma's SMOKE stack in bf16 at a width the kernels take (16
+    q heads on one kv head of 64, rnn width 256): per-request prefill
+    through rglru_scan, decode steps as CUDA graph replays (RG-LRU state
+    updated in place inside the graph), and every stream equal to the
+    slot-at-a-time oracle's; the oracle's reused batch-1 cache starts each
+    request from a zero RG-LRU state."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = dataclasses.replace(
+        get_smoke("recurrentgemma-9b").scaled(d_model=256, num_heads=16, num_kv_heads=1,
+                                             d_ff=512, head_dim=64),
+        dtype="bfloat16", quantize=quantize)
+    assert cfg.rnn_width == 256
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=4, max_seq=96)
+
+    def reqs():
+        r = np.random.default_rng(5)
+        return [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m)
+                for n, m in zip((5, 40, 12, 33, 3, 21), (20, 8, 25, 6, 9, 14))]
+
+    tk.reset_launch_counts()
+    served = eng.run(reqs())
+    counts = tk.launch_counts()
+    recurrent = sum(k.value == "rglru" for k in cfg.pattern) * cfg.num_periods
+    assert counts["rglru_scan"] == recurrent * eng.calls["prefills"] > 0
+    assert eng.calls["decode_graph_replays"] == eng.calls["decode_steps"] - 1 > 0
+    solo = [eng._run_one(r) for r in reqs()]
+    assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
