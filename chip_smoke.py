@@ -346,7 +346,11 @@ Phases (each one that fails makes the script exit non-zero):
                 its third trial, then --resume, in child processes started
                 with phase 20 (their start-up runs beside phases 20-22):
                 the resumed RESULT line equals an uninterrupted run's (this
-                process).  Printed: each leg's seconds (host
+                process); beside them the same flags with --schedule
+                gather_broadcast --hosts 2 --devices-per-host 2 --device
+                cuda (a launcher and two gloo host processes on this card):
+                host 0's RESULT line equals this process's run of the same
+                flags character for character.  Printed: each leg's seconds (host
                 clock, ended by a sync), stacked against sequential seconds
                 and trials/s, ASHA's trials evaluated and slot-epochs, the
                 peak memory with its holders.
@@ -383,15 +387,36 @@ Phases (each one that fails makes the script exit non-zero):
                 MESH_KILL: generation 1 (1 host x 4 partitions) resumes with
                 allow_resize, bitwise a 1-host resume of the same snapshot
                 here; the restart latency printed.  (c) and (d) run in
-                threads started with phase 20.  The mesh path's launches of
-                kernels 1-3 ((a)'s hosts' and (b)'s mesh fits) go under
+                threads started with phase 20.  (e) In (a)'s host
+                processes, once (a) has freed its rows (no new process):
+                (e1) a model search on the 2 x 4 mesh, 8,192 rows of phase
+                4's recipe x 160,000 (each host makes its rows from the
+                seed), SEARCH_GRID, 2 folds, 2 epochs of 2 chunks, stacked
+                and sequential under gather_broadcast, stacked under
+                allreduce and reduce_scatter, and ASHA over 8 sampled
+                configs: each held against the same search run here in 8
+                emulated partitions on the same rows (bitwise under
+                gather_broadcast and for ASHA, within MESH_TOL of max |w|
+                under the reduction schedules), stacked == sequential
+                bitwise; the fold views' rows and bytes across hosts and
+                the gloo combine's ms printed.  (e2) Fig. A2's pipelines
+                (a) and (b) with mesh= on phase 20's corpus (every host
+                fits the host tier on all of it and commits its rows):
+                IDF, shift, scale, centroids and weights bitwise phase 20's
+                fits, kernels 1-3 launched in the hosts.  (e3) each fitted
+                pipeline behind ModelPredictor(mesh=, max_batch=256) on
+                both hosts serving phase 20's 256 raw-text requests: every
+                served row bitwise phase 20's one-process service.  The
+                mesh path's launches of kernels 1-3 ((a)'s and (e)'s hosts'
+                and (b)'s mesh fits, each counted from 0) go under
                 launches_by_path["mesh"].
  25. kernels 1-3 at the shapes of phases 20, 22 and 24 — right after
                 phase 24, once every child process has ended, so that no
                 other work shares the card: each held against its plain
                 version and timed beside it, the library call where there
                 is one and the bound (phase 24's: (a)'s per-host chunks,
-                (b)'s, (c)'s and (d)'s); logreg_grad also beside the pair
+                (b)'s, (c)'s and (d)'s, (e2)'s per-host Fig. A2 shapes and
+                (e3)'s served partition); logreg_grad also beside the pair
                 and logreg_margin + torch.matmul, with that bar.
  26. the model zoo — last, on an otherwise empty card: Granite-3-8B (40
                 layers, GQA 32/8, vocab 49,155), RecurrentGemma-9B (38
@@ -403,7 +428,7 @@ Phases (each one that fails makes the script exit non-zero):
                 int8 a period at a time as they are drawn (the 32B model's
                 bf16 tree, ≈ 69 GB, never exists), 8 slots, max_seq 2,048:
                 16, 16 and 8 requests (prompts of 128..1,024 tokens, the
-                hybrid's up to 1,960) of 64, 64 and 32 new tokens through
+                hybrid's up to 1,960) of 32 new tokens each (cut from 64, 64 and 32) through
                 ServeEngine.run (the dense two in ragged waves, the hybrid
                 per request), decode steps as CUDA graph replays.  Checked
                 for each: every launch count of the path from its layers
@@ -428,7 +453,9 @@ Phases (each one that fails makes the script exit non-zero):
                 version, the library call where there is one and the bound;
                 the zoo's launches join the kernels line.
 
-Every phase prints its seconds; the run ends within 240 s on one H100.
+Every phase prints its seconds.  On one H100 80GB HBM3 at 700 W the run
+ends within 240 s on the fastest hosts seen (227-239 s); slower hosts have
+taken it to 247-290 s, well inside the 1,200 s a run is allowed.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
 then phase 21, then phase 20, then phase 22, then phase 23, then phase 24,
@@ -643,6 +670,22 @@ MESH_SSP_EPOCHS, MESH_SSP_DELAY = 4, (1, 1, 1.0)
 MESH_ELASTIC_EPOCHS, MESH_KILL = 6, 3
 MESH_LR_BATCH = 128      # (c) and (d)'s SGD batch: one a partition's chunk
 MESH_TOL = 1e-5
+# phase 24 (e), in (a)'s host processes once (a) has freed its tables: (e1)
+# a model search on the 2 x 4 mesh over MESH_SEARCH_ROWS rows of phase 4's
+# recipe (logreg_rows) x LOGREG_FEATURES, SEARCH_GRID with SEARCH_LR,
+# MESH_SEARCH_FOLDS folds, MESH_SEARCH_EPOCHS epochs of MESH_SEARCH_CHUNKS
+# chunks: stacked and sequential under gather_broadcast, stacked under
+# allreduce and reduce_scatter; then ASHA over MESH_ASHA_SAMPLES configs of
+# SEARCH_ASHA_SPACE (reduction factor 3, MESH_ASHA_SLOTS slots,
+# MESH_ASHA_EPOCHS epochs), each against this process's 8-partition
+# emulated search on the same rows.  MESH_SEARCH_ROWS is phase 23's 16,384
+# cut to 8,192 for the run's time (the depth, not the 160,000-wide rows).
+# (e2) phase 20's pipelines with mesh= on phase 20's corpus, against phase
+# 20's fits; (e3) each fitted pipeline behind ModelPredictor(mesh=,
+# max_batch=MESH_SERVE_BATCH) serving phase 20's FIG_REQUESTS requests
+MESH_SEARCH_ROWS, MESH_SEARCH_FOLDS, MESH_SEARCH_EPOCHS, MESH_SEARCH_CHUNKS = 8_192, 2, 2, 2
+MESH_ASHA_SAMPLES, MESH_ASHA_SLOTS, MESH_ASHA_EPOCHS = 8, 4, 3
+MESH_SERVE_BATCH = 256
 
 # the LM serving phase
 LM_ARCH, LM_SLOTS, LM_MAX_SEQ = "qwen2-1.5b", 8, 2048
@@ -755,7 +798,10 @@ G3_PROMPTS = (40, 127, 128, 300, 480, 500, 511, 512, 513, 700, 1023, 1024, 1300,
 G3_PLAIN_TOL = 0.02
 # the model zoo's phase (26): each configuration at its published widths and
 # depth, int8 projections: (requests, new tokens each), in the order served
-ZOO = {"granite-3-8b": (16, 64), "recurrentgemma-9b": (16, 64), "qwen1.5-32b": (8, 32)}
+# (new tokens cut from 64 to 32 for granite-3-8b and recurrentgemma-9b with
+# phase 24 (e), for the run's time: each slot-at-a-time oracle decoded 1,024
+# steps, ≈ 12.5 s)
+ZOO = {"granite-3-8b": (16, 32), "recurrentgemma-9b": (16, 32), "qwen1.5-32b": (8, 32)}
 ZOO_SLOTS, ZOO_MAX_SEQ = 8, 2048
 # prompt lengths drawn from the seed; the hybrid's reach ≈ 2,000 tokens so
 # that its scan runs at a full prompt (a 2,048-slot window: no ring wrap)
@@ -1793,21 +1839,39 @@ def fig_corpus(seed: int, docs: int = None) -> list:
     return [(float(y), " ".join(words[i])) for y, i in zip(labels, idx)]
 
 
-def fig_pipelines():
+def fig_pipelines(mesh=None):
     """Pipelines (a) and (b) of phase 20: Fig. A2's k-means program and its
-    supervised twin (examples/text_pipeline.py's stages and parameters)."""
+    supervised twin (examples/text_pipeline.py's stages and parameters), in
+    SHARDS emulated partitions or on ``mesh`` (phase 24 (e2)).  The k-means
+    combine is gather_broadcast: one order for the partitions' sums on a
+    mesh, the same arithmetic as any schedule in emulated mode."""
     from repro_torch.core.algorithms.kmeans import KMeans
     from repro_torch.core.algorithms.logistic_regression import LogisticRegression
     from repro_torch.features import NGrams, Standardizer, TfIdf
     from repro_torch.pipeline import Pipeline
 
+    layout = (dict(mesh=mesh) if mesh is not None
+              else dict(num_shards=SHARDS, device=DEVICE))
     a = Pipeline([NGrams(n=2, top=FIG_TOP, column="text", keep_columns=False), TfIdf(),
-                  KMeans(k=FIG_K, max_iter=FIG_ROUNDS, seed=SEED, use_kernel=True)],
-                 num_shards=SHARDS, device=DEVICE)
+                  KMeans(k=FIG_K, max_iter=FIG_ROUNDS, seed=SEED, use_kernel=True,
+                         schedule="gather_broadcast")], **layout)
     b = Pipeline([NGrams(n=2, top=FIG_TOP, column="text"), TfIdf(), Standardizer(),
-                  LogisticRegression(**FIG_LOGREG, use_kernel=True)],
-                 num_shards=SHARDS, device=DEVICE)
+                  LogisticRegression(**FIG_LOGREG, use_kernel=True)], **layout)
     return a, b
+
+
+def fig_hashes(fit_a, fit_b) -> dict:
+    """The fitted statistics and models of pipelines (a) and (b), hashed:
+    what phase 24 (e2) holds its mesh fits to."""
+    return {"a/idf": sha(fit_a["tfidf"].idf), "a/centroids": sha(fit_a.model.centroids),
+            "b/idf": sha(fit_b["tfidf"].idf), "b/shift": sha(fit_b["standardizer"].shift),
+            "b/scale": sha(fit_b["standardizer"].scale), "b/weights": sha(fit_b.model.weights)}
+
+
+def np_sha(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def fig_requests() -> list:
@@ -2110,8 +2174,14 @@ def phase_fig_a2() -> dict:
         "and LogisticRegression stages of (b)'s hand-composed chain, which makes the "
         "pipeline's calls): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     peak = mem_peak("phase 20")
+    # what phase 24 (e2) and (e3) hold their mesh fits and services to
+    hashes = dict(fig_hashes(fit_a, fit_b),
+                  **{f"{k}/served": np_sha(np.concatenate(s["results"]))
+                     for k, s in (("a", served_a), ("b", served_b))})
     return {"kernels": {name: {"launches": got[name]} for name in path},
             "times": lambda: fig_kernel_times(table_a, C, final, w_b),
+            "hashes": hashes,
+            "tables": {"table_a": table_a, "C": C, "final": final, "w": w_b},
             "seconds": secs, "peak_gb": peak,
             "latency_ms": {k: float(np.median(s["latencies"]))
                            for k, s in (("a", served_a), ("b", served_b))}}
@@ -2658,33 +2728,41 @@ def same_trials(a, b) -> bool:
         for x, y in zip(a.trials, b.trials))
 
 
+#: part (f)'s mesh run: launch.tune on 2 host processes of 2 partitions on
+#: this card (gloo), against this process's run of the same flags
+SEARCH_CLI_HOSTS = ["--schedule", "gather_broadcast", "--hosts", "2", "--devices-per-host",
+                    "2", "--device", "cuda"]
+
+
 def start_tune_cli(work: str, procs: list):
     """Part (f): ``python -m repro_torch.launch.tune`` with --ckpt-dir and
     --kill-after-trial SEARCH_CLI_KILL in a child process on the card, then
     again with --resume, one after the other (a thread waits for them);
-    returns the future of their outputs."""
+    beside them, in a second thread, the same flags with SEARCH_CLI_HOSTS
+    (a launcher and its two host processes).  Returns the futures of their
+    outputs: ``(kill and resume, hosts)``."""
     import concurrent.futures
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "repro_torch.launch.tune", *SEARCH_CLI_ARGS,
-           "--ckpt-dir", os.path.join(work, "f")]
+    cmd = [sys.executable, "-m", "repro_torch.launch.tune", *SEARCH_CLI_ARGS]
+
+    def launch(args):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(args, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append(proc)
+        out, _ = proc.communicate(timeout=180)
+        return proc.returncode, out, time.perf_counter() - t0
 
     def run():
-        outs = []
-        for extra in (["--kill-after-trial", str(SEARCH_CLI_KILL)], ["--resume"]):
-            t0 = time.perf_counter()
-            proc = subprocess.Popen(cmd + extra, env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            procs.append(proc)
-            out, _ = proc.communicate(timeout=180)
-            outs.append((proc.returncode, out, time.perf_counter() - t0))
-        return outs
+        return [launch(cmd + ["--ckpt-dir", os.path.join(work, "f"), *extra])
+                for extra in (["--kill-after-trial", str(SEARCH_CLI_KILL)], ["--resume"])]
 
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(run)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    futures = (pool.submit(run), pool.submit(lambda: launch(cmd + SEARCH_CLI_HOSTS)))
     pool.shutdown(wait=False)
-    return future
+    return futures
 
 
 def search_part_a(gen, out: dict) -> None:
@@ -2885,9 +2963,10 @@ def search_part_d(out: dict) -> None:
     out["d"] = dict(seconds=t_search)
 
 
-def search_part_f(future) -> None:
+def search_part_f(futures) -> None:
     """Part (f): the killed and resumed launcher runs against an
-    uninterrupted run in this process."""
+    uninterrupted run in this process; the --hosts 2 run against this
+    process's run of the same flags."""
     import contextlib
     import io
 
@@ -2896,11 +2975,15 @@ def search_part_f(future) -> None:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         _, t_here = timed(lambda: tune.main(SEARCH_CLI_ARGS))
+    one = io.StringIO()
+    with contextlib.redirect_stdout(one):
+        _, t_one = timed(lambda: tune.main(SEARCH_CLI_ARGS + SEARCH_CLI_HOSTS[:2]))
 
     def result(text):
         lines = [ln for ln in text.splitlines() if ln.startswith("RESULT::")]
         return json.loads(lines[-1][len("RESULT::"):]) if lines else None
 
+    future, hosts = futures
     outs = future.result(timeout=300)
     (rc1, killed, t1), (rc2, resumed, t2) = outs
     check(rc1 == -9, f"(f) the killed run ended with rc {rc1}, not -9: {killed[-1500:]}")
@@ -2914,6 +2997,18 @@ def search_part_f(future) -> None:
         f"trial {SEARCH_CLI_KILL} ({t1:.2f} s, rc {rc1}), --resume {t2:.2f} s; its RESULT "
         f"line equals this process's uninterrupted run ({t_here:.2f} s), "
         f"{len(got['trials'])} trials, best {got['best']['config']}")
+    rc, text, t_hosts = hosts.result(timeout=300)
+    check(rc == 0 and "2 hosts x 2 partitions (gloo) on cuda" in text,
+          f"(f) launch.tune {' '.join(SEARCH_CLI_HOSTS)} failed or ran elsewhere: rc {rc}: "
+          f"{text[-2000:]}")
+    want = [ln for ln in one.getvalue().splitlines() if ln.startswith("RESULT::")]
+    got = [ln for ln in text.splitlines() if ln.startswith("RESULT::")]
+    check(len(want) == 1 and got == want,
+          "(f) the --hosts 2 RESULT line differs from this process's run of the same flags")
+    say(f"(f) the same flags with {' '.join(SEARCH_CLI_HOSTS)}: the launcher and its 2 host "
+        f"processes {t_hosts:.2f} s (beside phases 20-23); host 0's RESULT line (every "
+        f"host's the same, the launcher checks) equals this process's run ({t_one:.2f} s) "
+        f"character for character")
 
 
 class TuneCLI:
@@ -2928,7 +3023,7 @@ class TuneCLI:
 
         self.work = tempfile.mkdtemp(prefix="chip_smoke_tune_")
         self.procs: list = []
-        self.future = start_tune_cli(self.work, self.procs)
+        self.futures = start_tune_cli(self.work, self.procs)
 
     def close(self) -> None:
         import shutil
@@ -2957,7 +3052,7 @@ def phase_search(gen, cli: TuneCLI) -> dict:
                          ("c", lambda: search_part_c(gen, out)),
                          ("d", lambda: search_part_d(out))):
             _, out[f"{part}_s"] = timed(fn)
-        search_part_f(cli.future)
+        search_part_f(cli.futures)
         got = launch_counts()        # ... and ends here
         say(f"launches of the port's kernels on phase 23's path: {got} (every one 0); "
             f"seconds " + ", ".join(f"({p}) {out[p + '_s']:.1f}" for p in "abcd"))
@@ -3016,20 +3111,111 @@ def sha(x: torch.Tensor) -> str:
     return hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
+def mesh_search_runs() -> dict:
+    """Phase 24 (e1)'s searches by name: ModelSearch keyword arguments."""
+    from repro_torch.tune import AsyncSuccessiveHalving, grid, sample
+
+    kw = dict(configs=[{**c, **SEARCH_LR} for c in grid(SEARCH_GRID)],
+              num_epochs=MESH_SEARCH_EPOCHS, chunks_per_epoch=MESH_SEARCH_CHUNKS,
+              folds=MESH_SEARCH_FOLDS, seed=SEED)
+    runs = {f"{s}/stacked": dict(kw, schedule=s, execution="stacked") for s in MESH_SCHEDULES}
+    runs["gather_broadcast/sequential"] = dict(kw, schedule="gather_broadcast",
+                                               execution="sequential")
+    runs["asha"] = dict(
+        configs=[{**c, **SEARCH_LR} for c in
+                 sample(SEARCH_ASHA_SPACE, MESH_ASHA_SAMPLES, seed=SEED)],
+        num_epochs=MESH_ASHA_EPOCHS, schedule="gather_broadcast", seed=SEED,
+        early_stop=AsyncSuccessiveHalving(reduction_factor=3, min_rounds=1,
+                                          slots=MESH_ASHA_SLOTS))
+    return runs
+
+
+def trial_digest(result) -> list:
+    """A search's trials as (index, rung scores, stopped, sha of the
+    state): equal digests are bitwise equal searches."""
+    return [[t.index, t.rung_scores, t.stopped, sha(t.state)] for t in result.trials]
+
+
+def mesh_host_search(mesh, work: str, spent: list, out: dict) -> None:
+    """(e1) in a host: its rows of the MESH_SEARCH_ROWS-row table made on
+    the card, the searches of mesh_search_runs on the mesh; host 0 saves
+    the reduction schedules' states in WORK."""
+    from repro_torch.core import hostmesh
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.tune import ModelSearch, cv
+
+    mem_reset()
+    t = time.perf_counter()
+    table = MLNumericTable(logreg_rows(hostmesh.local_row_slice(MESH_SEARCH_ROWS, mesh),
+                                       MESH_SEARCH_ROWS), mesh=mesh)
+    sync()
+    out["e1_table_s"] = time.perf_counter() - t
+    cv.fold_view.rows_moved = cv.fold_view.bytes_moved = 0
+    for name, kw in mesh_search_runs().items():
+        spent.clear()
+        res, secs = timed(lambda: ModelSearch("logreg", **kw).run(table))
+        out[f"e1/{name}"] = {"trials": trial_digest(res), "s": secs,
+                             "combines": len(spent),
+                             "combine_ms": 1e3 * sum(spent) / max(1, len(spent))}
+        if mesh.host_id == 0 and name in ("allreduce/stacked", "reduce_scatter/stacked"):
+            torch.save([t.state.cpu() for t in res.trials],
+                       os.path.join(work, "e1_" + name.replace("/", "_") + ".pt"))
+    out["e1_moved"] = [cv.fold_view.rows_moved, cv.fold_view.bytes_moved]
+    out["e1_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del table
+    torch.cuda.empty_cache()
+
+
+def mesh_host_pipelines(mesh, out: dict) -> None:
+    """(e2) and (e3) in a host: phase 20's corpus made here, pipelines (a)
+    and (b) fitted with mesh=, their hashes (fig_hashes); then each fitted
+    pipeline behind ModelPredictor(mesh=, max_batch=MESH_SERVE_BATCH)
+    serving phase 20's requests, every result hashed."""
+    from repro_torch.core.mltable import MLTable
+    from repro_torch.serve.predictor import ModelPredictor, PredictRequest
+
+    mem_reset()
+    t = time.perf_counter()
+    rows = fig_corpus(SEED)
+    raw = MLTable.from_rows(rows, names=["label", "text"], num_partitions=SHARDS)
+    texts = [t for _, t in rows]
+    out["e2_corpus_s"] = time.perf_counter() - t
+    fits = {}
+    for name, pipe in zip("ab", fig_pipelines(mesh)):
+        fits[name], out[f"e2/{name}_s"] = timed(lambda: pipe.fit(raw))
+    out["e2"] = fig_hashes(fits["a"], fits["b"])
+    requests = fig_requests()
+    for name, fitted in fits.items():
+        svc = ModelPredictor(fitted, mesh=mesh, max_batch=MESH_SERVE_BATCH)
+        reqs = [svc.submit(PredictRequest(features=[texts[i] for i in idx]))
+                for idx in requests]
+        _, secs = timed(svc.flush)
+        rep = svc.report()
+        out[f"e3/{name}"] = {"sha": np_sha(np.concatenate([r.result for r in reqs])),
+                             "s": secs, "batches": rep["batches"],
+                             "rows": rep["rows_served"], "shards": rep["shards"]}
+    out["e2_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del fits
+    torch.cuda.empty_cache()
+
+
 def mesh_host(work: str) -> int:
-    """``python3 chip_smoke.py --mesh-host WORK``: one host of phase 24 (a).
-    It joins the gloo group of MESH_HOSTS host processes on this card
-    (REPRO_* variables), waits for WORK/go (the parent writes it when the
-    card's memory is free), then makes its rows of phase 4's table and fits
-    it under the three schedules, makes its rows of the lattice table and
-    fits k-means, and gathers a concat; host 0 saves the states in WORK.
-    It prints one RESULT:: line: shas, seconds, gloo combine ms a round,
-    peak memory and its kernel launches."""
+    """``python3 chip_smoke.py --mesh-host WORK``: one host of phase 24 (a)
+    and (e).  It joins the gloo group of MESH_HOSTS host processes on this
+    card (REPRO_* variables), waits for WORK/go (the parent writes it when
+    the card's memory is free), then makes its rows of phase 4's table and
+    fits it under the three schedules, makes its rows of the lattice table
+    and fits k-means, and gathers a concat; host 0 saves the states in
+    WORK; it writes (a)'s result.  Then (e): the model searches of
+    mesh_host_search and the pipelines and services of mesh_host_pipelines,
+    its launches counted from 0, and (e)'s result.  Each result (shas,
+    seconds, gloo combine ms a round, peak memory, kernel launches) is a
+    file in WORK and a RESULT:: line."""
     from repro_torch.checkpoint import atomic_write_text
     from repro_torch.core import hostmesh
     from repro_torch.core.numeric_table import MLNumericTable
     from repro_torch.core.runner import DistributedRunner
-    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3086,6 +3272,15 @@ def mesh_host(work: str) -> int:
     # process's exit (the group's and the card's teardown)
     atomic_write_text(os.path.join(work, f"host{mesh.host_id}.json"), json.dumps(out))
     print("RESULT::" + json.dumps(out), flush=True)
+    e = {"host": mesh.host_id}
+    t_e = time.perf_counter()
+    reset_launch_counts()            # (e)'s path starts here
+    mesh_host_search(mesh, work, spent, e)
+    mesh_host_pipelines(mesh, e)
+    e["launches"] = launch_counts()  # ... and ends here
+    e["s"] = time.perf_counter() - t_e
+    atomic_write_text(os.path.join(work, f"host{mesh.host_id}_e.json"), json.dumps(e))
+    print("RESULT::" + json.dumps(e), flush=True)
     hostmesh.shutdown()
     return 0
 
@@ -3198,19 +3393,20 @@ class MeshChildren:
 
         atomic_write_text(os.path.join(self.work, "go"), "go")
 
-    def host_results(self) -> list:
-        """Each host's result file, as soon as it is written (a host that
-        ends without one fails the phase)."""
+    def host_results(self, part: str = "") -> list:
+        """Each host's result file of (a) (``part=""``) or (e)
+        (``part="_e"``), as soon as it is written (a host that ends without
+        one fails the phase)."""
         out = []
         deadline = time.monotonic() + MESH_TIMEOUT
         for h, proc in enumerate(self.procs[:MESH_HOSTS]):
-            path = os.path.join(self.work, f"host{h}.json")
+            path = os.path.join(self.work, f"host{h}{part}.json")
             while not os.path.exists(path):
                 rc = proc.poll()
                 if rc is not None or time.monotonic() > deadline:
                     self.logs[h].seek(0)
-                    check(False, f"(a) mesh host {h} ended with rc {rc} and no result: "
-                                 f"{self.logs[h].read()[-2500:]}")
+                    check(False, f"mesh host {h} ended with rc {rc} and no result "
+                                 f"{path}: {self.logs[h].read()[-2500:]}")
                 time.sleep(0.01)
             with open(path) as f:
                 out.append(json.load(f))
@@ -3351,6 +3547,107 @@ def mesh_part_a(children: MeshChildren, out: dict, phase4_w: torch.Tensor) -> No
                         for s in MESH_SCHEDULES)
             + f"; peak memory {r['lr_peak_gb']:.2f} GB (logreg), {r['km_peak_gb']:.2f} GB "
               f"(k-means); launches {({k: v for k, v in r['launches'].items() if v})}")
+
+
+def mesh_search_twin(out: dict) -> None:
+    """(e1)'s emulated twin in this process: the same rows in SHARDS
+    emulated partitions, the gather_broadcast grid search and the ASHA
+    search (in emulated mode every schedule is the same arithmetic)."""
+    from repro_torch.core.numeric_table import MLNumericTable
+    from repro_torch.tune import ModelSearch
+
+    table = MLNumericTable(logreg_rows(slice(0, MESH_SEARCH_ROWS), MESH_SEARCH_ROWS),
+                           num_shards=SHARDS)
+    runs, twin = mesh_search_runs(), {}
+    for name in ("gather_broadcast/stacked", "asha"):
+        res, twin[name + "_s"] = timed(lambda: ModelSearch("logreg", **runs[name]).run(table))
+        twin[name] = trial_digest(res)
+        if name == "gather_broadcast/stacked":
+            twin["states"] = [t.state for t in res.trials]
+            twin["scores"] = [t.rung_scores for t in res.trials]
+    out["twin"] = twin
+    del table
+    free_device_memory()
+
+
+def mesh_e_launches() -> dict:
+    """(e)'s launches of kernels 1-3 in each host: k-means one assignment a
+    Lloyd round over the host's partitions and one a served partition;
+    logistic regression one logreg_grad a step and one logreg_margin a
+    served partition."""
+    rows = sum(len(idx) for idx in fig_requests())
+    served = MESH_LOCAL * -(-rows // MESH_SERVE_BATCH)
+    steps = FIG_LOGREG["max_iter"] * (FIG_DOCS // SHARDS // FIG_LOGREG["local_batch_size"])
+    return {"kmeans_assign": FIG_ROUNDS + served, "logreg_grad": steps,
+            "logreg_margin": served}
+
+
+def mesh_part_e(children: MeshChildren, out: dict, fig: dict) -> None:
+    """(e)'s checks: the hosts' searches against the emulated twin, their
+    pipelines and services against phase 20's, their launches."""
+    res = children.host_results("_e")
+    h0 = res[0]
+    for r in res[1:]:
+        for key in [k for k in h0 if k.startswith(("e1/", "e2", "e3/"))]:
+            a, b = h0[key], r[key]
+            if key.startswith("e1/"):
+                a, b = a["trials"], b["trials"]
+            elif key.startswith("e3/"):
+                a, b = a["sha"], b["sha"]
+            if not key.endswith("_s"):
+                check(a == b, f"(e) host {r['host']}'s {key} differs from host 0's")
+    twin = out["twin"]
+    for name in ("gather_broadcast/stacked", "gather_broadcast/sequential"):
+        check(h0[f"e1/{name}"]["trials"] == twin["gather_broadcast/stacked"],
+              f"(e1) the {name} search on 2 x {MESH_LOCAL} differs from the {SHARDS}-partition "
+              f"emulated search")
+    check(h0["e1/asha"]["trials"] == twin["asha"],
+          f"(e1) ASHA on 2 x {MESH_LOCAL} differs from the emulated ASHA")
+    dist, score_gap = {}, {}
+    for sched in ("allreduce", "reduce_scatter"):
+        states = torch.load(os.path.join(children.work, f"e1_{sched}_stacked.pt"))
+        dist[sched] = max((got.to(DEVICE) - want).abs().max().item() / want.abs().max().item()
+                          for got, want in zip(states, twin["states"]))
+        score_gap[sched] = max(abs(a - b) for t, w in zip(h0[f"e1/{sched}/stacked"]["trials"],
+                                                          twin["scores"])
+                               for a, b in zip(t[1], w))
+    check(all(v <= MESH_TOL for v in dist.values()),
+          f"(e1) the reduction schedules' trials beyond {MESH_TOL} of max |w|: {dist}")
+    check(all(v <= SEARCH_SCORE_TOL for v in score_gap.values()),
+          f"(e1) the reduction schedules' scores beyond {SEARCH_SCORE_TOL}: {score_gap}")
+    for key, want in fig["hashes"].items():
+        got = h0[f"e3/{key[0]}"]["sha"] if key.endswith("/served") else h0["e2"][key]
+        check(got == want, f"(e) {key} on 2 x {MESH_LOCAL} differs from phase 20's")
+    want = mesh_e_launches()
+    for r in res:
+        got = {k: v for k, v in r["launches"].items() if v}
+        check(got == want, f"(e) host {r['host']} launched {got}, expected {want}")
+    out["e_launches"] = {k: sum(r["launches"][k] for r in res) for k in want}
+    moved, nbytes = h0["e1_moved"]
+    say(f"(e1) model search on {MESH_HOSTS} hosts x {MESH_LOCAL} partitions, "
+        f"{MESH_SEARCH_ROWS:,} x {LOGREG_FEATURES + 1:,} ({MESH_SEARCH_FOLDS} folds, "
+        f"{MESH_SEARCH_EPOCHS} epochs of {MESH_SEARCH_CHUNKS} chunks, {len(twin['states'])} "
+        f"configs): gather_broadcast stacked and sequential bitwise the {SHARDS}-partition "
+        f"emulated search (and each other), ASHA bitwise; allreduce / reduce_scatter at "
+        f"{dist['allreduce']:.3g} / {dist['reduce_scatter']:.3g} of max |w| (<= {MESH_TOL}), "
+        f"scores within {max(score_gap.values()):.3g}; fold views moved {moved:,} rows "
+        f"({nbytes / 1e6:.1f} MB) across hosts; emulated twin "
+        f"{twin['gather_broadcast/stacked_s']:.2f} s + ASHA {twin['asha_s']:.2f} s")
+    for r in res:
+        say(f"(e) host {r['host']}: {r['s']:.2f} s; table {r['e1_table_s']:.2f} s; searches "
+            + ", ".join(f"{n} {r['e1/' + n]['s']:.2f} s ({r['e1/' + n]['combines']} combines, "
+                        f"{r['e1/' + n]['combine_ms']:.3f} ms each)"
+                        for n in mesh_search_runs())
+            + f"; corpus {r['e2_corpus_s']:.2f} s, pipeline fits (a) {r['e2/a_s']:.2f} s, "
+              f"(b) {r['e2/b_s']:.2f} s; served (a) {r['e3/a']['rows']} rows in "
+              f"{r['e3/a']['batches']} microbatches {r['e3/a']['s']:.2f} s, (b) "
+              f"{r['e3/b']['s']:.2f} s; peaks {r['e1_peak_gb']:.2f} GB (search), "
+              f"{r['e2_peak_gb']:.2f} GB (pipelines); launches "
+              f"{({k: v for k, v in r['launches'].items() if v})}")
+    say(f"(e2) Fig. A2's pipelines with mesh= on 2 x {MESH_LOCAL}: IDF, shift, scale, "
+        f"centroids and weights bitwise phase 20's {SHARDS}-partition fits; (e3) "
+        f"ModelPredictor(mesh=, max_batch={MESH_SERVE_BATCH}) on both hosts: every served "
+        f"row of both pipelines bitwise phase 20's one-process service")
 
 
 def host_lines(text: str, gen: int) -> dict:
@@ -3532,6 +3829,22 @@ def kmeans_shape_row(label: str, X: torch.Tensor, C: torch.Tensor) -> dict:
             "tie_picks": ties}
 
 
+def served_margin_row(label: str, Xs: torch.Tensor, w: torch.Tensor) -> dict:
+    """logreg_margin as predict_proba serves a (n, d) block (no labels, σ(Xw)
+    alone) against its plain version, a row of logreg_pair_times' form;
+    in CUDA graphs (a few µs a launch)."""
+    from repro_torch.kernels import logreg_grad as klg
+
+    n, d = Xs.shape
+    err = (klg.logreg_margin(Xs, None, w) - klg.logreg_margin_plain(Xs, None, w)).abs().max().item()
+    check(err <= FP32_TOL, f"logreg_margin at {label} {tuple(Xs.shape)}: err {err}")
+    t_b, by = bound(4.0 * (n * d + d + n), 2.0 * n * d)
+    return {"label": label, "shape": [1, n, d], "row_stride": Xs.stride(0),
+            "partition_stride": Xs.numel(), "ms": graph_ms(lambda: klg.logreg_margin(Xs, None, w)),
+            "plain_ms": graph_ms(lambda: klg.logreg_margin_plain(Xs, None, w)),
+            "bound_ms": t_b, "bound_by": by, "library_ms": None, "max_abs_err": err}
+
+
 def mesh_kernel_times(kept: dict) -> dict:
     """Kernels 1-3 at the shapes the mesh path gave them, against their
     plain versions and timed: (a)'s per-host chunks (MESH_LOCAL, SGD_BATCH,
@@ -3539,7 +3852,10 @@ def mesh_kernel_times(kept: dict) -> dict:
     MESH_KM_ROWS / SHARDS, 4,096) of the lattice; (b)'s (SHARDS, SGD_BATCH,
     4,096) and (SHARDS, MESH_KM_ROWS / SHARDS, 4,096); (c)'s (SHARDS,
     MESH_LR_BATCH, LOGREG_FEATURES) and (d)'s (MESH_LOCAL, MESH_LR_BATCH,
-    LOGREG_FEATURES) chunks of a card_windows window."""
+    LOGREG_FEATURES) chunks of a card_windows window; (e2)'s per-host Fig.
+    A2 shapes (MESH_LOCAL, FIG_DOCS / SHARDS, FIG_TOP) and its chunk, and
+    (e3)'s served partition (MESH_SERVE_BATCH / SHARDS rows), on phase 20's
+    tables."""
     d, dk = LOGREG_FEATURES, KMEANS_FEATURES
     lr, km = [], []
     host = logreg_rows(slice(0, LOGREG_ROWS // MESH_HOSTS)).view(MESH_LOCAL, -1, d + 1)
@@ -3564,8 +3880,21 @@ def mesh_kernel_times(kept: dict) -> dict:
     km.append(kmeans_shape_row("(a) a host's partitions",
                                lattice[:MESH_KM_ROWS // MESH_HOSTS].view(MESH_LOCAL, -1, dk), C))
     km.append(kmeans_shape_row("(b) NCCL world of 1", lattice.view(SHARDS, -1, dk), C))
+    # (e2)'s and (e3)'s per-host shapes, on phase 20's tables (host 0's rows)
+    fig, per_host = kept["fig"], FIG_DOCS // MESH_HOSTS
+    bs, part = FIG_LOGREG["local_batch_size"], MESH_SERVE_BATCH // SHARDS
+    km.append(kmeans_shape_row("(e2) a host's Fig. A2 partitions", fig["table_a"].data[
+        :per_host].view(MESH_LOCAL, -1, FIG_TOP), fig["C"]))
+    km.append(kmeans_shape_row("(e3) a served partition", fig["table_a"].data[
+        :part].view(1, part, FIG_TOP), fig["C"]))
+    blocks = fig["final"].data[:per_host].view(MESH_LOCAL, -1, FIG_TOP + 1)
+    lr.append(logreg_pair_times("(e2) a host's Fig. A2 chunk", blocks[:, :bs, 1:],
+                                blocks[:, :bs, 0].contiguous(),
+                                fig["w"].expand(MESH_LOCAL, -1).contiguous()))
+    served = served_margin_row("(e3) a served partition",
+                               fig["final"].data[:part, 1:].contiguous(), fig["w"])
     out = {"logreg_grad": [r["logreg_grad"] for r in lr],
-           "logreg_margin": [r["logreg_margin"] for r in lr],
+           "logreg_margin": [r["logreg_margin"] for r in lr] + [served],
            "logreg_xt_z": [r["logreg_xt_z"] for r in lr], "kmeans_assign": km}
     for name, rows in out.items():
         for r in rows:
@@ -3574,12 +3903,14 @@ def mesh_kernel_times(kept: dict) -> dict:
     return {name: {"shapes": rows} for name, rows in out.items()}
 
 
-def phase_mesh(children: MeshChildren, phase4_w: torch.Tensor) -> dict:
+def phase_mesh(children: MeshChildren, phase4_w: torch.Tensor, fig: dict) -> dict:
     """Phase 24: mesh mode across host processes on this card, the SSP lane
-    and elastic resize.  Returns kernels 1-3's launches on the mesh path:
-    (a)'s hosts' and (b)'s (every launch of a mesh run; the emulated twins
-    do not count), and under "times" the call that holds and times the
-    kernels at the path's shapes (made in phase 25)."""
+    and elastic resize, and (e) the rest of mesh mode in (a)'s hosts (a
+    model search, Fig. A2's pipelines, the shard-aware predictor; ``fig``
+    is phase 20's result).  Returns kernels 1-3's launches on the mesh
+    path: (a)'s and (e)'s hosts' and (b)'s (every launch of a mesh run; the
+    emulated twins do not count), and under "times" the call that holds
+    and times the kernels at the path's shapes (made in phase 25)."""
     import shutil
     import tempfile
 
@@ -3588,7 +3919,8 @@ def phase_mesh(children: MeshChildren, phase4_w: torch.Tensor) -> dict:
     phase(f"24. mesh mode: {MESH_HOSTS} host processes x {MESH_LOCAL} partitions (gloo) on "
           f"logreg {LOGREG_ROWS:,} x {LOGREG_FEATURES:,} and k-means lattice {MESH_KM_ROWS:,} "
           f"x {KMEANS_FEATURES:,}, NCCL at a world of 1, SSP s=0 and s=1 with a delay, "
-          f"elastic kill-resize-resume")
+          f"elastic kill-resize-resume; (e) a model search at {MESH_SEARCH_ROWS:,} x "
+          f"{LOGREG_FEATURES:,}, Fig. A2's pipelines and the shard-aware predictor on the mesh")
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_parent_")
     out = {"work": work}
     try:
@@ -3599,16 +3931,20 @@ def phase_mesh(children: MeshChildren, phase4_w: torch.Tensor) -> dict:
         (_, t_b) = timed(lambda: mesh_part_b(out))
         _, t_a = timed(lambda: mesh_part_a(children, out, phase4_w))
         mem_peak("phase 24 (this process; read beside the hosts)")
+        _, t_twin = timed(lambda: mesh_search_twin(out))
         _, t_c = timed(lambda: mesh_part_c(children, out))
         _, t_d = timed(lambda: mesh_part_d(children, out))
-        launches = {k: out["a_launches"][k] + out["b_launches"].get(k, 0)
-                    for k in out["a_launches"]}
+        _, t_e = timed(lambda: mesh_part_e(children, out, fig))
+        launches = {k: out["a_launches"].get(k, 0) + out["b_launches"].get(k, 0)
+                    + out["e_launches"].get(k, 0)
+                    for k in set(out["a_launches"]) | set(out["e_launches"])}
         say(f"launches of kernels 1-3 on the mesh path: {launches} ((a)'s hosts "
-            f"{out['a_launches']}, (b) {out['b_launches']}); seconds here: (b) {t_b:.1f}, "
-            f"(a) wait + checks {t_a:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}")
+            f"{out['a_launches']}, (b) {out['b_launches']}, (e)'s hosts {out['e_launches']}); "
+            f"seconds here: (b) {t_b:.1f}, (a) wait + checks {t_a:.1f}, (e1)'s emulated twin "
+            f"{t_twin:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}, (e) wait + checks {t_e:.1f}")
         check(all(v > 0 for v in launches.values()), f"a kernel never launched on the mesh "
               f"path: {launches}")
-        kept = dict(out["b_fits"], phase4_w=phase4_w)
+        kept = dict(out["b_fits"], phase4_w=phase4_w, fig=fig["tables"])
         return {"kernels": {k: {"launches": v} for k, v in launches.items()},
                 "times": lambda: mesh_kernel_times(kept)}
     finally:
@@ -7597,7 +7933,7 @@ def main() -> int:
             f"(its tables kept for phase 25)")
         stream = phase_stream(fit_cli)   # counts its own launches, frees its pools
         phase_search(gen, tune_cli)      # launches no kernel (checked)
-        mesh = phase_mesh(mesh_children, phase4_w)  # counts the mesh path's launches
+        mesh = phase_mesh(mesh_children, phase4_w, fig)  # counts the mesh path's launches
     finally:
         for child in children:
             child.close()
@@ -7608,6 +7944,7 @@ def main() -> int:
             # a kernel held and timed at a path's shapes that the path did
             # not launch (logreg_xt_z since the one-pass gradient) counts 0
             part["kernels"].setdefault(name, {"launches": 0}).update(times)
+    fig.pop("tables")                # phase 20's tables, kept for phases 24 and 25
     free_device_memory()
     for r in records:
         for key, part in (("fig_a2", fig), ("stream", stream), ("mesh", mesh)):

@@ -59,6 +59,7 @@ __all__ = [
     "atomic_write_text",
     "atomic_write_json",
     "ARTIFACT_STEP",
+    "artifact_path",
 ]
 
 # anchored on both ends: "step_3.npz.tmp", "xstep_3.npz", "notes.txt" never match
@@ -342,6 +343,11 @@ def save_artifact(ckpt_dir: str, tree: Any,
     """Publish a fitted artifact (a state tree + JSON host state) as one
     atomic checkpoint file at :data:`ARTIFACT_STEP`."""
     return save_checkpoint(ckpt_dir, ARTIFACT_STEP, tree, metadata=metadata)
+
+
+def artifact_path(ckpt_dir: str) -> str:
+    """The file :func:`save_artifact` publishes in ``ckpt_dir``."""
+    return _ckpt_path(ckpt_dir, ARTIFACT_STEP)
 
 
 def load_artifact(ckpt_dir: str, tree: Any, *, device: DeviceLike = None

@@ -239,8 +239,7 @@ class KMeans(NumericAlgorithm[KMeansParameters, KMeansModel], StreamFitable,
         def init(table) -> torch.Tensor:
             if p.k > table.num_rows:
                 raise ValueError("k exceeds rows in the training view")
-            rows = _init_rows(p.seed, table.num_rows, p.k)
-            return table.data[rows.to(table.device)]
+            return _draw_rows(table, _init_rows(p.seed, table.num_rows, p.k))
 
         return TrialSpec(
             config=dict(config), hyper={}, init=init,

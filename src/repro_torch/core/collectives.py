@@ -36,6 +36,12 @@ Under gloo a CUDA leaf crosses processes through a pinned host buffer (the
 mesh's ``staged`` rule, not a retry) and the result comes back to the
 leaf's device, where the final reduction runs.
 
+Beside the combines: :func:`gather_partitions` (every partition's partial
+on every host whatever the schedule, for the table statistics' one order),
+:func:`all_to_all_rows` (a fold view's rows to the hosts that hold them)
+and :func:`barrier` (a snapshot or artifact host 0 writes is published
+before any host goes on).
+
 The barrier discipline (:class:`SyncPolicy`) and the executable spec of the
 stale-synchronous read rule (:func:`ssp_read_round`, :func:`ssp_trace`) are
 pure host logic, copied from the reference.
@@ -54,6 +60,9 @@ __all__ = [
     "combine_mean",
     "combine_sum",
     "combine_concat",
+    "gather_partitions",
+    "all_to_all_rows",
+    "barrier",
     "ssp_read_round",
     "ssp_trace",
 ]
@@ -156,6 +165,38 @@ def _gather_stack(mesh, x: torch.Tensor) -> torch.Tensor:
     """Every host's ``(L, ...)`` stack gathered into the ``(P, ...)`` stack,
     host-major, on ``x``'s device."""
     return _back(_all_gather(mesh, _wire(mesh, x)), x).flatten(0, 1)
+
+
+def gather_partitions(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every host's ``(L, ...)`` stack of per-partition values gathered into
+    the ``(P, ...)`` stack of all partitions, partition order, on ``x``'s
+    device, whatever the schedule (a table statistic's partials, sent
+    whole so that every host sums them in one order)."""
+    return _gather_stack(mesh, x)
+
+
+def all_to_all_rows(mesh, send: Sequence[torch.Tensor], recv_counts: Sequence[int]
+                    ) -> torch.Tensor:
+    """One ``all_to_all`` of row blocks: ``send[h]`` (rows, ...) goes to host
+    ``h`` (this host's own entry is empty), and the rows every host sends
+    here come back concatenated in host order, ``recv_counts[h]`` from host
+    ``h``, on the device of ``send``'s tensors.  Every host calls it, with
+    counts that agree."""
+    import torch.distributed as dist
+
+    flat = torch.cat(list(send))
+    wire = _wire(mesh, flat)
+    got = _empty_like_wire(mesh, flat, (sum(recv_counts),) + tuple(flat.shape[1:]))
+    _run(mesh, dist.all_to_all_single, got, wire, list(recv_counts),
+         [int(t.shape[0]) for t in send])
+    return _back(got, flat)
+
+
+def barrier(mesh) -> None:
+    """Every host of ``mesh`` waits here for the others."""
+    import torch.distributed as dist
+
+    _run(mesh, dist.barrier)
 
 
 def _reduce_sum(mesh, x: torch.Tensor, schedule: CollectiveSchedule) -> torch.Tensor:

@@ -7,7 +7,10 @@ differ in the last bit.  The models whose ``predict`` is served
 (``MatrixFactorizationModel``, ``GeneralizedLinearModel``,
 ``NaiveBayesModel``) sum through :func:`fixed_sum` instead: elementwise adds
 of halves, an order that depends on the width and never on the rows, so a
-served row is bitwise its offline prediction on every device.
+served row is bitwise its offline prediction on every device.  The
+table statistics (``MLNumericTable.sum_rows``) sum each partition's rows
+in the same order along the rows, so a partition's partial is the same
+whichever process holds it.
 """
 from __future__ import annotations
 
@@ -19,18 +22,20 @@ __all__ = ["fixed_sum", "fixed_dot"]
 _CHUNK_ELEMENTS = 1 << 27
 
 
-def fixed_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dimension in a pairwise order fixed by its width:
-    element i is added to element i + w//2 until one is left; at an odd
-    width the last element is carried to the next level unchanged."""
-    if x.shape[-1] == 0:
-        return x.sum(-1)
-    while x.shape[-1] > 1:
-        w = x.shape[-1]
+def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` (the last by default) in a pairwise order fixed by
+    its length: element i is added to element i + w//2 until one is left;
+    at an odd length the last element is carried to the next level
+    unchanged.  Elementwise adds only, so every slice along the other
+    dimensions gets the same bits however many there are."""
+    if x.shape[dim] == 0:
+        return x.sum(dim)
+    while x.shape[dim] > 1:
+        w = x.shape[dim]
         h = w // 2
-        y = x[..., :h] + x[..., h:2 * h]
-        x = torch.cat([y, x[..., 2 * h:]], dim=-1) if w % 2 else y
-    return x[..., 0]
+        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        x = torch.cat([y, x.narrow(dim, 2 * h, 1)], dim=dim) if w % 2 else y
+    return x.select(dim, 0)
 
 
 def fixed_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -99,18 +99,21 @@ class CountRows(SequenceABC):
 
 
 def _scatter_counts(parts: Sequence[CountRows], ncols: int,
-                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """The dense (rows, ncols) table of count partitions, made on
-    ``device``: the passthrough cells (as ``MLRow.to_floats`` gives them)
-    in the first columns, each count at its (row, column)."""
+                    device: torch.device, dtype: torch.dtype,
+                    keep: slice) -> torch.Tensor:
+    """The dense (rows, ncols) table of count partitions' rows ``keep``
+    (global row indices), made on ``device``: the passthrough cells (as
+    ``MLRow.to_floats`` gives them) in the first columns, each count at its
+    (row, column)."""
     n = sum(len(p) for p in parts)
+    lo, hi, _ = keep.indices(n)
     npass = ncols - parts[0].width
     if any(p.width != parts[0].width for p in parts):
         raise ValueError("count partitions of different widths")
-    data = torch.zeros((n, ncols), dtype=dtype, device=device)
-    if npass and n:
-        cells = np.asarray([MLRow(t).to_floats() for p in parts
-                            for t in p.passthrough], np.float64)
+    data = torch.zeros((max(hi - lo, 0), ncols), dtype=dtype, device=device)
+    if npass and hi > lo:
+        cells = [t for p in parts for t in p.passthrough][lo:hi]
+        cells = np.asarray([MLRow(t).to_floats() for t in cells], np.float64)
         data[:, :npass] = torch.as_tensor(cells, dtype=dtype).to(device)
     rows, cols, counts, ofs = [], [], [], 0
     for p in parts:
@@ -119,9 +122,11 @@ def _scatter_counts(parts: Sequence[CountRows], ncols: int,
         cols.append(p.cols)
         counts.append(p.counts)
         ofs += len(p)
-    flat = np.concatenate(rows) * ncols + npass + np.concatenate(cols)
+    rows = np.concatenate(rows)
+    mine = (rows >= lo) & (rows < hi)
+    flat = (rows[mine] - lo) * ncols + npass + np.concatenate(cols)[mine]
     data.view(-1)[torch.as_tensor(flat).to(device)] = torch.as_tensor(
-        np.concatenate(counts), dtype=dtype).to(device)
+        np.concatenate(counts)[mine], dtype=dtype).to(device)
     return data
 
 
@@ -321,19 +326,26 @@ class MLTable:
     # ------------------------------------------------------------------ #
     # commit to device tier
     # ------------------------------------------------------------------ #
-    def _dense(self, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-        """The table as a dense (rows, cols) tensor of ``MLRow.to_floats``
-        values on ``device``: count partitions scattered there, other rows
-        converted on the host, as in the reference."""
+    def _dense(self, device: torch.device, dtype: torch.dtype,
+               keep: slice = slice(None)) -> torch.Tensor:
+        """Rows ``keep`` of the table as a dense (rows, cols) tensor of
+        ``MLRow.to_floats`` values on ``device``: count partitions scattered
+        there, other rows converted on the host, as in the reference."""
         if self._partitions and all(isinstance(p, CountRows) for p in self._partitions):
-            return _scatter_counts(self._partitions, self.num_cols, device, dtype)
-        data = np.asarray([r.to_floats() for r in self.rows()], np.float64)
+            return _scatter_counts(self._partitions, self.num_cols, device, dtype, keep)
+        rows = list(self.rows())[keep]
+        data = np.asarray([r.to_floats() for r in rows], np.float64)
         return torch.as_tensor(data.reshape(-1, self.num_cols), dtype=dtype).to(device)
 
     def to_numeric(self, num_shards: Optional[int] = None,
-                   device: DeviceLike = None, dtype: torch.dtype = torch.float32):
+                   device: DeviceLike = None, dtype: torch.dtype = torch.float32,
+                   mesh=None):
         """Cast to MLNumericTable (paper §III-A) on ``device`` (the CUDA
         card unless ``device="cpu"``), split into ``num_shards`` partitions.
+        With ``mesh=`` (a :class:`repro_torch.core.hostmesh.HostMesh`) every
+        host holds this same table and commits only its own rows
+        (:func:`repro_torch.core.hostmesh.local_row_slice`) to the mesh's
+        device, as ``partition.place_rows`` lays a global array out.
 
         Every column must be numeric; Empty cells become NaN (algorithms are
         expected to impute/filter first — matching the paper's convention that
@@ -344,6 +356,12 @@ class MLTable:
             raise TypeError(f"non-numeric columns present: {bad}")
         from repro_torch.core.numeric_table import MLNumericTable  # avoids a cycle
 
+        if mesh is not None:
+            from repro_torch.core.hostmesh import local_row_slice
+
+            keep = local_row_slice(self.num_rows, mesh)
+            return MLNumericTable(self._dense(mesh.device, dtype, keep),
+                                  names=self.schema.names, mesh=mesh)
         return MLNumericTable(self._dense(resolve_device(device), dtype),
                               num_shards=num_shards or 1, names=self.schema.names)
 

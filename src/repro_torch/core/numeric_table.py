@@ -9,14 +9,32 @@ In emulated mode it is a 2-D tensor on one device, split into
 a :class:`repro_torch.core.hostmesh.HostMesh`) each host keeps only its own
 rows on its device, as ``L`` partitions of the mesh's ``H·L``: ``data`` is
 that host's ``(rows/H, cols)`` slice, while ``num_rows`` and
-``num_shards`` describe the global table.  The row-wise operations below
-(``map_rows``, ``reduce``, ``matrix_batch_map``, ...) are emulated only.  ``map_rows``,
-``filter_mask`` and ``reduce`` take a function of one row (``(d,)`` tensors),
-mapped over rows with ``torch.vmap`` where the reference ``jax.vmap``s;
-``matrix_batch_map`` hands each partition's block to the partition function
-as a :class:`~repro_torch.core.local_matrix.LocalMatrix`, one partition
-after another.  Global combination is explicit (``reduce``,
-``matrix_batch_map`` + a reduce), the paper's shared-nothing principle.
+``num_shards`` describe the global table.
+
+The row-wise operations run on the partitions a process holds:
+``map_rows``, ``filter_mask`` and ``reduce`` take a function of one row
+(``(d,)`` tensors), mapped over rows with ``torch.vmap`` where the
+reference ``jax.vmap``s; ``matrix_batch_map`` hands each partition's block
+to the partition function as a
+:class:`~repro_torch.core.local_matrix.LocalMatrix`, one partition after
+another.  On a mesh the tables they return keep the mesh (a host maps its
+own rows) and ``filter_mask`` is the mask of the host's rows.  Global
+combination is explicit (``reduce``, ``sum_rows``, ``mean_rows``,
+``matrix_batch_map`` + a reduce), the paper's shared-nothing principle, and
+so is a gather of the whole table (``to_numpy``, ``to_local_matrix``).
+
+**One order for every statistic.**  ``sum_rows`` (and ``mean_rows``, and
+the featurizers' column statistics through :func:`column_sums`) sums each
+partition's rows in the pairwise order of
+:func:`repro_torch.core.fixed_sum.fixed_sum`, fixed by the rows a
+partition holds, then adds the ``(P, d)`` partials left to right in
+partition order; ``reduce`` folds each partition, then the partials, as
+the reference does.  On a mesh the partials are gathered whole to every
+host (:func:`repro_torch.core.collectives.gather_partitions`, whatever the
+runner's schedule) and summed there in the same order, so a statistic of a
+mesh table is bitwise the statistic of the same rows in ``P`` emulated
+partitions.  The reference sums ``sum_rows`` in one ``jnp.sum`` over all
+rows (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -26,10 +44,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import partition as pt
+from repro_torch.core.fixed_sum import fixed_sum
 from repro_torch.core.local_matrix import LocalMatrix
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 
-__all__ = ["MLNumericTable"]
+__all__ = ["MLNumericTable", "column_sums"]
 
 
 def _tree_fold_rows(rows: torch.Tensor, fn: Callable,
@@ -49,6 +68,48 @@ def _tree_fold_rows(rows: torch.Tensor, fn: Callable,
         half = rows.shape[0] // 2
         rows = torch.vmap(fn)(rows[:half], rows[half:])
     return rows[0]
+
+
+def _all_partials(partials: torch.Tensor, mesh) -> torch.Tensor:
+    """The ``(P, ...)`` partials of every partition: this process's own in
+    emulated mode, every host's gathered in partition order on a mesh."""
+    if mesh is None:
+        return partials
+    from repro_torch.core.collectives import gather_partitions
+
+    return gather_partitions(partials, mesh)
+
+
+#: elements of the column slice of a table that :func:`column_sums` sums
+#: at once: the pairwise levels' temporaries stay below this whatever the
+#: table's size
+_SLICE_ELEMENTS = 1 << 26
+
+
+def column_sums(x: torch.Tensor, num_shards: int, mesh=None,
+                fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Column sums of ``(rows, d)`` values laid out as a table's rows (this
+    host's rows on a mesh), in the table statistics' order: each
+    partition's rows by :func:`~repro_torch.core.fixed_sum.fixed_sum`, then
+    the partitions' partials left to right in partition order, the same on
+    every host and in emulated mode.  ``fn``, elementwise, is applied to
+    the values first.  The columns go in slices of at most
+    ``_SLICE_ELEMENTS`` values, which changes no column's bits."""
+    local = mesh.local_partitions if mesh is not None else num_shards
+    blocks = pt.partition_rows(x, local)
+    d = blocks.shape[-1]
+    step = max(1, _SLICE_ELEMENTS // max(1, blocks.shape[0] * blocks.shape[1]))
+    parts = []
+    for c in range(0, max(d, 1), step):
+        b = blocks[..., c:c + step]
+        parts.append(fixed_sum(fn(b) if fn is not None else b, dim=1))
+    partials = _all_partials(parts[0] if len(parts) == 1
+                             else torch.cat(parts, dim=-1), mesh)
+    out = partials[0]
+    for p in partials[1:]:
+        out = out + p
+    return out
 
 
 class MLNumericTable:
@@ -93,15 +154,17 @@ class MLNumericTable:
         return cls(to_tensor(array, resolve_device(device)),
                    num_shards=num_shards or 1, names=names)
 
-    def _emulated_only(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the row-wise table operations run on emulated tables only; "
-                "a mesh table holds one host's rows")
-
     def _like(self, data: torch.Tensor, names=None) -> "MLNumericTable":
-        self._emulated_only()
-        return MLNumericTable(data, num_shards=self.num_shards, names=names)
+        """A table of ``data`` (rows laid out as this table's) with this
+        table's partitions and mesh."""
+        return MLNumericTable(data, num_shards=self.num_shards, names=names,
+                              mesh=self.mesh)
+
+    @property
+    def local_shards(self) -> int:
+        """Partitions this process holds: the mesh's ``L``, or all of them
+        in emulated mode."""
+        return self.mesh.local_partitions if self.mesh is not None else self.num_shards
 
     # ------------------------------------------------------------------ #
     # introspection
@@ -127,14 +190,19 @@ class MLNumericTable:
         return self.data.device
 
     def to_numpy(self) -> np.ndarray:
-        self._emulated_only()
-        return self.data.cpu().numpy()
+        """The whole table on the host (every host's rows, on a mesh)."""
+        return self.to_local_matrix().data.cpu().numpy()
 
     def to_local_matrix(self) -> LocalMatrix:
         """Materialize the *whole* table as one LocalMatrix (small tables /
         final factors only — deliberately explicit, per the paper's refusal
-        to hide global operations)."""
-        return LocalMatrix(self.data)
+        to hide global operations).  On a mesh every host's rows are
+        gathered, in row order, onto this host's device."""
+        if self.mesh is None:
+            return LocalMatrix(self.data)
+        from repro_torch.core.collectives import gather_partitions
+
+        return LocalMatrix(gather_partitions(self.data, self.mesh))
 
     toLocalMatrix = to_local_matrix
 
@@ -159,7 +227,8 @@ class MLNumericTable:
 
     def filter_mask(self, pred: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
         """Static-shape filter: returns the row validity mask (downstream
-        ops take the mask, as in the reference)."""
+        ops take the mask, as in the reference); on a mesh, the mask of
+        this host's rows."""
         return torch.vmap(pred)(self.data)
 
     def reduce(self, fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -167,22 +236,21 @@ class MLNumericTable:
         """Combine all rows with an associative+commutative fn (Fig. A1).
 
         Reduces within each partition, then across partitions — matching the
-        distributed execution order."""
-        self._emulated_only()
+        distributed execution order; on a mesh the partitions' results are
+        gathered to every host and folded there."""
         if identity is None:
             identity = torch.zeros((self.num_cols,), dtype=self.data.dtype,
                                    device=self.device)
-        blocks = pt.partition_rows(self.data, self.num_shards)
+        blocks = pt.partition_rows(self.data, self.local_shards)
         partials = torch.stack([_tree_fold_rows(b, fn, identity) for b in blocks])
-        return _tree_fold_rows(partials, fn, identity)
+        return _tree_fold_rows(_all_partials(partials, self.mesh), fn, identity)
 
     def sum_rows(self) -> torch.Tensor:
-        self._emulated_only()
-        return torch.sum(self.data, dim=0)
+        """Column sums over every row (module docstring: one order)."""
+        return column_sums(self.data, self.num_shards, self.mesh)
 
     def mean_rows(self) -> torch.Tensor:
-        self._emulated_only()
-        return torch.mean(self.data, dim=0)
+        return self.sum_rows() / self.num_rows
 
     # ------------------------------------------------------------------ #
     # matrixBatchMap — the heart of the MLI API (Fig. A1)
@@ -199,11 +267,11 @@ class MLNumericTable:
         ``broadcast_args`` are replicated to every partition (the paper's
         broadcast from the coordinating process).  ``fn`` receives a
         LocalMatrix and must return a LocalMatrix (or tensor) with the same
-        number of rows for every partition.
+        number of rows for every partition.  On a mesh each host runs its
+        own partitions and the result keeps the mesh.
         """
-        self._emulated_only()
         outs = []
-        for block in pt.partition_rows(self.data, self.num_shards):
+        for block in pt.partition_rows(self.data, self.local_shards):
             out = fn(LocalMatrix(block), *broadcast_args)
             out = out.data if isinstance(out, LocalMatrix) else torch.as_tensor(out)
             outs.append(out[:, None] if out.ndim == 1 else out)

@@ -66,9 +66,15 @@ stack, and the combine runs the schedule over the group
 (:mod:`repro_torch.core.collectives`); every host then holds the same
 state.  Host 0 alone writes the snapshots of a mesh run (one writer per
 global mesh, a shared filesystem), recording the global rows and
-partitions, and ``resume(..., allow_resize=True)`` picks a run up on
+partitions; every host returns from a snapshot once it is published (a
+barrier), so a resume on any host reads it; and ``resume(..., allow_resize=True)`` picks a run up on
 another world size through :func:`repro_torch.core.partition.plan_resize`.
-The stacked-trial entry points are emulated only.
+Stacked trials run on a mesh too: each active lane's round combines across
+the hosts on its own, as the same trial run alone would, so a stacked
+search on a mesh equals the sequential one bit for bit (the lanes'
+partials are not packed into one collective: under ``gather_broadcast``
+that would be the same bits but under the reduction schedules each lane's
+sum would change with the stack).
 
 **Stale-synchronous lane** (counterpart ``_ssp_merge``, ``run_epochs_ssp``,
 ``resume_ssp``): independent hosts, each with its own runner (emulated or
@@ -465,12 +471,24 @@ class DistributedRunner:
                        epoch: int, chunks: int, rng: Optional[torch.Tensor], *,
                        rows: Optional[int] = None,
                        extra_meta: Optional[dict] = None) -> None:
+        if self.mesh is not None:
+            # one writer per global mesh: every host holds the same combined
+            # state, host 0 persists it (a shared filesystem); every host
+            # returns once it is published, so a resume that follows on any
+            # host reads it
+            if self.mesh.host_id == 0:
+                self._write_snapshot(policy, stream, state, epoch, chunks, rng,
+                                     rows, extra_meta)
+            coll.barrier(self.mesh)
+            return
+        self._write_snapshot(policy, stream, state, epoch, chunks, rng, rows,
+                             extra_meta)
+
+    def _write_snapshot(self, policy: CheckpointPolicy, stream: Any, state: Any,
+                        epoch: int, chunks: int, rng: Optional[torch.Tensor],
+                        rows: Optional[int], extra_meta: Optional[dict]) -> None:
         from repro_torch.checkpoint.store import save_checkpoint
 
-        if self.mesh is not None and self.mesh.host_id != 0:
-            # one writer per global mesh: every host holds the same combined
-            # state, host 0 persists it (a shared filesystem)
-            return
         stream_step = getattr(stream, "step", None)
         if stream_step is None:
             raise TypeError(
@@ -698,7 +716,10 @@ class DistributedRunner:
             entries = [(store.host_id, mine)]
             reads = {}
             waited = 0.0
-            for p in store.peers():
+            # every other host, departed ones too: a departed peer's
+            # publishes within the bound are read whenever this host gets
+            # here, so what it reads does not race the peer's departure
+            for p in (h for h in range(store.num_hosts) if h != store.host_id):
                 t0 = time.monotonic()
                 clock = store.wait_clock(p, e - staleness + 1)
                 waited += time.monotonic() - t0
@@ -769,12 +790,6 @@ class DistributedRunner:
     # ------------------------------------------------------------------ #
     # stacked trials: K models a round (model search; repro_torch.tune)
     # ------------------------------------------------------------------ #
-    def _emulated_only(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} runs emulated partitions only (a model search on a "
-                f"mesh is not ported)")
-
     @staticmethod
     def _stacked_carry(trial_states: Any, trial_hyper: Any,
                        active: Any = None, offsets: Any = None) -> dict:
@@ -804,13 +819,14 @@ class DistributedRunner:
         return {"trial": _own(trial_states), "hyper": trial_hyper,
                 "active": act, "offset": offs}
 
-    @staticmethod
-    def _stacked_fns(trial_step: TrialStep, trial_update: Optional[TrialUpdateFn],
+    def _stacked_fns(self, trial_step: TrialStep,
+                     trial_update: Optional[TrialUpdateFn],
                      combine: str) -> RoundFn:
         """The round of a stacked carry, lane by lane: each active lane j
         runs ``trial_step`` on its own state and hyperparameters at round
-        ``r - offset[j]``, its combine and its update — the launches of the
-        trial run alone — and :func:`_mask_tree` writes the lanes back."""
+        ``r - offset[j]``, its combine (across the hosts, on a mesh) and its
+        update — the launches of the trial run alone — and
+        :func:`_mask_tree` writes the lanes back."""
         def round_fn(blocks: torch.Tensor, carry: dict, r: int) -> dict:
             trial, hyper = carry["trial"], carry["hyper"]
             active, offs = carry["active"].tolist(), carry["offset"].tolist()
@@ -821,7 +837,7 @@ class DistributedRunner:
                 s = _tree_map(lambda x: x[j], trial)
                 h = _tree_map(lambda x: x[j], hyper)
                 rj = r - offs[j]
-                combined = _emulated_combine(trial_step(blocks, s, rj, h), combine)
+                combined = self._combine(trial_step(blocks, s, rj, h), combine)
                 new[j] = (combined if trial_update is None
                           else trial_update(s, combined, rj, h))
             _mask_tree(active, new, trial)
@@ -843,7 +859,6 @@ class DistributedRunner:
         combined, r, hyper)`` describe ONE trial.  ``active`` freezes the
         lanes it marks False.  Returns the final stacked states (new
         tensors; the inputs are not changed)."""
-        self._emulated_only("run_stacked_rounds")
         carry = self._stacked_carry(trial_states, trial_hyper, active)
         out = self._rounds(table, carry, self._stacked_fns(trial_step, update, combine),
                            num_rounds, start_round)
@@ -875,7 +890,6 @@ class DistributedRunner:
         ``active``; a ``{"state"|"hyper"|"active": ...}`` return swaps that
         component.  ``eval_fn(trial_states, epoch)`` returns the boundary's
         ``EvalEntry`` list.  Returns the final stacked states."""
-        self._emulated_only("run_stacked_epochs")
         carry = self._stacked_carry(trial_states, trial_hyper, active,
                                     round_offsets)
         run_eval = None

@@ -28,7 +28,7 @@ from repro_torch.core.runner import DistributedRunner
 from repro_torch.device import to_tensor
 
 __all__ = ["accuracy", "log_loss", "rmse", "silhouette_lite", "predictions",
-           "MetricHistory"]
+           "partition_predict", "MetricHistory"]
 
 #: predict(X_block) -> (rows,) predictions, or (K, rows) for K stacked trials
 PredictFn = Callable[[torch.Tensor], torch.Tensor]
@@ -60,7 +60,15 @@ def predictions(table: Any, predict: PredictFn, *,
     (``combine="concat"``).  The whole table is treated as features — no
     label column is stripped."""
     runner = DistributedRunner.for_table(table, schedule=schedule)
-    return runner.partition_apply(table.data, _per_block(predict), (), "concat")
+    return partition_predict(runner, table.data, predict)
+
+
+def partition_predict(runner: DistributedRunner, x: torch.Tensor,
+                      predict: PredictFn) -> torch.Tensor:
+    """``predict`` on each of ``runner``'s partitions of the rows ``x``
+    (this host's, on a mesh), the outputs concatenated in row order across
+    every partition (``combine="concat"``)."""
+    return runner.partition_apply(x, _per_block(predict), (), "concat")
 
 
 def accuracy(table: Any, predict: PredictFn, *,

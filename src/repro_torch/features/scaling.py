@@ -3,8 +3,9 @@
 Counterpart: ``src/repro/features/scaling.py`` (``resolve_skip``,
 ``resolve_labels``, ``Standardizer``, ``BiasAdder`` and the ``standardize``
 / ``add_bias`` shims).  Column statistics are computed once at ``fit`` with
-the table's explicit global reduces and *replayed* at ``transform`` on any
-table — or, via ``apply``, on label-free feature rows of a serving
+the table's explicit global reduces (the table statistics' one order, so a
+mesh table's statistics are bitwise its emulated twin's) and *replayed* at
+``transform`` on any table (a mesh table stays on its mesh) — or, via ``apply``, on label-free feature rows of a serving
 microbatch.  Both run in torch on the table's device; ``apply`` is
 elementwise, so a served row gets the bits its table row got.
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.interfaces import FittedTransformer, Transformer
-from repro_torch.core.numeric_table import MLNumericTable
+from repro_torch.core.numeric_table import MLNumericTable, column_sums
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 
 __all__ = [
@@ -139,9 +140,7 @@ class FittedStandardizer(FittedTransformer):
             raise ValueError(
                 f"fitted on {self.shift.shape[0]} columns, table has "
                 f"{table.num_cols}")
-        data = (table.data - self.shift) / self.scale
-        return MLNumericTable(data, num_shards=table.num_shards,
-                              names=table.names)
+        return table._like((table.data - self.shift) / self.scale, table.names)
 
     def apply(self, feats: torch.Tensor) -> torch.Tensor:
         """Replay on (n, f) serving rows — f excludes only the label
@@ -196,9 +195,11 @@ class Standardizer(Transformer):
         skip_idx = resolve_skip(table, self.skip, default_skip)
         label_idx = resolve_labels(table, default_skip)
         n = table.num_rows
-        # the reference's formula, ss/n − mean², in the table's dtype
+        # the reference's formula, ss/n − mean², in the table's dtype; both
+        # sums in the table statistics' order (the same on a mesh)
         s = table.sum_rows()
-        ss = torch.sum(table.data * table.data, dim=0)
+        ss = column_sums(table.data, table.num_shards, table.mesh,
+                        fn=lambda v: v * v)
         mean = s / n
         var = torch.clamp(ss / n - mean * mean, min=0.0)
         std = torch.sqrt(var) + self.eps
@@ -239,12 +240,12 @@ class FittedBiasAdder(FittedTransformer):
             raise ValueError(
                 f"fitted on {self.num_cols} columns, table has "
                 f"{table.num_cols}")
-        ones = torch.ones((table.num_rows, 1), dtype=table.data.dtype,
+        # this process's rows (a host's, on a mesh)
+        ones = torch.ones((table.data.shape[0], 1), dtype=table.data.dtype,
                           device=table.device)
         data = torch.cat(
             [table.data[:, : self.at], ones, table.data[:, self.at:]], dim=1)
-        return MLNumericTable(data, num_shards=table.num_shards,
-                              names=self._names_out(table.names))
+        return table._like(data, self._names_out(table.names))
 
     def apply(self, feats: torch.Tensor) -> torch.Tensor:
         ones = torch.ones(tuple(feats.shape[:-1]) + (1,), dtype=feats.dtype,

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core.interfaces import FittedTransformer, Transformer
 from repro_torch.core.mltable import CountRows, MLTable
-from repro_torch.core.numeric_table import MLNumericTable
+from repro_torch.core.numeric_table import MLNumericTable, column_sums
 from repro_torch.core.schema import Column, ColumnType, Schema
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.features.scaling import (
@@ -327,9 +327,7 @@ class FittedTfIdf(FittedTransformer):
         if table.num_cols != self.num_cols:
             raise ValueError(f"fitted on {self.num_cols} columns, table has "
                              f"{table.num_cols}")
-        data = self._apply_cols(table.data, *self._full)
-        return MLNumericTable(data, num_shards=table.num_shards,
-                              names=table.names)
+        return table._like(self._apply_cols(table.data, *self._full), table.names)
 
     def apply(self, feats: torch.Tensor) -> torch.Tensor:
         """(n, f) serving rows (label columns absent) → tf-idf rows."""
@@ -383,12 +381,16 @@ class TfIdf(Transformer):
             ) -> FittedTfIdf:
         if isinstance(table, MLTable):
             data = table._dense(resolve_device(self.device), torch.float32)
+            num_shards, mesh = 1, None
         else:
-            data = table.data
+            data, num_shards, mesh = table.data, table.num_shards, table.mesh
         skip_idx = resolve_skip(table, self.skip, default_skip)
         label_idx = resolve_labels(table, default_skip)
-        n_docs = data.shape[0]
-        df = torch.sum((data > 0).to(torch.float32), dim=0)
+        # every row of the table (every host's, on a mesh); the counts are
+        # integers below 2**24, exact in fp32 in any order
+        n_docs = table.num_rows
+        df = column_sums(data, num_shards, mesh,
+                         fn=lambda v: (v > 0).to(torch.float32))
         idf = torch.log((1.0 + n_docs) / (1.0 + df))
         if skip_idx:
             idf[list(skip_idx)] = 0.0

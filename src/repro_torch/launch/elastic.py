@@ -40,16 +40,20 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import signal
 import subprocess
+import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from repro_torch.core import hostmesh
 from repro_torch.core.hostmesh import PEER_LOST_EXIT_CODE, free_port
 from repro_torch.testing.chaos import DROP_EXIT_CODE, ENV_VAR as CHAOS_ENV
 
-__all__ = ["HostExit", "Generation", "ElasticReport", "ElasticController"]
+__all__ = ["HostExit", "Generation", "ElasticReport", "ElasticController",
+           "run_hosts", "run_host", "mesh_from_env"]
 
 
 @dataclasses.dataclass
@@ -307,3 +311,56 @@ class ElasticController:
                     f"min_hosts={self.min_hosts}")
             report.restart_seconds.append(time.monotonic() - death_at)
         raise AssertionError("unreachable")  # pragma: no cover
+
+
+# --------------------------------------------------------------------------- #
+# the launchers' two sides
+# --------------------------------------------------------------------------- #
+def run_hosts(child: Sequence[str], num_hosts: int, *, timeout: float,
+              work: Optional[str] = None, exchange_flag: Optional[str] = None,
+              **controller: Any) -> ElasticReport:
+    """Run ``child`` once a host under an :class:`ElasticController` with a
+    ``file://`` rendezvous in ``work/rendezvous`` (the launcher side of
+    ``launch/fit.py`` and ``launch/tune.py --hosts``).  With
+    ``exchange_flag`` every host also gets ``exchange_flag work/exchange``
+    (the SSP lane's store).  ``work=None`` is a temporary directory,
+    removed when the run ends; ``controller`` holds the controller's other
+    keywords."""
+    own = work is None
+    if own:
+        work = tempfile.mkdtemp(prefix="mli-hosts-")
+    argv = list(child)
+    if exchange_flag is not None:
+        argv += [exchange_flag, os.path.join(work, "exchange")]
+    try:
+        return ElasticController(
+            argv, num_hosts, timeout=timeout,
+            rendezvous_dir=os.path.join(work, "rendezvous"), **controller).run()
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def run_host(body: Callable[[], Any]) -> Any:
+    """Run a host program's ``body`` and leave the process group after it.
+    A peer lost under a collective ends the process at once with
+    :data:`~repro_torch.core.hostmesh.PEER_LOST_EXIT_CODE`: the controller
+    tells such a casualty apart from a death."""
+    try:
+        out = body()
+        hostmesh.shutdown()
+        return out
+    except hostmesh.PeerLost as e:
+        print(f"peer lost: {e}", file=sys.stderr)
+        sys.stderr.flush()
+        os._exit(PEER_LOST_EXIT_CODE)
+
+
+def mesh_from_env(device: Any, local_partitions: int
+                  ) -> Optional[hostmesh.HostMesh]:
+    """This host's mesh of ``local_partitions`` on ``device`` when the
+    ``REPRO_*`` environment names a process group (it is joined here), else
+    None."""
+    if hostmesh.initialize_from_env(device).multihost:
+        return hostmesh.make_mesh(local_partitions, device)
+    return None

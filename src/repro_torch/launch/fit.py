@@ -74,6 +74,7 @@ from repro_torch.core.optimizer import MinibatchSGD, MinibatchSGDParameters
 from repro_torch.core.runner import CheckpointPolicy
 from repro_torch.data import BatchIterator
 from repro_torch.device import to_tensor
+from repro_torch.launch.elastic import mesh_from_env, run_host, run_hosts
 
 __all__ = ["ALGORITHMS", "SSP_SEED_STRIDE", "GENERATION_TIMEOUT", "make_source",
            "linreg_grad", "state_sha", "run_pipeline", "main"]
@@ -170,23 +171,17 @@ def _drive_hosts(args, argv, child=None) -> None:
     per host under the elastic controller; the children carry
     ``REPRO_HOST_ID`` and skip this branch.  Faults in ``REPRO_CHAOS`` go
     to generation 0."""
-    import tempfile
-
-    from repro_torch.launch.elastic import ElasticController
     from repro_torch.testing.chaos import ChaosInjector
 
     child = list(child or [sys.executable, "-m", "repro_torch.launch.fit"]) + \
         list(argv if argv is not None else sys.argv[1:])
-    work = args.ckpt_dir or tempfile.mkdtemp(prefix="mli-hosts-")
-    if args.staleness is not None and not args.exchange_dir:
-        child += ["--exchange-dir", os.path.join(work, "exchange")]
-    ctl = ElasticController(
-        child, args.hosts, faults=ChaosInjector.faults_from_env(),
+    ssp = args.staleness is not None and not args.exchange_dir
+    report = run_hosts(
+        child, args.hosts, timeout=GENERATION_TIMEOUT, work=args.ckpt_dir,
+        exchange_flag="--exchange-dir" if ssp else None,
+        faults=ChaosInjector.faults_from_env(),
         max_restarts=2 if args.elastic else 0, min_hosts=1,
-        timeout=GENERATION_TIMEOUT,
-        global_mesh=args.staleness is None,
-        rendezvous_dir=os.path.join(work, "rendezvous"))
-    report = ctl.run()
+        global_mesh=args.staleness is None)
     for gen in report.generations:
         tag = f"generation {gen.index} ({gen.num_hosts} hosts)"
         for e in sorted(gen.exits, key=lambda x: x.host_id):
@@ -259,16 +254,7 @@ def main(argv=None, *, source=None, child=None):
     host_mode = "REPRO_HOST_ID" in os.environ
     if args.hosts > 1 and not host_mode:
         return _drive_hosts(args, argv, child)
-    try:
-        out = _run(ap, args, host_mode, source)
-        hostmesh.shutdown()
-        return out
-    except hostmesh.PeerLost as e:
-        # a peer died under a collective: exit as its casualty, which the
-        # elastic controller tells apart from a death
-        print(f"peer lost: {e}", file=sys.stderr)
-        sys.stderr.flush()
-        os._exit(hostmesh.PEER_LOST_EXIT_CODE)
+    return run_host(lambda: _run(ap, args, host_mode, source))
 
 
 def _run(ap, args, host_mode: bool, make=None):
@@ -277,8 +263,8 @@ def _run(ap, args, host_mode: bool, make=None):
     ssp = args.staleness is not None and n_hosts > 1
     device = hostmesh.host_device(args.device, host)
     mesh = None
-    if host_mode and not ssp and hostmesh.initialize_from_env(device).multihost:
-        mesh = hostmesh.make_mesh(args.devices_per_host, device)
+    if host_mode and not ssp:
+        mesh = mesh_from_env(device, args.devices_per_host)
     partitions = args.devices_per_host if host_mode else args.num_shards
     where = (f"{mesh.num_hosts} hosts x {mesh.local_partitions} partitions "
              f"({mesh.backend})" if mesh is not None

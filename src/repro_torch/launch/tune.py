@@ -12,6 +12,16 @@ trial.  It runs on the CUDA card unless ``--device cpu``; the table is
 drawn with numpy from ``--seed`` as the reference draws it, then put on
 the device, in 4 emulated partitions.
 
+With ``--hosts N`` the search runs on a host mesh, as the reference runs it
+on a device mesh over ``jax.devices()``: the launcher re-executes itself
+once a host under :class:`repro_torch.launch.elastic.ElasticController`
+(no restarts), each host joins the process group (gloo when the hosts
+share a card or run on the CPU), draws the same table and keeps its
+``--devices-per-host`` partitions of it
+(``MLNumericTable.from_numpy(..., mesh=)``, or ``Pipeline(mesh=)`` for
+``pipeline``), and every host runs the same search; the launcher prints
+host 0's lines and fails when a host fails or the hosts' results differ.
+
 Examples (CPU):
 
     PYTHONPATH=src python -m repro_torch.launch.tune --algorithm logreg \\
@@ -22,6 +32,10 @@ Examples (CPU):
         --samples 6 --space "learning_rate=loguniform:0.01:1.0;l2=0.0,0.01" \\
         --device cpu --ckpt-dir /tmp/mli-search
     # kill it mid-search, then add --resume to the same command line
+
+    PYTHONPATH=src python -m repro_torch.launch.tune --algorithm logreg \\
+        --grid "learning_rate=0.05,0.3" --device cpu --hosts 2 \\
+        --schedule gather_broadcast --json
 """
 from __future__ import annotations
 
@@ -30,13 +44,16 @@ import ast
 import json
 import os
 import signal
+import sys
 from typing import Any, Dict, List
 
 import numpy as np
 
+from repro_torch.core import hostmesh
 from repro_torch.core.collectives import CollectiveSchedule
 from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.device import resolve_device
+from repro_torch.launch.elastic import mesh_from_env, run_host, run_hosts
 from repro_torch.tune import (AsyncSuccessiveHalving, MedianStoppingRule,
                               ModelSearch, grid, record_evaluation, sample)
 
@@ -47,6 +64,10 @@ ALGORITHMS = ("logreg", "kmeans", "pipeline")
 #: emulated partitions of the launcher's tables (the reference's
 #: single-device layout)
 NUM_SHARDS = 4
+
+#: seconds the host processes of ``--hosts`` may run before the launcher
+#: kills them
+GENERATION_TIMEOUT = 600.0
 
 
 def _literal(text: str) -> Any:
@@ -75,9 +96,10 @@ def parse_space(spec: str) -> Dict[str, Any]:
     return space
 
 
-def make_pipeline(features: int, device):
+def make_pipeline(features: int, device, mesh=None):
     """The Fig. A2 text pipeline with nested-stage search keys
-    (``ngrams.top``, ``tfidf.*``, ``logreg.*``)."""
+    (``ngrams.top``, ``tfidf.*``, ``logreg.*``), committing to ``mesh``
+    when one is given."""
     from repro_torch.core.algorithms.logistic_regression import \
         LogisticRegressionAlgorithm
     from repro_torch.features import NGrams, Standardizer, TfIdf
@@ -88,13 +110,16 @@ def make_pipeline(features: int, device):
         TfIdf(),
         Standardizer(),
         LogisticRegressionAlgorithm(),
-    ], num_shards=NUM_SHARDS, device=device)
+    ], mesh=mesh, num_shards=None if mesh is not None else NUM_SHARDS,
+        device=device)
 
 
-def make_table(algorithm: str, rows: int, features: int, seed: int, device):
+def make_table(algorithm: str, rows: int, features: int, seed: int, device,
+               mesh=None):
     """The reference's synthetic dataset (a pure function of the
     arguments, so a ``--resume`` relaunch sees the same table), on
-    ``device``.  ``pipeline`` gets a raw labeled-text MLTable."""
+    ``device``, or this host's rows of it on ``mesh``.  ``pipeline`` gets a
+    raw labeled-text MLTable (every host holds all of it)."""
     rng = np.random.default_rng(seed * 100_003 + 17)
     if algorithm == "pipeline":
         from repro_torch.core.mltable import MLTable
@@ -114,11 +139,40 @@ def make_table(algorithm: str, rows: int, features: int, seed: int, device):
         idx = rng.integers(0, k, size=rows)
         data = (centers[idx]
                 + 0.3 * rng.normal(size=(rows, features))).astype(np.float32)
+    if mesh is not None:
+        return MLNumericTable.from_numpy(data, mesh=mesh)
     return MLNumericTable.from_numpy(data, num_shards=NUM_SHARDS, device=device)
 
 
+def _drive_hosts(args, argv):
+    """Launcher mode: re-execute this module once a host (no restarts; the
+    children carry ``REPRO_HOST_ID`` and skip this branch); print host 0's
+    lines; raise ``SystemExit(1)`` when a host failed or the hosts'
+    ``RESULT::`` lines differ.  Returns the
+    :class:`repro_torch.launch.elastic.ElasticReport`."""
+    child = [sys.executable, "-m", "repro_torch.launch.tune"] + \
+        list(argv if argv is not None else sys.argv[1:])
+    report = run_hosts(child, args.hosts, timeout=GENERATION_TIMEOUT,
+                       max_restarts=0)
+    exits = sorted(report.final.exits, key=lambda e: e.host_id)
+    print(exits[0].stdout, end="")
+    results = {e.host_id: [ln for ln in e.stdout.splitlines()
+                           if ln.startswith("RESULT::")] for e in exits}
+    bad = [e for e in exits if e.returncode != 0]
+    for e in bad:
+        print(f"host {e.host_id} exited {e.returncode}: {e.stderr[-3000:]}",
+              file=sys.stderr)
+    if bad or any(r != results[0] for r in results.values()):
+        if not bad:
+            print("the hosts' results differ", file=sys.stderr)
+        raise SystemExit(1)
+    return report
+
+
 def main(argv=None):
-    """Run the launcher; returns the :class:`repro_torch.tune.SearchResult`."""
+    """Run the launcher; returns the :class:`repro_torch.tune.SearchResult`
+    (with ``--hosts`` > 1, the
+    :class:`repro_torch.launch.elastic.ElasticReport`)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--algorithm", required=True, choices=ALGORITHMS)
@@ -175,7 +229,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run "
                          "on the CPU)")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="run the search on a mesh of N host processes")
+    ap.add_argument("--devices-per-host", type=int, default=2,
+                    help="partitions each host process holds (L)")
     args = ap.parse_args(argv)
+    if args.hosts > 1 and "REPRO_HOST_ID" not in os.environ:
+        return _drive_hosts(args, argv)
+    return run_host(lambda: _run(ap, args))
+
+
+def _run(ap, args):
 
     if args.grid:
         configs = grid(parse_space(args.grid))
@@ -186,15 +250,22 @@ def main(argv=None):
     else:
         ap.error("pass --grid or --samples/--space")
 
-    device = resolve_device(args.device)
+    mesh = None
+    if "REPRO_HOST_ID" in os.environ:
+        device = hostmesh.host_device(args.device, int(os.environ["REPRO_HOST_ID"]))
+        mesh = mesh_from_env(device, args.devices_per_host)
+    else:
+        device = resolve_device(args.device)
     table = make_table(args.algorithm, args.rows, args.features, args.seed,
-                       device)
+                       device, mesh)
     algorithm = args.algorithm
     if algorithm == "pipeline":
-        algorithm = make_pipeline(args.features, device)
-    where = (f"host table (featurized per fold) on {device}"
-             if args.algorithm == "pipeline"
-             else f"{table.num_shards} emulated partitions on {device}")
+        algorithm = make_pipeline(args.features, device, mesh)
+    layout = (f"{mesh.num_hosts} hosts x {mesh.local_partitions} partitions "
+              f"({mesh.backend})" if mesh is not None
+              else f"{NUM_SHARDS} emulated partitions")
+    where = (f"host table (featurized per fold, {layout}) on {device}"
+             if args.algorithm == "pipeline" else f"{layout} on {device}")
     print(f"tune: {args.algorithm} | {len(configs)} trials | "
           f"{'%d-fold CV' % args.folds if args.folds else 'holdout'} | "
           f"exec={args.execution} | schedule={args.schedule} | {where}")

@@ -14,8 +14,8 @@ composes fitted transformers and a terminal estimator:
   * **fit** — transformer statistics (vocabulary, IDF weights, column
     means/stds) are computed stage by stage on the training table (host
     tier for the schema-changing text stages; device tier once the table
-    is committed to ``device`` before the first device stage), then the
-    estimator trains through the emulated
+    is committed to the mesh or to ``device`` before the first device
+    stage), then the estimator trains through
     :class:`repro_torch.core.runner.DistributedRunner`;
   * **fit_stream** — the same featurization, then the estimator trains
     from per-epoch windows of the featurized table; with a
@@ -32,10 +32,14 @@ composes fitted transformers and a terminal estimator:
     → standardize → predict chain on the fitted device, which is how
     :class:`repro_torch.serve.ModelPredictor` serves raw text.
 
-Where the reference takes ``mesh=`` the port takes ``num_shards=`` (the
-emulated partitions of the numeric commit) and ``device=`` (the CUDA card
-unless ``device="cpu"``).  Supervised pipelines follow the library
-convention: the label sits in column 0 of the raw table, passes through
+The numeric commit goes to ``mesh=`` (a
+:class:`repro_torch.core.hostmesh.HostMesh`: every host runs the same
+program on the same raw table, fits the host tier identically, and commits
+only its own rows), or else to ``num_shards=`` emulated partitions on
+``device=`` (the CUDA card unless ``device="cpu"``); the mesh's device wins
+over ``device=``.  On a mesh only host 0 writes a saved artifact, as only
+host 0 writes a mesh run's snapshots.  Supervised pipelines follow the
+library convention: the label sits in column 0 of the raw table, passes through
 every featurizer unscathed, and is stripped before the fitted model's
 ``predict``.
 """
@@ -138,13 +142,14 @@ class FittedPipeline(FittedEstimator):
     # ------------------------------------------------------------------ #
     # replay
     # ------------------------------------------------------------------ #
-    def transform(self, table: Any, *, num_shards: Optional[int] = None,
-                  device: DeviceLike = None):
+    def transform(self, table: Any, *, mesh: Any = "inherit",
+                  num_shards: Optional[int] = None, device: DeviceLike = None):
         """Replay every fitted transformer over ``table`` (host stages on
         the MLTable tier, device stages after the numeric commit); the
-        terminal model is not applied.  ``num_shards`` / ``device`` default
-        to the pipeline's."""
-        return self.pipeline._transform_stages(self.stages, table,
+        terminal model is not applied.  ``mesh="inherit"`` commits as the
+        pipeline does (its mesh, or its ``num_shards`` / ``device``);
+        ``mesh=None`` or another mesh overrides it."""
+        return self.pipeline._transform_stages(self.stages, table, mesh=mesh,
                                                num_shards=num_shards,
                                                device=device)
 
@@ -201,11 +206,21 @@ class FittedPipeline(FittedEstimator):
         """Publish the whole fitted pipeline (featurizer statistics + model
         state + configuration) as ONE atomic artifact through
         :mod:`repro_torch.checkpoint.store`; :meth:`Pipeline.load` restores
-        it value- and dtype-exactly."""
-        from repro_torch.checkpoint.store import save_artifact
+        it value- and dtype-exactly.  On a mesh every host holds the same
+        fitted state: host 0 writes it (a shared filesystem), and every
+        host returns once it is published."""
+        from repro_torch.checkpoint.store import artifact_path, save_artifact
+        from repro_torch.core.collectives import barrier
 
-        return save_artifact(ckpt_dir, self.partial,
-                             metadata={"pipeline": self.host_state()})
+        mesh = self.pipeline.mesh
+        if mesh is None:
+            return save_artifact(ckpt_dir, self.partial,
+                                 metadata={"pipeline": self.host_state()})
+        if mesh.host_id == 0:
+            save_artifact(ckpt_dir, self.partial,
+                          metadata={"pipeline": self.host_state()})
+        barrier(mesh)
+        return artifact_path(ckpt_dir)
 
 
 class Pipeline(Estimator, StreamFitable):
@@ -219,18 +234,19 @@ class Pipeline(Estimator, StreamFitable):
         model) — a transformer-only pipeline is a pure featurizer.  Names
         default per class (``ngrams``, ``tfidf``, ``standardizer``,
         ``bias``, ``logreg`` …).
-    num_shards / device:
+    mesh / num_shards / device:
         Layout of the numeric commit: once the first device-tier stage is
-        reached, the (by then fully numeric) table goes to ``device`` (the
-        CUDA card unless ``device="cpu"``), split into ``num_shards``
-        emulated partitions.
+        reached, the (by then fully numeric) table is placed on ``mesh``
+        (each host its own rows, on the mesh's device), or else goes to
+        ``device`` (the CUDA card unless ``device="cpu"``), split into
+        ``num_shards`` emulated partitions.
     supervised:
         Whether column 0 of the raw table is the label (passed through
         every featurizer, stripped before predict).  Defaults to the
         terminal estimator's declaration.
     """
 
-    def __init__(self, stages: Sequence[Any], *,
+    def __init__(self, stages: Sequence[Any], *, mesh: Any = None,
                  num_shards: Optional[int] = None, device: DeviceLike = None,
                  supervised: Optional[bool] = None) -> None:
         if not stages:
@@ -264,8 +280,9 @@ class Pipeline(Estimator, StreamFitable):
                     f"stage {name!r} must be a Transformer (only the final "
                     f"stage may be an estimator)")
         self._stages: List[Tuple[str, Transformer]] = named
+        self.mesh = mesh
         self.num_shards = num_shards
-        self.device = device
+        self.device = mesh.device if mesh is not None else device
         if supervised is None:
             supervised = bool(getattr(self._estimator, "supervised", False))
         self.supervised = bool(supervised)
@@ -334,8 +351,8 @@ class Pipeline(Estimator, StreamFitable):
             for n, s in self._stages]
         if self._estimator is not None:
             stages.append((self._estimator_name, self._estimator))
-        return Pipeline(stages, num_shards=self.num_shards, device=self.device,
-                        supervised=self.supervised)
+        return Pipeline(stages, mesh=self.mesh, num_shards=self.num_shards,
+                        device=self.device, supervised=self.supervised)
 
     # ------------------------------------------------------------------ #
     # tier plumbing
@@ -344,10 +361,27 @@ class Pipeline(Estimator, StreamFitable):
         return (0,) if self.supervised else ()
 
     @staticmethod
-    def _commit(table: Any, num_shards: Optional[int], device: DeviceLike):
+    def _commit(table: Any, layout: tuple):
+        """The numeric commit of an MLTable under ``layout`` = (mesh,
+        num_shards, device); a numeric table is returned as it is."""
+        mesh, num_shards, device = layout
         if isinstance(table, MLTable):
-            return table.to_numeric(num_shards=num_shards, device=device)
+            return table.to_numeric(num_shards=num_shards, device=device,
+                                    mesh=mesh)
         return table
+
+    def _layout(self, mesh: Any = "inherit", num_shards: Optional[int] = None,
+                device: DeviceLike = None) -> tuple:
+        """(mesh, num_shards, device) of a commit: the pipeline's with
+        ``mesh="inherit"`` (``num_shards`` / ``device`` still override),
+        else the given mesh (None: emulated partitions)."""
+        if isinstance(mesh, str) and mesh == "inherit":
+            mesh = self.mesh
+            if num_shards is None:
+                num_shards = self.num_shards
+        if device is None:
+            device = self.device
+        return mesh, num_shards, device
 
     def _fit_stages(self, table: Any):
         """Fit every transformer stage in order (host tier first, device
@@ -356,6 +390,7 @@ class Pipeline(Estimator, StreamFitable):
         fitted: List[Tuple[str, FittedTransformer]] = []
         current = table
         skip = self._default_skip()
+        layout = self._layout()
         for name, stage in self._stages:
             if stage.tier == "host":
                 if not isinstance(current, MLTable):
@@ -364,21 +399,21 @@ class Pipeline(Estimator, StreamFitable):
                         f"the table was already committed to the device "
                         f"tier — put text stages before numeric ones")
             else:
-                current = self._commit(current, self.num_shards, self.device)
+                current = self._commit(current, layout)
             f = stage.fit(current, default_skip=skip)
             current = f.transform(current)
             fitted.append((name, f))
-        current = self._commit(current, self.num_shards, self.device)
+        current = self._commit(current, layout)
         return fitted, current
 
     def _transform_stages(self, fitted: Sequence[Tuple[str, Any]],
-                          table: Any, *, num_shards: Optional[int] = None,
+                          table: Any, *, mesh: Any = "inherit",
+                          num_shards: Optional[int] = None,
                           device: DeviceLike = None):
         """Replay fitted stages over a table (validation views, serving
         tables), with an optional layout override for views whose row
         counts do not divide the training partitions."""
-        num_shards = num_shards if num_shards is not None else self.num_shards
-        device = device if device is not None else self.device
+        layout = self._layout(mesh, num_shards, device)
         current = table
         for name, f in fitted:
             if f.tier == "host":
@@ -386,9 +421,9 @@ class Pipeline(Estimator, StreamFitable):
                     raise TypeError(
                         f"host-tier stage {name!r} needs an MLTable input")
             else:
-                current = self._commit(current, num_shards, device)
+                current = self._commit(current, layout)
             current = f.transform(current)
-        return self._commit(current, num_shards, device)
+        return self._commit(current, layout)
 
     # ------------------------------------------------------------------ #
     # fit
@@ -447,8 +482,12 @@ class Pipeline(Estimator, StreamFitable):
                     "stages": [[n, f.host_state()] for n, f in fitted],
                     "num_cols": int(num_cols)}}
 
-        X = final.data
-        stream = BatchIterator(lambda step: {"data": X}, device=final.device)
+        # the window is the whole featurized table (every host's rows,
+        # gathered once on a mesh: a host's stream carves out its own, and a
+        # k-means init reads the window's first rows on every host)
+        X = final.to_local_matrix().data
+        stream = BatchIterator(lambda step: {"data": X}, device=final.device,
+                               mesh=final.mesh)
         model = est.fit_stream(stream, num_epochs=num_epochs,
                                num_shards=final.num_shards,
                                chunks_per_epoch=chunks_per_epoch,

@@ -1,8 +1,8 @@
 """Microbatching prediction service for the paper's Model contract.
 
 Counterpart: ``src/repro/serve/predictor.py`` (``PredictRequest`` and
-``ModelPredictor``: numeric and raw-text requests, the featurize memo; the
-shard-aware predict waits for mesh mode).
+``ModelPredictor``: numeric and raw-text requests, the featurize memo, the
+shard-aware predict).
 
     submit (n_i, d) feature blocks — or raw rows  →  featurize raw rows
     through a bounded memo  →  pack into fixed-size microbatches  →  one
@@ -18,16 +18,28 @@ and MF models sum in an order fixed by the width, so a served row is
 bitwise its offline prediction.  A raw-text request served to a
 :class:`repro_torch.pipeline.FittedPipeline` runs its vocab lookup on the
 host (``featurize_rows``), then the pipeline's device chain and model.
+
+**Shard-aware predict** (``num_shards=`` > 1 or ``mesh=``): each
+microbatch runs once through one
+:class:`repro_torch.core.runner.DistributedRunner` built at the first call,
+as ``partition_apply(X, predict, (), "concat")``: the model predicts each
+partition's rows and the results are concatenated in row order under
+``schedule``.  On a host mesh every host submits the same requests and
+holds the same microbatch; a host predicts its own rows (its ``L``
+partitions of the microbatch, :func:`repro_torch.core.hostmesh.
+local_row_slice`) and the concat gathers every host's, so every host
+returns every result.  ``max_batch`` must divide over the partitions.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict, deque
-from typing import Any, Callable, Deque, List, Optional
+from typing import Any, Callable, Deque, List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import CollectiveSchedule
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 
 __all__ = ["PredictRequest", "ModelPredictor"]
@@ -83,18 +95,32 @@ class ModelPredictor:
     row's features are a pure function of its content).  ``featurize``
     defaults to the model's ``featurize_rows``; ``featurize_cache=0``
     disables the memo.
+
+    ``num_shards`` / ``mesh`` / ``schedule`` make the predict shard-aware
+    (module docstring); the mesh's device wins over ``device=``.
     """
 
     def __init__(self, model: Any, *, max_batch: int = 256,
+                 num_shards: int = 1, mesh: Any = None,
+                 schedule: Union[str, CollectiveSchedule]
+                 = CollectiveSchedule.GATHER_BROADCAST,
                  predict_fn: Optional[Callable] = None,
                  featurize: Optional[Callable] = None,
                  featurize_cache: int = 512,
                  device: DeviceLike = None):
         if max_batch < 1:
             raise ValueError("max_batch must be positive")
+        parts = mesh.num_partitions if mesh is not None else int(num_shards)
+        if parts > 1 and max_batch % parts:
+            raise ValueError(f"max_batch {max_batch} must divide over "
+                             f"{parts} shards")
         self.model = model
         self.max_batch = int(max_batch)
-        self.device = resolve_device(device)
+        self.num_shards = int(num_shards)
+        self.mesh = mesh
+        self.schedule = schedule
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self._runner = None
         self._predict = predict_fn if predict_fn is not None else model.predict
         # raw (string) requests run this host-tier map before packing
         self._featurize = (featurize if featurize is not None
@@ -221,9 +247,26 @@ class ModelPredictor:
         return [r.result for r in reqs]
 
     def _predict_batch(self, chunk: np.ndarray) -> np.ndarray:
-        """One microbatch: host rows to the device, predict, result back
-        to the host (which waits for the device)."""
-        out = self._predict(to_tensor(chunk, self.device))
+        """One microbatch: host rows (this host's, on a mesh) to the
+        device, predict (shard-aware with shards or a mesh), result back to
+        the host (which waits for the device)."""
+        if self.mesh is None and self.num_shards <= 1:
+            out = self._predict(to_tensor(chunk, self.device))
+        else:
+            from repro_torch.eval.metrics import partition_predict
+
+            if self._runner is None:
+                from repro_torch.core.runner import DistributedRunner
+
+                self._runner = DistributedRunner(num_shards=self.num_shards,
+                                                 schedule=self.schedule,
+                                                 mesh=self.mesh)
+            if self.mesh is not None:
+                from repro_torch.core.hostmesh import local_row_slice
+
+                chunk = chunk[local_row_slice(chunk.shape[0], self.mesh)]
+            out = partition_predict(self._runner, to_tensor(chunk, self.device),
+                                    self._predict)
         return out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
 
     def report(self) -> dict:
@@ -234,6 +277,7 @@ class ModelPredictor:
             "rows_padded": self.rows_padded,
             "pad_fraction": self.rows_padded / (served + self.rows_padded),
             "max_batch": self.max_batch,
+            "shards": self.num_shards if self.mesh is None else "mesh",
             "featurize_hits": self.featurize_hits,
             "featurize_misses": self.featurize_misses,
             "featurize_cache": self._feat_cap,

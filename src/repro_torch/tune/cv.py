@@ -13,9 +13,23 @@ permutation into k near-equal folds.  A split materializes as
   * a **table view**: :func:`fold_view` gathers an
     :class:`repro_torch.core.numeric_table.MLNumericTable`'s rows with one
     ``index_select`` on the table's device (no host round trip), keeping
-    the partition count when the view's rows still divide it, or
+    the partition count (and the mesh) when the view's rows still divide
+    it, or
   * a **stream view**: :meth:`repro_torch.data.pipeline.BatchIterator.
     restrict` applies the same gather to every window the source yields.
+
+A view of a mesh table lays its rows out as any mesh table: view row ``i``
+(table row ``indices[i]``) belongs to host ``i // (m/H)``, the
+process-major blocks of :func:`repro_torch.core.hostmesh.local_row_slice`.
+A host takes the rows it owns in the table from its own data and the rest
+from their owners in one ``all_to_all`` a view (under gloo a CUDA tensor
+crosses through pinned host buffers, ``HostMesh.staged``; where no row
+changes host, as at a world of one, nothing crosses).  Where the view's
+rows do not divide the partitions, the view is one partition held whole by
+every host, which then computes on it redundantly (ROADMAP.md, Queue 3).
+``fold_view.rows_moved`` and ``fold_view.bytes_moved`` count the rows and
+bytes views moved between hosts (every host's receipts, the same count on
+every host), as the kernels count their launches.
 
 :func:`holdout_split` keeps the reference's refusal when
 ``ceil(val_fraction * num_rows) == num_rows`` (no train rows left), which
@@ -116,16 +130,71 @@ def take_rows(table: Any, indices: np.ndarray) -> Any:
     return fold_view(table, indices)
 
 
-def fold_view(table: Any, indices: np.ndarray) -> Any:
+def fold_view(table: Any, indices: np.ndarray, *, whole: bool = False) -> Any:
     """An MLNumericTable of ``table``'s rows at ``indices`` (in the order
     given), gathered by ``index_select`` on the table's device.  The view
-    keeps the table's partition count when its rows divide it, else it is
-    one partition (the reference's emulated fallback)."""
+    keeps the table's partition count (and its mesh) when its rows divide
+    it, else it is one partition (the reference's fallback); on a mesh that
+    partition is held whole by every host.  ``whole=True`` asks for the
+    one-partition view in any case (a search's layout when a train view
+    cannot fill its partitions)."""
     from repro_torch.core.numeric_table import MLNumericTable
 
-    idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
-                          device=table.data.device)
-    rows = table.data.index_select(0, idx)
-    num_shards = table.num_shards if rows.shape[0] % table.num_shards == 0 else 1
-    return MLNumericTable(rows, num_shards=num_shards,
-                          names=getattr(table, "names", None))
+    idx = np.asarray(indices, dtype=np.int64)
+    names = getattr(table, "names", None)
+    keep = not whole and idx.shape[0] % table.num_shards == 0
+    mesh = getattr(table, "mesh", None)
+    if mesh is None:
+        rows = table.data.index_select(0, torch.as_tensor(idx, device=table.data.device))
+        return MLNumericTable(rows, num_shards=table.num_shards if keep else 1,
+                              names=names)
+    hosts = mesh.num_hosts
+    if keep:
+        per = idx.shape[0] // hosts
+        need = [np.arange(h * per, (h + 1) * per) for h in range(hosts)]
+        return MLNumericTable(_exchange_rows(table, idx, need), names=names, mesh=mesh)
+    need = [np.arange(idx.shape[0])] * hosts
+    return MLNumericTable(_exchange_rows(table, idx, need), names=names)
+
+
+def _exchange_rows(table: Any, idx: np.ndarray, need: list) -> torch.Tensor:
+    """This host's rows of a view of a mesh table: ``need[h]`` are the view
+    positions host ``h`` holds (view position ``i`` is table row
+    ``idx[i]``, owned by host ``idx[i] // (n/H)``).  Owned rows come from
+    this host's data, the rest from their owners in one ``all_to_all``;
+    the plan is a function of ``idx`` and the layout, so every host makes
+    the same one."""
+    from repro_torch.core.collectives import all_to_all_rows
+
+    mesh, data = table.mesh, table.data
+    me, local = mesh.host_id, data.shape[0]
+    owner = [idx[n] // local for n in need]
+    mine = need[me]
+    out = data.new_empty((mine.shape[0],) + tuple(data.shape[1:]))
+    own = owner[me] == me
+
+    def rows_of(positions: np.ndarray) -> torch.Tensor:
+        return data.index_select(0, torch.as_tensor(idx[positions] - me * local,
+                                                    device=data.device))
+
+    out[torch.as_tensor(np.flatnonzero(own), device=data.device)] = rows_of(mine[own])
+    moved = sum(int(np.sum(o != h)) for h, o in enumerate(owner))
+    if moved:
+        send = [rows_of(n[o == me]) if h != me else data[:0]
+                for h, (n, o) in enumerate(zip(need, owner))]
+        recv_counts = [int(np.sum(owner[me] == h)) if h != me else 0
+                       for h in range(mesh.num_hosts)]
+        got = all_to_all_rows(mesh, send, recv_counts)
+        ofs = 0
+        for h, count in enumerate(recv_counts):
+            if count:
+                at = np.flatnonzero(owner[me] == h)
+                out[torch.as_tensor(at, device=data.device)] = got[ofs:ofs + count]
+                ofs += count
+        fold_view.rows_moved += moved
+        fold_view.bytes_moved += moved * data[0].numel() * data.element_size()
+    return out
+
+
+fold_view.rows_moved = 0
+fold_view.bytes_moved = 0

@@ -18,6 +18,12 @@ numpy code of the reference: the same draws for the same seed).
     trimmed as the reference trims it.  The reference copies the whole
     table to the host and sends each window back through a
     ``BatchIterator``; the port skips the host round trip (same values);
+  * **layout** — a mesh table (or a ``Pipeline(mesh=)``) keeps its mesh
+    whenever every train view fills a partitions × chunks unit: each host
+    holds its rows of every fold view (:func:`repro_torch.tune.cv.
+    fold_view`) and the trials' rounds combine across hosts; else every
+    view is one partition held whole by every host, as the reference falls
+    back to one partition.  Host 0 alone writes the search's snapshots;
   * **execution** — ``"stacked"`` advances every same-shape group of
     trials together (:meth:`repro_torch.core.runner.DistributedRunner.
     run_stacked_epochs`), ``"sequential"`` one trial per unit, ``"auto"``
@@ -443,19 +449,31 @@ def _splits(n: int, folds: Optional[int], val_fraction: float,
     return [holdout_split(n, val_fraction, seed)]
 
 
-def _trim(splits, shards: int, chunks: int) -> Tuple[int, List[np.ndarray]]:
-    """The partition count and each fold's train indices trimmed (from the
-    tail of the sorted index) to a multiple of partitions × chunks; one
-    partition when a train view cannot fill that unit."""
+def _trim(splits, mesh: Any, shards: int, chunks: int
+          ) -> Tuple[Any, int, List[np.ndarray]]:
+    """The layout (mesh, partition count) and each fold's train indices
+    trimmed (from the tail of the sorted index) to a multiple of partitions
+    × chunks; one partition, and no mesh, when a train view cannot fill
+    that unit (the reference's layout rule)."""
     unit = shards * chunks
     if any(len(tr) < unit for tr, _ in splits):
-        shards, unit = 1, chunks
+        mesh, shards, unit = None, 1, chunks
     train_idx = [tr[: len(tr) - len(tr) % unit] for tr, _ in splits]
     if any(len(tr) == 0 for tr in train_idx):
         raise ValueError(
             f"a train split is smaller than chunks_per_epoch="
             f"{chunks} — nothing left to train on")
-    return shards, train_idx
+    return mesh, shards, train_idx
+
+
+def _checkpointer(ckpt_dir: Optional[str], fp: str, mesh: Any
+                  ) -> Optional[SearchCheckpointer]:
+    """The search's checkpointer; on a mesh every host holds the same
+    trials and host 0 alone writes them, as the runner's snapshots."""
+    if not ckpt_dir:
+        return None
+    return SearchCheckpointer(ckpt_dir, fp,
+                              write=mesh is None or mesh.host_id == 0)
 
 
 @dataclasses.dataclass
@@ -547,13 +565,18 @@ class ModelSearch:
         """Fold splits and execution layout.  Each fold's train rows are
         gathered on the table's device once (trimmed to a multiple of
         partitions × chunks, as the reference trims them); that view's
-        tensor is every epoch's window, shared by every unit.  Validation
+        tensor is every epoch's window, shared by every unit.  A mesh
+        table's layout is kept when every train view fills a unit, else
+        the views are one partition held whole by every host.  Validation
         views are never trimmed."""
         schedule = CollectiveSchedule.parse(self.schedule)
         splits = _splits(table.num_rows, self.folds, self.val_fraction, self.seed)
-        shards, train_idx = _trim(splits, table.num_shards, self.chunks_per_epoch)
-        runner = DistributedRunner(num_shards=shards, schedule=schedule)
-        init_tables = [fold_view(table, tr) for tr in train_idx]
+        table_mesh = getattr(table, "mesh", None)
+        mesh, shards, train_idx = _trim(splits, table_mesh, table.num_shards,
+                                        self.chunks_per_epoch)
+        runner = DistributedRunner(num_shards=shards, schedule=schedule, mesh=mesh)
+        whole = table_mesh is not None and mesh is None
+        init_tables = [fold_view(table, tr, whole=whole) for tr in train_idx]
         train_windows = [t.data for t in init_tables]
         val_tables = [fold_view(table, va) for _, va in splits]
         return runner, schedule, train_windows, init_tables, val_tables
@@ -600,8 +623,8 @@ class ModelSearch:
             return self._run_asha(table, specs, runner, schedule,
                                   train_windows, init_tables, val_tables,
                                   resume)
-        ckpt = (SearchCheckpointer(self.ckpt_dir, self._fingerprint(table))
-                if self.ckpt_dir else None)
+        ckpt = _checkpointer(self.ckpt_dir, self._fingerprint(table),
+                             getattr(table, "mesh", None))
         done_states, done_info = self._run_units(
             ckpt, resume, specs, runner, schedule,
             lambda i: specs[i].init(init_tables[0]),
@@ -677,9 +700,11 @@ class ModelSearch:
             specs.append(dataclasses.replace(spec, stack_key=(fk,) + prev))
 
         splits = _splits(table.num_rows, self.folds, self.val_fraction, self.seed)
-        shards, train_idx = _trim(splits, pipeline.num_shards or 1,
-                                  self.chunks_per_epoch)
-        runner = DistributedRunner(num_shards=shards, schedule=schedule)
+        mesh = pipeline.mesh
+        mesh, shards, train_idx = _trim(
+            splits, mesh, mesh.num_partitions if mesh is not None
+            else (pipeline.num_shards or 1), self.chunks_per_epoch)
+        runner = DistributedRunner(num_shards=shards, schedule=schedule, mesh=mesh)
         val_idx = [va for _, va in splits]
 
         # raw fold views are shared by every featurizer config
@@ -705,7 +730,7 @@ class ModelSearch:
             fk = feat_keys[trial]
             if fk not in feat_cache:
                 fp = pipeline.with_stage_config(split_cfgs[trial][0])
-                fp.num_shards = shards
+                fp.mesh, fp.num_shards = mesh, shards
                 windows, inits, vals, fitted0 = [], [], [], None
                 for f, (tr, va) in enumerate(zip(train_idx, val_idx)):
                     fitted, ftab = fp._fit_stages(raw_view(2 * f, tr))
@@ -714,7 +739,8 @@ class ModelSearch:
                     windows.append(ftab.data)
                     inits.append(ftab)
                     vals.append(fp._transform_stages(
-                        fitted, raw_view(2 * f + 1, va), num_shards=1))
+                        fitted, raw_view(2 * f + 1, va), mesh=None,
+                        num_shards=1))
                 feat_cache[fk] = (windows, inits, vals, (fp, fitted0))
             return feat_cache[fk]
 
@@ -723,9 +749,8 @@ class ModelSearch:
             return FittedPipeline(fp, fitted, model, inits[0].num_cols,
                                   inits[0].device)
 
-        ckpt = (SearchCheckpointer(self.ckpt_dir,
-                                   self._fingerprint(table, pipeline))
-                if self.ckpt_dir else None)
+        ckpt = _checkpointer(self.ckpt_dir, self._fingerprint(table, pipeline),
+                             pipeline.mesh)
         done_states, done_info = self._run_units(
             ckpt, resume, specs, runner, schedule,
             lambda i: specs[i].init(featurized(i)[1][0]),
@@ -848,8 +873,8 @@ class ModelSearch:
         _, after_cbs = split_callbacks(self.callbacks)
         spec0 = specs[0]
 
-        ckpt = (SearchCheckpointer(self.ckpt_dir, self._fingerprint(table))
-                if self.ckpt_dir else None)
+        ckpt = _checkpointer(self.ckpt_dir, self._fingerprint(table),
+                             getattr(table, "mesh", None))
         done_states: Dict[int, Any] = {}
         done_info: Dict[int, Dict[str, Any]] = {}
         units_done = 0

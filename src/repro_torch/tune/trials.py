@@ -137,11 +137,15 @@ class SearchCheckpointer:
     final state of every completed trial (keyed by trial index) plus a
     JSON record of scores, rung histories and the search fingerprint.
     ``resume`` restores the newest snapshot, refuses a mismatched
-    fingerprint, and hands back the completed set."""
+    fingerprint, and hands back the completed set.  ``write=False`` (a
+    mesh host other than host 0, which holds the same trials) restores but
+    writes nothing."""
 
-    def __init__(self, ckpt_dir: str, search_fingerprint: str) -> None:
+    def __init__(self, ckpt_dir: str, search_fingerprint: str, *,
+                 write: bool = True) -> None:
         self.ckpt_dir = ckpt_dir
         self.fingerprint = search_fingerprint
+        self.write = bool(write)
 
     def save(self, states: Dict[int, Any], info: Dict[int, Dict[str, Any]],
              units_done: int, *,
@@ -153,6 +157,8 @@ class SearchCheckpointer:
         dict stored in the metadata (the slot scheduler's state)."""
         from repro_torch.checkpoint.store import save_checkpoint
 
+        if not self.write:
+            return
         tree: Dict[str, Any] = {
             "states": {str(i): states[i] for i in sorted(states)}}
         meta: Dict[str, Any] = {

@@ -1969,6 +1969,126 @@ def test_nccl_at_a_world_of_one_is_bitwise_the_emulated_run(tmp_path):
         hostmesh.shutdown()
 
 
+_CARD_API_HOST = r"""
+import json
+import numpy as np
+import torch
+from repro_torch.core import hostmesh
+from repro_torch.core.algorithms.kmeans import KMeans
+from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+from repro_torch.core.numeric_table import MLNumericTable
+from repro_torch.serve.predictor import ModelPredictor
+from repro_torch.tune import KFold, cv
+
+torch.backends.cuda.matmul.allow_tf32 = False
+info = hostmesh.initialize_from_env("cuda", timeout=120)
+mesh = hostmesh.make_mesh(4, "cuda")
+rng = np.random.default_rng(0)
+data = rng.normal(size=(512, 33)).astype(np.float32)
+t = MLNumericTable.from_numpy(data, mesh=mesh)
+out = {"staged": mesh.staged(t.data), "backend": mesh.backend}
+views = {"train": KFold(512, 2, seed=0).train_indices(0), "odd": np.arange(1, 512, 7),
+         "reversed": np.arange(511, 0, -2)}
+for name, idx in views.items():
+    v = cv.fold_view(t, idx)
+    out["view/" + name] = [v.data.device.type, v.num_shards, v.mesh is not None,
+                           v.to_numpy().tobytes().hex()]
+out["moved"] = [cv.fold_view.rows_moved, cv.fold_view.bytes_moved]
+pool = rng.normal(size=(256, 257)).astype(np.float32)
+labeled = np.concatenate([(pool[:, :1] > 0).astype(np.float32), pool], 1)
+models = {"kmeans": KMeans(k=7, seed=0, max_iter=3, use_kernel=True).fit(
+              MLNumericTable.from_numpy(pool, num_shards=4, device="cuda")),
+          "logreg": LogisticRegression(learning_rate=0.3, local_batch_size=16, max_iter=2,
+                                       use_kernel=True).fit(
+              MLNumericTable.from_numpy(labeled, num_shards=4, device="cuda"))}
+blocks = [pool[i:i + n] for i, n in ((0, 3), (3, 64), (67, 100), (167, 1))]
+for name, model in models.items():
+    svc = ModelPredictor(model, mesh=mesh, max_batch=64)
+    served = np.concatenate(svc.predict_many(blocks))
+    alone = np.concatenate(ModelPredictor(model, max_batch=64, device="cuda").predict_many(blocks))
+    out["serve/" + name] = [served.tobytes().hex(), alone.tobytes().hex(), svc.report()["shards"]]
+print("RESULT::" + json.dumps(out))
+hostmesh.shutdown()
+"""
+
+
+def _card_hosts(program: str, tmp_path) -> list:
+    """Each host's RESULT of ``program`` on two host processes sharing the
+    card (gloo)."""
+    import json
+    import os
+    import sys
+
+    from repro_torch.launch.elastic import ElasticController
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    ctl = ElasticController([sys.executable, "-c", program], 2, env={"PYTHONPATH": src},
+                            max_restarts=0, timeout=300, rendezvous_dir=str(tmp_path))
+    exits = sorted(ctl.run().final.exits, key=lambda e: e.host_id)
+    res = []
+    for e in exits:
+        assert e.returncode == 0, e.stderr[-3000:]
+        res.append(json.loads([ln for ln in e.stdout.splitlines()
+                               if ln.startswith("RESULT::")][-1][8:]))
+    return res
+
+
+@pytest.fixture(scope="module")
+def card_api_hosts(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return _card_hosts(_CARD_API_HOST, tmp_path_factory.mktemp("card_api"))
+
+
+@pytest.mark.cuda
+def test_fold_view_of_a_cuda_mesh_table_through_gloo_staging(card_api_hosts):
+    """Two hosts share the card (gloo): a CUDA mesh table's fold views cross
+    hosts through pinned host buffers and hold the view's rows bitwise, on
+    the card; a view whose rows do not divide 8 partitions is one partition
+    held whole; rows moved are counted."""
+    _need_card()
+    h0, h1 = card_api_hosts
+    assert h0["staged"] and h0["backend"] == "gloo"
+    from repro_torch.tune import KFold
+
+    data = np.random.default_rng(0).normal(size=(512, 33)).astype(np.float32)
+    views = {"train": KFold(512, 2, seed=0).train_indices(0),
+             "odd": np.arange(1, 512, 7), "reversed": np.arange(511, 0, -2)}
+    for name, idx in views.items():
+        for h in (h0, h1):
+            device, shards, meshed, rows = h["view/" + name]
+            assert device == "cuda" and rows == data[idx].tobytes().hex(), name
+            assert (shards, meshed) == ((8, True) if len(idx) % 8 == 0 else (1, False))
+    assert h0["moved"] == h1["moved"] and h0["moved"][0] > 0
+    assert h0["moved"][1] == h0["moved"][0] * 33 * 4
+
+
+@pytest.mark.cuda
+def test_mesh_predictor_on_the_card_is_bitwise_its_one_process_service(card_api_hosts):
+    """ModelPredictor(mesh=) on two hosts sharing the card: every served row
+    of a k-means and a logistic model (through kernels 3 and 1) bitwise the
+    one-process service in each host and here."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h0, h1 = card_api_hosts
+    rng = np.random.default_rng(0)
+    rng.normal(size=(512, 33))
+    pool = rng.normal(size=(256, 257)).astype(np.float32)
+    labeled = np.concatenate([(pool[:, :1] > 0).astype(np.float32), pool], 1)
+    models = {"kmeans": KMeans(k=7, seed=0, max_iter=3, use_kernel=True).fit(
+                  MLNumericTable.from_numpy(pool, num_shards=4, device="cuda")),
+              "logreg": LogisticRegression(learning_rate=0.3, local_batch_size=16,
+                                           max_iter=2, use_kernel=True).fit(
+                  MLNumericTable.from_numpy(labeled, num_shards=4, device="cuda"))}
+    blocks = [pool[i:i + n] for i, n in ((0, 3), (3, 64), (67, 100), (167, 1))]
+    for name, model in models.items():
+        here = np.concatenate(ModelPredictor(model, max_batch=64, device="cuda")
+                              .predict_many(blocks)).tobytes().hex()
+        for h in (h0, h1):
+            served, alone, shards = h["serve/" + name]
+            assert served == alone == here and shards == "mesh", name
+
+
 @pytest.mark.cuda
 def test_kernel_partials_do_not_depend_on_the_partition_count():
     """A partition's margin, gradient (the two kernels and the one-pass

@@ -20,9 +20,10 @@ rows across hosts; ``run_epochs`` + ``resume`` on the same mesh is bitwise
 the straight run; a mesh snapshot of 8 partitions resumes on 4 with
 ``allow_resize`` bitwise an emulated 8-partition snapshot's resume and
 within 1e-5 of the reference's emulated resize, and without it raises as
-the reference does; the backend rule; a host that
-cannot join raises within its timeout; ``launch/fit.py --hosts 2`` is
-bitwise the one-process run.
+the reference does; a mesh table's ``sum_rows`` is bitwise the emulated
+sum; stacked trials on a mesh are bitwise their sequential runs and the
+emulated stack; the backend rule; a host that cannot join raises within its
+timeout; ``launch/fit.py --hosts 2`` is bitwise the one-process run.
 """
 import hashlib
 import json
@@ -61,6 +62,7 @@ import torch
 
 from repro_torch.core.algorithms.kmeans import KMeans
 from repro_torch.core.algorithms.logistic_regression import LogisticRegression
+from repro_torch.core.fixed_sum import fixed_sum
 from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.core.runner import CheckpointPolicy, DistributedRunner
 from repro_torch.data import BatchIterator
@@ -129,6 +131,15 @@ def run_all(mesh, ckpt_root):
     LogisticRegression(**lr).fit_stream(
         stream(clf_source, mesh), num_epochs=2, chunks_per_epoch=CHUNKS,
         num_shards=P, checkpoint=CheckpointPolicy(os.path.join(ckpt_root, "resize")))
+    out["sum_rows"] = table(mesh).sum_rows()
+    # two stacked trials (a step size each) and each lane run alone
+    trial = lambda b, w, r, h: w - h["lr"] * fixed_sum(b[..., 1:], dim=1)  # noqa: E731
+    lrs = torch.tensor([0.01, 0.03])
+    out["stacked"] = runner.run_stacked_rounds(table(mesh), torch.zeros(2, D),
+                                               {"lr": lrs}, trial, 3)
+    out["stacked_seq"] = torch.cat([runner.run_stacked_rounds(
+        table(mesh), torch.zeros(1, D), {"lr": lrs[j:j + 1]}, trial, 3)
+        for j in range(2)])
     return {k: v.numpy().tolist() for k, v in out.items()}
 '''
 
@@ -333,7 +344,7 @@ def _mesh(host, hosts=2, local=4):
                     backend="gloo", host_id=host, num_hosts=hosts)
 
 
-def test_local_rows_are_process_major_blocks():
+def test_local_rows_are_process_major_blocks(runs):
     data = np.arange(64 * 3, dtype=np.float32).reshape(64, 3)
     for h in range(2):
         m = _mesh(h)
@@ -345,8 +356,11 @@ def test_local_rows_are_process_major_blocks():
                            t.data)
         with pytest.raises(ValueError, match="holds 16 rows"):
             hostmesh.place_global_rows(data[:16], 64, m)
-        with pytest.raises(NotImplementedError):
-            t.sum_rows()
+    # a mesh table's sum_rows (gloo hosts) is bitwise the emulated table's
+    want = _arr(runs["emulated"][0][0]["sum_rows"])
+    for layout in LAYOUTS:
+        for r in runs[layout][0]:
+            assert _arr(r["sum_rows"]).tobytes() == want.tobytes(), layout
     with pytest.raises(ValueError, match="global row partitions"):
         hostmesh.local_row_slice(60, _mesh(0))
     assert tpt.infer_data_axes(_mesh(0)) == ("data",)
@@ -355,11 +369,17 @@ def test_local_rows_are_process_major_blocks():
     np.testing.assert_array_equal(hostmesh.fetch(torch.ones(2)), np.ones(2))
 
 
-def test_runner_on_a_mesh_takes_its_partitions_and_refuses_stacked_trials():
+def test_runner_on_a_mesh_takes_its_partitions_and_refuses_stacked_trials(runs):
     r = DistributedRunner(num_shards=3, mesh=_mesh(1))
     assert r.num_shards == 8 and r.local_shards == 4 and r.num_hosts == 2
-    with pytest.raises(NotImplementedError, match="emulated partitions only"):
-        r.run_stacked_rounds(None, {"w": torch.zeros(2, 3)}, {}, None, 1)
+    # stacked trials run on a mesh: bitwise each lane alone and the
+    # emulated stack
+    want = _arr(runs["emulated"][0][0]["stacked"])
+    assert want.tobytes() == _arr(runs["emulated"][0][0]["stacked_seq"]).tobytes()
+    for layout in LAYOUTS:
+        got = runs[layout][0][0]
+        assert _arr(got["stacked"]).tobytes() == want.tobytes(), layout
+        assert _arr(got["stacked_seq"]).tobytes() == want.tobytes(), layout
 
 
 def test_backend_rule():
