@@ -7,9 +7,9 @@ Phases (each one that fails makes the script exit non-zero):
 
   1. device   — the card's name and power limit, torch and CUDA versions;
                 TF32 is switched off, so fp32 means IEEE fp32 throughout.
-  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (nine
-                sources and their shared header) with nvcc (one process per
-                source, in parallel), into ``build/``.
+  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (eleven
+                libraries from ten sources and their shared header) with
+                nvcc (one process per library, in parallel), into ``build/``.
   3. kernels  — each kernel of the first path against its plain PyTorch
                 version on the card, in fp32 and bf16, with ragged n, d and k,
                 k = 65 and 257, planted ties, and a small fit on the card
@@ -428,7 +428,8 @@ Phases (each one that fails makes the script exit non-zero):
                 int8 a period at a time as they are drawn (the 32B model's
                 bf16 tree, ≈ 69 GB, never exists), 8 slots, max_seq 2,048:
                 16, 16 and 8 requests (prompts of 128..1,024 tokens, the
-                hybrid's up to 1,960) of 32 new tokens each (cut from 64, 64 and 32) through
+                hybrid's up to 1,960) of 16 new tokens each (cut from 64, 64
+                and 32 in two steps, the last for phases 27-28) through
                 ServeEngine.run (the dense two in ragged waves, the hybrid
                 per request), decode steps as CUDA graph replays.  Checked
                 for each: every launch count of the path from its layers
@@ -440,33 +441,90 @@ Phases (each one that fails makes the script exit non-zero):
                 _run_one's; printed: weight generation's seconds and peak,
                 tokens/s, prefill s, decode ms a step, the served run's and
                 the oracle's peak memory, a profile of the replayed step.
-                Each model is freed before the next.  26b: its kernels held
-                and timed at its shapes: kernel 6's decode at its three
-                groups (16, 4, 1; every head bitwise alone) and each model's
-                widest prefill, rglru_scan at the longest prompt (bitwise
-                its plain version, a row bitwise alone in a batch of 3; no
-                spill), lm_head at V = 49,155, 152,064 and 256,000,
-                quant_linear at every decode group and each model's widest
-                prefill product and quantize_rows rows (bitwise), rmsnorm,
-                and fixed_linear at the hybrid's three decode launches (the
-                folded norm bitwise the unfused row), each beside its plain
-                version, the library call where there is one and the bound;
-                the zoo's launches join the kernels line.
+                Each model is freed before the next.  26b, after phases 27
+                and 28: every kernel held against its plain version at every
+                shape that the served runs of phases 26-28 launched (kernel
+                6 at FLASH_TOL; quant_linear, quantize_rows and rglru_scan
+                bitwise; lm_head, rmsnorm, layernorm and fixed_linear at
+                their tolerances), and timed beside its plain version, the
+                library call where there is one and the bound: kernel 6's
+                decode at each served batch and slot count (groups 16, 7, 4,
+                1, Whisper's cross decode with every row at position 1,499
+                of the 1,500-slot cross cache, causal=False: all slots
+                admitted; every head bitwise alone) and each model's widest
+                prefill of each mask, self or cross; rglru_scan at the
+                longest prompt (a row bitwise alone in a batch of 3; no
+                spill); lm_head at every served M of each table;
+                quant_linear at every decode group (M up to 16) and each
+                model's widest prefill product, quantize_rows at each
+                model's widest rows; rmsnorm at the decode rows and the
+                widest prefill rows of each width; fixed_linear at every
+                decode shape (the folded norm bitwise the unfused row) and
+                each model's widest product at its most and fewest prefill
+                rows (Whisper's encoder at 12,000 rows, its decoder's
+                32-row prefill); layernorm at every Whisper shape, every row
+                bitwise alone, beside F.layer_norm (its record joins the
+                kernels line: fifteen records).  The zoo's launches join
+                the kernels line.
+ 27. Whisper-small — after phase 26: the encoder-decoder at its published
+                widths and depths (12 + 12 layers, d_model 768, 12 heads of
+                64, vocab 51,865, LayerNorm, GELU, a learned 448-row position
+                table), weights from the seed, frames (8, 1,500, 768) bf16
+                drawn from the seed (the reference stubs the conv frontend),
+                a prompt of WH_PROMPT = 4 tokens a row, WH_NEW = 64 greedy new
+                tokens (the first from the prefill), through the model's own
+                entry points (the serving engine takes no frames and refuses
+                a cross-attention config, where the reference's engine
+                fails): prefill(encoder_frames=) at batch 8, then eager
+                decode_step calls.  Twice: quantize="int8" (as the zoo runs)
+                and plain bf16 (every projection through fixed_linear) at
+                WH_PLAIN_LAYERS = 4 encoder and decoder layers (cut for the
+                run's time).
+                Checked for each: every launch count of the path (the
+                encoder's and the decoder's layernorm, projection groups and
+                kernel 6 launches, the cross K/V from the cache at a decode
+                step; no rmsnorm), finite logits of (B, 1, V), and each row
+                alone at batch 1 bitwise the batch's: its stream, its prefill
+                and last logits, its cross caches in every layer.  Printed:
+                the encoder's ms (CUDA events), prefill s, decode ms a step,
+                tokens/s, launches by kernel, peak memory.
+ 28. LLaVA-NeXT-34B — after phase 27: the language backbone at its
+                published widths and depth (60 layers, d_model 7,168, 56 q
+                heads over 8 kv heads, d_ff 20,480, vocab 64,000), int8
+                drawn a period at a time.  (a) The engine's text-only path,
+                served as phase 26 serves a model (8 requests of 128..1,024
+                prompt tokens, 16 new tokens each, per-request prefill: a
+                vision config takes no ragged wave; every stream equal to
+                _run_one's, every launch count, a decode step's launches, its
+                profile).  (b) Once (a) is freed, on the same weights drawn
+                again: prefill(vision_embeds=) of LLAVA_ROWS = 2 rows of the
+                published 2,880 patch embeddings (drawn from the seed) before
+                a 64-token prompt, then 16 greedy decode steps (eager): every
+                launch count, and each row alone at batch 1 bitwise the
+                batch's (stream, prefill and last logits).  Printed: prefill s
+                of the 2,944-token rows, decode ms a step, peak memory and
+                what holds it (weights, cache, activations).
 
 Every phase prints its seconds.  On one H100 80GB HBM3 at 700 W the run
-ends within 240 s on the fastest hosts seen (227-239 s); slower hosts have
-taken it to 247-290 s, well inside the 1,200 s a run is allowed.
+ends in about 240-265 s on the fastest hosts seen (227-239 s before phases
+27-28; 242 s with them, which took ≈ 50 s, after the zoo's cut to 16 new
+tokens and Whisper's plain run's to 4 + 4 layers; 262 s once 26b held
+every served shape); slower hosts have taken it to 247-316 s, well inside
+the 1,200 s a run is allowed.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
 then phase 21, then phase 20, then phase 22, then phase 23, then phase 24,
 then phase 8,
-then phase 11, then phase 14, then phase 18, then each model of phase 26)
+then phase 11, then phase 14, then phase 18, then each model of phase 26,
+then each of phase 27's two runs, then phase 28's (a) and (b))
 and read just after it: they
 count those paths only (phases 21 and 23 must launch none; phase 20's launches are added to
 kernels 1-3's records under "fig_a2", phase 22's under "stream", phase
 24's under "mesh": its host processes report theirs, and its emulated
 twins' do not count; the launches of phase 22's child processes are their
-own; phase 26's are added under "zoo_<model>").  A decode step that
+own; phases 26-28's are added under "zoo_<model>", phase 28 (b)'s under
+"zoo_llava-next-34b+vision", phase 27's plain run's under
+"zoo_whisper-small plain").  A decode step that
 replays a CUDA graph adds the launches the graph holds (``ServeEngine``),
 so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
@@ -800,9 +858,31 @@ G3_PLAIN_TOL = 0.02
 # depth, int8 projections: (requests, new tokens each), in the order served
 # (new tokens cut from 64 to 32 for granite-3-8b and recurrentgemma-9b with
 # phase 24 (e), for the run's time: each slot-at-a-time oracle decoded 1,024
-# steps, ≈ 12.5 s)
-ZOO = {"granite-3-8b": (16, 32), "recurrentgemma-9b": (16, 32), "qwen1.5-32b": (8, 32)}
+# steps, ≈ 12.5 s; and to 16 for all three with phases 27 and 28)
+ZOO = {"granite-3-8b": (16, 16), "recurrentgemma-9b": (16, 16), "qwen1.5-32b": (8, 16)}
 ZOO_SLOTS, ZOO_MAX_SEQ = 8, 2048
+# rows up to which fixed_linear takes its decode forms (kDecodeRows)
+ZOO_DECODE_ROWS = 16
+# phase 28 (a): LLaVA-NeXT-34B's text-only path through the engine, served
+# as the zoo's models are: (requests, new tokens each)
+LLAVA_ARCH = "llava-next-34b"
+ZOO_REQUESTS = {**ZOO, LLAVA_ARCH: (8, 16)}
+# phase 28 (b): the vision prefix (rows, patches of the published anyres
+# tiling) before a prompt of LLAVA_TEXT tokens, then LLAVA_NEW greedy decode
+# steps, into a cache of LLAVA_VISION_SEQ slots
+LLAVA_ROWS, LLAVA_TEXT, LLAVA_NEW, LLAVA_VISION_SEQ = 2, 64, 16, 3072
+# phase 27: Whisper-small, WH_BATCH rows of the encoder's 1,500 frames, a
+# prompt of WH_PROMPT tokens, WH_NEW greedy new tokens (the first from the
+# prefill), into a cache of WH_MAX_SEQ slots (within the 448-row table); the
+# plain-weight run at WH_PLAIN_LAYERS encoder and decoder layers (of 12, cut
+# for the run's time)
+WH_ARCH, WH_BATCH, WH_PROMPT, WH_NEW, WH_MAX_SEQ = "whisper-small", 8, 4, 64, 128
+WH_PLAIN_LAYERS = 4
+# layernorm against its plain version: fp32 rtol = atol = 1e-5 (the plain
+# version takes the kernel's order; only a library's sqrt or division could
+# round apart), bf16 one bf16 step of the value plus 1e-6 near 0
+LN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-6)}
 # prompt lengths drawn from the seed; the hybrid's reach ≈ 2,000 tokens so
 # that its scan runs at a full prompt (a 2,048-slot window: no ring wrap)
 ZOO_PROMPT_MIN, ZOO_PROMPT_MAX = 128, 1024
@@ -7310,7 +7390,7 @@ def zoo_requests(cfg):
     its scan runs at a prompt of ≈ 2,000 tokens)."""
     from repro_torch.serve import Request
 
-    n, new = ZOO[cfg.name]
+    n, new = ZOO_REQUESTS[cfg.name]
     rng = np.random.default_rng(SEED)
     hi = RG_PROMPT_MAX if cfg.name == RG_ARCH else ZOO_PROMPT_MAX
     lens = rng.integers(ZOO_PROMPT_MIN, hi + 1, size=n)
@@ -7460,8 +7540,9 @@ def zoo_serve(arch: str, counts, report) -> None:
           f"{cfg.name}: launches {got} are not the expected {want}")
     check(all(v > 0 for k, v in got.items() if k in want and want[k]),
           f"{cfg.name}: a kernel of the path never launched: {got}")
-    check(engine.ragged_ok == (n["R"] == 0),
-          f"{cfg.name}: ragged prefill {engine.ragged_ok} with {n['R']} RG-LRU layers")
+    check(engine.ragged_ok == (n["R"] == 0 and not cfg.vision_tokens),
+          f"{cfg.name}: ragged prefill {engine.ragged_ok} with {n['R']} RG-LRU layers and "
+          f"{cfg.vision_tokens} vision tokens")
     check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 0, "the served run")
     check(all(r.done and len(r.out_tokens) == r.max_new_tokens for r in served),
           "a request did not finish with its tokens")
@@ -7502,7 +7583,7 @@ def zoo_serve(arch: str, counts, report) -> None:
     check_graph_steps(engine, calls, 1, "the oracle")
     counts.setdefault("zoo", {})[cfg.name] = {"launches": got, "shapes": shapes}
     report.setdefault("zoo", {})[cfg.name] = rep
-    del engine, params, q, served, solo
+    del engine, q, served, solo, params
     free_device_memory()
     say(f"{cfg.name} freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated")
 
@@ -7522,10 +7603,13 @@ def _zoo_shapes(counts, kernel: str) -> dict:
 
 
 def zoo_flash_rows(gen, counts) -> list:
-    """Kernel 6 at the zoo's served shapes: each decode shape (the three
-    groups) and each model's widest prefill against the plain versions
-    (FLASH_TOL), every decode head bitwise the same as the head alone in a
-    group of 1; timed beside the plain version, one SDPA call and the bound."""
+    """Kernel 6 at the zoo's served shapes (phases 26-28), every one held
+    against the plain versions (FLASH_TOL): each decode shape at its own
+    batch and slot count (cross-attention's with every row at Se - 1, where
+    all Se slots are admitted), every decode head bitwise the same as the
+    head alone in a group of 1, timed beside the plain version, one SDPA
+    call and the bound; every prefill shape, each model's widest of each
+    kind (by mask, and self or cross) timed so."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.flash_attention import _admitted, slot_positions
 
@@ -7533,10 +7617,11 @@ def zoo_flash_rows(gen, counts) -> list:
     dec = _zoo_shapes(counts, "flash_attention_decode")
     for key, launched in sorted(dec.items()):
         B, H, KV, slots, hd, mk = key
-        if B != ZOO_SLOTS:
-            continue
         kw = _mask_kwargs(mk)
         q, kc, vc, pos = _decode_inputs(gen, torch.bfloat16, B, H, KV, slots, hd, 2 * slots)
+        cross = not kw["causal"]     # a cross cache: every row at Se - 1
+        if cross:
+            pos = torch.full((B,), slots - 1, dtype=torch.long, device=DEVICE)
         got = kfa.flash_attention_decode(q, kc, vc, pos, **kw)
         want = kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw)
         sync()
@@ -7549,8 +7634,10 @@ def zoo_flash_rows(gen, counts) -> list:
                                              vc[:, :, kvh:kvh + 1], pos, **kw)
             check(torch.equal(one[:, 0], got[:, h]),
                   f"flash_attention_decode {key}: head {h} differs alone")
-        # time the end of a served stream: every row near position 2,048
-        pos = torch.clamp(pos + slots // 2, max=ZOO_MAX_SEQ - 1)
+        # time the end of a stream that fills its cache: every row near its
+        # last slot
+        if not cross:
+            pos = torch.clamp(pos + slots // 2, max=slots - 1)
         ms = graph_ms(lambda: kfa.flash_attention_decode(q, kc, vc, pos, **kw))
         plain_ms = cuda_ms(lambda: kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw), 3)
         sp = slot_positions(pos, slots)
@@ -7566,22 +7653,39 @@ def zoo_flash_rows(gen, counts) -> list:
             f"(max abs err {err:.3g}), heads bitwise alone; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}), "
             f"bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
-        rows.append({"label": f"zoo decode, group {G}", "kernel": "flash_attention_decode",
+        rows.append({"label": f"zoo decode, group {G}, {B} x {slots} slots"
+                              f"{', cross' if cross else ''}",
+                     "kernel": "flash_attention_decode",
                      "shape": [B, H, KV, slots, hd], "mask": kw, "launches": launched,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "library_note": backend, "bound_ms": t_b, "bound_by": by})
         del q, kc, vc
     pre = _zoo_shapes(counts, "flash_attention")
+    widest = {}                      # its widest launch -> (model, self or cross)
     for model in counts["zoo"]:
-        mine = counts["zoo"][model]["shapes"].get("flash_attention", {})
-        B, H, KV, Sq, Sk, hd, mk = max(mine, key=lambda k: (k[0] * k[3], k[3]))
+        best = {}
+        for key in counts["zoo"][model]["shapes"].get("flash_attention", {}):
+            kind = (key[6], key[3] == key[4])
+            if kind not in best or (key[0] * key[3], key[3]) > (best[kind][0] * best[kind][3],
+                                                                best[kind][3]):
+                best[kind] = key
+        for (_, self_attn), key in best.items():
+            widest.setdefault(key, (model, self_attn))
+    held, held_err = 0, 0.0
+    for key in sorted(pre, key=str):
+        B, H, KV, Sq, Sk, hd, mk = key
         kw = _mask_kwargs(mk)
         q, k, v = _flash_inputs(gen, torch.bfloat16, B, H, KV, Sq, Sk, hd)
         a, b = kfa.flash_attention(q, k, v, **kw), kfa.flash_attention_plain(q, k, v, **kw)
         sync()
         ok, err, ratio = _flash_err(a, b, torch.bfloat16)
-        check(ok, f"flash_attention {model} {(B, H, KV, Sq, Sk, hd)}: max abs err {err}")
+        check(ok, f"flash_attention zoo {(B, H, KV, Sq, Sk, hd)} {kw}: max abs err {err}")
         del a, b
+        held, held_err = held + 1, max(held_err, err)
+        if key not in widest:
+            del q, k, v
+            continue
+        model, self_attn = widest[key]
         ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw), 5)
         plain_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v, **kw), 1)
         mask = _admitted(torch.arange(Sq, device=DEVICE)[:, None] + (Sk - Sq),
@@ -7589,24 +7693,27 @@ def zoo_flash_rows(gen, counts) -> list:
         if kw["window"] is not None or kw["chunk"] is not None:
             lib, backend = sdpa_yardstick(q, k, v, attn_mask=mask, scale=hd ** -0.5)
         else:
-            lib, backend = sdpa_yardstick(q, k, v, is_causal=True, scale=hd ** -0.5)
+            lib, backend = sdpa_yardstick(q, k, v, is_causal=kw["causal"], scale=hd ** -0.5)
         lib_ms, backend = library_time(lib, backend, eager=True)
         pairs = _attention_pairs(B, H, Sq, Sk, kw)
         t_b, by = bound(2 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd), 4.0 * hd * pairs,
                         BF16_OPS_PER_S)
-        launched = pre.get((B, H, KV, Sq, Sk, hd, mk), 0)
+        launched = pre[key]
         say(f"flash_attention zoo prefill {model} (B, H, KV, Sq, Sk, hd) = "
             f"{(B, H, KV, Sq, Sk, hd)} {kw}, bf16, {launched} launches of this shape: within "
             f"the tolerance (max abs err {err:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, scaled_dot_product_attention {_ms(lib_ms)} ({backend}), bound {t_b:.4f} ms "
             f"({by}, bf16 tensor cores), {t_b / ms:.1%} of it")
-        rows.append({"label": f"zoo prefill, {model}", "kernel": "flash_attention",
+        rows.append({"label": f"zoo prefill, {model}{'' if self_attn else ', cross'}",
+                     "kernel": "flash_attention",
                      "shape": [B, H, KV, Sq, Sk, hd], "mask": kw, "launches": launched,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "library_note": backend, "bound_ms": t_b, "bound_by": by})
         del q, k, v, mask
         free_device_memory()
-    return rows
+    say(f"flash_attention zoo prefill: all {held} served shapes ({sum(pre.values())} launches) "
+        f"within the tolerance of the plain version, max abs err {held_err:.3g}")
+    return rows, held_err
 
 
 def zoo_scan_record(gen, counts) -> dict:
@@ -7655,26 +7762,29 @@ def zoo_scan_record(gen, counts) -> dict:
 
 
 def zoo_head_rows(gen, counts) -> list:
-    """lm_head at the zoo's (D, V) tables, M = 8 and 1: against the plain
-    version (rtol = atol = 2e-4), row m bitwise at M = 1 and 8, timed
-    beside one torch.mm(out_dtype=float32) and the bound."""
+    """lm_head at the zoo's (D, V) tables, at every served M (and M = 8 and
+    1): against the plain version (rtol = atol = 2e-4), rows bitwise at
+    M = 1, timed beside one torch.mm(out_dtype=float32) and the bound."""
     from repro_torch.kernels import lm_head as klm
 
     served = _zoo_shapes(counts, "lm_head")
     rows = []
     for D, V in sorted({(D, V) for _, D, V, _ in served}):
+        Ms = sorted({M for M, d, v, _ in served if (d, v) == (D, V)} | {ZOO_SLOTS, 1},
+                    reverse=True)
         w = torch.randn(V, D, generator=gen, device=DEVICE).bfloat16() * D ** -0.5
-        x = torch.randn(ZOO_SLOTS, D, generator=gen, device=DEVICE).bfloat16()
-        eight, want = klm.lm_head(x, w, tied=True), klm.lm_head_plain(x, w, tied=True)
-        sync()
-        err = (eight - want).abs()
-        check(bool((err <= 2e-4 + 2e-4 * want.abs()).all()),
-              f"lm_head {(ZOO_SLOTS, D, V)}: max abs error {err.max().item()}")
-        for m in range(ZOO_SLOTS):
-            check(torch.equal(klm.lm_head(x[m:m + 1], w, tied=True)[0], eight[m]),
+        x = torch.randn(Ms[0], D, generator=gen, device=DEVICE).bfloat16()
+        whole = klm.lm_head(x, w, tied=True)
+        for m in range(Ms[0]):
+            check(torch.equal(klm.lm_head(x[m:m + 1], w, tied=True)[0], whole[m]),
                   f"lm_head {(D, V)}: row {m} differs at M = 1")
-        for M in (ZOO_SLOTS, 1):
+        for M in Ms:
             xm = x[:M]
+            got, want = klm.lm_head(xm, w, tied=True), klm.lm_head_plain(xm, w, tied=True)
+            sync()
+            err = (got - want).abs()
+            check(bool((err <= 2e-4 + 2e-4 * want.abs()).all()),
+                  f"lm_head {(M, D, V)}: max abs error {err.max().item()}")
             ms = graph_ms(lambda: klm.lm_head(xm, w, tied=True), launches=5)
             plain_ms = cuda_ms(lambda: klm.lm_head_plain(xm, w, tied=True), 1)
             lib_ms = graph_ms(lambda: mm_fp32_out(xm, w), launches=5)
@@ -7688,28 +7798,33 @@ def zoo_head_rows(gen, counts) -> list:
                          "launches": launched, "max_abs_err": err.max().item(), "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": t_b,
                          "bound_by": by})
-        del w, x, want
+            del got, want
+        del w, x, whole
     return rows
 
 
 def zoo_qmm_rows(gen, counts) -> tuple:
-    """quant_linear at the zoo's decode groups (M = 8, weights from HBM) and
-    each model's widest prefill product: bitwise the plain version, timed
-    beside it and the bound (int8 tensor-core rate; library none for the
-    grouped function, torch._int_mm beside a prefill product); quantize_rows
-    at each model's widest prefill rows against its byte bound."""
+    """quant_linear at every served shape of the zoo's runs, bitwise the
+    plain version: each decode group (M up to qmm_group's SKINNY_M, weights
+    from HBM) timed beside it and the bound (int8 tensor-core rate; library
+    none for the grouped function), each model's widest prefill product
+    timed so beside torch._int_mm; quantize_rows at every served shape,
+    bitwise, each model's widest timed against its byte bound."""
     from repro_torch.kernels import quant_matmul as kqm
 
     rows, qrows = [], []
     for model, data in counts["zoo"].items():
         by_shape = data["shapes"].get("quant_linear", {})
+        if not by_shape:             # a plain-weight run
+            continue
         for (M, K, Ns), calls in sorted(by_shape.items()):
-            if M != ZOO_SLOTS:
-                continue
             x, group = _group_operands(gen, M, K, Ns)
             check(all(torch.equal(a, b) for a, b in zip(kqm.quant_linear(x, group),
                                                         kqm.quant_linear_plain(x, group))),
                   f"quant_linear {model} {(M, K, Ns)}: not bitwise its plain version")
+            if M > kqm.SKINNY_M:     # a prefill group: held; its widest product timed below
+                del x, group
+                continue
             nsum = sum(Ns)
             sets = _cold_sets(group, K * nsum)
             t_b, by = bound(2 * M * K + K * nsum + 4 * nsum + 2 * M * nsum,
@@ -7724,6 +7839,8 @@ def zoo_qmm_rows(gen, counts) -> tuple:
                          "bound_ms": t_b, "bound_by": by})
             del x, group, sets
             free_device_memory()
+        say(f"quant_linear zoo {model}: all {len(by_shape)} served groups "
+            f"({sum(by_shape.values())} launches) bitwise their plain version")
         prefill = [(M, K, N) for (M, K, Ns) in by_shape if M > kqm.SKINNY_M for N in Ns]
         M, K, N = max(prefill, key=lambda s: s[0] * s[1] * s[2])
         xq, xs, wq, ws = _qmm_operands(gen, M, K, N)
@@ -7748,122 +7865,454 @@ def zoo_qmm_rows(gen, counts) -> tuple:
         del xq, xs, wq, ws, wt, wk, out
         free_device_memory()
         rq = data["shapes"].get("quantize_rows", {})
+        for (M, K, dt) in rq:
+            x, _ = _group_operands(gen, M, K, ())
+            got, want = kqm.quantize_rows(x), kqm.quantize_rows_plain(x)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"quantize_rows {model} {(M, K)}: not bitwise its plain version")
+            del x, got, want
         (M, K, dt), launched = max(rq.items(), key=lambda kv: kv[0][0] * kv[0][1])
         x, _ = _group_operands(gen, M, K, ())
-        got, want = kqm.quantize_rows(x), kqm.quantize_rows_plain(x)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"quantize_rows {model} {(M, K)}: not bitwise its plain version")
         ms = graph_ms(lambda: kqm.quantize_rows(x), 5, 4)
         plain_ms = cuda_ms(lambda: kqm.quantize_rows_plain(x), 3)
         t_b, by = bound(3 * M * K + 4 * M, 0.0)
         say(f"quantize_rows zoo {model} (M, K) = {(M, K)} bf16, {launched} launches of this "
-            f"shape: bitwise; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {t_b:.4f} ms "
-            f"({by}), {t_b / ms:.1%} of it")
+            f"shape: all {len(rq)} served shapes bitwise; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
         qrows.append({"label": f"{model} prefill", "shape": [M, K], "launches": launched,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": t_b,
                       "bound_by": by})
-        del x, got, want
+        del x
     return rows, qrows
 
 
 def zoo_norm_rows(gen, counts) -> list:
-    """rmsnorm at the zoo's decode rows and widest prefill rows: within one
-    bf16 step of the plain version, rows bitwise alone, timed beside
+    """rmsnorm at every served (rows, d) of the zoo's runs: within one bf16
+    step of the plain version, rows bitwise alone; the decode rows (up to
+    ZOO_SLOTS) and the widest prefill rows of each d timed beside
     F.rms_norm and the bound."""
     from repro_torch.kernels import rmsnorm as krn
 
     served = _zoo_shapes(counts, "rmsnorm")
     rows = []
-    for d in sorted({d for _, d, _ in served}):
-        for n in (ZOO_SLOTS, max(m for m, dd, _ in served if dd == d)):
-            x = torch.randn(n, d, generator=gen, device=DEVICE).bfloat16()
-            w = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).bfloat16()
-            got = krn.rmsnorm(x, w, plus_one=True)
-            want = krn.rmsnorm_plain(x, w, plus_one=True)
-            sync()
-            g, t = got.float(), want.float()
-            check(bool(((g - t).abs() <= RMS_BF16_TOL * t.abs() + 1e-6).all()),
-                  f"rmsnorm {(n, d)}: beyond one bf16 step of the plain version")
-            check(torch.equal(krn.rmsnorm(x[:1], w, plus_one=True)[0], got[0]),
-                  f"rmsnorm {(n, d)}: row 0 differs alone")
-            ms = graph_ms(lambda: krn.rmsnorm(x, w, plus_one=True), launches=10)
-            plain_ms = cuda_ms(lambda: krn.rmsnorm_plain(x, w, plus_one=True), 3)
-            wl = (1 + w.float()).bfloat16()
-            lib_ms = graph_ms(lambda: torch.nn.functional.rms_norm(x, (d,), wl, 1e-6),
-                              launches=10)
-            t_b, by = bound(2 * n * d * 2 + 2 * d, 3.0 * n * d)
-            launched = served.get((n, d, "bfloat16"), 0)
-            say(f"rmsnorm zoo ({n}, {d}) bf16, {launched} launches of this shape: within one "
-                f"bf16 step, rows bitwise alone; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"F.rms_norm {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
-            rows.append({"label": f"zoo ({n}, {d})", "shape": [n, d, "bfloat16"],
-                         "launches": launched, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": t_b, "bound_by": by})
+    for (n, d, dt) in sorted(served, key=lambda k: (k[1], k[0])):
+        x = torch.randn(n, d, generator=gen, device=DEVICE).bfloat16()
+        w = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).bfloat16()
+        got = krn.rmsnorm(x, w, plus_one=True)
+        want = krn.rmsnorm_plain(x, w, plus_one=True)
+        sync()
+        g, t = got.float(), want.float()
+        check(bool(((g - t).abs() <= RMS_BF16_TOL * t.abs() + 1e-6).all()),
+              f"rmsnorm {(n, d)}: beyond one bf16 step of the plain version")
+        check(torch.equal(krn.rmsnorm(x[n - 1:].clone(), w, plus_one=True)[0], got[n - 1]),
+              f"rmsnorm {(n, d)}: row {n - 1} differs alone")
+        if n > ZOO_SLOTS and n < max(m for m, dd, _ in served if dd == d):
             del x, got, want
+            continue
+        ms = graph_ms(lambda: krn.rmsnorm(x, w, plus_one=True), launches=10)
+        plain_ms = cuda_ms(lambda: krn.rmsnorm_plain(x, w, plus_one=True), 3)
+        wl = (1 + w.float()).bfloat16()
+        lib_ms = graph_ms(lambda: torch.nn.functional.rms_norm(x, (d,), wl, 1e-6),
+                          launches=10)
+        t_b, by = bound(2 * n * d * 2 + 2 * d, 3.0 * n * d)
+        launched = served[(n, d, dt)]
+        say(f"rmsnorm zoo ({n}, {d}) bf16, {launched} launches of this shape: within one "
+            f"bf16 step, rows bitwise alone; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.rms_norm {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of it")
+        rows.append({"label": f"zoo ({n}, {d})", "shape": [n, d, "bfloat16"],
+                     "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": t_b, "bound_by": by})
+        del x, got, want
+    say(f"rmsnorm zoo: all {len(served)} served shapes ({sum(served.values())} launches) "
+        f"within one bf16 step of the plain version, their last rows bitwise alone")
     return rows
 
 
 def zoo_fixed_rows(gen, counts) -> list:
-    """fixed_linear at the hybrid's three decode launches a recurrent layer
-    (the branches with the block's norm folded in; the gates, fp32 out; the
-    out-projection): against the plain version (_close_fixed), the folded
-    norm bitwise the rmsnorm kernel's row, timed with weights from HBM
-    beside one torch.mm(out_dtype=float32) of the same (M, K, sum N)."""
+    """fixed_linear at every served shape of the zoo's runs (the hybrid's
+    three a recurrent layer: the branches with the block's norm folded in,
+    the gates, fp32 out, the out-projection; Whisper's plain-weight groups,
+    x's dtype out): against the plain version (_close_fixed), the folded
+    norm bitwise the rmsnorm kernel's row.  Timed in CUDA graphs with
+    weights from HBM, beside one torch.mm of the same (M, K, sum N) and
+    output dtype: each decode shape (up to ZOO_DECODE_ROWS rows) and each
+    model's widest product at its most and fewest prefill rows."""
     from repro_torch.kernels import fixed_linear as kfl
 
-    served = _zoo_shapes(counts, "fixed_linear")
     rows = []
-    for (M, K, Ns, pro), launched in sorted(served.items(), key=str):
-        if M != ZOO_SLOTS:
+    for model, data in counts["zoo"].items():
+        served = data["shapes"].get("fixed_linear", {})
+        if not served:
             continue
-        x, ws, kw, xin = _fixed_case(gen, M, K, Ns, pro)
-        # the branches and the gates write fp32, the out-projection x's dtype
-        outs = [torch.float32] * len(Ns) if len(Ns) > 1 else [torch.bfloat16]
-        got = kfl.fixed_linear(x, ws, outs, **kw)
-        want = kfl.fixed_linear_plain(x, ws, outs, **kw)
-        unfused = kfl.fixed_linear(xin, ws, outs)
-        sync()
-        check(all(_close_fixed(a, b) for a, b in zip(got, want)),
-              f"fixed_linear {(M, K, Ns, pro)}: beyond the tolerance")
-        check(all(torch.equal(a, b) for a, b in zip(got, unfused)),
-              f"fixed_linear {(M, K, Ns, pro)}: the folded norm differs from the unfused row")
-        nsum = sum(Ns)
-        copies = max(1, math.ceil(COLD_BYTES / (2 * K * nsum)))
-        sets = [ws] + [[w.t().contiguous().t() for w in ws] for _ in range(copies - 1)]
-        ms = graph_ms([lambda s=s: kfl.fixed_linear(x, s, outs, **kw) for s in sets])
-        plain_ms = cuda_ms(lambda: kfl.fixed_linear_plain(x, ws, outs, **kw), 3)
-        wcat = torch.cat([w for w in ws], 1).t().contiguous()
-        lib_ms = graph_ms(lambda: mm_fp32_out(xin, wcat), launches=10)
-        t_b, by = bound(2 * M * K + 2 * K * nsum + outs[0].itemsize * M * nsum,
-                        2.0 * M * K * nsum, BF16_OPS_PER_S)
-        say(f"fixed_linear zoo (M, K, N, prologue) = {(M, K, Ns, pro)}, {launched} launches: "
-            f"within the tolerance, the folded norm bitwise the unfused row; kernel "
-            f"{ms:.4f} ms (weights from HBM), plain {plain_ms:.4f} ms, torch.mm "
-            f"out_dtype=fp32 {lib_ms:.4f} ms (weights from L2), bound {t_b:.4f} ms ({by}), "
-            f"{t_b / ms:.1%} of it")
-        rows.append({"label": f"RecurrentGemma decode {Ns} {pro}", "shape": [M, K, list(Ns)],
-                     "prologue": pro, "launches": launched, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": t_b, "bound_by": by})
-        del x, ws, sets, wcat
-        free_device_memory()
+        prefill = [k for k in served if k[0] > ZOO_DECODE_ROWS]
+        timed = set()
+        for M in {min(k[0] for k in prefill), max(k[0] for k in prefill)} if prefill else ():
+            timed.add(max((k for k in prefill if k[0] == M), key=lambda k: (k[1] * sum(k[2]), k)))
+        for key, launched in sorted(served.items(), key=str):
+            M, K, Ns, pro = key
+            x, ws, kw, xin = _fixed_case(gen, M, K, Ns, pro)
+            # the hybrid's branches and gates write fp32; its out-projection
+            # and Whisper's groups x's dtype
+            fp32 = len(Ns) > 1 and model == RG_ARCH
+            outs = [torch.float32 if fp32 else torch.bfloat16] * len(Ns)
+            got = kfl.fixed_linear(x, ws, outs, **kw)
+            want = kfl.fixed_linear_plain(x, ws, outs, **kw)
+            unfused = kfl.fixed_linear(xin, ws, outs)
+            sync()
+            check(all(_close_fixed(a, b) for a, b in zip(got, want)),
+                  f"fixed_linear {model} {(M, K, Ns, pro)}: beyond the tolerance")
+            check(all(torch.equal(a, b) for a, b in zip(got, unfused)),
+                  f"fixed_linear {model} {(M, K, Ns, pro)}: the folded norm differs from the "
+                  f"unfused row")
+            del got, want, unfused
+            if M > ZOO_DECODE_ROWS and key not in timed:
+                del x, ws, xin
+                continue
+            nsum = sum(Ns)
+            wcat = torch.cat([w for w in ws], 1).t().contiguous()
+            copies = max(1, math.ceil(COLD_BYTES / (2 * K * nsum)))
+            sets = [ws] + [[w.t().contiguous().t() for w in ws] for _ in range(copies - 1)]
+            ms = graph_ms([lambda s=s: kfl.fixed_linear(x, s, outs, **kw) for s in sets])
+            lib = (lambda: mm_fp32_out(xin, wcat)) if fp32 else (lambda: xin @ wcat.t())
+            lib_ms = graph_ms(lib, launches=10)
+            where = "decode" if M <= ZOO_DECODE_ROWS else "prefill"
+            lib_name = f"torch.mm {'out_dtype=fp32' if fp32 else 'bf16'}"
+            del sets
+            plain_ms = cuda_ms(lambda: kfl.fixed_linear_plain(x, ws, outs, **kw), 3)
+            t_b, by = bound(2 * M * K + 2 * K * nsum + outs[0].itemsize * M * nsum,
+                            2.0 * M * K * nsum, BF16_OPS_PER_S)
+            say(f"fixed_linear zoo {model} {where} (M, K, N, prologue) = {(M, K, Ns, pro)}, "
+                f"route {kfl.route(torch.bfloat16, x.dtype, pro is not None, M)}, {launched} "
+                f"launches: within the tolerance, the folded norm bitwise the unfused row; "
+                f"kernel {ms:.4f} ms (weights from HBM), plain {plain_ms:.4f} ms, {lib_name} "
+                f"{lib_ms:.4f} ms (weights from L2), bound {t_b:.4f} ms ({by}), "
+                f"{t_b / ms:.1%} of it")
+            rows.append({"label": f"zoo {model} {where} {Ns} {pro}", "shape": [M, K, list(Ns)],
+                         "prologue": pro, "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": t_b, "bound_by": by})
+            del x, ws, xin, wcat
+            free_device_memory()
+        say(f"fixed_linear zoo {model}: all {len(served)} served shapes "
+            f"({sum(served.values())} launches) within the tolerance of the plain version")
     return rows
+
+
+# --------------------------------------------------------------------------- #
+# phases 27 and 28: the two stubbed frontends (Whisper-small, LLaVA-NeXT-34B)
+# --------------------------------------------------------------------------- #
+def whisper_expected_launches(cfg, steps: int, int8: bool) -> dict:
+    """Each kernel's launches over ``prefill(encoder_frames=)`` of
+    WH_BATCH x WH_PROMPT tokens (rows past qmm_group's 16: the prefill
+    forms) and ``steps`` decode steps.  The encoder's layer: 2 LayerNorms,
+    4 projection groups (q/k/v, o, up, down: 6 weights), one non-causal
+    prefill; a decoder layer at the prefill: 3 LayerNorms, 7 groups (q/k/v,
+    o, cross q, cross k/v over the encoder's rows, cross o, up, down: 10
+    weights), a causal and a cross prefill; at a decode step: 3 LayerNorms,
+    6 groups (the cross K/V come from the cache), two decode launches; the
+    final norms; one lm_head a forward.  int8 groups launch quantize_rows
+    once and qmm_wgmma once a weight at a prefill (``quant_linear`` counts
+    the latter) and qmm_group once at a decode step; plain weights one
+    fixed_linear a group."""
+    E, L = cfg.encoder_layers, cfg.num_layers
+    out = {"layernorm": (2 * E + 1) + (3 * L + 1) * (1 + steps),
+           "flash_attention": E + 2 * L, "flash_attention_decode": 2 * L * steps,
+           "lm_head": 1 + steps}
+    if int8:
+        out.update(quant_linear=6 * E + 10 * L + 6 * L * steps, quantize_rows=4 * E + 7 * L)
+    else:
+        out.update(fixed_linear=4 * E + 7 * L + 6 * L * steps)
+    return out
+
+
+def whisper_decode(model, params, tokens, frames, new: int, max_seq: int):
+    """``prefill(encoder_frames=)`` then ``new - 1`` greedy decode steps,
+    every row at one position: (the greedy tokens (B, new) on the host, the
+    prefill's logits, the last step's, the cache, prefill s, decode s)."""
+    B, S = tokens.shape
+    cache = model.init_cache(B, max_seq)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens, cache, encoder_frames=frames)
+    sync()
+    t_pre = time.perf_counter() - t0
+    first = logits
+    out = [logits[:, -1].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(new - 1):
+        logits, cache = model.decode_step(params, out[-1][:, None], S + i, cache)
+        out.append(logits[:, -1].argmax(-1))
+    sync()
+    return (torch.stack(out, 1).cpu(), first, logits, cache, t_pre,
+            time.perf_counter() - t0)
+
+
+def whisper_run(cfg, frames, tokens, counts, report, label: str) -> None:
+    """One Whisper-small configuration at its published widths and depths:
+    weights from the seed (quantized a period at a time as drawn), the
+    encoder timed, a warm-up prefill and decode step, then the main path
+    (counted): prefill(encoder_frames=)
+    of WH_BATCH rows and WH_NEW greedy tokens; then each row alone at batch
+    1, bitwise: its stream, its prefill and last logits and its cross
+    caches."""
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import TransformerLM, init_model
+
+    int8 = cfg.quantize == "int8"
+    free_device_memory()
+    mem_reset()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    sync()
+    say(f"{label}: weights made on the card from seed {SEED} in "
+        f"{time.perf_counter() - t0:.2f} s, {_storage_bytes(_leaves_any(params)) / 1e9:.3f} GB")
+    model = TransformerLM(cfg, device=DEVICE)
+    enc_ms = cuda_ms(lambda: model.encode(params, frames), 3)
+    whisper_decode(model, params, tokens, frames, 2, WH_MAX_SEQ)    # a warm-up, not counted
+    for fn in KERNELS.values():
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+    sync()
+    mem_reset()
+    reset_launch_counts()            # the main path's run starts here
+    stream, first, last, cache, t_pre, t_dec = whisper_decode(
+        model, params, tokens, frames, WH_NEW, WH_MAX_SEQ)
+    got = launch_counts()            # ... and ends here
+    peak = mem_peak(f"{label}'s run")
+    shapes = {name: dict(fn.shapes) for name, fn in KERNELS.items()
+              if hasattr(fn, "shapes") and fn.shapes}
+    want = whisper_expected_launches(cfg, WH_NEW - 1, int8)
+    say(f"{label}: launches {got}")
+    check(all(got[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in got.items() if k not in want),
+          f"{label}: launches {got} are not the expected {want}")
+    check(bool(torch.isfinite(first).all() and torch.isfinite(last).all())
+          and tuple(first.shape) == (WH_BATCH, 1, cfg.vocab_size),
+          f"{label}: logits {tuple(first.shape)} not finite or not (B, 1, V)")
+    new = stream.numel()
+    step_ms = t_dec / (WH_NEW - 1) * 1e3
+    say(f"{label}: encoder {enc_ms:.3f} ms ({WH_BATCH} x {cfg.encoder_seq} frames, CUDA "
+        f"events); prefill {t_pre:.4f} s (encoder, cross K/V and a {tokens.shape[1]}-token "
+        f"prompt); decode {step_ms:.3f} ms a step ({WH_NEW - 1} eager steps of {WH_BATCH} "
+        f"rows); {new / (t_pre + t_dec):.1f} tokens/s; peak {peak:.3f} GB")
+    # every row alone at batch 1: its stream, logits and cross caches bitwise
+    same = 0
+    for i in range(WH_BATCH):
+        s1, f1, l1, c1, _, _ = whisper_decode(model, params, tokens[i:i + 1],
+                                              frames[i:i + 1], WH_NEW, WH_MAX_SEQ)
+        cross = all(torch.equal(c1["b0"]["cross"][kv][:, 0], cache["b0"]["cross"][kv][:, i])
+                    for kv in ("k", "v"))
+        ok = (torch.equal(s1[0], stream[i]) and torch.equal(f1[0], first[i])
+              and torch.equal(l1[0], last[i]) and cross)
+        same += ok
+        check(ok, f"{label}: row {i} alone differs from the batch (stream "
+                  f"{torch.equal(s1[0], stream[i])}, cross caches {cross})")
+        del c1
+    say(f"{label}: {same} of {WH_BATCH} rows alone at batch 1 bitwise the batch's: stream, "
+        f"prefill and last logits, cross caches of all {cfg.num_layers} layers; row 0's "
+        f"stream {stream[0, :12].tolist()}...")
+    counts.setdefault("zoo", {})[label] = {"launches": got, "shapes": shapes}
+    report.setdefault("zoo", {})[label] = {
+        "encoder_ms": enc_ms, "prefill_s": t_pre, "decode_ms_per_step": step_ms,
+        "tokens_per_s": new / (t_pre + t_dec), "peak_gb": peak, "launches": got}
+    del params, model, cache
+    free_device_memory()
+
+
+def phase_whisper(counts, report) -> None:
+    """Whisper-small's encoder-decoder at its published widths, int8 as the
+    zoo runs it at its published depths, and plain bf16 through
+    fixed_linear at WH_PLAIN_LAYERS of them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WH_ARCH)
+    phase(f"27. {WH_ARCH}: {cfg.encoder_layers} + {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab_size:,}, {cfg.encoder_seq} frames, cross-attention, LayerNorm")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 27)
+    frames = torch.randn(WH_BATCH, cfg.encoder_seq, cfg.d_model, generator=gen,
+                         device=DEVICE).to(torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 27).integers(
+        0, cfg.vocab_size, size=(WH_BATCH, WH_PROMPT))).to(DEVICE)
+    whisper_run(dataclasses.replace(cfg, quantize="int8"), frames, tokens, counts, report,
+                WH_ARCH)
+    whisper_run(dataclasses.replace(cfg, num_layers=WH_PLAIN_LAYERS,
+                                    encoder_layers=WH_PLAIN_LAYERS),
+                frames, tokens, counts, report, f"{WH_ARCH} plain")
+
+
+def llava_vision_prefix(cfg, counts, report) -> None:
+    """Phase 28 (b): the weights drawn again from the seed, quantized a
+    period at a time; LLAVA_ROWS rows of the published 2,880 patch
+    embeddings (drawn from the seed at the token rows' scale) before a
+    LLAVA_TEXT-token prompt, prefilled in one call, then LLAVA_NEW greedy
+    decode steps (counted); each row alone at batch 1 bitwise: stream,
+    prefill and last logits."""
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import TransformerLM, init_model
+
+    free_device_memory()
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    model = TransformerLM(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 28)
+    vision = (torch.randn(LLAVA_ROWS, cfg.vision_tokens, cfg.d_model, generator=gen,
+                          device=DEVICE) * cfg.d_model ** -0.5).to(torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 28).integers(
+        0, cfg.vocab_size, size=(LLAVA_ROWS, LLAVA_TEXT))).to(DEVICE)
+    S = cfg.vision_tokens + LLAVA_TEXT
+
+    def run(rows):
+        cache = model.init_cache(len(range(*rows.indices(LLAVA_ROWS))), LLAVA_VISION_SEQ)
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tokens[rows], cache, vision_embeds=vision[rows])
+        sync()
+        t_pre = time.perf_counter() - t0
+        first, out = logits, [logits[:, -1].argmax(-1)]
+        t0 = time.perf_counter()
+        for i in range(LLAVA_NEW):
+            logits, cache = model.decode_step(params, out[-1][:, None], S + i, cache)
+            out.append(logits[:, -1].argmax(-1))
+        sync()
+        return torch.stack(out, 1).cpu(), first, logits, cache, t_pre, time.perf_counter() - t0
+
+    for fn in KERNELS.values():
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+    free_device_memory()
+    sync()
+    mem_reset()
+    reset_launch_counts()            # (b)'s run starts here
+    stream, first, last, cache, t_pre, t_dec = run(slice(0, LLAVA_ROWS))
+    got = launch_counts()            # ... and ends here
+    peak = mem_peak(f"{cfg.name} (b), the vision prefix")
+    shapes = {name: dict(fn.shapes) for name, fn in KERNELS.items()
+              if hasattr(fn, "shapes") and fn.shapes}
+    L, F = cfg.num_layers, 1 + LLAVA_NEW
+    want = {"quant_linear": 7 * L + 4 * L * LLAVA_NEW, "quantize_rows": 4 * L,
+            "rmsnorm": (2 * L + 1) * F, "flash_attention": L,
+            "flash_attention_decode": L * LLAVA_NEW, "lm_head": F}
+    say(f"{cfg.name} (b): launches {got}")
+    check(all(got[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in got.items() if k not in want),
+          f"{cfg.name} (b): launches {got} are not the expected {want}")
+    check(bool(torch.isfinite(first).all() and torch.isfinite(last).all()),
+          f"{cfg.name} (b): logits not finite")
+    w_gb = _storage_bytes(_leaves_any(params)) / 1e9
+    c_gb = _storage_bytes(_leaves_any(cache)) / 1e9
+    step_ms = t_dec / LLAVA_NEW * 1e3
+    say(f"{cfg.name} (b): prefill of {LLAVA_ROWS} x {S} tokens ({cfg.vision_tokens} patches "
+        f"+ {LLAVA_TEXT} text) {t_pre:.4f} s; decode {step_ms:.3f} ms a step ({LLAVA_NEW} "
+        f"eager steps of {LLAVA_ROWS} rows); peak {peak:.3f} GB = weights {w_gb:.3f} GB + "
+        f"cache {c_gb:.3f} GB ({LLAVA_ROWS} x {LLAVA_VISION_SEQ} slots) + "
+        f"{peak - w_gb - c_gb:.3f} GB of the prefill's activations")
+    del cache
+    same = 0
+    for i in range(LLAVA_ROWS):
+        s1, f1, l1, c1, _, _ = run(slice(i, i + 1))
+        ok = (torch.equal(s1[0], stream[i]) and torch.equal(f1[0], first[i])
+              and torch.equal(l1[0], last[i]))
+        same += ok
+        check(ok, f"{cfg.name} (b): row {i} alone differs from the batch")
+        del c1
+    say(f"{cfg.name} (b): {same} of {LLAVA_ROWS} rows alone at batch 1 bitwise the batch's "
+        f"(stream, prefill and last logits); row 0's stream {stream[0, :8].tolist()}...")
+    counts["zoo"][f"{cfg.name}+vision"] = {"launches": got, "shapes": shapes}
+    report["zoo"][f"{cfg.name}+vision"] = {
+        "prefill_s": t_pre, "decode_ms_per_step": step_ms, "peak_gb": peak,
+        "weights_gb": w_gb, "cache_gb": c_gb, "launches": got}
+    del model, vision, params
+    free_device_memory()
+
+
+def phase_llava(counts, report) -> None:
+    """LLaVA-NeXT-34B at its published widths and depth, int8 drawn a
+    period at a time: (a) the engine's text-only path, served as the zoo's
+    models are; (b) the vision prefix through the model's prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LLAVA_ARCH)
+    phase(f"28. {LLAVA_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} q heads over {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size:,}, {cfg.vision_tokens} vision tokens; int8")
+    zoo_serve(LLAVA_ARCH, counts, report)
+    llava_vision_prefix(dataclasses.replace(cfg, quantize="int8"), counts, report)
+
+
+def zoo_layernorm_record(gen, counts) -> dict:
+    """layernorm at Whisper's served (rows, 768) shapes: against its plain
+    version (LN_TOL; bitwise printed), every row bitwise alone, timed in a
+    CUDA graph beside the plain version, one F.layer_norm and the bound."""
+    from repro_torch.kernels import layernorm as kln
+
+    served = _zoo_shapes(counts, "layernorm")
+    rows, worst = [], 0.0
+    for (n, d, dt), launched in sorted(served.items(), key=lambda kv: -kv[0][0]):
+        dtype = getattr(torch, dt)
+        x = (torch.randn(n, d, generator=gen, device=DEVICE) * 3 + 1).to(dtype)
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(torch.bfloat16)
+        got, want = kln.layernorm(x, s, b), kln.layernorm_plain(x, s, b)
+        sync()
+        tol = LN_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()),
+              f"layernorm {(n, d)}: beyond the tolerance of the plain version")
+        bitwise = torch.equal(got, want)
+        for r in sorted({0, n // 2, n - 1}):
+            check(torch.equal(kln.layernorm(x[r:r + 1].clone(), s, b)[0], got[r]),
+                  f"layernorm {(n, d)}: row {r} differs alone")
+        worst = max(worst, err.max().item())
+        ms = graph_ms(lambda: kln.layernorm(x, s, b), launches=10)
+        plain_ms = cuda_ms(lambda: kln.layernorm_plain(x, s, b), 3)
+        lib_ms = graph_ms(lambda: torch.nn.functional.layer_norm(x, (d,), s.to(dtype),
+                                                                 b.to(dtype), 1e-5),
+                          launches=10)
+        esize = x.element_size()
+        t_b, by = bound(2 * n * d * esize + 2 * d * 2, 9.0 * n * d)
+        say(f"layernorm ({n}, {d}) {dt}, {launched} launches of this shape: within the "
+            f"tolerance (max abs err {err.max().item():.3g}), bitwise the plain version: "
+            f"{bitwise}, rows bitwise alone; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.layer_norm {lib_ms:.4f} ms, bound {t_b:.5f} ms ({by}), {t_b / ms:.1%} of it")
+        rows.append({"label": f"Whisper ({n}, {d})", "shape": [n, d, dt], "launches": launched,
+                     "max_abs_err": err.max().item(), "bitwise_plain": bitwise, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": t_b,
+                     "bound_by": by})
+        del x, got, want
+    check_no_spill("layernorm", {f"layernorm_kernel<{t}>": rf"layernorm_kernelI{m}"
+                                 for t, m in (("fp32", "f"), ("bf16", "13__nv_bfloat16"))})
+    head = rows[0]
+    return {
+        "name": "layernorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/layernorm.cu",
+        "replaces": "none: the reference's layernorm (src/repro/models/layers/norms.py:32-39), "
+                    "jnp left to XLA",
+        "launches": 0, "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "shape": head["shape"], "zoo_shapes": rows,
+        "launches_by_path": {}}
 
 
 # the records of the kernels line each zoo launch counts under, by wrapper
 ZOO_RECORD_OF = {"quant_linear": "quant_matmul", "quantize_rows": "quantize_rows",
                  "rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
                  "flash_attention_decode": "flash_attention_decode", "lm_head": "lm_head",
-                 "fixed_linear": "fixed_linear", "rglru_scan": "rglru_scan"}
+                 "fixed_linear": "fixed_linear", "rglru_scan": "rglru_scan",
+                 "layernorm": "layernorm"}
 
 
 def phase_zoo_kernels(gen, counts, records) -> None:
     """The zoo path's kernels held against their plain versions and timed at
     its shapes; their launches on the path added to the kernels line."""
-    phase("26b. the zoo's kernels held and timed at its served shapes")
+    phase("26b. the zoo's kernels held and timed at its served shapes (phases 26-28)")
     say(f"card: {CARD}")
     records.append(zoo_scan_record(gen, counts))
+    records.append(zoo_layernorm_record(gen, counts))
     by_name = {r["name"]: r for r in records}
-    zoo_rows = {"flash": zoo_flash_rows(gen, counts), "lm_head": zoo_head_rows(gen, counts),
+    flash, flash_held_err = zoo_flash_rows(gen, counts)
+    zoo_rows = {"flash": flash, "lm_head": zoo_head_rows(gen, counts),
                 "rmsnorm": zoo_norm_rows(gen, counts), "fixed_linear": zoo_fixed_rows(gen, counts)}
     zoo_rows["quant_matmul"], zoo_rows["quantize_rows"] = zoo_qmm_rows(gen, counts)
     for rec, rows in (("lm_head", zoo_rows["lm_head"]), ("rmsnorm", zoo_rows["rmsnorm"]),
@@ -7876,6 +8325,8 @@ def phase_zoo_kernels(gen, counts, records) -> None:
         by_name[kernel]["max_abs_err"] = max(
             [by_name[kernel]["max_abs_err"]] + [r["max_abs_err"] for r in zoo_rows["flash"]
                                                 if r["kernel"] == kernel])
+    by_name["flash_attention"]["max_abs_err"] = max(by_name["flash_attention"]["max_abs_err"],
+                                                    flash_held_err)
     for model, data in counts["zoo"].items():
         for wrapper, n in data["launches"].items():
             if n and wrapper != "rglru_scan":
@@ -7975,11 +8426,15 @@ def main() -> int:
     # the model zoo last, on an otherwise empty card (Qwen1.5-32B's int8
     # weights and caches take ≈ 70 GB), then its kernels at its shapes
     phase_zoo(counts, report)
+    # the two stubbed frontends (Whisper-small ≈ 1 GB, LLaVA-NeXT-34B ≈ 40
+    # GB), each freed before the next; their runs join the zoo's records
+    phase_whisper(counts, report)
+    phase_llava(counts, report)
     phase_zoo_kernels(gen, counts, records)
     end_phase()
     # logreg_xt_z is on no path since the fits take logreg_grad: the checks
     # and a width no cluster holds launch it
-    check(len(records) == 14
+    check(len(records) == 15
           and all((r["launches"] == 0) == (r["name"] == "logreg_xt_z") for r in records),
           f"a kernel was never launched on its path, or logreg_xt_z was: "
           f"{[(r['name'], r['launches']) for r in records]}")

@@ -5,9 +5,11 @@ Each config module exports ``FULL`` (the published configuration) and
 registers only the configurations whose every block kind it runs:
 ``qwen2-1.5b``, ``mamba2-2.7b``, ``gemma3-1b`` (its sliding-window
 layers' attention through kernel 6), the dense ``granite-3-8b`` and
-``qwen1.5-32b``, and the hybrid ``recurrentgemma-9b`` (RG-LRU blocks
-beside local attention).  The reference's other ids are known here and
-raise ``NotImplementedError`` until their slice (ROADMAP.md, Queue 1).
+``qwen1.5-32b``, the hybrid ``recurrentgemma-9b`` (RG-LRU blocks
+beside local attention), the encoder-decoder ``whisper-small`` and the
+vision-prefixed ``llava-next-34b``.  The reference's other ids (the two MoE
+models) are known here and raise ``NotImplementedError`` until their slice
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -22,13 +24,11 @@ __all__ = ["ARCH_IDS", "PENDING_IDS", "SHAPES", "InputShape", "get_config",
 
 #: configurations the port runs
 ARCH_IDS = ("qwen2-1.5b", "mamba2-2.7b", "gemma3-1b", "granite-3-8b", "qwen1.5-32b",
-            "recurrentgemma-9b")
+            "recurrentgemma-9b", "whisper-small", "llava-next-34b")
 #: the reference's other configurations, each waiting for its block kinds
 PENDING_IDS = (
     "llama4-scout-17b-16e",
     "mixtral-8x22b",
-    "whisper-small",
-    "llava-next-34b",
 )
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}

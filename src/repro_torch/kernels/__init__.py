@@ -11,6 +11,7 @@ from typing import Dict
 from repro_torch.kernels import fixed_linear as _fixed_linear
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import kmeans_assign as _kmeans_assign
+from repro_torch.kernels import layernorm as _layernorm
 from repro_torch.kernels import lm_head as _lm_head
 from repro_torch.kernels import logreg_grad as _logreg_grad
 from repro_torch.kernels import quant_matmul as _quant_matmul
@@ -37,6 +38,7 @@ KERNELS = {
     "lm_head": _lm_head.lm_head,
     "fixed_linear": _fixed_linear.fixed_linear,
     "rglru_scan": _rglru_scan.rglru_scan,
+    "layernorm": _layernorm.layernorm,
 }
 
 

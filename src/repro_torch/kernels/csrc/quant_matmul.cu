@@ -36,7 +36,9 @@
 //     read the same x (q/k/v, gate/up), on mma.sync.m16n8k32 (s8 x s8 -> s32).
 //     The grid spans the group's column tiles of 128 columns; a tile's K is
 //     split over a cluster of up to 8 blocks, so that the narrow groups fill
-//     the 132 SMs (about one block an SM), and the grid stays one wave.
+//     the 132 SMs (about one block an SM), and the grid stays one wave; where
+//     a block's slice of x would not fit shared memory (K = 20,480 over 56
+//     tiles), more blocks split K and the grid takes more than a wave.
 //     In each block
 //       - a producer warp streams the block's weight tile with TMA through a
 //         64 KB ring of 128-byte columns of K, the first ones issued at once,
@@ -1013,6 +1015,14 @@ int launch_group(const void* const* wts, const float* const* wss, void* const* o
   int C = num_sms() / tiles;
   C = C < 1 ? 1 : (C > kMaxCluster ? kMaxCluster : C);
   C = C > stages ? stages : C;
+  // a block's slice of x must fit shared memory: where it does not (LLaVA's
+  // down-projection, K = 20,480 over 56 tiles), more blocks share K.  The
+  // sums are int32 and exact, so C changes no bit.
+  while (C < kMaxCluster && C < stages &&
+         kMaxRows * (((stages + C - 1) / C) * kStageK + 64) + group_smem_fixed() >
+             kMaxGroupSmem) {
+    ++C;
+  }
   const int per = (stages + C - 1) / C;
   C = (stages + per - 1) / per;
   const int kc = per * kStageK;

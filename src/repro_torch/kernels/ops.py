@@ -26,13 +26,16 @@ Mamba-2's gated norm, ``kernels/fixed_linear.py``) and ``ssd_decode`` (the
 SSD recurrence of one decode step, which the reference writes in jnp,
 ``kernels/ssd_scan.py``) and ``rglru_scan`` (the RG-LRU recurrence of a
 prefill, which the reference leaves to ``jax.lax.associative_scan``,
-``kernels/rglru_scan.py``).
+``kernels/rglru_scan.py``) and ``layernorm`` (LayerNorm's statistics in one
+fp32 order fixed by the row width, which the reference leaves to XLA,
+``kernels/layernorm.py``).
 """
 from __future__ import annotations
 
 from repro_torch.kernels.fixed_linear import fixed_linear
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
 from repro_torch.kernels.kmeans_assign import kmeans_assign
+from repro_torch.kernels.layernorm import layernorm
 from repro_torch.kernels.lm_head import lm_head
 from repro_torch.kernels.logreg_grad import logreg_grad
 from repro_torch.kernels.quant_matmul import quant_linear, quant_matmul, quantize_rows
@@ -41,5 +44,5 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_decode
 
 __all__ = ["fixed_linear", "flash_attention", "flash_attention_decode", "kmeans_assign",
-           "lm_head", "logreg_grad", "quant_linear", "quant_matmul", "quantize_rows",
+           "layernorm", "lm_head", "logreg_grad", "quant_linear", "quant_matmul", "quantize_rows",
            "rglru_scan", "rmsnorm", "ssd_chunk_scan", "ssd_decode"]

@@ -19,8 +19,12 @@ up on the trace's shapes before the timed run.  ``--json`` prints the
 report as a ``RESULT::{json}`` line.  Not ported yet (ROADMAP.md, Queue 1):
 ``--replicas`` (the router fleet), ``--mesh`` and ``--prefix-cache``.
 
+A configuration with a stubbed frontend prints the reference's note:
+``llava-next-34b`` then serves its text-only path, and ``whisper-small``
+exits with the engine's error (the engine takes no encoder frames).
+
 Examples (CPU; ``--arch`` also ``granite-3-8b``, ``qwen1.5-32b``,
-``recurrentgemma-9b``, ``gemma3-1b``, ``mamba2-2.7b``):
+``recurrentgemma-9b``, ``gemma3-1b``, ``mamba2-2.7b``, ``llava-next-34b``):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
         --arch qwen2-1.5b --smoke --quantize int8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine model \
@@ -73,6 +77,8 @@ def run_lm(args) -> dict:
                 f"{flag} is not ported yet (ROADMAP.md, Queue 1)")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encoder_layers or cfg.vision_tokens:
+        print(f"note: {cfg.name} frontend is stubbed; serving text-only path")
     if args.quantize != "none":
         cfg = dataclasses.replace(cfg, quantize=args.quantize)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -88,8 +94,11 @@ def run_lm(args) -> dict:
                     max_new_tokens=args.max_new, arrival=float(arrivals[i]))
             for i in range(args.requests)]
 
-    engine = ServeEngine(cfg, params, batch_size=args.slots,
-                         max_seq=args.max_seq, device=device)
+    try:
+        engine = ServeEngine(cfg, params, batch_size=args.slots,
+                             max_seq=args.max_seq, device=device)
+    except ValueError as e:          # a configuration the engine cannot serve
+        raise SystemExit(f"error: {e}") from None
     if not args.no_warmup:
         t0 = time.perf_counter()
         engine.warmup(prompt_lens=lens)

@@ -38,9 +38,20 @@ Where the port differs in form:
 * ``ArchConfig.use_flash_kernel`` is not read, as in the reference: the
   kernel is the port's only attention.
 
+* Cross-attention (``kv_src=``, ``is_cross=True``: Whisper's decoder over
+  the encoder's output) has no mask.  At a prefill q comes from x and K/V
+  from ``kv_src``, one ``ops.flash_attention`` call with ``causal=False``
+  over all Se keys, and the cross cache ``{"k", "v"}`` (B, Se, KV, hd) is
+  written in place.  At a decode step K/V are read from that cache and
+  nothing is projected: one ``ops.flash_attention_decode`` call with every
+  row at position Se − 1, where the decode form's ring admits exactly slots
+  0..Se − 1 (slot s holds position s), summed in its span order from slot
+  0.  A prefill without ``kv_src`` raises ``ValueError`` (the reference
+  fails there too, projecting None).
+
 Not ported in this slice, and raising ``NotImplementedError`` (ROADMAP.md,
-Queue 1): the int8 KV cache (``cache_dtype="int8"``), cross-attention, and
-the tail prefill over a restored prefix (``start_pos=``, the prefix cache's
+Queue 1): the int8 KV cache (``cache_dtype="int8"``) and the tail prefill
+over a restored prefix (``start_pos=``, the prefix cache's
 ``_prefill_offset``).
 """
 from __future__ import annotations
@@ -65,8 +76,8 @@ _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
 # params
 # --------------------------------------------------------------------------- #
 def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, cross: bool = False):
-    if cross:
-        raise NotImplementedError(f"cross-attention is {_ROADMAP}")
+    """A layer's projections; a cross-attention layer's (``cross=True``)
+    have the same shapes, as in the reference."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     out = {
         "wq": linear(gen, (d, h, hd), fan_in=d, dtype=dtype),
@@ -161,7 +172,8 @@ def attn_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (output (B,S,D), updated cache or None)."""
     if is_cross or kv_src is not None:
-        raise NotImplementedError(f"cross-attention is {_ROADMAP}")
+        return _cross_apply(params, x, cfg=cfg, kind=kind, mode=mode, positions=positions,
+                            pos=pos, cache=cache, kv_src=kv_src, use_rope=use_rope)
     if start_pos is not None:
         raise NotImplementedError(
             f"the tail prefill over a restored prefix (start_pos=, used by "
@@ -205,6 +217,52 @@ def attn_apply(
     out = ops.flash_attention_decode(q[:, 0], cache["k"], cache["v"], pos_b,
                                      scale=hd ** -0.5, **_masks(kind, cfg))
     return _out_proj(out[:, None], params), cache
+
+
+def _cross_apply(params, x, *, cfg: ArchConfig, kind: BlockKind, mode: str, positions,
+                 pos, cache, kv_src, use_rope: bool):
+    """Cross-attention of x over ``kv_src`` (prefill) or over the cross
+    cache (decode); RoPE on q alone where ``use_rope`` asks for it, as in
+    the reference (its decoders pass ``use_rope=False``)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    rope_on = use_rope and kind != BlockKind.ATTN_NOPE
+    q = linear_or_quant(x, params["wq"], "bsd,dhk->bshk")
+    if "bq" in params:
+        q = q + params["bq"]
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("a cross-attention decode step reads the cross cache: cache=")
+        k, v = cache["k"], cache["v"]
+        Se = k.shape[1]
+        if rope_on:
+            pos_b = torch.as_tensor(pos, device=x.device).long().expand(B)
+            q = apply_rope(q, pos_b[:, None], cfg.rope_base)
+        # every row at position Se - 1: the ring admits slots 0..Se-1, all of them
+        at = torch.full((B,), Se - 1, dtype=torch.long, device=x.device)
+        out = ops.flash_attention_decode(q[:, 0], k, v, at, scale=hd ** -0.5, causal=False)
+        return _out_proj(out[:, None], params), cache
+    if mode != "prefill":
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if kv_src is None:
+        raise ValueError("a cross-attention prefill projects the encoder's output "
+                         "(kv_src=, the model's encoder_frames=); none was given")
+    k, v = linear_or_quant_group(kv_src, (params["wk"], params["wv"]), ("bsd,dhk->bshk",) * 2)
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if rope_on:
+        pos_q = positions if positions is not None else torch.arange(S, device=x.device)
+        q = apply_rope(q, pos_q[None, :], cfg.rope_base)
+    if cache is not None:
+        if cache["k"].shape != k.shape:
+            raise ValueError(f"cross cache {tuple(cache['k'].shape)} does not hold the "
+                             f"encoder's K/V {tuple(k.shape)}")
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              scale=hd ** -0.5, causal=False)
+    return _out_proj(out.transpose(1, 2), params), cache
 
 
 def _prefill_fill_cache(cache, k, v, lengths=None):

@@ -18,10 +18,13 @@ in their own launch (``ops.fixed_linear``'s ``norm=``), bitwise what
 ``rmsnorm`` would hand them.  Any other reader, the int8 groups included,
 applies it with :meth:`PreNorm.apply` (the kernel, exactly as before).
 
-``layernorm`` serves no configuration the port runs yet (Whisper's
-encoder); it keeps its statistics in fp64, rounded to fp32, the exception
-to the port's fp32 rule that ROADMAP.md's "Rules of the port" records,
-until a kernel of its own takes them over.
+``layernorm`` (Whisper's encoder and decoder) goes through
+``ops.layernorm`` (``kernels/layernorm.py``): the mean and the centred
+variance each summed in one fp32 order fixed by the row width, so a row's
+result is the same in a decode batch of 8 and of 1; scale and bias are read
+in their stored dtype.  Its plain version, the CPU's, takes the kernel's
+order step for step.  At a decode step it is applied in front of the layer
+(no product folds a LayerNorm in).
 """
 from __future__ import annotations
 
@@ -81,8 +84,4 @@ def layernorm_init(d: int, dtype=torch.bfloat16, device=None):
 
 def layernorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    mu = xf.double().mean(dim=-1, keepdim=True).float()
-    var = (xf - mu).double().square().mean(dim=-1, keepdim=True).float()
-    y = (xf - mu) * (var + eps) ** -0.5
-    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
+    return ops.layernorm(x, params["scale"], params["bias"], eps=eps)

@@ -231,8 +231,9 @@ def quantize_model_params(params: Dict[str, Any], mode: str) -> Dict[str, Any]:
 
     ``"none"`` returns the tree unchanged; ``"bf16"`` casts every floating
     leaf to bfloat16 (weight-only — activations keep the config dtype);
-    ``"int8"`` quantizes the attention/MLP projections per
-    ``_QUANT_SPECS`` and leaves everything else as it is.  A tree that is
+    ``"int8"`` quantizes the attention, cross-attention and MLP projections
+    per ``_QUANT_SPECS``, the encoder's blocks too, and leaves everything
+    else as it is.  A tree that is
     quantized already (``init_model`` quantizes as ``cfg.quantize`` says)
     comes back as it is."""
     return _quantize(params, mode, period=False)
@@ -255,4 +256,8 @@ def _quantize(tree: Dict[str, Any], mode: str, period: bool) -> Dict[str, Any]:
         raise ValueError(f"quantize={mode!r} (want none|bf16|int8)")
     if period:
         return _quantize_blocks(tree, n_batch=0)
-    return {**tree, "blocks": _quantize_blocks(tree["blocks"])}
+    out = {**tree, "blocks": _quantize_blocks(tree["blocks"])}
+    if "encoder" in tree:            # Whisper's encoder stack, as the reference does
+        out["encoder"] = {**tree["encoder"],
+                          "blocks": _quantize_blocks(tree["encoder"]["blocks"])}
+    return out

@@ -39,6 +39,7 @@ __all__ = ["PROJECTIONS", "LayerStack", "linear", "bias", "ones_vec", "table", "
 #: name, with the number of their leading (contracted) axes
 PROJECTIONS: Dict[str, Dict[str, int]] = {
     "attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 2},
+    "cross": {"wq": 1, "wk": 1, "wv": 1, "wo": 2},
     "mlp": {"w_gate": 1, "w_up": 1, "w_down": 1},
     "ssd": {"wz": 1, "wx": 1, "wB": 1, "wC": 1, "wdt": 1, "w_out": 1},
     "rglru": {"w_gate_branch": 1, "w_rec_branch": 1, "w_a": 1, "w_i": 1, "w_out": 1},

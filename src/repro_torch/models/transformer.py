@@ -11,6 +11,7 @@ written in place through per-layer views.  ``remat`` and
 Public entry points:
 
     init_model(gen, cfg)                 -> params
+    TransformerLM.encode(...)            -> encoder output    [whisper]
     TransformerLM.forward(...)           -> logits, aux
     TransformerLM.prefill(...)           -> logits, cache
     TransformerLM.prefill_ragged(...)    -> logits, cache
@@ -20,12 +21,16 @@ Public entry points:
 The port runs decoders whose pattern entries are ``ATTENTION_KINDS``
 (with a dense MLP, or none), Mamba-2 SSD blocks (``ssd.py``, no MLP) and
 Griffin's RG-LRU blocks (``rglru.py``, each with its MLP, as the
-reference's code has it), with no encoder, no vision tokens and no
-cross-attention.  MoE, encoder and vision blocks and learned position
-tables raise ``NotImplementedError`` until their slices (ROADMAP.md, Queue
-1).  ``prefill_ragged`` serves attention-only stacks alone: a recurrent
-state would absorb the pad tail, so those stacks prefill per request (the
-serving engine picks the path).
+reference's code has it); Whisper's encoder-decoder (``encode`` over
+precomputed frame embeddings with sinusoidal positions, a bidirectional
+stack, and cross-attention in every decoder block, its K/V cached at the
+prefill; a learned position table in the decoder); and LLaVA's stubbed
+vision frontend (``vision_embeds=`` put before the text).  MoE blocks
+raise ``NotImplementedError`` until their slice (ROADMAP.md, Queue 1).
+``prefill_ragged`` serves attention-only text-only stacks alone: a
+recurrent state would absorb the pad tail, and a vision prefix or an
+encoder's memory is not a padded prompt, so those stacks prefill per
+request (the serving engine picks the path).
 
 ``init_model`` draws one period at a time and writes it into the stacked
 tree (``models/params.py``'s ``LayerStack``).  It quantizes each period
@@ -33,18 +38,21 @@ as ``cfg.quantize`` says as it is drawn, before the next one is drawn, so
 the tree is bitwise the plain tree of the same draws put through
 ``quantize_model_params`` (the generator is consumed in the same order)
 and a model whose bf16 weights do not fit the card (Qwen1.5-32B's ≈ 69 GB)
-never holds more than one period of them.
+never holds more than one period of them.  The encoder is drawn the same
+way, a period (one layer) at a time, after the decoder.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ATTENTION_KINDS, ArchConfig, BlockKind
 from repro_torch.models.layers.attention import attn_apply, attn_init, init_kv_cache
-from repro_torch.models.layers.embedding import embed_init, embed_tokens, logits_from
+from repro_torch.models.layers.embedding import (embed_init, embed_tokens, logits_from,
+                                                 sinusoidal_positions)
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import (PreNorm, layernorm, layernorm_init, rmsnorm,
                                              rmsnorm_init)
@@ -67,16 +75,11 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append(f"block kinds {kinds}")
     if cfg.num_experts:
         missing.append("MoE")
-    if cfg.encoder_layers or cfg.cross_attention:
-        missing.append("the encoder and cross-attention")
-    if cfg.vision_tokens:
-        missing.append("the vision frontend")
-    if cfg.learned_pos:
-        missing.append("learned position tables")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1); the port runs dense attention, SSD and RG-LRU decoders")
+            f"Queue 1); the port runs dense attention, SSD and RG-LRU decoders, "
+            f"the encoder-decoder and the vision prefix")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -125,10 +128,34 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind,
         block["rglru"] = rglru_init(gen, cfg, dtype)
     else:
         block["attn"] = attn_init(gen, cfg, dtype)
+        if cfg.cross_attention:
+            block["ln_cross"] = _norm_init(cfg, dtype, dev)
+            block["cross"] = attn_init(gen, cfg, dtype, cross=True)
     if cfg.mlp_kind != "none":
         block["ln2"] = _norm_init(cfg, dtype, dev)
         block["mlp"] = mlp_init(gen, cfg, dtype)
     return block
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder's stack as the reference configures it: bidirectional
+    attention blocks with the decoder's widths, norms and MLP."""
+    return dataclasses.replace(cfg, causal=False, cross_attention=False, num_experts=0,
+                               pattern=(BlockKind.ATTN,), num_layers=cfg.encoder_layers)
+
+
+def _draw_stack(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, Any]:
+    """``cfg``'s periods drawn one at a time, each quantized as
+    ``cfg.quantize`` says as soon as it is drawn, stacked on the layer
+    axis."""
+    on_card = gen.device.type == "cuda"
+    stack = LayerStack(cfg.num_periods, projection_contract if on_card else None)
+    for p in range(cfg.num_periods):
+        period = {f"b{i}": _block_init(gen, cfg, kind, dtype)
+                  for i, kind in enumerate(cfg.pattern)}
+        stack.add(p, _quantize_period(period, cfg.quantize))
+        del period                   # before the next period is drawn
+    return stack.tree
 
 
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
@@ -144,15 +171,11 @@ def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     check_supported(cfg)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": embed_init(gen, cfg, dtype)}
-    on_card = gen.device.type == "cuda"
-    stack = LayerStack(cfg.num_periods, projection_contract if on_card else None)
-    for p in range(cfg.num_periods):
-        period = {f"b{i}": _block_init(gen, cfg, kind, dtype)
-                  for i, kind in enumerate(cfg.pattern)}
-        stack.add(p, _quantize_period(period, cfg.quantize))
-        del period                   # before the next period is drawn
-    params["blocks"] = stack.tree
+    params["blocks"] = _draw_stack(gen, cfg, dtype)
     params["final_norm"] = _norm_init(cfg, dtype, gen.device)
+    if cfg.encoder_layers:
+        params["encoder"] = {"blocks": _draw_stack(gen, _encoder_cfg(cfg), dtype),
+                             "final_norm": _norm_init(cfg, dtype, gen.device)}
     # "bf16" casts the embedding and the final norm too; the blocks are done
     return quantize_model_params(params, cfg.quantize)
 
@@ -171,24 +194,55 @@ class TransformerLM:
 
     # ---------------- caches ---------------- #
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        """Per-period caches stacked on the layer axis; with
+        cross-attention each attention block also holds its cross cache
+        ``{"k", "v"}`` of (batch, encoder_seq, kv heads, hd), which a
+        prefill with ``encoder_frames=`` fills."""
         cfg = self.cfg
+        dtype = _dtype(cfg)
 
         def block_cache(kind: BlockKind):
             if kind == BlockKind.SSD:
-                return {"ssd": init_ssd_cache(cfg, batch, _dtype(cfg), self.device)}
+                return {"ssd": init_ssd_cache(cfg, batch, dtype, self.device)}
             if kind == BlockKind.RGLRU:
-                return {"rglru": init_rglru_cache(cfg, batch, _dtype(cfg), self.device)}
-            return {"attn": init_kv_cache(cfg, kind, batch, max_seq, _dtype(cfg),
-                                          self.device)}
+                return {"rglru": init_rglru_cache(cfg, batch, dtype, self.device)}
+            c = {"attn": init_kv_cache(cfg, kind, batch, max_seq, dtype, self.device)}
+            if cfg.cross_attention:
+                shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+                c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                              "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            return c
 
         stack = LayerStack(cfg.num_periods)
         for p in range(cfg.num_periods):
             stack.add(p, {f"b{i}": block_cache(kind) for i, kind in enumerate(cfg.pattern)})
         return stack.tree
 
+    # ---------------- encoder ---------------- #
+    def encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over precomputed frame embeddings (B, Se, D)
+        (the reference stubs the conv frontend): sinusoidal positions added
+        in the frames' dtype, the bidirectional stack, the encoder's final
+        norm."""
+        cfg = self.cfg
+        enc_cfg = _encoder_cfg(cfg)
+        frames = torch.as_tensor(frames, device=self.device)
+        x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model, frames.dtype,
+                                          self.device)[None]
+        positions = torch.arange(x.shape[1], device=self.device)
+        blocks = params["encoder"]["blocks"]
+        for layer in range(cfg.encoder_layers):
+            bp = layer_slice(blocks, layer)["b0"]
+            h = _norm_apply(cfg, bp["ln1"], x)
+            h, _ = attn_apply(bp["attn"], h, cfg=enc_cfg, kind=BlockKind.ATTN, mode="prefill",
+                              positions=positions, use_rope=False)
+            x = x + h
+            x = x + mlp_apply(bp["mlp"], _norm_apply(cfg, bp["ln2"], x))
+        return _norm_apply(cfg, params["encoder"]["final_norm"], x)
+
     # ---------------- block application ---------------- #
     def _apply_block(self, kind: BlockKind, bp: Dict, x, *, mode: str,
-                     positions=None, pos=None, cache=None, lengths=None):
+                     positions=None, pos=None, cache=None, lengths=None, memory=None):
         cfg = self.cfg
         h = _pre_norm(cfg, bp["ln1"], x, mode)
         if kind == BlockKind.SSD:
@@ -204,13 +258,22 @@ class TransformerLM:
                               cache=None if cache is None else cache["attn"],
                               use_rope=cfg.use_rope, lengths=lengths)
         x = x + h
+        # cross-attention where there is a memory or a cross cache to read,
+        # as the reference has it (a forward without frames skips it)
+        if "cross" in bp and (memory is not None or (cache is not None and "cross" in cache)):
+            h = _pre_norm(cfg, bp["ln_cross"], x, mode)
+            h, _ = attn_apply(bp["cross"], h, cfg=cfg, kind=BlockKind.ATTN, mode=mode,
+                              positions=positions, pos=pos,
+                              cache=None if cache is None else cache["cross"],
+                              kv_src=memory, is_cross=True, use_rope=False)
+            x = x + h
         if "mlp" in bp:
             h = _pre_norm(cfg, bp["ln2"], x, mode)
             x = x + mlp_apply(bp["mlp"], h)
         return x
 
     def _run_stack(self, params, x, *, mode, positions=None, pos=None,
-                   cache=None, lengths=None):
+                   cache=None, lengths=None, memory=None):
         cfg = self.cfg
         for p in range(cfg.num_periods):
             pp = layer_slice(params["blocks"], p)
@@ -219,31 +282,50 @@ class TransformerLM:
                 x = self._apply_block(
                     kind, pp[f"b{i}"], x, mode=mode, positions=positions,
                     pos=pos, cache=None if pc is None else pc[f"b{i}"],
-                    lengths=lengths)
+                    lengths=lengths, memory=memory)
         return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
     # ---------------- public entry points ---------------- #
-    def forward(self, params: Dict, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params: Dict, tokens: torch.Tensor, *,
+                vision_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits.  Returns (logits, aux)."""
-        x, aux = self.forward_hidden(params, tokens)
+        x, aux = self.forward_hidden(params, tokens, vision_embeds=vision_embeds,
+                                     encoder_frames=encoder_frames)
         return logits_from(params["embed"], x), aux
 
-    def forward_hidden(self, params: Dict, tokens: torch.Tensor):
-        """Forward up to the final norm, without the LM head."""
+    def _inputs(self, params, tokens, vision_embeds, encoder_frames):
+        """The prompt's embeddings (learned positions added where the
+        config has them, a vision prefix put before the text), their
+        positions, and the encoder's memory (None without frames)."""
         tokens = torch.as_tensor(tokens, device=self.device)
-        x = embed_tokens(params["embed"], tokens)
-        positions = torch.arange(x.shape[1], device=self.device)
-        x, aux, _ = self._run_stack(params, x, mode="prefill", positions=positions)
+        S = tokens.shape[1]
+        x = embed_tokens(params["embed"], tokens, torch.arange(S) if self.cfg.learned_pos else None)
+        if vision_embeds is not None:
+            vision = torch.as_tensor(vision_embeds, device=self.device).to(x.dtype)
+            x = torch.cat([vision, x], dim=1)
+        memory = None if encoder_frames is None else self.encode(params, encoder_frames)
+        return x, torch.arange(x.shape[1], device=self.device), memory
+
+    def forward_hidden(self, params: Dict, tokens: torch.Tensor, *,
+                       vision_embeds: Optional[torch.Tensor] = None,
+                       encoder_frames: Optional[torch.Tensor] = None):
+        """Forward up to the final norm, without the LM head."""
+        x, positions, memory = self._inputs(params, tokens, vision_embeds, encoder_frames)
+        x, aux, _ = self._run_stack(params, x, mode="prefill", positions=positions,
+                                    memory=memory)
         return _norm_apply(self.cfg, params["final_norm"], x), aux
 
-    def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict):
-        """Runs the full prompt, fills the cache, returns (last-token
-        logits, cache)."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        x = embed_tokens(params["embed"], tokens)
-        positions = torch.arange(x.shape[1], device=self.device)
-        x, _, cache = self._run_stack(params, x, mode="prefill",
-                                      positions=positions, cache=cache)
+    def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict, *,
+                vision_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None):
+        """Runs the full prompt (after the vision prefix, if any), fills the
+        cache (the cross caches from the encoder's output of
+        ``encoder_frames``), returns (last-token logits, cache)."""
+        x, positions, memory = self._inputs(params, tokens, vision_embeds, encoder_frames)
+        x, _, cache = self._run_stack(params, x, mode="prefill", positions=positions,
+                                      cache=cache, memory=memory)
         x = _norm_apply(self.cfg, params["final_norm"], x[:, -1:])
         return logits_from(params["embed"], x), cache
 
@@ -264,14 +346,15 @@ class TransformerLM:
             raise ValueError(f"{cfg.name}: prefill_ragged requires an "
                              "attention-only pattern (recurrent state would "
                              "absorb the pad tail)")
+        if cfg.num_experts or cfg.cross_attention or cfg.vision_tokens:
+            raise ValueError(f"{cfg.name}: prefill_ragged supports dense "
+                             "text-only decoders")
         if start_pos is not None:
             raise NotImplementedError(
                 "prefill_ragged(start_pos=) serves the prefix cache, which is "
                 "not ported yet (ROADMAP.md, Queue 1)")
-        tokens = torch.as_tensor(tokens, device=self.device)
         lengths = torch.as_tensor(lengths, device=self.device).long()
-        x = embed_tokens(params["embed"], tokens)
-        positions = torch.arange(x.shape[1], device=self.device)
+        x, positions, _ = self._inputs(params, tokens, None, None)
         x, _, cache = self._run_stack(params, x, mode="prefill",
                                       positions=positions, cache=cache,
                                       lengths=lengths)
@@ -286,8 +369,12 @@ class TransformerLM:
         position) or (B,) (continuous batching: per-slot positions).
         Returns (logits (B, 1, V), cache)."""
         token = torch.as_tensor(token, device=self.device)
+        emb_pos = None
+        if self.cfg.learned_pos:     # where the caller's positions lie (host: no sync)
+            emb_pos = torch.as_tensor(pos)
+            emb_pos = emb_pos[:, None] if emb_pos.ndim == 1 else emb_pos[None]
         pos = torch.as_tensor(pos, device=self.device)
-        x = embed_tokens(params["embed"], token)
+        x = embed_tokens(params["embed"], token, emb_pos)
         x, _, cache = self._run_stack(params, x, mode="decode", pos=pos, cache=cache)
         x = _norm_apply(self.cfg, params["final_norm"], x)
         return logits_from(params["embed"], x), cache

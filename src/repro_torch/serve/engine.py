@@ -77,6 +77,15 @@ wrapper's ``.launches``, ``.shapes`` and ``.routes`` deltas, takes them
 back (capture runs nothing) and adds them again at every replay: launch
 counts stay exact.
 
+**Frontends.**  The engine serves text.  A vision-prefixed stack
+(LLaVA) serves its text-only path through per-request prefill, as the
+reference's engine does.  An encoder-decoder stack (Whisper) cannot be
+served: the engine takes no encoder frames, and every decoder block's
+cross-attention needs them at the prefill (the reference's engine fails
+there, ``src/repro/serve/engine.py:204``), so ``ServeEngine`` raises
+``ValueError`` at construction.  Whisper runs
+through the model's own ``prefill(encoder_frames=)`` and ``decode_step``.
+
 Not ported yet (ROADMAP.md, Queue 1): ``mesh=`` (slot sharding over
 ``serve/step.py``) and ``prefix_cache=`` (``serve/prefix_cache.py``) raise
 ``NotImplementedError``.
@@ -177,6 +186,12 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, params, batch_size: int, max_seq: int,
                  mesh=None, prefix_cache=None, device: DeviceLike = None):
+        if cfg.cross_attention:
+            raise ValueError(
+                f"{cfg.name}: ServeEngine takes no encoder frames, and its decoder's "
+                f"cross-attention needs the encoder's output at every prefill (the "
+                f"reference's engine fails there, projecting None); run it through "
+                f"TransformerLM.prefill(encoder_frames=) and decode_step")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= serving (slot sharding, serve/step.py) is not ported "

@@ -160,8 +160,11 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
     arrays (bf16 as ``ml_dtypes.bfloat16`` or cast to float32 by the
     caller) and each ``QTensor`` as the tuple ``(q, scale, n_contract)``.
     ``cfg`` (the port's ``ArchConfig``), when given, is checked against the
-    tree's widths: the embedding table, and every SSD and RG-LRU block's
-    leaves (key set and shapes, stacked on the layer axis).  The leaves reach the
+    tree's widths: the embedding table and the learned position table, every
+    SSD and RG-LRU block's leaves (key set and shapes, stacked on the layer
+    axis), each attention block's cross-attention (``ln_cross`` and
+    ``cross``, the shapes of its self-attention) and the encoder (its blocks
+    stacked on ``encoder_layers``).  The leaves reach the
     device through ``models/params.py``'s ``place`` (on the card the plain
     projection weights take ``kernel_layout`` on the host, before they
     move)."""
@@ -190,5 +193,44 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
                 if got != want:
                     raise ValueError(f"blocks/{name}/{kind} {got} does not match "
                                      f"{cfg.name}'s {want}")
+        _check_frontends(out, cfg)
     return out
+
+
+def _check_frontends(tree, cfg) -> None:
+    """The learned position table, the cross-attention leaves and the
+    encoder of ``tree`` against ``cfg``."""
+    def shapes(t):
+        return {k: tuple(v.shape) for k, v in t.items()}
+
+    pos = tree["embed"].get("pos")
+    want_pos = (cfg.max_seq_len, cfg.d_model) if cfg.learned_pos else None
+    if (None if pos is None else tuple(pos.shape)) != want_pos:
+        raise ValueError(f"embed/pos {None if pos is None else tuple(pos.shape)} does not "
+                         f"match {cfg.name}'s {want_pos}")
+    for name, block in tree["blocks"].items():
+        if "attn" not in block:
+            continue
+        if ("cross" in block or "ln_cross" in block) != cfg.cross_attention:
+            raise ValueError(f"blocks/{name}: cross-attention leaves "
+                             f"{sorted(k for k in block if 'cross' in k)}, but {cfg.name} "
+                             f"has cross_attention={cfg.cross_attention}")
+        if cfg.cross_attention and (shapes(block["cross"]) != shapes(block["attn"])
+                                    or shapes(block["ln_cross"]) != shapes(block["ln1"])):
+            raise ValueError(f"blocks/{name}/cross {shapes(block['cross'])} does not match "
+                             f"its self-attention's {shapes(block['attn'])}")
+    enc = tree.get("encoder")
+    if (enc is not None) != bool(cfg.encoder_layers):
+        raise ValueError(f"an encoder subtree {'present' if enc is not None else 'absent'}, "
+                         f"but {cfg.name} has encoder_layers={cfg.encoder_layers}")
+    if enc is not None:
+        b0 = enc["blocks"]["b0"]
+        layers = {v.shape[0] for part in ("attn", "mlp", "ln1", "ln2")
+                  for v in b0[part].values()}
+        per_layer = {k: v[1:] for k, v in shapes(b0["attn"]).items()}
+        dec = {k: v[1:] for k, v in shapes(tree["blocks"]["b0"]["attn"]).items()}
+        if layers != {cfg.encoder_layers} or per_layer != dec:
+            raise ValueError(f"encoder/blocks/b0 stacked on {sorted(layers)} layers with "
+                             f"attention {shapes(b0['attn'])}; {cfg.name} has "
+                             f"{cfg.encoder_layers} encoder layers")
 

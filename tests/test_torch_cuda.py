@@ -16,7 +16,8 @@ scores lie within fp32 rounding; ``quant_matmul`` is bitwise (its sum is integer
 streams are compared exactly.  ``rmsnorm`` is held at rtol = atol = 1e-5
 in fp32 and within one bf16 step (rtol 2⁻⁷) in bf16 (only the order of a
 row's sum of squares differs), and bitwise between a row alone and in a
-batch; ``ssd_chunk_scan`` at rtol = atol = 1e-4, ``tests/test_kernels.py``'s
+batch; ``layernorm`` the same way (its plain version takes the kernel's
+order, so the two differ only where a library's sqrt or division would); ``ssd_chunk_scan`` at rtol = atol = 1e-4, ``tests/test_kernels.py``'s
 own tolerance for that kernel, within ``chip_smoke.FP32_TOL`` (2e-4 of max
 |entry|) of its fp64 value at the served decays, and bitwise between a head
 alone and in a batch, and from call to call.  ``flash_attention`` (both
@@ -40,6 +41,7 @@ from repro_torch.core.numeric_table import MLNumericTable
 from repro_torch.kernels import fixed_linear as tfl
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans_assign as tka
+from repro_torch.kernels import layernorm as tln
 from repro_torch.kernels import logreg_grad as tlg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_matmul as tqm
@@ -154,7 +156,7 @@ def test_cuda_kernels_match_plain_versions():
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
                                   "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0,
-                                  "rglru_scan": 0}
+                                  "rglru_scan": 0, "layernorm": 0}
 
 
 @pytest.mark.cuda
@@ -566,14 +568,17 @@ def test_quantize_rows_kernel_matches_plain_version(M, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,Ns", [(1536, (1536, 256, 256)), (8960, (1536,)),
-                                  (1152, (6912, 6912))])
+                                  (1152, (6912, 6912)), (20480, (7168,))])
 def test_quant_linear_rows_are_batch_invariant(K, Ns):
-    """Row m's outputs are bitwise the same at M = 1 and at M = 8."""
+    """Row m's outputs are bitwise the same at M = 1 and at M = 8, and
+    bitwise the plain version's (LLaVA's down-projection, K = 20,480 over
+    56 tiles, splits K over more blocks than a wave would give)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(K)
     x = _x_rows(gen, 8, K, torch.bfloat16)
     group = _int8_group(gen, K, Ns)
     eight = tqm.quant_linear(x, group)
+    assert all(torch.equal(a, b) for a, b in zip(eight, tqm.quant_linear_plain(x, group)))
     for m in range(8):
         one = tqm.quant_linear(x[m:m + 1], group)
         assert all(torch.equal(a[0], b[m]) for a, b in zip(one, eight)), m
@@ -2298,6 +2303,8 @@ def test_rglru_scan_kernel_is_bitwise_its_plain_version(B, S, r, with_h0):
 @pytest.mark.parametrize("B,H,KV,slots,hd,kw", [
     (8, 40, 40, 2048, 128, dict()),                  # Qwen1.5-32B: group 1
     (8, 32, 8, 2048, 128, dict()),                   # Granite-3-8B: group 4
+    (8, 56, 8, 3072, 128, dict()),                   # LLaVA-NeXT-34B: group 7, one set of 8
+    (8, 12, 12, 1500, 64, dict()),                   # Whisper-small: 1,500 slots, hd 64
     (8, 16, 1, 2048, 256, dict(window=2048)),        # RecurrentGemma-9B: group 16
     (3, 12, 1, 300, 64, dict(window=100)),           # group 12 of 8 + 4 below hd 256
     (2, 10, 1, 64, 256, dict(chunk=16))])            # group 10 at hd 256: 4 + 4 + 2
@@ -2383,3 +2390,64 @@ def test_hybrid_engine_on_card_matches_slot_at_a_time(quantize):
     assert eng.calls["decode_graph_replays"] == eng.calls["decode_steps"] - 1 > 0
     solo = [eng._run_one(r) for r in reqs()]
     assert [r.out_tokens for r in served] == [r.out_tokens for r in solo]
+
+
+@pytest.mark.cuda
+def test_layernorm_kernel_matches_plain_version():
+    """Whisper's rows (encoder 8 x 1,500 and a decode step's 8, d = 768),
+    fp32 and bf16 x with bf16 and fp32 scale and bias, ragged widths (not a
+    multiple of a 16-byte chunk, one wider than a pass of 256 chunks), an
+    unaligned row base; a row the same bits alone as in the batch, one
+    launch a call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [((8, 1500, 768), torch.bfloat16, torch.bfloat16), ((8, 1, 768), torch.bfloat16,
+              torch.bfloat16), ((8, 768), torch.float32, torch.float32),
+             ((5, 37), torch.float32, torch.bfloat16), ((3, 2100), torch.bfloat16,
+                                                        torch.float32), ((4, 1), torch.float32,
+                                                                         torch.float32)]
+    tk.reset_launch_counts()
+    for shape, dtype, wdtype in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
+        s = (1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        b = (0.1 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        got, want = tln.layernorm(x, s, b), tln.layernorm_plain(x, s, b)
+        assert got.dtype == dtype and got.shape == x.shape
+        tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+            else dict(rtol=2.0 ** -7, atol=1e-6)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        rows = x.reshape(-1, shape[-1])
+        alone = tln.layernorm(rows[-1:].clone(), s, b)
+        assert torch.equal(alone[0], got.reshape(-1, shape[-1])[-1])
+    flat = torch.randn(9 * 768, generator=gen, device="cuda").to(torch.bfloat16)
+    x = flat[3:3 + 8 * 768].view(8, 768)
+    s, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    assert torch.equal(tln.layernorm(x, s, b), tln.layernorm(x.clone(), s, b))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["layernorm"] == 2 * len(cases) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Se,hd", [(8, 12, 12, 1500, 64), (3, 4, 2, 64, 32)])
+def test_cross_decode_admits_every_slot(B, H, KV, Se, hd):
+    """Cross-attention's decode: the decode form with every row at position
+    Se - 1 and causal=False admits all Se slots, so it is the prefill form
+    at Sq = 1 over all keys (against both plain versions, bf16 within one
+    bf16 step), and a row gives the same bits alone."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(Se)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, kc, vc = randn(B, H, hd), randn(B, Se, KV, hd), randn(B, Se, KV, hd)
+    at = torch.full((B,), Se - 1, dtype=torch.long, device="cuda")
+    got = tfa.flash_attention_decode(q, kc, vc, at, causal=False)
+    tol = _flash_tol(torch.bfloat16)
+    torch.testing.assert_close(got.float(), tfa.flash_attention_decode_plain(
+        q, kc, vc, at, causal=False).float(), **tol)
+    every = tfa.flash_attention_plain(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                                      causal=False)[:, :, 0]
+    torch.testing.assert_close(got.float(), every.float(), **tol)
+    one = tfa.flash_attention_decode(q[1:2], kc[1:2], vc[1:2], at[1:2], causal=False)
+    assert torch.equal(one[0], got[1])
