@@ -425,7 +425,7 @@ Phases (each one that fails makes the script exit non-zero):
                 with its MLP) and Qwen1.5-32B (64 layers, MHA 40/40 with QKV
                 bias, d_ff 27,392, vocab 152,064) at their published widths
                 and depths, bf16 weights made from the seed and quantized to
-                int8 a period at a time as they are drawn (the 32B model's
+                int8 a block at a time as they are drawn (the 32B model's
                 bf16 tree, ≈ 69 GB, never exists), 8 slots, max_seq 2,048:
                 16, 16 and 8 requests (prompts of 128..1,024 tokens, the
                 hybrid's up to 1,960) of 16 new tokens each (cut from 64, 64
@@ -442,17 +442,18 @@ Phases (each one that fails makes the script exit non-zero):
                 tokens/s, prefill s, decode ms a step, the served run's and
                 the oracle's peak memory, a profile of the replayed step.
                 Each model is freed before the next.  26b, after phases 27
-                and 28: every kernel held against its plain version at every
-                shape that the served runs of phases 26-28 launched (kernel
+                to 29: every kernel held against its plain version at every
+                shape that the served runs of phases 26-29 launched (kernel
                 6 at FLASH_TOL; quant_linear, quantize_rows and rglru_scan
                 bitwise; lm_head, rmsnorm, layernorm and fixed_linear at
                 their tolerances), and timed beside its plain version, the
                 library call where there is one and the bound: kernel 6's
-                decode at each served batch and slot count (groups 16, 7, 4,
-                1, Whisper's cross decode with every row at position 1,499
+                decode at each served batch and slot count (groups 16, 7, 6,
+                5, 4, 1, Whisper's cross decode with every row at position 1,499
                 of the 1,500-slot cross cache, causal=False: all slots
                 admitted; every head bitwise alone) and each model's widest
-                prefill of each mask, self or cross; rglru_scan at the
+                prefill of each mask, self or cross (the plain version in
+                blocks of 1,024 queries above 2^30 scores); rglru_scan at the
                 longest prompt (a row bitwise alone in a batch of 3; no
                 spill); lm_head at every served M of each table;
                 quant_linear at every decode group (M up to 16) and each
@@ -462,7 +463,9 @@ Phases (each one that fails makes the script exit non-zero):
                 decode shape (the folded norm bitwise the unfused row) and
                 each model's widest product at its most and fewest prefill
                 rows (Whisper's encoder at 12,000 rows, its decoder's
-                32-row prefill); layernorm at every Whisper shape, every row
+                32-row prefill; the MoE models' router on fp32 rows and
+                weights, every expert and shared-expert shape); layernorm
+                at every Whisper shape, every row
                 bitwise alone, beside F.layer_norm (its record joins the
                 kernels line: fifteen records).  The zoo's launches join
                 the kernels line.
@@ -491,7 +494,7 @@ Phases (each one that fails makes the script exit non-zero):
  28. LLaVA-NeXT-34B — after phase 27: the language backbone at its
                 published widths and depth (60 layers, d_model 7,168, 56 q
                 heads over 8 kv heads, d_ff 20,480, vocab 64,000), int8
-                drawn a period at a time.  (a) The engine's text-only path,
+                drawn a block at a time.  (a) The engine's text-only path,
                 served as phase 26 serves a model (8 requests of 128..1,024
                 prompt tokens, 16 new tokens each, per-request prefill: a
                 vision config takes no ragged wave; every stream equal to
@@ -504,26 +507,56 @@ Phases (each one that fails makes the script exit non-zero):
                 batch's (stream, prefill and last logits).  Printed: prefill s
                 of the 2,944-token rows, decode ms a step, peak memory and
                 what holds it (weights, cache, activations).
+ 29. the MoE models — after phase 28: Mixtral-8x22B (8 experts top-2,
+                sliding window 4,096, GQA 48/8) and Llama-4-Scout-17B-16E
+                (16 experts top-1 and a shared expert, 3 chunked layers
+                (chunk 8,192) to 1 NoPE, GQA 40/8, vocab 202,048) at their
+                published widths and MOE = 12 layers each (of 56 and 48:
+                their experts stay bf16 at int8, as the reference's int8
+                leaves them, ≈ 4.9 and 4.3 GB a layer), attention int8,
+                drawn a block at a time; fixed_linear.max_k checked at
+                K = 16,384 (bf16) and 6,144 (fp32).  (a) Served as phase 26
+                serves a model (8 requests of 128..1,024 prompt tokens, 16
+                new tokens, per-request prefill; every stream equal to
+                _run_one's; every launch count: an MoE layer 2·E + 1
+                fixed_linear launches a forward, 2 more for the shared
+                expert; a replayed step's profile and fixed_linear's share;
+                peak memory and what holds it).  (b) Once (a) is freed, on
+                the same weights drawn again: one request of MOE_LONG =
+                6,144 / 10,240 prompt tokens (3 / 5 dispatch groups of
+                2,048), past the window or the chunk (the chunked layers'
+                ring of 8,192 slots), and 16 greedy tokens through a 1-slot
+                engine (every launch count, finite logits), then the first
+                layer's moe_apply at that prefill's input held against its
+                plain composition (fixed_linear_plain): gates within
+                ROUTER_TOL, choices equal beyond the top-k gap, every expert
+                product within fixed_linear's tolerance of its plain version
+                on the same rows, the output bitwise its parts.  26b holds and
+                times kernel 6, quant_linear, fixed_linear, rmsnorm and
+                lm_head at phase 29's shapes.
 
 Every phase prints its seconds.  On one H100 80GB HBM3 at 700 W the run
-ends in about 240-265 s on the fastest hosts seen (227-239 s before phases
+ends in about 320 s on the fastest hosts seen (227-239 s before phases
 27-28; 242 s with them, which took ≈ 50 s, after the zoo's cut to 16 new
 tokens and Whisper's plain run's to 4 + 4 layers; 262 s once 26b held
-every served shape); slower hosts have taken it to 247-316 s, well inside
+every served shape; 321 s with phase 29, ≈ 36 s, and its 26b rows, ≈ 28
+s); slower hosts have taken it to 247-316 s before phase 29, well inside
 the 1,200 s a run is allowed.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
 then phase 21, then phase 20, then phase 22, then phase 23, then phase 24,
 then phase 8,
 then phase 11, then phase 14, then phase 18, then each model of phase 26,
-then each of phase 27's two runs, then phase 28's (a) and (b))
+then each of phase 27's two runs, then phase 28's (a) and (b), then each
+MoE model's (a) and (b) in phase 29)
 and read just after it: they
 count those paths only (phases 21 and 23 must launch none; phase 20's launches are added to
 kernels 1-3's records under "fig_a2", phase 22's under "stream", phase
 24's under "mesh": its host processes report theirs, and its emulated
 twins' do not count; the launches of phase 22's child processes are their
-own; phases 26-28's are added under "zoo_<model>", phase 28 (b)'s under
-"zoo_llava-next-34b+vision", phase 27's plain run's under
+own; phases 26-29's are added under "zoo_<model>", phase 28 (b)'s under
+"zoo_llava-next-34b+vision", phase 29 (b)'s under "zoo_<model>+long",
+phase 27's plain run's under
 "zoo_whisper-small plain").  A decode step that
 replays a CUDA graph adds the launches the graph holds (``ServeEngine``),
 so the counts stay exact.  The
@@ -866,7 +899,22 @@ ZOO_DECODE_ROWS = 16
 # phase 28 (a): LLaVA-NeXT-34B's text-only path through the engine, served
 # as the zoo's models are: (requests, new tokens each)
 LLAVA_ARCH = "llava-next-34b"
-ZOO_REQUESTS = {**ZOO, LLAVA_ARCH: (8, 16)}
+# phase 29: the MoE models at their published widths, int8 attention and
+# bf16 experts, at a depth cut (layers served of 56 and 48: every expert of
+# a layer is bf16, as the reference's int8 leaves it, ≈ 4.9 and 4.3 GB a
+# layer); (a) served as the zoo's models are; (b) one request of MOE_LONG
+# prompt tokens past Mixtral's window (4,096) and Llama4's chunk (8,192),
+# then MOE_LONG_NEW greedy tokens
+MOE = {"mixtral-8x22b": 12, "llama4-scout-17b-16e": 12}
+MOE_LONG = {"mixtral-8x22b": 6144, "llama4-scout-17b-16e": 10240}
+MOE_LONG_NEW = 16
+# moe_apply against its plain composition at (b)'s first layer: the router's
+# gates within ROUTER_TOL (fp32 sums of K = 5,120-6,144 products in the
+# kernel's order against fp64), choices equal wherever the plain gates' k-th
+# and (k+1)-th lie further apart than 2 ROUTER_TOL; the expert products at
+# fixed_linear's own tolerance (_close_fixed)
+ROUTER_TOL = 1e-4
+ZOO_REQUESTS = {**ZOO, LLAVA_ARCH: (8, 16), **{arch: (8, 16) for arch in MOE}}
 # phase 28 (b): the vision prefix (rows, patches of the published anyres
 # tiling) before a prompt of LLAVA_TEXT tokens, then LLAVA_NEW greedy decode
 # steps, into a cache of LLAVA_VISION_SEQ slots
@@ -893,6 +941,13 @@ RG_ARCH, RG_PROMPT_MAX = "recurrentgemma-9b", 1960
 # boundary) plus 1e-6 for values near 0
 FLASH_TOL = {torch.float32: dict(rtol=FP32_TOL, atol=FP32_TOL),
              torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-6)}
+# the longest row FLASH_TOL was held at before the MoE models (LLaVA (b)'s
+# 2,944 keys).  A row's fp32 sum rounds by about sqrt(keys) ulps of its
+# terms, which the 1e-6 floor stops covering for an output that cancels to
+# about 0 in a longer row (a Llama4 chunked row of 7,913 keys, exact output
+# -1.06e-6, came out 3.3e-8): past it the bf16 floor grows as
+# sqrt(keys / FLASH_TOL_KEYS); at or under it FLASH_TOL is as it was
+FLASH_TOL_KEYS = 2944
 # prompt lengths of the bitwise invariance check: short of one key tile and
 # past it, either side of the ring, the longest served
 FLASH_INVARIANCE_LENS = (40, 127, 300, 511, 513, 1023, 1024, 1960)
@@ -997,6 +1052,38 @@ def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / (reps * len(fns))
+
+
+def alternating_ms(fns) -> list:
+    """Device time of one call of each of ``fns``, read in turn: each
+    captured once as 20 calls in a CUDA graph, then 5 rounds in which every
+    graph is replayed 5 times between CUDA events, one after the other; the
+    median of each one's rounds.  Two forms of a few-microsecond kernel
+    compared so see the same clocks and the same neighbours, each read from
+    100 launches a round."""
+    launches, reps, pairs = 20, 5, 5
+    graphs = []
+    for fn in fns:
+        fn()
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        sync()
+        graphs.append(graph)
+    reads = [[] for _ in fns]
+    for _ in range(pairs):
+        for graph, read in zip(graphs, reads):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                graph.replay()
+            end.record()
+            sync()
+            read.append(start.elapsed_time(end) / (reps * launches))
+    return [sorted(r)[len(r) // 2] for r in reads]
 
 
 def score_gap(X: torch.Tensor, C: torch.Tensor, a: torch.Tensor,
@@ -5494,9 +5581,12 @@ def phase_qmm_timing(gen, counts, worst) -> list:
                         INT8_OPS_PER_S)
         row = {"label": f"{model} prefill {name}", "model": model, "kind": "prefill",
                "shape": [M, K, N], "launches": launched, "bound_ms": t_b, "bound_by": by}
-        row["ms"] = graph_ms(lambda: kqm._launch_product(xq, xs, wt, ws, out, M, N, K, bn),
-                             5, 4)
-        row["fp32_out_ms"] = graph_ms(lambda: kqm.quant_matmul(xq, xs, wq, ws), 5, 4)
+        # the two forms read in turn, 100 launches a round, the median of 5
+        # rounds each: their ≈ 10 µs at Gemma3's k/v are compared at 1.05x
+        # below, which a reading of 20 launches each failed now and then
+        row["ms"], row["fp32_out_ms"] = alternating_ms(
+            [lambda: kqm._launch_product(xq, xs, wt, ws, out, M, N, K, bn),
+             lambda: kqm.quant_matmul(xq, xs, wq, ws)])
         row["plain_ms"] = cuda_ms(
             lambda: kqm.quant_matmul_plain(xq, xs, wq, ws).to(torch.bfloat16), 1)
         wk = wq.contiguous()
@@ -6593,11 +6683,15 @@ def _decode_inputs(gen, dtype, B, H, KV, slots, hd, pos_max):
     return randn(B, H, hd), randn(B, slots, KV, hd), randn(B, slots, KV, hd), pos
 
 
-def _flash_err(a, b, dtype):
-    """(within the tolerance, max abs error, max error over the tolerance)."""
+def _flash_err(a, b, dtype, keys: int = 0):
+    """(within the tolerance, max abs error, max error over the tolerance);
+    ``keys``, a row's most admitted keys, scales the bf16 floor past
+    FLASH_TOL_KEYS."""
     tol = FLASH_TOL[dtype]
     err = (a.float() - b.float()).abs()
-    allowed = tol["atol"] + tol["rtol"] * b.float().abs()
+    atol = tol["atol"] * (max(1.0, math.sqrt(keys / FLASH_TOL_KEYS)) if dtype == torch.bfloat16
+                          else 1.0)
+    allowed = atol + tol["rtol"] * b.float().abs()
     return bool((err <= allowed).all()), err.max().item(), (err / allowed).max().item()
 
 
@@ -7400,30 +7494,52 @@ def zoo_requests(cfg):
 
 
 def zoo_layers(cfg) -> dict:
-    """Layers by kind over the whole depth: attention (A) and RG-LRU (R)."""
+    """Layers by kind over the whole depth: attention (A), RG-LRU (R), and
+    of the attention layers those with experts in place of the MLP (M)."""
     kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.num_layers)]
-    return {"A": sum(k.value.startswith("attn") for k in kinds),
-            "R": sum(k.value == "rglru" for k in kinds)}
+    A = sum(k.value.startswith("attn") for k in kinds)
+    return {"A": A, "R": sum(k.value == "rglru" for k in kinds),
+            "M": A if cfg.num_experts else 0}
+
+
+def moe_products(cfg) -> int:
+    """fixed_linear launches of one MoE layer a forward: the router, each
+    expert's gate/up and down, the shared expert's gate/up and down."""
+    return 1 + 2 * cfg.num_experts + (2 if cfg.shared_expert else 0)
+
+
+def zoo_step_want(cfg) -> dict:
+    """Each kernel's launches in one decode step (int8 projections): an
+    attention layer's projection groups (q/k/v, o, and gate/up, down for a
+    dense MLP), an RG-LRU layer's 2 groups (its MLP) and 3 fixed_linear
+    launches, an MoE layer's ``moe_products``; every norm but the
+    recurrent blocks' first (folded into their branches' launch)."""
+    n = zoo_layers(cfg)
+    A, R, M, L = n["A"], n["R"], n["M"], cfg.num_layers
+    return {k: v for k, v in (("quant_linear", 4 * A + 2 * R - 2 * M),
+                              ("rmsnorm", 2 * L + 1 - R), ("flash_attention_decode", A),
+                              ("fixed_linear", 3 * R + M * moe_products(cfg)),
+                              ("lm_head", 1)) if v}
 
 
 def zoo_expected_launches(cfg, calls, steps: int) -> dict:
     """Each kernel's launches over a serving run of ``calls`` (the engine's
-    counts) with int8 projections: an attention layer's 4 projection groups
-    (q/k/v, o, gate/up, down), an RG-LRU layer's 2 (its MLP) and 3
-    fixed_linear launches (the branches, the gates, the out-projection) at
-    a prefill and at a decode step, one rglru_scan a recurrent layer a
-    prefill; every norm a launch at a prefill, and at a decode step all but
-    the recurrent blocks' first (folded into their branches' launch); one
-    lm_head a forward."""
+    counts) with int8 projections: at a decode step ``zoo_step_want``; at a
+    prefill an attention layer's q/k/v and o groups (and gate/up, down for
+    a dense MLP) as one quantize_rows launch a group and one product a
+    weight, an RG-LRU layer's MLP so and its 3 fixed_linear launches, one
+    rglru_scan a recurrent layer (its requests prefill alone), an MoE
+    layer's ``moe_products``, every norm; one lm_head a forward."""
     n = zoo_layers(cfg)
-    A, R, L = n["A"], n["R"], cfg.num_layers
+    A, R, M, L = n["A"], n["R"], n["M"], cfg.num_layers
     F = calls["prefill_waves"] + calls["prefills"]
-    groups = 4 * A + 2 * R
-    return {"quant_linear": groups * steps + (7 * A + 3 * R) * F,
-            "quantize_rows": groups * F, "rmsnorm": (2 * L + 1) * F + (2 * L + 1 - R) * steps,
+    step = zoo_step_want(cfg)
+    return {"quant_linear": step.get("quant_linear", 0) * steps + (7 * A + 3 * R - 3 * M) * F,
+            "quantize_rows": (4 * A + 2 * R - 2 * M) * F,
+            "rmsnorm": (2 * L + 1) * F + step["rmsnorm"] * steps,
             "flash_attention": A * F, "flash_attention_decode": A * steps,
-            "fixed_linear": 3 * R * (F + steps), "rglru_scan": R * calls["prefills"],
-            "lm_head": F + steps}
+            "fixed_linear": (3 * R + M * moe_products(cfg)) * (F + steps),
+            "rglru_scan": R * calls["prefills"], "lm_head": F + steps}
 
 
 def zoo_step_launches(engine) -> dict:
@@ -7461,11 +7577,12 @@ def zoo_graph_profile(engine, step_ms: float, steps: int = 3):
     return {"busy_ms": busy, "launches": launches, **ours}
 
 
-def zoo_serve(arch: str, counts, report) -> None:
-    """One model of the zoo at its published widths and depth, int8
-    projections, ZOO_SLOTS slots, max_seq ZOO_MAX_SEQ, weights from the seed
-    drawn and quantized a period at a time; its requests served with
-    continuous batching, every stream held against _run_one."""
+def zoo_serve(arch: str, counts, report, layers: int = 0) -> None:
+    """One model of the zoo at its published widths and depth (the first
+    ``layers`` layers where given), int8 projections, ZOO_SLOTS slots,
+    max_seq ZOO_MAX_SEQ, weights from the seed drawn and quantized a period
+    at a time; its requests served with continuous batching, every stream
+    held against _run_one."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -7474,11 +7591,16 @@ def zoo_serve(arch: str, counts, report) -> None:
     from repro_torch.models.transformer import init_model
     from repro_torch.serve import ServeEngine, SlotScheduler
 
-    cfg = dataclasses.replace(get_config(arch), quantize="int8")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, quantize="int8", num_layers=layers or full.num_layers)
     n = zoo_layers(cfg)
-    say(f"{cfg.name}: {cfg.num_layers} layers ({n['A']} attention, {n['R']} RG-LRU), "
+    experts = (f", {cfg.num_experts} experts top-{cfg.top_k}"
+               f"{' and a shared expert' if cfg.shared_expert else ''} in {n['M']} layers "
+               f"(bf16: the reference's int8 leaves them)" if cfg.num_experts else "")
+    cut = f" of {full.num_layers} (depth cut)" if layers else ""
+    say(f"{cfg.name}: {cfg.num_layers} layers{cut} ({n['A']} attention, {n['R']} RG-LRU), "
         f"d_model {cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads of "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,}, "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,}{experts}, "
         f"{'QKV bias, ' if cfg.qkv_bias else ''}{cfg.dtype}, int8 projections, "
         f"{ZOO_SLOTS} slots, max_seq {ZOO_MAX_SEQ}")
     free_device_memory()
@@ -7490,11 +7612,11 @@ def zoo_serve(arch: str, counts, report) -> None:
     q = [t for t in _leaves(params, qtensors=True)]
     q_bytes = _storage_bytes([t for x in q for t in (x.qt, x.scale)])
     plain_bytes = _storage_bytes(_leaves(params))
-    init_peak = mem_peak(f"{cfg.name}'s weights drawn and quantized a period at a time")
+    init_peak = mem_peak(f"{cfg.name}'s weights drawn and quantized a block at a time")
     say(f"weights made on the card from seed {SEED} in {t_init:.2f} s: "
         f"{sum(x.qt.numel() for x in q) / 1e9:.3f} B int8 projection parameters "
         f"({q_bytes / 1e9:.3f} GB with their scales), {plain_bytes / 1e9:.3f} GB of "
-        f"{cfg.dtype} leaves (embedding, norms, biases, RG-LRU blocks)")
+        f"{cfg.dtype} leaves (embedding, norms, biases, RG-LRU blocks, experts)")
     check(all(isinstance(x, QTensor) for x in q) and len(q) > 0,
           f"{cfg.name}: no int8 projection in the drawn tree")
     engine = ServeEngine(cfg, params, batch_size=ZOO_SLOTS, max_seq=ZOO_MAX_SEQ,
@@ -7540,9 +7662,9 @@ def zoo_serve(arch: str, counts, report) -> None:
           f"{cfg.name}: launches {got} are not the expected {want}")
     check(all(v > 0 for k, v in got.items() if k in want and want[k]),
           f"{cfg.name}: a kernel of the path never launched: {got}")
-    check(engine.ragged_ok == (n["R"] == 0 and not cfg.vision_tokens),
-          f"{cfg.name}: ragged prefill {engine.ragged_ok} with {n['R']} RG-LRU layers and "
-          f"{cfg.vision_tokens} vision tokens")
+    check(engine.ragged_ok == (n["R"] == 0 and not cfg.vision_tokens and not cfg.num_experts),
+          f"{cfg.name}: ragged prefill {engine.ragged_ok} with {n['R']} RG-LRU layers, "
+          f"{cfg.vision_tokens} vision tokens and {cfg.num_experts} experts")
     check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 0, "the served run")
     check(all(r.done and len(r.out_tokens) == r.max_new_tokens for r in served),
           "a request did not finish with its tokens")
@@ -7554,11 +7676,14 @@ def zoo_serve(arch: str, counts, report) -> None:
         f"in {len(waves)} admissions; decode {step_ms:.2f} ms per step ({steps} steps of "
         f"{ZOO_SLOTS} slots); peak device memory {peak:.2f} GB (weights {init_peak:.2f} GB "
         f"at their peak while drawn); backfills {sched.backfills}")
+    cache_gb = _storage_bytes(_cache_tensors(engine.init_shared_cache())) / 1e9
+    weights_gb, pools_gb = (q_bytes + plain_bytes) / 1e9, engine.graph_pool_bytes / 1e9
+    say(f"what holds the peak: weights {weights_gb:.3f} GB, the {ZOO_SLOTS}-slot cache "
+        f"{cache_gb:.3f} GB, the captured steps' graph pools {pools_gb:.3f} GB, the rest "
+        f"{peak - weights_gb - cache_gb - pools_gb:.3f} GB (activations, a prefill's batch-1 "
+        f"cache, the allocator's blocks)")
     per_step = zoo_step_launches(engine)
-    A, R, L = n["A"], n["R"], cfg.num_layers
-    step_want = {k: v for k, v in (("quant_linear", 4 * A + 2 * R), ("rmsnorm", 2 * L + 1 - R),
-                                   ("flash_attention_decode", A), ("fixed_linear", 3 * R),
-                                   ("lm_head", 1)) if v}
+    step_want = zoo_step_want(cfg)
     say(f"launches by kernel a decode step (a graph replay): {per_step}")
     check(per_step == step_want, f"{cfg.name}: a decode step's launches {per_step}, "
           f"not {step_want}")
@@ -7567,7 +7692,8 @@ def zoo_serve(arch: str, counts, report) -> None:
            "peak_gb": peak, "init_s": t_init, "init_peak_gb": init_peak,
            "int8_gb": q_bytes / 1e9, "plain_gb": plain_bytes / 1e9, "seconds": t_run,
            "new_tokens": new, "steps": steps, "launches": got, "step_launches": per_step,
-           "decode_profile": prof, "prompts": lens}
+           "decode_profile": prof, "prompts": lens, "layers": cfg.num_layers,
+           "cache_gb": cache_gb}
 
     # every stream equals the slot-at-a-time oracle's
     calls = dict(engine.calls)
@@ -7602,6 +7728,24 @@ def _zoo_shapes(counts, kernel: str) -> dict:
     return dict(out)
 
 
+def flash_plain_rows(q, k, v, kw: dict, block: int = 1024):
+    """kernel 6's plain prefill version of (q, k, v) with the mask ``kw``;
+    above 2^30 scores a call, causal, in blocks of ``block`` queries, each
+    against the keys up to its last query (the plain version puts the
+    queries at the last positions of its keys), so no block holds more than
+    ``block`` x Sk fp64 scores a head: the same function, in pieces."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    B, H, Sq, _ = q.shape
+    Sk = k.shape[2]
+    if B * H * Sq * Sk <= 2 ** 30 or not kw["causal"]:
+        return kfa.flash_attention_plain(q, k, v, **kw)
+    off = Sk - Sq
+    return torch.cat([kfa.flash_attention_plain(q[:, :, a:a + block], k[:, :, :off + a + block],
+                                                v[:, :, :off + a + block], **kw)
+                      for a in range(0, Sq, block)], dim=2)
+
+
 def zoo_flash_rows(gen, counts) -> list:
     """Kernel 6 at the zoo's served shapes (phases 26-28), every one held
     against the plain versions (FLASH_TOL): each decode shape at its own
@@ -7615,7 +7759,7 @@ def zoo_flash_rows(gen, counts) -> list:
 
     rows = []
     dec = _zoo_shapes(counts, "flash_attention_decode")
-    for key, launched in sorted(dec.items()):
+    for key, launched in sorted(dec.items(), key=str):
         B, H, KV, slots, hd, mk = key
         kw = _mask_kwargs(mk)
         q, kc, vc, pos = _decode_inputs(gen, torch.bfloat16, B, H, KV, slots, hd, 2 * slots)
@@ -7625,7 +7769,8 @@ def zoo_flash_rows(gen, counts) -> list:
         got = kfa.flash_attention_decode(q, kc, vc, pos, **kw)
         want = kfa.flash_attention_decode_plain(q, kc, vc, pos, **kw)
         sync()
-        ok, err, ratio = _flash_err(got, want, torch.bfloat16)
+        ok, err, ratio = _flash_err(got, want, torch.bfloat16,
+                                    min(slots, kw["window"] or slots, kw["chunk"] or slots))
         check(ok, f"flash_attention_decode {key}: max abs err {err} ({ratio:.3g} x)")
         G = H // KV
         for h in range(0, H, max(1, G // 4)):
@@ -7676,10 +7821,12 @@ def zoo_flash_rows(gen, counts) -> list:
         B, H, KV, Sq, Sk, hd, mk = key
         kw = _mask_kwargs(mk)
         q, k, v = _flash_inputs(gen, torch.bfloat16, B, H, KV, Sq, Sk, hd)
-        a, b = kfa.flash_attention(q, k, v, **kw), kfa.flash_attention_plain(q, k, v, **kw)
+        a, b = kfa.flash_attention(q, k, v, **kw), flash_plain_rows(q, k, v, kw)
         sync()
-        ok, err, ratio = _flash_err(a, b, torch.bfloat16)
-        check(ok, f"flash_attention zoo {(B, H, KV, Sq, Sk, hd)} {kw}: max abs err {err}")
+        keys = min(Sk, kw["window"] or Sk, kw["chunk"] or Sk)
+        ok, err, ratio = _flash_err(a, b, torch.bfloat16, keys)
+        check(ok, f"flash_attention zoo {(B, H, KV, Sq, Sk, hd)} {kw}: max abs err {err} "
+              f"({ratio:.3g} x the tolerance at rows of up to {keys} keys)")
         del a, b
         held, held_err = held + 1, max(held_err, err)
         if key not in widest:
@@ -7687,7 +7834,7 @@ def zoo_flash_rows(gen, counts) -> list:
             continue
         model, self_attn = widest[key]
         ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw), 5)
-        plain_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v, **kw), 1)
+        plain_ms = cuda_ms(lambda: flash_plain_rows(q, k, v, kw), 1)
         mask = _admitted(torch.arange(Sq, device=DEVICE)[:, None] + (Sk - Sq),
                          torch.arange(Sk, device=DEVICE)[None, :], **kw)
         if kw["window"] is not None or kw["chunk"] is not None:
@@ -7932,11 +8079,14 @@ def zoo_fixed_rows(gen, counts) -> list:
     """fixed_linear at every served shape of the zoo's runs (the hybrid's
     three a recurrent layer: the branches with the block's norm folded in,
     the gates, fp32 out, the out-projection; Whisper's plain-weight groups,
-    x's dtype out): against the plain version (_close_fixed), the folded
-    norm bitwise the rmsnorm kernel's row.  Timed in CUDA graphs with
+    x's dtype out; the MoE models' router on fp32 rows and weights, their
+    experts' and shared expert's gate/up and down, all fp32 out): against
+    the plain version (_close_fixed), the folded norm bitwise the rmsnorm
+    kernel's row.  Timed in CUDA graphs with
     weights from HBM, beside one torch.mm of the same (M, K, sum N) and
     output dtype: each decode shape (up to ZOO_DECODE_ROWS rows) and each
     model's widest product at its most and fewest prefill rows."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import fixed_linear as kfl
 
     rows = []
@@ -7944,21 +8094,32 @@ def zoo_fixed_rows(gen, counts) -> list:
         served = data["shapes"].get("fixed_linear", {})
         if not served:
             continue
+        arch = model.split("+")[0]
+        experts = get_config(arch).num_experts if arch in MOE else 0
         prefill = [k for k in served if k[0] > ZOO_DECODE_ROWS]
         timed = set()
         for M in {min(k[0] for k in prefill), max(k[0] for k in prefill)} if prefill else ():
             timed.add(max((k for k in prefill if k[0] == M), key=lambda k: (k[1] * sum(k[2]), k)))
         for key, launched in sorted(served.items(), key=str):
             M, K, Ns, pro = key
-            x, ws, kw, xin = _fixed_case(gen, M, K, Ns, pro)
-            # the hybrid's branches and gates write fp32; its out-projection
-            # and Whisper's groups x's dtype
-            fp32 = len(Ns) > 1 and model == RG_ARCH
+            # an MoE router's weights and rows are fp32
+            router = bool(experts) and Ns == (experts,)
+            wdt = torch.float32 if router else torch.bfloat16
+            x, ws, kw, xin = _fixed_case(gen, M, K, Ns, pro, dtype=wdt)
+            # the hybrid's branches and gates write fp32, and so does every
+            # MoE product (as the dense MLP's, then cast); the hybrid's
+            # out-projection and Whisper's groups x's dtype
+            fp32 = (len(Ns) > 1 and model == RG_ARCH) or bool(experts)
             outs = [torch.float32 if fp32 else torch.bfloat16] * len(Ns)
             got = kfl.fixed_linear(x, ws, outs, **kw)
+            sync()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             want = kfl.fixed_linear_plain(x, ws, outs, **kw)
+            end.record()
             unfused = kfl.fixed_linear(xin, ws, outs)
             sync()
+            held_plain_ms = start.elapsed_time(end)
             check(all(_close_fixed(a, b) for a, b in zip(got, want)),
                   f"fixed_linear {model} {(M, K, Ns, pro)}: beyond the tolerance")
             check(all(torch.equal(a, b) for a, b in zip(got, unfused)),
@@ -7968,21 +8129,27 @@ def zoo_fixed_rows(gen, counts) -> list:
             if M > ZOO_DECODE_ROWS and key not in timed:
                 del x, ws, xin
                 continue
-            nsum = sum(Ns)
+            nsum, wsize = sum(Ns), ws[0].element_size()
             wcat = torch.cat([w for w in ws], 1).t().contiguous()
-            copies = max(1, math.ceil(COLD_BYTES / (2 * K * nsum)))
+            copies = max(1, math.ceil(COLD_BYTES / (wsize * K * nsum)))
             sets = [ws] + [[w.t().contiguous().t() for w in ws] for _ in range(copies - 1)]
             ms = graph_ms([lambda s=s: kfl.fixed_linear(x, s, outs, **kw) for s in sets])
-            lib = (lambda: mm_fp32_out(xin, wcat)) if fp32 else (lambda: xin @ wcat.t())
+            lib = ((lambda: mm_fp32_out(xin, wcat)) if fp32 and not router
+                   else (lambda: xin @ wcat.t()))
             lib_ms = graph_ms(lib, launches=10)
             where = "decode" if M <= ZOO_DECODE_ROWS else "prefill"
-            lib_name = f"torch.mm {'out_dtype=fp32' if fp32 else 'bf16'}"
+            lib_name = ("torch.mm fp32" if router else
+                        f"torch.mm {'out_dtype=fp32' if fp32 else 'bf16'}")
             del sets
-            plain_ms = cuda_ms(lambda: kfl.fixed_linear_plain(x, ws, outs, **kw), 3)
-            t_b, by = bound(2 * M * K + 2 * K * nsum + outs[0].itemsize * M * nsum,
-                            2.0 * M * K * nsum, BF16_OPS_PER_S)
+            # the plain version reads the weights once a row, in fp64: at the
+            # widest shapes its one call above, timed as it ran
+            plain_ms = (cuda_ms(lambda: kfl.fixed_linear_plain(x, ws, outs, **kw), 3)
+                        if M * K * nsum <= 2 ** 32 else held_plain_ms)
+            t_b, by = bound(x.element_size() * M * K + wsize * K * nsum
+                            + outs[0].itemsize * M * nsum, 2.0 * M * K * nsum,
+                            FP32_OPS_PER_S if router else BF16_OPS_PER_S)
             say(f"fixed_linear zoo {model} {where} (M, K, N, prologue) = {(M, K, Ns, pro)}, "
-                f"route {kfl.route(torch.bfloat16, x.dtype, pro is not None, M)}, {launched} "
+                f"route {kfl.route(wdt, x.dtype, pro is not None, M)}, {launched} "
                 f"launches: within the tolerance, the folded norm bitwise the unfused row; "
                 f"kernel {ms:.4f} ms (weights from HBM), plain {plain_ms:.4f} ms, {lib_name} "
                 f"{lib_ms:.4f} ms (weights from L2), bound {t_b:.4f} ms ({by}), "
@@ -8048,7 +8215,7 @@ def whisper_decode(model, params, tokens, frames, new: int, max_seq: int):
 
 def whisper_run(cfg, frames, tokens, counts, report, label: str) -> None:
     """One Whisper-small configuration at its published widths and depths:
-    weights from the seed (quantized a period at a time as drawn), the
+    weights from the seed (quantized a block at a time as drawn), the
     encoder timed, a warm-up prefill and decode step, then the main path
     (counted): prefill(encoder_frames=)
     of WH_BATCH rows and WH_NEW greedy tokens; then each row alone at batch
@@ -8144,7 +8311,7 @@ def phase_whisper(counts, report) -> None:
 
 def llava_vision_prefix(cfg, counts, report) -> None:
     """Phase 28 (b): the weights drawn again from the seed, quantized a
-    period at a time; LLAVA_ROWS rows of the published 2,880 patch
+    block at a time; LLAVA_ROWS rows of the published 2,880 patch
     embeddings (drawn from the seed at the token rows' scale) before a
     LLAVA_TEXT-token prompt, prefilled in one call, then LLAVA_NEW greedy
     decode steps (counted); each row alone at batch 1 bitwise: stream,
@@ -8228,7 +8395,7 @@ def llava_vision_prefix(cfg, counts, report) -> None:
 
 def phase_llava(counts, report) -> None:
     """LLaVA-NeXT-34B at its published widths and depth, int8 drawn a
-    period at a time: (a) the engine's text-only path, served as the zoo's
+    block at a time: (a) the engine's text-only path, served as the zoo's
     models are; (b) the vision prefix through the model's prefill."""
     import dataclasses
 
@@ -8240,6 +8407,228 @@ def phase_llava(counts, report) -> None:
           f"{cfg.vocab_size:,}, {cfg.vision_tokens} vision tokens; int8")
     zoo_serve(LLAVA_ARCH, counts, report)
     llava_vision_prefix(dataclasses.replace(cfg, quantize="int8"), counts, report)
+
+
+# --------------------------------------------------------------------------- #
+# phase 29: the MoE models (Mixtral-8x22B, Llama-4-Scout-17B-16E)
+# --------------------------------------------------------------------------- #
+def moe_layer_check(cfg, bp, x) -> dict:
+    """moe_apply at one layer's input against its plain composition
+    (fixed_linear_plain in place of the kernel, on the card): the router's
+    gates within ROUTER_TOL and its choices equal wherever the plain gates'
+    k-th and (k+1)-th lie more than 2 ROUTER_TOL apart; on the kernel's
+    routing, every expert product within fixed_linear's tolerance of its
+    plain version on the same rows (gate and up on the expert's buffer
+    rows, down on its rounded hidden rows), each expert row the layer keeps
+    bitwise the kernel's down rounded, and moe_apply's output bitwise the
+    composition of its parts (with the shared expert's MLP); the aux loss.
+    Each product is held on the kernel path's own rows: run end to end in
+    plain versions, a hidden value that rounds to its other bf16 neighbour
+    moves a down row by a step times a weight, and a row sums ≈ 16,000 of
+    them (0.004 at Mixtral's first layer, more than a bf16 step of small
+    rows).  moe_apply's device time (kernels) printed."""
+    from repro_torch.kernels import fixed_linear as kfl
+    from repro_torch.models.layers import moe as lmoe
+    from repro_torch.models.layers.mlp import mlp_apply
+
+    t0 = time.perf_counter()
+    E, k, D, f32 = cfg.num_experts, cfg.top_k, x.shape[-1], torch.float32
+    rk = lmoe.moe_route(bp, x, cfg)
+    out, aux = lmoe.moe_apply(bp, x, cfg)
+    buf = lmoe._dispatch(x, rk, E)
+    y = lmoe._experts(bp, buf, E)
+    with swapped_ops(fixed_linear=kfl.fixed_linear_plain):
+        rp = lmoe.moe_route(bp, x, cfg)
+    sync()
+    gate_err = (rk.gates - rp.gates).abs().max().item()
+    srt = rp.gates.sort(dim=-1, descending=True).values
+    gap = srt[:, k - 1] - srt[:, k]
+    differ = (rk.top_idx != rp.top_idx).any(-1)
+    n_differ, drops = int(differ.sum()), int((rk.dest == rk.drop).sum())
+    check(gate_err <= ROUTER_TOL, f"moe_apply {cfg.name}: gates {gate_err:.3g} from the plain "
+          f"composition's, over {ROUTER_TOL}")
+    check(bool((gap[differ] <= 2 * ROUTER_TOL).all()),
+          f"moe_apply {cfg.name}: {n_differ} tokens routed apart, some with a top-k gap over "
+          f"2 x {ROUTER_TOL}")
+    GC, prod_err = rk.groups * rk.capacity, 0.0
+    for e in range(E):
+        xe, wd = buf[e * GC:(e + 1) * GC], bp["w_down"][e]
+        ws = [bp["w_gate"][e], bp["w_up"][e]]
+        gu = kfl.fixed_linear(xe, ws, [f32, f32])
+        h = (torch.nn.functional.silu(gu[0]) * gu[1]).to(x.dtype)
+        down = kfl.fixed_linear(h, [wd], [f32])
+        for got, want in zip(gu + down, kfl.fixed_linear_plain(xe, ws, [f32, f32])
+                             + kfl.fixed_linear_plain(h, [wd], [f32])):
+            prod_err = max(prod_err, (got - want).abs().max().item())
+            check(_close_fixed(got, want), f"moe_apply {cfg.name}: expert {e}'s product "
+                  f"{tuple(got.shape)} beyond fixed_linear's tolerance of its plain version")
+        check(torch.equal(y[e * GC:(e + 1) * GC], down[0].to(x.dtype)),
+              f"moe_apply {cfg.name}: expert {e}'s rows are not its down product rounded")
+    whole = lmoe._combine(y, rk, cfg.moe_dispatch).view(x.shape)
+    if "shared" in bp:
+        whole = whole + mlp_apply(bp["shared"], x)
+    check(torch.equal(out, whole), f"moe_apply {cfg.name}: not bitwise the composition of "
+          f"its parts")
+    aux_p = lmoe._aux(rp, cfg).item()
+    check(abs(aux.item() - aux_p) <= 1e-4 * abs(aux_p),
+          f"moe_apply {cfg.name}: aux {aux.item()} against {aux_p}")
+    check_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: lmoe.moe_apply(bp, x, cfg, aux=False), 3)
+    T = x.shape[0] * x.shape[1]
+    say(f"moe_apply {cfg.name} at (b)'s first layer input {tuple(x.shape)} ({rk.groups} groups of "
+        f"{rk.group}, capacity {rk.capacity}, {drops} of {T * k} choices dropped) against its "
+        f"plain composition (fixed_linear_plain): gates within {gate_err:.3g}, {n_differ} tokens "
+        f"routed apart (top-k gap <= {2 * ROUTER_TOL} there), every expert product within "
+        f"fixed_linear's tolerance of its plain version on the same rows (max abs err "
+        f"{prod_err:.3g}), the output bitwise its parts' composition; aux "
+        f"{aux.item():.6f} / {aux_p:.6f}; {check_s:.1f} s with the plain versions; "
+        f"moe_apply with the kernels {ms:.3f} ms")
+    return {"shape": list(x.shape), "groups": rk.groups, "capacity": rk.capacity,
+            "drops": drops, "gate_err": gate_err, "routed_apart": n_differ,
+            "max_abs_err": prod_err,
+            "aux": [aux.item(), aux_p], "ms": ms, "check_s": check_s}
+
+
+def moe_long(arch: str, layers: int, counts, report) -> None:
+    """(b): one request of MOE_LONG[arch] prompt tokens (dispatch groups of
+    2,048) and MOE_LONG_NEW greedy tokens through ServeEngine at one slot,
+    past the window or the chunk; the rings' sizes, every launch count, the
+    decode steps as graph replays, finite logits; the first MoE layer's
+    input kept for moe_layer_check.  Its launches join the kernels line as
+    "zoo_<model>+long", and 26b holds and times kernel 6 at its shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tmod
+    from repro_torch.models.config import BlockKind
+    from repro_torch.models.transformer import init_model, layer_slice
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch), quantize="int8", num_layers=layers)
+    S, new = MOE_LONG[arch], MOE_LONG_NEW
+    edge = (f"window {cfg.window}" if BlockKind.ATTN_LOCAL in cfg.pattern
+            else f"chunk {cfg.attn_chunk}")
+    say(f"(b) {cfg.name}, {layers} layers: one request of {S:,} prompt tokens ({S // 2048} "
+        f"dispatch groups of 2,048), {new} greedy tokens, past its {edge}")
+    free_device_memory()
+    mem_reset()
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    engine = ServeEngine(cfg, params, batch_size=1, max_seq=S + new, device=DEVICE)
+    cache = engine.init_shared_cache()
+    sync()
+    mem_reset()                          # the run's peak, not the drawing's
+    want_slots = {BlockKind.ATTN_LOCAL: min(cfg.window, S + new),
+                  BlockKind.ATTN_CHUNKED: min(cfg.attn_chunk, S + new),
+                  BlockKind.ATTN_NOPE: S + new}
+    rings = {kind.value: int(cache[f"b{i}"]["attn"]["k"].shape[2])
+             for i, kind in enumerate(cfg.pattern)}
+    check(all(rings[k.value] == want_slots[k] for k in cfg.pattern),
+          f"{cfg.name}: cache slots {rings}, not {want_slots}")
+    rng = np.random.default_rng(SEED + 29)
+    req = Request(prompt=rng.integers(0, cfg.vocab_size, size=S).astype(np.int32),
+                  max_new_tokens=new)
+    seen = {}
+    apply = tmod.moe_apply
+
+    def first_input(p, x, c, **kw):
+        if "x" not in seen and x.shape[1] == S:
+            seen["x"] = x.clone()
+        return apply(p, x, c, **kw)
+
+    prefill_s = []
+    prefill_into = engine._prefill_into
+
+    def timed_prefill_into(*a, **kw):
+        t = time.perf_counter()
+        out = prefill_into(*a, **kw)
+        sync()
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    last, step_s = {}, []
+    decode = engine._decode
+
+    def kept_decode(*a, **kw):
+        t = time.perf_counter()
+        out = decode(*a, **kw)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        last["logits"] = out[0]
+        return out
+
+    engine._prefill_into, engine._decode = timed_prefill_into, kept_decode
+    tmod.moe_apply = first_input
+    for fn in KERNELS.values():
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+    sync()
+    try:
+        reset_launch_counts()            # (b)'s run starts here
+        t0 = time.perf_counter()
+        served = engine.run([req])
+        sync()
+        t_run = time.perf_counter() - t0
+        got = launch_counts()            # ... and ends here
+    finally:
+        tmod.moe_apply = apply
+        del engine._prefill_into, engine._decode
+    peak = mem_peak(f"{cfg.name} (b)")
+    shapes = {name: dict(fn.shapes) for name, fn in KERNELS.items()
+              if hasattr(fn, "shapes") and fn.shapes}
+    steps = engine.calls["decode_steps"]
+    want = zoo_expected_launches(cfg, engine.calls, steps)
+    say(f"launches in (b): {got}; {engine.calls['prefills']} prefill, {steps} decode steps")
+    check(all(got[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in got.items() if k not in want),
+          f"{cfg.name} (b): launches {got} are not the expected {want}")
+    check_graph_steps(engine, dict.fromkeys(engine.calls, 0), 1, f"{cfg.name} (b)")
+    logits = last.pop("logits")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} (b): the last step's logits {tuple(logits.shape)} not finite")
+    r = served[0]
+    check(r.done and len(r.out_tokens) == new, f"{cfg.name} (b): the request did not finish")
+    # the replays' steps (the first step runs eagerly and captures the graph)
+    step_ms = sum(step_s[1:]) / max(len(step_s) - 1, 1) * 1e3
+    say(f"(b) {cfg.name}: prefill of {S:,} tokens {prefill_s[0]:.3f} s, decode {step_ms:.2f} ms a "
+        f"replayed step past the {edge} ({steps} steps, one slot; the first, with its capture, "
+        f"{step_s[0] * 1e3:.1f} ms), {r.out_tokens[:8]}...; {t_run:.3f} s in all; cache slots "
+        f"{rings}; peak device memory {peak:.2f} GB (weights, cache and the prefill's "
+        f"activations)")
+    counts["zoo"][f"{cfg.name}+long"] = {"launches": got, "shapes": shapes}
+    layer = moe_layer_check(cfg, layer_slice(params["blocks"], 0)["b0"]["moe"], seen["x"])
+    report["zoo"][f"{cfg.name}+long"] = {
+        "prompt": S, "new_tokens": new, "prefill_s": prefill_s[0], "decode_ms_per_step": step_ms,
+        "peak_gb": peak, "launches": got, "rings": rings, "moe_layer": layer, "layers": layers}
+    del engine, params, served, logits, seen, cache
+    free_device_memory()
+
+
+def phase_moe(counts, report) -> None:
+    """Phase 29: each MoE model at its published widths and a depth cut, int8
+    attention (the experts bf16, as in the reference): (a) served as phase
+    26 serves a model; (b) one long request past its window or chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fixed_linear as kfl
+
+    phase("29. the MoE models at their published widths, int8 attention and bf16 experts: "
+          + ", ".join(f"{a} ({n} of {get_config(a).num_layers} layers)" for a, n in MOE.items()))
+    say(f"card: {CARD}")
+    widest = {"bf16 decode form": (kfl.max_k(torch.bfloat16, torch.bfloat16, False), 16384),
+              "fp32 SIMT route": (kfl.max_k(torch.float32, torch.float32, False), 6144)}
+    say("fixed_linear.max_k on this card against the widest K phase 29 gives it: "
+        + ", ".join(f"{k} {v[0]:,} (needs {v[1]:,})" for k, v in widest.items()))
+    check(all(v[0] >= v[1] for v in widest.values()),
+          f"fixed_linear cannot take phase 29's K: {widest}")
+    for arch, layers in MOE.items():
+        zoo_serve(arch, counts, report, layers=layers)
+        prof = report["zoo"][arch]["decode_profile"]
+        if prof:
+            say(f"{arch} (a): fixed_linear {prof.get('fixed_linear', 0.0):.3f} ms of the "
+                f"replayed step's {prof['busy_ms']:.3f} busy ms "
+                f"({prof.get('fixed_linear', 0.0) / prof['busy_ms']:.1%}), "
+                f"{prof['launches']:.0f} launches")
+        moe_long(arch, layers, counts, report)
 
 
 def zoo_layernorm_record(gen, counts) -> dict:
@@ -8306,7 +8695,7 @@ ZOO_RECORD_OF = {"quant_linear": "quant_matmul", "quantize_rows": "quantize_rows
 def phase_zoo_kernels(gen, counts, records) -> None:
     """The zoo path's kernels held against their plain versions and timed at
     its shapes; their launches on the path added to the kernels line."""
-    phase("26b. the zoo's kernels held and timed at its served shapes (phases 26-28)")
+    phase("26b. the zoo's kernels held and timed at its served shapes (phases 26-29)")
     say(f"card: {CARD}")
     records.append(zoo_scan_record(gen, counts))
     records.append(zoo_layernorm_record(gen, counts))
@@ -8430,6 +8819,9 @@ def main() -> int:
     # GB), each freed before the next; their runs join the zoo's records
     phase_whisper(counts, report)
     phase_llava(counts, report)
+    # the MoE models (≈ 60 and 54 GB at 12 layers), each freed before the
+    # next; their runs join the zoo's records and 26b's shapes
+    phase_moe(counts, report)
     phase_zoo_kernels(gen, counts, records)
     end_phase()
     # logreg_xt_z is on no path since the fits take logreg_grad: the checks

@@ -6,10 +6,12 @@ registers only the configurations whose every block kind it runs:
 ``qwen2-1.5b``, ``mamba2-2.7b``, ``gemma3-1b`` (its sliding-window
 layers' attention through kernel 6), the dense ``granite-3-8b`` and
 ``qwen1.5-32b``, the hybrid ``recurrentgemma-9b`` (RG-LRU blocks
-beside local attention), the encoder-decoder ``whisper-small`` and the
-vision-prefixed ``llava-next-34b``.  The reference's other ids (the two MoE
-models) are known here and raise ``NotImplementedError`` until their slice
-(ROADMAP.md, Queue 1).
+beside local attention), the encoder-decoder ``whisper-small``, the
+vision-prefixed ``llava-next-34b`` and the two MoE models,
+``mixtral-8x22b`` (top-2 of 8 experts, sliding-window attention) and
+``llama4-scout-17b-16e`` (top-1 of 16 experts and a shared expert, chunked
+and NoPE attention).  That is every configuration of the reference, so
+``PENDING_IDS`` is empty; the name stays for the launcher's choices.
 """
 from __future__ import annotations
 
@@ -24,12 +26,10 @@ __all__ = ["ARCH_IDS", "PENDING_IDS", "SHAPES", "InputShape", "get_config",
 
 #: configurations the port runs
 ARCH_IDS = ("qwen2-1.5b", "mamba2-2.7b", "gemma3-1b", "granite-3-8b", "qwen1.5-32b",
-            "recurrentgemma-9b", "whisper-small", "llava-next-34b")
-#: the reference's other configurations, each waiting for its block kinds
-PENDING_IDS = (
-    "llama4-scout-17b-16e",
-    "mixtral-8x22b",
-)
+            "recurrentgemma-9b", "whisper-small", "llava-next-34b", "mixtral-8x22b",
+            "llama4-scout-17b-16e")
+#: the reference's configurations still waiting for their block kinds: none
+PENDING_IDS: tuple = ()
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 _ALIASES = {"llama4-scout-17b-a16e": "llama4-scout-17b-16e"}
@@ -53,12 +53,8 @@ SHAPES: Dict[str, InputShape] = {
 
 def _module(name: str):
     name = _ALIASES.get(name, name)
-    if name in PENDING_IDS:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md, Queue 1: the other "
-            f"configurations and their block kinds); ported: {ARCH_IDS}")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS + PENDING_IDS}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -6,9 +6,10 @@
     prompts arrive on an all-at-once / Poisson / uniform / burst trace, are
     queued, admitted into decode slots (backfilled mid-decode), and
     greedy-decoded through one fused per-slot-position step.  Weights are
-    made from ``--seed``, quantized a period at a time as they are drawn;
-    ``--quantize int8`` sends every attention and MLP projection through
-    the ``quant_matmul`` kernel.
+    made from ``--seed``, quantized a block at a time as they are drawn;
+    ``--quantize int8`` sends every attention and dense MLP projection
+    through the ``quant_matmul`` kernel (an MoE block's experts stay in the
+    config's dtype, as the reference's int8 mode leaves them).
   * ``--engine model`` — the prediction service for fitted models
     (``serve/predictor.py``): fit a small logistic regression or k-means on
     synthetic data, then serve feature-block requests through the
@@ -24,7 +25,9 @@ A configuration with a stubbed frontend prints the reference's note:
 exits with the engine's error (the engine takes no encoder frames).
 
 Examples (CPU; ``--arch`` also ``granite-3-8b``, ``qwen1.5-32b``,
-``recurrentgemma-9b``, ``gemma3-1b``, ``mamba2-2.7b``, ``llava-next-34b``):
+``recurrentgemma-9b``, ``gemma3-1b``, ``mamba2-2.7b``, ``llava-next-34b``,
+and the MoE models ``mixtral-8x22b`` and ``llama4-scout-17b-16e``, which
+prefill each request alone):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
         --arch qwen2-1.5b --smoke --quantize int8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine model \
@@ -82,7 +85,7 @@ def run_lm(args) -> dict:
     if args.quantize != "none":
         cfg = dataclasses.replace(cfg, quantize=args.quantize)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    # quantized a period at a time as drawn: Qwen1.5-32B's bf16 tree would
+    # quantized a block at a time as drawn: Qwen1.5-32B's bf16 tree would
     # not fit the card
     params = init_model(gen, cfg)
 

@@ -242,8 +242,9 @@ def quantize_model_params(params: Dict[str, Any], mode: str) -> Dict[str, Any]:
 def _quantize_period(period: Dict[str, Any], mode: str) -> Dict[str, Any]:
     """One period's blocks (``{"b0": ..., ...}``, no layer axis) as
     :func:`quantize_model_params` leaves the stacked blocks, value for
-    value: ``init_model`` quantizes each period as it is drawn, so that a
-    model whose plain weights do not fit the card never holds them all."""
+    value (a single block too): ``init_model`` quantizes each block as it
+    is drawn, so that a model whose plain weights do not fit the card never
+    holds them all."""
     return _quantize(period, mode, period=True)
 
 

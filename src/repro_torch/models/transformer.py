@@ -25,21 +25,26 @@ reference's code has it); Whisper's encoder-decoder (``encode`` over
 precomputed frame embeddings with sinusoidal positions, a bidirectional
 stack, and cross-attention in every decoder block, its K/V cached at the
 prefill; a learned position table in the decoder); and LLaVA's stubbed
-vision frontend (``vision_embeds=`` put before the text).  MoE blocks
-raise ``NotImplementedError`` until their slice (ROADMAP.md, Queue 1).
-``prefill_ragged`` serves attention-only text-only stacks alone: a
-recurrent state would absorb the pad tail, and a vision prefix or an
-encoder's memory is not a padded prompt, so those stacks prefill per
-request (the serving engine picks the path).
+vision frontend (``vision_embeds=`` put before the text); and the MoE
+decoders (``moe.py`` in place of an attention block's MLP), whose ``aux``
+losses ``forward`` sums over the layers in layer order.  At a decode step
+an MoE block's norm is applied by the ``rmsnorm`` kernel, not folded into
+a product, since the router and the dispatch both read it.
+``prefill_ragged`` serves attention-only dense text-only stacks alone: a
+recurrent state would absorb the pad tail, a vision prefix or an
+encoder's memory is not a padded prompt, and an MoE group's capacity
+would count the pad tokens, so those stacks prefill per request (the
+serving engine picks the path).
 
-``init_model`` draws one period at a time and writes it into the stacked
-tree (``models/params.py``'s ``LayerStack``).  It quantizes each period
-as ``cfg.quantize`` says as it is drawn, before the next one is drawn, so
-the tree is bitwise the plain tree of the same draws put through
+``init_model`` draws one block at a time and writes it into the stacked
+tree (``models/params.py``'s ``LayerStack``).  It quantizes each block as
+``cfg.quantize`` says as it is drawn, before the next one is drawn, so the
+tree is bitwise the plain tree of the same draws put through
 ``quantize_model_params`` (the generator is consumed in the same order)
 and a model whose bf16 weights do not fit the card (Qwen1.5-32B's ≈ 69 GB)
-never holds more than one period of them.  The encoder is drawn the same
-way, a period (one layer) at a time, after the decoder.
+never holds more than one block of them beside the stack (a period of
+Llama4's would be four MoE layers, ≈ 17 GB).  The encoder is drawn the
+same way, a layer at a time, after the decoder.
 """
 from __future__ import annotations
 
@@ -54,32 +59,16 @@ from repro_torch.models.layers.attention import attn_apply, attn_init, init_kv_c
 from repro_torch.models.layers.embedding import (embed_init, embed_tokens, logits_from,
                                                  sinusoidal_positions)
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
+from repro_torch.models.layers.moe import moe_apply, moe_init
 from repro_torch.models.layers.norms import (PreNorm, layernorm, layernorm_init, rmsnorm,
                                              rmsnorm_init)
 from repro_torch.models.layers.quant import (QTensor, _quantize_period,
                                              quantize_model_params)
 from repro_torch.models.layers.rglru import init_rglru_cache, rglru_apply, rglru_init
 from repro_torch.models.layers.ssd import init_ssd_cache, ssd_apply, ssd_init
-from repro_torch.models.params import LayerStack, projection_contract
+from repro_torch.models.params import LayerStack, projection_layout
 
-__all__ = ["init_model", "TransformerLM", "check_supported", "layer_slice"]
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for the blocks the port does not run
-    yet."""
-    missing = []
-    kinds = sorted(k.value for k in cfg.pattern
-                   if k not in ATTENTION_KINDS and k not in (BlockKind.SSD, BlockKind.RGLRU))
-    if kinds:
-        missing.append(f"block kinds {kinds}")
-    if cfg.num_experts:
-        missing.append("MoE")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1); the port runs dense attention, SSD and RG-LRU decoders, "
-            f"the encoder-decoder and the vision prefix")
+__all__ = ["init_model", "TransformerLM", "layer_slice"]
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -133,7 +122,10 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind,
             block["cross"] = attn_init(gen, cfg, dtype, cross=True)
     if cfg.mlp_kind != "none":
         block["ln2"] = _norm_init(cfg, dtype, dev)
-        block["mlp"] = mlp_init(gen, cfg, dtype)
+        if cfg.num_experts and kind != BlockKind.RGLRU:     # as the reference's
+            block["moe"] = moe_init(gen, cfg, dtype)
+        else:
+            block["mlp"] = mlp_init(gen, cfg, dtype)
     return block
 
 
@@ -145,30 +137,29 @@ def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
 
 
 def _draw_stack(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, Any]:
-    """``cfg``'s periods drawn one at a time, each quantized as
-    ``cfg.quantize`` says as soon as it is drawn, stacked on the layer
-    axis."""
+    """``cfg``'s blocks drawn one at a time in period order, each quantized
+    as ``cfg.quantize`` says as soon as it is drawn and written into its
+    layer of the stack."""
     on_card = gen.device.type == "cuda"
-    stack = LayerStack(cfg.num_periods, projection_contract if on_card else None)
+    stack = LayerStack(cfg.num_periods, projection_layout if on_card else None)
     for p in range(cfg.num_periods):
-        period = {f"b{i}": _block_init(gen, cfg, kind, dtype)
-                  for i, kind in enumerate(cfg.pattern)}
-        stack.add(p, _quantize_period(period, cfg.quantize))
-        del period                   # before the next period is drawn
+        for i, kind in enumerate(cfg.pattern):
+            block = {f"b{i}": _block_init(gen, cfg, kind, dtype)}
+            stack.add(p, _quantize_period(block, cfg.quantize))
+            del block                # before the next block is drawn
     return stack.tree
 
 
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     """The param tree of ``cfg``, drawn from ``gen`` on ``gen``'s device,
-    one period at a time.  The reference also returns logical sharding
+    one block at a time.  The reference also returns logical sharding
     axes; the port has no mesh yet, so it returns the params alone.  On the
     card the plain projection weights are stacked in ``kernel_layout``
     (``models/params.py``), the storage the decode products read in place.
-    Each period is quantized as ``cfg.quantize`` says as soon as it is
+    Each block is quantized as ``cfg.quantize`` says as soon as it is
     drawn, so a model whose plain weights do not fit the card never holds
     them all; the tree is bitwise the plain tree of the same draws put
     through ``quantize_model_params(tree, cfg.quantize)``."""
-    check_supported(cfg)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": embed_init(gen, cfg, dtype)}
     params["blocks"] = _draw_stack(gen, cfg, dtype)
@@ -188,7 +179,6 @@ class TransformerLM:
     on ``device`` (the CUDA card unless ``device="cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -243,12 +233,14 @@ class TransformerLM:
     # ---------------- block application ---------------- #
     def _apply_block(self, kind: BlockKind, bp: Dict, x, *, mode: str,
                      positions=None, pos=None, cache=None, lengths=None, memory=None):
+        """The block's output and its MoE aux loss (None for a block
+        without experts, and at a decode step)."""
         cfg = self.cfg
         h = _pre_norm(cfg, bp["ln1"], x, mode)
         if kind == BlockKind.SSD:
             h, _ = ssd_apply(bp["ssd"], h, cfg=cfg, mode=mode,
                              cache=None if cache is None else cache["ssd"])
-            return x + h
+            return x + h, None
         if kind == BlockKind.RGLRU:
             h, _ = rglru_apply(bp["rglru"], h, cfg=cfg, mode=mode,
                                cache=None if cache is None else cache["rglru"])
@@ -267,23 +259,34 @@ class TransformerLM:
                               cache=None if cache is None else cache["cross"],
                               kv_src=memory, is_cross=True, use_rope=False)
             x = x + h
-        if "mlp" in bp:
+        aux = None
+        if "moe" in bp:
+            # read twice (router and dispatch), so applied here, not folded
+            h = _norm_apply(cfg, bp["ln2"], x)
+            h, aux = moe_apply(bp["moe"], h, cfg, aux=mode != "decode")
+            x = x + h
+        elif "mlp" in bp:
             h = _pre_norm(cfg, bp["ln2"], x, mode)
             x = x + mlp_apply(bp["mlp"], h)
-        return x
+        return x, aux
 
     def _run_stack(self, params, x, *, mode, positions=None, pos=None,
                    cache=None, lengths=None, memory=None):
+        """The decoder's blocks in layer order: (x, the aux losses summed in
+        layer order, cache)."""
         cfg = self.cfg
+        aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for p in range(cfg.num_periods):
             pp = layer_slice(params["blocks"], p)
             pc = None if cache is None else layer_slice(cache, p)
             for i, kind in enumerate(cfg.pattern):
-                x = self._apply_block(
+                x, aux = self._apply_block(
                     kind, pp[f"b{i}"], x, mode=mode, positions=positions,
                     pos=pos, cache=None if pc is None else pc[f"b{i}"],
                     lengths=lengths, memory=memory)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+                if aux is not None:
+                    aux_tot = aux_tot + aux
+        return x, aux_tot, cache
 
     # ---------------- public entry points ---------------- #
     def forward(self, params: Dict, tokens: torch.Tensor, *,

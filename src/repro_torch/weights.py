@@ -53,6 +53,7 @@ from repro_torch.core.algorithms.naive_bayes import (
 )
 from repro_torch.core.algorithms.pca import PCA, PCAModel, PCAParameters
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.models.layers.moe import moe_shapes
 from repro_torch.models.layers.quant import QTensor
 from repro_torch.models.layers.rglru import rglru_shapes
 from repro_torch.models.layers.ssd import ssd_shapes
@@ -161,10 +162,12 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
     caller) and each ``QTensor`` as the tuple ``(q, scale, n_contract)``.
     ``cfg`` (the port's ``ArchConfig``), when given, is checked against the
     tree's widths: the embedding table and the learned position table, every
-    SSD and RG-LRU block's leaves (key set and shapes, stacked on the layer
-    axis), each attention block's cross-attention (``ln_cross`` and
-    ``cross``, the shapes of its self-attention) and the encoder (its blocks
-    stacked on ``encoder_layers``).  The leaves reach the
+    SSD, RG-LRU and MoE block's leaves (key set and shapes, stacked on the
+    layer axis; an MoE block's shared expert under ``moe/shared``), each
+    attention block's MLP (dense or MoE, as the config says) and its
+    cross-attention (``ln_cross`` and ``cross``, the shapes of its
+    self-attention) and the encoder (its blocks stacked on
+    ``encoder_layers``).  The leaves reach the
     device through ``models/params.py``'s ``place`` (on the card the plain
     projection weights take ``kernel_layout`` on the host, before they
     move)."""
@@ -184,17 +187,33 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
         if tuple(tok.shape) != (cfg.vocab_size, cfg.d_model):
             raise ValueError(f"embed/tok {tuple(tok.shape)} does not match "
                              f"{cfg.name}'s ({cfg.vocab_size}, {cfg.d_model})")
-        for kind, shapes in (("ssd", ssd_shapes), ("rglru", rglru_shapes)):
-            want = {k: (cfg.num_periods,) + v for k, v in shapes(cfg).items()}
+        for kind, shapes in (("ssd", ssd_shapes), ("rglru", rglru_shapes), ("moe", moe_shapes)):
+            want = _stacked(shapes(cfg), cfg.num_periods)
             for name, block in out["blocks"].items():
                 if kind not in block:
                     continue
-                got = {k: tuple(v.shape) for k, v in block[kind].items()}
+                got = _shape_tree(block[kind])
                 if got != want:
                     raise ValueError(f"blocks/{name}/{kind} {got} does not match "
                                      f"{cfg.name}'s {want}")
+        for name, block in out["blocks"].items():
+            if "attn" in block and ("mlp" in block or "moe" in block) and \
+                    ("moe" in block) != bool(cfg.num_experts):
+                raise ValueError(f"blocks/{name}: {'an MoE' if 'moe' in block else 'a dense'} "
+                                 f"MLP, but {cfg.name} has num_experts={cfg.num_experts}")
         _check_frontends(out, cfg)
     return out
+
+
+def _shape_tree(tree) -> dict:
+    return {k: _shape_tree(v) if isinstance(v, Mapping) else tuple(v.shape)
+            for k, v in tree.items()}
+
+
+def _stacked(shapes: dict, periods: int) -> dict:
+    """Per-layer leaf shapes (nested) behind a stacked layer axis."""
+    return {k: _stacked(v, periods) if isinstance(v, dict) else (periods,) + tuple(v)
+            for k, v in shapes.items()}
 
 
 def _check_frontends(tree, cfg) -> None:

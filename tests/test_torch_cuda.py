@@ -2451,3 +2451,103 @@ def test_cross_decode_admits_every_slot(B, H, KV, Se, hd):
     torch.testing.assert_close(got.float(), every.float(), **tol)
     one = tfa.flash_attention_decode(q[1:2], kc[1:2], vc[1:2], at[1:2], causal=False)
     assert torch.equal(one[0], got[1])
+
+
+def _moe_smoke(arch):
+    """A MoE smoke config in bf16 on the card, weights from a seed (the
+    plain projections stacked in kernel_layout, the experts with them)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="bfloat16")
+    return cfg, init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-16e"])
+def test_moe_decode_rows_are_bitwise_alone_at_1_and_8_slots(arch):
+    """moe_apply at a decode step: each of 8 rows (one token each, capacity
+    8, so nothing is dropped) gives the bits it gives alone at 1 slot, on
+    the kernels (the router's SIMT route, the experts' decode form)."""
+    from repro_torch.kernels import fixed_linear as kfl
+    from repro_torch.models.layers import moe as tmoe
+    from repro_torch.models.transformer import layer_slice
+
+    _need_card()
+    cfg, params = _moe_smoke(arch)
+    bp = layer_slice(params["blocks"], 0)["b0"]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(8, 1, cfg.d_model, generator=gen, device="cuda").bfloat16()
+    before = kfl.fixed_linear.launches
+    whole, _ = tmoe.moe_apply(bp, x, cfg, aux=False)
+    assert kfl.fixed_linear.launches - before == 1 + 2 * cfg.num_experts + 2 * cfg.shared_expert
+    route = tmoe.moe_route(bp, x, cfg)
+    assert route.capacity == 8 and bool((route.dest != route.drop).all())
+    for i in range(8):
+        alone, _ = tmoe.moe_apply(bp, x[i:i + 1], cfg, aux=False)
+        assert torch.equal(alone[0], whole[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-16e"])
+def test_moe_decode_step_captured_gives_the_eager_bits(arch):
+    """A decode step of a MoE stack (routing, dispatch and combine inside)
+    captured as a CUDA graph, as the engine captures it, gives the eager
+    step's logits bit for bit, at 8 slots past the window or the chunk."""
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.engine import _GraphStep
+
+    _need_card()
+    cfg, params = _moe_smoke(arch)
+    model = TransformerLM(cfg)
+    cache = model.init_cache(8, 128)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b in range(8):
+        for k in cache.values():
+            for t in k["attn"].values():
+                t[:, b].copy_(torch.randn(t[:, b].shape, generator=gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1), generator=gen, device="cuda")
+    pos = torch.tensor([3, 40, 70, 90, 65, 100, 33, 120], device="cuda")
+    twin = {k: {"attn": {n: t.clone() for n, t in v["attn"].items()}} for k, v in cache.items()}
+    eager, _ = model.decode_step(params, tokens, pos, twin)
+    side = torch.cuda.Stream()                  # the engine's warm-up before a capture
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.decode_step(params, tokens, pos, cache)
+    torch.cuda.current_stream().wait_stream(side)
+    step = _GraphStep(model, params, cache, tokens, pos, 8)
+    got = step.replay(tokens, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
+    for k in cache:
+        for n in ("k", "v"):
+            assert torch.equal(cache[k]["attn"][n], twin[k]["attn"][n]), (k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV", [(1, 40, 8), (8, 40, 8)])
+def test_flash_decode_chunk_mask_on_a_ring_past_8192_slots(B, H, KV):
+    """Llama4's chunked layers at a decode step: a ring of 8,192 slots, rows
+    at positions past 8,192 (the chunk boundary, where a row sees only its
+    own chunk's slots), held against the plain version (bf16 within one
+    bf16 step) and bitwise alone."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8192)
+    slots, hd, chunk = 8192, 128, 8192
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, kc, vc = randn(B, H, hd), randn(B, slots, KV, hd), randn(B, slots, KV, hd)
+    pos = torch.tensor([8192, 8193, 10239, 12000, 16383, 16384, 20000, 8191][:B],
+                       device="cuda")
+    got = tfa.flash_attention_decode(q, kc, vc, pos, chunk=chunk)
+    want = tfa.flash_attention_decode_plain(q, kc, vc, pos, chunk=chunk)
+    torch.testing.assert_close(got.float(), want.float(), **_flash_tol(torch.bfloat16))
+    # the chunk admits only slots of the row's own chunk: at 8,192 one slot
+    one = tfa.flash_attention_decode(q[:1], kc[:1], vc[:1], pos[:1], chunk=chunk)
+    assert torch.equal(one[0], got[0])
+    first = (vc[0, int(pos[0]) % slots].float().repeat_interleave(H // KV, 0))
+    torch.testing.assert_close(got[0].float(), first, **_flash_tol(torch.bfloat16))
