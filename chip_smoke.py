@@ -7,7 +7,7 @@ Phases (each one that fails makes the script exit non-zero):
 
   1. device   — the card's name and power limit, torch and CUDA versions;
                 TF32 is switched off, so fp32 means IEEE fp32 throughout.
-  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (eleven
+  2. build    — the kernels from ``src/repro_torch/kernels/csrc`` (thirteen
                 libraries from ten sources and their shared header) with
                 nvcc (one process per library, in parallel), into ``build/``.
   3. kernels  — each kernel of the first path against its plain PyTorch
@@ -467,7 +467,8 @@ Phases (each one that fails makes the script exit non-zero):
                 weights, every expert and shared-expert shape); layernorm
                 at every Whisper shape, every row
                 bitwise alone, beside F.layer_norm (its record joins the
-                kernels line: fifteen records).  The zoo's launches join
+                kernels line: fifteen records, seventeen with phase 30's
+                two).  The zoo's launches join
                 the kernels line.
  27. Whisper-small — after phase 26: the encoder-decoder at its published
                 widths and depths (12 + 12 layers, d_model 768, 12 heads of
@@ -511,7 +512,8 @@ Phases (each one that fails makes the script exit non-zero):
                 sliding window 4,096, GQA 48/8) and Llama-4-Scout-17B-16E
                 (16 experts top-1 and a shared expert, 3 chunked layers
                 (chunk 8,192) to 1 NoPE, GQA 40/8, vocab 202,048) at their
-                published widths and MOE = 12 layers each (of 56 and 48:
+                published widths and MOE = 8 layers each (of 56 and 48,
+                cut from 12 when phase 30 came in:
                 their experts stay bf16 at int8, as the reference's int8
                 leaves them, ≈ 4.9 and 4.3 GB a layer), attention int8,
                 drawn a block at a time; fixed_linear.max_k checked at
@@ -535,20 +537,73 @@ Phases (each one that fails makes the script exit non-zero):
                 times kernel 6, quant_linear, fixed_linear, rmsnorm and
                 lm_head at phase 29's shapes.
 
+ 30. the serving stack — after phase 19 (before phase 26): (a) the int8 KV
+                cache: Qwen2-1.5B at full width and depth, int8
+                projections and cache_dtype="int8" (codes and an fp32 scale
+                a slot and kv head), 8 slots, max_seq 2,048, phase 8's 16
+                requests (128..1,024 prompt tokens, 16 new tokens): every
+                stream equal to _run_one's, every decode step a graph
+                replay, 28 decode launches a step all on kernel 6's int8
+                route, quantize_rows 4 a layer a wave for the projections
+                and 2 a layer a forward for K and V; the cache's bytes
+                beside the bf16 cache's.  (b) The radix prefix cache
+                (blocks of PREFIX_BLOCK = 32, PREFIX_CAPACITY = 512): 16
+                requests of a shared 512-token prefix and tails of 64..512
+                through Qwen2-1.5B (int8 projections, bf16 cache), served
+                three times — cache off, on (cold), on again (warm, the
+                same trie) — every stream and first token equal across the
+                three and to _run_one's; per run the hit statistics, the
+                prefill seconds, one full-prefill launch a layer a miss
+                wave and one tail-form launch a layer a hit wave; one wave
+                off and one warm profiled (torch.profiler); then Gemma3-1B
+                at full width and a 6-layer cut (5 local, window 512, and
+                1 global) with a 768-token prefix, its first request the
+                bare prefix (ring truncation: a ring layer restores a block
+                only where the prompt that wrote it left it in the ring),
+                the same three runs and checks.  (c) ReplicaRouter over
+                Qwen2-1.5B int8: 4 replicas x 4 slots on one shared cache,
+                QueueAutoscaler(min_replicas=1), the prefix cache on, every
+                span's CUDA graph captured by warmup; 32 requests of (b)'s
+                prefix (half at 0, half 50 ms later) on the host clock:
+                every stream equal to _run_one's, the autoscaler's events
+                an up and a down, every decode step a replay of its span's
+                graph; then a PredictorFleet of two ModelPredictors of
+                phase 6's k-means model over 16 blocks of up to 4,095 rows,
+                every pick bitwise the single predictor's.  (d) Kernel 6's
+                int8 route bitwise the bf16 / fp32 route over caches
+                dequantized as _cache_read does (Qwen2's, Gemma3's global
+                and ring shapes, fp32 and bf16 q, ragged and stale
+                positions), within FLASH_TOL of its plain version, timed at
+                (a)'s shape beside the plain version, the bf16 route on the
+                dequantized caches, dequantize + SDPA and its bound (bytes:
+                hd codes and a 4-byte scale a slot and kv head for K and
+                for V); the tail form's rows bitwise the full prefill's at
+                their positions (global, window, chunk; prefixes of 37,
+                100, 300 and 513 tokens), within FLASH_TOL of its plain
+                version, timed at (b)'s widest Qwen2 hit wave beside the
+                plain version, the full prefill of the same rows, SDPA with
+                the explicit mask and its bound; its instances' -Xptxas -v.
+                Their records join the kernels line.
+
 Every phase prints its seconds.  On one H100 80GB HBM3 at 700 W the run
-ends in about 320 s on the fastest hosts seen (227-239 s before phases
-27-28; 242 s with them, which took ≈ 50 s, after the zoo's cut to 16 new
-tokens and Whisper's plain run's to 4 + 4 layers; 262 s once 26b held
-every served shape; 321 s with phase 29, ≈ 36 s, and its 26b rows, ≈ 28
-s); slower hosts have taken it to 247-316 s before phase 29, well inside
-the 1,200 s a run is allowed.
+ended in about 320 s on the fastest hosts seen before phase 30 (227-239 s
+before phases 27-28; 242 s with them, which took ≈ 50 s, after the zoo's
+cut to 16 new tokens and Whisper's plain run's to 4 + 4 layers; 262 s once
+26b held every served shape; 321 s with phase 29, ≈ 36 s, and its 26b
+rows, ≈ 28 s); slower hosts have taken it to 247-392 s.  Phase 30 takes ≈
+20 s (358.2 s in all on a host where the other phases took 338 s, with
+phase 29 at 12 layers, 37.8 s of it); phase 29 was cut to 8 layers a
+model for it (30.7 s; 355.5 s in all on a host like that one).  On the
+fastest hosts the run is not measured with phase 30 (320.7 s before it,
++ ≈ 21 s, − ≈ 7 s of phase 29 gives ≈ 335 s).  Every run stays well
+inside the 1,200 s a run is allowed.
 
 Kernel launch counts are set to 0 just before each main path (phases 4-6,
 then phase 21, then phase 20, then phase 22, then phase 23, then phase 24,
 then phase 8,
 then phase 11, then phase 14, then phase 18, then each model of phase 26,
 then each of phase 27's two runs, then phase 28's (a) and (b), then each
-MoE model's (a) and (b) in phase 29)
+MoE model's (a) and (b) in phase 29, then each of phase 30's runs)
 and read just after it: they
 count those paths only (phases 21 and 23 must launch none; phase 20's launches are added to
 kernels 1-3's records under "fig_a2", phase 22's under "stream", phase
@@ -557,7 +612,9 @@ twins' do not count; the launches of phase 22's child processes are their
 own; phases 26-29's are added under "zoo_<model>", phase 28 (b)'s under
 "zoo_llava-next-34b+vision", phase 29 (b)'s under "zoo_<model>+long",
 phase 27's plain run's under
-"zoo_whisper-small plain").  A decode step that
+"zoo_whisper-small plain"; phase 30's runs, each counted from 0, under
+"kv8_serve", "prefix_qwen_<off|cold|warm>", "prefix_gemma3_<off|cold|warm>",
+"fleet" and, for kmeans_assign, "predictor_fleet").  A decode step that
 replays a CUDA graph adds the launches the graph holds (``ServeEngine``),
 so the counts stay exact.  The
 second-to-last line of the output is one JSON object with a record per
@@ -905,7 +962,8 @@ LLAVA_ARCH = "llava-next-34b"
 # layer); (a) served as the zoo's models are; (b) one request of MOE_LONG
 # prompt tokens past Mixtral's window (4,096) and Llama4's chunk (8,192),
 # then MOE_LONG_NEW greedy tokens
-MOE = {"mixtral-8x22b": 12, "llama4-scout-17b-16e": 12}
+# (12 each until phase 30 came in; cut to 8 for the run's time)
+MOE = {"mixtral-8x22b": 8, "llama4-scout-17b-16e": 8}
 MOE_LONG = {"mixtral-8x22b": 6144, "llama4-scout-17b-16e": 10240}
 MOE_LONG_NEW = 16
 # moe_apply against its plain composition at (b)'s first layer: the router's
@@ -4807,7 +4865,7 @@ def phase_lm(counts, report) -> None:
     say(f"quant_linear calls by (M, K, (N, ...)): {by_shape}")
     say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
         f"{counts['lm_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
-        f"hd, mask): {counts['lm_flash_decode_shapes']}")
+        f"hd, mask, cache dtype): {counts['lm_flash_decode_shapes']}")
     report["lm"] = {"tokens_per_s": new / t_run, "prefill_s": t_prefill,
                     "decode_ms_per_step": (t_run - t_prefill) / max(steps, 1) * 1e3,
                     "peak_gb": peak, "seconds": t_run, "new_tokens": new}
@@ -6561,7 +6619,7 @@ def phase_gemma3(counts, report) -> None:
           "a request did not finish with its tokens")
     say(f"flash_attention launches by (B, H, KV, Sq, Sk, hd, (causal, window, chunk)): "
         f"{counts['g3_flash_shapes']}; flash_attention_decode by (B, H, KV, slots, "
-        f"hd, mask): {counts['g3_flash_decode_shapes']}")
+        f"hd, mask, cache dtype): {counts['g3_flash_decode_shapes']}")
     say(f"quant_linear calls by (M, K, (N, ...)): {counts['g3_by_shape']}")
     over = [n for n in lens if n > cfg.window]
     wrap = [n for n in lens if n <= cfg.window < n + G3_NEW]
@@ -7037,7 +7095,7 @@ def phase_flash_timing(gen, counts, worst) -> list:
     })
     timings = []
     for label, key in dec_rows:
-        B, H, KV, slots, hd, mk = key
+        B, H, KV, slots, hd, mk = key[:6]     # the cache's dtype last: bf16 here
         kw = _mask_kwargs(mk)
         # every row at the end of its stream: the served run's last positions
         pos_max = G3_MAX_SEQ - 1 if not local(mk) else 2 * slots + 100
@@ -7760,7 +7818,7 @@ def zoo_flash_rows(gen, counts) -> list:
     rows = []
     dec = _zoo_shapes(counts, "flash_attention_decode")
     for key, launched in sorted(dec.items(), key=str):
-        B, H, KV, slots, hd, mk = key
+        B, H, KV, slots, hd, mk = key[:6]     # the cache's dtype last: bf16 here
         kw = _mask_kwargs(mk)
         q, kc, vc, pos = _decode_inputs(gen, torch.bfloat16, B, H, KV, slots, hd, 2 * slots)
         cross = not kw["causal"]     # a cross cache: every row at Se - 1
@@ -8724,6 +8782,700 @@ def phase_zoo_kernels(gen, counts, records) -> None:
                 rec["launches_by_path"][f"zoo_{model}"] = n
 
 
+# --------------------------------------------------------------------------- #
+# phase 30: the serving stack's last single-card features
+# --------------------------------------------------------------------------- #
+# (b) and (c): every request opens with one shared prefix of PREFIX_LEN
+# tokens and a tail of PREFIX_TAIL_MIN..PREFIX_TAIL_MAX; the radix cache's
+# blocks and capacity (the reference launcher's flags)
+PREFIX_LEN, PREFIX_TAIL_MIN, PREFIX_TAIL_MAX = 512, 64, 512
+PREFIX_BLOCK, PREFIX_CAPACITY = 32, 512
+# Gemma3-1B's cut for (b): one period's first 6 layers (5 local, 1 global)
+# under a 768-token prefix, past its 512-slot ring
+G3_PREFIX_LAYERS, G3_PREFIX_LEN = 6, 768
+# (c): 4 replicas of 4 slots, 32 requests in a burst (half at 0, half at
+# 1 / FLEET_RATE s)
+FLEET_REPLICAS, FLEET_SLOTS, FLEET_REQUESTS, FLEET_RATE = 4, 4, 32, 20.0
+# the tail form's bitwise check: prefix lengths that are not multiples of
+# the key tile (32 or 64), one straddling the 512-slot ring
+TAIL_STARTS = (37, 100, 300, 513)
+
+
+def prefix_requests(cfg, prefix_len: int, n: int, seed: int, lead: bool = False):
+    """``n`` requests of one shared ``prefix_len``-token prefix and tails
+    of PREFIX_TAIL_MIN..PREFIX_TAIL_MAX tokens, LM_NEW new tokens each,
+    drawn with numpy from ``seed`` (the prefix from SEED, so that requests
+    of two seeds share it).  With ``lead`` the first is the bare prefix:
+    a ring layer can restore a block only where the prompt that wrote it
+    left its positions in the ring (the reference's ``valid_end``), and
+    only the bare prefix leaves a prefix longer than the ring so."""
+    from repro_torch.serve import Request
+
+    prefix = np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=prefix_len)
+    rng = np.random.default_rng(seed)
+    tails = rng.integers(PREFIX_TAIL_MIN, PREFIX_TAIL_MAX + 1, size=n - lead)
+    out = [Request(prompt=prefix.astype(np.int32), max_new_tokens=LM_NEW)] if lead else []
+    return out + [Request(prompt=np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, size=int(t))]).astype(np.int32),
+        max_new_tokens=LM_NEW) for t in tails]
+
+
+def timed_prefill(engine, waves: list) -> None:
+    """Time each of the engine's prefill waves into ``waves`` (host clock;
+    each wave ends in a device-to-host copy of its first tokens)."""
+    prefill_into = type(engine)._prefill_into
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = prefill_into(engine, *a, **kw)
+        waves.append(time.perf_counter() - t)
+        return out
+
+    engine._prefill_into = timed
+
+
+def serve_counted(engine, reqs, **kw):
+    """``engine.run(reqs)`` (or a router's) with every launch count, route
+    and shape set to 0 just before and read just after: (served, launches,
+    decode routes, flash shapes by form, engine calls, seconds, prefill
+    seconds)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.quant_matmul import quant_linear
+
+    eng = getattr(engine, "engine", engine)
+    waves = []
+    timed_prefill(eng, waves)
+    for k in eng.calls:
+        eng.calls[k] = 0
+    for fn in (kfa.flash_attention, kfa.flash_attention_decode, kfa.flash_attention_tail,
+               quant_linear):
+        fn.shapes.clear()
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = engine.run(reqs, **kw)
+    sync()
+    secs = time.perf_counter() - t0
+    got = launch_counts()
+    del eng._prefill_into
+    shapes = {"flash_attention": dict(kfa.flash_attention.shapes),
+              "flash_attention_decode": dict(kfa.flash_attention_decode.shapes),
+              "flash_attention_tail": dict(kfa.flash_attention_tail.shapes),
+              "quant_linear": dict(quant_linear.shapes)}
+    return (served, got, dict(kfa.flash_attention_decode.routes), shapes, dict(eng.calls),
+            secs, sum(waves))
+
+
+def check_stack_launches(what: str, got, calls, layers: int, cache: str,
+                         decode_routes, groups) -> None:
+    """Kernel 6 and the int8 projections on a served run of an attention
+    stack: a full-prefill launch a layer a miss wave, a tail-form launch a
+    layer a hit wave, a decode launch a layer a step on the cache's route;
+    4 quant_linear groups a layer a forward (``groups``: its calls by (M,
+    K, (N, ...))), each of more than SKINNY_M rows after one quantize_rows
+    launch, and with an int8 KV cache 2 more quantize_rows a layer a
+    forward (K and V written)."""
+    from repro_torch.kernels.quant_matmul import SKINNY_M
+
+    waves, tails, steps = calls["prefill_waves"], calls["tail_waves"], calls["decode_steps"]
+    kv = 2 if cache == "int8" else 0
+    wide = sum(n for (M, *_), n in groups.items() if M > SKINNY_M)
+    check(sum(groups.values()) == 4 * layers * (waves + steps),
+          f"{what}: quant_linear calls {groups} are not 4 a layer a forward")
+    say(f"{what}: launches {dict((k, v) for k, v in got.items() if v)}; {waves} prefill "
+        f"waves ({tails} tail waves), {steps} decode steps, decode by route {decode_routes}")
+    check(got["flash_attention"] == layers * (waves - tails)
+          and got["flash_attention_tail"] == layers * tails
+          and got["flash_attention_decode"] == layers * steps > 0,
+          f"{what}: kernel 6 launches {got} != {layers} a layer a wave / hit wave / step")
+    check(decode_routes == {cache: layers * steps},
+          f"{what}: decode launches by route {decode_routes}, every one on {cache}")
+    check(got["quantize_rows"] == wide + kv * layers * (waves + steps),
+          f"{what}: quantize_rows launches {got['quantize_rows']} != {wide} wide groups + "
+          f"{kv} x {layers} x ({waves} waves + {steps} steps)")
+    check(got["quant_matmul"] == 0 and got["lm_head"] == waves + steps
+          and all(v == 0 for k, v in got.items()
+                  if k not in LM_KERNELS + ("flash_attention_tail",)),
+          f"{what}: another kernel launched, or lm_head not once a forward: {got}")
+
+
+def phase_kv8(params, counts, report) -> None:
+    """(a) the int8 KV cache: Qwen2-1.5B at full width and depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), quantize="int8", cache_dtype="int8")
+    phase(f"30a. the int8 KV cache: {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers), int8 projections and cache_dtype='int8', {LM_SLOTS} slots, max_seq "
+          f"{LM_MAX_SEQ}")
+    mem_reset()
+    engine = ServeEngine(cfg, params, batch_size=LM_SLOTS, max_seq=LM_MAX_SEQ, device=DEVICE)
+    engine.warmup(prompt_lens=[LM_PROMPT_MIN])
+    cache = engine.init_shared_cache()
+    int8_bytes = _storage_bytes(_cache_tensors(cache))
+    bf16_bytes = sum(2 * t.numel() for t in _cache_tensors(cache) if t.dtype == torch.int8)
+    say(f"the shared cache ({LM_SLOTS} slots x {LM_MAX_SEQ}): {int8_bytes / 1e9:.4f} GB as "
+        f"int8 codes and fp32 scales, against {bf16_bytes / 1e9:.4f} GB in bf16 "
+        f"({int8_bytes / bf16_bytes:.4f} of it)")
+    served, got, routes, shapes, calls, secs, pre = serve_counted(engine, lm_requests(cfg))
+    check_stack_launches("(a) the served run", got, calls, cfg.num_layers, "int8", routes,
+                         shapes["quant_linear"])
+    check_graph_steps(engine, dict.fromkeys(calls, 0), 0, "(a) the served run")
+    check(all(r.done and len(r.out_tokens) == LM_NEW for r in served),
+          "(a) a request did not finish with its tokens")
+    t0 = time.perf_counter()
+    solo = [engine._run_one(r) for r in lm_requests(cfg)]
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(served, solo))
+    new = sum(len(r.out_tokens) for r in served)
+    steps = calls["decode_steps"]
+    say(f"(a) served {len(served)} requests / {new} new tokens in {secs:.3f} s "
+        f"({new / secs:.1f} tokens/s), prefill {pre:.3f} s in {calls['prefill_waves']} "
+        f"waves, decode {(secs - pre) / steps * 1e3:.2f} ms a step; streams equal to "
+        f"_run_one's: {same} of {len(served)} ({time.perf_counter() - t0:.1f} s for the "
+        f"oracle)")
+    check(same == len(served), f"(a) {len(served) - same} streams differ from _run_one")
+    report["kv8"] = {"tokens_per_s": new / secs, "prefill_s": pre,
+                     "decode_ms_per_step": (secs - pre) / steps * 1e3,
+                     "cache_gb": int8_bytes / 1e9, "bf16_cache_gb": bf16_bytes / 1e9,
+                     "peak_gb": mem_peak("(a) the served run and the oracle")}
+    counts["kv8"] = got
+    counts["kv8_decode_shapes"] = shapes["flash_attention_decode"]
+    del engine, cache
+    free_device_memory()
+
+
+def prefix_runs(what: str, cfg, params, reqs_fn, counts, key: str,
+                profile: bool = False) -> dict:
+    """(b)'s three runs of ``reqs_fn()``'s requests: prefix cache off, on
+    (cold), on (warm, the same engine and trie), each stream and first
+    token held against the others and _run_one's; the hit statistics, the
+    prefill seconds and the launches of each; with ``profile``, where the
+    time of one wave of the first requests goes, off and warm (a full
+    wave, a tail wave)."""
+    from repro_torch.serve import RadixPrefixCache, ServeEngine
+
+    off = ServeEngine(cfg, params, batch_size=LM_SLOTS, max_seq=LM_MAX_SEQ, device=DEVICE)
+    pc = RadixPrefixCache(block_size=PREFIX_BLOCK, capacity_blocks=PREFIX_CAPACITY)
+    on = ServeEngine(cfg, params, batch_size=LM_SLOTS, max_seq=LM_MAX_SEQ, prefix_cache=pc,
+                     device=DEVICE)
+    for eng in (off, on):
+        eng.warmup(prompt_lens=[LM_PROMPT_MIN])
+    check(pc.blocks == 0, f"{what}: the warm-up's probe blocks stayed in the trie")
+    runs = {}
+    for label, eng in (("off", off), ("cold", on), ("warm", on)):
+        before = dict(pc.stats())
+        served, got, routes, shapes, calls, secs, pre = serve_counted(eng, reqs_fn())
+        check_stack_launches(f"{what} cache {label}", got, calls, cfg.num_layers, "bf16",
+                             routes, shapes["quant_linear"])
+        check_graph_steps(eng, dict.fromkeys(calls, 0), 0, f"{what} cache {label}")
+        stats = {k: pc.stats()[k] - before[k] for k in ("requests", "hits", "misses",
+                                                         "cached_tokens", "prompt_tokens",
+                                                         "evictions", "inserted_blocks")}
+        stats["hit_rate"] = stats["cached_tokens"] / max(stats["prompt_tokens"], 1)
+        hit = label != "off"
+        check(not hit or (stats["hits"] > 0 and calls["tail_waves"] > 0),
+              f"{what} cache {label}: no hit ({stats})")
+        say(f"{what} cache {label}: {secs:.3f} s, prefill {pre:.4f} s in "
+            f"{calls['prefill_waves']} waves ({calls['tail_waves']} tail waves), "
+            + (f"hits {stats}" if hit else "no prefix cache"))
+        runs[label] = {"served": served, "seconds": secs, "prefill_s": pre, "calls": calls,
+                       "launches": got, "stats": stats if hit else None,
+                       "tail_shapes": shapes["flash_attention_tail"],
+                       "cached": [r.cached_prefill for r in served]}
+    if profile:
+        runs["off"]["wave_profile"] = prefill_profile(off, reqs_fn(), f"{what} cache off")
+        runs["warm"]["wave_profile"] = prefill_profile(on, reqs_fn(),
+                                                       f"{what} cache on (warm)")
+    t0 = time.perf_counter()
+    solo = [off._run_one(r) for r in reqs_fn()]
+    for label, run in runs.items():
+        same = sum(a.out_tokens == b.out_tokens for a, b in zip(run["served"], solo))
+        firsts = sum(a.out_tokens[:1] == b.out_tokens[:1]
+                     for a, b in zip(run["served"], solo))
+        check(same == len(solo) and firsts == len(solo),
+              f"{what} cache {label}: {len(solo) - same} streams and {len(solo) - firsts} "
+              f"first tokens differ from _run_one's")
+    say(f"{what}: every stream and first token of the three runs equal to _run_one's "
+        f"({len(solo)} requests, {time.perf_counter() - t0:.1f} s for the oracle); cached "
+        f"prefill tokens a request (warm): {runs['warm']['cached']}")
+    counts.setdefault("prefix_tail_shapes", collections.Counter()).update(
+        collections.Counter(runs["cold"]["tail_shapes"])
+        + collections.Counter(runs["warm"]["tail_shapes"]))
+    counts[key] = {label: run["launches"] for label, run in runs.items()}
+    out = {label: {k: v for k, v in run.items() if k not in ("served", "launches")}
+           for label, run in runs.items()}
+    out["oracle"] = solo
+    del off, on
+    return out
+
+
+def phase_prefix(params, counts, report) -> list:
+    """(b) the radix prefix cache and the tail prefill; returns Qwen2's
+    _run_one streams (phase 30c reuses them)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), quantize="int8")
+    phase(f"30b. the prefix cache: {cfg.name} at full width and depth, int8 projections, "
+          f"bf16 cache, {LM_REQUESTS} requests of a shared {PREFIX_LEN}-token prefix and "
+          f"tails of {PREFIX_TAIL_MIN}..{PREFIX_TAIL_MAX}, blocks of {PREFIX_BLOCK}")
+    mem_reset()
+    qwen = prefix_runs("(b) Qwen2", cfg, params,
+                       lambda: prefix_requests(cfg, PREFIX_LEN, LM_REQUESTS, SEED + 1),
+                       counts, "prefix_qwen", profile=True)
+    full = get_config(G3_ARCH)
+    g3 = dataclasses.replace(full, quantize="int8", num_layers=G3_PREFIX_LAYERS,
+                             pattern=full.pattern[:G3_PREFIX_LAYERS])
+    say(f"Gemma3-1B at full width, {G3_PREFIX_LAYERS} layers "
+        f"({', '.join(k.value for k in g3.pattern)}), window {g3.window}, a shared "
+        f"{G3_PREFIX_LEN}-token prefix, the first request the bare prefix")
+    g3_params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), g3)
+    gemma = prefix_runs("(b) Gemma3", g3, g3_params,
+                        lambda: prefix_requests(g3, G3_PREFIX_LEN, LM_REQUESTS, SEED + 2,
+                                                lead=True),
+                        counts, "prefix_gemma3")
+    report["prefix"] = {"qwen2": {k: v for k, v in qwen.items() if k != "oracle"},
+                        "gemma3": {k: v for k, v in gemma.items() if k != "oracle"},
+                        "peak_gb": mem_peak("(b) the six runs and their oracles")}
+    del g3_params
+    free_device_memory()
+    return qwen["oracle"]
+
+
+def phase_fleet(params, km_model, oracle, counts, report) -> None:
+    """(c) the replica router, its autoscaler, and the predictor fleet."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import arrival_trace
+    from repro_torch.serve import (PredictorFleet, QueueAutoscaler, RadixPrefixCache,
+                                   ReplicaRouter)
+    from repro_torch.serve.predictor import ModelPredictor, PredictRequest
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), quantize="int8")
+    phase(f"30c. the replica router: {cfg.name} at full width, int8 projections, "
+          f"{FLEET_REPLICAS} replicas x {FLEET_SLOTS} slots, QueueAutoscaler(min_replicas=1), "
+          f"prefix cache on, {FLEET_REQUESTS} requests in a burst on the host clock")
+    mem_reset()
+    auto = QueueAutoscaler(slots_per_replica=FLEET_SLOTS, min_replicas=1,
+                           max_replicas=FLEET_REPLICAS)
+    router = ReplicaRouter(cfg, params, slots_per_replica=FLEET_SLOTS,
+                           max_replicas=FLEET_REPLICAS, min_replicas=1, max_seq=LM_MAX_SEQ,
+                           autoscaler=auto, device=DEVICE,
+                           prefix_cache=RadixPrefixCache(block_size=PREFIX_BLOCK,
+                                                         capacity_blocks=PREFIX_CAPACITY))
+    # every span's graph captured before the run
+    router.warmup(prompt_lens=[LM_PROMPT_MIN], spans=range(1, FLEET_REPLICAS + 1))
+    check(router.engine.prefix_cache.blocks == 0, "(c) the warm-up's blocks stayed")
+    check(set(router.engine._graphs) == {("span", n * FLEET_SLOTS)
+                                         for n in range(1, FLEET_REPLICAS + 1)}
+          | {FLEET_REPLICAS * FLEET_SLOTS},
+          f"(c) the warm-up captured {sorted(router.engine._graphs, key=str)}")
+
+    def reqs():
+        half = FLEET_REQUESTS // 2
+        out = (prefix_requests(cfg, PREFIX_LEN, half, SEED + 1)
+               + prefix_requests(cfg, PREFIX_LEN, FLEET_REQUESTS - half, SEED + 3))
+        for r, a in zip(out, arrival_trace("burst", len(out), FLEET_RATE, SEED)):
+            r.arrival = float(a)
+        return out
+
+    start = time.perf_counter()
+    served, got, routes, shapes, calls, secs, pre = serve_counted(
+        router, reqs(), now_fn=lambda: time.perf_counter() - start)
+    check_stack_launches("(c) the fleet's run", got, calls, cfg.num_layers, "bf16", routes,
+                         shapes["quant_linear"])
+    check_graph_steps(router.engine, dict.fromkeys(calls, 0), 0, "(c) the fleet's run")
+    rep = router.report()
+    events = rep["autoscaler_events"]
+    kinds = {k for _, k, _ in events}
+    say(f"(c) served {rep['finished']} of {len(served)} in {secs:.3f} s (prefill {pre:.3f} "
+        f"s); latency p50 {rep['latency_p50'] * 1e3:.1f} ms, p99 "
+        f"{rep['latency_p99'] * 1e3:.1f} ms; backfills {rep['backfills']}; autoscaler "
+        f"{events}; prefix cache {rep['prefix_cache']}; requests a replica "
+        f"{[r['finished'] for r in rep['per_replica']]}")
+    check("up" in kinds and "down" in kinds, f"(c) the autoscaler's events {events}")
+    check(all(r.done for r in served) and rep["rejected"] == 0, "(c) a request not served")
+    t0 = time.perf_counter()
+    # the first half are (b)'s requests, whose _run_one streams (b) holds
+    rest = [router.engine._run_one(r) for r in reqs()[len(oracle):]]
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(served, list(oracle) + rest))
+    say(f"(c) streams equal to _run_one's: {same} of {len(served)} ({len(rest)} oracles "
+        f"here, {time.perf_counter() - t0:.1f} s)")
+    check(same == len(served), f"(c) {len(served) - same} streams differ from _run_one")
+    counts["fleet"] = got
+    report["fleet"] = {"seconds": secs, "prefill_s": pre, "events": events,
+                       "latency_p50": rep["latency_p50"], "latency_p99": rep["latency_p99"],
+                       "prefix_cache": rep["prefix_cache"], "calls": calls}
+    del router
+    free_device_memory()
+
+    # PredictorFleet: two replicas of phase 6's k-means predictor against
+    # the single predictor, pick for pick
+    rng = np.random.default_rng(SEED + 4)
+    sizes = rng.integers(1, 2 * KMEANS_SERVE_ROWS, size=16)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    blocks = [torch.randn(int(n), KMEANS_FEATURES, generator=gen, device=DEVICE).cpu().numpy()
+              for n in sizes]
+    single = ModelPredictor(km_model, max_batch=KMEANS_SERVE_ROWS, device=DEVICE)
+    want = [single.submit(PredictRequest(features=b)) for b in blocks]
+    single.flush()
+    fleet = PredictorFleet([ModelPredictor(km_model, max_batch=KMEANS_SERVE_ROWS,
+                                           device=DEVICE) for _ in range(2)])
+    reset_launch_counts()
+    picks = []
+    for b in blocks:
+        req = PredictRequest(features=b)
+        picks.append((fleet.submit(req), req))
+    fleet.flush_all()
+    sync()
+    launched = launch_counts()
+    frep = fleet.report()
+    same = sum(np.array_equal(r.result, w.result) for (_, r), w in zip(picks, want))
+    say(f"(c) PredictorFleet of 2 k-means predictors: {len(blocks)} requests of "
+        f"{min(sizes)}..{max(sizes)} rows, by replica {[i for i, _ in picks]}, "
+        f"{frep['batches']} microbatches, {launched['kmeans_assign']} kmeans_assign "
+        f"launches; picks bitwise the single predictor's: {same} of {len(blocks)}")
+    check(same == len(blocks), "(c) the fleet's picks differ from the single predictor's")
+    check(launched["kmeans_assign"] == frep["batches"] > 0
+          and sum(v for k, v in launched.items() if k != "kmeans_assign") == 0,
+          f"(c) the fleet's launches {launched} for {frep['batches']} microbatches")
+    check(set(i for i, _ in picks) == {0, 1}, "(c) the fleet dispatched to one replica")
+    counts["predictor_fleet"] = launched["kmeans_assign"]
+
+
+def kv8_record(gen, counts) -> dict:
+    """Kernel 6's decode form on its int8 route: bitwise the bf16 (fp32)
+    route over caches dequantized as _cache_read does, at Qwen2's and
+    Gemma3's shapes; within FLASH_TOL of the plain version; timed at (a)'s
+    shape beside the plain version, the bf16 route on the dequantized
+    caches, one dequantize + SDPA and its bound."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import _admitted, slot_positions
+
+    qw, g3 = get_config(LM_ARCH), get_config(G3_ARCH)
+    cases = [((LM_SLOTS, qw.num_heads, qw.num_kv_heads, LM_MAX_SEQ, qw.resolved_head_dim),
+              dict(causal=True)),
+             ((LM_SLOTS, g3.num_heads, g3.num_kv_heads, G3_MAX_SEQ, g3.resolved_head_dim),
+              dict(causal=True)),
+             ((LM_SLOTS, g3.num_heads, g3.num_kv_heads, g3.window, g3.resolved_head_dim),
+              dict(causal=True, window=g3.window))]
+    worst = 0.0
+
+    def inputs(dtype, B, H, KV, slots, hd):
+        q = torch.randn(B, H, hd, generator=gen, device=DEVICE).to(dtype)
+        codes = [torch.randint(-127, 128, (B, slots, KV, hd), generator=gen, device=DEVICE,
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(B, slots, KV, generator=gen, device=DEVICE) * 0.05 + 1e-8
+                  for _ in range(2)]
+        return q, codes, scales
+
+    for (B, H, KV, slots, hd), kw in cases:
+        # ragged positions, some past the ring's end (its slots stale) and
+        # some short of it (the slots above them stale)
+        pos = torch.tensor([0, 1, slots // 2 - 1, slots - 1, slots, 2 * slots - 1, 3 * slots + 7,
+                            slots // 3][:B], device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, (kc, vc), (ks, vs) = inputs(dtype, B, H, KV, slots, hd)
+            got = kfa.flash_attention_decode(q, kc, vc, pos, k_scale=ks, v_scale=vs, **kw)
+            kd, vd = (kfa.cache_read(c, s).to(dtype) for c, s in ((kc, ks), (vc, vs)))
+            want = kfa.flash_attention_decode(q, kd, vd, pos, **kw)
+            plain = kfa.flash_attention_decode_plain(q, kc, vc, pos, k_scale=ks, v_scale=vs,
+                                                     **kw)
+            sync()
+            check(torch.equal(got, want), f"int8 route {(B, H, KV, slots, hd)} {kw} {dtype}: "
+                  f"not bitwise the route over the dequantized caches")
+            ok, err, ratio = _flash_err(got, plain, dtype, min(slots, kw.get("window") or slots))
+            check(ok, f"int8 route {(B, H, KV, slots, hd)} {kw} {dtype}: max abs err {err} "
+                  f"({ratio:.3g} x the tolerance)")
+            worst = max(worst, err)
+    say(f"flash_attention_decode, int8 route: bitwise the bf16 / fp32 route over caches "
+        f"dequantized by _cache_read at {[c[0] for c in cases]} (masks "
+        f"{[c[1] for c in cases]}), fp32 and bf16 q, positions ragged and past the ring; "
+        f"max abs err against the plain version {worst:.3g}")
+    served = counts["kv8_decode_shapes"]
+    key = max(served, key=lambda k: served[k])
+    B, H, KV, slots, hd, mk = key[:6]
+    kw = _mask_kwargs(mk)
+    q, (kc, vc), (ks, vs) = inputs(torch.bfloat16, B, H, KV, slots, hd)
+    # every row at the end of a stream: (a)'s last positions
+    pos = torch.linspace(LM_PROMPT_MIN, LM_PROMPT_MAX + LM_NEW - 1, B,
+                         device=DEVICE).long()
+    ms = graph_ms(lambda: kfa.flash_attention_decode(q, kc, vc, pos, k_scale=ks, v_scale=vs,
+                                                     **kw))
+    plain_ms = cuda_ms(lambda: kfa.flash_attention_decode_plain(
+        q, kc, vc, pos, k_scale=ks, v_scale=vs, **kw), 3)
+    kd, vd = kfa.cache_read(kc, ks), kfa.cache_read(vc, vs)
+    bf16_ms = graph_ms(lambda: kfa.flash_attention_decode(q, kd, vd, pos, **kw))
+    sp = slot_positions(pos, slots)
+    valid = (sp >= 0) & _admitted(pos[:, None], sp, **kw)
+
+    def lib():
+        k = kfa.cache_read(kc, ks).transpose(1, 2)
+        v = kfa.cache_read(vc, vs).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=valid[:, None, None, :], scale=hd ** -0.5,
+            enable_gqa=True)
+
+    lib_ms, backend = library_time(lib, "dequantize (cache_read) + scaled_dot_product_"
+                                   "attention", eager=False)
+    pairs = _attention_pairs(B, H, 1, slots, kw, pos=pos, slots=slots)
+    n_valid = float(valid.sum().item())
+    # each admitted (slot, kv head) read once for K and once for V: hd
+    # codes and a 4-byte scale, where the bf16 route reads 2 hd bytes
+    t_b, by = bound(2 * n_valid * KV * (hd + 4) + 2 * 2 * B * H * hd, 4.0 * hd * pairs)
+    t_16, _ = bound(2 * 2 * n_valid * KV * hd + 2 * 2 * B * H * hd, 4.0 * hd * pairs)
+    launched = counts["kv8"]["flash_attention_decode"]
+    say(f"flash_attention_decode int8 route (B, H, KV, slots, hd) = {(B, H, KV, slots, hd)} "
+        f"{kw}, bf16 q, positions {pos.tolist()}, {launched} launches on (a)'s path: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the bf16 route on the dequantized caches "
+        f"{bf16_ms:.4f} ms, {_ms(lib_ms)} ({backend}); bound {t_b:.4f} ms ({by}; "
+        f"{n_valid:.0f} valid slots; the bf16 route's {t_16:.4f} ms), {t_b / ms:.1%} of it")
+    return {"name": "flash_attention_decode_int8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode_int8.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:123",
+            "launches": launched, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_b, "bound_by": by, "library_ms": lib_ms, "library_note": backend,
+            "bf16_route_ms": bf16_ms, "bf16_bound_ms": t_16,
+            "shape": [B, H, KV, slots, hd], "mask": kw, "positions": pos.tolist(),
+            "launches_by_path": {"kv8_serve": launched}}
+
+
+def tail_record(gen, counts) -> dict:
+    """Kernel 6's tail form: each row bitwise the full prefill's row at the
+    same position and within FLASH_TOL of its plain version, first at
+    global, window and chunk masks with prefixes that are not multiples of
+    the key tile, then at every (B, H, KV, Sq, ring, hd, mask) that the
+    served runs of (b) and (c) launched, with ragged starts as a hit wave
+    has them; timed at (b)'s widest hit wave beside the plain version (its
+    output held too), the full prefill of the same rows, SDPA with the
+    explicit mask and its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import _admitted
+
+    qw, g3 = get_config(LM_ARCH), get_config(G3_ARCH)
+    S, B = 700, len(TAIL_STARTS)
+    cases = [((qw.num_heads, qw.num_kv_heads, qw.resolved_head_dim), dict(causal=True), S),
+             ((g3.num_heads, g3.num_kv_heads, g3.resolved_head_dim), dict(causal=True), S),
+             ((g3.num_heads, g3.num_kv_heads, g3.resolved_head_dim),
+              dict(causal=True, window=g3.window), g3.window),
+             ((4, 2, 64), dict(causal=True, chunk=128), 128)]
+    worst = 0.0
+    for (H, KV, hd), kw, ring in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(gen, dtype, B, H, KV, S, S, hd)
+            full = kfa.flash_attention(q, k, v, **kw)
+            tq, tk, tv, kc, vc, st, n = tail_operands(q, k, v, TAIL_STARTS, ring)
+            got = kfa.flash_attention_tail(tq, tk, tv, kc, vc, st, n, **kw)
+            plain = kfa.flash_attention_tail_plain(tq, tk, tv, kc, vc, st, n, **kw)
+            sync()
+            for b, s in enumerate(TAIL_STARTS):
+                check(torch.equal(got[b, :, :S - s], full[b, :, s:]),
+                      f"tail form {(H, KV, hd)} {kw} {dtype} start {s}: not bitwise the "
+                      f"full prefill's rows")
+                ok, err, ratio = _flash_err(got[b, :, :S - s], plain[b, :, :S - s], dtype, S)
+                check(ok, f"tail form {(H, KV, hd)} {kw} {dtype} start {s}: max abs err "
+                      f"{err} ({ratio:.3g} x)")
+                worst = max(worst, err)
+    say(f"flash_attention_tail: every row bitwise the full prefill's at its position, "
+        f"{[(c[0], c[1]) for c in cases]}, prefixes {TAIL_STARTS}, fp32 and bf16; max abs "
+        f"err against the plain version {worst:.3g}")
+    served = counts["prefix_tail_shapes"]
+    for key in sorted(served, key=str):
+        Bs, H, KV, Sq, ring, hd, mk = key
+        kw = _mask_kwargs(mk)
+        start = served_tail_starts(Bs, Sq, ring, kw)
+        S = min(start) + Sq
+        q, k, v = _flash_inputs(gen, torch.bfloat16, Bs, H, KV, S, S, hd)
+        full = kfa.flash_attention(q, k, v, **kw)
+        ops = tail_operands(q, k, v, start, ring)
+        check(tuple(ops[0].shape) == (Bs, H, Sq, hd) and tuple(ops[3].shape) == (Bs, ring, KV, hd),
+              f"tail form at the served {key}: operands {[tuple(t.shape) for t in ops]}")
+        got = kfa.flash_attention_tail(*ops, **kw)
+        plain = kfa.flash_attention_tail_plain(*ops, **kw)
+        sync()
+        keys = min(S, kw.get("window") or S, kw.get("chunk") or S)
+        for b, s in enumerate(start):
+            check(torch.equal(got[b, :, :S - s], full[b, :, s:]),
+                  f"tail form at the served {key}, start {s}: not bitwise the full prefill's rows")
+            ok, err, ratio = _flash_err(got[b, :, :S - s], plain[b, :, :S - s], torch.bfloat16,
+                                        keys)
+            check(ok, f"tail form at the served {key}, start {s}: max abs err {err} "
+                  f"({ratio:.3g} x)")
+            worst = max(worst, err)
+        say(f"flash_attention_tail at the served (B, H, KV, Sq, ring, hd) = "
+            f"{(Bs, H, KV, Sq, ring, hd)} {kw} ({served[key]} launches), bf16, starts {start}: "
+            f"every row bitwise the full prefill's, within FLASH_TOL of the plain version")
+        del q, k, v, full, ops, got, plain
+    say(f"flash_attention_tail: {len(served)} served shapes held; max abs err against the plain "
+        f"version over every case {worst:.3g}")
+    # Qwen2's widest hit wave (a global layer: the sub-cache's T slots)
+    key = max((k for k in served if k[1] == qw.num_heads),
+              key=lambda k: (k[0] * k[3], k[4]))
+    Bs, H, KV, Sq, T, hd, mk = key
+    kw = _mask_kwargs(mk)
+    start = [PREFIX_LEN] * Bs
+    Sk = PREFIX_LEN + Sq
+    q, k, v = _flash_inputs(gen, torch.bfloat16, Bs, H, KV, Sk, Sk, hd)
+    tq, tk, tv, kc, vc, st, n = tail_operands(q, k, v, start, T)
+    out = {}
+
+    def tail():
+        out["kernel"] = kfa.flash_attention_tail(tq, tk, tv, kc, vc, st, n, **kw)
+
+    def tail_plain():
+        out["plain"] = kfa.flash_attention_tail_plain(tq, tk, tv, kc, vc, st, n, **kw)
+
+    ms = cuda_ms(tail, 5)
+    plain_ms = cuda_ms(tail_plain, 1)
+    full = kfa.flash_attention(q, k, v, **kw)
+    sync()
+    check(torch.equal(out["kernel"], full[:, :, PREFIX_LEN:]),
+          f"tail form at the timed {key}: not bitwise the full prefill's rows")
+    ok, err, ratio = _flash_err(out["kernel"], out["plain"], torch.bfloat16, Sk)
+    check(ok, f"tail form at the timed {key}: max abs err {err} ({ratio:.3g} x)")
+    worst = max(worst, err)
+    del out, full
+    # the same rows through the full prefill: queries at the last Sq of Sk
+    full_ms = cuda_ms(lambda: kfa.flash_attention(tq, k, v, **kw), 5)
+    pq = torch.arange(Sq, device=DEVICE)[:, None] + PREFIX_LEN
+    mask = _admitted(pq, torch.arange(Sk, device=DEVICE)[None, :], **kw)
+    lib, backend = sdpa_yardstick(tq, k, v, attn_mask=mask, scale=hd ** -0.5)
+    lib_ms, backend = library_time(lib, backend + ", the explicit mask", eager=True)
+    pairs = _attention_pairs(Bs, H, Sq, Sk, kw)
+    moved = 2 * (2 * Bs * H * Sq * hd + 2 * Bs * KV * Sk * hd)
+    t_b, by = bound(moved, 4.0 * hd * pairs, BF16_OPS_PER_S)
+    launched = sum(counts[p][label]["flash_attention_tail"]
+                   for p in ("prefix_qwen", "prefix_gemma3") for label in ("cold", "warm"))
+    launched += counts["fleet"]["flash_attention_tail"]
+    say(f"flash_attention_tail (B, H, KV, Sq, ring, hd) = {(Bs, H, KV, Sq, T, hd)} {kw}, "
+        f"bf16, every row after a {PREFIX_LEN}-token prefix, {served[key]} launches at this "
+        f"shape, {launched} on the paths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the "
+        f"full prefill of the same rows {full_ms:.4f} ms, scaled_dot_product_attention "
+        f"{_ms(lib_ms)} ({backend}); bound {t_b:.4f} ms ({by}, {pairs:.4g} admitted pairs at "
+        f"the bf16 tensor-core rate), {t_b / ms:.1%} of it; its rows bitwise the full "
+        f"prefill's and within FLASH_TOL of the plain version's")
+    regs = {name: use for name, use in ptxas_usage("flash_tail").items()}
+    say("tail-form instances (-Xptxas -v: registers, spill store and load bytes, stack "
+        "frame): " + "; ".join(f"{_short(name)} {use}" for name, use in sorted(regs.items())))
+    return {"name": "flash_attention_tail", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_tail.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:123",
+            "launches": launched, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_b, "bound_by": by, "library_ms": lib_ms, "library_note": backend,
+            "full_prefill_ms": full_ms, "shape": [Bs, H, KV, Sq, T, hd], "mask": kw,
+            "start": PREFIX_LEN,
+            "launches_by_path": {
+                **{f"{p}_{label}": counts[p][label]["flash_attention_tail"]
+                   for p in ("prefix_qwen", "prefix_gemma3") for label in ("cold", "warm")},
+                "fleet": counts["fleet"]["flash_attention_tail"]}}
+
+
+def _short(name: str) -> str:
+    import re
+
+    m = re.search(r"(flash_\w+?kernel)I(.*?)EE", name)
+    return f"{m.group(1)}<{m.group(2)}>" if m else name[:60]
+
+
+def served_tail_starts(B: int, Sq: int, ring: int, kw: dict) -> list:
+    """Ragged prefix lengths for a served tail shape, as a hit wave has
+    them: spread over Sq positions, the first row's tail the longest (Sq),
+    even rows on a block boundary and odd rows on no key tile's.  On a
+    layer whose ring holds every position (global, or a window or chunk
+    wider than the ring), every prefix lies within the ring's slots, as the
+    wave's T slots hold it; on a window or chunk ring every prefix passes
+    the ring's end, so the prefix wraps."""
+    span = kw.get("window") or kw.get("chunk")
+    hi = ring + Sq if span and ring >= span else ring - 1
+    lo = max(1, hi - Sq + 1)
+    out = []
+    for b in range(B):
+        s = lo + (hi - lo) * b // max(B - 1, 1)
+        s = s - s % PREFIX_BLOCK if b % 2 == 0 else s | 1
+        out.append(min(max(s, lo), hi))
+    out[0] = lo
+    return out
+
+
+def tail_operands(q, k, v, start, ring):
+    """The tail form's operands cut from a full prefill's: each row's
+    queries and K/V from ``start[b]`` on (padded to the longest tail), and
+    ring caches of ``ring`` slots holding what a full prefill leaves at the
+    positions below ``start[b]`` (slot p mod ring, the last ring of them)."""
+    B, KV, S, hd = k.shape
+    L = [S - s for s in start]
+    Sq = max(L)
+
+    def cut(t):
+        out = torch.zeros(t.shape[0], t.shape[1], Sq, hd, dtype=t.dtype, device=t.device)
+        for b, s in enumerate(start):
+            out[b, :, :S - s] = t[b, :, s:]
+        return out
+
+    caches = []
+    for t in (k, v):
+        c = torch.zeros(B, ring, KV, hd, dtype=t.dtype, device=t.device)
+        for b, s in enumerate(start):
+            p = torch.arange(max(0, s - ring), s, device=t.device)
+            c[b, p % ring] = t[b, :, p].transpose(0, 1)
+        caches.append(c)
+    return (cut(q), cut(k), cut(v), *caches, torch.tensor(start, device=q.device),
+            torch.tensor(L, device=q.device))
+
+
+def phase_serving_stack(gen, km_model, counts, report, records) -> None:
+    """Phase 30: (a) the int8 KV cache, (b) the prefix cache, (c) the
+    router and the predictor fleet, then (d) the new route and form held
+    and timed; their launches join the kernels line."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+
+    # Qwen2-1.5B's int8 weights, drawn once and quantized a block at a
+    # time, serve (a), (b) and (c)
+    cfg = dataclasses.replace(get_config(LM_ARCH), quantize="int8")
+    params = init_model(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    phase_kv8(params, counts, report)
+    oracle = phase_prefix(params, counts, report)
+    phase_fleet(params, km_model, oracle, counts, report)
+    del params
+    free_device_memory()
+    phase("30d. kernel 6's int8 decode route and tail form held and timed at (a)'s and "
+          "(b)'s shapes")
+    say(f"card: {CARD}")
+    records.append(kv8_record(gen, counts))
+    records.append(tail_record(gen, counts))
+    by_name = {r["name"]: r for r in records}
+    paths = {"kv8_serve": counts["kv8"],
+             **{f"{p}_{label}": counts[p][label] for p in ("prefix_qwen", "prefix_gemma3")
+                for label in ("off", "cold", "warm")},
+             "fleet": counts["fleet"]}
+    for path, got in paths.items():
+        for wrapper, n in got.items():
+            if not n or wrapper == "flash_attention_tail":
+                continue
+            if path == "kv8_serve" and wrapper == "flash_attention_decode":
+                continue                 # the int8 route's own record
+            rec = by_name[ZOO_RECORD_OF[wrapper]]
+            rec["launches"] += n
+            rec["launches_by_path"][path] = n
+    km = by_name["kmeans_assign"]
+    km["launches"] += counts["predictor_fleet"]
+    km.setdefault("launches_by_path", {})["predictor_fleet"] = counts["predictor_fleet"]
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -8746,6 +9498,7 @@ def main() -> int:
     phase_kmeans(gen, counts, report)
     phase_serving(gen, counts, report)
     totals = launch_counts()         # ... and ends here
+    km_model = report["kmeans"]["model"]   # phase 30 (c) serves it again
     say(f"launches on the first path: {totals}")
     check(all(totals[k] > 0 for k in first_path)
           and all(v == 0 for k, v in totals.items() if k not in first_path)
@@ -8812,6 +9565,10 @@ def main() -> int:
     records.append(phase_head(gen, counts))
     worst = phase_fixed_check(gen, counts)
     records.extend(phase_fixed_timing(gen, counts, worst))
+    # the serving stack's int8 KV cache, prefix cache and router on
+    # Qwen2-1.5B and Gemma3-1B, then kernel 6's new route and form
+    phase_serving_stack(gen, km_model, counts, report, records)
+    del km_model
     # the model zoo last, on an otherwise empty card (Qwen1.5-32B's int8
     # weights and caches take ≈ 70 GB), then its kernels at its shapes
     phase_zoo(counts, report)
@@ -8819,14 +9576,14 @@ def main() -> int:
     # GB), each freed before the next; their runs join the zoo's records
     phase_whisper(counts, report)
     phase_llava(counts, report)
-    # the MoE models (≈ 60 and 54 GB at 12 layers), each freed before the
+    # the MoE models (≈ 40 and 37 GB at 8 layers), each freed before the
     # next; their runs join the zoo's records and 26b's shapes
     phase_moe(counts, report)
     phase_zoo_kernels(gen, counts, records)
     end_phase()
     # logreg_xt_z is on no path since the fits take logreg_grad: the checks
     # and a width no cluster holds launch it
-    check(len(records) == 15
+    check(len(records) == 17
           and all((r["launches"] == 0) == (r["name"] == "logreg_xt_z") for r in records),
           f"a kernel was never launched on its path, or logreg_xt_z was: "
           f"{[(r['name'], r['launches']) for r in records]}")

@@ -35,6 +35,7 @@ KERNELS = {
     "ssd_decode": _ssd_scan.ssd_decode,
     "flash_attention": _flash_attention.flash_attention,
     "flash_attention_decode": _flash_attention.flash_attention_decode,
+    "flash_attention_tail": _flash_attention.flash_attention_tail,
     "lm_head": _lm_head.lm_head,
     "fixed_linear": _fixed_linear.fixed_linear,
     "rglru_scan": _rglru_scan.rglru_scan,
@@ -49,12 +50,14 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every launch count to 0, and clear the route counts of
-    ``logreg_grad``, ``flash_attention``'s prefill form, ``fixed_linear``
+    ``logreg_grad``, both ``flash_attention`` forms that have routes
+    (prefill by operand dtype, decode by cache dtype), ``fixed_linear``
     and ``kmeans_assign`` (``.routes``) and ``kmeans_assign``'s form counts
     (``.forms``)."""
     for fn in KERNELS.values():
         fn.launches = 0
     for fn in (_logreg_grad.logreg_grad, _flash_attention.flash_attention,
+               _flash_attention.flash_attention_decode,
                _fixed_linear.fixed_linear, _kmeans_assign.kmeans_assign):
         fn.routes.clear()
     _kmeans_assign.kmeans_assign.forms.clear()

@@ -36,8 +36,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: every CUDA source of the package, by stem
 SOURCES = ("logreg_grad", "kmeans_assign", "quant_matmul", "rmsnorm", "ssd_scan",
-           "flash_attention", "flash_decode", "lm_head", "fixed_linear", "rglru_scan",
-           "layernorm")
+           "flash_attention", "flash_decode", "flash_decode_int8", "flash_tail", "lm_head",
+           "fixed_linear", "rglru_scan", "layernorm")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -133,11 +133,34 @@
 // (the decode form's scratch comes from the wrapper) and return
 // cudaGetLastError().
 //
-// The file is two translation units, built at once: alone it is the
-// prefill forms' library; csrc/flash_decode.cu includes it with
-// FLASH_DECODE defined, and is the decode form's.  Each compiles only its
-// form's kernels and C launchers, so that the two instance sets, the
-// package's longest build as one file, compile in parallel.
+// Two more forms serve the prefix cache and the int8 KV cache:
+//   * the tail form (FLASH_TAIL): the prefill kernels with queries at
+//     per-row offsets, row b's at start[b] + i, over keys 0 .. start[b] +
+//     len[b] - 1, those below start[b] read from the ring cache (slot p mod
+//     ring, admitted from start[b] - ring on), the rest from the tail's own
+//     K/V.  The key tiles run over absolute positions from 0 and a tile may
+//     straddle prefix and tail, so a row sums the terms a full prefill of
+//     the whole prompt sums at that position, in the same order: its result
+//     and the cache it leaves are that prefill's, bitwise (the rows and
+//     tiles a warp holds differ, which the skipped-tile rule above leaves
+//     without effect).  Same bound as the prefill form, on the pairs the
+//     tail's rows admit.
+//   * the int8 route of the decode form (FLASH_DECODE_INT8): the caches hold
+//     int8 codes and an fp32 scale a (slot, kv head); the tiles travel as
+//     codes (hd bytes a row, 16 a copy) and their scales (4 bytes a copy),
+//     and each code is dequantized in registers to _cache_read's value,
+//     bf16(fp32(code) * scale), read as fp32, before the same sums in the
+//     same order: the result is the bf16 (or fp32) route's over the
+//     dequantized caches, bitwise.  It reads hd + 4 bytes a (slot, kv head)
+//     for K and for V where bf16 reads 2 hd, so its byte bound is about half.
+//
+// The file is four translation units, built at once: alone it is the full
+// prefill's library; csrc/flash_decode.cu includes it with FLASH_DECODE
+// defined and is the decode form's, csrc/flash_decode_int8.cu with
+// FLASH_DECODE and FLASH_DECODE_INT8 its int8 route's, csrc/flash_tail.cu
+// with FLASH_TAIL the tail form's.  Each compiles only its form's kernels
+// and C launchers, so that the instance sets, the package's longest build
+// as one file, compile in parallel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -225,6 +248,21 @@ struct Ring {
 };
 
 #ifndef FLASH_DECODE
+// The tail form's prefix (kTail instances): row b's queries sit at
+// positions start[b] + i and its keys at positions 0 .. start[b] + len[b] -
+// 1; a key below start[b] is read from the ring cache at slot p mod ring,
+// and is admitted only from start[b] - ring on (the ring holds no older
+// position), the others from the tail's own K/V at column p - start[b].
+// Key tiles run over those positions from 0, as a full prefill's do.
+struct Tail {
+  const void* kc;
+  const void* vc;
+  Strides cks, cvs;       // the caches' strides (batch, head, slot)
+  long long ring;
+  const long long* start;
+  const long long* len;
+};
+
 // Thread layouts of a block of kRows rows, by phase.
 template <int kRows, int HD>
 struct Layout {
@@ -255,11 +293,11 @@ struct Layout {
 // row.  Grid (ceil(Sq * G / kRows), KV, B), row r of block x is (query
 // (x * kRows + r) / G, head (x * kRows + r) % G of the group).  nq = Sq,
 // nkeys = Sk.
-template <typename T, int HD, int kRows>
+template <typename T, int HD, int kRows, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, int H, int KV, long long nq, long long nkeys, Strides qs,
-             Strides ks, Strides vs, Strides os, Mask mask, float scale) {
+             Strides ks, Strides vs, Strides os, Mask mask, float scale, Tail tail) {
   using L = Layout<kRows, HD>;
   constexpr int QS = L::QS;
   extern __shared__ float4 smem4[];
@@ -276,7 +314,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const long long b = blockIdx.z;
   const long long rows = nq * G;
   const long long row0 = (long long)blockIdx.x * kRows;
-  const long long qpos0 = nkeys - nq;   // position of query 0
+  long long qpos0 = nkeys - nq;   // position of query 0
+  long long kfirst = 0;           // keys [kfirst, nkeys) exist
+  const T* kcb = nullptr;
+  const T* vcb = nullptr;
+  if constexpr (kTail) {
+    qpos0 = tail.start[b];
+    nkeys = qpos0 + tail.len[b];
+    kfirst = qpos0 - tail.ring;
+    kcb = static_cast<const T*>(tail.kc) + b * tail.cks.b + (long long)kvh * tail.cks.h;
+    vcb = static_cast<const T*>(tail.vc) + b * tail.cvs.b + (long long)kvh * tail.cvs.h;
+  }
   const int t = threadIdx.x;
 
   // Q rows as fp32 (rows past the last as zeros)
@@ -326,7 +374,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int i = 0; i < L::kSRows; ++i) {
 #pragma unroll
       for (int j = 0; j < L::kSCols; ++j) {
-        any |= row_ok[i] && key_ok(pq[i], k0 + tc + j * L::kColLanes, nkeys, mask);
+        const long long key = k0 + tc + j * L::kColLanes;
+        any |= row_ok[i] && key >= kfirst && key_ok(pq[i], key, nkeys, mask);
       }
     }
     if (!__syncthreads_or(any)) continue;
@@ -336,9 +385,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const int c = e / L::kDimGroups, d = (e % L::kDimGroups) * 4;
       const long long key = k0 + c;
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (key < nkeys) {
-        kk = load4(k + b * ks.b + (long long)kvh * ks.h + key * ks.s + d);
-        vv = load4(v + b * vs.b + (long long)kvh * vs.h + key * vs.s + d);
+      if (kTail && key < qpos0) {
+        const long long slot = key % tail.ring;
+        kk = load4(kcb + slot * tail.cks.s + d);
+        vv = load4(vcb + slot * tail.cvs.s + d);
+      } else if (key < nkeys) {
+        const long long col = kTail ? key - qpos0 : key;
+        kk = load4(k + b * ks.b + (long long)kvh * ks.h + col * ks.s + d);
+        vv = load4(v + b * vs.b + (long long)kvh * vs.h + col * vs.s + d);
       }
       *reinterpret_cast<float4*>(Ks + c * QS + d) = kk;
       *reinterpret_cast<float4*>(Vs + c * HD + d) = vv;
@@ -378,7 +432,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < L::kSCols; ++j) {
         const int c = tc + j * L::kColLanes;
-        const bool ok = row_ok[i] && key_ok(pq[i], k0 + c, nkeys, mask);
+        const bool ok = row_ok[i] && k0 + c >= kfirst && key_ok(pq[i], k0 + c, nkeys, mask);
         Ps[(tr + i * L::kRowLanes) * kPS + c] = ok ? s[i][j] * scale : kNegInf;
       }
     }
@@ -462,15 +516,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kTail>
 int launch_prefill(const void* q, const void* k, const void* v, void* out, int B, int H,
                    int KV, long long nq, long long nkeys, Strides qs, Strides ks, Strides vs,
-                   Strides os, Mask mask, float scale, cudaStream_t stream) {
+                   Strides os, Mask mask, float scale, const Tail& tail, cudaStream_t stream) {
   using L = Layout<kPrefillRows, HD>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, HD, kPrefillRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<T, HD, kPrefillRows, kTail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         L::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -479,9 +533,9 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out, int B
   const long long blocks = (rows + kPrefillRows - 1) / kPrefillRows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks), KV, B);
-  flash_kernel<T, HD, kPrefillRows><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_kernel<T, HD, kPrefillRows, kTail><<<grid, kThreads, L::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, KV, nq, nkeys, qs, ks, vs, os, mask, scale);
+      static_cast<T*>(out), H, KV, nq, nkeys, qs, ks, vs, os, mask, scale, tail);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,12 +615,12 @@ __device__ __forceinline__ void split_terms(float x, float y, uint32_t& hi, uint
 // 16w + l / 4 and 16w + l / 4 + 8 of the block, and of each n8 block of S
 // and O the columns 2 (l % 4) and 2 (l % 4) + 1 (the mma fragment layout).
 // terms (1 to 3) is kMmaTerms on the served path.
-template <int HD>
+template <int HD, bool kTail>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                  int H, int KV, int nq, int nkeys, Strides qs, Strides ks, Strides vs,
-                 Strides os, Mask mask, float scale, int terms) {
+                 Strides os, Mask mask, float scale, int terms, Tail tail) {
   using L = MmaLayout<HD>;
   constexpr int kN = L::kN, RS = L::RS;
   extern __shared__ float4 smem4[];
@@ -579,7 +633,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const long long b = blockIdx.z;
   const long long rows = (long long)nq * G;
   const long long row0 = (long long)(gridDim.x - 1 - blockIdx.x) * kMmaRows;
-  const long long qpos0 = (long long)nkeys - nq;   // position of query 0
+  long long qpos0 = (long long)nkeys - nq;   // position of query 0
+  long long kfirst = 0;                      // keys [kfirst, nkeys) exist
+  if constexpr (kTail) {
+    qpos0 = tail.start[b];
+    nkeys = static_cast<int>(qpos0 + tail.len[b]);
+    kfirst = qpos0 - tail.ring;
+  }
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int gq = lane / 4, tq = lane % 4;
 
@@ -592,6 +652,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     long long l0 = 0, h0 = (long long)nkeys - 1;
     if (rg < rows) {
       const long long pq = qpos0 + rg / G;
+      if (kTail) l0 = max(l0, kfirst);
       if (mask.causal) h0 = min(h0, pq);
       if (mask.has_window) l0 = max(l0, pq - mask.window + 1);
       if (mask.has_chunk) {
@@ -648,15 +709,33 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int cp_ch = t % L::kChunks, cp_row = t / L::kChunks;
   const __nv_bfloat16* kb = k + b * ks.b + (long long)kvh * ks.h + cp_ch * 8;
   const __nv_bfloat16* vb = v + b * vs.b + (long long)kvh * vs.h + cp_ch * 8;
+  const __nv_bfloat16* kcb = nullptr;
+  const __nv_bfloat16* vcb = nullptr;
+  if constexpr (kTail) {
+    kcb = static_cast<const __nv_bfloat16*>(tail.kc) + b * tail.cks.b +
+          (long long)kvh * tail.cks.h + cp_ch * 8;
+    vcb = static_cast<const __nv_bfloat16*>(tail.vc) + b * tail.cvs.b +
+          (long long)kvh * tail.cvs.h + cp_ch * 8;
+  }
   auto load_tile = [&](int kt, int stage) {
     __nv_bfloat16* st = Ts + stage * L::kStage + cp_row * RS + cp_ch * 8;
 #pragma unroll
     for (int r = 0; r < kN; r += kRowStep) {
       const int key = kt * kN + cp_row + r;
       const bool in = key < nkeys;
-      const long long kk = in ? key : 0;
-      cp_async16(st + r * RS, kb + kk * ks.s, in ? 16 : 0);
-      cp_async16(st + (kN + r) * RS, vb + kk * vs.s, in ? 16 : 0);
+      const __nv_bfloat16* ksrc;
+      const __nv_bfloat16* vsrc;
+      if (kTail && key < qpos0) {           // the restored prefix, from the ring
+        const long long slot = key % static_cast<int>(tail.ring);   // 32-bit: ring < 2^31
+        ksrc = kcb + slot * tail.cks.s;
+        vsrc = vcb + slot * tail.cvs.s;
+      } else {
+        const long long col = in ? (kTail ? key - qpos0 : key) : 0;
+        ksrc = kb + col * ks.s;
+        vsrc = vb + col * vs.s;
+      }
+      cp_async16(st + r * RS, ksrc, in ? 16 : 0);
+      cp_async16(st + (kN + r) * RS, vsrc, in ? 16 : 0);
     }
   };
 #pragma unroll
@@ -826,16 +905,16 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int HD>
+template <int HD, bool kTail>
 int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, int B, int H,
                        int KV, long long nq, long long nkeys, Strides qs, Strides ks,
                        Strides vs, Strides os, Mask mask, float scale, int terms,
-                       cudaStream_t stream) {
+                       const Tail& tail, cudaStream_t stream) {
   using L = MmaLayout<HD>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+        flash_mma_kernel<HD, kTail>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -847,10 +926,11 @@ int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, i
   const long long blocks = (rows + kMmaRows - 1) / kMmaRows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks), KV, B);
-  flash_mma_kernel<HD><<<grid, kMmaThreads, L::kBytes, stream>>>(
+  flash_mma_kernel<HD, kTail><<<grid, kMmaThreads, L::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, KV,
-      static_cast<int>(nq), static_cast<int>(nkeys), qs, ks, vs, os, mask, scale, terms);
+      static_cast<int>(nq), static_cast<int>(nkeys), qs, ks, vs, os, mask, scale, terms,
+      tail);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -891,17 +971,50 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[kLaneEl
     f[2 * i + 1] = t.y;
   }
 }
+// 8 int8 codes, each dequantized as the reference's _cache_read does:
+// bf16(fp32(code) * scale), an IEEE fp32 product rounded to bf16 (to
+// nearest even), read back as fp32; from 8-byte aligned shared memory
+__device__ __forceinline__ void load8(const int8_t* p, float scale, float (&f)[kLaneElems]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kLaneElems; ++i) {
+    f[i] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(static_cast<float>(c[i]), scale)));
+  }
+}
+// a row of the cache's dtype: fp32 or bf16 as it is (no scale), int8 codes
+// dequantized by their scale
+template <typename C>
+__device__ __forceinline__ void load_row8(const C* p, float scale, float (&f)[kLaneElems]) {
+  if constexpr (sizeof(C) == 1) {
+    load8(p, scale, f);
+  } else {
+    load8(p, f);
+  }
+}
+// 4 bytes global -> shared (cp.async.ca); src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T, int HD, int kG>
+// C is the cache's element type: the model's (fp32 or bf16), or int8 codes
+// with an fp32 scale a (slot, kv head), whose tile carries its 2 * kTile
+// scales (K's, then V's) behind the codes
+template <typename C, int HD, int kG>
 struct DecodeLayout {
+  static constexpr bool kQuant = sizeof(C) == 1;
   static constexpr int KL = HD / kLaneElems;            // lanes a key: 4..32
   static constexpr int kThreadsD = kGroups * KL;        // = HD
   static constexpr int kStageElems = 2 * kTile * HD;    // a K tile, then a V tile
-  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));   // elements a copy
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(C));   // elements a copy
   static constexpr int kChunksRow = HD / kVec;
-  static constexpr int kStageBytes = kStages * kStageElems * static_cast<int>(sizeof(T));
+  static constexpr int kScaleBytes = kQuant ? 2 * kTile * 4 : 0;
+  static constexpr int kStageStride = kStageElems * static_cast<int>(sizeof(C)) + kScaleBytes;
+  static constexpr int kStageBytes = kStages * kStageStride;
   static constexpr int kSpan = span_slots(HD);
   static constexpr int kSpanTiles = kSpan / kTile;      // tiles of 32 slots a span
   static constexpr int kMergeBytes = kGroups * kG * (HD + 2) * 4;
@@ -919,19 +1032,27 @@ struct DecodeLayout {
 // acc); the groups then merge in group order, and the block writes the
 // span's (m, l, acc) in fp32.  A head's arithmetic is its own: nothing of
 // it depends on kG, on the set it falls in or on the other heads.
-template <typename T, int HD, int kG>
+//
+// The int8 route (C = int8_t): the caches hold codes, k_scale and v_scale
+// (B, slots, KV) fp32 with strides ss (batch, head, slot); each code is
+// dequantized in registers to _cache_read's bf16 value and read as fp32,
+// so every sum after it is the bf16 (fp32 q: fp32) route's over caches
+// dequantized by the plain _cache_read, bitwise.
+template <typename T, typename C, int HD, int kG>
 __global__ void __launch_bounds__(HD, 2)
-decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const long long* __restrict__ pos,
+decode_span_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                   const C* __restrict__ v, const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale, Strides ss,
+                   const long long* __restrict__ pos,
                    float* __restrict__ part_m, float* __restrict__ part_l,
                    float* __restrict__ part_acc, int H, int KV, long long slots, int nspans,
                    Strides qs, Strides ks, Strides vs, Mask mask, float scale) {
-  using DL = DecodeLayout<T, HD, kG>;
+  using DL = DecodeLayout<C, HD, kG>;
   constexpr int KL = DL::KL;
   constexpr int NT = DL::kThreadsD;
   constexpr int kSpan = DL::kSpan, kSpanTiles = DL::kSpanTiles;
   extern __shared__ float4 smem4[];
-  T* stage = reinterpret_cast<T*>(smem4);
+  unsigned char* stage = reinterpret_cast<unsigned char*>(smem4);
 
   const int G = H / KV;
   const int nsub = (G + kG - 1) / kG;
@@ -972,12 +1093,25 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // start the first kStages - 1 tiles' K and V on their way (cp.async, 16
   // bytes a copy; slots past the ring's end as zeros)
-  const T* kb = k + b * ks.b + (long long)kvh * ks.h;
-  const T* vb = v + b * vs.b + (long long)kvh * vs.h;
+  const C* kb = k + b * ks.b + (long long)kvh * ks.h;
+  const C* vb = v + b * vs.b + (long long)kvh * vs.h;
+  const float* ksb = nullptr;
+  const float* vsb = nullptr;
+  if constexpr (DL::kQuant) {
+    ksb = k_scale + b * ss.b + (long long)kvh * ss.h;
+    vsb = v_scale + b * ss.b + (long long)kvh * ss.h;
+  }
+  auto stage_kv = [&](int i) {
+    return reinterpret_cast<C*>(stage + (i % kStages) * DL::kStageStride);
+  };
+  auto stage_scales = [&](int i) {   // K's kTile scales, then V's
+    return reinterpret_cast<float*>(stage + (i % kStages) * DL::kStageStride +
+                                    DL::kStageElems * static_cast<int>(sizeof(C)));
+  };
   auto issue = [&](int i) {
     if (i < ntiles) {
       const long long k0 = s0 + (long long)tiles[i] * kTile;
-      T* st = stage + (i % kStages) * DL::kStageElems;
+      C* st = stage_kv(i);
       for (int c = t; c < 2 * kTile * DL::kChunksRow; c += NT) {
         const int is_v = c / (kTile * DL::kChunksRow);
         const int rem = c % (kTile * DL::kChunksRow);
@@ -987,6 +1121,15 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const long long off = (in ? key : 0) * (is_v ? vs.s : ks.s) + ch * DL::kVec;
         cp_async16(st + is_v * kTile * HD + row * HD + ch * DL::kVec,
                    (is_v ? vb : kb) + off, in ? 16 : 0);
+      }
+      if constexpr (DL::kQuant) {
+        float* sc = stage_scales(i);
+        for (int c = t; c < 2 * kTile; c += NT) {
+          const int is_v = c / kTile, row = c % kTile;
+          const long long key = k0 + row;
+          const bool in = key < slots;
+          cp_async4(sc + c, (is_v ? vsb : ksb) + (in ? key : 0) * ss.s, in ? 4 : 0);
+        }
       }
     }
     cp_async_commit();   // an empty group past the last tile keeps the count
@@ -1018,8 +1161,10 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<kStages - 2>();   // tile i has landed (this thread's copies)
     __syncthreads();                // ... every thread's; tile i - 1 is done
     issue(i + kStages - 1);         // into the stage tile i - 1 used
-    const T* Kt = stage + (i % kStages) * DL::kStageElems;
-    const T* Vt = Kt + kTile * HD;
+    const C* Kt = stage_kv(i);
+    const C* Vt = Kt + kTile * HD;
+    const float* Ks = DL::kQuant ? stage_scales(i) : nullptr;
+    const float* Vs = DL::kQuant ? Ks + kTile : nullptr;
     const long long k0 = s0 + (long long)tiles[i] * kTile;
 
     // scores: each dot an fma chain over the lane's dims in order, then a
@@ -1030,7 +1175,7 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = grp + u * kGroups;
       const bool ok = ring.ok(k0 + row, mask);
       float kf[kLaneElems];
-      load8(Kt + row * HD + kl * kLaneElems, kf);
+      load_row8(Kt + row * HD + kl * kLaneElems, DL::kQuant ? Ks[row] : 0.f, kf);
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         float dot = 0.f;
@@ -1069,7 +1214,8 @@ decode_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kGroupKeys; ++u) {
       float vf[kLaneElems];
-      load8(Vt + (grp + u * kGroups) * HD + kl * kLaneElems, vf);
+      const int row = grp + u * kGroups;
+      load_row8(Vt + row * HD + kl * kLaneElems, DL::kQuant ? Vs[row] : 0.f, vf);
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         if (g >= Gb) continue;
@@ -1180,16 +1326,23 @@ long long decode_spans(long long slots, int hd) {
   return (slots + span_slots(hd) - 1) / span_slots(hd);
 }
 
-template <typename T, int HD, int kG>
-int launch_decode(const void* q, const void* k, const void* v, void* out,
+// the scales of an int8 cache (null for a cache of the model's dtype)
+struct Scales {
+  const float* k;
+  const float* v;
+  Strides s;     // (batch, head, slot)
+};
+
+template <typename T, typename C, int HD, int kG>
+int launch_decode(const void* q, const void* k, const void* v, const Scales& sc, void* out,
                   const long long* pos, float* scratch, int B, int H, int KV, long long slots,
                   Strides qs, Strides ks, Strides vs, Strides os, Mask mask, float scale,
                   cudaStream_t stream) {
-  using DL = DecodeLayout<T, HD, kG>;
+  using DL = DecodeLayout<C, HD, kG>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_span_kernel<T, HD, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_span_kernel<T, C, HD, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         DL::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -1202,12 +1355,12 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
   float* part_acc = part_l + parts;
   const int nsub = (H / KV + kG - 1) / kG;
   if ((long long)KV * nsub > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  decode_span_kernel<T, HD, kG>
+  decode_span_kernel<T, C, HD, kG>
       <<<dim3(static_cast<unsigned>(nspans), KV * nsub, B), DL::kThreadsD, DL::kBytes,
          stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-          part_m, part_l, part_acc, H, KV, slots, static_cast<int>(nspans), qs, ks, vs, mask,
-          scale);
+          static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v), sc.k,
+          sc.v, sc.s, pos, part_m, part_l, part_acc, H, KV, slots, static_cast<int>(nspans),
+          qs, ks, vs, mask, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = H / KV;
@@ -1220,25 +1373,25 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kG>
-int launch_decode_hd(int hd, const void* q, const void* k, const void* v, void* out,
-                     const long long* pos, float* scratch, int B, int H, int KV,
+template <typename T, typename C, int kG>
+int launch_decode_hd(int hd, const void* q, const void* k, const void* v, const Scales& sc,
+                     void* out, const long long* pos, float* scratch, int B, int H, int KV,
                      long long slots, Strides qs, Strides ks, Strides vs, Strides os,
                      Mask mask, float scale, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch_decode<T, 32, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs, ks,
-                                      vs, os, mask, scale, s);
+      return launch_decode<T, C, 32, kG>(q, k, v, sc, out, pos, scratch, B, H, KV, slots, qs,
+                                         ks, vs, os, mask, scale, s);
     case 64:
-      return launch_decode<T, 64, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs, ks,
-                                      vs, os, mask, scale, s);
+      return launch_decode<T, C, 64, kG>(q, k, v, sc, out, pos, scratch, B, H, KV, slots, qs,
+                                         ks, vs, os, mask, scale, s);
     case 128:
-      return launch_decode<T, 128, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs, ks,
-                                       vs, os, mask, scale, s);
+      return launch_decode<T, C, 128, kG>(q, k, v, sc, out, pos, scratch, B, H, KV, slots,
+                                          qs, ks, vs, os, mask, scale, s);
     case 256:
       if constexpr (kG == 4) {     // decode_set: hd 256 runs sets of 4
-        return launch_decode<T, 256, kG>(q, k, v, out, pos, scratch, B, H, KV, slots, qs,
-                                         ks, vs, os, mask, scale, s);
+        return launch_decode<T, C, 256, kG>(q, k, v, sc, out, pos, scratch, B, H, KV, slots,
+                                            qs, ks, vs, os, mask, scale, s);
       }
       return static_cast<int>(cudaErrorInvalidValue);
     default:
@@ -1251,18 +1404,25 @@ int launch_decode_hd(int hd, const void* q, const void* k, const void* v, void* 
 #ifndef FLASH_DECODE
 // fp32 operands to flash_kernel, bf16 operands to flash_mma_kernel (with p
 // in `terms` bf16 terms); no other route
+// the full prefill (kTail false) or the tail form (FLASH_TAIL's library)
+#ifdef FLASH_TAIL
+constexpr bool kTailForm = true;
+#else
+constexpr bool kTailForm = false;
+#endif
+
 template <int HD>
 int launch_prefill_dtype(int dtype, const void* q, const void* k, const void* v, void* out,
                          int B, int H, int KV, long long nq, long long nkeys, Strides qs,
                          Strides ks, Strides vs, Strides os, Mask mask, float scale,
-                         int terms, cudaStream_t s) {
+                         int terms, const Tail& tail, cudaStream_t s) {
   if (dtype == 0) {
-    return launch_prefill<float, HD>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
-                                     scale, s);
+    return launch_prefill<float, HD, kTailForm>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
+                                                os, mask, scale, tail, s);
   }
   if (dtype == 1) {
-    return launch_prefill_mma<HD>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs, os, mask,
-                                  scale, terms, s);
+    return launch_prefill_mma<HD, kTailForm>(q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
+                                             os, mask, scale, terms, tail, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1270,20 +1430,20 @@ int launch_prefill_dtype(int dtype, const void* q, const void* k, const void* v,
 int launch_prefill_hd(int dtype, int hd, const void* q, const void* k, const void* v,
                       void* out, int B, int H, int KV, long long nq, long long nkeys,
                       Strides qs, Strides ks, Strides vs, Strides os, Mask mask, float scale,
-                      int terms, cudaStream_t s) {
+                      int terms, const Tail& tail, cudaStream_t s) {
   switch (hd) {
     case 32:
       return launch_prefill_dtype<32>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
-                                      os, mask, scale, terms, s);
+                                      os, mask, scale, terms, tail, s);
     case 64:
       return launch_prefill_dtype<64>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
-                                      os, mask, scale, terms, s);
+                                      os, mask, scale, terms, tail, s);
     case 128:
       return launch_prefill_dtype<128>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
-                                       os, mask, scale, terms, s);
+                                       os, mask, scale, terms, tail, s);
     case 256:
       return launch_prefill_dtype<256>(dtype, q, k, v, out, B, H, KV, nq, nkeys, qs, ks, vs,
-                                       os, mask, scale, terms, s);
+                                       os, mask, scale, terms, tail, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1305,6 +1465,7 @@ Mask make_mask(int causal, int has_window, long long window, int has_chunk,
 }  // namespace
 
 #ifndef FLASH_DECODE
+#ifndef FLASH_TAIL
 namespace {
 
 int prefill(int dtype, int hd, const void* q, const void* k, const void* v, void* out, int B,
@@ -1319,8 +1480,9 @@ int prefill(int dtype, int hd, const void* q, const void* k, const void* v, void
   }
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   const Mask m = make_mask(causal, has_window, window, has_chunk, chunk);
+  const Tail none{nullptr, nullptr, {0, 0, 0}, {0, 0, 0}, 1, nullptr, nullptr};
   return launch_prefill_hd(dtype, hd, q, k, v, out, B, H, KV, Sq, Sk, qs, ks, vs, os, m, scale,
-                           terms, static_cast<cudaStream_t>(stream));
+                           terms, none, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1361,6 +1523,41 @@ extern "C" int flash_prefill_terms_launch(int terms, int hd, const void* q, cons
                  stream);
 }
 
+#else   // FLASH_TAIL
+
+// The tail form: q (B, H, Sq, hd) of row b at positions start[b] + i, its
+// own K/V (B, KV, Sq, hd) at start[b] + j (real for j < len[b]), and the
+// restored prefix in the ring caches kc, vc (B, ring, KV, hd), slot p mod
+// ring for a position p < start[b] (strides: batch, head, slot).  start and
+// len are (B,) int64 on the device; start[b] + len[b] < 2^31 - 64.  dtype
+// and the rest as flash_prefill_launch's (bf16 through flash_mma_kernel
+// with p in three terms, fp32 through flash_kernel).
+extern "C" int flash_tail_launch(int dtype, int hd, const void* q, const void* k,
+                                 const void* v, void* out, const void* kc, const void* vc,
+                                 const void* start, const void* len, int B, int H, int KV,
+                                 long long Sq, long long ring, long long qsb, long long qsh,
+                                 long long qss, long long ksb, long long ksh, long long kss,
+                                 long long vsb, long long vsh, long long vss, long long osb,
+                                 long long osh, long long oss, long long cksb,
+                                 long long cksh, long long ckss, long long cvsb,
+                                 long long cvsh, long long cvss, int causal, int has_window,
+                                 long long window, int has_chunk, long long chunk,
+                                 float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 || ring <= 0 || B > 65535 ||
+      KV > 65535 || (has_chunk && chunk <= 0) || Sq > 0x3fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
+  const Tail tail{kc, vc, {cksb, cksh, ckss}, {cvsb, cvsh, cvss}, ring,
+                  static_cast<const long long*>(start), static_cast<const long long*>(len)};
+  const Mask m = make_mask(causal, has_window, window, has_chunk, chunk);
+  // nkeys is read per row (start + len); Sq stands in for the launch checks
+  return launch_prefill_hd(dtype, hd, q, k, v, out, B, H, KV, Sq, Sq, qs, ks, vs, os, m, scale,
+                           kMmaTerms, tail, static_cast<cudaStream_t>(stream));
+}
+
+#endif  // FLASH_TAIL
+
 #endif  // !FLASH_DECODE
 
 #ifdef FLASH_DECODE
@@ -1379,6 +1576,48 @@ static int decode_set(int G, int hd) {
   return G <= 4 || hd >= 256 ? 4 : 8;
 }
 
+// q's dtype (0 fp32, 1 bf16) and the cache's element type C: the model's
+// dtype (FLASH_DECODE's library) or int8 codes (FLASH_DECODE_INT8's)
+template <template <typename> class Cache>
+static int decode(int dtype, int hd, const void* q, const void* kc, const void* vc,
+                  const Scales& sc, void* out, const void* pos, void* scratch, int B, int H,
+                  int KV, long long slots, Strides qs, Strides ks, Strides vs, Strides os,
+                  int causal, int has_window, long long window, int has_chunk,
+                  long long chunk, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || H / KV > kDecodeGroupMax || slots <= 0 ||
+      B > 65535 || KV > 65535 || (has_chunk && chunk <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask m = make_mask(causal, has_window, window, has_chunk, chunk);
+  const long long* p = static_cast<const long long*>(pos);
+  float* scr = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = decode_set(H / KV, hd) == 4;
+  if (dtype == 0) {
+    using C = typename Cache<float>::type;
+    return small ? launch_decode_hd<float, C, 4>(hd, q, kc, vc, sc, out, p, scr, B, H, KV,
+                                                 slots, qs, ks, vs, os, m, scale, s)
+                 : launch_decode_hd<float, C, 8>(hd, q, kc, vc, sc, out, p, scr, B, H, KV,
+                                                 slots, qs, ks, vs, os, m, scale, s);
+  }
+  if (dtype == 1) {
+    using C = typename Cache<__nv_bfloat16>::type;
+    return small ? launch_decode_hd<__nv_bfloat16, C, 4>(hd, q, kc, vc, sc, out, p, scr, B, H,
+                                                         KV, slots, qs, ks, vs, os, m, scale,
+                                                         s)
+                 : launch_decode_hd<__nv_bfloat16, C, 8>(hd, q, kc, vc, sc, out, p, scr, B, H,
+                                                         KV, slots, qs, ks, vs, os, m, scale,
+                                                         s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#ifndef FLASH_DECODE_INT8
+template <typename T>
+struct SameAsQ {
+  using type = T;
+};
+
 // Decode form.  q and out (B, H, hd) with strides (batch, head); the caches
 // (B, slots, KV, hd) with strides (batch, head, slot); pos (B,) int64 on
 // the device; scratch holds flash_decode_scratch_floats floats.  H / KV must
@@ -1393,28 +1632,37 @@ extern "C" int flash_decode_launch(int dtype, int hd, const void* q, const void*
                                    int causal, int has_window, long long window,
                                    int has_chunk, long long chunk, float scale,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || H / KV > kDecodeGroupMax || slots <= 0 ||
-      B > 65535 || KV > 65535 || (has_chunk && chunk <= 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Strides qs{qsb, qsh, 0}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, 0};
-  const Mask m = make_mask(causal, has_window, window, has_chunk, chunk);
-  const long long* p = static_cast<const long long*>(pos);
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool small = decode_set(H / KV, hd) == 4;
-  if (dtype == 0) {
-    return small ? launch_decode_hd<float, 4>(hd, q, kc, vc, out, p, sc, B, H, KV, slots, qs,
-                                              ks, vs, os, m, scale, s)
-                 : launch_decode_hd<float, 8>(hd, q, kc, vc, out, p, sc, B, H, KV, slots, qs,
-                                              ks, vs, os, m, scale, s);
-  }
-  if (dtype == 1) {
-    return small ? launch_decode_hd<__nv_bfloat16, 4>(hd, q, kc, vc, out, p, sc, B, H, KV,
-                                                      slots, qs, ks, vs, os, m, scale, s)
-                 : launch_decode_hd<__nv_bfloat16, 8>(hd, q, kc, vc, out, p, sc, B, H, KV,
-                                                      slots, qs, ks, vs, os, m, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Scales none{nullptr, nullptr, {0, 0, 0}};
+  return decode<SameAsQ>(dtype, hd, q, kc, vc, none, out, pos, scratch, B, H, KV, slots,
+                         {qsb, qsh, 0}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, 0},
+                         causal, has_window, window, has_chunk, chunk, scale, stream);
 }
+#else   // FLASH_DECODE_INT8
+template <typename T>
+struct Int8Codes {
+  using type = int8_t;
+};
+
+// The decode form over an int8 cache: kc and vc (B, slots, KV, hd) int8
+// codes, k_scale and v_scale (B, slots, KV) fp32 with strides (batch, head,
+// slot) in ssb, ssh, sss; q and out fp32 or bf16 (dtype); the rest as
+// flash_decode_launch's.
+extern "C" int flash_decode_int8_launch(int dtype, int hd, const void* q, const void* kc,
+                                        const void* vc, const void* k_scale,
+                                        const void* v_scale, void* out, const void* pos,
+                                        void* scratch, int B, int H, int KV, long long slots,
+                                        long long qsb, long long qsh, long long ksb,
+                                        long long ksh, long long kss, long long vsb,
+                                        long long vsh, long long vss, long long ssb,
+                                        long long ssh, long long sss, long long osb,
+                                        long long osh, int causal, int has_window,
+                                        long long window, int has_chunk, long long chunk,
+                                        float scale, void* stream) {
+  const Scales sc{static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                  {ssb, ssh, sss}};
+  return decode<Int8Codes>(dtype, hd, q, kc, vc, sc, out, pos, scratch, B, H, KV, slots,
+                           {qsb, qsh, 0}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, 0},
+                           causal, has_window, window, has_chunk, chunk, scale, stream);
+}
+#endif  // FLASH_DECODE_INT8
 #endif  // FLASH_DECODE

@@ -72,9 +72,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["bf16_terms", "flash_attention", "flash_attention_decode",
-           "flash_attention_plain", "flash_attention_decode_plain", "flash_attention_terms",
-           "slot_positions"]
+__all__ = ["bf16_terms", "cache_read", "flash_attention", "flash_attention_decode",
+           "flash_attention_plain", "flash_attention_decode_plain", "flash_attention_tail",
+           "flash_attention_tail_plain", "flash_attention_terms", "slot_positions"]
 
 NEG_INF = -2.0e38
 #: the mask arguments, in the order the ``.shapes`` keys hold their values
@@ -88,12 +88,16 @@ DECODE_GROUP_MAX = 16
 ROUTES = {torch.float32: "fp32", torch.bfloat16: "mma_bf16"}
 #: bf16 terms a probability takes in the tensor-core kernel's P · V
 P_TERMS = 3
+#: the decode form's route for each cache dtype, as ``.routes`` counts it
+DECODE_ROUTES = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_longlong
 _lib_handle = None
 _decode_lib_handle = None
+_decode_int8_lib_handle = None
+_tail_lib_handle = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -125,6 +129,36 @@ def _decode_lib() -> ctypes.CDLL:
     return _decode_lib_handle
 
 
+def _decode_int8_lib() -> ctypes.CDLL:
+    """The decode form's int8 route (``csrc/flash_decode_int8.cu``: the
+    same source built with ``FLASH_DECODE`` and ``FLASH_DECODE_INT8``)."""
+    global _decode_int8_lib_handle
+    if _decode_int8_lib_handle is None:
+        lib = _build.load("flash_decode_int8")
+        lib.flash_decode_int8_launch.argtypes = (
+            [_I32, _I32] + [_P] * 8 + [_I32] * 3 + [_I64] + [_I64] * 13
+            + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
+        lib.flash_decode_int8_launch.restype = _I32
+        lib.flash_decode_scratch_floats.argtypes = [_I32, _I32, _I64, _I32]
+        lib.flash_decode_scratch_floats.restype = _I64
+        _decode_int8_lib_handle = lib
+    return _decode_int8_lib_handle
+
+
+def _tail_lib() -> ctypes.CDLL:
+    """The tail form's library (``csrc/flash_tail.cu``: the same source
+    built with ``FLASH_TAIL``)."""
+    global _tail_lib_handle
+    if _tail_lib_handle is None:
+        lib = _build.load("flash_tail")
+        lib.flash_tail_launch.argtypes = (
+            [_I32, _I32] + [_P] * 8 + [_I32] * 3 + [_I64] * 2 + [_I64] * 18
+            + [_I32, _I32, _I64, _I32, _I64, ctypes.c_float, _P])
+        lib.flash_tail_launch.restype = _I32
+        _tail_lib_handle = lib
+    return _tail_lib_handle
+
+
 # --------------------------------------------------------------------------- #
 # shapes, masks, keys
 # --------------------------------------------------------------------------- #
@@ -146,6 +180,22 @@ def _check_prefill(q, k, v) -> None:
         raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} differ in B or hd")
     if KV == 0 or H % KV:
         raise ValueError(f"H={H} not divisible by KV={KV}")
+
+
+def _check_scales(k_cache, v_cache, k_scale, v_scale) -> None:
+    """An int8 cache comes with both scales, (B, slots, KV) fp32; a cache
+    of the model's dtype with neither."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    quant = k_scale is not None
+    if quant != (k_cache.dtype == torch.int8):
+        raise TypeError(f"an int8 cache needs k_scale= and v_scale=, a {k_cache.dtype} "
+                        f"cache neither")
+    if quant:
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or tuple(t.shape) != tuple(k_cache.shape[:3]):
+                raise ValueError(f"scales must be float32 {tuple(k_cache.shape[:3])}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
 
 
 def _check_decode(q, k_cache, v_cache, pos) -> None:
@@ -231,15 +281,29 @@ def slot_positions(pos: torch.Tensor, slots: int) -> torch.Tensor:
     return pc - torch.remainder(pc - torch.arange(slots, device=pos.device)[None, :], slots)
 
 
+def cache_read(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """An int8 cache read back as the reference's ``_cache_read`` does
+    (``src/repro/models/layers/attention.py:112-117``): bf16(fp32(code) ·
+    scale), whatever the model's dtype."""
+    return (codes.float() * scale[..., None]).to(torch.bfloat16)
+
+
 def flash_attention_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, pos: torch.Tensor, *,
                                  causal: bool = True, window: Optional[int] = None,
                                  chunk: Optional[int] = None,
-                                 scale: Optional[float] = None) -> torch.Tensor:
+                                 scale: Optional[float] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The decode form's function, sums in fp64 rounded to fp32.
-    q (B, H, hd), caches (B, slots, KV, hd), pos (B,) → (B, H, hd)."""
+    q (B, H, hd), caches (B, slots, KV, hd), pos (B,) → (B, H, hd).  An int8
+    cache (``k_scale=``, ``v_scale=``) is read through :func:`cache_read`
+    first."""
     _check_decode(q, k_cache, v_cache, pos)
     _check_chunk(chunk)
+    _check_scales(k_cache, v_cache, k_scale, v_scale)
+    if k_scale is not None:
+        k_cache, v_cache = cache_read(k_cache, k_scale), cache_read(v_cache, v_scale)
     B, H, hd = q.shape
     slots, KV = k_cache.shape[1], k_cache.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -251,6 +315,64 @@ def flash_attention_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     out = _softmax_pv(s, valid[:, None, None, :],
                       lambda p: torch.einsum("bkgs,bskd->bkgd", p, v_cache.double()))
     return out.to(q.dtype).reshape(B, H, hd)
+
+
+def _check_tail(q, k, v, k_cache, v_cache, start, lengths) -> None:
+    _check_prefill(q, k, v)
+    B, H, Sq, hd = q.shape
+    KV = k.shape[1]
+    if k.shape[2] != Sq:
+        raise ValueError(f"the tail's k{tuple(k.shape)} must hold its Sq = {Sq} columns")
+    if k_cache.ndim != 4 or v_cache.shape != k_cache.shape or \
+            (k_cache.shape[0], k_cache.shape[2], k_cache.shape[3]) != (B, KV, hd):
+        raise ValueError(f"caches {tuple(k_cache.shape)} and {tuple(v_cache.shape)} must be "
+                         f"({B}, ring, {KV}, {hd})")
+    for name, t in (("start", start), ("lengths", lengths)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name}{tuple(t.shape)} must be ({B},)")
+
+
+def flash_attention_tail_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               k_cache: torch.Tensor, v_cache: torch.Tensor,
+                               start: torch.Tensor, lengths: torch.Tensor, *,
+                               causal: bool = True, window: Optional[int] = None,
+                               chunk: Optional[int] = None,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """The tail form's function, sums in fp64 rounded to fp32.  q (B, H,
+    Sq, hd) of row b at positions start[b] + i; the tail's own k, v (B, KV,
+    Sq, hd) at start[b] + j, real for j < lengths[b]; the restored prefix in
+    the ring caches (B, ring, KV, hd), position p < start[b] at slot p mod
+    ring, held from start[b] − ring on.  The keys are laid out by position
+    from 0, as a full prefill's, and admitted under the reference's
+    ``_prefill_offset`` masks (``src/repro/models/layers/attention.py:
+    316-368``) → (B, H, Sq, hd) in q's dtype."""
+    _check_tail(q, k, v, k_cache, v_cache, start, lengths)
+    _check_chunk(chunk)
+    B, H, Sq, hd = q.shape
+    KV, ring = k.shape[1], k_cache.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    st, n = start.long()[:, None], lengths.long()[:, None]             # (B, 1)
+    P = int((st + Sq).max())
+    p = torch.arange(P, device=q.device)[None, :]                      # (1, P)
+    bi = torch.arange(B, device=q.device)[:, None]
+    in_ring = p < st
+    slot = torch.remainder(p, ring).expand(B, P)
+    col = torch.clamp(p - st, 0, Sq - 1)
+    keys = []
+    for tail, cache in ((k, k_cache), (v, v_cache)):
+        from_ring = cache[bi, slot].permute(0, 2, 1, 3)                # (B, KV, P, hd)
+        from_tail = tail[bi[:, :, None], torch.arange(KV, device=q.device)[None, :, None],
+                         col[:, None, :]]                              # (B, KV, P, hd)
+        keys.append(torch.where(in_ring[:, None, :, None], from_ring.to(tail.dtype),
+                                from_tail).double())
+    pq = st + torch.arange(Sq, device=q.device)[None, :]               # (B, Sq)
+    valid = ((p >= st - ring) & (p < st + n))[:, None, :] & \
+        _admitted(pq[:, :, None], p[:, None, :], causal, window, chunk)  # (B, Sq, P)
+    qg = q.reshape(B, KV, H // KV, Sq, hd).double()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, keys[0]).float() * scale
+    out = _softmax_pv(s, valid[:, None, None],
+                      lambda pr: torch.einsum("bkgqs,bksd->bkgqd", pr, keys[1]))
+    return out.to(q.dtype).reshape(B, H, Sq, hd)
 
 
 def bf16_terms(x: torch.Tensor, terms: int = P_TERMS) -> list:
@@ -372,15 +494,28 @@ def flash_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos: torch.Tensor, *,
                            causal: bool = True, window: Optional[int] = None,
                            chunk: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step's attention: q (B, H, hd) at positions pos (B,) over
-    ring caches (B, slots, KV, hd) → (B, H, hd) in q's dtype."""
+    ring caches (B, slots, KV, hd) → (B, H, hd) in q's dtype.  An int8 cache
+    comes with its scales ``k_scale``, ``v_scale`` (B, slots, KV) fp32 and
+    takes the int8 route (``.routes["int8"]``)."""
     _check_decode(q, k_cache, v_cache, pos)
     _check_chunk(chunk)
+    _check_scales(k_cache, v_cache, k_scale, v_scale)
     if _build.on_cpu(q):
         return flash_attention_decode_plain(q, k_cache, v_cache, pos, causal=causal,
-                                            window=window, chunk=chunk, scale=scale)
-    _check_cuda(q, k_cache, v_cache)
+                                            window=window, chunk=chunk, scale=scale,
+                                            k_scale=k_scale, v_scale=v_scale)
+    quant = k_scale is not None
+    if quant:
+        _check_cuda(q)
+        for t in (k_cache, v_cache, k_scale, v_scale):
+            if t.device != q.device:
+                raise ValueError(f"operands on {t.device} and {q.device}")
+    else:
+        _check_cuda(q, k_cache, v_cache)
     B, H, hd = q.shape
     slots, KV = k_cache.shape[1], k_cache.shape[2]
     if H // KV > DECODE_GROUP_MAX:
@@ -390,26 +525,90 @@ def flash_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"pos on {pos.device}, q on {q.device}")
     scale = hd ** -0.5 if scale is None else scale
     # rows of q and of the caches travel as 16-byte vectors
-    vec = 16 // q.element_size()
-    q, k_cache, v_cache = (_kernel_view(t, vec) for t in (q, k_cache, v_cache))
+    q = _kernel_view(q, 16 // q.element_size())
+    k_cache, v_cache = (_kernel_view(t, 16 // t.element_size()) for t in (k_cache, v_cache))
     pos = pos.to(torch.int64).contiguous()
     out = _kernel_view(torch.empty_like(q))
-    lib = _decode_lib()
+    lib = _decode_int8_lib() if quant else _decode_lib()
     scratch = torch.empty(lib.flash_decode_scratch_floats(B, H, slots, hd),
                           dtype=torch.float32, device=q.device)
-    err = lib.flash_decode_launch(
-        _build.DTYPE_CODES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), pos.data_ptr(), scratch.data_ptr(), B, H, KV,
-        slots,
-        q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(2),
-        k_cache.stride(1), v_cache.stride(0), v_cache.stride(2), v_cache.stride(1),
-        out.stride(0), out.stride(1), *_mask_args(causal, window, chunk), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    head = (_build.DTYPE_CODES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr())
+    tail = (out.data_ptr(), pos.data_ptr(), scratch.data_ptr(), B, H, KV, slots,
+            q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(2),
+            k_cache.stride(1), v_cache.stride(0), v_cache.stride(2), v_cache.stride(1))
+    end = (*_mask_args(causal, window, chunk), float(scale),
+           torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        if k_scale.stride() != v_scale.stride():
+            v_scale = v_scale.contiguous()
+            k_scale = k_scale.contiguous()
+        err = lib.flash_decode_int8_launch(
+            *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail, k_scale.stride(0),
+            k_scale.stride(2), k_scale.stride(1), out.stride(0), out.stride(1), *end)
+    else:
+        err = lib.flash_decode_launch(*head, *tail, out.stride(0), out.stride(1), *end)
     if err:
         raise RuntimeError(f"flash_attention_decode launch failed: CUDA error {err}")
     flash_attention_decode.launches += 1
-    flash_attention_decode.shapes[(B, H, KV, slots, hd,
-                                   _mask_key(causal, window, chunk))] += 1
+    flash_attention_decode.routes[DECODE_ROUTES[k_cache.dtype]] += 1
+    flash_attention_decode.shapes[(B, H, KV, slots, hd, _mask_key(causal, window, chunk),
+                                   _dtype_name(k_cache.dtype))] += 1
+    return out
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def flash_attention_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         start: torch.Tensor, lengths: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         chunk: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """The tail prefill over a restored prefix: q (B, H, Sq, hd) of row b
+    at positions start[b] + i, the tail's own k, v (B, KV, Sq, hd), the ring
+    caches (B, ring, KV, hd) holding positions below start[b], start and
+    lengths (B,) → (B, H, Sq, hd) in q's dtype, with q's strides.  Each
+    row is the full prefill's row at its position, bitwise (the prefill
+    form's kernels, with their key tiles over absolute positions from 0);
+    fp32 operands take the fp32 kernel, bf16 the tensor-core one.
+    ``.launches`` and ``.shapes`` (by (B, H, KV, Sq, ring, hd, mask)) count
+    its launches."""
+    _check_tail(q, k, v, k_cache, v_cache, start, lengths)
+    _check_chunk(chunk)
+    if _build.on_cpu(q):
+        return flash_attention_tail_plain(q, k, v, k_cache, v_cache, start, lengths,
+                                          causal=causal, window=window, chunk=chunk,
+                                          scale=scale)
+    _check_cuda(q, k, v, k_cache, v_cache)
+    for t in (start, lengths):
+        if t.device != q.device:
+            raise ValueError(f"start and lengths must lie on {q.device}, got {t.device}")
+    B, H, Sq, hd = q.shape
+    KV, ring = k.shape[1], k_cache.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    align = 8 if q.dtype == torch.bfloat16 else 4
+    q, k, v, k_cache, v_cache = (_kernel_view(t, align) for t in (q, k, v, k_cache, v_cache))
+    start = start.to(torch.int64).contiguous()
+    lengths = lengths.to(torch.int64).contiguous()
+    out = _kernel_view(torch.empty_like(q), align)
+    err = _tail_lib().flash_tail_launch(
+        _build.DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
+        lengths.data_ptr(), B, H, KV, Sq, ring,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
+        k_cache.stride(0), k_cache.stride(2), k_cache.stride(1),
+        v_cache.stride(0), v_cache.stride(2), v_cache.stride(1),
+        *_mask_args(causal, window, chunk), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_tail launch failed: CUDA error {err}")
+    flash_attention_tail.launches += 1
+    flash_attention_tail.shapes[(B, H, KV, Sq, ring, hd,
+                                 _mask_key(causal, window, chunk))] += 1
     return out
 
 
@@ -417,4 +616,7 @@ flash_attention.launches = 0
 flash_attention.routes = collections.Counter()
 flash_attention.shapes = collections.Counter()
 flash_attention_decode.launches = 0
+flash_attention_decode.routes = collections.Counter()
 flash_attention_decode.shapes = collections.Counter()
+flash_attention_tail.launches = 0
+flash_attention_tail.shapes = collections.Counter()

@@ -15,6 +15,9 @@ jnp left to XLA (``kernels/quant_matmul.py``).  ``flash_attention_decode``
 has no counterpart there: it is the same function as ``flash_attention``
 for one query a row at its own position over a ring cache, the form a
 continuous-batching decode step needs (``kernels/flash_attention.py``).
+Nor has ``flash_attention_tail``: the prefill form with per-row query
+offsets over a prefix restored into the ring cache, the prefix cache's tail
+prefill, which the reference writes in jnp (``_prefill_offset``).
 ``lm_head`` has none either: the reference's head is a plain product left
 to XLA, and the port's is a kernel that sums each logit in one order fixed
 by D (``kernels/lm_head.py``).  Nor has ``quant_linear``: it is the
@@ -33,7 +36,8 @@ fp32 order fixed by the row width, which the reference leaves to XLA,
 from __future__ import annotations
 
 from repro_torch.kernels.fixed_linear import fixed_linear
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_decode
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_decode,
+                                                 flash_attention_tail)
 from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.layernorm import layernorm
 from repro_torch.kernels.lm_head import lm_head
@@ -43,6 +47,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_decode
 
-__all__ = ["fixed_linear", "flash_attention", "flash_attention_decode", "kmeans_assign",
+__all__ = ["fixed_linear", "flash_attention", "flash_attention_decode",
+           "flash_attention_tail", "kmeans_assign",
            "layernorm", "lm_head", "logreg_grad", "quant_linear", "quant_matmul", "quantize_rows",
            "rglru_scan", "rmsnorm", "ssd_chunk_scan", "ssd_decode"]

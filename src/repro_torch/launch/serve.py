@@ -17,8 +17,14 @@
 
 Both run on the CUDA card unless ``--device cpu``.  The engine is warmed
 up on the trace's shapes before the timed run.  ``--json`` prints the
-report as a ``RESULT::{json}`` line.  Not ported yet (ROADMAP.md, Queue 1):
-``--replicas`` (the router fleet), ``--mesh`` and ``--prefix-cache``.
+report as a ``RESULT::{json}`` line.  ``--replicas N`` serves through a
+``ReplicaRouter`` fleet of N lane-group replicas (``--autoscale-min`` adds
+the queue-driven autoscaler, ``--admission`` the SLO gate, with
+``--slo-ms`` and ``--tenants``), and ``--prefix-cache on`` adds the radix
+prefix KV cache (``--prefix-block``, ``--prefix-capacity``; with
+``--prefix-share p`` a fraction p of the requests open with one shared
+``--prefix-len``-token prefix), as the reference's flags do.  Not ported
+yet (ROADMAP.md, Queue 1): ``--mesh``, which raises.
 
 A configuration with a stubbed frontend prints the reference's note:
 ``llava-next-34b`` then serves its text-only path, and ``whisper-small``
@@ -30,6 +36,12 @@ and the MoE models ``mixtral-8x22b`` and ``llama4-scout-17b-16e``, which
 prefill each request alone):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
         --arch qwen2-1.5b --smoke --quantize int8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
+        --arch qwen2-1.5b --smoke --requests 16 --prefix-cache on \
+        --prefix-share 0.8 --prefix-len 32 --prefix-block 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
+        --arch qwen2-1.5b --smoke --requests 16 --replicas 4 --slots 2 \
+        --autoscale-min 1 --prefix-cache on --prefix-share 0.5 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine model \
         --algorithm kmeans --rows 512 --features 16 --batch 64 --device cpu --json
 """
@@ -71,13 +83,11 @@ def arrival_trace(kind: str, n: int, rate: float, seed: int) -> np.ndarray:
 
 def run_lm(args) -> dict:
     from repro_torch.models.transformer import init_model
-    from repro_torch.serve import Request, ServeEngine, SlotScheduler
+    from repro_torch.serve import (QueueAutoscaler, RadixPrefixCache, ReplicaRouter,
+                                   Request, ServeEngine, SlotScheduler)
 
-    for flag, on in (("--replicas", args.replicas > 0), ("--mesh", args.mesh),
-                     ("--prefix-cache", args.prefix_cache == "on")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, Queue 1)")
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP.md, Queue 1)")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if cfg.encoder_layers or cfg.vision_tokens:
@@ -88,30 +98,115 @@ def run_lm(args) -> dict:
     # quantized a block at a time as drawn: Qwen1.5-32B's bf16 tree would
     # not fit the card
     params = init_model(gen, cfg)
+    fleet = args.replicas > 0
 
     lens = [int(x) for x in args.prompt_lens.split(",") if x]
     rng = np.random.default_rng(args.seed)
     arrivals = arrival_trace(args.arrival, args.requests, args.rate, args.seed)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
-                                        size=lens[i % len(lens)]).astype(np.int32),
-                    max_new_tokens=args.max_new, arrival=float(arrivals[i]))
-            for i in range(args.requests)]
+    tenants = [f"t{i}" for i in range(max(1, args.tenants))]
+    # with --prefix-share p, fraction p of the requests open with ONE shared
+    # --prefix-len token prefix (a synthetic system prompt); the rest are
+    # random at the same total length, so cache-on and cache-off runs
+    # prefill the same token counts (the reference's draw, in its order)
+    shared_prefix = rng.integers(0, cfg.vocab_size, size=args.prefix_len).astype(np.int32)
 
+    def prompt(i: int) -> np.ndarray:
+        if args.prefix_share <= 0:
+            return rng.integers(0, cfg.vocab_size, size=lens[i % len(lens)]).astype(np.int32)
+        n = args.prefix_len + lens[i % len(lens)]
+        if rng.random() < args.prefix_share:
+            tail = rng.integers(0, cfg.vocab_size, size=n - args.prefix_len).astype(np.int32)
+            return np.concatenate([shared_prefix, tail])
+        return rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+
+    reqs = [Request(prompt=prompt(i), max_new_tokens=args.max_new,
+                    arrival=float(arrivals[i]), tenant=tenants[i % len(tenants)],
+                    slo_ms=args.slo_ms if args.slo_ms > 0 else None)
+            for i in range(args.requests)]
+    prefix_cache = (RadixPrefixCache(block_size=args.prefix_block,
+                                     capacity_blocks=args.prefix_capacity)
+                    if args.prefix_cache == "on" else None)
+
+    def prefix_fields(rep: dict) -> None:
+        s = prefix_cache.stats() if prefix_cache is not None else None
+        rep["prefix_cache"] = s
+        rep["prefill_tokens"] = (s["prompt_tokens"] if s
+                                 else sum(len(r.prompt) for r in reqs))
+        rep["cached_prefill_tokens"] = s["cached_tokens"] if s else 0
+        rep["prefix_hit_rate"] = s["hit_rate"] if s else 0.0
+        if s:
+            print(f"  prefix cache: {s['cached_tokens']}/{s['prompt_tokens']} "
+                  f"prefill tokens served cached (hit rate {s['hit_rate']:.2f}), "
+                  f"{s['evictions']} evictions")
+
+    device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     try:
-        engine = ServeEngine(cfg, params, batch_size=args.slots,
-                             max_seq=args.max_seq, device=device)
+        if fleet:
+            autoscaler = (QueueAutoscaler(slots_per_replica=args.slots,
+                                          min_replicas=args.autoscale_min,
+                                          max_replicas=args.replicas)
+                          if args.autoscale_min > 0 else None)
+            server = ReplicaRouter(
+                cfg, params, slots_per_replica=args.slots, max_replicas=args.replicas,
+                max_seq=args.max_seq, admission=args.admission, autoscaler=autoscaler,
+                min_replicas=args.autoscale_min or args.replicas,
+                prefix_cache=prefix_cache, device=device)
+        else:
+            server = ServeEngine(cfg, params, batch_size=args.slots,
+                                 max_seq=args.max_seq, prefix_cache=prefix_cache,
+                                 device=device)
     except ValueError as e:          # a configuration the engine cannot serve
         raise SystemExit(f"error: {e}") from None
     if not args.no_warmup:
         t0 = time.perf_counter()
-        engine.warmup(prompt_lens=lens)
+        if fleet:
+            server.warmup(prompt_lens=lens,
+                          spans=(range(args.autoscale_min, args.replicas + 1)
+                                 if args.autoscale_min > 0 else [args.replicas]))
+        else:
+            server.warmup(prompt_lens=lens)
         print(f"warmup {time.perf_counter() - t0:.2f}s — excluded from the "
               f"perf report")
 
-    sched = SlotScheduler(args.slots)
     start = time.perf_counter()
-    done = engine.run(reqs, scheduler=sched,
-                      now_fn=lambda: time.perf_counter() - start)
+    now_fn = (lambda: time.perf_counter() - start)
+    if fleet:
+        done = server.run(reqs, now_fn=now_fn)
+        dt = time.perf_counter() - start
+        served = [r for r in done if r.done]
+        total_new = sum(len(r.out_tokens) for r in served)
+        rep = server.report()
+        rep.pop("per_replica")
+        rep.update({
+            "engine": "lm", "arch": args.arch, "slots": args.slots,
+            "requests": len(served), "new_tokens": total_new,
+            "seconds": round(dt, 4),
+            "requests_per_sec": round(len(served) / dt, 2),
+            "tokens_per_sec": round(total_new / dt, 1),
+            "arrival": args.arrival, "rate": args.rate,
+            "quantize": args.quantize, "admission": args.admission,
+            "tenants_n": len(tenants), "mesh": "none",
+            "device": str(device), "device_name": device_name,
+        })
+        print(f"fleet served {len(served)}/{len(done)} requests / {total_new} tokens in "
+              f"{dt:.2f}s ({rep['requests_per_sec']} req/s, {rep['tokens_per_sec']} tok/s) "
+              f"| {args.replicas}x{args.slots} lanes, quantize={args.quantize} on "
+              f"{device_name}")
+        print(f"latency p50={rep['latency_p50']*1e3:.1f}ms "
+              f"p95={rep['latency_p95']*1e3:.1f}ms p99={rep['latency_p99']*1e3:.1f}ms | "
+              f"rejected={rep['rejected']} degraded={rep['degraded']} | "
+              f"backfills={rep['backfills']}")
+        for t, tr in sorted(rep["tenants"].items()):
+            print(f"  {t}: finished={tr['finished']} rejected={tr['rejected']} "
+                  f"slo_attainment={tr['slo_attainment']:.2f}")
+        if rep["autoscaler_events"]:
+            print(f"  autoscaler: {rep['autoscaler_events']}")
+        prefix_fields(rep)
+        assert all(r.done or r.rejected for r in done)
+        return rep
+
+    sched = SlotScheduler(args.slots)
+    done = server.run(reqs, scheduler=sched, now_fn=now_fn)
     dt = time.perf_counter() - start
 
     total_new = sum(len(r.out_tokens) for r in done)
@@ -124,10 +219,10 @@ def run_lm(args) -> dict:
         "tokens_per_sec": round(total_new / dt, 1),
         "arrival": args.arrival, "rate": args.rate,
         "quantize": args.quantize, "mesh": "none",
-        "device": str(device),
-        "device_name": (torch.cuda.get_device_name(device)
-                        if device.type == "cuda" else "cpu"),
+        "ragged_prefill": server.ragged_ok,
+        "device": str(device), "device_name": device_name,
     })
+    prefix_fields(rep)
     print(f"served {len(done)} requests / {total_new} tokens in {dt:.2f}s "
           f"({rep['requests_per_sec']} req/s, {rep['tokens_per_sec']} tok/s) "
           f"on {rep['device_name']}")
@@ -225,7 +320,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS + PENDING_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--slots", type=int, default=4,
-                    help="decode slots (continuous-batching batch size)")
+                    help="decode slots (continuous-batching batch size; "
+                         "slots PER REPLICA with --replicas)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="serve through a ReplicaRouter fleet of this many "
+                         "replicas (0 = single engine)")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="synthetic tenants (requests round-robin t0..tN-1)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="per-request arrival→finish SLO in ms (0 = none)")
+    ap.add_argument("--admission", default="none",
+                    choices=("none", "reject", "degrade"),
+                    help="fleet admission control when the predicted "
+                         "completion misses the SLO")
     ap.add_argument("--quantize", default="none",
                     choices=("none", "bf16", "int8"),
                     help="weight quantization for the decode/prefill path")
@@ -233,12 +340,24 @@ def main(argv=None) -> dict:
                     help="comma list; request i uses length i mod list")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=128)
-    ap.add_argument("--replicas", type=int, default=0,
-                    help="router fleet (not ported yet)")
     ap.add_argument("--mesh", action="store_true",
                     help="slot sharding over a mesh (not ported yet)")
     ap.add_argument("--prefix-cache", default="off", choices=("on", "off"),
-                    help="radix prefix KV cache (not ported yet)")
+                    help="radix prefix KV cache: reuse repeated prompt "
+                         "prefixes across requests (and replicas)")
+    ap.add_argument("--prefix-block", type=int, default=16,
+                    help="prefix cache block size in tokens")
+    ap.add_argument("--prefix-capacity", type=int, default=256,
+                    help="prefix cache capacity in blocks (LRU beyond)")
+    ap.add_argument("--prefix-share", type=float, default=0.0,
+                    help="fraction of requests opening with one shared "
+                         "--prefix-len token prefix (synthetic system "
+                         "prompt); the rest are random at the same length")
+    ap.add_argument("--prefix-len", type=int, default=32,
+                    help="shared prefix length for --prefix-share traffic")
+    ap.add_argument("--autoscale-min", type=int, default=0,
+                    help="enable queue-driven autoscale with this minimum "
+                         "replica count (0 = fixed fleet)")
     # model engine
     ap.add_argument("--algorithm", default="logreg", choices=("logreg", "kmeans"))
     ap.add_argument("--rows", type=int, default=256)

@@ -34,7 +34,14 @@ Where the port differs in form:
 * The prefill masks read query and key positions 0..S-1 (the kernel's
   convention, queries at the last Sq of Sk): ``positions`` is
   ``arange(S)`` on every path the port runs, and RoPE reads it.  The tail
-  prefill over a restored prefix, which offsets them, raises (below).
+  prefill over a restored prefix (``start_pos=``, the prefix cache's
+  ``_prefill_offset``) offsets row b's to ``start_pos[b] + j`` and runs
+  through kernel 6's tail form, ``ops.flash_attention_tail``: its keys are
+  the ring cache's slots below ``start_pos[b]`` (read before the tail is
+  written, as the reference reads them) and the tail's own, laid out by
+  position from 0 as a full prefill's are, so each row is the full
+  prefill's row at its position, bitwise.  A ``start_pos == 0`` row reads
+  no prefix slot.
 * ``ArchConfig.use_flash_kernel`` is not read, as in the reference: the
   kernel is the port's only attention.
 
@@ -49,10 +56,18 @@ Where the port differs in form:
   0.  A prefill without ``kv_src`` raises ``ValueError`` (the reference
   fails there too, projecting None).
 
-Not ported in this slice, and raising ``NotImplementedError`` (ROADMAP.md,
-Queue 1): the int8 KV cache (``cache_dtype="int8"``) and the tail prefill
-over a restored prefix (``start_pos=``, the prefix cache's
-``_prefill_offset``).
+* The int8 KV cache (``cache_dtype="int8"``): ``k``/``v`` int8 (B, slots,
+  KV, hd) and ``k_scale``/``v_scale`` fp32 (B, slots, KV), as the
+  reference's.  Every write quantizes through the ``quantize_rows`` kernel
+  over hd (the reference's ``_quantize``: max|x|/127 + 1e-8, round half to
+  even), one launch for K and one for V: 2 launches a layer at a decode
+  step and 2 at a prefill wave.  A prefill attends the raw K/V; a decode
+  step reads the codes through ``ops.flash_attention_decode(k_scale=,
+  v_scale=)``, kernel 6's int8 route, which dequantizes each code to
+  ``_cache_read``'s bf16 value.  A tail prefill reads an int8 prefix as
+  ``_cache_read`` gives it, cast to the model's dtype (the engine refuses
+  the prefix cache over an int8 cache, as the reference's does).
+  Cross-attention caches stay in the model's dtype.
 """
 from __future__ import annotations
 
@@ -61,6 +76,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import cache_read
 from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers.quant import linear_or_quant, linear_or_quant_group
 from repro_torch.models.layers.rope import apply_rope
@@ -68,8 +84,6 @@ from repro_torch.models.params import bias as bias_init
 from repro_torch.models.params import linear
 
 __all__ = ["attn_init", "attn_apply", "init_kv_cache"]
-
-_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
 
 
 # --------------------------------------------------------------------------- #
@@ -99,9 +113,9 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, cross: bool = False)
 def init_kv_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_seq: int,
                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """Cache for ONE attention layer.  Local/chunked layers keep a ring of
-    ``window``/``attn_chunk`` slots; global layers keep ``max_seq``."""
-    if cfg.cache_dtype == "int8":
-        raise NotImplementedError(f"the int8 KV cache is {_ROADMAP}")
+    ``window``/``attn_chunk`` slots; global layers keep ``max_seq``.  With
+    ``cfg.cache_dtype == "int8"`` the K/V are int8 codes with an fp32
+    scale a (slot, kv head)."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if kind == BlockKind.ATTN_LOCAL:
         slots = min(cfg.window, max_seq)
@@ -109,8 +123,31 @@ def init_kv_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_seq: int,
         slots = min(cfg.attn_chunk, max_seq)
     else:
         slots = max_seq
+    if cfg.cache_dtype == "int8":
+        return {"k": torch.zeros((batch, slots, kv, hd), dtype=torch.int8, device=device),
+                "v": torch.zeros((batch, slots, kv, hd), dtype=torch.int8, device=device),
+                "k_scale": torch.zeros((batch, slots, kv), dtype=torch.float32, device=device),
+                "v_scale": torch.zeros((batch, slots, kv), dtype=torch.float32, device=device)}
     return {"k": torch.zeros((batch, slots, kv, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, slots, kv, hd), dtype=dtype, device=device)}
+
+
+def _cache_put(cache: Dict[str, torch.Tensor], idx, k_new: torch.Tensor,
+               v_new: torch.Tensor, sel=None) -> None:
+    """Write K/V rows (…, kv, hd) at ``idx`` of the cache, in place: the
+    rows ``sel`` picks (all where None), as they are, or quantized over hd
+    by the ``quantize_rows`` kernel into an int8 cache's codes and scales:
+    all the rows in one launch for K and one for V, then picked, as the
+    reference quantizes before its scatter drops."""
+    pick = (lambda t: t) if sel is None else (lambda t: t[sel])
+    if "k_scale" in cache:
+        for name, x in (("k", k_new), ("v", v_new)):
+            xq, xs = ops.quantize_rows(x)
+            cache[name][idx] = pick(xq)
+            cache[f"{name}_scale"][idx] = pick(xs)
+    else:
+        cache["k"][idx] = pick(k_new).to(cache["k"].dtype)
+        cache["v"][idx] = pick(v_new).to(cache["v"].dtype)
 
 
 def _cache_write(cache: Dict[str, torch.Tensor], slot: torch.Tensor,
@@ -124,9 +161,24 @@ def _cache_write(cache: Dict[str, torch.Tensor], slot: torch.Tensor,
         idx = (slice(None), slot.long())
     else:
         idx = (torch.arange(k_new.shape[0], device=k_new.device), slot.long())
-    cache["k"][idx] = k_new.to(cache["k"].dtype)
-    cache["v"][idx] = v_new.to(cache["v"].dtype)
+    _cache_put(cache, idx, k_new, v_new)
     return cache
+
+
+def _cache_scales(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The decode kernel's scale arguments for an int8 cache (none else)."""
+    if "k_scale" not in cache:
+        return {}
+    return {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+
+
+def _cache_read(cache: Dict[str, torch.Tensor], dtype: torch.dtype):
+    """The cache's K/V in ``dtype``: an int8 cache as the reference's
+    ``_cache_read`` gives it (bf16), cast."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    return (cache_read(cache["k"], cache["k_scale"]).to(dtype),
+            cache_read(cache["v"], cache["v_scale"]).to(dtype))
 
 
 # --------------------------------------------------------------------------- #
@@ -174,10 +226,6 @@ def attn_apply(
     if is_cross or kv_src is not None:
         return _cross_apply(params, x, cfg=cfg, kind=kind, mode=mode, positions=positions,
                             pos=pos, cache=cache, kv_src=kv_src, use_rope=use_rope)
-    if start_pos is not None:
-        raise NotImplementedError(
-            f"the tail prefill over a restored prefix (start_pos=, used by "
-            f"serve/prefix_cache.py) is {_ROADMAP}")
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     rope_on = use_rope and kind != BlockKind.ATTN_NOPE
@@ -190,6 +238,10 @@ def attn_apply(
         k = k + params["bk"]
         v = v + params["bv"]
 
+    if mode == "prefill" and start_pos is not None:
+        out, cache = _prefill_offset(q, k, v, cfg=cfg, kind=kind, cache=cache,
+                                     lengths=lengths, start_pos=start_pos, rope_on=rope_on)
+        return _out_proj(out, params), cache
     if mode == "prefill":
         pos_q = positions if positions is not None else torch.arange(S, device=x.device)
         if rope_on:
@@ -215,8 +267,34 @@ def attn_apply(
     cache = _cache_write(cache, torch.remainder(pos_b if per_slot else pos, slots),
                          k[:, 0], v[:, 0])
     out = ops.flash_attention_decode(q[:, 0], cache["k"], cache["v"], pos_b,
-                                     scale=hd ** -0.5, **_masks(kind, cfg))
+                                     scale=hd ** -0.5, **_masks(kind, cfg),
+                                     **_cache_scales(cache))
     return _out_proj(out[:, None], params), cache
+
+
+def _prefill_offset(q, k, v, *, cfg: ArchConfig, kind: BlockKind, cache, lengths,
+                    start_pos, rope_on: bool):
+    """The tail prefill: row b's tokens are its prompt's tail at positions
+    ``start_pos[b] .. start_pos[b] + lengths[b] − 1``, over a cache whose
+    ring already holds the prefix K/V (restored by
+    ``serve/prefix_cache.py``).  One ``ops.flash_attention_tail`` call
+    reads the prefix from the cache before the tail's K/V are written into
+    it.  Returns (attention output (B, S, H, hd), cache)."""
+    if cache is None or lengths is None:
+        raise ValueError("start_pos= prefill needs cache= and lengths=")
+    S = q.shape[1]
+    hd = cfg.resolved_head_dim
+    start = torch.as_tensor(start_pos, device=q.device).long()
+    L = torch.as_tensor(lengths, device=q.device).long()
+    if rope_on:
+        pos_bq = start[:, None] + torch.arange(S, device=q.device)[None, :]
+        q = apply_rope(q, pos_bq, cfg.rope_base)
+        k = apply_rope(k, pos_bq, cfg.rope_base)
+    kc, vc = _cache_read(cache, k.dtype)
+    out = ops.flash_attention_tail(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   kc, vc, start, L, scale=hd ** -0.5, **_masks(kind, cfg))
+    cache = _prefill_fill_cache(cache, k, v, L, start=start)
+    return out.transpose(1, 2), cache
 
 
 def _cross_apply(params, x, *, cfg: ArchConfig, kind: BlockKind, mode: str, positions,
@@ -265,10 +343,11 @@ def _cross_apply(params, x, *, cfg: ArchConfig, kind: BlockKind, mode: str, posi
     return _out_proj(out.transpose(1, 2), params), cache
 
 
-def _prefill_fill_cache(cache, k, v, lengths=None):
+def _prefill_fill_cache(cache, k, v, lengths=None, start=None):
     """Copy the last ``slots`` tokens of prefill K/V into the decode cache,
     in place, laid out so ring addressing (slot = pos % slots) stays
-    consistent.
+    consistent; an int8 cache takes them quantized (``_cache_put``: K and
+    V in one ``quantize_rows`` launch each).
 
     ``lengths=None`` is the equal-length path.  With ``lengths`` (B,), the
     prompts are right-padded to a common S and row b's real tokens occupy
@@ -276,23 +355,26 @@ def _prefill_fill_cache(cache, k, v, lengths=None):
     slots)`` real columns, and pad or evicted columns are dropped (the
     reference routes them to an out-of-range destination that its scatter
     drops; the port selects the kept columns), so pad tokens never enter the
-    cache."""
+    cache.  ``start`` (B,) puts row b's columns at positions ``start[b] +
+    j`` (the tail prefill): the kept window is the last ≤ ``slots``
+    positions before ``start[b] + lengths[b]``, so prefix entries still in
+    the ring are kept and the ring ends as a full prefill of the whole
+    prompt would leave it."""
     B, S = k.shape[0], k.shape[1]
     slots = cache["k"].shape[1]
     if lengths is None:
         take = min(S, slots)
         pos0 = S - take
         dest = torch.remainder(pos0 + torch.arange(take, device=k.device), slots)
-        cache["k"][:, dest] = k[:, S - take:].to(cache["k"].dtype)
-        cache["v"][:, dest] = v[:, S - take:].to(cache["v"].dtype)
+        _cache_put(cache, (slice(None), dest), k[:, S - take:], v[:, S - take:])
         return cache
     L = torch.as_tensor(lengths, device=k.device).long()[:, None]   # (B, 1)
     j = torch.arange(S, device=k.device)[None, :]                   # (1, S)
+    s0 = 0 if start is None else torch.as_tensor(start, device=k.device).long()[:, None]
     keep = (j < L) & (j >= L - slots)   # the last ≤ slots real columns per row
     bi, ji = keep.nonzero(as_tuple=True)
-    dest = torch.remainder(ji, slots)
-    cache["k"][bi, dest] = k[bi, ji].to(cache["k"].dtype)
-    cache["v"][bi, dest] = v[bi, ji].to(cache["v"].dtype)
+    dest = torch.remainder(ji if start is None else (s0 + j).expand(B, S)[bi, ji], slots)
+    _cache_put(cache, (bi, dest), k, v, sel=(bi, ji))
     return cache
 
 

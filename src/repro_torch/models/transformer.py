@@ -232,7 +232,8 @@ class TransformerLM:
 
     # ---------------- block application ---------------- #
     def _apply_block(self, kind: BlockKind, bp: Dict, x, *, mode: str,
-                     positions=None, pos=None, cache=None, lengths=None, memory=None):
+                     positions=None, pos=None, cache=None, lengths=None, memory=None,
+                     start_pos=None):
         """The block's output and its MoE aux loss (None for a block
         without experts, and at a decode step)."""
         cfg = self.cfg
@@ -248,7 +249,7 @@ class TransformerLM:
             h, _ = attn_apply(bp["attn"], h, cfg=cfg, kind=kind, mode=mode,
                               positions=positions, pos=pos,
                               cache=None if cache is None else cache["attn"],
-                              use_rope=cfg.use_rope, lengths=lengths)
+                              use_rope=cfg.use_rope, lengths=lengths, start_pos=start_pos)
         x = x + h
         # cross-attention where there is a memory or a cross cache to read,
         # as the reference has it (a forward without frames skips it)
@@ -271,7 +272,7 @@ class TransformerLM:
         return x, aux
 
     def _run_stack(self, params, x, *, mode, positions=None, pos=None,
-                   cache=None, lengths=None, memory=None):
+                   cache=None, lengths=None, memory=None, start_pos=None):
         """The decoder's blocks in layer order: (x, the aux losses summed in
         layer order, cache)."""
         cfg = self.cfg
@@ -283,7 +284,7 @@ class TransformerLM:
                 x, aux = self._apply_block(
                     kind, pp[f"b{i}"], x, mode=mode, positions=positions,
                     pos=pos, cache=None if pc is None else pc[f"b{i}"],
-                    lengths=lengths, memory=memory)
+                    lengths=lengths, memory=memory, start_pos=start_pos)
                 if aux is not None:
                     aux_tot = aux_tot + aux
         return x, aux_tot, cache
@@ -342,8 +343,14 @@ class TransformerLM:
         next-token logits (B, 1, V), cache).  Attention-only stacks alone:
         a recurrent state (SSD or RG-LRU h, conv taps) would absorb the pad tail, so
         those stacks raise the reference's ``ValueError`` and prefill per
-        request instead.  ``start_pos`` (the prefix cache's tail prefill) is
-        not ported yet."""
+        request instead.
+
+        ``start_pos`` (B,) makes it a tail prefill (the prefix cache's): row
+        b's tokens are its prompt's uncached suffix at positions
+        ``start_pos[b] .. start_pos[b] + lengths[b] − 1``, over a cache
+        whose rings already hold the prefix K/V; every attention layer runs
+        kernel 6's tail form (``attn_apply(start_pos=)``), and a
+        ``start_pos == 0`` row is a plain prefill."""
         cfg = self.cfg
         if any(k not in ATTENTION_KINDS for k in cfg.pattern):
             raise ValueError(f"{cfg.name}: prefill_ragged requires an "
@@ -352,15 +359,20 @@ class TransformerLM:
         if cfg.num_experts or cfg.cross_attention or cfg.vision_tokens:
             raise ValueError(f"{cfg.name}: prefill_ragged supports dense "
                              "text-only decoders")
-        if start_pos is not None:
-            raise NotImplementedError(
-                "prefill_ragged(start_pos=) serves the prefix cache, which is "
-                "not ported yet (ROADMAP.md, Queue 1)")
         lengths = torch.as_tensor(lengths, device=self.device).long()
-        x, positions, _ = self._inputs(params, tokens, None, None)
+        if start_pos is None:
+            x, positions, _ = self._inputs(params, tokens, None, None)
+        else:
+            tokens = torch.as_tensor(tokens, device=self.device)
+            S = tokens.shape[1]
+            start_pos = torch.as_tensor(start_pos).to(self.device)
+            positions = torch.arange(S, device=self.device)
+            emb_pos = (start_pos.long()[:, None] + positions[None, :]
+                       if self.cfg.learned_pos else None)
+            x = embed_tokens(params["embed"], tokens, emb_pos)
         x, _, cache = self._run_stack(params, x, mode="prefill",
                                       positions=positions, cache=cache,
-                                      lengths=lengths)
+                                      lengths=lengths, start_pos=start_pos)
         # each row's last real token (right-padding puts it at lengths-1),
         # then the norm and the LM head on (B, 1, D) only
         idx = (lengths - 1)[:, None, None].expand(-1, 1, x.shape[-1])

@@ -86,9 +86,30 @@ there, ``src/repro/serve/engine.py:204``), so ``ServeEngine`` raises
 ``ValueError`` at construction.  Whisper runs
 through the model's own ``prefill(encoder_frames=)`` and ``decode_step``.
 
+**The prefix cache** (``prefix_cache=``, ``serve/prefix_cache.py``).  A
+wave splits as the reference's ``_prefill_into_cached`` splits it: miss rows
+(no cached prefix) take the unchanged ragged prefill; hit rows get their
+matched blocks restored into a sub-cache (one indexed copy a leaf) and ONE
+tail prefill over their uncached suffixes (``prefill_ragged(start_pos=)``,
+kernel 6's tail form, one launch a layer); every full prompt block then
+goes back to the pool.  The hit wave's sub-cache holds T slots, T the
+longest ``start + tail`` rounded up to ``pad_to`` (at most ``max_seq``):
+a global layer then addresses every position of the wave, and a ring layer
+holds ``min(window, T)`` slots, the full ring (``window``) once T reaches
+it and every position of the wave below that, so ``p mod ring`` is the
+shared cache's slot for p either way and the scatter's first slots carry
+over.  The engine refuses the prefix cache over an int8 KV cache and over a
+stack that is not ``ragged_ok`` (``ValueError``, as the reference), and the
+cache refuses a second layout.
+
+**Span decodes** (the router's).  ``decode_span`` advances the first
+``span`` lanes of the shared cache: a decode step over views of them (batch
+is axis 1 of every cache leaf), written in place, no copy and no
+writeback.  On the card each span is a CUDA graph of its own, captured at
+its first step as the engine's step is.
+
 Not ported yet (ROADMAP.md, Queue 1): ``mesh=`` (slot sharding over
-``serve/step.py``) and ``prefix_cache=`` (``serve/prefix_cache.py``) raise
-``NotImplementedError``.
+``serve/step.py``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -172,6 +193,14 @@ def _argmax(logits: torch.Tensor) -> np.ndarray:
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32).cpu().numpy()
 
 
+def next_pow2(n: int) -> int:
+    """The least power of two >= n: the ladder of wave batch pads."""
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
 class ServeEngine:
     """Fixed-slot continuous-batching engine over a request stream.
 
@@ -196,10 +225,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "mesh= serving (slot sharding, serve/step.py) is not ported "
                 "yet (ROADMAP.md, Queue 1)")
-        if prefix_cache is not None:
-            raise NotImplementedError(
-                "prefix_cache= (serve/prefix_cache.py) is not ported yet "
-                "(ROADMAP.md, Queue 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = TransformerLM(cfg, self.device)
@@ -220,12 +245,28 @@ class ServeEngine:
         #: ragged prefill waves, whole-batch prefills (per-request admission
         #: and the reference paths), decode steps
         #: and, of the decode steps, graph replays and eager steps
-        self.calls = {"prefill_waves": 0, "prefills": 0, "decode_steps": 0,
-                      "decode_graph_replays": 0, "decode_eager": 0}
-        # the engine's decode caches and their captured steps, by batch size
+        self.calls = {"prefill_waves": 0, "tail_waves": 0, "prefills": 0,
+                      "decode_steps": 0, "decode_graph_replays": 0, "decode_eager": 0}
+        # the engine's decode caches, by batch size, and their captured
+        # steps, by batch size (whole caches) or ("span", n) (span decodes)
         self._caches: Dict[int, Any] = {}
-        self._graphs: Dict[int, _GraphStep] = {}
+        self._graphs: Dict[Any, _GraphStep] = {}
         self._graphed = self.device.type == "cuda"
+        # radix prefix KV cache (serve/prefix_cache.py): admission becomes
+        # match → restore cached blocks → prefill the uncached tail only
+        self.prefix_cache = prefix_cache
+        if prefix_cache is not None:
+            if not self.ragged_ok:
+                raise ValueError(
+                    "prefix_cache requires the ragged-prefill path "
+                    "(attention-only dense decoder)")
+            if cfg.cache_dtype == "int8":
+                raise ValueError(
+                    "prefix_cache needs exact KV restore, but cache_dtype="
+                    "'int8' stores quantized K/V while prefill attends raw "
+                    "— greedy streams would not be bit-identical cache-on "
+                    "vs off.  Use quantize= for int8 weights instead")
+            prefix_cache.bind(self.model, self.max_seq)
 
     # ------------------------------------------------------------------ #
     # device functions (the reference's jitted ones)
@@ -242,27 +283,55 @@ class ServeEngine:
         """One decode step: on the card and on an engine cache a graph
         replay, after a first step there that runs eagerly and captures the
         graph; eager everywhere else (module docstring)."""
-        self.calls["decode_steps"] += 1
         B = int(tokens.shape[0])
         if not (self._graphed and params is self.params
                 and self._caches.get(B) is cache):
+            self.calls["decode_steps"] += 1
             self.calls["decode_eager"] += 1
             return self.model.decode_step(params, tokens, pos, cache)
-        if B not in self._graphs:
-            # the warm-up, eager on a side stream (a capture wants its
-            # handles and workspaces made outside it), then the capture
+        return self._graph_step(B, tokens, pos, cache), cache
+
+    def _graph_step(self, key, tokens, pos, cache) -> torch.Tensor:
+        """A decode step of the engine's params over ``cache`` as the CUDA
+        graph ``key`` names: the first step runs eagerly (a warm-up, on a
+        side stream, since a capture wants its handles and workspaces made
+        outside it) and captures the graph, later ones replay it."""
+        self.calls["decode_steps"] += 1
+        if key not in self._graphs:
             self.calls["decode_eager"] += 1
             dev = self.device
             stream = torch.cuda.Stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                logits, cache = self.model.decode_step(params, tokens, pos, cache)
+                logits, cache = self.model.decode_step(self.params, tokens, pos, cache)
             torch.cuda.current_stream(dev).wait_stream(stream)
-            self._graphs[B] = _GraphStep(self.model, params, cache, tokens,
-                                         torch.as_tensor(pos, device=dev), B)
-            return logits, cache
+            self._graphs[key] = _GraphStep(self.model, self.params, cache, tokens,
+                                           torch.as_tensor(pos, device=dev),
+                                           int(tokens.shape[0]))
+            return logits
         self.calls["decode_graph_replays"] += 1
-        return self._graphs[B].replay(tokens, pos), cache
+        return self._graphs[key].replay(tokens, pos)
+
+    @staticmethod
+    def span_views(cache, span: int):
+        """The first ``span`` lanes of every leaf of ``cache`` (views: batch
+        is axis 1, axis 0 the stacked layers)."""
+        if isinstance(cache, dict):
+            return {k: ServeEngine.span_views(v, span) for k, v in cache.items()}
+        return cache[:, :span]
+
+    def decode_span(self, span: int, tokens, pos, cache) -> torch.Tensor:
+        """One decode step of the first ``span`` lanes of the engine's
+        shared cache ``cache``, in place: (span, 1) tokens at (span,)
+        positions → logits (span, 1, V).  On the card and on the engine's
+        shared cache a replay of the span's CUDA graph after its first
+        step; eager on the CPU and on any other cache."""
+        sub = self.span_views(cache, span)
+        if not (self._graphed and self._caches.get(self.batch) is cache):
+            self.calls["decode_steps"] += 1
+            self.calls["decode_eager"] += 1
+            return self.model.decode_step(self.params, tokens, pos, sub)[0]
+        return self._graph_step(("span", int(span)), tokens, pos, sub)
 
     def decode_cache(self, batch: int):
         """The engine's decode cache at ``batch`` slots, made on first use
@@ -326,16 +395,19 @@ class ServeEngine:
     # admission → prefill
     # ------------------------------------------------------------------ #
     def _prefill_into(self, cache, admits: List[Tuple[int, Request]],
-                      pad_to: int = 8) -> Tuple[Any, np.ndarray]:
+                      pad_to: int = 8,
+                      wave_pad: Optional[int] = None) -> Tuple[Any, np.ndarray]:
         """Prefill the admitted requests and scatter them into their slots.
         Returns (cache, first greedy token per admit).
 
         Stacks with ``ragged_ok`` take ONE ragged right-padded prefill for
-        the whole wave; the others prefill each request alone into a
-        batch-1 cache and scatter it into its slot.  The wave
+        the whole wave (with the prefix cache, one for its miss rows and
+        one tail prefill for its hit rows); the others prefill each request
+        alone into a batch-1 cache and scatter it into its slot.  The wave
         is padded along both axes so that shapes repeat from wave to wave:
         sequence to a ``pad_to`` bucket, batch to a wave bucket — 1 for a
-        single-request backfill, the slot count otherwise, with dummy
+        single-request backfill, the slot count otherwise (``wave_pad``
+        overrides it: the router passes power-of-two buckets), with dummy
         length-1 rows whose scatter destination is out of range (dropped).
         On the card that keeps the ``quant_linear`` shapes, M = wave bucket
         × sequence bucket, to a few per sequence bucket."""
@@ -356,20 +428,98 @@ class ServeEngine:
                 cache = self._scatter(cache, sub, slots[i:i + 1])
                 first[i] = _argmax(logits)[0]
             return cache, first
-        wb = 1 if n == 1 else B                   # wave bucket (batch pad)
+        if wave_pad is not None:
+            wb = max(min(int(wave_pad), B), n)
+        else:
+            wb = 1 if n == 1 else B               # wave bucket (batch pad)
+        if self.prefix_cache is not None:
+            return self._prefill_into_cached(cache, reqs, slots, lens, wb, pad_to)
+        cache, first, _ = self._wave(cache, [r.prompt for r in reqs], slots, wb, pad_to)
+        return cache, first
+
+    def _wave(self, cache, prompts, slots, wb: int, pad_to: int, starts=None,
+              restore=None):
+        """ONE ragged prefill of ``prompts`` (right-padded to a ``pad_to``
+        bucket, dummy rows up to ``wb``) into a sub-cache, scattered into
+        ``slots`` of ``cache``.  ``starts`` makes it a tail prefill: each
+        prompt is the suffix from ``starts[i]`` of its request's, over
+        prefix blocks that ``restore(sub)`` copies in first.  Returns
+        (cache, first tokens, sub-cache)."""
+        n, B = len(prompts), self.batch
+        lens = np.asarray([len(p) for p in prompts], np.int32)
         S = min(int(-(-int(lens.max()) // pad_to) * pad_to), self.max_seq)
         padded = np.zeros((wb, S), np.int32)
         full_lens = np.ones(wb, np.int32)         # dummy rows: 1 real token
         full_slots = np.full(wb, B, np.int32)     # dummy rows: out of range
-        for i, r in enumerate(reqs):
-            padded[i, : lens[i]] = r.prompt
+        for i, p in enumerate(prompts):
+            padded[i, : lens[i]] = p
             full_lens[i] = lens[i]
             full_slots[i] = slots[i]
-        sub = self.model.init_cache(wb, S)
-        logits, sub = self._prefill_ragged(
-            self.params, self._tensor(padded), self._tensor(full_lens), sub)
+        if starts is None:
+            sub = self.model.init_cache(wb, S)
+            logits, sub = self._prefill_ragged(
+                self.params, self._tensor(padded), self._tensor(full_lens), sub)
+        else:
+            full_starts = np.zeros(wb, np.int32)
+            full_starts[:n] = starts
+            # every position of the wave on a global layer; a ring layer
+            # holds min(window, T) slots (module docstring)
+            T = min(int(-(-int((full_starts + full_lens).max()) // pad_to) * pad_to),
+                    self.max_seq)
+            sub = restore(self.model.init_cache(wb, T))
+            logits, sub = self._prefill_ragged_start(
+                self.params, self._tensor(padded), self._tensor(full_lens),
+                self._tensor(full_starts), sub)
         cache = self._scatter(cache, sub, full_slots)
-        return cache, _argmax(logits)[:n]
+        return cache, _argmax(logits)[:n], sub
+
+    def _prefill_ragged_start(self, params, tokens, lengths, starts, cache):
+        self.calls["prefill_waves"] += 1
+        self.calls["tail_waves"] += 1
+        return self.model.prefill_ragged(params, tokens, lengths, cache, start_pos=starts)
+
+    def _prefill_into_cached(self, cache, reqs: List[Request], slots: np.ndarray,
+                             lens: np.ndarray, wb: int, pad_to: int):
+        """An admission wave with the radix prefix cache, as the
+        reference's: match each prompt's longest cached block-aligned
+        prefix (pinned), then split the wave — miss rows run the plain
+        ragged prefill, hit rows get their matched blocks restored into a
+        sub-cache and ONE tail prefill over their uncached suffixes, whose
+        sequence bucket the longest tail sets.  Every full prompt block
+        (fresh or ``valid_end``-improved) then goes back to the pool, one
+        extract a sub-cache."""
+        pc = self.prefix_cache
+        n = len(reqs)
+        matches = [pc.match(r.prompt) for r in reqs]
+        starts = np.asarray([m.length for m in matches], np.int32)
+        first = np.zeros(n, np.int32)
+        groups = []                               # (sub-cache, req indices)
+
+        def bucket(k: int) -> int:                # 1, 2, 4, … capped at the wave pad
+            return min(next_pow2(k), wb)
+
+        miss, hit = np.nonzero(starts == 0)[0], np.nonzero(starts > 0)[0]
+        if len(miss):
+            cache, first[miss], sub = self._wave(
+                cache, [reqs[i].prompt for i in miss], slots[miss], bucket(len(miss)),
+                pad_to)
+            groups.append((sub, miss))
+        if len(hit):
+            restores = [(j, node.block_id, d * pc.block_size, int(starts[i]))
+                        for j, i in enumerate(hit)
+                        for d, node in enumerate(matches[i].nodes)]
+            cache, first[hit], sub = self._wave(
+                cache, [reqs[i].prompt[starts[i]:] for i in hit], slots[hit],
+                bucket(len(hit)), pad_to, starts=starts[hit],
+                restore=lambda c: pc.restore_into(c, restores))
+            groups.append((sub, hit))
+        for sub, idx in groups:
+            pc.extract_from(sub, [(j, bid, st) for j, i in enumerate(idx)
+                                  for bid, st in pc.plan_insert(reqs[i].prompt)])
+        for r, m in zip(reqs, matches):
+            r.cached_prefill = int(m.length)
+            pc.release(m)
+        return cache, first
 
     # ------------------------------------------------------------------ #
     # continuous-batching loop
@@ -532,4 +682,7 @@ class ServeEngine:
                                  self._tensor(np.zeros((self.batch, 1), np.int32)),
                                  self._tensor(np.zeros(self.batch, np.int32)), cache)
         _argmax(logits)
+        if self.prefix_cache is not None:
+            # drop the probe prompts' blocks: warmup never pollutes the trie
+            self.prefix_cache.reset()
 

@@ -17,6 +17,9 @@ No counterpart module in ``src/repro/``.  Three entry points:
 * :func:`lm_from_reference` — the param tree of the reference's
   ``init_model`` (optionally after its ``quantize_model_params``) as the
   port's transformer params, leaf for leaf under the same key names.
+* :func:`lm_cache_from_reference` — a cache tree of the reference's
+  ``TransformerLM.init_cache`` (after any prefill or decode), an int8 one
+  with its scales, as the port's cache, leaf for leaf.
 
 The caller converts the reference's arrays to host (numpy) arrays; this
 module imports nothing of the reference.
@@ -59,7 +62,8 @@ from repro_torch.models.layers.rglru import rglru_shapes
 from repro_torch.models.layers.ssd import ssd_shapes
 from repro_torch.models.params import place
 
-__all__ = ["from_reference", "pipeline_from_reference", "lm_from_reference"]
+__all__ = ["from_reference", "pipeline_from_reference", "lm_from_reference",
+           "lm_cache_from_reference"]
 
 #: kind → (its partial's keys, its parameters class, the model's builder
 #: ``(state dict, params) -> model``)
@@ -202,6 +206,42 @@ def lm_from_reference(params: Mapping[str, Any], cfg=None,
                 raise ValueError(f"blocks/{name}: {'an MoE' if 'moe' in block else 'a dense'} "
                                  f"MLP, but {cfg.name} has num_experts={cfg.num_experts}")
         _check_frontends(out, cfg)
+    return out
+
+
+def lm_cache_from_reference(cache: Mapping[str, Any], cfg=None,
+                            device: DeviceLike = None) -> dict:
+    """The port's cache from a cache tree of the reference's
+    ``TransformerLM`` (host leaves: numpy arrays, bf16 as
+    ``ml_dtypes.bfloat16``), on ``device`` (the CUDA card unless
+    ``device="cpu"``).  The two share the layout, so each leaf is carried as
+    it is: per block ``attn`` (``k``, ``v`` (periods, B, slots, KV, hd) and,
+    for an int8 cache, ``k_scale``, ``v_scale`` (periods, B, slots, KV)
+    fp32), ``cross``, ``ssd`` or ``rglru``.  ``cfg``, when given, is
+    checked against each attention cache's keys and dtype
+    (``cache_dtype``) and widths."""
+    dev = resolve_device(device)
+
+    def walk(tree, path=()):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return _lm_leaf(tree, dev)
+
+    out = walk(cache)
+    if cfg is not None:
+        quant = cfg.cache_dtype == "int8"
+        want = {"k", "v", "k_scale", "v_scale"} if quant else {"k", "v"}
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        for name, block in out.items():
+            attn = block.get("attn")
+            if attn is None:
+                continue
+            if set(attn) != want or (attn["k"].dtype == torch.int8) != quant or \
+                    tuple(attn["k"].shape[3:]) != (kv, hd):
+                raise ValueError(
+                    f"{name}/attn {sorted(attn)} {attn['k'].dtype} "
+                    f"{tuple(attn['k'].shape)} is not {cfg.name}'s cache "
+                    f"(cache_dtype={cfg.cache_dtype!r}, {kv} kv heads of {hd})")
     return out
 
 

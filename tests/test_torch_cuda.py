@@ -28,6 +28,7 @@ either side of a boundary); a row's output is bitwise the same alone and in
 a batch, and at its exact length and padded.
 """
 import collections
+import dataclasses
 import itertools
 
 import numpy as np
@@ -155,6 +156,7 @@ def test_cuda_kernels_match_plain_versions():
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
+                                  "flash_attention_tail": 0,
                                   "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0,
                                   "rglru_scan": 0, "layernorm": 0}
 
@@ -922,6 +924,103 @@ def test_flash_kernels_are_batch_and_padding_invariant(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_route_is_the_bf16_route_over_dequantized_caches(dtype):
+    """The decode form over an int8 cache (codes and an fp32 scale a slot
+    and kv head) is, bitwise, the same form over the caches the reference's
+    ``_cache_read`` dequantizes (bf16, widened for an fp32 q), at Qwen2's
+    and Gemma3's global and ring shapes, a chunked and a 6:1 ring, with
+    ragged and stale (pos ≥ slots) positions; and within the tolerance of
+    the plain version.  Each launch counts on the int8 route."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = [((8, 12, 2, 2048, 128), dict(), [0, 1, 127, 128, 1000, 2047, 5, 4000]),
+             ((8, 4, 1, 2048, 256), dict(), [63, 64, 65, 300, 2047, 0, 1500, 9]),
+             ((8, 4, 1, 512, 256), dict(window=512), [0, 100, 511, 512, 600, 1500, 7, 2047]),
+             ((3, 4, 1, 16, 32), dict(chunk=16), [5, 31, 100]),
+             ((5, 6, 1, 77, 64), dict(window=50), [3, 76, 77, 200, 31])]
+    tk.reset_launch_counts()
+    for (B, H, KV, slots, hd), kw, pos in cases:
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+        codes = [torch.randint(-127, 128, (B, slots, KV, hd), generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(B, slots, KV, generator=gen, device="cuda") * 0.05 + 1e-8
+                  for _ in range(2)]
+        p = torch.tensor(pos, device="cuda")
+        got = tfa.flash_attention_decode(q, *codes, p, k_scale=scales[0], v_scale=scales[1],
+                                         **kw)
+        kd, vd = (tfa.cache_read(c, sc).to(dtype) for c, sc in zip(codes, scales))
+        want = tfa.flash_attention_decode(q, kd, vd, p, **kw)
+        assert torch.equal(got, want), ((B, H, KV, slots, hd), kw)
+        torch.testing.assert_close(
+            got.float(), tfa.flash_attention_decode_plain(
+                q, *codes, p, k_scale=scales[0], v_scale=scales[1], **kw).float(),
+            **_flash_tol(dtype))
+    torch.cuda.synchronize()
+    routes = dict(tfa.flash_attention_decode.routes)
+    assert routes == {"int8": len(cases), tfa.DECODE_ROUTES[dtype]: len(cases)}, routes
+
+
+def _tail_from_full(q, k, v, start, ring):
+    """The tail prefill's operands cut from a full prefill's: rows from
+    ``start[b]`` on (padded to the longest tail), and a ring cache of
+    ``ring`` slots holding what a full prefill leaves at positions below
+    ``start[b]`` (slot p mod ring, the last ring of them)."""
+    B, KV, S, hd = k.shape
+    L = [S - s for s in start]
+    Sq = max(L)
+
+    def cut(t):
+        out = torch.zeros(t.shape[0], t.shape[1], Sq, hd, dtype=t.dtype, device=t.device)
+        for b, s in enumerate(start):
+            out[b, :, :S - s] = t[b, :, s:]
+        return out
+
+    caches = []
+    for t in (k, v):
+        c = torch.zeros(B, ring, KV, hd, dtype=t.dtype, device=t.device)
+        for b, s in enumerate(start):
+            for p_ in range(max(0, s - ring), s):
+                c[b, p_ % ring] = t[b, :, p_]
+        caches.append(c)
+    dev = q.device
+    return (cut(q), cut(k), cut(v), *caches, torch.tensor(start, device=dev),
+            torch.tensor(L, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_rows_are_the_full_prefill_rows(dtype):
+    """The tail form over a restored prefix gives, bitwise, the full
+    prefill's rows at the same positions: global, window and chunk masks,
+    prefix lengths that are not multiples of the key tile (32 or 64), a
+    tile straddling prefix and tail; and it stays within the tolerance of
+    its plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    S = 700
+    start = [37, 100, 300, 513]
+    cases = [((12, 2, 128), dict(), S), ((4, 1, 256), dict(), S),
+             ((4, 1, 256), dict(window=512), 512), ((4, 2, 64), dict(chunk=128), 128)]
+    tk.reset_launch_counts()
+    for (H, KV, hd), kw, ring in cases:
+        q = torch.randn(4, H, S, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(4, KV, S, hd, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        full = tfa.flash_attention(q, k, v, **kw)
+        tq, tk_, tv, kc, vc, st, L = _tail_from_full(q, k, v, start, ring)
+        got = tfa.flash_attention_tail(tq, tk_, tv, kc, vc, st, L, **kw)
+        for b, s in enumerate(start):
+            assert torch.equal(got[b, :, :S - s], full[b, :, s:]), ((H, KV, hd), kw, s)
+        torch.testing.assert_close(
+            got.float(), tfa.flash_attention_tail_plain(tq, tk_, tv, kc, vc, st, L,
+                                                        **kw).float(),
+            **_flash_tol(dtype))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention_tail"] == len(cases)
+
+
+@pytest.mark.cuda
 def test_flash_prefill_terms_reading():
     """The tensor-core prefill kernel with p in three bf16 terms is the
     served kernel, bitwise; with p in one term it leaves the bf16
@@ -1108,6 +1207,59 @@ def test_graph_replayed_engine_equals_eager(arch):
     solo = [graphed._run_one(r) for r in reqs()]
     assert graphed.calls["decode_eager"] == 2
     assert [r.out_tokens for r in solo] == [r.out_tokens for r in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_span_graph_replay_equals_the_eager_span_step(cache_dtype):
+    """The router's span decode (a step over views of the first lanes of
+    the shared cache) replayed from its CUDA graph gives, bitwise, the
+    logits and the cache the same step run eagerly gives on a copy of the
+    cache; lanes past the span keep their bits.  With the int8 KV cache
+    every attention layer's decode launch takes the int8 route."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _need_card()
+    cfg = dataclasses.replace(get_smoke("qwen2-1.5b"), dtype="bfloat16",
+                              cache_dtype=cache_dtype)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_size=4, max_seq=64)
+    cache = eng.init_shared_cache()
+    r = np.random.default_rng(5)
+    reqs = [Request(prompt=r.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=4) for n in (5, 17, 9, 30)]
+    cache, first = eng._prefill_into(cache, list(enumerate(reqs)))
+    toks = torch.as_tensor(first[:2, None], device="cuda")
+    pos = torch.tensor([5, 17], device="cuda")
+
+    def copy(c):
+        return {k: copy(v) for k, v in c.items()} if isinstance(c, dict) else c.clone()
+
+    def leaves(c):
+        return [t for v in c.values() for t in (leaves(v) if isinstance(v, dict) else [v])]
+
+    # a step on a copy runs eagerly; the first on the shared cache runs
+    # eagerly and captures the span's graph
+    eng.decode_span(2, toks, pos, copy(cache))
+    assert eng.calls["decode_eager"] == 1 and not eng._graphs
+    got = eng.decode_span(2, toks, pos, cache)
+    toks, pos = torch.argmax(got[:, -1], -1)[:, None].to(toks.dtype), pos + 1
+    for step in range(3):
+        before = copy(cache)
+        want, sub = eng.model.decode_step(eng.params, toks, pos,
+                                          ServeEngine.span_views(copy(cache), 2))
+        tk.reset_launch_counts()
+        got = eng.decode_span(2, toks, pos, cache)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), step
+        for a, b, c in zip(leaves(cache), leaves(sub), leaves(before)):
+            assert torch.equal(a[:, :2], b) and torch.equal(a[:, 2:], c[:, 2:])
+        launched = tfa.flash_attention_decode.routes
+        assert launched == {("int8" if cache_dtype == "int8" else "bf16"): cfg.num_layers}
+        toks, pos = torch.argmax(got[:, -1], -1)[:, None].to(toks.dtype), pos + 1
+    assert eng.calls["decode_graph_replays"] == 3 and eng.calls["decode_eager"] == 2
 
 
 # ------------------------------------------------------------------------- #

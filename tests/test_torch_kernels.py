@@ -153,11 +153,21 @@ def test_cpu_tensors_use_the_plain_version_and_count_no_launch():
                              torch.zeros(1), torch.ones(1))
     tk.KERNELS["rglru_scan"](torch.ones(1, 3, 4), torch.ones(1, 3, 4), torch.zeros(1, 4))
     tk.KERNELS["layernorm"](X, torch.ones(4), torch.zeros(4))
+    q = torch.ones(1, 2, 3, 4)
+    tk.KERNELS["flash_attention_tail"](q, q[:, :1], q[:, :1], torch.ones(1, 4, 1, 4),
+                                       torch.ones(1, 4, 1, 4), torch.tensor([2]),
+                                       torch.tensor([3]))
+    tk.KERNELS["flash_attention_decode"](q[:, :, 0], torch.ones(1, 4, 1, 4, dtype=torch.int8),
+                                         torch.ones(1, 4, 1, 4, dtype=torch.int8),
+                                         torch.tensor([2]), k_scale=torch.ones(1, 4, 1),
+                                         v_scale=torch.ones(1, 4, 1))
+    assert not tk.KERNELS["flash_attention_decode"].routes
     assert tk.launch_counts() == {"logreg_grad": 0, "logreg_margin": 0, "logreg_xt_z": 0,
                                   "kmeans_assign": 0, "quant_matmul": 0,
                                   "quant_linear": 0, "quantize_rows": 0,
                                   "rmsnorm": 0, "ssd_chunk_scan": 0,
                                   "flash_attention": 0, "flash_attention_decode": 0,
+                                  "flash_attention_tail": 0,
                                   "lm_head": 0, "ssd_decode": 0, "fixed_linear": 0,
                                   "rglru_scan": 0, "layernorm": 0}
 

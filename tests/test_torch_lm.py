@@ -119,12 +119,19 @@ def test_config_and_registry_match_the_reference():
 def test_unported_blocks_raise():
     cfg = get_smoke("qwen2-1.5b")
     # MoE blocks and the vision prefix run since their slices (every block
-    # kind is ported); the int8 KV cache, still in Queue 1, raises
+    # kind is ported); the int8 KV cache runs since its slice: the
+    # reference's tree, int8 codes with an fp32 scale a (slot, kv head)
     for ok in (dict(num_experts=4), dict(num_experts=4, vision_tokens=4)):
         model = TLM(dataclasses.replace(cfg, **ok), device="cpu")
         assert "moe" in tinit(torch.Generator().manual_seed(0), model.cfg)["blocks"]["b0"]
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        TLM(dataclasses.replace(cfg, cache_dtype="int8"), device="cpu").init_cache(1, 8)
+    mine = TLM(dataclasses.replace(cfg, cache_dtype="int8"), device="cpu").init_cache(2, 8)
+    ref = JLM(dataclasses.replace(jget_smoke("qwen2-1.5b"), cache_dtype="int8")).init_cache(2, 8)
+    for b in ref:
+        attn = ref[b]["attn"]
+        assert set(mine[b]["attn"]) == set(attn) == {"k", "v", "k_scale", "v_scale"}
+        for name, leaf in attn.items():
+            assert tuple(mine[b]["attn"][name].shape) == tuple(leaf.shape)
+            assert str(mine[b]["attn"][name].dtype).split(".")[-1] == str(leaf.dtype)
 
 
 def test_init_model_tree_matches_the_reference_layout(smoke):
@@ -264,10 +271,27 @@ def test_attention_scalar_position_decode_and_unported_paths():
     got, _ = tattn.attn_apply(tp, _t(x), cfg=tcfg, kind=BlockKind.ATTN, mode="prefill",
                               kv_src=_t(mem))
     _close(got, want, LAYER_TOL)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        tattn.attn_apply(tp, _t(x), cfg=tcfg, kind=BlockKind.ATTN, mode="prefill",
-                         cache=tc, lengths=torch.tensor([10, 10]),
-                         start_pos=torch.tensor([0, 0]))
+    # the tail prefill over a restored prefix (start_pos=) runs since its
+    # slice: row 0 restarts from position 0 (no prefix slot read), row 1
+    # continues after the 10 positions a prefill left in the cache (fresh
+    # caches: the port's decode above wrote its cache in place)
+    jc = jattn.init_kv_cache(jcfg, JKind.ATTN, 2, 16, jnp.float32)
+    tc = tattn.init_kv_cache(tcfg, BlockKind.ATTN, 2, 16, torch.float32)
+    _, jc = jattn.attn_apply(jp, jnp.asarray(x), cfg=jcfg, kind=JKind.ATTN,
+                             mode="prefill", positions=jnp.arange(10), cache=jc)
+    _, tc = tattn.attn_apply(tp, _t(x), cfg=tcfg, kind=BlockKind.ATTN,
+                             mode="prefill", positions=torch.arange(10), cache=tc)
+    xt = np.random.default_rng(10).normal(size=(2, 4, 128)).astype(np.float32)
+    starts, lens = np.asarray([0, 10], np.int32), np.asarray([4, 3], np.int32)
+    want, jc = jattn.attn_apply(jp, jnp.asarray(xt), cfg=jcfg, kind=JKind.ATTN,
+                                mode="prefill", cache=jc, lengths=jnp.asarray(lens),
+                                start_pos=jnp.asarray(starts))
+    got, tc = tattn.attn_apply(tp, _t(xt), cfg=tcfg, kind=BlockKind.ATTN, mode="prefill",
+                               cache=tc, lengths=_t(lens), start_pos=_t(starts))
+    for b, n in enumerate(lens):                     # real rows only
+        _close(got[b, :n], np.asarray(want)[b, :n], LAYER_TOL)
+    _close(tc["k"], jc["k"], LAYER_TOL)
+    _close(tc["v"], jc["v"], LAYER_TOL)
 
 
 # --------------------------------------------------------------------------- #
@@ -430,9 +454,19 @@ def test_engine_edge_cases_and_unported_options(smoke):
     zero = eng.run([Request(prompt=np.ones(5, np.int32), max_new_tokens=0)])
     assert zero[0].done and zero[0].out_tokens == []
     eng.warmup(prompt_lens=(5, 13))
-    for kw in (dict(mesh=object()), dict(prefix_cache=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(tcfg, tparams, batch_size=2, max_seq=32, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(tcfg, tparams, batch_size=2, max_seq=32, device="cpu", mesh=object())
+    # the prefix cache is served since its slice; over an int8 KV cache it
+    # is refused, as the reference refuses it
+    from repro_torch.serve import RadixPrefixCache
+
+    pc = RadixPrefixCache(block_size=4, capacity_blocks=8)
+    eng = ServeEngine(tcfg, tparams, batch_size=2, max_seq=32, device="cpu", prefix_cache=pc)
+    assert eng.prefix_cache is pc and pc.bound
+    with pytest.raises(ValueError, match="int8"):
+        ServeEngine(dataclasses.replace(tcfg, cache_dtype="int8"), tparams, batch_size=2,
+                    max_seq=32, device="cpu",
+                    prefix_cache=RadixPrefixCache(block_size=4, capacity_blocks=8))
 
 
 def test_dummy_wave_rows_are_dropped(smoke):
@@ -462,5 +496,13 @@ def test_launcher_on_cpu_and_arrival_traces():
     rep = main(["--engine", "model", "--algorithm", "kmeans", "--rows", "64",
                 "--features", "8", "--batch", "16", "--device", "cpu"])
     assert rep["requests"] == 8
+    # the router fleet and the prefix cache are served since their slice;
+    # --mesh, still in Queue 1, raises
+    rep = main(["--engine", "lm", "--smoke", "--device", "cpu", "--replicas", "2",
+                "--slots", "2", "--requests", "6", "--max-new", "2",
+                "--prefix-cache", "on", "--prefix-share", "1.0", "--prefix-len", "16",
+                "--prefix-block", "8"])
+    assert rep["finished"] == 6 and rep["new_tokens"] == 12 and rep["replicas"] == 2
+    assert rep["cached_prefill_tokens"] > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--engine", "lm", "--smoke", "--device", "cpu", "--replicas", "2"])
+        main(["--engine", "lm", "--smoke", "--device", "cpu", "--mesh"])

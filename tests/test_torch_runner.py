@@ -49,8 +49,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
-    # the Fig. A2, the streaming, the model-search and the mesh slices'
-    # modules are among the files checked
+    # the Fig. A2, the streaming, the model-search, the mesh and the
+    # serving-stack slices' modules are among the files checked
     port = REPO / "src" / "repro_torch"
     for name in ("core/schema.py", "core/mltable.py", "core/local_matrix.py",
                  "features/__init__.py", "features/scaling.py", "features/text.py",
@@ -60,7 +60,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "launch/fit.py", "tune/__init__.py", "tune/cv.py", "tune/trials.py",
                  "tune/callback.py", "tune/search.py", "launch/tune.py",
                  "core/hostmesh.py", "core/exchange.py", "launch/elastic.py",
-                 "testing/chaos.py"):
+                 "testing/chaos.py", "serve/prefix_cache.py", "serve/router.py",
+                 "serve/autoscaler.py"):
         assert port / name in files, name
     for path in files:
         for name in _imports(path):
